@@ -1,0 +1,93 @@
+"""The hand-written CUDA kernel against its plain PyTorch version, on the
+card. Skipped where there is no CUDA device (the kernel has no CPU mode).
+
+This file imports no JAX, so it also runs where JAX is not installed:
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernel.py
+
+Gates (bench.py --verify's): fewer than 1% of pixels with resolved
+|diff| > 1e-3 and 0.1% with |diff| > 0.1, equal valid-sample counts, ray
+counts within 0.5%. Both sides evaluate the same float32 expressions
+without contraction; only sin/cos ulps could flip a discrete choice.
+"""
+
+import pytest
+import torch
+
+from pathtracer_tpu_torch.render import cuda_backend
+from pathtracer_tpu_torch.render import renderer as trenderer
+from pathtracer_tpu_torch.scene import schema as tschema
+from pathtracer_tpu_torch.scene import worlds as tworlds
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda:0")
+
+
+def _pair(dev, kind, w, h, pp, n, **cfg_kw):
+    scene, cam = tworlds.finalize_world(kind, w, h)
+    scene = scene.to(dev)
+    cfg = trenderer.RenderConfig(w, h, pp=pp, seed=0, **cfg_kw)
+    before = cuda_backend.LAUNCHES
+    k = cuda_backend.render_chunk_cuda(scene, cam, cfg, 0, 0, n,
+                                       trenderer.init_accum(w * h, dev))
+    assert cuda_backend.LAUNCHES == before + 1
+    p = cuda_backend.render_chunk_plain(scene, cam, cfg, 0, 0, n,
+                                        trenderer.init_accum(w * h, dev))
+    torch.cuda.synchronize()
+    return cfg, k, p
+
+
+def _assert_verify_gates(cfg, k, p):
+    d = (trenderer.resolve(k, cfg) - trenderer.resolve(p, cfg)).abs().amax(-1)
+    assert float((d > 1e-3).float().mean()) < 0.01
+    assert float((d > 0.1).float().mean()) < 0.001
+    assert torch.equal(k.count, p.count)
+    assert abs(int(k.rays_cast) - int(p.rays_cast)) <= 0.005 * int(p.rays_cast)
+    assert k.samples_done == p.samples_done
+
+
+@pytest.mark.parametrize("kind, pp, n", [
+    (tschema.WORLD_CORNELL_BOX, 4, 16),
+    (tschema.WORLD_CORNELL_QUAD, 4, 16),
+    (tschema.WORLD_BRDF_TEST, 2, 4),
+])
+def test_kernel_matches_plain(cuda, kind, pp, n):
+    _assert_verify_gates(*_pair(cuda, kind, 256, 144, pp, n))
+
+
+def test_kernel_matches_plain_with_rr_and_offset(cuda):
+    scene, cam = tworlds.finalize_world(tschema.WORLD_CORNELL_BOX, 96, 54)
+    scene = scene.to(cuda)
+    cfg = trenderer.RenderConfig(96, 54, pp=3, seed=7,
+                                 use_russian_roulette=True)
+    k = cuda_backend.render_chunk_cuda(scene, cam, cfg, 7, 3, 6,
+                                       trenderer.init_accum(96 * 54, cuda))
+    p = cuda_backend.render_chunk_plain(scene, cam, cfg, 7, 3, 6,
+                                        trenderer.init_accum(96 * 54, cuda))
+    _assert_verify_gates(cfg, k, p)
+
+
+def test_render_image_chunked_resume_on_card(cuda):
+    scene, cam = tworlds.finalize_world(tschema.WORLD_CORNELL_QUAD, 64, 36)
+    cfg = trenderer.RenderConfig(64, 36, pp=2, seed=1)
+    _, pk1, st1 = trenderer.render_image(scene, cam, cfg, device=cuda)
+    _, pk2, st2 = trenderer.render_image(scene, cam, cfg, chunk_samples=3,
+                                         device=cuda)
+    assert torch.equal(st1.count, st2.count)
+    assert torch.equal(pk1, pk2)
+
+
+def test_kernel_rejects_bad_accumulator(cuda):
+    scene, cam = tworlds.finalize_world(tschema.WORLD_CORNELL_BOX, 8, 8)
+    scene = scene.to(cuda)
+    st = trenderer.init_accum(8 * 8, cuda)
+    st.count = st.count.double()
+    with pytest.raises(ValueError, match="count"):
+        cuda_backend.render_chunk_cuda(scene, cam,
+                                       trenderer.RenderConfig(8, 8, pp=1),
+                                       0, 0, 1, st)

@@ -1,0 +1,137 @@
+"""Guards of the port: it runs without JAX and without the JAX package, a
+CUDA request without a card raises, and the CUDA wrapper refuses what its
+kernel does not cover instead of running the plain version."""
+
+import ctypes
+import os
+import re
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+from pathtracer_tpu.scene import worlds as jworlds
+from pathtracer_tpu_torch.render import cuda_backend
+from pathtracer_tpu_torch.render import renderer as trenderer
+from pathtracer_tpu_torch.scene import schema as tschema
+from pathtracer_tpu_torch.scene import worlds as tworlds
+from test_torch_scene import jax_scene_to_port
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_imports_and_renders_without_jax(tmp_path):
+    """jax, flax and pathtracer_tpu are unimportable in the child; every
+    module of the port imports, the CLI renders world 3 at 8x8 on the CPU
+    and writes its BMP."""
+    out = tmp_path / "w3.bmp"
+    code = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        for name in ("jax", "jaxlib", "flax", "pathtracer_tpu"):
+            sys.modules[name] = None
+        import pathtracer_tpu_torch as pkg
+        for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+            importlib.import_module(m.name)
+        from pathtracer_tpu_torch.cli import main
+        rc = main(["-w3", "-p1", "--size", "8x8", "--device", "cpu",
+                   "--out", {str(out)!r}])
+        assert rc == 0
+        assert not any(k.startswith(("jax", "flax")) and v is not None
+                       for k, v in sys.modules.items())
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+    assert out.stat().st_size == 58 + 8 * 8 * 4
+
+
+def test_render_image_cuda_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    scene, cam = tworlds.finalize_world(tschema.WORLD_CORNELL_BOX, 8, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trenderer.render_image(scene, cam, trenderer.RenderConfig(8, 8, pp=1),
+                               device="cuda")
+
+
+def _textured_scene():
+    js, cam = jworlds.finalize_world(tschema.WORLD_DEFAULT, 8, 8)
+    scene = jax_scene_to_port(js)
+    assert scene.n_textures > 0
+    return scene, cam
+
+
+def test_cuda_wrapper_refuses_textured_scene(monkeypatch):
+    scene, cam = _textured_scene()
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version must not run")
+
+    monkeypatch.setattr(cuda_backend, "render_chunk_plain", plain)
+    monkeypatch.setattr(cuda_backend, "render_chunk_wavefront", plain)
+    launches = cuda_backend.LAUNCHES
+    with pytest.raises(NotImplementedError, match="textures"):
+        cuda_backend.render_chunk_cuda(scene, cam,
+                                       trenderer.RenderConfig(8, 8, pp=1),
+                                       0, 0, 1, trenderer.init_accum(64))
+    assert cuda_backend.LAUNCHES == launches
+
+
+@pytest.mark.parametrize("cfg, match", [
+    (trenderer.RenderConfig(8, 8, pp=1, debug_kind="bounce_count"), "ROADMAP"),
+    (trenderer.RenderConfig(8, 8, pp=1, denoise=2), "ROADMAP"),
+])
+def test_unported_configs_raise(cfg, match):
+    scene, cam = tworlds.finalize_world(tschema.WORLD_CORNELL_BOX, 8, 8)
+    with pytest.raises(NotImplementedError, match=match):
+        trenderer.render_chunk(scene, cam, cfg, 0, 0, 1,
+                               trenderer.init_accum(64))
+
+
+def test_plain_version_refuses_textured_scene():
+    scene, cam = _textured_scene()
+    with pytest.raises(NotImplementedError, match="textures"):
+        trenderer.render_chunk(scene, cam, trenderer.RenderConfig(8, 8, pp=1),
+                               0, 0, 1, trenderer.init_accum(64))
+
+
+def test_cpu_wrapper_runs_plain_version():
+    """On CPU tensors the wrapper computes exactly what the plain version
+    computes, and launches nothing."""
+    scene, cam = tworlds.finalize_world(tschema.WORLD_CORNELL_QUAD, 16, 9)
+    cfg = trenderer.RenderConfig(16, 9, pp=2, seed=5)
+    launches = cuda_backend.LAUNCHES
+    a = cuda_backend.render_chunk_cuda(scene, cam, cfg, 5, 0, 4,
+                                       trenderer.init_accum(16 * 9))
+    b = cuda_backend.render_chunk_plain(scene, cam, cfg, 5, 0, 4,
+                                        trenderer.init_accum(16 * 9))
+    assert cuda_backend.LAUNCHES == launches
+    for x, y in zip(a.sum, b.sum):
+        assert torch.equal(x, y)
+    assert int(a.rays_cast) == int(b.rays_cast) and a.samples_done == 4
+
+
+def test_kernel_params_layout():
+    """The ctypes mirror declares the fields of struct WaveParams in
+    wave_kernel.cu, in order, with matching pointer/int/float kinds."""
+    src = cuda_backend.SOURCE.read_text()
+    body = src[src.index("struct WaveParams {") + 19:]
+    body = body[:body.index("};")]
+    body = re.sub(r"//[^\n]*", "", body)
+    c_fields = []
+    for decl in filter(None, (d.strip() for d in body.split(";"))):
+        ctype = re.match(r"(const )?(float|int|uint32_t)", decl).group(2)
+        for name in decl[len(re.match(r"(const )?\w+", decl).group(0)):].split(","):
+            name = name.strip()
+            kind = "ptr" if name.startswith("*") else ctype
+            c_fields.append((name.lstrip("*").split("[")[0], kind))
+    kinds = {ctypes.c_void_p: "ptr", ctypes.c_int: "int",
+             ctypes.c_uint32: "uint32_t", ctypes.c_float: "float",
+             ctypes.c_float * 3: "float"}
+    py_fields = [(n, kinds[t]) for n, t in cuda_backend.WaveParams._fields_]
+    assert py_fields == c_fields
