@@ -1,9 +1,10 @@
 """Command-line application of the port — the win32_main ``main``/ParseArgs role.
 
 Counterpart of ``pathtracer_tpu/cli.py`` for the flags the slice covers:
-the reference's single-dash concatenated flags (``-w3 -p4``; ``-t`` is
-accepted for compatibility) plus ``--size WxH --out PATH --seed N --rr
---chunk N --debug regular|variance --device cuda|cpu``.
+the reference's single-dash concatenated flags (``-w3 -p4``, ``-d`` for
+the thin lens; ``-t`` is accepted for compatibility) plus ``--size WxH
+--out PATH --seed N --scene-seed N|os --rr --chunk N --debug
+regular|variance --device cuda|cpu``.
 ``--device`` defaults to ``cuda`` and fails without a card. Flags the port
 has not reached raise and name their ROADMAP item.
 
@@ -49,7 +50,6 @@ def _parse_reference_flags(argv):
 
 # Flags of the JAX CLI that the port does not take yet -> ROADMAP item.
 _NOT_PORTED = {
-    "-d": "the thin-lens camera (ROADMAP queue 1 item 3)",
     "-n/-m/-r": "texture maps (ROADMAP queue 1 item 9)",
     "--png": "PNG output (ROADMAP queue 1 item 12)",
     "--checkpoint": "progressive checkpoints (ROADMAP queue 1 item 12)",
@@ -64,7 +64,6 @@ _NOT_PORTED = {
     "--fog": "fog (ROADMAP queue 1 item 11)",
     "--denoise": "the a-trous denoiser (ROADMAP queue 1 item 11)",
     "--tbn": "tangent-frame normal maps (ROADMAP queue 1 item 11)",
-    "--scene-seed": "world 4 (ROADMAP queue 1 item 8)",
     "--exposure": "the exposure multiplier (ROADMAP queue 1 item 12)",
 }
 
@@ -77,10 +76,12 @@ def print_help():
     print("\tp<int>  - Set the rays to shoot per pixel (sqrt; total = p*p).")
     print("\tw<int>  - Set the world number to load. Ported:")
     print("\t\t2:\tMetal-roughness test.\n\t\t3:\tCornell box.\n"
+          "\t\t4:\tRay Tracing in One Weekend book cover.\n"
           "\t\t6:\tCornell box with a quad area light.")
+    print("\td       - Use the thin-lens camera (depth of field).")
     print("\th       - Print this help menu.")
-    print("\nExtensions: --size WxH --out PATH --seed N --rr --chunk N "
-          "--debug regular|variance --device cuda|cpu")
+    print("\nExtensions: --size WxH --out PATH --seed N --scene-seed N|os "
+          "--rr --chunk N --debug regular|variance --device cuda|cpu")
 
 
 def main(argv=None):
@@ -101,14 +102,17 @@ def main(argv=None):
     ap.add_argument("--rr", action="store_true",
                     help="Russian-roulette path termination (unbiased)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--scene-seed", default=None, metavar="N|os",
+                    help="seed of world 4's random layout (default 1337; "
+                         "'os' draws one, as the reference does, and "
+                         "prints it)")
     for flag in _NOT_PORTED:
         if flag.startswith("--"):
             ap.add_argument(flag, nargs="?", const=True, default=None)
     args = ap.parse_args(rest)
 
     for flag, what in _NOT_PORTED.items():
-        given = (ref["d"] if flag == "-d"
-                 else (ref["n"] or ref["m"] or ref["r"]) if flag == "-n/-m/-r"
+        given = ((ref["n"] or ref["m"] or ref["r"]) if flag == "-n/-m/-r"
                  else getattr(args, flag[2:].replace("-", "_")) is not None)
         if given:
             raise NotImplementedError(f"{flag}: {what} is not ported yet")
@@ -127,11 +131,20 @@ def main(argv=None):
     w, h = (int(x) for x in args.size.split("x"))
     pp = max(0, min(1000, ref["p"])) if ref["p"] is not None else 4  # :2171
     world = max(0, min(WORLD_KIND_COUNT - 1, (ref["w"] or 1) - 1))   # :2181
+    use_pinhole = not ref["d"]                                        # :2183
+    rtiow_seed = 1337
+    if args.scene_seed == "os":
+        import secrets
+        rtiow_seed = secrets.randbits(31)  # the reference's OS-seeded MT
+        print(f"(--scene-seed os: layout seed {rtiow_seed})")
+    elif args.scene_seed is not None:
+        rtiow_seed = int(args.scene_seed)
     n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
     print(f"System has {n_dev} device(s).")
     print(f"Using 1 device(s): {device}.\n")
 
-    scene, camera = finalize_world(world, w, h)
+    scene, camera = finalize_world(world, w, h, use_pinhole=use_pinhole,
+                                   rtiow_seed=rtiow_seed)
     print("DefineCamera():\n===")
     print(f"camera located at c->pos = ({camera.pos[0]:f},{camera.pos[1]:f},"
           f"{camera.pos[2]:f})")

@@ -2,17 +2,24 @@
 
 ``csrc/wave_kernel.cu`` is the Hopper counterpart of the JAX package's one
 Pallas kernel, ``render/pallas_backend.py::render_chunk_pallas`` with its
-path-regeneration loop ``_wave_loop``. It is compiled at first use by
-``nvcc`` for ``sm_90a`` into ``pathtracer_tpu_torch/_build/`` (a file named
-by the hash of the source and flags, so an edit rebuilds it), loaded with
+path-regeneration loop ``_wave_loop``. It holds four compile-time variants
+(``VARIANTS``), the instantiations of one kernel template: the brute sphere
+sweep or the clustered walk (K5/K6), each with the pinhole or the thin-lens
+primary ray. The file is compiled at first use by one ``nvcc`` for
+``sm_90a`` into ``pathtracer_tpu_torch/_build/`` (a library named by the
+hash of the source and flags, so an edit rebuilds it), loaded with
 ``ctypes`` and launched on PyTorch's current stream.
 
 - :func:`render_chunk_cuda` takes the accumulator's device: on CUDA tensors
   it launches the kernel or raises; on CPU tensors it runs the plain version.
+  It picks the variant from the scene and camera (:func:`variant`): the
+  clustered walk when the scene has sphere clusters, the thin-lens primary
+  when the camera has one.
 - :func:`render_chunk_plain` is the plain PyTorch version of the same
   function (``render/wavefront.py``), which the CPU tests run and which
   ``chip_smoke.py`` holds the kernel against on the card.
-- ``LAUNCHES`` counts the kernel's launches.
+- ``LAUNCHES`` counts the kernel's launches, ``VARIANT_LAUNCHES`` the same
+  launches by variant name.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 
 from ..scene.camera import Camera
 from ..scene.schema import Scene
+from .raygen import focal_plane
 from .wavefront import render_chunk_wavefront
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -37,8 +45,12 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
+# the kernel's variants, as variant() names them
+VARIANTS = ("brute_pinhole", "brute_lens", "clustered_pinhole",
+            "clustered_lens")
 LAUNCHES = 0      # kernel launches, counted where the launch succeeds
-BUILD_LOG = ""    # nvcc's output of the build (ptxas registers and spills)
+VARIANT_LAUNCHES = dict.fromkeys(VARIANTS, 0)  # the same, by variant
+BUILD_LOG = ""    # nvcc's output (ptxas registers and spills per variant)
 BUILD_SECONDS = None  # wall seconds of the build in this process, or None
 
 _lib = None
@@ -56,7 +68,14 @@ _PTR_FIELDS = (
     "sum_x", "sum_y", "sum_z", "sq_x", "sq_y", "sq_z", "count",
     "nan_px", "rays_px",
 )
-_INT_PTRS = ("sph_mat", "q_mat", "p_mat", "nan_px", "rays_px")
+# the clustered and thin-lens variants' fields, at the end of the struct
+_CLUSTER_PTR_FIELDS = (
+    "csph_cx", "csph_cy", "csph_cz", "csph_r", "csph_mat",
+    "cl_off", "cl_cnt", "cl_huge",
+    "cl_mnx", "cl_mny", "cl_mnz", "cl_mxx", "cl_mxy", "cl_mxz",
+)
+_INT_PTRS = ("sph_mat", "q_mat", "p_mat", "csph_mat", "cl_off", "cl_cnt",
+             "cl_huge", "nan_px", "rays_px")
 _INT_FIELDS = (
     "n_spheres", "n_quads", "n_planes", "quad_light",
     "just_cosine", "use_rr",
@@ -70,7 +89,10 @@ class WaveParams(ctypes.Structure):
     """Mirror of ``struct WaveParams`` in csrc/wave_kernel.cu."""
     _fields_ = ([(n, _P) for n in _PTR_FIELDS] + [(n, _I) for n in _INT_FIELDS]
                 + [("key", ctypes.c_uint32)] + [(n, _F) for n in _FLOAT_FIELDS]
-                + [(n, _F * 3) for n in ("fc", "ax", "ay", "pos")])
+                + [(n, _F * 3) for n in ("fc", "ax", "ay", "pos")]
+                + [(n, _P) for n in _CLUSTER_PTR_FIELDS]
+                + [("n_clusters", _I), ("aperture", _F), ("lens_d", _F),
+                   ("lens_n", _F * 3)])
 
 
 def check_supported(scene: Scene, camera: Camera, config):
@@ -78,10 +100,14 @@ def check_supported(scene: Scene, camera: Camera, config):
     its plain version covers yet."""
     config.check_supported()
     missing = scene.unsupported()
-    if not camera.use_pinhole:
-        missing.append("the thin-lens camera (ROADMAP queue 1 item 3)")
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
+
+
+def variant(scene: Scene, camera: Camera) -> str:
+    """The kernel variant that renders this scene through this camera."""
+    return (("clustered" if scene.sph_clusters else "brute")
+            + ("_pinhole" if camera.use_pinhole else "_lens"))
 
 
 def _nvcc() -> str:
@@ -119,7 +145,8 @@ def build() -> ctypes.CDLL:
         os.replace(tmp, lib_path)
     BUILD_LOG = log_path.read_text() if log_path.exists() else ""
     lib = ctypes.CDLL(str(lib_path))
-    lib.wave_render.argtypes = [ctypes.POINTER(WaveParams), ctypes.c_void_p]
+    lib.wave_render.argtypes = [ctypes.POINTER(WaveParams), ctypes.c_int,
+                                ctypes.c_int, ctypes.c_void_p]
     lib.wave_render.restype = ctypes.c_int
     lib.wave_error_string.argtypes = [ctypes.c_int]
     lib.wave_error_string.restype = ctypes.c_char_p
@@ -130,7 +157,7 @@ def build() -> ctypes.CDLL:
 def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
             n_samples: int, state, nan_px, rays_px) -> WaveParams:
     """Pointers and host-folded constants for one launch."""
-    ptrs = dict(zip(_PTR_FIELDS, (
+    ptrs = dict(zip(_PTR_FIELDS + _CLUSTER_PTR_FIELDS, (
         *scene.mat_albedo, *scene.mat_emit, *scene.mat_metal_color,
         scene.mat_metalness, scene.mat_roughness, scene.mat_ior,
         *scene.sph_center, scene.sph_radius, scene.sph_mat,
@@ -138,6 +165,9 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
         scene.quad_mat,
         *scene.pln_n, scene.pln_d, scene.pln_mat,
         *state.sum, *state.sum_sq, state.count, nan_px, rays_px,
+        *scene.csph_center, scene.csph_radius, scene.csph_mat,
+        scene.cl_offset, scene.cl_count, scene.cl_huge,
+        *scene.cl_min, *scene.cl_max,
     )))
     for name, t in ptrs.items():
         want = torch.int32 if name in _INT_PTRS else torch.float32
@@ -152,10 +182,13 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
     hpw, hph = camera.half_film_pixel_w, camera.half_film_pixel_h
     step_x = (1.0 / pp) * hpw * 2.0
     step_y = (1.0 / pp) * hph * 2.0
+    lens_n, lens_d = (((0.0, 0.0, 0.0), 0.0) if camera.use_pinhole
+                      else focal_plane(camera))
     p = WaveParams(
         **{k: t.data_ptr() for k, t in ptrs.items()},
         n_spheres=scene.n_spheres, n_quads=scene.n_quads,
         n_planes=scene.n_planes, quad_light=scene.quad_light,
+        n_clusters=len(scene.sph_clusters),
         just_cosine=int(scene.just_cosine),
         use_rr=int(config.use_russian_roulette),
         width=config.width, height=config.height, pp=pp, n_pixels=n,
@@ -164,11 +197,13 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
         pp_f=float(pp), hpw=hpw, hph=hph, step_x=step_x, step_y=step_y,
         half_step_x=0.5 * step_x, half_step_y=0.5 * step_y,
         hfw=camera.half_film_width, hfh=camera.half_film_height,
+        aperture=camera.aperture_radius, lens_d=lens_d,
     )
     p.fc[:] = camera.frustum_center
     p.ax[:] = camera.axis_x
     p.ay[:] = camera.axis_y
     p.pos[:] = camera.pos
+    p.lens_n[:] = lens_n
     return p
 
 
@@ -187,13 +222,17 @@ def render_chunk_cuda(scene: Scene, camera: Camera, config, key: int,
     rays_px = torch.zeros(n, dtype=torch.int32, device=state.device)
     params = _params(scene, camera, config, key, s0, n_samples, state,
                      nan_px, rays_px)
+    name = variant(scene, camera)
     lib = build()
     stream = torch.cuda.current_stream(state.device).cuda_stream
-    err = lib.wave_render(ctypes.byref(params), ctypes.c_void_p(stream))
+    err = lib.wave_render(ctypes.byref(params), int(bool(scene.sph_clusters)),
+                          int(not camera.use_pinhole),
+                          ctypes.c_void_p(stream))
     if err != 0:
-        raise RuntimeError("wave_kernel launch failed: "
+        raise RuntimeError(f"wave_kernel ({name}) launch failed: "
                            + lib.wave_error_string(err).decode())
     LAUNCHES += 1
+    VARIANT_LAUNCHES[name] += 1
     state.nan_count += nan_px.sum(dtype=torch.int64)
     state.rays_cast += rays_px.sum(dtype=torch.int64)
     state.samples_done += n_samples

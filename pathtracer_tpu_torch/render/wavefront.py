@@ -26,15 +26,17 @@ from .integrator import russian_roulette, shade_bounce
 
 def _primary_rays(camera: Camera, config, key: int,
                   pixel_idx: torch.Tensor, s: torch.Tensor):
-    """Primary pinhole rays for per-lane sample indices ``s``."""
-    if not camera.use_pinhole:
-        raise NotImplementedError(
-            "the thin-lens camera is not ported yet (ROADMAP queue 1 item 3)")
+    """Primary rays (pinhole or thin lens) for per-lane sample indices
+    ``s``: stratum / ray indices (s // pp, s % pp)."""
     i = torch.div(s, config.pp, rounding_mode="floor")
     j = torch.remainder(s, config.pp)
-    jit_u = prng.jitter_uniforms(prng.path_keys(key, pixel_idx, s))
-    return raygen.pinhole_rays(camera, config.width, config.height,
-                               config.pp, i, j, jit_u, pixel_idx)
+    if camera.use_pinhole:
+        jit_u = prng.jitter_uniforms(prng.path_keys(key, pixel_idx, s))
+        return raygen.pinhole_rays(camera, config.width, config.height,
+                                   config.pp, i, j, jit_u, pixel_idx)
+    lens_u = prng.lens_uniforms(prng.path_keys(key, pixel_idx, i))
+    return raygen.thin_lens_rays(camera, config.width, config.height,
+                                 config.pp, i, j, lens_u, pixel_idx)
 
 
 def render_chunk_wavefront(scene: Scene, camera: Camera, config, key: int,

@@ -15,6 +15,7 @@ from ..render.renderer import AccumState
 from ..utils.vec import Vec3
 from .schema import (
     STATIC_FIELDS, TENSOR_FIELDS, VEC_FIELDS, Scene, bake_quad_normals,
+    cluster_tables,
 )
 
 
@@ -30,13 +31,16 @@ def _vec(a) -> Vec3:
 def scene_from_numpy(fields: dict, statics: dict) -> Scene:
     """JAX scene leaves (by field name) and statics -> a CPU port Scene.
     Fields and statics the port does not read are ignored; a missing
-    ``quad_n`` (hand-built JAX scenes) is baked from ``quad_u``/``quad_v``."""
+    ``quad_n`` (hand-built JAX scenes) is baked from ``quad_u``/``quad_v``.
+    The cluster-ordered ``csph_*`` tables come across as they are, and the
+    kernel's cluster tables are derived from the ``sph_clusters`` static."""
     kw = {k: _vec(fields[k]) for k in VEC_FIELDS
           if k != "quad_n" or fields.get(k) is not None}
     if "quad_n" not in kw:
         kw["quad_n"] = bake_quad_normals(kw["quad_u"], kw["quad_v"])
     kw.update({k: _tensor(fields[k]) for k in TENSOR_FIELDS})
     kw.update({k: statics[k] for k in STATIC_FIELDS if k in statics})
+    kw.update(cluster_tables(kw.get("sph_clusters", ())))
     return Scene(**kw)
 
 

@@ -7,6 +7,12 @@ The numpy :class:`WorldBuilder` pads exactly as the JAX builder does
 (materials to a multiple of 128, primitives to 16), so a port scene and a
 converted JAX scene hold the same tables (``scene/convert.py``).
 
+A sphere table of more than ``clusters.CLUSTER_MIN`` rows is also kept in
+cluster order (``csph_*``, padded to a multiple of 128, as in JAX) with its
+cluster descriptors: the static tuple ``sph_clusters`` and, for the
+kernel, the small ``cl_*`` tables (offset, count, bounds, huge flag) that
+:func:`cluster_tables` derives from it.
+
 Conventions kept from the reference: material 0 is the sky and a miss
 reports material 0; ``spheres[0]`` is the light the next-event estimator
 aims at.
@@ -20,6 +26,7 @@ import numpy as np
 import torch
 
 from ..utils.vec import Vec3
+from . import clusters
 
 # Reference constants (win32_main.cpp:86-95).
 MAX_BOUNCE_COUNT = 4
@@ -54,7 +61,7 @@ def _pad(n: int, multiple: int = 16) -> int:
 VEC_FIELDS = (
     "mat_albedo", "mat_emit", "mat_metal_color",
     "sph_center", "quad_point", "quad_u", "quad_v", "quad_n",
-    "pln_n", "box_min", "box_max",
+    "pln_n", "box_min", "box_max", "csph_center",
 )
 TENSOR_FIELDS = (
     "mat_metalness", "mat_roughness", "mat_ior", "mat_transmission",
@@ -65,12 +72,17 @@ TENSOR_FIELDS = (
     "quad_mat", "quad_mask",
     "pln_d", "pln_mat", "pln_mask",
     "box_mat", "box_mask",
+    "csph_radius", "csph_mat",
 )
 STATIC_FIELDS = (
     "n_spheres", "n_quads", "n_planes", "n_tris", "n_boxes", "n_materials",
     "n_textures", "quad_light", "just_cosine", "any_transmissive",
     "any_dispersive", "any_bump", "has_mesh_uvs", "fog_sigma_t",
+    "sph_clusters",
 )
+# Kernel tables derived from ``sph_clusters`` (cluster_tables).
+CLUSTER_VEC_FIELDS = ("cl_min", "cl_max")
+CLUSTER_TENSOR_FIELDS = ("cl_offset", "cl_count", "cl_huge")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -117,6 +129,17 @@ class Scene:
     box_mat: torch.Tensor
     box_mask: torch.Tensor
 
+    # spheres in cluster order (size-1 dummies without clusters)
+    csph_center: Vec3
+    csph_radius: torch.Tensor
+    csph_mat: torch.Tensor
+    # per cluster: first row, row count, bounds, 1 = huge (always tested)
+    cl_offset: torch.Tensor
+    cl_count: torch.Tensor
+    cl_min: Vec3
+    cl_max: Vec3
+    cl_huge: torch.Tensor
+
     n_spheres: int = 0
     n_quads: int = 0
     n_planes: int = 0
@@ -131,6 +154,8 @@ class Scene:
     any_bump: bool = False
     has_mesh_uvs: bool = False
     fog_sigma_t: float = 0.0
+    # (offset, count, mn3 | None, mx3 | None) over csph_*; huge first
+    sph_clusters: tuple = ()
 
     @property
     def device(self) -> torch.device:
@@ -139,10 +164,17 @@ class Scene:
     def to(self, device) -> "Scene":
         """The same scene with every table on ``device``."""
         moved = {k: Vec3(*(c.to(device).contiguous() for c in getattr(self, k)))
-                 for k in VEC_FIELDS}
+                 for k in VEC_FIELDS + CLUSTER_VEC_FIELDS}
         moved.update({k: getattr(self, k).to(device).contiguous()
-                      for k in TENSOR_FIELDS})
+                      for k in TENSOR_FIELDS + CLUSTER_TENSOR_FIELDS})
         return dataclasses.replace(self, **moved)
+
+    def without_clusters(self) -> "Scene":
+        """The same scene with its sphere clusters dropped: the brute sweep
+        over ``sph_*`` (the yardstick the clustered walk is measured
+        against)."""
+        return dataclasses.replace(self, sph_clusters=(),
+                                   **cluster_tables(())).to(self.device)
 
     def unsupported(self) -> list:
         """Names of the features this scene uses that the port has not yet
@@ -185,11 +217,16 @@ class HostMaterial:
     bump_scale: float = 1.0
 
 
+def _vec_columns(a: np.ndarray) -> Vec3:
+    """An (N, 3) array -> a Vec3 of contiguous (N,) tensors."""
+    return Vec3(*(torch.from_numpy(a[:, k].copy()) for k in range(3)))
+
+
 def _vec_table(rows, pad_to: int) -> Vec3:
     a = np.zeros((pad_to, 3), np.float32)
     if rows:
         a[: len(rows)] = np.asarray(rows, np.float32)
-    return Vec3(*(torch.from_numpy(a[:, k].copy()) for k in range(3)))
+    return _vec_columns(a)
 
 
 def _scalar_table(rows, pad_to: int, dtype=np.float32, fill=0):
@@ -197,6 +234,21 @@ def _scalar_table(rows, pad_to: int, dtype=np.float32, fill=0):
     if len(rows):
         a[: len(rows)] = np.asarray(rows, dtype)
     return torch.from_numpy(a)
+
+
+def cluster_tables(sph_clusters: tuple) -> dict:
+    """The kernel's cluster tables (CPU tensors, at least one row) for the
+    static descriptors; a huge cluster has no bounds and is always tested."""
+    rows = sph_clusters or ((0, 0, None, None),)
+    box = lambda b: (0.0, 0.0, 0.0) if b is None else b
+    return dict(
+        cl_offset=torch.tensor([c[0] for c in rows], dtype=torch.int32),
+        cl_count=torch.tensor([c[1] for c in rows], dtype=torch.int32),
+        cl_min=_vec_columns(np.asarray([box(c[2]) for c in rows], np.float32)),
+        cl_max=_vec_columns(np.asarray([box(c[3]) for c in rows], np.float32)),
+        cl_huge=torch.tensor([int(c[2] is None) for c in rows],
+                             dtype=torch.int32),
+    )
 
 
 def _mask_table(n: int, pad_to: int):
@@ -250,8 +302,29 @@ class WorldBuilder:
         self.planes.append((tuple(n), float(d), int(mat)))
         return len(self.planes) - 1
 
-    def finalize(self, world_kind: int = WORLD_DEFAULT) -> Scene:
-        """Host lists -> padded CPU Scene (``Scene.to`` moves it)."""
+    def _sphere_clusters(self, view_origin):
+        """(csph center, radius, mat, clusters) as in the JAX builder: the
+        spheres in cluster order, padded to a multiple of 128."""
+        f32, i32 = np.float32, np.int32
+        if len(self.spheres) <= clusters.CLUSTER_MIN:
+            return (np.zeros((1, 3), f32), np.zeros((1,), f32),
+                    np.zeros((1,), i32), ())
+        centers = np.asarray([s[0] for s in self.spheres], f32)
+        radii = np.asarray([s[1] for s in self.spheres], f32)
+        order, sph_clusters = clusters.build_clusters(
+            *clusters.sphere_bounds(centers, radii), sort_origin=view_origin)
+        pad = -len(order) % 128
+        c = np.concatenate([centers[order], np.zeros((pad, 3), f32)])
+        r = np.concatenate([radii[order], np.zeros((pad,), f32)])
+        m = np.concatenate([np.asarray([s[2] for s in self.spheres], i32)[order],
+                            np.zeros((pad,), i32)])
+        return c, r, m, sph_clusters
+
+    def finalize(self, world_kind: int = WORLD_DEFAULT,
+                 view_origin=None) -> Scene:
+        """Host lists -> padded CPU Scene (``Scene.to`` moves it).
+        ``view_origin`` (the camera position) orders sphere clusters
+        near-to-far."""
         mats = self.materials
         M = _pad(len(mats), 128)
         S, Q, P = _pad(len(self.spheres)), _pad(len(self.quads)), _pad(len(self.planes))
@@ -259,6 +332,7 @@ class WorldBuilder:
         col = lambda name: [getattr(m, name) for m in mats]
         quad_u = _vec_table([q[1] for q in self.quads], Q)
         quad_v = _vec_table([q[2] for q in self.quads], Q)
+        csph_c, csph_r, csph_m, sph_clusters = self._sphere_clusters(view_origin)
         return Scene(
             mat_albedo=_vec_table(col("albedo"), M),
             mat_emit=_vec_table(col("emit"), M),
@@ -293,6 +367,11 @@ class WorldBuilder:
             box_max=_vec_table([], 8),
             box_mat=_scalar_table([], 8, i32),
             box_mask=_mask_table(0, 8),
+            csph_center=_vec_columns(csph_c),
+            csph_radius=torch.from_numpy(csph_r),
+            csph_mat=torch.from_numpy(csph_m),
+            **cluster_tables(sph_clusters),
+            sph_clusters=sph_clusters,
             n_spheres=len(self.spheres),
             n_quads=len(self.quads),
             n_planes=len(self.planes),

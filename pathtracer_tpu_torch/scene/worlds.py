@@ -1,17 +1,21 @@
 """Built-in worlds (LoadWorld, reference win32_main.cpp:1788-2074).
 
 Counterpart of ``pathtracer_tpu/scene/worlds.py`` for the worlds whose
-scenes the slice covers: the Cornell box (``-w3``), the Cornell box with a
-quad area light (``-w6``) and the metal/roughness sphere grid (``-w2``).
-Material order, sphere order (``spheres[0]`` is the NEE light) and camera
+scenes the port covers: the Cornell box (``-w3``), the Cornell box with a
+quad area light (``-w6``), the metal/roughness sphere grid (``-w2``) and
+the "Ray Tracing in One Weekend" cover (``-w4``: 484 spheres from a seeded
+``np.random.RandomState``, the forced thin lens). Material order, sphere
+order (``spheres[0]`` is the NEE light), random draws and camera
 parameters are the JAX builders', line for line. The other worlds need
-textures, meshes or the thin lens and raise ``NotImplementedError``.
+textures or meshes and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
+
+import numpy as np
 
 from .camera import Camera, define_camera
 from .schema import (
@@ -24,9 +28,6 @@ from .schema import (
 # World kinds not yet ported, with the ROADMAP item that brings them.
 _NOT_PORTED = {
     WORLD_DEFAULT: "world 1 needs textures (ROADMAP queue 1 item 9)",
-    WORLD_RAYTRACING_ONE_WEEKEND:
-        "world 4 needs sphere clusters and the thin lens "
-        "(ROADMAP queue 1 item 8)",
     WORLD_MARIO: "world 5 needs triangle meshes (ROADMAP queue 1 item 10)",
     WORLD_MESH_UV: "world 7 needs meshes and textures "
                    "(ROADMAP queue 1 items 9-10)",
@@ -61,10 +62,56 @@ def _ground_plane(b: WorldBuilder, mat: int):
     b.add_plane((0.0, 0.0, 1.0), 0.0, mat)
 
 
-def build_world(kind: int,
-                use_pinhole: bool = True) -> Tuple[WorldBuilder, CameraParams]:
+def _rtiow_cover(b: WorldBuilder, cam: CameraParams, rtiow_seed: int):
+    """win32_main.cpp:1960-2035, the RTIOW book cover, with the JAX
+    package's fixed-seed layout (scene/worlds.py:270-318) in its draw
+    order."""
+    _add_sky(b, (1.0, 1.0, 1.0))
+    ground = b.add_material(albedo=(0.5, 0.5, 0.5))
+    b.add_sphere((0.0, 0.0, -1000.0), 1000.0, ground)
+
+    rng = np.random.RandomState(rtiow_seed)
+    rand = lambda: float(rng.rand())
+    rand_v3 = lambda: (rand(), rand(), rand())
+    for a in range(-11, 11):
+        for bb in range(-11, 11):
+            choose = rand()
+            center = (a + 0.9 * rand(), bb + 0.9 * rand(), 0.2)
+            d = np.array(center) - np.array((4.0, 0.0, 0.2))
+            if float(np.sqrt((d * d).sum())) > 0.9:
+                if choose < 0.8:
+                    c1, c2 = rand_v3(), rand_v3()
+                    m = b.add_material(
+                        albedo=tuple(x * y for x, y in zip(c1, c2)))
+                else:
+                    # roughness = 1 - the NEW metalness, the JAX package's
+                    # reading of the reference's intent (:1991-1994)
+                    metalness = rand()
+                    mc = rand_v3()
+                    m = b.add_material(
+                        metalness=metalness,
+                        metal_color=(0.5 * mc[0] + 0.5, 0.5 * mc[1] + 0.5,
+                                     0.5 * mc[2] + 0.5),
+                        roughness=1.0 - metalness)
+                b.add_sphere(center, 0.2, m)
+
+    m2 = b.add_material(albedo=(0.4, 0.2, 0.1))
+    b.add_sphere((-4.0, 0.0, 1.0), 1.0, m2)
+    m3 = b.add_material(metalness=1.0, metal_color=(0.7, 0.6, 0.5),
+                        roughness=0.0)
+    b.add_sphere((4.0, 0.0, 1.0), 1.0, m3)
+
+    cam.use_pinhole = False  # forced thin lens (win32_main.cpp:2030)
+    cam.target = (0.0, 0.0, 0.0)
+    cam.pos = (13.0, 3.0, 2.0)
+    cam.fov = 20.0
+    cam.focal_distance = 10.0
+
+
+def build_world(kind: int, use_pinhole: bool = True,
+                rtiow_seed: int = 1337) -> Tuple[WorldBuilder, CameraParams]:
     """LoadWorld for the ported worlds: the host builder and the camera
-    parameters before derivation."""
+    parameters before derivation. ``rtiow_seed`` seeds world 4's layout."""
     if not (0 <= kind < WORLD_KIND_COUNT):
         raise ValueError(f"world kind {kind} out of range")
     if kind in _NOT_PORTED:
@@ -147,18 +194,20 @@ def build_world(kind: int,
         cam.fov = 50.0
         cam.focal_distance = 10.0
 
+    elif kind == WORLD_RAYTRACING_ONE_WEEKEND:
+        _rtiow_cover(b, cam, rtiow_seed)
+
     return b, cam
 
 
 def finalize_world(kind: int, image_width: int, image_height: int,
-                   use_pinhole: bool = True) -> Tuple[Scene, Camera]:
+                   use_pinhole: bool = True,
+                   rtiow_seed: int = 1337) -> Tuple[Scene, Camera]:
     """Build world ``kind`` (a CPU Scene) and derive its camera for the
-    given image size."""
-    if not use_pinhole:
-        raise NotImplementedError(
-            "the thin-lens camera is not ported yet (ROADMAP queue 1 item 3)")
-    b, cam = build_world(kind, use_pinhole=use_pinhole)
-    scene = b.finalize(world_kind=kind)
+    given image size; ``use_pinhole=False`` selects the thin lens (world 4
+    always uses it)."""
+    b, cam = build_world(kind, use_pinhole=use_pinhole, rtiow_seed=rtiow_seed)
+    scene = b.finalize(world_kind=kind, view_origin=cam.pos)
     camera = define_camera(
         cam.pos, cam.target, cam.fov, image_width, image_height,
         use_pinhole=cam.use_pinhole,

@@ -87,6 +87,13 @@ def jitter_uniforms(stream: PathStream):
     return a, b
 
 
+def lens_uniforms(stream: PathStream):
+    """Two uniforms for the thin-lens sensor offset. The caller keys the
+    stream on the ray index ``s // pp``, not on the sample index."""
+    a, b, _, _ = _draw4(stream, TAG_LENS)
+    return a, b
+
+
 def bounce_uniforms(stream: PathStream, bounce):
     """BOUNCE_SLOTS uniforms for one bounce (two PCG4D blocks). ``bounce``
     is an int or a per-lane integer tensor."""

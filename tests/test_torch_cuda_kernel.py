@@ -18,6 +18,8 @@ from pathtracer_tpu_torch.render import renderer as trenderer
 from pathtracer_tpu_torch.scene import schema as tschema
 from pathtracer_tpu_torch.scene import worlds as tworlds
 
+W4 = tschema.WORLD_RAYTRACING_ONE_WEEKEND
+
 pytestmark = pytest.mark.cuda
 
 
@@ -28,10 +30,13 @@ def cuda():
     return torch.device("cuda:0")
 
 
-def _pair(dev, kind, w, h, pp, n, **cfg_kw):
-    scene, cam = tworlds.finalize_world(kind, w, h)
-    scene = scene.to(dev)
+def _pair(dev, kind, w, h, pp, n, use_pinhole=True, brute=False,
+          variant=None, **cfg_kw):
+    scene, cam = tworlds.finalize_world(kind, w, h, use_pinhole=use_pinhole)
+    scene = (scene.without_clusters() if brute else scene).to(dev)
     cfg = trenderer.RenderConfig(w, h, pp=pp, seed=0, **cfg_kw)
+    if variant is not None:
+        assert cuda_backend.variant(scene, cam) == variant
     before = cuda_backend.LAUNCHES
     k = cuda_backend.render_chunk_cuda(scene, cam, cfg, 0, 0, n,
                                        trenderer.init_accum(w * h, dev))
@@ -58,6 +63,33 @@ def _assert_verify_gates(cfg, k, p):
 ])
 def test_kernel_matches_plain(cuda, kind, pp, n):
     _assert_verify_gates(*_pair(cuda, kind, 256, 144, pp, n))
+
+
+@pytest.mark.parametrize("kind, pinhole, brute, variant", [
+    (W4, True, False, "clustered_lens"),            # w4 forces the lens
+    (tschema.WORLD_BRDF_TEST, True, False, "clustered_pinhole"),
+    (tschema.WORLD_BRDF_TEST, True, True, "brute_pinhole"),
+    (tschema.WORLD_CORNELL_BOX, False, False, "brute_lens"),
+    (W4, True, True, "brute_lens"),
+])
+def test_kernel_variants_match_plain(cuda, kind, pinhole, brute, variant):
+    _assert_verify_gates(*_pair(cuda, kind, 256, 144, 2, 4,
+                                use_pinhole=pinhole, brute=brute,
+                                variant=variant))
+
+
+def test_clustered_kernel_equals_brute_kernel(cuda):
+    """World 4: the K5 walk finds the brute sweep's hits, so the two
+    kernel variants accumulate the same image."""
+    scene, cam = tworlds.finalize_world(W4, 128, 72)
+    cfg = trenderer.RenderConfig(128, 72, pp=2, seed=0)
+    out = []
+    for sc in (scene, scene.without_clusters()):
+        st = cuda_backend.render_chunk_cuda(sc.to(cuda), cam, cfg, 0, 0, 4,
+                                            trenderer.init_accum(128 * 72,
+                                                                 cuda))
+        out.append(trenderer.resolve(st, cfg))
+    assert torch.equal(out[0], out[1])
 
 
 def test_kernel_matches_plain_with_rr_and_offset(cuda):

@@ -116,6 +116,20 @@ def test_cpu_wrapper_runs_plain_version():
     assert int(a.rays_cast) == int(b.rays_cast) and a.samples_done == 4
 
 
+@pytest.mark.parametrize("kind, pinhole, want", [
+    (tschema.WORLD_CORNELL_BOX, True, "brute_pinhole"),
+    (tschema.WORLD_CORNELL_BOX, False, "brute_lens"),
+    (tschema.WORLD_BRDF_TEST, True, "clustered_pinhole"),
+    (tschema.WORLD_RAYTRACING_ONE_WEEKEND, True, "clustered_lens"),
+])
+def test_kernel_variant_by_scene_and_camera(kind, pinhole, want):
+    """The wrapper picks the clustered walk from the scene's clusters and
+    the thin lens from the camera (world 4 forces it)."""
+    scene, cam = tworlds.finalize_world(kind, 8, 8, use_pinhole=pinhole)
+    assert cuda_backend.variant(scene, cam) == want
+    assert want in cuda_backend.VARIANTS
+
+
 def test_kernel_params_layout():
     """The ctypes mirror declares the fields of struct WaveParams in
     wave_kernel.cu, in order, with matching pointer/int/float kinds."""

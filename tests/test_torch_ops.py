@@ -34,6 +34,8 @@ BOUNDS = {
     tschema.WORLD_BRDF_TEST: ((-0.5, -0.5, 0.05), (5.5, 6.0, 1.5)),
     tschema.WORLD_CORNELL_BOX: ((1.0, 1.0, 1.0), (799.0, 554.0, 554.0)),
     tschema.WORLD_CORNELL_QUAD: ((1.0, 1.0, 1.0), (799.0, 554.0, 550.0)),
+    tschema.WORLD_RAYTRACING_ONE_WEEKEND: ((-11.0, -11.0, 0.05),
+                                           (11.0, 11.0, 1.5)),
 }
 WORLDS = list(BOUNDS)
 
@@ -97,6 +99,29 @@ def test_pinhole_rays(world):
         torch.from_numpy(w["pix"]))
     np.testing.assert_array_equal(j2n(jo), t2n(to))
     np.testing.assert_allclose(j2n(jd), t2n(td), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("kind", [tschema.WORLD_CORNELL_BOX,
+                                  tschema.WORLD_RAYTRACING_ONE_WEEKEND])
+def test_thin_lens_rays(kind):
+    """The thin lens against JAX's on the w3 (-d) and w4 cameras: every
+    Poisson-disk slot, seeded lens uniforms; |diff| <= 1e-6 on o and d."""
+    _, cam = jworlds.finalize_world(kind, W, H, use_pinhole=False)
+    assert not cam.use_pinhole
+    rs = np.random.RandomState(30 + kind)
+    pix = rs.randint(0, W * H, size=N).astype(np.int32)
+    ri, ri2 = (rs.randint(0, 8, size=N).astype(np.int32) for _ in range(2))
+    lens = [rs.rand(N).astype(np.float32) for _ in range(2)]
+    with jax.disable_jit():
+        jo, jd = jraygen.thin_lens_rays(
+            cam, W, H, 8, jnp.asarray(ri), jnp.asarray(ri2),
+            tuple(jnp.asarray(a) for a in lens), jnp.asarray(pix))
+    to, td = traygen.thin_lens_rays(
+        cam, W, H, 8, torch.from_numpy(ri), torch.from_numpy(ri2),
+        tuple(torch.from_numpy(a) for a in lens), torch.from_numpy(pix))
+    assert len(np.unique(ri * ri2 % traygen.NUM_POISSON)) == 12
+    assert np.abs(j2n(jo) - t2n(to)).max() <= 1e-6
+    assert np.abs(j2n(jd) - t2n(td)).max() <= 1e-6
 
 
 def _rays(w):

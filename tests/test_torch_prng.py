@@ -50,6 +50,26 @@ def test_jitter_uniforms_bit_equal(triples):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
 
 
+def test_lens_uniforms_bit_equal(triples):
+    j, t = _streams(*triples)
+    for a, b in zip(jprng.lens_uniforms(j), tprng.lens_uniforms(t)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+@pytest.mark.parametrize("key", [0, 7, 2**31 + 5])
+def test_lens_uniforms_on_ray_index(key):
+    """The thin lens keys its stream on (key, pixel, s // pp), as
+    pallas_backend.py:189-193 does."""
+    pix = np.arange(300) * 37 % 9973
+    s = np.arange(300) % 16
+    ray_index = s // 4
+    js = jprng.path_keys(key, jnp.asarray(pix), jnp.asarray(ray_index))
+    ts = tprng.path_keys(key, torch.from_numpy(pix),
+                         torch.from_numpy(ray_index))
+    for a, b in zip(jprng.lens_uniforms(js), tprng.lens_uniforms(ts)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
 @pytest.mark.parametrize("bounce", [0, 1, 2, 3])
 def test_bounce_uniforms_bit_equal(triples, bounce):
     j, t = _streams(*triples)

@@ -33,8 +33,9 @@ def _jax_leaves(st):
                 samples_done=np.asarray(st.samples_done))
 
 
-def _jax_chunk(kind, w, h, pp, s0, n, state=None, pallas=False):
-    js, cam = jworlds.finalize_world(kind, w, h)
+def _jax_chunk(kind, w, h, pp, s0, n, state=None, pallas=False,
+               use_pinhole=True):
+    js, cam = jworlds.finalize_world(kind, w, h, use_pinhole=use_pinhole)
     cfg = jrenderer.RenderConfig(w, h, pp=pp, seed=0)
     key = jprng.base_key(0)
     state = jrenderer.init_accum(w * h) if state is None else state
@@ -45,8 +46,8 @@ def _jax_chunk(kind, w, h, pp, s0, n, state=None, pallas=False):
     return jrenderer.render_chunk(js, cam, cfg, key, jnp.int32(s0), n, state)
 
 
-def _port_chunk(kind, w, h, pp, s0, n, state=None):
-    ts, cam = tworlds.finalize_world(kind, w, h)
+def _port_chunk(kind, w, h, pp, s0, n, state=None, use_pinhole=True):
+    ts, cam = tworlds.finalize_world(kind, w, h, use_pinhole=use_pinhole)
     cfg = trenderer.RenderConfig(w, h, pp=pp, seed=0)
     state = trenderer.init_accum(w * h) if state is None else state
     return trenderer.render_chunk(ts, cam, cfg, 0, s0, n, state)
@@ -75,6 +76,33 @@ def test_render_chunk_vs_xla_wavefront(kind):
     tst = _port_chunk(kind, 32, 18, 2, 0, 4)
     assert_golden_gates(jst, tst)
     assert tst.samples_done == 4 and int(tst.nan_count) == float(jst.nan_count)
+
+
+@pytest.mark.parametrize("kind, w, h, pinhole", [
+    (tschema.WORLD_RAYTRACING_ONE_WEEKEND, 16, 12, True),   # forced thin lens
+    (tschema.WORLD_CORNELL_BOX, 32, 18, False),             # -w3 -d
+])
+def test_thin_lens_slice_vs_xla_wavefront(kind, w, h, pinhole):
+    """World 4 (clustered spheres in the port, the brute sweep in the XLA
+    driver; thin lens; just_cosine over 512 material rows) and the Cornell
+    box through the thin lens."""
+    jst = _jax_chunk(kind, w, h, 2, 0, 4, use_pinhole=pinhole)
+    tst = _port_chunk(kind, w, h, 2, 0, 4, use_pinhole=pinhole)
+    assert_golden_gates(jst, tst)
+    assert int(tst.nan_count) == float(jst.nan_count)
+
+
+def test_cli_world4_thin_lens_scene_seed(tmp_path, capsys):
+    """-w4 with --scene-seed and -d on -w3 through the CLI, on the CPU."""
+    from pathtracer_tpu_torch.cli import main
+    for argv in (["-w4", "-p1", "--scene-seed", "99"], ["-w3", "-d", "-p1"]):
+        out = tmp_path / "img.bmp"
+        assert main(argv + ["--size", "8x6", "--device", "cpu",
+                            "--out", str(out)]) == 0
+        assert out.stat().st_size == 54 + 4 + 8 * 6 * 4
+    assert main(["-w4", "-p1", "--scene-seed", "os", "--size", "4x4",
+                 "--device", "cpu", "--out", str(out)]) == 0
+    assert "--scene-seed os: layout seed" in capsys.readouterr().out
 
 
 def test_render_chunk_vs_pallas_interpret():

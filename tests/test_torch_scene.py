@@ -11,9 +11,10 @@ from pathtracer_tpu_torch.scene import schema as tschema
 from pathtracer_tpu_torch.scene import worlds as tworlds
 from pathtracer_tpu_torch.scene.convert import scene_from_numpy
 
-# -w2 metal/roughness grid (122 spheres), -w3 Cornell, -w6 Cornell quad light
+# -w2 metal/roughness grid (122 spheres), -w3 Cornell, -w6 Cornell quad
+# light, -w4 RTIOW cover (484 spheres in 9 clusters, thin lens)
 WORLDS = [tschema.WORLD_BRDF_TEST, tschema.WORLD_CORNELL_BOX,
-          tschema.WORLD_CORNELL_QUAD]
+          tschema.WORLD_CORNELL_QUAD, tschema.WORLD_RAYTRACING_ONE_WEEKEND]
 
 
 def scene_fields(scene):
@@ -33,10 +34,7 @@ def jax_scene_to_port(js):
     return scene_from_numpy(fields, statics)
 
 
-@pytest.mark.parametrize("kind", WORLDS)
-def test_tables_equal(kind):
-    js, jcam = jworlds.finalize_world(kind, 32, 18)
-    ts, tcam = tworlds.finalize_world(kind, 32, 18)
+def assert_tables_equal(js, ts):
     conv = jax_scene_to_port(js)
     a, b = scene_fields(conv), scene_fields(ts)
     assert a.keys() == b.keys()
@@ -55,11 +53,36 @@ def test_tables_equal(kind):
 
 
 @pytest.mark.parametrize("kind", WORLDS)
+def test_tables_equal(kind):
+    js, _ = jworlds.finalize_world(kind, 32, 18)
+    ts, _ = tworlds.finalize_world(kind, 32, 18)
+    assert_tables_equal(js, ts)
+
+
+@pytest.mark.parametrize("seed", [1337, 99])
+def test_world4_tables_equal(seed):
+    """World 4's random layout, materials and clusters for two seeds: 484
+    spheres and 485 materials (512 rows) for the default seed."""
+    kind = tschema.WORLD_RAYTRACING_ONE_WEEKEND
+    js, _ = jworlds.finalize_world(kind, 16, 9, rtiow_seed=seed)
+    ts, _ = tworlds.finalize_world(kind, 16, 9, rtiow_seed=seed)
+    assert_tables_equal(js, ts)
+    assert ts.just_cosine and len(ts.sph_clusters) > 1
+    if seed == 1337:
+        assert (ts.n_spheres, ts.n_materials) == (484, 485)
+        assert ts.mat_roughness.shape[0] == 512
+
+
+@pytest.mark.parametrize("kind", WORLDS)
 @pytest.mark.parametrize("size", [(32, 18), (1280, 720), (18, 32)])
 def test_camera_identical(kind, size):
-    _, jcam = jworlds.finalize_world(kind, *size)
-    _, tcam = tworlds.finalize_world(kind, *size)
-    assert dataclasses.asdict(jcam) == dataclasses.asdict(tcam)
+    """The derived camera, pinhole and thin lens (world 4 forces the lens)."""
+    for pinhole in (True, False):
+        _, jcam = jworlds.finalize_world(kind, *size, use_pinhole=pinhole)
+        _, tcam = tworlds.finalize_world(kind, *size, use_pinhole=pinhole)
+        assert dataclasses.asdict(jcam) == dataclasses.asdict(tcam)
+        lens = kind == tschema.WORLD_RAYTRACING_ONE_WEEKEND or not pinhole
+        assert tcam.use_pinhole is not lens
 
 
 def test_quad_light_and_sphere_light():
@@ -70,7 +93,6 @@ def test_quad_light_and_sphere_light():
 
 
 @pytest.mark.parametrize("kind", [tschema.WORLD_DEFAULT,
-                                  tschema.WORLD_RAYTRACING_ONE_WEEKEND,
                                   tschema.WORLD_MARIO, tschema.WORLD_MESH_UV])
 def test_unported_worlds_raise(kind):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -78,8 +100,10 @@ def test_unported_worlds_raise(kind):
 
 
 def test_thin_lens_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tworlds.finalize_world(tschema.WORLD_CORNELL_BOX, 8, 8,
+    """The thin lens is ported; world 1 with it still raises, on its
+    textures."""
+    with pytest.raises(NotImplementedError, match="textures"):
+        tworlds.finalize_world(tschema.WORLD_DEFAULT, 8, 8,
                                use_pinhole=False)
 
 
