@@ -2,9 +2,11 @@
 
 Counterpart of ``pathtracer_tpu/cli.py`` for the flags the slice covers:
 the reference's single-dash concatenated flags (``-w3 -p4``, ``-d`` for
-the thin lens; ``-t`` is accepted for compatibility) plus ``--size WxH
---out PATH --seed N --scene-seed N|os --rr --chunk N --debug
-regular|variance --device cuda|cpu``.
+the thin lens, ``-n -m -r`` to turn off the normal, metalness and
+roughness maps; ``-t`` is accepted for compatibility) plus ``--size WxH
+--out PATH --seed N --scene-seed N|os --rr --chunk N --mips --tbn --debug
+regular|variance --device cuda|cpu``. With no ``-w`` it renders world 1,
+the reference's default textured scene.
 ``--device`` defaults to ``cuda`` and fails without a card. Flags the port
 has not reached raise and name their ROADMAP item.
 
@@ -14,6 +16,7 @@ Run: python -m pathtracer_tpu_torch [options]
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 
@@ -50,7 +53,6 @@ def _parse_reference_flags(argv):
 
 # Flags of the JAX CLI that the port does not take yet -> ROADMAP item.
 _NOT_PORTED = {
-    "-n/-m/-r": "texture maps (ROADMAP queue 1 item 9)",
     "--png": "PNG output (ROADMAP queue 1 item 12)",
     "--checkpoint": "progressive checkpoints (ROADMAP queue 1 item 12)",
     "--profile": "profiler traces (ROADMAP queue 1 item 12)",
@@ -59,11 +61,9 @@ _NOT_PORTED = {
     "--preview": "progressive previews (ROADMAP queue 1 item 12)",
     "--live": "the terminal viewer (ROADMAP queue 1 item 12)",
     "--probe-pixel": "--probe-pixel (ROADMAP queue 1 item 11)",
-    "--mips": "mip-mapped textures (ROADMAP queue 1 item 9)",
     "--flip": "--flip (ROADMAP queue 1 item 12)",
     "--fog": "fog (ROADMAP queue 1 item 11)",
     "--denoise": "the a-trous denoiser (ROADMAP queue 1 item 11)",
-    "--tbn": "tangent-frame normal maps (ROADMAP queue 1 item 11)",
     "--exposure": "the exposure multiplier (ROADMAP queue 1 item 12)",
 }
 
@@ -75,13 +75,18 @@ def print_help():
     print("\tt<int>  - Accepted for compatibility (reported as devices).")
     print("\tp<int>  - Set the rays to shoot per pixel (sqrt; total = p*p).")
     print("\tw<int>  - Set the world number to load. Ported:")
-    print("\t\t2:\tMetal-roughness test.\n\t\t3:\tCornell box.\n"
+    print("\t\t1:\tDefault scene (textured ground; the default).\n"
+          "\t\t2:\tMetal-roughness test.\n\t\t3:\tCornell box.\n"
           "\t\t4:\tRay Tracing in One Weekend book cover.\n"
           "\t\t6:\tCornell box with a quad area light.")
     print("\td       - Use the thin-lens camera (depth of field).")
+    print("\tn       - Disable normal maps.")
+    print("\tm       - Disable metalness maps.")
+    print("\tr       - Disable roughness maps.")
     print("\th       - Print this help menu.")
     print("\nExtensions: --size WxH --out PATH --seed N --scene-seed N|os "
-          "--rr --chunk N --debug regular|variance --device cuda|cpu")
+          "--rr --chunk N --mips --tbn --debug regular|variance "
+          "--device cuda|cpu")
 
 
 def main(argv=None):
@@ -102,6 +107,12 @@ def main(argv=None):
     ap.add_argument("--rr", action="store_true",
                     help="Russian-roulette path termination (unbiased)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mips", action="store_true",
+                    help="mip-mapped texture sampling (default: mip 0, the "
+                         "reference's)")
+    ap.add_argument("--tbn", action="store_true",
+                    help="rotate normal maps into the surface's tangent "
+                         "frame")
     ap.add_argument("--scene-seed", default=None, metavar="N|os",
                     help="seed of world 4's random layout (default 1337; "
                          "'os' draws one, as the reference does, and "
@@ -112,9 +123,7 @@ def main(argv=None):
     args = ap.parse_args(rest)
 
     for flag, what in _NOT_PORTED.items():
-        given = ((ref["n"] or ref["m"] or ref["r"]) if flag == "-n/-m/-r"
-                 else getattr(args, flag[2:].replace("-", "_")) is not None)
-        if given:
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
             raise NotImplementedError(f"{flag}: {what} is not ported yet")
 
     import torch
@@ -144,7 +153,12 @@ def main(argv=None):
     print(f"Using 1 device(s): {device}.\n")
 
     scene, camera = finalize_world(world, w, h, use_pinhole=use_pinhole,
+                                   use_normal_maps=not ref["n"],
+                                   use_metalness_maps=not ref["m"],
+                                   use_roughness_maps=not ref["r"],
                                    rtiow_seed=rtiow_seed)
+    if args.tbn:
+        scene = dataclasses.replace(scene, tbn_normal_maps=True)
     print("DefineCamera():\n===")
     print(f"camera located at c->pos = ({camera.pos[0]:f},{camera.pos[1]:f},"
           f"{camera.pos[2]:f})")
@@ -155,9 +169,20 @@ def main(argv=None):
         print(f"c->{name.replace('_', '')}: ({v[0]:f},{v[1]:f},{v[2]:f})")
     print()
 
+    mip_scale = 0.0
+    if args.mips:
+        if scene.tex_mip_meta:
+            # texels per pixel at unit distance: the film pixel over the
+            # lens-film distance (the bespoke w/2 texel density is folded
+            # in by the integrator's footprint constant)
+            mip_scale = 2.0 * camera.half_film_height / (h * camera.focal_length)
+        else:
+            print("(--mips: scene has no square pow2 combined texture set; "
+                  "mip-0 sampling.)")
+
     cfg = RenderConfig(width=w, height=h, pp=pp, seed=args.seed,
                        debug_kind=args.debug,
-                       use_russian_roulette=args.rr)
+                       use_russian_roulette=args.rr, mip_scale=mip_scale)
 
     def progress(s_done, s_total, st):
         if args.chunk and s_total > args.chunk:

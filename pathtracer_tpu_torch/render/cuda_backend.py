@@ -2,21 +2,26 @@
 
 ``csrc/wave_kernel.cu`` is the Hopper counterpart of the JAX package's one
 Pallas kernel, ``render/pallas_backend.py::render_chunk_pallas`` with its
-path-regeneration loop ``_wave_loop``. It holds four compile-time variants
-(``VARIANTS``), the instantiations of one kernel template: the brute sphere
-sweep or the clustered walk (K5/K6), each with the pinhole or the thin-lens
-primary ray. The file is compiled at first use by one ``nvcc`` for
-``sm_90a`` into ``pathtracer_tpu_torch/_build/`` (a library named by the
-hash of the source and flags, so an edit rebuilds it), loaded with
-``ctypes`` and launched on PyTorch's current stream.
+path-regeneration loop ``_wave_loop`` (K2) and its bounce-lockstep loop
+``_lockstep_loop`` (K3). Its compile-time variants (``VARIANTS``) are the
+instantiations of one kernel template: untextured, the brute sphere sweep
+or the clustered walk (K5/K6), each with the pinhole or the thin-lens
+primary ray; textured (the combined 4-map set, K9), the brute sweep with
+either primary under ``TEXTURED_SCHEDULE``, and the pinhole under the
+other schedule as its yardstick. The file is compiled at first use by one
+``nvcc`` for ``sm_90a`` into ``pathtracer_tpu_torch/_build/`` (a library
+named by the hash of the source and flags, so an edit rebuilds it), loaded
+with ``ctypes`` and launched on PyTorch's current stream.
 
 - :func:`render_chunk_cuda` takes the accumulator's device: on CUDA tensors
   it launches the kernel or raises; on CPU tensors it runs the plain version.
   It picks the variant from the scene and camera (:func:`variant`): the
-  clustered walk when the scene has sphere clusters, the thin-lens primary
-  when the camera has one.
+  textured kernel for a combined texture set, else the clustered walk when
+  the scene has sphere clusters; the thin-lens primary when the camera has
+  one.
 - :func:`render_chunk_plain` is the plain PyTorch version of the same
-  function (``render/wavefront.py``), which the CPU tests run and which
+  function (``render/lockstep.py`` for the textured lockstep schedule,
+  ``render/wavefront.py`` otherwise), which the CPU tests run and which
   ``chip_smoke.py`` holds the kernel against on the card.
 - ``LAUNCHES`` counts the kernel's launches, ``VARIANT_LAUNCHES`` the same
   launches by variant name.
@@ -32,10 +37,12 @@ import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..scene.camera import Camera
 from ..scene.schema import Scene
+from .lockstep import render_chunk_lockstep
 from .raygen import focal_plane
 from .wavefront import render_chunk_wavefront
 
@@ -45,13 +52,21 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
+# The sample schedule of the textured variants (world 1's main path), and
+# the other one, instantiated for the pinhole only, as its yardstick.
+TEXTURED_SCHEDULE = "lockstep"
+OTHER_SCHEDULE = "regen"
+_TEX_CODE = {"lockstep": 1, "regen": 2}  # wave_render's tex argument
+
 # the kernel's variants, as variant() names them
 VARIANTS = ("brute_pinhole", "brute_lens", "clustered_pinhole",
-            "clustered_lens")
+            "clustered_lens", "textured_pinhole", "textured_lens",
+            f"textured_pinhole_{OTHER_SCHEDULE}")
 LAUNCHES = 0      # kernel launches, counted where the launch succeeds
 VARIANT_LAUNCHES = dict.fromkeys(VARIANTS, 0)  # the same, by variant
 BUILD_LOG = ""    # nvcc's output (ptxas registers and spills per variant)
 BUILD_SECONDS = None  # wall seconds of the build in this process, or None
+LIB_PATH = None   # the loaded library (for cuobjdump)
 
 _lib = None
 
@@ -74,8 +89,10 @@ _CLUSTER_PTR_FIELDS = (
     "cl_off", "cl_cnt", "cl_huge",
     "cl_mnx", "cl_mny", "cl_mnz", "cl_mxx", "cl_mxy", "cl_mxz",
 )
+# the textured variants' fields, after those
+_TEX_PTR_FIELDS = ("mat_tex", "tex_tile", "tex_mip")
 _INT_PTRS = ("sph_mat", "q_mat", "p_mat", "csph_mat", "cl_off", "cl_cnt",
-             "cl_huge", "nan_px", "rays_px")
+             "cl_huge", "nan_px", "rays_px") + _TEX_PTR_FIELDS
 _INT_FIELDS = (
     "n_spheres", "n_quads", "n_planes", "quad_light",
     "just_cosine", "use_rr",
@@ -92,7 +109,15 @@ class WaveParams(ctypes.Structure):
                 + [(n, _F * 3) for n in ("fc", "ax", "ay", "pos")]
                 + [(n, _P) for n in _CLUSTER_PTR_FIELDS]
                 + [("n_clusters", _I), ("aperture", _F), ("lens_d", _F),
-                   ("lens_n", _F * 3)])
+                   ("lens_n", _F * 3)]
+                + [(n, _P) for n in _TEX_PTR_FIELDS]
+                + [(n, _I) for n in ("tex_w", "tex_h", "tex_tiles_x",
+                                     "tex_levels", "tex_flags")]
+                + [(n, _F) for n in ("tex_half_w", "tex_half_h",
+                                     "tex_lod_k")])
+
+# WaveParams.tex_flags bits (TEX_* in the kernel)
+TEX_METALNESS, TEX_ROUGHNESS, TEX_NORMAL, TEX_TBN = 1, 2, 4, 8
 
 
 def check_supported(scene: Scene, camera: Camera, config):
@@ -100,14 +125,43 @@ def check_supported(scene: Scene, camera: Camera, config):
     its plain version covers yet."""
     config.check_supported()
     missing = scene.unsupported()
+    if textured(scene) and scene.sph_clusters:
+        missing.append("a textured scene with sphere clusters (ROADMAP "
+                       "queue 2 item 1)")
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
 
 
-def variant(scene: Scene, camera: Camera) -> str:
-    """The kernel variant that renders this scene through this camera."""
-    return (("clustered" if scene.sph_clusters else "brute")
-            + ("_pinhole" if camera.use_pinhole else "_lens"))
+def textured(scene: Scene) -> bool:
+    """Whether the scene fetches from a combined texture set."""
+    return bool(scene.n_textures and scene.tex_combined)
+
+
+def _schedule(scene: Scene, schedule):
+    """The sample schedule of a textured scene (None: TEXTURED_SCHEDULE);
+    None for an untextured one, which has one schedule."""
+    if not textured(scene):
+        return None
+    schedule = schedule or TEXTURED_SCHEDULE
+    if schedule not in _TEX_CODE:
+        raise ValueError(f"schedule {schedule!r}: lockstep or regen")
+    return schedule
+
+
+def variant(scene: Scene, camera: Camera, schedule=None) -> str:
+    """The kernel variant that renders this scene through this camera (a
+    textured scene under ``schedule``, by default TEXTURED_SCHEDULE)."""
+    lens = "_pinhole" if camera.use_pinhole else "_lens"
+    schedule = _schedule(scene, schedule)
+    if schedule is None:
+        return ("clustered" if scene.sph_clusters else "brute") + lens
+    name = "textured" + lens
+    if schedule != TEXTURED_SCHEDULE:
+        name += "_" + schedule
+    if name not in VARIANTS:
+        raise NotImplementedError(f"{name}: the {schedule} schedule is "
+                                  "instantiated for the pinhole only")
+    return name
 
 
 def _nvcc() -> str:
@@ -123,7 +177,7 @@ def _nvcc() -> str:
 def build() -> ctypes.CDLL:
     """Compile (if this source and these flags have not been built yet) and
     load the kernel library. Raises on a failed build."""
-    global _lib, BUILD_LOG, BUILD_SECONDS
+    global _lib, BUILD_LOG, BUILD_SECONDS, LIB_PATH
     if _lib is not None:
         return _lib
     tag = hashlib.sha256(SOURCE.read_bytes()
@@ -145,8 +199,9 @@ def build() -> ctypes.CDLL:
         os.replace(tmp, lib_path)
     BUILD_LOG = log_path.read_text() if log_path.exists() else ""
     lib = ctypes.CDLL(str(lib_path))
+    LIB_PATH = lib_path
     lib.wave_render.argtypes = [ctypes.POINTER(WaveParams), ctypes.c_int,
-                                ctypes.c_int, ctypes.c_void_p]
+                                ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.wave_render.restype = ctypes.c_int
     lib.wave_error_string.argtypes = [ctypes.c_int]
     lib.wave_error_string.restype = ctypes.c_char_p
@@ -157,7 +212,7 @@ def build() -> ctypes.CDLL:
 def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
             n_samples: int, state, nan_px, rays_px) -> WaveParams:
     """Pointers and host-folded constants for one launch."""
-    ptrs = dict(zip(_PTR_FIELDS + _CLUSTER_PTR_FIELDS, (
+    ptrs = dict(zip(_PTR_FIELDS + _CLUSTER_PTR_FIELDS + _TEX_PTR_FIELDS, (
         *scene.mat_albedo, *scene.mat_emit, *scene.mat_metal_color,
         scene.mat_metalness, scene.mat_roughness, scene.mat_ior,
         *scene.sph_center, scene.sph_radius, scene.sph_mat,
@@ -168,6 +223,7 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
         *scene.csph_center, scene.csph_radius, scene.csph_mat,
         scene.cl_offset, scene.cl_count, scene.cl_huge,
         *scene.cl_min, *scene.cl_max,
+        scene.mat_albedo_idx, scene.tex_tile, scene.tex_mip,
     )))
     for name, t in ptrs.items():
         want = torch.int32 if name in _INT_PTRS else torch.float32
@@ -184,6 +240,12 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
     step_y = (1.0 / pp) * hph * 2.0
     lens_n, lens_d = (((0.0, 0.0, 0.0), 0.0) if camera.use_pinhole
                       else focal_plane(camera))
+    w_tex = scene.tex_comb_w
+    mips = bool(config.mip_scale and scene.tex_mip_meta)
+    tex_flags = ((TEX_METALNESS if scene.use_metalness_maps else 0)
+                 | (TEX_ROUGHNESS if scene.use_roughness_maps else 0)
+                 | (TEX_NORMAL if scene.use_normal_maps else 0)
+                 | (TEX_TBN if scene.tbn_normal_maps else 0))
     p = WaveParams(
         **{k: t.data_ptr() for k, t in ptrs.items()},
         n_spheres=scene.n_spheres, n_quads=scene.n_quads,
@@ -198,6 +260,11 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
         half_step_x=0.5 * step_x, half_step_y=0.5 * step_y,
         hfw=camera.half_film_width, hfh=camera.half_film_height,
         aperture=camera.aperture_radius, lens_d=lens_d,
+        tex_w=w_tex, tex_h=scene.tex_comb_h, tex_tiles_x=scene.tex_tiles_x,
+        tex_levels=len(scene.tex_mip_meta) if mips else 0,
+        tex_flags=tex_flags, tex_half_w=w_tex * 0.5,
+        tex_half_h=scene.tex_comb_h * 0.5,
+        tex_lod_k=float(np.float32(config.mip_scale * w_tex * 0.5)),
     )
     p.fc[:] = camera.frustum_center
     p.ax[:] = camera.axis_x
@@ -211,7 +278,8 @@ def render_chunk_cuda(scene: Scene, camera: Camera, config, key: int,
                       s0: int, n_samples: int, state):
     """Accumulate samples ``s0 .. s0+n_samples-1`` of every pixel into
     ``state`` in place (one kernel launch on CUDA tensors; the plain version
-    on CPU tensors). Raises for inputs the kernel does not cover."""
+    on CPU tensors). ``config.schedule`` picks a textured scene's sample
+    schedule. Raises for inputs the kernel does not cover."""
     global LAUNCHES
     check_supported(scene, camera, config)
     if state.device.type != "cuda":
@@ -222,11 +290,13 @@ def render_chunk_cuda(scene: Scene, camera: Camera, config, key: int,
     rays_px = torch.zeros(n, dtype=torch.int32, device=state.device)
     params = _params(scene, camera, config, key, s0, n_samples, state,
                      nan_px, rays_px)
-    name = variant(scene, camera)
+    name = variant(scene, camera, config.schedule)
+    sched = _schedule(scene, config.schedule)
     lib = build()
     stream = torch.cuda.current_stream(state.device).cuda_stream
     err = lib.wave_render(ctypes.byref(params), int(bool(scene.sph_clusters)),
                           int(not camera.use_pinhole),
+                          _TEX_CODE[sched] if sched else 0,
                           ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"wave_kernel ({name}) launch failed: "
@@ -242,10 +312,15 @@ def render_chunk_cuda(scene: Scene, camera: Camera, config, key: int,
 def render_chunk_plain(scene: Scene, camera: Camera, config, key: int,
                        s0: int, n_samples: int, state):
     """The plain PyTorch version of :func:`render_chunk_cuda`, on whatever
-    device the tensors live."""
+    device the tensors live: the lockstep loop for a textured scene under
+    the lockstep schedule, path regeneration otherwise."""
     check_supported(scene, camera, config)
+    variant(scene, camera, config.schedule)  # raises without an instantiation
     pixel_idx = torch.arange(config.width * config.height, device=state.device)
-    render_chunk_wavefront(scene, camera, config, int(key) & 0xFFFF_FFFF, s0,
-                           n_samples, state, pixel_idx)
+    run = (render_chunk_lockstep
+           if _schedule(scene, config.schedule) == "lockstep"
+           else render_chunk_wavefront)
+    run(scene, camera, config, int(key) & 0xFFFF_FFFF, s0, n_samples, state,
+        pixel_idx)
     state.samples_done += n_samples
     return state

@@ -1,4 +1,4 @@
-"""One bounce of the path integrator for opaque, untextured, fog-free scenes.
+"""One bounce of the path integrator for opaque, fog-free scenes.
 
 Counterpart of ``shade_bounce`` and ``russian_roulette`` in
 ``pathtracer_tpu/render/integrator.py`` (RayCast's surface interaction,
@@ -13,19 +13,26 @@ win32_main.cpp:576-792), lane-parallel with masks instead of branches:
 - the reference quirk that PdfCos is evaluated on the raw sample in
   whichever tangent frame produced it;
 - GGX half-vector sampling with the D/pdf cancellation, px = 1;
-- Schlick-metal Fresnel and kd = (1-ks)(1-metalness).
+- Schlick-metal Fresnel and kd = (1-ks)(1-metalness);
+- the combined 4-map texture set (world 1, win32_main.cpp:613-644): a
+  textured material's albedo, and where their ``use_*_maps`` flag is set
+  its metalness, roughness and normal, come from one fused fetch
+  (``ops/texture.py``) at the hit's world xy, at mip level 0 or, with
+  ``mip_scale > 0``, at the level of the hit's footprint.
 
 The material lookup is an indexed gather ``tab[mat]``; the JAX package's
 select sweep and constant-column broadcast are TPU shapes of the same
-lookup. Textures, transmission, fog and bump maps raise.
+lookup. Other texture sets, transmission, fog and bump maps raise.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from ..ops import texture
 from ..ops.intersect import Hit, ray_planar_quad, ray_sphere
 from ..ops.sampling import (
     PI, cosine_hemisphere, from_tangent, ggx_half_vector, orthonormal_basis,
@@ -59,10 +66,25 @@ class BounceOut(NamedTuple):
     shading_normal: Vec3
 
 
-def shade_bounce(scene: Scene, o: Vec3, d: Vec3, hit: Hit, u) -> BounceOut:
+def mip_lod(scene: Scene, t: torch.Tensor, cos_theta_in: torch.Tensor,
+            mip_scale: float) -> torch.Tensor:
+    """Per-lane pyramid level (integrator.py:295-307 in JAX): the texels
+    one pixel covers at distance t, widened by grazing incidence, as the
+    count of levels l >= 1 with footprint >= 2^l."""
+    k = float(np.float32(mip_scale * scene.tex_comb_w * 0.5))
+    fp = t * k / torch.clamp_min(torch.abs(cos_theta_in), 0.1)
+    lod = torch.zeros_like(t, dtype=torch.int32)
+    for lk in range(1, len(scene.tex_mip_meta)):
+        lod = lod + (fp >= 2.0 ** lk).to(torch.int32)
+    return lod
+
+
+def shade_bounce(scene: Scene, o: Vec3, d: Vec3, hit: Hit, u,
+                 mip_scale: float = 0.0) -> BounceOut:
     """Material fetch, estimator selection and BSDF weight for one bounce.
-    ``u`` holds the bounce's BOUNCE_SLOTS (N,) uniforms. Raises for scene
-    features not ported yet (textures, triangles, transmission, fog, bump)."""
+    ``u`` holds the bounce's BOUNCE_SLOTS (N,) uniforms; ``mip_scale > 0``
+    selects a mip level per hit (``--mips``). Raises for scene features not
+    ported yet (triangles, transmission, fog, bump, other texture sets)."""
     missing = scene.unsupported()
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
@@ -84,6 +106,32 @@ def shade_bounce(scene: Scene, o: Vec3, d: Vec3, hit: Hit, u) -> BounceOut:
     metalness = scene.mat_metalness[idx]
     roughness = scene.mat_roughness[idx]
     N = N_geom
+    albedo = gather(scene.mat_albedo, idx)
+
+    # the combined 4-map set (integrator.py:286-334 in JAX); cos_theta_in
+    # and the mirror bounce keep N_geom, everything below takes N
+    if scene.n_textures and scene.tex_combined:
+        if mip_scale and scene.tex_mip_meta:
+            alb_c, met_c, rgh_c, nrm_c = texture.bespoke_sample_combined_mip(
+                scene, hitpoint.x, hitpoint.y,
+                mip_lod(scene, hit.t, cos_theta_in, mip_scale))
+        else:
+            alb_c, met_c, rgh_c, nrm_c = texture.bespoke_sample_combined(
+                scene, hitpoint.x, hitpoint.y)
+        if scene.use_metalness_maps:
+            metalness = torch.where(scene.mat_metalness_idx[idx] != 0, met_c,
+                                    metalness)
+        if scene.use_roughness_maps:
+            roughness = torch.where(scene.mat_roughness_idx[idx] != 0, rgh_c,
+                                    roughness)
+        if scene.use_normal_maps:
+            n_dec = Vec3(2.0 * nrm_c.x - 1.0, 2.0 * nrm_c.y - 1.0,
+                         2.0 * nrm_c.z - 1.0)
+            if scene.tbn_normal_maps:
+                n_dec = from_tangent(n_dec, *orthonormal_basis(N_geom))
+            N = vwhere(scene.mat_normal_idx[idx] != 0,
+                       normalize(n_dec, eps=1e-30), N)
+        albedo = vwhere(scene.mat_albedo_idx[idx] != 0, alb_c, albedo)
 
     ndotv = dot(N, V)
     front_facing = ndotv > 0.0
@@ -165,7 +213,6 @@ def shade_bounce(scene: Scene, o: Vec3, d: Vec3, hit: Hit, u) -> BounceOut:
     kd = Vec3((1.0 - ks.x) * one_m, (1.0 - ks.y) * one_m, (1.0 - ks.z) * one_m)
 
     # brdfTerm (win32_main.cpp:761-773)
-    albedo = gather(scene.mat_albedo, idx)
     brdf_diff = hadamard(kd, albedo) * sdiv(ndotl, PI)
     brdf_spec = ks * brdf_specular_scalar(N, L, V, H, roughness)
     brdf = vwhere(case_a, ks, vwhere(case_b, brdf_spec, brdf_diff))

@@ -36,6 +36,12 @@ class RenderConfig:
     debug_kind: str = REGULAR
     use_russian_roulette: bool = False
     denoise: int = 0             # a-trous iterations: ROADMAP queue 1 item 11
+    # texels per pixel at unit distance for --mips (0 = mip 0 everywhere,
+    # the reference's sampling); the CLI sets it for a scene with a pyramid
+    mip_scale: float = 0.0
+    # sample schedule of a textured scene's kernel, "lockstep" or "regen"
+    # (None: cuda_backend.TEXTURED_SCHEDULE, the faster one on the H100)
+    schedule: Optional[str] = None
 
     @property
     def spp(self) -> int:

@@ -71,7 +71,7 @@ def render_chunk_wavefront(scene: Scene, camera: Camera, config, key: int,
         state.rays_cast += active.sum()
         hit = intersect_scene(scene, o, d)
         u = prng.bounce_uniforms(prng.path_keys(key, pixel_idx, s_abs), bounce)
-        out = shade_bounce(scene, o, d, hit, u)
+        out = shade_bounce(scene, o, d, hit, u, mip_scale=config.mip_scale)
 
         contrib = hadamard(thr, out.emit)
         prad = vwhere(active, prad + contrib, prad)

@@ -15,7 +15,7 @@ from ..render.renderer import AccumState
 from ..utils.vec import Vec3
 from .schema import (
     STATIC_FIELDS, TENSOR_FIELDS, VEC_FIELDS, Scene, bake_quad_normals,
-    cluster_tables,
+    cluster_tables, mip_table,
 )
 
 
@@ -32,8 +32,9 @@ def scene_from_numpy(fields: dict, statics: dict) -> Scene:
     """JAX scene leaves (by field name) and statics -> a CPU port Scene.
     Fields and statics the port does not read are ignored; a missing
     ``quad_n`` (hand-built JAX scenes) is baked from ``quad_u``/``quad_v``.
-    The cluster-ordered ``csph_*`` tables come across as they are, and the
-    kernel's cluster tables are derived from the ``sph_clusters`` static."""
+    The cluster-ordered ``csph_*`` tables and the combined texture tables
+    come across as they are; the kernel's cluster and mip tables are
+    derived from the ``sph_clusters`` and ``tex_mip_meta`` statics."""
     kw = {k: _vec(fields[k]) for k in VEC_FIELDS
           if k != "quad_n" or fields.get(k) is not None}
     if "quad_n" not in kw:
@@ -41,6 +42,7 @@ def scene_from_numpy(fields: dict, statics: dict) -> Scene:
     kw.update({k: _tensor(fields[k]) for k in TENSOR_FIELDS})
     kw.update({k: statics[k] for k in STATIC_FIELDS if k in statics})
     kw.update(cluster_tables(kw.get("sph_clusters", ())))
+    kw.update(mip_table(kw.get("tex_mip_meta", ())))
     return Scene(**kw)
 
 

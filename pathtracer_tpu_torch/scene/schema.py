@@ -2,7 +2,8 @@
 
 Counterpart of ``pathtracer_tpu/scene/schema.py`` for the fields the port
 reads: materials, spheres, quads (with the baked unit normal ``quad_n``),
-planes and the always-empty box table, plus the static counts and flags.
+planes, the always-empty box table and the combined texture set, plus the
+static counts and flags.
 The numpy :class:`WorldBuilder` pads exactly as the JAX builder does
 (materials to a multiple of 128, primitives to 16), so a port scene and a
 converted JAX scene hold the same tables (``scene/convert.py``).
@@ -12,6 +13,16 @@ cluster order (``csph_*``, padded to a multiple of 128, as in JAX) with its
 cluster descriptors: the static tuple ``sph_clusters`` and, for the
 kernel, the small ``cl_*`` tables (offset, count, bounds, huge flag) that
 :func:`cluster_tables` derives from it.
+
+Textures: the reference's canonical 4-map set (four equal-size maps, every
+material's indices all 0 or exactly (1, 2, 3, 4): world 1) packs into two
+int32 words per texel, A = albedo.rgb | metalness << 24 and B = normal.rgb
+| roughness << 24, kept flat (``tex_comb_a/b``) and tiled (``tex_tile``:
+one 128-word row per 8x8-texel tile, A and B of a texel in adjacent words
+at ``((y & 7) * 8 + (x & 7)) * 2``). A square power-of-two set also gets
+its mip pyramid, level 0 first, described by the static ``tex_mip_meta``
+rows ``(row_off, tiles_x, word_off, w, h)`` and, for the kernel, the int32
+table ``tex_mip`` (:func:`mip_table`). Other texture sets are not ported.
 
 Conventions kept from the reference: material 0 is the sky and a miss
 reports material 0; ``spheres[0]`` is the light the next-event estimator
@@ -27,6 +38,7 @@ import torch
 
 from ..utils.vec import Vec3
 from . import clusters
+from . import textures as textures_mod
 
 # Reference constants (win32_main.cpp:86-95).
 MAX_BOUNCE_COUNT = 4
@@ -73,16 +85,20 @@ TENSOR_FIELDS = (
     "pln_d", "pln_mat", "pln_mask",
     "box_mat", "box_mask",
     "csph_radius", "csph_mat",
+    "tex_tile", "tex_comb_a", "tex_comb_b",
 )
 STATIC_FIELDS = (
     "n_spheres", "n_quads", "n_planes", "n_tris", "n_boxes", "n_materials",
     "n_textures", "quad_light", "just_cosine", "any_transmissive",
     "any_dispersive", "any_bump", "has_mesh_uvs", "fog_sigma_t",
     "sph_clusters",
+    "tex_combined", "tex_comb_w", "tex_comb_h", "tex_tiles_x",
+    "tex_mip_meta", "use_normal_maps", "use_metalness_maps",
+    "use_roughness_maps", "tbn_normal_maps",
 )
-# Kernel tables derived from ``sph_clusters`` (cluster_tables).
-CLUSTER_VEC_FIELDS = ("cl_min", "cl_max")
-CLUSTER_TENSOR_FIELDS = ("cl_offset", "cl_count", "cl_huge")
+# Kernel tables derived from statics (cluster_tables, mip_table).
+DERIVED_VEC_FIELDS = ("cl_min", "cl_max")
+DERIVED_TENSOR_FIELDS = ("cl_offset", "cl_count", "cl_huge", "tex_mip")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -140,6 +156,12 @@ class Scene:
     cl_max: Vec3
     cl_huge: torch.Tensor
 
+    # the combined texture set ((1,)/(1, 128) dummies without one)
+    tex_tile: torch.Tensor      # (rows, 128) int32, 8x8-texel tiles, A/B
+    tex_comb_a: torch.Tensor    # flat A words, every level in order
+    tex_comb_b: torch.Tensor    # flat B words
+    tex_mip: torch.Tensor       # (levels or 1, 5) int32 = tex_mip_meta
+
     n_spheres: int = 0
     n_quads: int = 0
     n_planes: int = 0
@@ -156,6 +178,18 @@ class Scene:
     fog_sigma_t: float = 0.0
     # (offset, count, mn3 | None, mx3 | None) over csph_*; huge first
     sph_clusters: tuple = ()
+    tex_combined: bool = False
+    tex_comb_w: int = 1
+    tex_comb_h: int = 1
+    tex_tiles_x: int = 1
+    # per level (row_off, tiles_x, word_off, w, h); () = no pyramid
+    tex_mip_meta: tuple = ()
+    # -n -m -r turn the maps off (win32_main.cpp:2173-2178); --tbn rotates
+    # the decoded normal into the geometric frame instead of replacing N
+    use_normal_maps: bool = True
+    use_metalness_maps: bool = True
+    use_roughness_maps: bool = True
+    tbn_normal_maps: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -164,9 +198,9 @@ class Scene:
     def to(self, device) -> "Scene":
         """The same scene with every table on ``device``."""
         moved = {k: Vec3(*(c.to(device).contiguous() for c in getattr(self, k)))
-                 for k in VEC_FIELDS + CLUSTER_VEC_FIELDS}
+                 for k in VEC_FIELDS + DERIVED_VEC_FIELDS}
         moved.update({k: getattr(self, k).to(device).contiguous()
-                      for k in TENSOR_FIELDS + CLUSTER_TENSOR_FIELDS})
+                      for k in TENSOR_FIELDS + DERIVED_TENSOR_FIELDS})
         return dataclasses.replace(self, **moved)
 
     def without_clusters(self) -> "Scene":
@@ -180,8 +214,9 @@ class Scene:
         """Names of the features this scene uses that the port has not yet
         ported (empty when the slice covers it)."""
         out = []
-        if self.n_textures:
-            out.append("textures (ROADMAP queue 1 item 9)")
+        if self.n_textures and not self.tex_combined:
+            out.append("textures outside the combined 4-map set (K10/K11, "
+                       "ROADMAP queue 2 item 1)")
         if self.n_tris:
             out.append("triangle meshes (ROADMAP queue 1 item 10)")
         if self.any_transmissive or self.any_dispersive:
@@ -251,6 +286,90 @@ def cluster_tables(sph_clusters: tuple) -> dict:
     )
 
 
+def mip_table(tex_mip_meta: tuple) -> dict:
+    """The kernel's copy of the static pyramid rows (a CPU int32 tensor of
+    at least one row)."""
+    rows = tex_mip_meta or ((0, 1, 0, 1, 1),)
+    return dict(tex_mip=torch.tensor(rows, dtype=torch.int32))
+
+
+def combined_texture_set(textures: list, materials: list) -> dict:
+    """The combined-set tables and statics for the host texture list, as
+    JAX's WorldBuilder packs them (schema.py:742-823), or the dummies when the
+    list is not the canonical 4-map set."""
+    i32 = np.int32
+    combined = (
+        len(textures) == 4
+        and len({t.shape[:2] for t in textures}) == 1
+        and all((m.albedo_idx, m.metalness_idx, m.roughness_idx,
+                 m.normal_idx) in ((0, 0, 0, 0), (1, 2, 3, 4))
+                for m in materials))
+    if not combined:
+        return dict(tex_tile=torch.zeros((1, 128), dtype=torch.int32),
+                    tex_comb_a=torch.zeros((1,), dtype=torch.int32),
+                    tex_comb_b=torch.zeros((1,), dtype=torch.int32),
+                    **mip_table(()), tex_combined=False, tex_comb_w=1,
+                    tex_comb_h=1, tex_tiles_x=1, tex_mip_meta=())
+    alb, mtl, rgh, nrm = (np.clip(np.round(t * 255.0), 0, 255).astype(np.int64)
+                          for t in textures)
+    comb_a = (alb[..., 0] | (alb[..., 1] << 8) | (alb[..., 2] << 16)
+              | (mtl[..., 0] << 24))
+    comb_b = (nrm[..., 0] | (nrm[..., 1] << 8) | (nrm[..., 2] << 16)
+              | (rgh[..., 0] << 24))
+    # the top byte wraps into the int32 sign
+    comb_a = comb_a.astype(np.uint32).astype(np.int64).astype(i32)
+    comb_b = comb_b.astype(np.uint32).astype(np.int64).astype(i32)
+    ch, cw = textures[0].shape[:2]
+    tiles_x = -(-cw // 8)
+
+    def level_tables(a2, b2):
+        """One level's (tile rows, 128) table and its tile columns."""
+        hh, ww = a2.shape
+        hp, wp = -(-hh // 8) * 8, -(-ww // 8) * 8
+        pa = np.zeros((hp, wp), i32)
+        pb = np.zeros((hp, wp), i32)
+        pa[:hh, :ww], pb[:hh, :ww] = a2, b2
+        tx = wp // 8
+
+        def tile64(m):  # (hp, wp) -> (tiles, 64) in tile-major order
+            return (m.reshape(hp // 8, 8, tx, 8)
+                    .transpose(0, 2, 1, 3).reshape(-1, 64))
+
+        t = np.zeros((hp // 8 * tx, 128), i32)
+        t[:, 0::2] = tile64(pa)
+        t[:, 1::2] = tile64(pb)
+        return t, tx
+
+    # A square pow2 set gets its pyramid: GenerateMipmapChain's even-texel
+    # decimation of the packed words, level 0 leading every table.
+    mip_meta = ()
+    if ch == cw and ch >= 8 and (ch & (ch - 1)) == 0:
+        chain_a = textures_mod.generate_mipmap_chain(comb_a)
+        chain_b = textures_mod.generate_mipmap_chain(comb_b)
+        metas, tiled_parts = [], []
+        row_off = word_off = 0
+        for a_l, b_l in zip(chain_a, chain_b):
+            t_l, tx_l = level_tables(a_l, b_l)
+            wl = a_l.shape[0]
+            metas.append((row_off, tx_l, word_off, wl, wl))
+            tiled_parts.append(t_l)
+            row_off += t_l.shape[0]
+            word_off += wl * wl
+        mip_meta = tuple(metas)
+        tiled = np.concatenate(tiled_parts)
+        comb_a = np.concatenate([a.reshape(-1) for a in chain_a])
+        comb_b = np.concatenate([b.reshape(-1) for b in chain_b])
+    else:
+        tiled, tiles_x = level_tables(comb_a, comb_b)
+    return dict(tex_tile=torch.from_numpy(np.ascontiguousarray(tiled)),
+                tex_comb_a=torch.from_numpy(np.ascontiguousarray(
+                    comb_a.reshape(-1))),
+                tex_comb_b=torch.from_numpy(np.ascontiguousarray(
+                    comb_b.reshape(-1))),
+                **mip_table(mip_meta), tex_combined=True, tex_comb_w=cw,
+                tex_comb_h=ch, tex_tiles_x=tiles_x, tex_mip_meta=mip_meta)
+
+
 def _mask_table(n: int, pad_to: int):
     m = np.zeros((pad_to,), bool)
     m[:n] = True
@@ -271,13 +390,14 @@ def bake_quad_normals(u: Vec3, v: Vec3) -> Vec3:
 
 
 class WorldBuilder:
-    """Host-side scene assembly for spheres, quads and planes."""
+    """Host-side scene assembly for spheres, quads, planes and textures."""
 
     def __init__(self):
         self.materials: list[HostMaterial] = []
         self.spheres: list[tuple] = []      # (center, radius, mat)
         self.quads: list[tuple] = []        # (point, u, v, mat)
         self.planes: list[tuple] = []       # (n, d, mat)
+        self.textures: list[np.ndarray] = []  # (H, W, 3) float32 each
         self.quad_light: int = -1
 
     def add_material(self, **kw) -> int:
@@ -302,6 +422,11 @@ class WorldBuilder:
         self.planes.append((tuple(n), float(d), int(mat)))
         return len(self.planes) - 1
 
+    def add_texture(self, data: np.ndarray) -> int:
+        """Returns the 1-based texture index the material *_idx fields use."""
+        self.textures.append(np.asarray(data, np.float32))
+        return len(self.textures)
+
     def _sphere_clusters(self, view_origin):
         """(csph center, radius, mat, clusters) as in the JAX builder: the
         spheres in cluster order, padded to a multiple of 128."""
@@ -321,10 +446,13 @@ class WorldBuilder:
         return c, r, m, sph_clusters
 
     def finalize(self, world_kind: int = WORLD_DEFAULT,
+                 use_normal_maps: bool = True,
+                 use_metalness_maps: bool = True,
+                 use_roughness_maps: bool = True,
                  view_origin=None) -> Scene:
         """Host lists -> padded CPU Scene (``Scene.to`` moves it).
         ``view_origin`` (the camera position) orders sphere clusters
-        near-to-far."""
+        near-to-far; the ``use_*_maps`` flags are the CLI's -n -m -r."""
         mats = self.materials
         M = _pad(len(mats), 128)
         S, Q, P = _pad(len(self.spheres)), _pad(len(self.quads)), _pad(len(self.planes))
@@ -371,15 +499,20 @@ class WorldBuilder:
             csph_radius=torch.from_numpy(csph_r),
             csph_mat=torch.from_numpy(csph_m),
             **cluster_tables(sph_clusters),
+            **combined_texture_set(self.textures, mats),
             sph_clusters=sph_clusters,
             n_spheres=len(self.spheres),
             n_quads=len(self.quads),
             n_planes=len(self.planes),
             n_materials=len(mats),
+            n_textures=len(self.textures),
             quad_light=self.quad_light,
             just_cosine=(world_kind == WORLD_RAYTRACING_ONE_WEEKEND),
             any_transmissive=any(m.transmission > 0.0 for m in mats),
             any_dispersive=any(m.transmission > 0.0 and m.dispersion > 0.0
                                for m in mats),
             any_bump=any(m.bump_idx != 0 for m in mats),
+            use_normal_maps=use_normal_maps,
+            use_metalness_maps=use_metalness_maps,
+            use_roughness_maps=use_roughness_maps,
         )

@@ -1,13 +1,15 @@
 """Built-in worlds (LoadWorld, reference win32_main.cpp:1788-2074).
 
 Counterpart of ``pathtracer_tpu/scene/worlds.py`` for the worlds whose
-scenes the port covers: the Cornell box (``-w3``), the Cornell box with a
-quad area light (``-w6``), the metal/roughness sphere grid (``-w2``) and
-the "Ray Tracing in One Weekend" cover (``-w4``: 484 spheres from a seeded
+scenes the port covers: the default world (``-w1``: sun, a textured
+ground sphere carrying the four rusty-metal maps, three spheres), the
+Cornell box (``-w3``), the Cornell box with a quad area light (``-w6``),
+the metal/roughness sphere grid (``-w2``) and the "Ray Tracing in One
+Weekend" cover (``-w4``: 484 spheres from a seeded
 ``np.random.RandomState``, the forced thin lens). Material order, sphere
-order (``spheres[0]`` is the NEE light), random draws and camera
-parameters are the JAX builders', line for line. The other worlds need
-textures or meshes and raise ``NotImplementedError``.
+order (``spheres[0]`` is the NEE light), random draws, textures and camera
+parameters are those of the JAX worlds, line for line. The worlds with meshes
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Tuple
 
 import numpy as np
 
+from . import textures as tex_mod
 from .camera import Camera, define_camera
 from .schema import (
     Scene, WorldBuilder,
@@ -27,7 +30,6 @@ from .schema import (
 
 # World kinds not yet ported, with the ROADMAP item that brings them.
 _NOT_PORTED = {
-    WORLD_DEFAULT: "world 1 needs textures (ROADMAP queue 1 item 9)",
     WORLD_MARIO: "world 5 needs triangle meshes (ROADMAP queue 1 item 10)",
     WORLD_MESH_UV: "world 7 needs meshes and textures "
                    "(ROADMAP queue 1 items 9-10)",
@@ -109,9 +111,12 @@ def _rtiow_cover(b: WorldBuilder, cam: CameraParams, rtiow_seed: int):
 
 
 def build_world(kind: int, use_pinhole: bool = True,
-                rtiow_seed: int = 1337) -> Tuple[WorldBuilder, CameraParams]:
+                rtiow_seed: int = 1337,
+                res_dir: str = tex_mod.REFERENCE_RES_DIR,
+                ) -> Tuple[WorldBuilder, CameraParams]:
     """LoadWorld for the ported worlds: the host builder and the camera
-    parameters before derivation. ``rtiow_seed`` seeds world 4's layout."""
+    parameters before derivation. ``rtiow_seed`` seeds world 4's layout;
+    ``res_dir`` holds world 1's PNGs (procedural stand-ins where absent)."""
     if not (0 <= kind < WORLD_KIND_COUNT):
         raise ValueError(f"world kind {kind} out of range")
     if kind in _NOT_PORTED:
@@ -120,7 +125,32 @@ def build_world(kind: int, use_pinhole: bool = True,
     b = WorldBuilder()
     cam = CameraParams(use_pinhole=use_pinhole)
 
-    if kind == WORLD_CORNELL_BOX:
+    if kind == WORLD_DEFAULT:
+        # win32_main.cpp:1809-1842
+        _add_sky(b, (65 / 255.0, 108 / 255.0, 162 / 255.0))
+        _add_sun(b)
+
+        plane_mat = b.add_material(
+            albedo_idx=1, metalness_idx=2,
+            metal_color=(0.562, 0.565, 0.578),
+            roughness_idx=3, normal_idx=4,
+        )
+        b.add_sphere((0.0, 0.0, -1000.0), 1000.0, plane_mat)  # textured ground
+
+        for t in tex_mod.load_bespoke_textures(res_dir):
+            b.add_texture(t)
+
+        m = b.add_material(albedo=(0.7, 0.25, 0.3), roughness=0.0)
+        b.add_sphere((0.0, 0.0, 0.0), 1.0, m)
+        m = b.add_material(albedo=(0.0, 0.8, 0.0), metalness=0.8,
+                           metal_color=(0.562, 0.565, 0.578), roughness=0.0)
+        b.add_sphere((-2.0, 0.0, 2.0), 1.0, m)
+        m = b.add_material(albedo=(0.3, 0.25, 0.7), roughness=0.0)
+        b.add_sphere((-1.0, -5.0, 0.0), 1.0, m)
+
+        cam.fov = 30.0
+
+    elif kind == WORLD_CORNELL_BOX:
         # win32_main.cpp:1844-1901
         _add_sky(b, (0.0, 0.0, 0.0))
         left, right, bottom, top, front, back = 0.0, 800.0, 0.0, 555.0, 0.0, 555.0
@@ -202,12 +232,21 @@ def build_world(kind: int, use_pinhole: bool = True,
 
 def finalize_world(kind: int, image_width: int, image_height: int,
                    use_pinhole: bool = True,
-                   rtiow_seed: int = 1337) -> Tuple[Scene, Camera]:
+                   use_normal_maps: bool = True,
+                   use_metalness_maps: bool = True,
+                   use_roughness_maps: bool = True,
+                   rtiow_seed: int = 1337,
+                   res_dir: str = tex_mod.REFERENCE_RES_DIR,
+                   ) -> Tuple[Scene, Camera]:
     """Build world ``kind`` (a CPU Scene) and derive its camera for the
     given image size; ``use_pinhole=False`` selects the thin lens (world 4
-    always uses it)."""
-    b, cam = build_world(kind, use_pinhole=use_pinhole, rtiow_seed=rtiow_seed)
-    scene = b.finalize(world_kind=kind, view_origin=cam.pos)
+    always uses it) and the ``use_*_maps`` flags are the CLI's -n -m -r."""
+    b, cam = build_world(kind, use_pinhole=use_pinhole, rtiow_seed=rtiow_seed,
+                         res_dir=res_dir)
+    scene = b.finalize(world_kind=kind, use_normal_maps=use_normal_maps,
+                       use_metalness_maps=use_metalness_maps,
+                       use_roughness_maps=use_roughness_maps,
+                       view_origin=cam.pos)
     camera = define_camera(
         cam.pos, cam.target, cam.fov, image_width, image_height,
         use_pinhole=cam.use_pinhole,

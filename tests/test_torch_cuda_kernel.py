@@ -10,6 +10,8 @@ counts within 0.5%. Both sides evaluate the same float32 expressions
 without contraction; only sin/cos ulps could flip a discrete choice.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -19,6 +21,9 @@ from pathtracer_tpu_torch.scene import schema as tschema
 from pathtracer_tpu_torch.scene import worlds as tworlds
 
 W4 = tschema.WORLD_RAYTRACING_ONE_WEEKEND
+W1 = tschema.WORLD_DEFAULT
+NO_MAPS = dict(use_normal_maps=False, use_metalness_maps=False,
+               use_roughness_maps=False)
 
 pytestmark = pytest.mark.cuda
 
@@ -31,12 +36,14 @@ def cuda():
 
 
 def _pair(dev, kind, w, h, pp, n, use_pinhole=True, brute=False,
-          variant=None, **cfg_kw):
+          variant=None, schedule=None, statics=None, **cfg_kw):
     scene, cam = tworlds.finalize_world(kind, w, h, use_pinhole=use_pinhole)
+    scene = dataclasses.replace(scene, **(statics or {}))
     scene = (scene.without_clusters() if brute else scene).to(dev)
-    cfg = trenderer.RenderConfig(w, h, pp=pp, seed=0, **cfg_kw)
+    cfg = trenderer.RenderConfig(w, h, pp=pp, seed=0, schedule=schedule,
+                                 **cfg_kw)
     if variant is not None:
-        assert cuda_backend.variant(scene, cam) == variant
+        assert cuda_backend.variant(scene, cam, schedule) == variant
     before = cuda_backend.LAUNCHES
     k = cuda_backend.render_chunk_cuda(scene, cam, cfg, 0, 0, n,
                                        trenderer.init_accum(w * h, dev))
@@ -76,6 +83,50 @@ def test_kernel_variants_match_plain(cuda, kind, pinhole, brute, variant):
     _assert_verify_gates(*_pair(cuda, kind, 256, 144, 2, 4,
                                 use_pinhole=pinhole, brute=brute,
                                 variant=variant))
+
+
+def _mip_scale(w, h):
+    _, cam = tworlds.finalize_world(W1, w, h)
+    return 2.0 * cam.half_film_height / (h * cam.focal_length)
+
+
+@pytest.mark.parametrize("schedule, pinhole, statics, mips, rr", [
+    ("lockstep", True, None, False, False),
+    ("regen", True, None, False, False),
+    (None, False, None, False, False),                      # textured lens
+    ("lockstep", True, None, True, False),                  # --mips
+    ("regen", True, None, True, False),
+    ("lockstep", True, dict(tbn_normal_maps=True), False, False),  # --tbn
+    ("regen", True, dict(tbn_normal_maps=True), False, True),
+    ("lockstep", True, NO_MAPS, False, True),               # -nmr, --rr
+])
+def test_textured_kernel_matches_plain(cuda, schedule, pinhole, statics,
+                                       mips, rr):
+    """World 1 at 64x36 through the textured variants, each schedule
+    against its plain version (lockstep: render/lockstep.py; regen:
+    render/wavefront.py)."""
+    scene, cam = tworlds.finalize_world(W1, 64, 36, use_pinhole=pinhole)
+    want = cuda_backend.variant(scene, cam, schedule)
+    assert want.startswith("textured")
+    _assert_verify_gates(*_pair(
+        cuda, W1, 64, 36, 2, 4, use_pinhole=pinhole, variant=want,
+        schedule=schedule, statics=statics,
+        mip_scale=_mip_scale(64, 36) if mips else 0.0,
+        use_russian_roulette=rr))
+
+
+def test_textured_schedules_agree(cuda):
+    """Both textured schedules accumulate the same image."""
+    scene, cam = tworlds.finalize_world(W1, 64, 36)
+    scene = scene.to(cuda)
+    out = []
+    for schedule in ("lockstep", "regen"):
+        cfg = trenderer.RenderConfig(64, 36, pp=2, seed=0, schedule=schedule)
+        out.append(cuda_backend.render_chunk_cuda(
+            scene, cam, cfg, 0, 0, 4, trenderer.init_accum(64 * 36, cuda)))
+    assert torch.equal(trenderer.resolve(out[0], cfg),
+                       trenderer.resolve(out[1], cfg))
+    assert int(out[0].rays_cast) == int(out[1].rays_cast)
 
 
 def test_clustered_kernel_equals_brute_kernel(cuda):

@@ -3,6 +3,7 @@ CUDA request without a card raises, and the CUDA wrapper refuses what its
 kernel does not cover instead of running the plain version."""
 
 import ctypes
+import dataclasses
 import os
 import re
 import subprocess
@@ -60,9 +61,16 @@ def test_render_image_cuda_without_card_raises():
 
 
 def _textured_scene():
-    js, cam = jworlds.finalize_world(tschema.WORLD_DEFAULT, 8, 8)
-    scene = jax_scene_to_port(js)
-    assert scene.n_textures > 0
+    """World 1 with one map dropped: a texture set other than the combined
+    4-map one (K10/K11, not ported)."""
+    b, _ = jworlds.build_world(tschema.WORLD_DEFAULT)
+    b.textures = b.textures[:3]
+    for m in b.materials:
+        if m.normal_idx:
+            m.normal_idx = 0
+    _, cam = jworlds.finalize_world(tschema.WORLD_DEFAULT, 8, 8)
+    scene = jax_scene_to_port(b.finalize(view_origin=cam.pos))
+    assert scene.n_textures == 3 and not scene.tex_combined
     return scene, cam
 
 
@@ -80,6 +88,20 @@ def test_cuda_wrapper_refuses_textured_scene(monkeypatch):
                                        trenderer.RenderConfig(8, 8, pp=1),
                                        0, 0, 1, trenderer.init_accum(64))
     assert cuda_backend.LAUNCHES == launches
+
+
+def test_cuda_wrapper_refuses_textured_clustered_scene():
+    """A combined texture set with sphere clusters has no instantiation."""
+    scene, cam = tworlds.finalize_world(tschema.WORLD_DEFAULT, 8, 8)
+    w2, _ = tworlds.finalize_world(tschema.WORLD_BRDF_TEST, 8, 8)
+    scene = dataclasses.replace(
+        scene, sph_clusters=w2.sph_clusters,
+        **{k: getattr(w2, k) for k in ("cl_offset", "cl_count", "cl_min",
+                                       "cl_max", "cl_huge")})
+    with pytest.raises(NotImplementedError, match="sphere clusters"):
+        cuda_backend.render_chunk_cuda(scene, cam,
+                                       trenderer.RenderConfig(8, 8, pp=1),
+                                       0, 0, 1, trenderer.init_accum(64))
 
 
 @pytest.mark.parametrize("cfg, match", [
@@ -121,10 +143,13 @@ def test_cpu_wrapper_runs_plain_version():
     (tschema.WORLD_CORNELL_BOX, False, "brute_lens"),
     (tschema.WORLD_BRDF_TEST, True, "clustered_pinhole"),
     (tschema.WORLD_RAYTRACING_ONE_WEEKEND, True, "clustered_lens"),
+    (tschema.WORLD_DEFAULT, True, "textured_pinhole"),
+    (tschema.WORLD_DEFAULT, False, "textured_lens"),
 ])
 def test_kernel_variant_by_scene_and_camera(kind, pinhole, want):
-    """The wrapper picks the clustered walk from the scene's clusters and
-    the thin lens from the camera (world 4 forces it)."""
+    """The wrapper picks the textured kernel from a combined texture set,
+    the clustered walk from the scene's clusters and the thin lens from
+    the camera (world 4 forces it)."""
     scene, cam = tworlds.finalize_world(kind, 8, 8, use_pinhole=pinhole)
     assert cuda_backend.variant(scene, cam) == want
     assert want in cuda_backend.VARIANTS

@@ -92,19 +92,22 @@ def test_quad_light_and_sphere_light():
     assert float(s3.sph_radius[0]) == 65.0  # spheres[0] is the light
 
 
-@pytest.mark.parametrize("kind", [tschema.WORLD_DEFAULT,
-                                  tschema.WORLD_MARIO, tschema.WORLD_MESH_UV])
+@pytest.mark.parametrize("kind", [tschema.WORLD_MARIO, tschema.WORLD_MESH_UV])
 def test_unported_worlds_raise(kind):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tworlds.finalize_world(kind, 8, 8)
 
 
 def test_thin_lens_raises():
-    """The thin lens is ported; world 1 with it still raises, on its
-    textures."""
-    with pytest.raises(NotImplementedError, match="textures"):
-        tworlds.finalize_world(tschema.WORLD_DEFAULT, 8, 8,
-                               use_pinhole=False)
+    """The thin lens is ported on world 1 too; only the textured kernel
+    under its yardstick schedule, instantiated for the pinhole alone,
+    refuses it."""
+    from pathtracer_tpu_torch.render import cuda_backend
+    scene, cam = tworlds.finalize_world(tschema.WORLD_DEFAULT, 8, 8,
+                                        use_pinhole=False)
+    assert not cam.use_pinhole and scene.unsupported() == []
+    with pytest.raises(NotImplementedError, match="pinhole only"):
+        cuda_backend.variant(scene, cam, cuda_backend.OTHER_SCHEDULE)
 
 
 @pytest.mark.parametrize("kind", WORLDS)
