@@ -5,31 +5,36 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and no network,
 and it imports nothing of JAX.
 
-The render kernel csrc/wave_kernel.cu has seven compile-time variants
+The render kernel csrc/wave_kernel.cu has ten compile-time variants
 (cuda_backend.VARIANTS), instantiations of one template in one build:
 untextured, the brute sphere sweep or the clustered walk (K5/K6), each with
 the pinhole or the thin-lens primary ray; textured (world 1's combined
 4-map fetch, K9), the pinhole and the lens under the main sample schedule
 (cuda_backend.TEXTURED_SCHEDULE) and the pinhole under the other one (K3
-lockstep or K2 regen), its yardstick.
+lockstep or K2 regen), its yardstick; mesh (world 7's streamed triangle
+walk K7 with the mesh-UV texel fetch K10), the pinhole and the lens under
+cuda_backend.MESH_SCHEDULE and the pinhole under the other one.
 
 Phases (each prints its measured values on its own line; any failure raises
 and the script exits non-zero):
   1. device: the card's name and power limit;
   2. build: compiles csrc/wave_kernel.cu (one nvcc), prints the seconds,
-     ptxas's registers and spills for each variant and, from cuobjdump,
-     the count of BSSY/BSYNC/WARPSYNC instructions in each variant's SASS
-     (``--sass DIR`` also writes the full SASS there);
+     ptxas's registers and spills for each variant (and whether the seven
+     earlier variants kept the values they were built at before the mesh
+     variants came) and, from cuobjdump, the count of BSSY/BSYNC/WARPSYNC
+     instructions in each variant's SASS (``--sass DIR`` also writes the
+     full SASS there);
   3. kernel vs plain: render_chunk on CUDA tensors (the kernel) against
      render_chunk_plain (eager PyTorch) on the same inputs, gated like
      bench.py --verify (fewer than 1% of pixels with resolved |diff| > 1e-3
      and 0.1% with |diff| > 0.1, equal valid counts, rays within 0.5%):
      worlds 3 and 6 at 256x144 16 spp; worlds 4 and 2 and world 3 with the
      thin lens at 256x144 4 spp; world 1 at 256x144 4 spp under both
-     schedules, with -d, --mips, --tbn and -nmr; every main path of phase
-     4 at its own 1280x720 and spp; world 4 at pp=4 (16 spp, the CLI's
-     default) and at pp=12 over samples 12-23, which together reach all 12
-     slots of the kernel's Poisson-disk table;
+     schedules, with -d, --mips, --tbn and -nmr; world 7 at 256x144 4 spp
+     under both schedules and with -d; every main path of phase 4 at its
+     own 1280x720 and spp (world 7's default command, 16 spp, at 4); world
+     4 at pp=4 (16 spp, the CLI's default) and at pp=12 over samples 12-23,
+     which together reach all 12 slots of the kernel's Poisson-disk table;
   4. main paths, each through the entry point a user calls, at 1280x720
      with the launch counts set to 0 just before it and read just after:
      a. the Cornell box (-w3), 1 sample, seed 0, against the committed CPU
@@ -38,25 +43,32 @@ and the script exits non-zero):
      b. world 4 (-w4: 484 clustered spheres, thin lens), 4 spp: a finite
         image; writes test_w4.bmp;
      c. world 2 (-w2, clustered pinhole) and world 3 with -d (brute thin
-        lens), 1 sample each; world 1 with -d (textured lens) and world 1
-        under the other schedule, 4 samples each: finite images;
+        lens), 1 sample each; worlds 1 and 7 with -d (textured and mesh
+        lens) and under their other schedule, 4 samples each: finite
+        images;
      d. the default command, cli.main(["--out", "test_w1.bmp"]): world 1,
         16 spp, through the textured kernel; a finite, non-black image;
+     e. cli.main(["-w7", "--out", "test_w7.bmp"]): world 7, 16 spp, through
+        the mesh kernel; a finite, non-black image;
   5. timing (CUDA events, synchronised; no speed gate): every variant and
      its plain version at 1280x720 4 spp; world 3 at 256 spp and world 1
      at 16 spp, kernel alone and end to end through render_image; worlds
-     3, 6 and 4 at 64 spp; world 1 at 64 spp under both schedules,
-     alternating, and with --mips; world 2 at 64 spp clustered against
-     the same scene with its clusters dropped (brute), alternating;
+     3, 6 and 4 at 64 spp; worlds 1 and 7 at 64 spp under both schedules,
+     alternating (world 7 also end to end through render_image), and world
+     1 with --mips; world 2 at 64 spp clustered against the same scene with
+     its clusters dropped (brute), alternating;
   6. bounds: the least time the card could take for each variant's 4-spp
      launch, from FP32 operations counted off the kernel's code and the
-     bytes it must move (accumulators; for world 1 also the texture
-     table). For the clustered variants the slab and sphere tests are
-     counted over every ray of the same 4-spp render: the plain version
-     renders it, and each bounce's live rays replay the kernel's
-     per-thread walk with the port's ray_slab_entry. For the textured
-     variants the fetches are counted the same way: every shaded hit on a
-     textured material whose path continues (a lower count).
+     bytes it must move (accumulators; for worlds 1 and 7 also the texture
+     and mesh tables). For the clustered variants the slab and sphere tests
+     are counted over every ray of the same 4-spp render: the plain version
+     renders it, and each bounce's live rays replay the kernel's per-thread
+     walk with the port's ray_slab_entry. For the mesh variants the parent,
+     cluster and row box tests, the triangle tests and the triangle wins
+     are counted the same way, with the port's box test and record tests.
+     For the textured and mesh variants the fetches are counted over every
+     shaded hit on a textured material (mesh: with a UV winner) whose path
+     continues (a lower count).
 
 The last two lines are the kernel table as JSON and the result line
 {"ok": true, "device": {...}}.
@@ -99,6 +111,17 @@ OPS_SHADE = 226     # shade_surface, diffuse branch (the common one)
 # (14), 32 texel channels unpacked (64), 8 bilinear blends (74), the normal
 # decode and normalize (17), the map selects (5)
 OPS_TEX = 174
+# K7 in mesh_walk, per triangle test: the three dots of denom, t and the
+# two barycentrics' four (20 mul, 14 add), the sub, select and division of
+# t, two subs, two muls and two adds of alpha and beta, and six compares
+# with the alpha + beta add (47); per box test (parent, cluster or row) as
+# OPS_SLAB; the winner's uv (4 mul, 4 add)
+OPS_TRI = 47
+OPS_MESH_UV = 8
+# K10 in shade_surface, per mesh-UV fetch: abs, int->float and fractions
+# with their clamps (10), 12 channels unpacked (24), three bilinear blends
+# (36), the albedo product (3)
+OPS_STACK = 73
 BYTES_PER_PIXEL = 64  # 28 B of sums read, 36 B of sums and counters written
 
 
@@ -115,19 +138,26 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-KERNEL_RE = r"wave_kernelILb([01])ELb([01])ELi([0-9])E"
+KERNEL_RE = r"wave_kernelILb([01])ELb([01])ELi([0-9])ELi([0-9])E"
+# ptxas's registers and spill bytes of the seven variants as they were built
+# before the mesh variants were added (PERF.md's findings)
+EARLIER_PTXAS = {"brute_pinhole": (64, 0), "brute_lens": (72, 16),
+                 "clustered_pinhole": (64, 0), "clustered_lens": (64, 16),
+                 "textured_pinhole": (64, 68), "textured_lens": (64, 60),
+                 "textured_pinhole_regen": (87, 0)}
 
 
 def variant_of(mangled: re.Match) -> str:
-    """The variant name of wave_kernel<kClustered, kThinLens, kTex>."""
+    """The variant name of wave_kernel<kClustered, kThinLens, kTex, kMesh>."""
     from pathtracer_tpu_torch.render import cuda_backend as cb
-    clustered, lens, tex = mangled.groups()
+    clustered, lens, tex, mesh = mangled.groups()
     end = "_lens" if lens == "1" else "_pinhole"
-    if tex == "0":
+    if tex == "0" and mesh == "0":
         return ("clustered" if clustered == "1" else "brute") + end
-    sched = {"1": "lockstep", "2": "regen"}[tex]
-    return "textured" + end + ("" if sched == cb.TEXTURED_SCHEDULE
-                               else "_" + sched)
+    kind, code, main = (("textured", tex, cb.TEXTURED_SCHEDULE) if tex != "0"
+                        else ("mesh", mesh, cb.MESH_SCHEDULE))
+    sched = {"1": "lockstep", "2": "regen"}[code]
+    return kind + end + ("" if sched == main else "_" + sched)
 
 
 def ptxas_report(log: str) -> dict:
@@ -232,8 +262,8 @@ def tex_fetches(scene, cam, cfg, n_samples, dev):
     tally = {"fetches": 0}
     shade = lockstep.shade_bounce
 
-    def shade_caught(sc, o, d, hit, u, mip_scale=0.0):
-        out = shade(sc, o, d, hit, u, mip_scale=mip_scale)
+    def shade_caught(sc, o, d, hit, u, **kw):
+        out = shade(sc, o, d, hit, u, **kw)
         tex = sc.mat_albedo_idx[hit.mat.long()] != 0
         tally["fetches"] += int((tex & out.cont).sum())
         return out
@@ -246,6 +276,97 @@ def tex_fetches(scene, cam, cfg, n_samples, dev):
     finally:
         lockstep.shade_bounce = shade
     return int(st.rays_cast), tally["fetches"]
+
+
+def mesh_tests(scene, cam, cfg, n_samples, dev):
+    """Per-ray means of the mesh kernel's box tests (parents, clusters,
+    rows), triangle tests and triangle wins over every ray of samples 0 ..
+    n_samples-1 of ``cfg``, the rays, and the mesh-UV texel fetches. The
+    plain regeneration loop renders the same rays as the kernel (phase 3
+    holds them to it); each bounce's live rays are caught on their way to
+    intersect_scene_uv and walked per ray as a kernel thread walks them
+    (ops/intersect.py's box and record tests, starting from the nearest
+    sphere, quad or plane hit); each shaded hit whose winner is a UV
+    triangle with an albedo map and whose path continues counts a fetch."""
+    import torch
+    from pathtracer_tpu_torch.ops import intersect as isect
+    from pathtracer_tpu_torch.render import wavefront
+    from pathtracer_tpu_torch.render.renderer import init_accum
+    from pathtracer_tpu_torch.scene import clusters
+    from pathtracer_tpu_torch.utils.vec import Vec3
+
+    tally = dict.fromkeys(("rays", "boxes", "tris", "wins", "fetches"), 0)
+    live = {}
+    primary = wavefront._primary_rays
+    walk, shade = wavefront.intersect_scene_uv, wavefront.shade_bounce
+    rpc = clusters.stream_rows_per_cluster(scene.stream_leaf)
+    lane = clusters.ROW_BOUNDS_LANE
+
+    def primary_caught(camera, config, key, pixel_idx, s):
+        live["mask"] = s < n_samples  # lanes with samples left (s0 = 0)
+        return primary(camera, config, key, pixel_idx, s)
+
+    def walk_caught(sc, o, d):
+        m = live["mask"]
+        lo, ld = Vec3(*(c[m] for c in o)), Vec3(*(c[m] for c in d))
+        best = isect._miss(lo)
+        for sweep in (isect.intersect_spheres, isect.intersect_quads,
+                      isect.intersect_planes):
+            best = sweep(sc, lo, ld, best)
+        t_run, won = best.t, torch.zeros_like(lo.x, dtype=torch.bool)
+        inv = isect._slab_inverse(ld)
+        tally["rays"] += lo.x.numel()
+        for pstart, pcnt, pmn, pmx in sc.stream_parents:
+            p_live = torch.ones_like(won)
+            if pmn is not None:
+                tally["boxes"] += lo.x.numel()
+                p_live = isect._box_relevant(lo, inv, pmn, pmx, t_run)
+            for c in range(pstart, pstart + pcnt):
+                brow = sc.mtri_bounds[c]
+                tally["boxes"] += int(p_live.sum())
+                c_live = p_live & isect._box_relevant(
+                    lo, inv, brow[0:3], brow[3:6], t_run)
+                for r in range(rpc):
+                    row = sc.mtri_pack[c * rpc + r]
+                    r_live = c_live
+                    if sc.stream_row_cull:
+                        tally["boxes"] += int(c_live.sum())
+                        r_live = c_live & isect._box_relevant(
+                            lo, inv, row[lane:lane + 3],
+                            row[lane + 3:lane + 6], t_run)
+                    tally["tris"] += clusters.STREAM_TRIS_PER_ROW * int(
+                        r_live.sum())
+                    _, _, t, hit, _, _ = isect._row_records(row, lo, ld)
+                    for jj in range(clusters.STREAM_TRIS_PER_ROW):
+                        take = r_live & hit[jj] & (t[jj] < t_run)
+                        t_run = torch.where(take, t[jj], t_run)
+                        won = won | take
+        tally["wins"] += int(won.sum())
+        return walk(sc, o, d)
+
+    def shade_caught(sc, o, d, hit, u, uv=None, **kw):
+        out = shade(sc, o, d, hit, u, uv=uv, **kw)
+        tex = sc.mat_albedo_idx[hit.mat.long()] != 0
+        tally["fetches"] += int((live["mask"] & uv[2] & tex & out.cont).sum())
+        return out
+
+    wavefront._primary_rays = primary_caught
+    wavefront.intersect_scene_uv = walk_caught
+    wavefront.shade_bounce = shade_caught
+    try:
+        # the regeneration loop directly: both schedules cast the same rays,
+        # and the thin lens has no regen instantiation for the wrapper
+        n_pix = cfg.width * cfg.height
+        wavefront.render_chunk_wavefront(
+            scene, cam, cfg, 0, 0, n_samples, init_accum(n_pix, dev),
+            torch.arange(n_pix, device=dev))
+    finally:
+        wavefront._primary_rays = primary
+        wavefront.intersect_scene_uv = walk
+        wavefront.shade_bounce = shade
+    n = tally["rays"]
+    return (n, tally["boxes"] / n, tally["tris"] / n, tally["wins"] / n,
+            tally["fetches"])
 
 
 def main() -> int:
@@ -269,14 +390,15 @@ def main() -> int:
     )
     from pathtracer_tpu_torch.scene.schema import (
         WORLD_BRDF_TEST, WORLD_CORNELL_BOX, WORLD_CORNELL_QUAD, WORLD_DEFAULT,
-        WORLD_RAYTRACING_ONE_WEEKEND,
+        WORLD_MESH_UV, WORLD_RAYTRACING_ONE_WEEKEND,
     )
     from pathtracer_tpu_torch.scene.worlds import finalize_world
 
-    W3, W6, W2, W4, W1 = (WORLD_CORNELL_BOX, WORLD_CORNELL_QUAD,
-                          WORLD_BRDF_TEST, WORLD_RAYTRACING_ONE_WEEKEND,
-                          WORLD_DEFAULT)
+    W3, W6, W2, W4, W1, W7 = (WORLD_CORNELL_BOX, WORLD_CORNELL_QUAD,
+                              WORLD_BRDF_TEST, WORLD_RAYTRACING_ONE_WEEKEND,
+                              WORLD_DEFAULT, WORLD_MESH_UV)
     OTHER = cb.OTHER_SCHEDULE
+    MOTHER = cb.MESH_OTHER_SCHEDULE
     NMR = dict(use_normal_maps=False, use_metalness_maps=False,
                use_roughness_maps=False)
     dev = torch.device("cuda:0")
@@ -306,8 +428,11 @@ def main() -> int:
     check(sorted(ptxas) == sorted(cb.VARIANTS), f"ptxas report {ptxas}")
     sass = sass_report(cb.LIB_PATH, args.sass)
     check(sorted(sass) == sorted(cb.VARIANTS), f"SASS report {sass}")
+    kept = {v: (ptxas[v]["registers"], ptxas[v]["spill_stores"]) == rs
+            for v, rs in EARLIER_PTXAS.items()}
     print(f"phase2 build_s={build_s:.3f} nvcc_s={cb.BUILD_SECONDS} "
           f"ptxas={json.dumps(ptxas)}")
+    print(f"phase2 earlier_variants_kept_ptxas={json.dumps(kept)}")
     print(f"phase2 sass={json.dumps(sass)}")
 
     # --- 3. kernel vs plain on the card ------------------------------------
@@ -329,6 +454,9 @@ def main() -> int:
             (W1, 256, 144, 2, 0, 4, False, {"statics": {
                 "tbn_normal_maps": True}}),
             (W1, 256, 144, 2, 0, 4, False, {"statics": NMR}),
+            (W7, 256, 144, 2, 0, 4, False, {}),
+            (W7, 256, 144, 2, 0, 4, False, {"schedule": MOTHER}),
+            (W7, 256, 144, 2, 0, 4, True, {}),
             (W3, 1280, 720, 1, 0, 1, False, {}),
             (W4, 1280, 720, 2, 0, 4, True, {}),
             (W2, 1280, 720, 1, 0, 1, False, {}),
@@ -336,6 +464,9 @@ def main() -> int:
             (W1, 1280, 720, 4, 0, 16, False, {}),
             (W1, 1280, 720, 2, 0, 4, True, {}),
             (W1, 1280, 720, 2, 0, 4, False, {"schedule": OTHER}),
+            (W7, 1280, 720, 2, 0, 4, False, {}),
+            (W7, 1280, 720, 2, 0, 4, True, {}),
+            (W7, 1280, 720, 2, 0, 4, False, {"schedule": MOTHER}),
             (W4, 256, 144, 4, 0, 16, True, {}),
             (W4, 128, 72, 12, 12, 12, True, {})):
         scene, cam = world(kind, w, h, lens, statics=opt.get("statics"))
@@ -425,14 +556,17 @@ def main() -> int:
           f"bytes={bmp.stat().st_size}")
     for kind, pp, lens, schedule in ((W2, 1, False, None), (W3, 1, True, None),
                                      (W1, 2, True, None),
-                                     (W1, 2, False, OTHER)):
+                                     (W1, 2, False, OTHER),
+                                     (W7, 2, True, None),
+                                     (W7, 2, False, MOTHER)):
         var, img, _, state = main_path(kind, pp, lens, schedule)
         check(float(img.mean()) > 0.0, f"world {kind + 1} not black")
         print(f"phase4c world={kind + 1} variant={var} "
               f"launches={launches[var]} spp={pp * pp} "
               f"mean={float(img.mean())} rays={int(state.rays_cast)}")
 
-    # d. the default command: world 1, 1280x720, 16 spp, on the card
+    # d. the default command: world 1, 1280x720, 16 spp, on the card; e.
+    # the world-7 command: 1280x720, 16 spp
     caught = {}
     real_render_image = renderer.render_image
 
@@ -440,26 +574,30 @@ def main() -> int:
         caught["out"] = real_render_image(*a, **k)
         return caught["out"]
 
-    bmp = ROOT / "test_w1.bmp"
-    renderer.render_image = render_image_caught
-    try:
-        reset_counts()
-        rc = cli.main(["--out", str(bmp)])
-        sync()
-    finally:
-        renderer.render_image = real_render_image
-    check(rc == 0 and bmp.stat().st_size == 58 + w * h * 4,
-          "the default command wrote its BMP")
-    read_counts("textured_pinhole", "default command's")
-    img, _, state = caught["out"]
-    img = img.cpu().numpy()
-    check(img.shape == (h, w, 3) and bool(np.isfinite(img).all())
-          and float(img.mean()) > 0.05, "finite, non-black world 1 image")
-    print(f"phase4d default command: world=1 variant=textured_pinhole "
-          f"launches={launches['textured_pinhole']} spp=16 "
-          f"mean={float(img.mean())} rays={int(state.rays_cast)} "
-          f"nan={int(state.nan_count)} wrote {bmp.name} "
-          f"bytes={bmp.stat().st_size}")
+    for tag, argv, var, kind in (("4d default command:", [], "textured_pinhole",
+                                  W1),
+                                 ("4e", ["-w7"], "mesh_pinhole", W7)):
+        bmp = ROOT / f"test_w{kind + 1}.bmp"
+        renderer.render_image = render_image_caught
+        try:
+            reset_counts()
+            rc = cli.main(argv + ["--out", str(bmp)])
+            sync()
+        finally:
+            renderer.render_image = real_render_image
+        check(rc == 0 and bmp.stat().st_size == 58 + w * h * 4,
+              f"{argv} wrote its BMP")
+        read_counts(var, f"{argv} command's")
+        img, _, state = caught["out"]
+        img = img.cpu().numpy()
+        check(img.shape == (h, w, 3) and bool(np.isfinite(img).all())
+              and float(img.mean()) > 0.05,
+              f"finite, non-black world {kind + 1} image")
+        print(f"phase{tag} world={kind + 1} variant={var} "
+              f"launches={launches[var]} spp=16 "
+              f"mean={float(img.mean())} rays={int(state.rays_cast)} "
+              f"nan={int(state.nan_count)} wrote {bmp.name} "
+              f"bytes={bmp.stat().st_size}")
 
     # --- 5. timing -----------------------------------------------------------
     def kernel_ms(scene, cam, pp, reps, **cfg_kw):
@@ -496,7 +634,10 @@ def main() -> int:
                    "brute_lens": (W3, True, None),
                    "textured_pinhole": (W1, False, None),
                    "textured_lens": (W1, True, None),
-                   f"textured_pinhole_{OTHER}": (W1, False, OTHER)}
+                   f"textured_pinhole_{OTHER}": (W1, False, OTHER),
+                   "mesh_pinhole": (W7, False, None),
+                   "mesh_lens": (W7, True, None),
+                   f"mesh_pinhole_{MOTHER}": (W7, False, MOTHER)}
     check(sorted(main_worlds) == sorted(cb.VARIANTS), "every variant timed")
     timed = {}
     for var, (kind, lens, schedule) in main_worlds.items():
@@ -541,24 +682,41 @@ def main() -> int:
               f"rays={rays} mrays_s_median={rays / np.median(ks) / 1e3} "
               f"mrays_s_range={rays / max(ks) / 1e3}-{rays / min(ks) / 1e3}")
 
-    # world 1 at 64 spp: the two schedules, alternating
-    scene, cam = timed["textured_pinhole"]["scene"], timed[
-        "textured_pinhole"]["cam"]
-    main_s = cb.TEXTURED_SCHEDULE
-    res = {main_s: [], OTHER: []}
-    rays1 = {}
-    for which in (main_s, OTHER, OTHER, main_s) * 2:
-        (ms,), rays1[which] = kernel_ms(scene, cam, 8, 1, schedule=which)
-        res[which].append(ms)
-    spread = {k_: (max(v) - min(v)) / np.median(v) for k_, v in res.items()}
-    print(f"phase5 world=1 64spp {main_s}_ms={res[main_s]} "
-          f"{OTHER}_ms={res[OTHER]} rays_{main_s}={rays1[main_s]} "
-          f"rays_{OTHER}={rays1[OTHER]} {main_s}_mrays_s="
-          f"{rays1[main_s] / np.median(res[main_s]) / 1e3} {OTHER}_mrays_s="
-          f"{rays1[OTHER] / np.median(res[OTHER]) / 1e3} "
-          f"{main_s}_over_{OTHER}="
-          f"{np.median(res[main_s]) / np.median(res[OTHER])} "
-          f"spread={spread} | card: {smi}")
+    def schedules(var, main_s, other, e2e):
+        """The world of ``var`` at 720p 64 spp under its two schedules, four
+        launches each, alternating; with ``e2e`` also one render_image under
+        each."""
+        scene, cam = timed[var]["scene"], timed[var]["cam"]
+        res, rays_ = {main_s: [], other: []}, {}
+        for which in (main_s, other, other, main_s) * 2:
+            (ms,), rays_[which] = kernel_ms(scene, cam, 8, 1, schedule=which)
+            res[which].append(ms)
+        spread = {k_: (max(v) - min(v)) / np.median(v)
+                  for k_, v in res.items()}
+        e2e_txt = ""
+        for which in (main_s, other) if e2e else ():
+            sync()
+            t = time.perf_counter()
+            _, packed, st = render_image(
+                scene, cam, RenderConfig(w, h, pp=8, seed=0, schedule=which),
+                device="cuda")
+            packed.cpu()
+            e2e_s = time.perf_counter() - t
+            e2e_txt += (f" {which}_render_image_s={e2e_s} {which}_e2e_mrays_s="
+                        f"{int(st.rays_cast) / e2e_s / 1e6}")
+        print(f"phase5 world={main_worlds[var][0] + 1} 64spp "
+              f"{main_s}_ms={res[main_s]} {other}_ms={res[other]} "
+              f"rays_{main_s}={rays_[main_s]} rays_{other}={rays_[other]} "
+              f"{main_s}_mrays_s="
+              f"{rays_[main_s] / np.median(res[main_s]) / 1e3} "
+              f"{other}_mrays_s={rays_[other] / np.median(res[other]) / 1e3} "
+              f"{main_s}_over_{other}="
+              f"{np.median(res[main_s]) / np.median(res[other])} "
+              f"spread={spread}{e2e_txt} | card: {smi}")
+
+    # worlds 1 and 7 at 64 spp: the two schedules, alternating
+    schedules("textured_pinhole", cb.TEXTURED_SCHEDULE, OTHER, e2e=False)
+    schedules("mesh_pinhole", cb.MESH_SCHEDULE, MOTHER, e2e=True)
 
     # world 2: clustered against brute on the same scene, alternating
     clu, cam = world(W2, w, h)
@@ -577,10 +735,11 @@ def main() -> int:
 
     # --- 6. bounds -------------------------------------------------------------
     table = []
+    mesh_counts = {}
     for var, tm in timed.items():
         scene, cam = tm["scene"], tm["cam"]
         cfg4 = RenderConfig(w, h, pp=2, seed=0, schedule=tm["schedule"])
-        fetches = 0
+        fetches, mesh_txt = 0, ""
         if scene.sph_clusters:
             wrays, slabs, spheres = walk_tests(scene, cam, cfg4, 4, dev)
             check(abs(wrays - tm["rays"]) <= 0.005 * tm["rays"],
@@ -593,28 +752,51 @@ def main() -> int:
             frays, fetches = tex_fetches(scene, cam, cfg4, 4, dev)
             check(abs(frays - tm["rays"]) <= 0.005 * tm["rays"],
                   f"{var}: counted {frays} rays, the kernel cast {tm['rays']}")
+        if cb.meshed(scene):
+            # the lockstep yardstick casts the pinhole's rays: its counts
+            if var != f"mesh_pinhole_{MOTHER}":
+                mesh_counts[var] = mesh_tests(scene, cam, cfg4, 4, dev)
+            mrays, boxes, tris, wins, fetches = mesh_counts[
+                "mesh_lens" if var == "mesh_lens" else "mesh_pinhole"]
+            check(abs(mrays - tm["rays"]) <= 0.005 * tm["rays"],
+                  f"{var}: walked {mrays} rays, the kernel cast {tm['rays']}")
+            isect_ops += (OPS_INV + boxes * OPS_SLAB + tris * OPS_TRI
+                          + wins * OPS_MESH_UV)
+            mesh_txt = (f"box_tests_per_ray={boxes} tri_tests_per_ray={tris} "
+                        f"tri_wins_per_ray={wins} ")
         isect_ops += (scene.n_quads * OPS_QUAD + scene.n_planes * OPS_PLANE
                       + OPS_RESOLVE + OPS_EMIT)
         samples = w * h * 4
         rays = tm["rays"]
         # every ray intersects; each path's last ray is not shaded
         ops = (samples * OPS_PRIMARY[var.split("_")[1]] + rays * isect_ops
-               + (rays - samples) * OPS_SHADE + fetches * OPS_TEX)
+               + (rays - samples) * OPS_SHADE
+               + fetches * (OPS_STACK if cb.meshed(scene) else OPS_TEX))
         nbytes = w * h * BYTES_PER_PIXEL + (
             scene.tex_tile.numel() * 4 if cb.textured(scene) else 0)
+        if cb.meshed(scene):
+            nbytes += 4 * sum(t.numel() for t in (
+                scene.mtri_pack, scene.mtri_bounds, scene.mtri_uvpack,
+                scene.stream_pbox, scene.stream_prange, scene.tex_packed))
         t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
         bound_ms = 1e3 * max(t_ops, t_bytes)
         print(f"phase6 variant={var} slab_tests_per_ray={slabs} "
-              f"sphere_tests_per_ray={spheres} tex_fetches={fetches} "
+              f"sphere_tests_per_ray={spheres} {mesh_txt}"
+              f"tex_fetches={fetches} "
               f"ops={ops:.6e} bytes={nbytes} bound_ms={bound_ms} "
               f"bound_share={bound_ms / tm['ms']}")
         table.append({
             "name": f"wave_kernel<{var}>",
             "route": "cuda",
             "source": "pathtracer_tpu_torch/csrc/wave_kernel.cu",
-            # K3 for the lockstep textured loop, K9 for the regen one
+            # K3 for the lockstep textured loop, K9 for the regen one; K7
+            # for the mesh variants of the main schedule, K10 for the other
             "replaces": (
-                "pathtracer_tpu/render/pallas_backend.py:483"
+                "pathtracer_tpu/ops/intersect.py:262"
+                if cb.meshed(scene) and tm["schedule"] is None
+                else "pathtracer_tpu/ops/texture.py:391"
+                if cb.meshed(scene)
+                else "pathtracer_tpu/render/pallas_backend.py:483"
                 if not cb.textured(scene)
                 else "pathtracer_tpu/render/pallas_backend.py:306"
                 if (tm["schedule"] or cb.TEXTURED_SCHEDULE) == "lockstep"

@@ -6,7 +6,7 @@ the thin lens, ``-n -m -r`` to turn off the normal, metalness and
 roughness maps; ``-t`` is accepted for compatibility) plus ``--size WxH
 --out PATH --seed N --scene-seed N|os --rr --chunk N --mips --tbn --debug
 regular|variance --device cuda|cpu``. With no ``-w`` it renders world 1,
-the reference's default textured scene.
+the reference's default textured scene; ``-w7`` renders the mesh-UV world.
 ``--device`` defaults to ``cuda`` and fails without a card. Flags the port
 has not reached raise and name their ROADMAP item.
 
@@ -78,7 +78,8 @@ def print_help():
     print("\t\t1:\tDefault scene (textured ground; the default).\n"
           "\t\t2:\tMetal-roughness test.\n\t\t3:\tCornell box.\n"
           "\t\t4:\tRay Tracing in One Weekend book cover.\n"
-          "\t\t6:\tCornell box with a quad area light.")
+          "\t\t6:\tCornell box with a quad area light.\n"
+          "\t\t7:\tUV-mapped sphere mesh (mesh-UV texture).")
     print("\td       - Use the thin-lens camera (depth of field).")
     print("\tn       - Disable normal maps.")
     print("\tm       - Disable metalness maps.")

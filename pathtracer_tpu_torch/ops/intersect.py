@@ -14,6 +14,11 @@ K6): per cluster a slab test culls the batch unless some lane is relevant,
 the tests carry (t, winner index), and the winner's material and normal
 are gathered once at the end. Exact float ties between different spheres
 then resolve in cluster order instead of table order.
+
+A mesh-UV scene takes :func:`intersect_scene_uv`, whose triangles go
+through the streamed tier's walk (K7): parent, cluster and record-row
+boxes culled per ray, the precomputed records tested strict-< in table
+order, and the winner's texel-space uv resolved once at the end.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..scene import clusters
 from ..scene.schema import (
     F32_MAX, MIN_HIT_DISTANCE, QUAD_MIN_HIT_DISTANCE, Scene, TOLERANCE,
 )
@@ -145,17 +151,28 @@ def _take(h: Hit, take, t, mat, n: Vec3) -> Hit:
                vwhere(take, n, h.normal))
 
 
-def ray_slab_entry(o: Vec3, d: Vec3, mn, mx):
-    """Slab test against one AABB given by float corners. Returns
-    (t_enter, hit); a primitive hit inside the box has t >= t_enter.
-    min/max propagate NaN, as XLA's do."""
-    inv = [torch.reciprocal(torch.where(c != 0.0, c, 1e-30)) for c in d]
+def _slab_inverse(d: Vec3) -> Vec3:
+    return Vec3(*(torch.reciprocal(torch.where(c != 0.0, c, 1e-30))
+                  for c in d))
+
+
+def _slab(o: Vec3, inv: Vec3, mn, mx):
+    """(tmin, tmax) of the ray against the box [mn, mx] (float, 0-d tensor
+    or per-lane corners) with the reciprocals ``inv``; min/max propagate
+    NaN, as XLA's do."""
     ts = [((lo - oc) * iv, (hi - oc) * iv)
           for lo, hi, oc, iv in zip(mn, mx, o, inv)]
     near = [torch.minimum(t0, t1) for t0, t1 in ts]
     far = [torch.maximum(t0, t1) for t0, t1 in ts]
     tmin = torch.maximum(torch.maximum(near[0], near[1]), near[2])
     tmax = torch.minimum(torch.minimum(far[0], far[1]), far[2])
+    return tmin, tmax
+
+
+def ray_slab_entry(o: Vec3, d: Vec3, mn, mx):
+    """Slab test against one AABB given by float corners. Returns
+    (t_enter, hit); a primitive hit inside the box has t >= t_enter."""
+    tmin, tmax = _slab(o, _slab_inverse(d), mn, mx)
     return tmin, (tmax >= tmin) & (tmax >= 0.0)
 
 
@@ -227,16 +244,128 @@ def intersect_boxes(scene: Scene, o: Vec3, d: Vec3, best: Hit) -> Hit:
     return best
 
 
+def _box_relevant(o: Vec3, inv: Vec3, mn, mx, t_run):
+    """``row_slab_relevant`` (intersect.py:391-410 in JAX): the ray enters
+    the box [mn, mx] before ``t_run``, with the slab reciprocals ``inv``
+    hoisted per ray."""
+    tmin, tmax = _slab(o, inv, mn, mx)
+    return (tmax >= tmin) & (tmax >= 0.0) & (tmin < t_run)
+
+
+def _row_records(row: torch.Tensor, o: Vec3, d: Vec3):
+    """``row_test``'s per-record expressions (intersect.py:446-476 in JAX)
+    for the 9 records of one (128,) record row against every ray: (normal
+    Vec3 and material of each record as (9, 1), then t, hit, alpha and
+    beta as (9, N)); padding records (n = 0) never hit."""
+    per, nf = clusters.STREAM_TRIS_PER_ROW, clusters.STREAM_FIELDS
+    rec = row[:per * nf].reshape(per, nf, 1)
+    f = lambda k: rec[:, k]
+    n = Vec3(f(0), f(1), f(2))
+    e1 = Vec3(f(4), f(5), f(6))
+    e2 = Vec3(f(8), f(9), f(10))
+    denom = dot(n, d)
+    valid = (denom < -TOLERANCE) | (denom > TOLERANCE)
+    t = (f(3) - dot(n, o)) / torch.where(valid, denom, 1.0)
+    alpha = (dot(e1, o) - f(7)) + t * dot(e1, d)
+    beta = (dot(e2, o) - f(11)) + t * dot(e2, d)
+    inside = (alpha >= 0.0) & (beta >= 0.0) & ((alpha + beta) <= 1.0)
+    return n, f(12), t, valid & inside & (t > MIN_HIT_DISTANCE), alpha, beta
+
+
+def _intersect_triangles_streamed_uv(scene: Scene, o: Vec3, d: Vec3,
+                                     best: Hit):
+    """K7's plain version: the streamed tier's walk with the winner's uv
+    (``_intersect_triangles_streamed``, intersect.py:262-964 in JAX, resident
+    tier with static parents and cluster-field-major uv rows).
+
+    Parents, then each parent's clusters, then each cluster's record rows
+    are culled per ray against its running nearest t (the kernel's
+    per-thread culls; the JAX kernel's block any-reduce visits a superset,
+    and culling only skips boxes a ray enters at or beyond its nearest hit).
+    A row's 9 records are tested together as (9, N) tensors with the
+    expressions of ``row_test`` (:446-476) and taken in row order with the
+    strict-< carry of (t, normal, material as float, winner, alpha, beta).
+    The winner's uv is resolved once after the walk from its cfm uv entries,
+    ``u0 + alpha*du1 + beta*du2`` (:649-683). Returns (hit, uvx, uvy,
+    uv_ok), uv_ok meaning a triangle won (:945-963)."""
+    per = clusters.STREAM_TRIS_PER_ROW
+    rpc = clusters.stream_rows_per_cluster(scene.stream_leaf)
+    lane = clusters.ROW_BOUNDS_LANE
+    pack, bounds = scene.mtri_pack, scene.mtri_bounds
+    inv = _slab_inverse(d)
+    t_run = best.t
+    z = torch.zeros_like(o.x)
+    nx, ny, nz, mf = z, z, z, z - 1.0
+    win = torch.full_like(o.x, -1, dtype=torch.int64)
+    aw, bw = z, z
+    live_all = torch.ones_like(o.x, dtype=torch.bool)
+    for (pstart, pcnt, pmn, pmx) in scene.stream_parents:
+        p_live = (live_all if pmn is None
+                  else _box_relevant(o, inv, pmn, pmx, t_run))
+        for c in range(pstart, pstart + pcnt):
+            brow = bounds[c]
+            c_live = p_live & _box_relevant(o, inv, brow[0:3], brow[3:6],
+                                            t_run)
+            for r in range(rpc):
+                row = pack[c * rpc + r]
+                r_live = c_live
+                if scene.stream_row_cull:
+                    r_live = r_live & _box_relevant(
+                        o, inv, row[lane:lane + 3], row[lane + 3:lane + 6],
+                        t_run)
+                n, mat, t, hit, alpha, beta = _row_records(row, o, d)
+                hit = hit & r_live
+                for jj in range(per):
+                    take = hit[jj] & (t[jj] < t_run)
+                    t_run = torch.where(take, t[jj], t_run)
+                    nx = torch.where(take, n.x[jj], nx)
+                    ny = torch.where(take, n.y[jj], ny)
+                    nz = torch.where(take, n.z[jj], nz)
+                    mf = torch.where(take, mat[jj], mf)
+                    # the winner's column in the cfm uv rows of cluster c
+                    win = torch.where(take, c * clusters.UV_CFM_ROWS * 128
+                                      + r * per + jj, win)
+                    aw = torch.where(take, alpha[jj], aw)
+                    bw = torch.where(take, beta[jj], bw)
+    found = mf >= 0.0
+    uv = scene.mtri_uvpack.reshape(-1)
+    g = lambda k: uv[win.clamp_min(0) + k * 128]
+    uvx = torch.where(found, g(0) + aw * g(2) + bw * g(4), 0.0)
+    uvy = torch.where(found, g(1) + aw * g(3) + bw * g(5), 0.0)
+    h = Hit(t_run, torch.where(found, mf.to(torch.int32), best.mat),
+            vwhere(found, Vec3(nx, ny, nz), best.normal))
+    return h, uvx, uvy, found
+
+
+def _miss(o: Vec3) -> Hit:
+    z = torch.zeros_like(o.x)
+    return Hit(torch.full_like(o.x, F32_MAX),
+               torch.zeros_like(o.x, dtype=torch.int32), Vec3(z, z, z))
+
+
 def intersect_scene(scene: Scene, o: Vec3, d: Vec3) -> Hit:
     """RayCastIntersect (win32_main.cpp:406-556) for scenes without
     triangles; miss => (F32_MAX, mat 0, normal (0,0,0))."""
     if scene.n_tris:
         raise NotImplementedError(
-            "triangle meshes are not ported yet (ROADMAP queue 1 item 10)")
-    z = torch.zeros_like(o.x)
-    best = Hit(torch.full_like(o.x, F32_MAX),
-               torch.zeros_like(o.x, dtype=torch.int32), Vec3(z, z, z))
-    best = intersect_spheres(scene, o, d, best)
+            "triangle meshes without UVs are not ported yet (ROADMAP queue 2 "
+            "item 2); a mesh-UV scene takes intersect_scene_uv")
+    best = intersect_spheres(scene, o, d, _miss(o))
     best = intersect_quads(scene, o, d, best)
     best = intersect_planes(scene, o, d, best)
     return intersect_boxes(scene, o, d, best)
+
+
+def intersect_scene_uv(scene: Scene, o: Vec3, d: Vec3):
+    """``intersect_scene`` for a mesh-UV scene (intersect.py:1360-1390 in
+    JAX): spheres, quads, planes, then the streamed triangle walk; returns
+    (hit, uvx, uvy, uv_ok) with the winning triangle's texel-space uv."""
+    if not (scene.tri_streamed and scene.stream_uv_cfm) or scene.tri_dma:
+        raise NotImplementedError(
+            "only the resident streamed mesh tier is ported (ROADMAP queue "
+            "2 item 2)")
+    assert scene.n_boxes == 0, "mesh-UV scenes have no boxes"
+    best = intersect_spheres(scene, o, d, _miss(o))
+    best = intersect_quads(scene, o, d, best)
+    best = intersect_planes(scene, o, d, best)
+    return _intersect_triangles_streamed_uv(scene, o, d, best)

@@ -1,7 +1,11 @@
-"""The combined 4-map texture fetch (K9's plain versions), lane-parallel.
+"""Texture fetches (the plain versions of K9 and of K10's texel form),
+lane-parallel.
 
 Counterpart of the combined-set functions of ``pathtracer_tpu/ops/
-texture.py`` (:106-228). Reference semantics: SampleTexture
+texture.py`` (:106-228) and of ``sample_texture`` (:52-96), the mesh-UV
+fetch from the flat per-layer stack (K10's texel form: the CUDA kernel
+reads the same words with four int32 loads; the JAX kernel's tiled stack
+and windowed iteration are TPU shapes). Reference semantics: SampleTexture
 (win32_main.cpp:1680-1709) takes uv in texel units, takes abs, truncates,
 clamps the fractions to [0, 1], wraps on both axes and blends bilinearly;
 BespokeSampleTexture (:1675-1678) scales world-plane (u, v) by size/2.
@@ -155,3 +159,61 @@ def tile_words(scene: Scene, corners):
     flat = scene.tex_tile.reshape(-1)
     idx = [(row * 128 + off).long() for row, off in corners]
     return tuple(flat[i] for i in idx), tuple(flat[i + 1] for i in idx)
+
+
+# --- K10's texel form: the flat per-layer stack ----------------------------
+
+_I32_LIMIT = 2.0 ** 31
+
+
+def _to_i32_saturating(x: torch.Tensor) -> torch.Tensor:
+    """Float -> int32 toward zero, saturating, NaN -> 0: XLA's convert and
+    CUDA's __float2int_rz (a bare .to(int32) is undefined out of range)."""
+    i = torch.where((x > -_I32_LIMIT) & (x < _I32_LIMIT), x, 0.0)
+    i = i.to(torch.int32)
+    i = torch.where(x >= _I32_LIMIT, 2 ** 31 - 1, i)
+    return torch.where(x <= -_I32_LIMIT, -2 ** 31, i)
+
+
+def _unpack(word: torch.Tensor) -> Vec3:
+    """Packed RGB8 int32 -> float Vec3 (texture.py:43-49 in JAX)."""
+    r, g, b, _ = _unpack4(word)
+    return Vec3(r, g, b)
+
+
+def _bilerp_vec3(c11: Vec3, c12: Vec3, c21: Vec3, c22: Vec3, s, t) -> Vec3:
+    """SampleTexture's blend of four Vec3 corners (texture.py:78-96)."""
+    def lerp(a, b, c, d):
+        top = (1 - s) * a + s * b
+        bot = (1 - s) * c + s * d
+        return (1 - t) * top + t * bot
+    return Vec3(*(lerp(*ch) for ch in zip(c11, c12, c21, c22)))
+
+
+def sample_texture(scene: Scene, layer: torch.Tensor, u: torch.Tensor,
+                   v: torch.Tensor) -> Vec3:
+    """SampleTexture over the flat stack (texture.py:52-75 in JAX): the
+    0-based ``layer`` and texel-space (u, v) per lane; abs, truncation,
+    fractions clipped to [0, 1], wrap by ``%`` of the layer's size, texel
+    ``(layer*hmax + y)*wmax + x``, bilinear blend."""
+    layer = layer.long()
+    w = scene.tex_w[layer]
+    h = scene.tex_h[layer]
+    u = torch.abs(u)
+    v = torch.abs(v)
+    x1 = _to_i32_saturating(u)
+    y1 = _to_i32_saturating(v)
+    s = torch.clamp(u - x1.to(u.dtype), 0.0, 1.0)
+    t = torch.clamp(v - y1.to(v.dtype), 0.0, 1.0)
+    x1 = x1 % w
+    x2 = (x1 + 1) % w
+    y1 = y1 % h
+    y2 = (y1 + 1) % h
+    base = layer * (scene.tex_hmax * scene.tex_wmax)
+
+    def fetch(yy, xx):
+        return _unpack(scene.tex_packed[base + yy.long() * scene.tex_wmax
+                                        + xx.long()])
+
+    return _bilerp_vec3(fetch(y1, x1), fetch(y1, x2), fetch(y2, x1),
+                        fetch(y2, x2), s, t)

@@ -8,7 +8,9 @@ instantiations of one kernel template: untextured, the brute sphere sweep
 or the clustered walk (K5/K6), each with the pinhole or the thin-lens
 primary ray; textured (the combined 4-map set, K9), the brute sweep with
 either primary under ``TEXTURED_SCHEDULE``, and the pinhole under the
-other schedule as its yardstick. The file is compiled at first use by one
+other schedule as its yardstick; mesh (the streamed triangle walk K7 with
+the mesh-UV texel fetch K10), either primary under ``MESH_SCHEDULE`` and
+the pinhole under the other. The file is compiled at first use by one
 ``nvcc`` for ``sm_90a`` into ``pathtracer_tpu_torch/_build/`` (a library
 named by the hash of the source and flags, so an edit rebuilds it), loaded
 with ``ctypes`` and launched on PyTorch's current stream.
@@ -16,11 +18,11 @@ with ``ctypes`` and launched on PyTorch's current stream.
 - :func:`render_chunk_cuda` takes the accumulator's device: on CUDA tensors
   it launches the kernel or raises; on CPU tensors it runs the plain version.
   It picks the variant from the scene and camera (:func:`variant`): the
-  textured kernel for a combined texture set, else the clustered walk when
-  the scene has sphere clusters; the thin-lens primary when the camera has
-  one.
+  textured kernel for a combined texture set, the mesh kernel for a
+  triangle mesh, else the clustered walk when the scene has sphere
+  clusters; the thin-lens primary when the camera has one.
 - :func:`render_chunk_plain` is the plain PyTorch version of the same
-  function (``render/lockstep.py`` for the textured lockstep schedule,
+  function (``render/lockstep.py`` under the lockstep schedule,
   ``render/wavefront.py`` otherwise), which the CPU tests run and which
   ``chip_smoke.py`` holds the kernel against on the card.
 - ``LAUNCHES`` counts the kernel's launches, ``VARIANT_LAUNCHES`` the same
@@ -41,6 +43,7 @@ import numpy as np
 import torch
 
 from ..scene.camera import Camera
+from ..scene.clusters import stream_rows_per_cluster
 from ..scene.schema import Scene
 from .lockstep import render_chunk_lockstep
 from .raygen import focal_plane
@@ -53,15 +56,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
 # The sample schedule of the textured variants (world 1's main path), and
-# the other one, instantiated for the pinhole only, as its yardstick.
+# the other one, instantiated for the pinhole only, as its yardstick; the
+# same for the mesh variants (world 7's main path; kMeshMain in the kernel).
 TEXTURED_SCHEDULE = "lockstep"
 OTHER_SCHEDULE = "regen"
-_TEX_CODE = {"lockstep": 1, "regen": 2}  # wave_render's tex argument
+MESH_SCHEDULE = "lockstep"
+MESH_OTHER_SCHEDULE = "regen"
+_SCHED_CODE = {"lockstep": 1, "regen": 2}  # wave_render's tex/mesh argument
 
 # the kernel's variants, as variant() names them
 VARIANTS = ("brute_pinhole", "brute_lens", "clustered_pinhole",
             "clustered_lens", "textured_pinhole", "textured_lens",
-            f"textured_pinhole_{OTHER_SCHEDULE}")
+            f"textured_pinhole_{OTHER_SCHEDULE}", "mesh_pinhole", "mesh_lens",
+            f"mesh_pinhole_{MESH_OTHER_SCHEDULE}")
 LAUNCHES = 0      # kernel launches, counted where the launch succeeds
 VARIANT_LAUNCHES = dict.fromkeys(VARIANTS, 0)  # the same, by variant
 BUILD_LOG = ""    # nvcc's output (ptxas registers and spills per variant)
@@ -91,8 +98,12 @@ _CLUSTER_PTR_FIELDS = (
 )
 # the textured variants' fields, after those
 _TEX_PTR_FIELDS = ("mat_tex", "tex_tile", "tex_mip")
+# the mesh variants' fields, last
+_MESH_PTR_FIELDS = ("mtri_pack", "mtri_bounds", "mtri_uvpack", "stream_pbox",
+                    "stream_prange", "stack_words", "stack_w", "stack_h")
 _INT_PTRS = ("sph_mat", "q_mat", "p_mat", "csph_mat", "cl_off", "cl_cnt",
-             "cl_huge", "nan_px", "rays_px") + _TEX_PTR_FIELDS
+             "cl_huge", "nan_px", "rays_px", "stream_prange", "stack_words",
+             "stack_w", "stack_h") + _TEX_PTR_FIELDS
 _INT_FIELDS = (
     "n_spheres", "n_quads", "n_planes", "quad_light",
     "just_cosine", "use_rr",
@@ -114,7 +125,10 @@ class WaveParams(ctypes.Structure):
                 + [(n, _I) for n in ("tex_w", "tex_h", "tex_tiles_x",
                                      "tex_levels", "tex_flags")]
                 + [(n, _F) for n in ("tex_half_w", "tex_half_h",
-                                     "tex_lod_k")])
+                                     "tex_lod_k")]
+                + [(n, _P) for n in _MESH_PTR_FIELDS]
+                + [(n, _I) for n in ("n_parents", "stream_rpc", "row_cull",
+                                     "stack_hmax", "stack_wmax")])
 
 # WaveParams.tex_flags bits (TEX_* in the kernel)
 TEX_METALNESS, TEX_ROUGHNESS, TEX_NORMAL, TEX_TBN = 1, 2, 4, 8
@@ -128,6 +142,9 @@ def check_supported(scene: Scene, camera: Camera, config):
     if textured(scene) and scene.sph_clusters:
         missing.append("a textured scene with sphere clusters (ROADMAP "
                        "queue 2 item 1)")
+    if meshed(scene) and scene.sph_clusters:
+        missing.append("a mesh scene with sphere clusters (ROADMAP queue 2 "
+                       "item 2)")
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
 
@@ -137,26 +154,38 @@ def textured(scene: Scene) -> bool:
     return bool(scene.n_textures and scene.tex_combined)
 
 
+def meshed(scene: Scene) -> bool:
+    """Whether the scene has a triangle mesh (the mesh variants)."""
+    return bool(scene.n_tris)
+
+
 def _schedule(scene: Scene, schedule):
-    """The sample schedule of a textured scene (None: TEXTURED_SCHEDULE);
-    None for an untextured one, which has one schedule."""
-    if not textured(scene):
+    """The sample schedule of a textured or mesh scene (None: its main
+    one, TEXTURED_SCHEDULE or MESH_SCHEDULE); None for any other scene,
+    which has one schedule."""
+    if textured(scene):
+        main = TEXTURED_SCHEDULE
+    elif meshed(scene):
+        main = MESH_SCHEDULE
+    else:
         return None
-    schedule = schedule or TEXTURED_SCHEDULE
-    if schedule not in _TEX_CODE:
+    schedule = schedule or main
+    if schedule not in _SCHED_CODE:
         raise ValueError(f"schedule {schedule!r}: lockstep or regen")
     return schedule
 
 
 def variant(scene: Scene, camera: Camera, schedule=None) -> str:
     """The kernel variant that renders this scene through this camera (a
-    textured scene under ``schedule``, by default TEXTURED_SCHEDULE)."""
+    textured or mesh scene under ``schedule``, by default its main one)."""
     lens = "_pinhole" if camera.use_pinhole else "_lens"
     schedule = _schedule(scene, schedule)
     if schedule is None:
         return ("clustered" if scene.sph_clusters else "brute") + lens
-    name = "textured" + lens
-    if schedule != TEXTURED_SCHEDULE:
+    kind, main = (("textured", TEXTURED_SCHEDULE) if textured(scene)
+                  else ("mesh", MESH_SCHEDULE))
+    name = kind + lens
+    if schedule != main:
         name += "_" + schedule
     if name not in VARIANTS:
         raise NotImplementedError(f"{name}: the {schedule} schedule is "
@@ -201,7 +230,8 @@ def build() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     LIB_PATH = lib_path
     lib.wave_render.argtypes = [ctypes.POINTER(WaveParams), ctypes.c_int,
-                                ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_void_p]
     lib.wave_render.restype = ctypes.c_int
     lib.wave_error_string.argtypes = [ctypes.c_int]
     lib.wave_error_string.restype = ctypes.c_char_p
@@ -212,7 +242,8 @@ def build() -> ctypes.CDLL:
 def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
             n_samples: int, state, nan_px, rays_px) -> WaveParams:
     """Pointers and host-folded constants for one launch."""
-    ptrs = dict(zip(_PTR_FIELDS + _CLUSTER_PTR_FIELDS + _TEX_PTR_FIELDS, (
+    ptrs = dict(zip(_PTR_FIELDS + _CLUSTER_PTR_FIELDS + _TEX_PTR_FIELDS
+                    + _MESH_PTR_FIELDS, (
         *scene.mat_albedo, *scene.mat_emit, *scene.mat_metal_color,
         scene.mat_metalness, scene.mat_roughness, scene.mat_ior,
         *scene.sph_center, scene.sph_radius, scene.sph_mat,
@@ -224,6 +255,9 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
         scene.cl_offset, scene.cl_count, scene.cl_huge,
         *scene.cl_min, *scene.cl_max,
         scene.mat_albedo_idx, scene.tex_tile, scene.tex_mip,
+        scene.mtri_pack, scene.mtri_bounds, scene.mtri_uvpack,
+        scene.stream_pbox, scene.stream_prange,
+        scene.tex_packed, scene.tex_w, scene.tex_h,
     )))
     for name, t in ptrs.items():
         want = torch.int32 if name in _INT_PTRS else torch.float32
@@ -265,6 +299,11 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
         tex_flags=tex_flags, tex_half_w=w_tex * 0.5,
         tex_half_h=scene.tex_comb_h * 0.5,
         tex_lod_k=float(np.float32(config.mip_scale * w_tex * 0.5)),
+        n_parents=len(scene.stream_parents),
+        stream_rpc=(stream_rows_per_cluster(scene.stream_leaf)
+                    if scene.tri_streamed else 0),
+        row_cull=int(scene.stream_row_cull),
+        stack_hmax=scene.tex_hmax, stack_wmax=scene.tex_wmax,
     )
     p.fc[:] = camera.frustum_center
     p.ax[:] = camera.axis_x
@@ -291,12 +330,13 @@ def render_chunk_cuda(scene: Scene, camera: Camera, config, key: int,
     params = _params(scene, camera, config, key, s0, n_samples, state,
                      nan_px, rays_px)
     name = variant(scene, camera, config.schedule)
-    sched = _schedule(scene, config.schedule)
+    code = _SCHED_CODE.get(_schedule(scene, config.schedule), 0)
     lib = build()
     stream = torch.cuda.current_stream(state.device).cuda_stream
     err = lib.wave_render(ctypes.byref(params), int(bool(scene.sph_clusters)),
                           int(not camera.use_pinhole),
-                          _TEX_CODE[sched] if sched else 0,
+                          code if textured(scene) else 0,
+                          code if meshed(scene) else 0,
                           ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"wave_kernel ({name}) launch failed: "

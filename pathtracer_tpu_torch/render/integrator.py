@@ -18,11 +18,15 @@ win32_main.cpp:576-792), lane-parallel with masks instead of branches:
   textured material's albedo, and where their ``use_*_maps`` flag is set
   its metalness, roughness and normal, come from one fused fetch
   (``ops/texture.py``) at the hit's world xy, at mip level 0 or, with
-  ``mip_scale > 0``, at the level of the hit's footprint.
+  ``mip_scale > 0``, at the level of the hit's footprint;
+- mesh-UV albedo maps (world 7, win32_main.cpp:172's TODO realised by the
+  JAX package): a hit whose winner is a UV triangle with an albedo map
+  samples it at the winner's texel-space uv (``sample_texture``), and the
+  texel modulates the material albedo.
 
 The material lookup is an indexed gather ``tab[mat]``; the JAX package's
 select sweep and constant-column broadcast are TPU shapes of the same
-lookup. Other texture sets, transmission, fog and bump maps raise.
+lookup. Planar texture stacks, transmission, fog and bump maps raise.
 """
 
 from __future__ import annotations
@@ -80,11 +84,13 @@ def mip_lod(scene: Scene, t: torch.Tensor, cos_theta_in: torch.Tensor,
 
 
 def shade_bounce(scene: Scene, o: Vec3, d: Vec3, hit: Hit, u,
-                 mip_scale: float = 0.0) -> BounceOut:
+                 mip_scale: float = 0.0, uv=None) -> BounceOut:
     """Material fetch, estimator selection and BSDF weight for one bounce.
     ``u`` holds the bounce's BOUNCE_SLOTS (N,) uniforms; ``mip_scale > 0``
-    selects a mip level per hit (``--mips``). Raises for scene features not
-    ported yet (triangles, transmission, fog, bump, other texture sets)."""
+    selects a mip level per hit (``--mips``); ``uv`` is
+    ``intersect_scene_uv``'s (uvx, uvy, uv_ok) in a mesh-UV scene. Raises
+    for scene features not ported yet (the static mesh tiers, transmission,
+    fog, bump, planar texture stacks)."""
     missing = scene.unsupported()
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
@@ -132,6 +138,15 @@ def shade_bounce(scene: Scene, o: Vec3, d: Vec3, hit: Hit, u,
             N = vwhere(scene.mat_normal_idx[idx] != 0,
                        normalize(n_dec, eps=1e-30), N)
         albedo = vwhere(scene.mat_albedo_idx[idx] != 0, alb_c, albedo)
+    if uv is not None:
+        # a lane whose winner is a UV triangle with an albedo map samples it
+        # at the winner's uv, modulating the material albedo (JAX :499-518)
+        uvx, uvy, uv_ok = uv
+        alb_idx = scene.mat_albedo_idx[idx]
+        tex_uv = texture.sample_texture(scene, torch.clamp_min(alb_idx - 1, 0),
+                                        uvx, uvy)
+        albedo = vwhere(uv_ok & (alb_idx != 0),
+                        hadamard(gather(scene.mat_albedo, idx), tex_uv), albedo)
 
     ndotv = dot(N, V)
     front_facing = ndotv > 0.0

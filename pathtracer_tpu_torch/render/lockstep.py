@@ -12,8 +12,9 @@ sample.
 
 Randomness is keyed on (pixel, sample, bounce) and samples fold in order,
 so this computes the per-pixel values of ``render/wavefront.py``; the two
-differ only in which lanes advance together. The textured kernel variants
-of ``csrc/wave_kernel.cu`` that run this schedule must agree with it.
+differ only in which lanes advance together. The textured and mesh kernel
+variants of ``csrc/wave_kernel.cu`` that run this schedule must agree with
+it.
 
 The accumulator tensors are updated in place.
 """
@@ -22,13 +23,12 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.intersect import intersect_scene
 from ..scene.camera import Camera
 from ..scene.schema import MAX_BOUNCE_COUNT, Scene
 from ..utils import prng
 from ..utils.vec import Vec3, gather, hadamard, splat, where as vwhere
 from .integrator import russian_roulette, shade_bounce
-from .wavefront import _primary_rays
+from .wavefront import _primary_rays, intersect
 
 
 def trace_lockstep(scene: Scene, o: Vec3, d: Vec3, pkeys: prng.PathStream,
@@ -43,13 +43,13 @@ def trace_lockstep(scene: Scene, o: Vec3, d: Vec3, pkeys: prng.PathStream,
     casts = torch.zeros_like(z, dtype=torch.int64)
     for b in range(MAX_BOUNCE_COUNT):
         casts += alive
-        hit = intersect_scene(scene, o, d)
+        hit, uv = intersect(scene, o, d)
         if b == MAX_BOUNCE_COUNT - 1:
             emit = gather(scene.mat_emit, hit.mat.long())
             return vwhere(alive, radiance + hadamard(throughput, emit),
                           radiance), casts
         u = prng.bounce_uniforms(pkeys, b)
-        out = shade_bounce(scene, o, d, hit, u, mip_scale=mip_scale)
+        out = shade_bounce(scene, o, d, hit, u, mip_scale=mip_scale, uv=uv)
         radiance = vwhere(alive, radiance + hadamard(throughput, out.emit),
                           radiance)
         cont = alive & out.cont

@@ -15,13 +15,23 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.intersect import intersect_scene
+from ..ops.intersect import intersect_scene, intersect_scene_uv
 from ..scene.camera import Camera
 from ..scene.schema import MAX_BOUNCE_COUNT, Scene
 from ..utils import prng
 from ..utils.vec import Vec3, hadamard, splat, where as vwhere
 from . import raygen
 from .integrator import russian_roulette, shade_bounce
+
+
+def intersect(scene: Scene, o: Vec3, d: Vec3):
+    """(hit, uv): ``intersect_scene_uv``'s hit and (uvx, uvy, uv_ok) in a
+    mesh-UV scene, else ``intersect_scene``'s hit and None (wavefront.py:
+    115-120 in JAX)."""
+    if scene.has_mesh_uvs:
+        hit, uvx, uvy, uv_ok = intersect_scene_uv(scene, o, d)
+        return hit, (uvx, uvy, uv_ok)
+    return intersect_scene(scene, o, d), None
 
 
 def _primary_rays(camera: Camera, config, key: int,
@@ -69,9 +79,10 @@ def render_chunk_wavefront(scene: Scene, camera: Camera, config, key: int,
 
         # --- one bounce ----------------------------------------------------
         state.rays_cast += active.sum()
-        hit = intersect_scene(scene, o, d)
+        hit, uv = intersect(scene, o, d)
         u = prng.bounce_uniforms(prng.path_keys(key, pixel_idx, s_abs), bounce)
-        out = shade_bounce(scene, o, d, hit, u, mip_scale=config.mip_scale)
+        out = shade_bounce(scene, o, d, hit, u, mip_scale=config.mip_scale,
+                           uv=uv)
 
         contrib = hadamard(thr, out.emit)
         prad = vwhere(active, prad + contrib, prad)

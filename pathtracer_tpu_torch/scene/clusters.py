@@ -1,18 +1,26 @@
-"""Host-side sphere clustering for the culled nearest-hit walk (K5).
+"""Host-side clustering for the culled nearest-hit walks (K5, K7).
 
-The port's own numpy copy of the sphere half of
-``pathtracer_tpu/scene/clusters.py`` (that package imports JAX). Spheres
-are grouped by binned surface-area-heuristic splits, falling back to the
-longest-axis centroid median, into leaves of at most ``LEAF_SIZE``; a
-sphere whose AABB spans more than ``HUGE_FRAC`` of the scene diagonal (the
-r=1000 ground or sun sphere) goes to an unconditional "huge" cluster that
-comes first. Leaves are ordered near-to-far from the camera. The walk
-(``ops/intersect.py`` and ``csrc/wave_kernel.cu``) skips a leaf when the
-ray misses its box or already has a hit nearer than the box's entry.
+The port's own numpy copy of ``pathtracer_tpu/scene/clusters.py`` (that
+package imports JAX), for spheres and for the streamed mesh tier.
+Primitives are grouped by binned surface-area-heuristic splits, falling
+back to the longest-axis centroid median, into leaves of at most
+``LEAF_SIZE``; a primitive whose AABB spans more than ``HUGE_FRAC`` of the
+scene diagonal (the r=1000 ground or sun sphere) goes to an unconditional
+"huge" cluster that comes first. Leaves are ordered near-to-far from the
+camera. The walk (``ops/intersect.py`` and ``csrc/wave_kernel.cu``) skips
+a leaf when the ray misses its box or already has a hit nearer than the
+box's entry.
 
-The permutation and the float32 bounds (rounded outward) equal the JAX
-package's bit for bit; the JAX module's ``PT_*`` environment knobs are
-not carried over.
+A mesh of more than ``STREAM_MIN`` triangles also gets the streamed
+tier's tables: the precomputed triangle records, parent boxes over groups
+of leaves (:func:`build_parents`), record rows with their own boxes
+(:func:`pack_stream_clusters`) and the cluster-field-major uv rows
+(:func:`pack_stream_uv_cfm`).
+
+The permutations, records and float32 bounds (rounded outward) equal the
+JAX package's bit for bit; the JAX module's ``PT_*`` environment knobs,
+its field-major tier, its row-parallel uv rows and the DMA tier's parent
+tables are not carried over.
 """
 
 from __future__ import annotations
@@ -176,3 +184,170 @@ def sphere_bounds(centers: np.ndarray, radii: np.ndarray):
     c = np.asarray(centers, np.float64)
     r = np.asarray(radii, np.float64)[:, None]
     return c - r, c + r
+
+
+def triangle_bounds(tris: np.ndarray):
+    """Per-triangle AABBs (float64) from (N, 3, 3) vertex arrays."""
+    t = np.asarray(tris, np.float64)
+    return t.min(axis=1), t.max(axis=1)
+
+
+def triangle_precompute(A: np.ndarray, u: np.ndarray, v: np.ndarray) -> dict:
+    """The precomputed barycentric form of each triangle, in float32 (the
+    JAX package's own operation order, so the records are bit-equal):
+    n = normalize(cross(u, v)), d = A . n, w = cross(u, v) / |cross(u, v)|^2,
+    e1 = cross(v, w), a0 = e1 . A, e2 = cross(w, u), b0 = e2 . A; a ray
+    hits the plane at alpha = e1 . p - a0, beta = e2 . p - b0."""
+    A = np.asarray(A, np.float32)
+    u = np.asarray(u, np.float32)
+    v = np.asarray(v, np.float32)
+    n = np.cross(u, v).astype(np.float32)
+    nn = (n * n).sum(-1).astype(np.float32)
+    inv_len = (1.0 / np.sqrt(np.maximum(nn, 1e-30))).astype(np.float32)
+    n_unit = (n * inv_len[:, None]).astype(np.float32)
+    d_coef = (A * n_unit).sum(-1).astype(np.float32)
+    w = (n / np.maximum(nn, 1e-30)[:, None]).astype(np.float32)
+    e1 = np.cross(v, w).astype(np.float32)
+    e2 = np.cross(w, u).astype(np.float32)
+    a0 = (e1 * A).sum(-1).astype(np.float32)
+    b0 = (e2 * A).sum(-1).astype(np.float32)
+    return dict(n=n_unit, d=d_coef, e1=e1, e2=e2, a0=a0, b0=b0)
+
+
+# Leaf clusters per parent box in the streamed tier's two-level hierarchy.
+PARENT_GROUP = 16
+
+
+def build_parents(clusters: tuple, group_size: int = PARENT_GROUP,
+                  sort_origin=None) -> Tuple[np.ndarray, tuple]:
+    """Group leaf clusters under parent boxes by longest-axis median splits
+    of their centres. Returns (perm, parents): the clusters are reordered
+    as ``[clusters[i] for i in perm]``, and ``parents`` is a tuple of
+    (first cluster, cluster count, mn3 | None, mx3 | None) over that order,
+    the huge cluster's parent (bounds None) first. ``sort_origin`` orders
+    the parents, and the clusters within each, near-to-far."""
+    n = len(clusters)
+    huge = [i for i, c in enumerate(clusters) if c[2] is None]
+    rest = [i for i, c in enumerate(clusters) if c[2] is not None]
+    assert len(huge) <= 1, "at most one unconditional cluster"
+    cent = np.array([[(a + b) * 0.5 for a, b in zip(clusters[i][2],
+                                                    clusters[i][3])]
+                     for i in rest], np.float64).reshape(len(rest), 3)
+    groups: list = []
+
+    def split(idx: np.ndarray):
+        if len(idx) <= group_size:
+            groups.append(idx)
+            return
+        c = cent[idx]
+        axis = int(np.argmax(c.max(axis=0) - c.min(axis=0)))
+        half = len(idx) // 2
+        part = np.argpartition(c[:, axis], half)
+        split(idx[part[:half]])
+        split(idx[part[half:]])
+
+    if rest:
+        split(np.arange(len(rest)))
+    if sort_origin is not None and groups:
+        org = np.asarray(sort_origin, np.float64)
+        groups.sort(key=lambda idx: float(
+            np.linalg.norm(cent[idx].mean(axis=0) - org)))
+        for g in groups:
+            dist = np.linalg.norm(cent[g] - org, axis=1)
+            g[:] = g[np.argsort(dist, kind="stable")]
+
+    perm = list(huge)
+    parents = [(0, 1, None, None)] if huge else []
+    pos = len(huge)
+    for g in groups:
+        mnv = np.array([clusters[rest[i]][2] for i in g], np.float32)
+        mxv = np.array([clusters[rest[i]][3] for i in g], np.float32)
+        parents.append((pos, int(len(g)),
+                        tuple(float(x) for x in mnv.min(axis=0)),
+                        tuple(float(x) for x in mxv.max(axis=0))))
+        perm.extend(rest[i] for i in g)
+        pos += int(len(g))
+    assert len(perm) == n
+    return np.asarray(perm, np.int64), tuple(parents)
+
+
+# The streamed mesh tier's tables. A cluster's triangle records fill rows
+# of 128 floats, 9 records of 13 fields each (n3 d e1(3) a0 e2(3) b0 mat);
+# lanes ROW_BOUNDS_LANE.. +5 of a row hold the box (mn3 mx3) of its own 9
+# triangles, and a row of padding records holds the far-point box
+# ROW_EMPTY_FAR, which no ray enters before its nearest hit.
+STREAM_FIELDS = 13
+ROW_BOUNDS_LANE = STREAM_FIELDS * STREAM_TRIS_PER_ROW  # 117
+ROW_EMPTY_FAR = 3e37
+# Meshes of more than STREAM_MIN triangles take the streamed tier; those
+# of more than STREAM_MAX (STREAM_MAX // 2 with UVs) the DMA tier, and
+# those of more than DMA_MAX none.
+STREAM_MIN = 1024
+STREAM_MAX = 131072
+DMA_MAX = 1 << 20
+# Row boxes cull in every mesh of at least this many triangles.
+ROW_CULL_MIN = 1024
+# The cluster-field-major uv table: 6 rows of 128 lanes per cluster.
+UV_CFM_ROWS = 6
+
+
+def stream_rows_per_cluster(leaf: int) -> int:
+    """Record rows per cluster: every cluster pads to this many."""
+    return -(-leaf // STREAM_TRIS_PER_ROW)
+
+
+def pack_stream_clusters(pre: dict, mats: np.ndarray, clusters: tuple,
+                         leaf: int, tri_bounds: tuple):
+    """The streamed tier's (bounds, pack) tables from
+    :func:`triangle_precompute`'s records in cluster order: ``bounds`` one
+    (128,) row per cluster (mn3 mx3; a huge cluster +-1e30), ``pack``
+    ``stream_rows_per_cluster(leaf)`` record rows per cluster (padding
+    records all zero: n = 0 never hits), each row's own box from the
+    (bmin, bmax) pair ``tri_bounds`` rounded outward."""
+    per = STREAM_TRIS_PER_ROW
+    rpc = stream_rows_per_cluster(leaf)
+    recs, bounds, row_boxes = [], [], []
+    for (off, cnt, mn, mx) in clusters:
+        rows = np.zeros((rpc * per, STREAM_FIELDS), np.float32)
+        sl = slice(off, off + cnt)
+        rows[:cnt, 0:3] = pre["n"][sl]
+        rows[:cnt, 3] = pre["d"][sl]
+        rows[:cnt, 4:7] = pre["e1"][sl]
+        rows[:cnt, 7] = pre["a0"][sl]
+        rows[:cnt, 8:11] = pre["e2"][sl]
+        rows[:cnt, 11] = pre["b0"][sl]
+        rows[:cnt, 12] = mats[sl].astype(np.float32)
+        recs.append(rows)
+        for r in range(rpc):
+            lo = off + r * per
+            hi = min(off + (r + 1) * per, off + cnt)
+            if lo >= hi:
+                row_boxes.append((ROW_EMPTY_FAR,) * 6)
+            else:
+                rmn, rmx = _bounds_of(tri_bounds[0], tri_bounds[1],
+                                      np.arange(lo, hi))
+                row_boxes.append(rmn + rmx)
+        if mn is None:
+            mn, mx = (-1e30,) * 3, (1e30,) * 3
+        brow = np.zeros((128,), np.float32)
+        brow[0:3] = mn
+        brow[3:6] = mx
+        bounds.append(brow)
+    flat = np.concatenate(recs, axis=0)
+    pack = np.zeros((len(flat) // per, 128), np.float32)
+    pack[:, :per * STREAM_FIELDS] = flat.reshape(-1, per * STREAM_FIELDS)
+    pack[:, ROW_BOUNDS_LANE:ROW_BOUNDS_LANE + 6] = np.asarray(row_boxes,
+                                                              np.float32)
+    return np.stack(bounds), pack
+
+
+def pack_stream_uv_cfm(uvt: np.ndarray, clusters: tuple, leaf: int):
+    """The uv table, cluster-field-major: row ``c * 6 + k``, lane ``j`` is
+    field k (u0 v0 du1 dv1 du2 dv2, texel space) of cluster c's j-th
+    triangle; ``uvt`` is the (T, 6) table in cluster order."""
+    assert leaf <= 128, "a cluster's triangles must fit the 128 lanes"
+    rows = np.zeros((max(len(clusters), 1) * UV_CFM_ROWS, 128), np.float32)
+    for ci, (off, cnt, _, _) in enumerate(clusters):
+        rows[ci * UV_CFM_ROWS:(ci + 1) * UV_CFM_ROWS, :cnt] = \
+            uvt[off:off + cnt].T
+    return rows

@@ -15,7 +15,7 @@ from ..render.renderer import AccumState
 from ..utils.vec import Vec3
 from .schema import (
     STATIC_FIELDS, TENSOR_FIELDS, VEC_FIELDS, Scene, bake_quad_normals,
-    cluster_tables, mip_table,
+    cluster_tables, mip_table, parent_tables, texture_stack,
 )
 
 
@@ -32,9 +32,11 @@ def scene_from_numpy(fields: dict, statics: dict) -> Scene:
     """JAX scene leaves (by field name) and statics -> a CPU port Scene.
     Fields and statics the port does not read are ignored; a missing
     ``quad_n`` (hand-built JAX scenes) is baked from ``quad_u``/``quad_v``.
-    The cluster-ordered ``csph_*`` tables and the combined texture tables
-    come across as they are; the kernel's cluster and mip tables are
-    derived from the ``sph_clusters`` and ``tex_mip_meta`` statics."""
+    The cluster-ordered ``csph_*`` tables, the triangle and streamed-tier
+    tables and the texture tables come across as they are, except a
+    combined set's flat stack, which the port does not keep; the kernel's
+    cluster, mip and parent tables are derived from the ``sph_clusters``,
+    ``tex_mip_meta`` and ``stream_parents`` statics."""
     kw = {k: _vec(fields[k]) for k in VEC_FIELDS
           if k != "quad_n" or fields.get(k) is not None}
     if "quad_n" not in kw:
@@ -43,6 +45,9 @@ def scene_from_numpy(fields: dict, statics: dict) -> Scene:
     kw.update({k: statics[k] for k in STATIC_FIELDS if k in statics})
     kw.update(cluster_tables(kw.get("sph_clusters", ())))
     kw.update(mip_table(kw.get("tex_mip_meta", ())))
+    kw.update(parent_tables(kw.get("stream_parents", ())))
+    if kw.get("tex_combined"):
+        kw.update(texture_stack([], combined=True))
     return Scene(**kw)
 
 

@@ -22,7 +22,15 @@ one 128-word row per 8x8-texel tile, A and B of a texel in adjacent words
 at ``((y & 7) * 8 + (x & 7)) * 2``). A square power-of-two set also gets
 its mip pyramid, level 0 first, described by the static ``tex_mip_meta``
 rows ``(row_off, tiles_x, word_off, w, h)`` and, for the kernel, the int32
-table ``tex_mip`` (:func:`mip_table`). Other texture sets are not ported.
+table ``tex_mip`` (:func:`mip_table`). Any other texture set is kept as the
+flat RGB8 stack ``tex_packed`` with per-layer sizes (:func:`texture_stack`);
+of those the port reads only mesh-UV albedo maps (``tex_mesh_only``).
+
+A triangle mesh (``set_mesh``; UVs scaled to texel units there) is kept as
+``tri_*`` tables and, above ``clusters.STREAM_MIN`` triangles, as the
+streamed tier's tables (``mtri_bounds``, ``mtri_pack``, ``mtri_uvpack``)
+with the static parent descriptors ``stream_parents`` and, for the kernel,
+``stream_pbox``/``stream_prange`` (:func:`parent_tables`).
 
 Conventions kept from the reference: material 0 is the sky and a miss
 reports material 0; ``spheres[0]`` is the light the next-event estimator
@@ -74,7 +82,10 @@ VEC_FIELDS = (
     "mat_albedo", "mat_emit", "mat_metal_color",
     "sph_center", "quad_point", "quad_u", "quad_v", "quad_n",
     "pln_n", "box_min", "box_max", "csph_center",
+    "tri_a", "tri_u", "tri_v",
 )
+TRI_UV_FIELDS = ("tri_uv0u", "tri_uv0v", "tri_uvdu1", "tri_uvdv1",
+                 "tri_uvdu2", "tri_uvdv2")
 TENSOR_FIELDS = (
     "mat_metalness", "mat_roughness", "mat_ior", "mat_transmission",
     "mat_dispersion", "mat_alpha", "mat_albedo_idx", "mat_bump_idx",
@@ -85,20 +96,27 @@ TENSOR_FIELDS = (
     "pln_d", "pln_mat", "pln_mask",
     "box_mat", "box_mask",
     "csph_radius", "csph_mat",
+    "tri_mat", *TRI_UV_FIELDS, "mtri_bounds", "mtri_pack", "mtri_uvpack",
     "tex_tile", "tex_comb_a", "tex_comb_b",
+    "tex_packed", "tex_w", "tex_h",
 )
 STATIC_FIELDS = (
     "n_spheres", "n_quads", "n_planes", "n_tris", "n_boxes", "n_materials",
     "n_textures", "quad_light", "just_cosine", "any_transmissive",
     "any_dispersive", "any_bump", "has_mesh_uvs", "fog_sigma_t",
     "sph_clusters",
+    "tri_streamed", "tri_dma", "stream_uv_cfm", "stream_leaf",
+    "n_stream_clusters", "stream_parents", "stream_row_cull",
     "tex_combined", "tex_comb_w", "tex_comb_h", "tex_tiles_x",
-    "tex_mip_meta", "use_normal_maps", "use_metalness_maps",
+    "tex_mip_meta", "tex_hmax", "tex_wmax", "tex_mesh_only",
+    "use_normal_maps", "use_metalness_maps",
     "use_roughness_maps", "tbn_normal_maps",
 )
-# Kernel tables derived from statics (cluster_tables, mip_table).
+# Kernel tables derived from statics (cluster_tables, mip_table,
+# parent_tables).
 DERIVED_VEC_FIELDS = ("cl_min", "cl_max")
-DERIVED_TENSOR_FIELDS = ("cl_offset", "cl_count", "cl_huge", "tex_mip")
+DERIVED_TENSOR_FIELDS = ("cl_offset", "cl_count", "cl_huge", "tex_mip",
+                         "stream_pbox", "stream_prange")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -162,6 +180,34 @@ class Scene:
     tex_comb_b: torch.Tensor    # flat B words
     tex_mip: torch.Tensor       # (levels or 1, 5) int32 = tex_mip_meta
 
+    # triangles: vertex A, edges u = B - A and v = C - A, material, and
+    # with mesh UVs the texel-space uv0, uv1 - uv0, uv2 - uv0 per triangle
+    # ((1,) dummies without)
+    tri_a: Vec3
+    tri_u: Vec3
+    tri_v: Vec3
+    tri_mat: torch.Tensor
+    tri_uv0u: torch.Tensor
+    tri_uv0v: torch.Tensor
+    tri_uvdu1: torch.Tensor
+    tri_uvdv1: torch.Tensor
+    tri_uvdu2: torch.Tensor
+    tri_uvdv2: torch.Tensor
+    # the streamed tier (K7; (1, 128) dummies without): one bounds row per
+    # cluster, the record rows, the cluster-field-major uv rows
+    mtri_bounds: torch.Tensor
+    mtri_pack: torch.Tensor
+    mtri_uvpack: torch.Tensor
+    # per parent (parent_tables): box mn3 mx3, and (first cluster, count,
+    # 1 = huge: always descended)
+    stream_pbox: torch.Tensor
+    stream_prange: torch.Tensor
+    # the flat RGB8 texture stack, texel (layer*hmax + y)*wmax + x, and
+    # each layer's size ((1,) dummies for a combined set, read via tex_tile)
+    tex_packed: torch.Tensor
+    tex_w: torch.Tensor
+    tex_h: torch.Tensor
+
     n_spheres: int = 0
     n_quads: int = 0
     n_planes: int = 0
@@ -178,12 +224,26 @@ class Scene:
     fog_sigma_t: float = 0.0
     # (offset, count, mn3 | None, mx3 | None) over csph_*; huge first
     sph_clusters: tuple = ()
+    # the mesh's tier: streamed (more than clusters.STREAM_MIN triangles),
+    # and of those the DMA tier (not ported); the uv rows' layout
+    tri_streamed: bool = False
+    tri_dma: bool = False
+    stream_uv_cfm: bool = False
+    stream_leaf: int = 0            # triangles of the largest cluster
+    n_stream_clusters: int = 0
+    # (first cluster, count, mn3 | None, mx3 | None) per parent
+    stream_parents: tuple = ()
+    stream_row_cull: bool = False   # test each record row's own box
     tex_combined: bool = False
     tex_comb_w: int = 1
     tex_comb_h: int = 1
     tex_tiles_x: int = 1
     # per level (row_off, tiles_x, word_off, w, h); () = no pyramid
     tex_mip_meta: tuple = ()
+    tex_hmax: int = 1
+    tex_wmax: int = 1
+    # every textured material is a mesh-UV albedo binding (no planar fetch)
+    tex_mesh_only: bool = False
     # -n -m -r turn the maps off (win32_main.cpp:2173-2178); --tbn rotates
     # the decoded normal into the geometric frame instead of replacing N
     use_normal_maps: bool = True
@@ -214,19 +274,32 @@ class Scene:
         """Names of the features this scene uses that the port has not yet
         ported (empty when the slice covers it)."""
         out = []
-        if self.n_textures and not self.tex_combined:
-            out.append("textures outside the combined 4-map set (K10/K11, "
-                       "ROADMAP queue 2 item 1)")
-        if self.n_tris:
-            out.append("triangle meshes (ROADMAP queue 1 item 10)")
+        if self.n_textures and not (self.tex_combined or self.tex_mesh_only):
+            out.append("textures outside the combined 4-map set and mesh-UV "
+                       "albedo maps (K10/K11 planar forms, ROADMAP queue 2 "
+                       "item 1)")
+        if self.tex_combined and self.has_mesh_uvs:
+            out.append("a combined texture set with mesh UVs (ROADMAP "
+                       "queue 2 item 2)")
+        if self.n_tris and not self.tri_streamed:
+            out.append(
+                f"meshes of {clusters.CLUSTER_MIN} triangles or fewer "
+                "(the brute sweep K4t, ROADMAP queue 2 item 2)"
+                if self.n_tris <= clusters.CLUSTER_MIN else
+                f"meshes of {clusters.CLUSTER_MIN + 1}-{clusters.STREAM_MIN} "
+                "triangles (the static tier: K5's triangle form and K8, "
+                "ROADMAP queue 2 item 2)")
+        elif self.tri_dma:
+            out.append("meshes above the resident streamed tier (K7's DMA "
+                       "tier, ROADMAP queue 2 item 2)")
+        elif self.n_tris and not self.has_mesh_uvs:
+            out.append("meshes without UVs (ROADMAP queue 2 item 2)")
         if self.any_transmissive or self.any_dispersive:
             out.append("transmission/dispersion (ROADMAP queue 1 item 11)")
         if self.any_bump:
-            out.append("bump maps (ROADMAP queue 1 item 11)")
+            out.append("bump maps (K11, ROADMAP queue 2 item 1)")
         if self.fog_sigma_t > 0.0:
             out.append("fog (ROADMAP queue 1 item 11)")
-        if self.has_mesh_uvs:
-            out.append("mesh UVs (ROADMAP queue 1 item 10)")
         if self.n_boxes:
             out.append("boxes (never populated by the reference worlds)")
         return out
@@ -284,6 +357,45 @@ def cluster_tables(sph_clusters: tuple) -> dict:
         cl_huge=torch.tensor([int(c[2] is None) for c in rows],
                              dtype=torch.int32),
     )
+
+
+def parent_tables(stream_parents: tuple) -> dict:
+    """The kernel's parent tables (CPU tensors, at least one row) for the
+    streamed tier's static parent descriptors; a huge parent has no box
+    and is always descended."""
+    rows = stream_parents or ((0, 0, None, None),)
+    return dict(
+        stream_pbox=torch.tensor(
+            [(0.0,) * 6 if p[2] is None else p[2] + p[3] for p in rows],
+            dtype=torch.float32),
+        stream_prange=torch.tensor(
+            [(p[0], p[1], int(p[2] is None)) for p in rows],
+            dtype=torch.int32),
+    )
+
+
+def texture_stack(textures: list, combined: bool) -> dict:
+    """The flat RGB8 stack of a texture set (schema.py:728-740 in JAX: every
+    layer padded to the largest height and width, one int32 word per texel)
+    and its statics, or (1,) dummies for a combined set, whose fetch reads
+    ``tex_tile`` instead."""
+    if combined or not textures:
+        return dict(tex_packed=torch.zeros((1,), dtype=torch.int32),
+                    tex_w=torch.ones((1,), dtype=torch.int32),
+                    tex_h=torch.ones((1,), dtype=torch.int32),
+                    tex_hmax=1, tex_wmax=1)
+    hmax = max(t.shape[0] for t in textures)
+    wmax = max(t.shape[1] for t in textures)
+    tex = np.zeros((len(textures), hmax, wmax, 3), np.float32)
+    for k, t in enumerate(textures):
+        tex[k, :t.shape[0], :t.shape[1]] = t
+    q = np.clip(np.round(tex * 255.0), 0, 255).astype(np.int64)
+    packed = (q[..., 0] | (q[..., 1] << 8) | (q[..., 2] << 16)).astype(np.int32)
+    return dict(
+        tex_packed=torch.from_numpy(packed.reshape(-1)),
+        tex_w=torch.tensor([t.shape[1] for t in textures], dtype=torch.int32),
+        tex_h=torch.tensor([t.shape[0] for t in textures], dtype=torch.int32),
+        tex_hmax=hmax, tex_wmax=wmax)
 
 
 def mip_table(tex_mip_meta: tuple) -> dict:
@@ -390,7 +502,8 @@ def bake_quad_normals(u: Vec3, v: Vec3) -> Vec3:
 
 
 class WorldBuilder:
-    """Host-side scene assembly for spheres, quads, planes and textures."""
+    """Host-side scene assembly for spheres, quads, planes, one triangle
+    mesh and textures."""
 
     def __init__(self):
         self.materials: list[HostMaterial] = []
@@ -398,6 +511,9 @@ class WorldBuilder:
         self.quads: list[tuple] = []        # (point, u, v, mat)
         self.planes: list[tuple] = []       # (n, d, mat)
         self.textures: list[np.ndarray] = []  # (H, W, 3) float32 each
+        self.triangles = None                 # (T, 3, 3) float32
+        self.tri_mats = None                  # (T,) int32
+        self.tri_uvs = None                   # (T, 3, 2) float32, texels
         self.quad_light: int = -1
 
     def add_material(self, **kw) -> int:
@@ -426,6 +542,92 @@ class WorldBuilder:
         """Returns the 1-based texture index the material *_idx fields use."""
         self.textures.append(np.asarray(data, np.float32))
         return len(self.textures)
+
+    def set_mesh(self, points: np.ndarray, mat_indices: np.ndarray,
+                 uvs=None):
+        """``points``: (T*3, 3) vertices, three per triangle; a triangle's
+        material is its first vertex's. ``uvs``: optional (T*3, 2) per-vertex
+        coordinates in [0, 1] units, scaled here to texel units by the size
+        of the triangle's material's albedo texture (scale 1 without one),
+        so materials and textures are registered first."""
+        self.triangles = np.asarray(points, np.float32).reshape(-1, 3, 3)
+        self.tri_mats = np.asarray(mat_indices, np.int32).reshape(-1, 3)[:, 0]
+        if uvs is None:
+            self.tri_uvs = None
+            return
+        uv = np.asarray(uvs, np.float32).reshape(-1, 3, 2)
+        mw = np.ones((len(self.materials),), np.float32)
+        mh = np.ones((len(self.materials),), np.float32)
+        for j, m in enumerate(self.materials):
+            if m.albedo_idx and m.albedo_idx <= len(self.textures):
+                mh[j], mw[j] = self.textures[m.albedo_idx - 1].shape[:2]
+        scale = np.stack([mw[self.tri_mats], mh[self.tri_mats]],
+                         axis=-1)[:, None, :]
+        self.tri_uvs = (uv * scale).astype(np.float32)
+
+    def _mesh_tables(self, view_origin) -> dict:
+        """The triangle tables and, for a mesh of more than
+        clusters.STREAM_MIN triangles, the streamed tier's, as the JAX
+        builder makes them (schema.py:562-727): records in cluster order,
+        clusters regrouped under parents, row-aligned record rows and the
+        cluster-field-major uv rows. The static tier's tables (65-1024
+        triangles) are not built."""
+        f32, i32 = np.float32, np.int32
+        tris = self.triangles
+        ntri = 0 if tris is None else len(tris)
+        T = _pad(ntri)
+        tri_a, tri_u, tri_v = (np.zeros((T, 3), f32) for _ in range(3))
+        tri_m = np.zeros((T,), i32)
+        if ntri:
+            tri_a[:ntri] = tris[:, 0]
+            tri_u[:ntri] = tris[:, 1] - tris[:, 0]
+            tri_v[:ntri] = tris[:, 2] - tris[:, 0]
+            tri_m[:ntri] = self.tri_mats
+        has_uvs = self.tri_uvs is not None and ntri > 0
+        uvt = np.zeros((T if has_uvs else 1, 6), f32)
+        if has_uvs:
+            uvt[:ntri, 0:2] = self.tri_uvs[:, 0]
+            uvt[:ntri, 2:4] = self.tri_uvs[:, 1] - self.tri_uvs[:, 0]
+            uvt[:ntri, 4:6] = self.tri_uvs[:, 2] - self.tri_uvs[:, 0]
+        out = dict(tri_a=_vec_columns(tri_a), tri_u=_vec_columns(tri_u),
+                   tri_v=_vec_columns(tri_v), tri_mat=torch.from_numpy(tri_m),
+                   **{k: torch.from_numpy(uvt[:, j].copy())
+                      for j, k in enumerate(TRI_UV_FIELDS)},
+                   n_tris=ntri, has_mesh_uvs=has_uvs)
+        dummy = lambda: torch.zeros((1, 128), dtype=torch.float32)
+        stream = dict(mtri_bounds=dummy(), mtri_pack=dummy(),
+                      mtri_uvpack=dummy(), stream_parents=())
+        if clusters.STREAM_MIN < ntri <= clusters.DMA_MAX:
+            bmn, bmx = clusters.triangle_bounds(tris)
+            order, tri_clusters = clusters.build_clusters(
+                bmn, bmx, sort_origin=view_origin)
+            pre = clusters.triangle_precompute(
+                tri_a[:ntri][order], tri_u[:ntri][order], tri_v[:ntri][order])
+            cperm, parents = clusters.build_parents(tri_clusters,
+                                                    sort_origin=view_origin)
+            tri_clusters = tuple(tri_clusters[i] for i in cperm)
+            leaf = max(c[1] for c in tri_clusters)
+            bounds, pack = clusters.pack_stream_clusters(
+                pre, tri_m[:ntri][order], tri_clusters, leaf,
+                (bmn[order], bmx[order]))
+            cfm = has_uvs and leaf <= 128
+            uvpack = (clusters.pack_stream_uv_cfm(uvt[:ntri][order],
+                                                  tri_clusters, leaf)
+                      if cfm else np.zeros((1, 128), f32))
+            # the DMA tier keeps no static parents (JAX packs them as rows)
+            dma = ntri > (clusters.STREAM_MAX // 2 if has_uvs
+                          else clusters.STREAM_MAX)
+            stream = dict(
+                mtri_bounds=torch.from_numpy(bounds),
+                mtri_pack=torch.from_numpy(pack),
+                mtri_uvpack=torch.from_numpy(uvpack),
+                stream_parents=() if dma else parents,
+                tri_streamed=True, tri_dma=dma, stream_uv_cfm=cfm,
+                stream_leaf=leaf, n_stream_clusters=len(tri_clusters),
+                stream_row_cull=ntri >= clusters.ROW_CULL_MIN)
+        out.update(stream)
+        out.update(parent_tables(stream["stream_parents"]))
+        return out
 
     def _sphere_clusters(self, view_origin):
         """(csph center, radius, mat, clusters) as in the JAX builder: the
@@ -461,6 +663,17 @@ class WorldBuilder:
         quad_u = _vec_table([q[1] for q in self.quads], Q)
         quad_v = _vec_table([q[2] for q in self.quads], Q)
         csph_c, csph_r, csph_m, sph_clusters = self._sphere_clusters(view_origin)
+        mesh = self._mesh_tables(view_origin)
+        tex_set = combined_texture_set(self.textures, mats)
+        non_tri_mats = ({s[2] for s in self.spheres} | {q[3] for q in self.quads}
+                        | {p[2] for p in self.planes})
+        # every textured material binds an albedo map to mesh UVs alone
+        tex_mesh_only = bool(
+            mesh["has_mesh_uvs"] and self.textures
+            and all(m.metalness_idx == 0 and m.roughness_idx == 0
+                    and m.normal_idx == 0 and m.bump_idx == 0
+                    and (m.albedo_idx == 0 or j not in non_tri_mats)
+                    for j, m in enumerate(mats)))
         return Scene(
             mat_albedo=_vec_table(col("albedo"), M),
             mat_emit=_vec_table(col("emit"), M),
@@ -499,7 +712,10 @@ class WorldBuilder:
             csph_radius=torch.from_numpy(csph_r),
             csph_mat=torch.from_numpy(csph_m),
             **cluster_tables(sph_clusters),
-            **combined_texture_set(self.textures, mats),
+            **tex_set,
+            **texture_stack(self.textures, tex_set["tex_combined"]),
+            **mesh,
+            tex_mesh_only=tex_mesh_only,
             sph_clusters=sph_clusters,
             n_spheres=len(self.spheres),
             n_quads=len(self.quads),

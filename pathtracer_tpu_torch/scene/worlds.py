@@ -4,12 +4,14 @@ Counterpart of ``pathtracer_tpu/scene/worlds.py`` for the worlds whose
 scenes the port covers: the default world (``-w1``: sun, a textured
 ground sphere carrying the four rusty-metal maps, three spheres), the
 Cornell box (``-w3``), the Cornell box with a quad area light (``-w6``),
-the metal/roughness sphere grid (``-w2``) and the "Ray Tracing in One
+the metal/roughness sphere grid (``-w2``), the "Ray Tracing in One
 Weekend" cover (``-w4``: 484 spheres from a seeded
-``np.random.RandomState``, the forced thin lens). Material order, sphere
-order (``spheres[0]`` is the NEE light), random draws, textures and camera
-parameters are those of the JAX worlds, line for line. The worlds with meshes
-raise ``NotImplementedError``.
+``np.random.RandomState``, the forced thin lens) and the mesh-UV world
+(``-w7``: a 1472-triangle UV sphere wearing a procedural checker). Material
+order, sphere order (``spheres[0]`` is the NEE light), random draws,
+textures, meshes and camera parameters are those of the JAX worlds, line
+for line. World 5 (Mario, from ``mario.glb``) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,9 +32,8 @@ from .schema import (
 
 # World kinds not yet ported, with the ROADMAP item that brings them.
 _NOT_PORTED = {
-    WORLD_MARIO: "world 5 needs triangle meshes (ROADMAP queue 1 item 10)",
-    WORLD_MESH_UV: "world 7 needs meshes and textures "
-                   "(ROADMAP queue 1 items 9-10)",
+    WORLD_MARIO: "world 5 needs mario.glb, which is not in the repository, "
+                 "and the static mesh tier (ROADMAP queue 1 item 10)",
 }
 
 
@@ -62,6 +63,44 @@ def _add_sun(b: WorldBuilder):
 def _ground_plane(b: WorldBuilder, mat: int):
     """MakeGroundPlane (win32_main.cpp:2069-2074): n=(0,0,1), d=0."""
     b.add_plane((0.0, 0.0, 1.0), 0.0, mat)
+
+
+def _uv_sphere_mesh(center, radius, n_seg: int = 32, n_ring: int = 24):
+    """A UV-sphere triangle soup with per-vertex (longitude, colatitude)
+    coordinates in [0, 1], wound so cross(B - A, C - A) points outward;
+    the pole rows emit one triangle per segment. 1472 triangles at the
+    default resolution."""
+    cs = np.asarray(center, np.float32)
+    th = np.linspace(0.0, np.pi, n_ring + 1)
+    ph = np.linspace(0.0, 2.0 * np.pi, n_seg + 1)
+    T, P = np.meshgrid(th, ph, indexing="ij")
+    V = (np.stack([np.sin(T) * np.cos(P), np.sin(T) * np.sin(P),
+                   np.cos(T)], -1) * radius + cs).astype(np.float32)
+    UV = np.stack([P / (2.0 * np.pi), T / np.pi], -1).astype(np.float32)
+    pts, uvs = [], []
+    for i in range(n_ring):
+        for j in range(n_seg):
+            a, bq, c, dq = (i, j), (i, j + 1), (i + 1, j + 1), (i + 1, j)
+            if i > 0:  # the top pole row has a == bq
+                for k in (a, c, bq):
+                    pts.append(V[k])
+                    uvs.append(UV[k])
+            if i < n_ring - 1:  # the bottom pole row has c == dq
+                for k in (a, dq, c):
+                    pts.append(V[k])
+                    uvs.append(UV[k])
+    return np.asarray(pts, np.float32), np.asarray(uvs, np.float32)
+
+
+def _mesh_uv_demo_texture(n: int = 64):
+    """An n x n checker with colour gradients, on the 8-bit grid."""
+    yy, xx = (np.indices((n, n)).astype(np.float32) + 0.5) / n
+    checker = ((xx * 8).astype(np.int32) + (yy * 8).astype(np.int32)) % 2
+    r = 0.2 + 0.6 * checker
+    g = 0.25 + 0.6 * yy
+    bch = 0.85 - 0.55 * xx
+    t = np.stack([r, g, bch], -1).astype(np.float32)
+    return (np.round(t * 255.0) / 255.0).astype(np.float32)
 
 
 def _rtiow_cover(b: WorldBuilder, cam: CameraParams, rtiow_seed: int):
@@ -223,6 +262,24 @@ def build_world(kind: int, use_pinhole: bool = True,
         cam.pos = (2.5, 7.0, 2.0)
         cam.fov = 50.0
         cam.focal_distance = 10.0
+
+    elif kind == WORLD_MESH_UV:
+        # -w7 (beyond the reference's five): a UV-mapped sphere mesh of 1472
+        # triangles (the streamed tier) wearing a 64x64 checker through its
+        # mesh UVs, on the ground plane, lit by an emissive sphere
+        _add_sky(b, (0.35, 0.45, 0.6))
+        light = b.add_material(albedo=(0, 0, 0), emit=(10.0, 9.5, 9.0))
+        b.add_sphere((5.0, -4.0, 7.0), 1.2, light)
+        mt = b.add_material(albedo=(1.0, 1.0, 1.0), roughness=0.55,
+                            albedo_idx=b.add_texture(_mesh_uv_demo_texture()))
+        pts, uvs = _uv_sphere_mesh((0.0, 0.0, 1.4), 1.4)
+        b.set_mesh(pts, np.full((len(pts),), mt, np.int32), uvs=uvs)
+        floor = b.add_material(albedo=(0.55, 0.5, 0.45), roughness=0.9)
+        _ground_plane(b, floor)
+
+        cam.pos = (0.0, -7.0, 2.2)
+        cam.target = (0.0, 0.0, 1.3)
+        cam.fov = 32.0
 
     elif kind == WORLD_RAYTRACING_ONE_WEEKEND:
         _rtiow_cover(b, cam, rtiow_seed)

@@ -129,6 +129,34 @@ def test_textured_schedules_agree(cuda):
     assert int(out[0].rays_cast) == int(out[1].rays_cast)
 
 
+@pytest.mark.parametrize("schedule, pinhole, variant", [
+    (None, True, "mesh_pinhole"),
+    (None, False, "mesh_lens"),
+    (cuda_backend.MESH_OTHER_SCHEDULE, True,
+     f"mesh_pinhole_{cuda_backend.MESH_OTHER_SCHEDULE}"),
+])
+def test_mesh_kernel_matches_plain(cuda, schedule, pinhole, variant):
+    """World 7 at 64x36 through the mesh variants (the streamed walk K7 and
+    the mesh-UV fetch K10), each against its plain version."""
+    _assert_verify_gates(*_pair(
+        cuda, tschema.WORLD_MESH_UV, 64, 36, 2, 4, use_pinhole=pinhole,
+        variant=variant, schedule=schedule))
+
+
+def test_mesh_schedules_agree(cuda):
+    """Both mesh schedules accumulate the same image."""
+    scene, cam = tworlds.finalize_world(tschema.WORLD_MESH_UV, 64, 36)
+    scene = scene.to(cuda)
+    out = []
+    for schedule in ("lockstep", "regen"):
+        cfg = trenderer.RenderConfig(64, 36, pp=2, seed=0, schedule=schedule)
+        out.append(cuda_backend.render_chunk_cuda(
+            scene, cam, cfg, 0, 0, 4, trenderer.init_accum(64 * 36, cuda)))
+    assert torch.equal(trenderer.resolve(out[0], cfg),
+                       trenderer.resolve(out[1], cfg))
+    assert int(out[0].rays_cast) == int(out[1].rays_cast)
+
+
 def test_clustered_kernel_equals_brute_kernel(cuda):
     """World 4: the K5 walk finds the brute sweep's hits, so the two
     kernel variants accumulate the same image."""

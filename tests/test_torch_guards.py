@@ -25,8 +25,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_imports_and_renders_without_jax(tmp_path):
     """jax, flax and pathtracer_tpu are unimportable in the child; every
-    module of the port imports, the CLI renders world 3 at 8x8 on the CPU
-    and writes its BMP."""
+    module of the port imports, the CLI renders worlds 3 and 7 at 8x8 on the
+    CPU and writes their BMPs."""
     out = tmp_path / "w3.bmp"
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
@@ -39,6 +39,8 @@ def test_imports_and_renders_without_jax(tmp_path):
         rc = main(["-w3", "-p1", "--size", "8x8", "--device", "cpu",
                    "--out", {str(out)!r}])
         assert rc == 0
+        assert main(["-w7", "-p1", "--size", "8x8", "--device", "cpu",
+                     "--out", {str(out) + ".w7"!r}]) == 0
         assert not any(k.startswith(("jax", "flax")) and v is not None
                        for k, v in sys.modules.items())
         print("OK")
@@ -49,6 +51,17 @@ def test_imports_and_renders_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().endswith("OK")
     assert out.stat().st_size == 58 + 8 * 8 * 4
+    assert (tmp_path / "w3.bmp.w7").stat().st_size == 58 + 8 * 8 * 4
+
+
+def test_cli_world5_raises_naming_its_item(tmp_path):
+    """World 5 needs mario.glb and the static mesh tier: the CLI raises and
+    names both and the ROADMAP item."""
+    from pathtracer_tpu_torch.cli import main
+    with pytest.raises(NotImplementedError,
+                       match="mario.glb.*ROADMAP queue 1 item 10"):
+        main(["-w5", "-p1", "--size", "8x8", "--device", "cpu", "--out",
+              str(tmp_path / "w5.bmp")])
 
 
 def test_render_image_cuda_without_card_raises():
@@ -145,11 +158,14 @@ def test_cpu_wrapper_runs_plain_version():
     (tschema.WORLD_RAYTRACING_ONE_WEEKEND, True, "clustered_lens"),
     (tschema.WORLD_DEFAULT, True, "textured_pinhole"),
     (tschema.WORLD_DEFAULT, False, "textured_lens"),
+    (tschema.WORLD_MESH_UV, True, "mesh_pinhole"),
+    (tschema.WORLD_MESH_UV, False, "mesh_lens"),
 ])
 def test_kernel_variant_by_scene_and_camera(kind, pinhole, want):
     """The wrapper picks the textured kernel from a combined texture set,
-    the clustered walk from the scene's clusters and the thin lens from
-    the camera (world 4 forces it)."""
+    the mesh kernel from a triangle mesh, the clustered walk from the
+    scene's clusters and the thin lens from the camera (world 4 forces
+    it)."""
     scene, cam = tworlds.finalize_world(kind, 8, 8, use_pinhole=pinhole)
     assert cuda_backend.variant(scene, cam) == want
     assert want in cuda_backend.VARIANTS
