@@ -5,7 +5,7 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and no network,
 and it imports nothing of JAX.
 
-The render kernel csrc/wave_kernel.cu has ten compile-time variants
+The render kernel csrc/wave_kernel.cu has twelve compile-time variants
 (cuda_backend.VARIANTS), instantiations of one template in one build:
 untextured, the brute sphere sweep or the clustered walk (K5/K6), each with
 the pinhole or the thin-lens primary ray; textured (world 1's combined
@@ -13,14 +13,17 @@ the pinhole or the thin-lens primary ray; textured (world 1's combined
 (cuda_backend.TEXTURED_SCHEDULE) and the pinhole under the other one (K3
 lockstep or K2 regen), its yardstick; mesh (world 7's streamed triangle
 walk K7 with the mesh-UV texel fetch K10), the pinhole and the lens under
-cuda_backend.MESH_SCHEDULE and the pinhole under the other one.
+cuda_backend.MESH_SCHEDULE and the pinhole under the other one; feature
+(fog, transmission with dispersion, planar maps through K10's planar form,
+bump maps through the height fetch K11, the brute UV triangle sweep K4t),
+the pinhole and the lens under path regeneration.
 
 Phases (each prints its measured values on its own line; any failure raises
 and the script exits non-zero):
   1. device: the card's name and power limit;
   2. build: compiles csrc/wave_kernel.cu (one nvcc), prints the seconds,
-     ptxas's registers and spills for each variant (and whether the seven
-     earlier variants kept the values they were built at before the mesh
+     ptxas's registers and spills for each variant (and whether the ten
+     earlier variants kept the values they were built at before the feature
      variants came) and, from cuobjdump, the count of BSSY/BSYNC/WARPSYNC
      instructions in each variant's SASS (``--sass DIR`` also writes the
      full SASS there);
@@ -35,6 +38,10 @@ and the script exits non-zero):
      own 1280x720 and spp (world 7's default command, 16 spp, at 4); world
      4 at pp=4 (16 spp, the CLI's default) and at pp=12 over samples 12-23,
      which together reach all 12 slots of the kernel's Poisson-disk table;
+     the five feature scenes (scene/feature_scenes.py) at 256x144 and
+     1280x720, 4 spp (everything also through the thin lens), the CLI's fog
+     on world 6 and on world 3 with -d, and world 1 with three planar
+     512x512 maps at both sizes, through the feature variants;
   4. main paths, each through the entry point a user calls, at 1280x720
      with the launch counts set to 0 just before it and read just after:
      a. the Cornell box (-w3), 1 sample, seed 0, against the committed CPU
@@ -50,13 +57,21 @@ and the script exits non-zero):
         16 spp, through the textured kernel; a finite, non-black image;
      e. cli.main(["-w7", "--out", "test_w7.bmp"]): world 7, 16 spp, through
         the mesh kernel; a finite, non-black image;
+     f. the fog command, -w6 and -w3 -d with --fog 0.0012 --fog-albedo
+        0.9,0.9,0.95 --fog-g 0.5, 16 spp, through the feature variants;
+        finite, non-black images (test_fog_w6.bmp, test_fog_w3.bmp);
+     g. the five feature scenes through render_image, 16 spp: finite,
+        non-black images, each launching feature_pinhole;
   5. timing (CUDA events, synchronised; no speed gate): every variant and
      its plain version at 1280x720 4 spp; world 3 at 256 spp and world 1
      at 16 spp, kernel alone and end to end through render_image; worlds
      3, 6 and 4 at 64 spp; worlds 1 and 7 at 64 spp under both schedules,
      alternating (world 7 also end to end through render_image), and world
      1 with --mips; world 2 at 64 spp clustered against the same scene with
-     its clusters dropped (brute), alternating;
+     its clusters dropped (brute), alternating; the feature variants and
+     the parts they carry, each on the case that exercises it (world 6 and
+     world 3 -d in fog; tbn: K10 planar; bump: K11; everything: K4t UV;
+     dispersion: the dielectric lobe; world 1 with planar maps);
   6. bounds: the least time the card could take for each variant's 4-spp
      launch, from FP32 operations counted off the kernel's code and the
      bytes it must move (accumulators; for worlds 1 and 7 also the texture
@@ -68,7 +83,11 @@ and the script exits non-zero):
      are counted the same way, with the port's box test and record tests.
      For the textured and mesh variants the fetches are counted over every
      shaded hit on a textured material (mesh: with a UV winner) whose path
-     continues (a lower count).
+     continues (a lower count). For the feature rows the plain
+     regeneration loop's lanes are counted below the depth limit as a
+     kernel thread evaluates them: opaque and dielectric shades, fog
+     scatters, planar, height and mesh-UV fetches; every ray's triangle
+     tests and fog flight.
 
 The last two lines are the kernel table as JSON and the result line
 {"ok": true, "device": {...}}.
@@ -122,6 +141,28 @@ OPS_MESH_UV = 8
 # with their clamps (10), 12 channels unpacked (24), three bilinear blends
 # (36), the albedo product (3)
 OPS_STACK = 73
+# The feature variants (fog, transmission, planar and bump maps, brute
+# triangles). K4t in intersect_scene, per triangle test (ray_triangle_uv):
+# the normal's cross and normalize (20), the plane's dots, test and
+# division (21), the hit point (9), the barycentrics' reciprocal, crosses
+# and dots (37), six compares with alpha + beta and the take (10)
+OPS_TRI_BRUTE = 97
+# K10 planar, per fetch_planar: the bespoke scale (6) and fetch_stack
+# without the albedo product (70); for a metalness or roughness map only
+# the red channel is blended (36)
+OPS_PLANAR = 76
+OPS_PLANAR_X = 36
+# K11 and the bump, per bumped hit: three red-channel fetches with the two
+# shifted points (104), the gradient and the normalize (19)
+OPS_BUMP = 123
+# shade_dielectric, per transmissive hit: the Fresnel and dispersion terms
+# (35), Snell's refraction with its normalize (58), the albedo (11)
+OPS_REFRACT = 104
+# fog, per ray: the free flight and its test (6); per scatter: the phase
+# sample in d's frame (92), the light's test and pdf (50), the phase pdf,
+# the mixture and the weight (14)
+OPS_FOG_FLIGHT = 6
+OPS_FOG_SCATTER = 156
 BYTES_PER_PIXEL = 64  # 28 B of sums read, 36 B of sums and counters written
 
 
@@ -138,20 +179,25 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-KERNEL_RE = r"wave_kernelILb([01])ELb([01])ELi([0-9])ELi([0-9])E"
-# ptxas's registers and spill bytes of the seven variants as they were built
-# before the mesh variants were added (PERF.md's findings)
+KERNEL_RE = r"wave_kernelILb([01])ELb([01])ELi([0-9])ELi([0-9])ELb([01])E"
+# ptxas's registers and spill bytes of the ten variants as they were built
+# before the feature variants were added (PERF.md's findings)
 EARLIER_PTXAS = {"brute_pinhole": (64, 0), "brute_lens": (72, 16),
                  "clustered_pinhole": (64, 0), "clustered_lens": (64, 16),
                  "textured_pinhole": (64, 68), "textured_lens": (64, 60),
-                 "textured_pinhole_regen": (87, 0)}
+                 "textured_pinhole_regen": (87, 0),
+                 "mesh_pinhole": (56, 84), "mesh_lens": (56, 88),
+                 "mesh_pinhole_regen": (64, 112)}
 
 
 def variant_of(mangled: re.Match) -> str:
-    """The variant name of wave_kernel<kClustered, kThinLens, kTex, kMesh>."""
+    """The variant name of wave_kernel<kClustered, kThinLens, kTex, kMesh,
+    kFeat>."""
     from pathtracer_tpu_torch.render import cuda_backend as cb
-    clustered, lens, tex, mesh = mangled.groups()
+    clustered, lens, tex, mesh, feat = mangled.groups()
     end = "_lens" if lens == "1" else "_pinhole"
+    if feat == "1":
+        return "feature" + end
     if tex == "0" and mesh == "0":
         return ("clustered" if clustered == "1" else "brute") + end
     kind, code, main = (("textured", tex, cb.TEXTURED_SCHEDULE) if tex != "0"
@@ -369,6 +415,91 @@ def mesh_tests(scene, cam, cfg, n_samples, dev):
             tally["fetches"])
 
 
+def feature_counts(scene, cam, cfg, n_samples, dev):
+    """What the feature kernel evaluates over every ray of samples 0 ..
+    n_samples-1 of ``cfg``: rays, and below the depth limit the opaque
+    shades, dielectric (refraction) shades and fog scatters, the planar
+    fetches (RGB: normal and albedo maps; red only: metalness and roughness
+    maps), bumped hits (K11) and mesh-UV fetches. The plain regeneration
+    loop renders the same rays as the kernel (phase 3 holds them to it);
+    each bounce's lanes are caught in shade_bounce with their bounce index
+    and counted as a kernel thread evaluates them (only the estimator its
+    coins pick)."""
+    import torch
+    from pathtracer_tpu_torch.render import wavefront
+    from pathtracer_tpu_torch.render.renderer import init_accum
+    from pathtracer_tpu_torch.scene.schema import MAX_BOUNCE_COUNT
+    from pathtracer_tpu_torch.utils import prng
+    from pathtracer_tpu_torch.utils.vec import sdiv
+
+    keys = ("rays", "opaque", "refract", "scatter", "planar", "planar_x",
+            "bump", "uv_fetch")
+    tally = dict.fromkeys(keys, 0)
+    live = {}
+    primary, draw, shade = (wavefront._primary_rays, prng.bounce_uniforms,
+                            wavefront.shade_bounce)
+
+    def primary_caught(camera, config, key, pixel_idx, s):
+        live["mask"] = s < n_samples  # lanes with samples left (s0 = 0)
+        return primary(camera, config, key, pixel_idx, s)
+
+    def draw_caught(stream, bounce):
+        live["bounce"] = bounce
+        return draw(stream, bounce)
+
+    def shade_caught(sc, o, d, hit, u, uv=None, **kw):
+        out = shade(sc, o, d, hit, u, uv=uv, **kw)
+        m = hit.mat.long()
+        act = live["mask"]
+        tally["rays"] += int(act.sum())
+        below = act & (live["bounce"] < MAX_BOUNCE_COUNT - 1)
+        em = [c[m] for c in sc.mat_emit]
+        surface = (hit.mat != 0) & (em[0] == 0) & (em[1] == 0) & (em[2] == 0)
+        vol = torch.zeros_like(act)
+        if sc.fog_sigma_t > 0.0:
+            s_fl = sdiv(-torch.log(torch.clamp_min(1.0 - u[5], 1e-30)),
+                        sc.fog_sigma_t)
+            vol = s_fl < hit.t
+        shaded = below & surface & ~vol
+        trans = sc.mat_transmission[m] > 0.0
+        opaque, refract = shaded & ~trans, shaded & trans
+        front = opaque & out.front_facing
+        diffuse = front & (u[0] <= 0.5)
+        uv_ok = uv[2] if uv is not None else torch.zeros_like(act)
+        alb = sc.mat_albedo_idx[m] != 0
+        albedo = (diffuse | refract) & alb
+        tally["opaque"] += int(opaque.sum())
+        tally["refract"] += int(refract.sum())
+        tally["scatter"] += int((below & vol).sum())
+        tally["uv_fetch"] += int((albedo & uv_ok).sum())
+        if sc.planar_maps:
+            planar = albedo & ~uv_ok
+            if sc.use_normal_maps:
+                planar = planar | (opaque & (sc.mat_normal_idx[m] != 0))
+            tally["planar"] += int(planar.sum())
+            for on, field in ((sc.use_metalness_maps, sc.mat_metalness_idx),
+                              (sc.use_roughness_maps, sc.mat_roughness_idx)):
+                if on:
+                    tally["planar_x"] += int((front & (field[m] != 0)).sum())
+        if sc.any_bump and sc.n_textures:
+            tally["bump"] += int((opaque & (sc.mat_bump_idx[m] != 0)).sum())
+        return out
+
+    wavefront._primary_rays = primary_caught
+    prng.bounce_uniforms = draw_caught
+    wavefront.shade_bounce = shade_caught
+    try:
+        n_pix = cfg.width * cfg.height
+        wavefront.render_chunk_wavefront(
+            scene, cam, cfg, 0, 0, n_samples, init_accum(n_pix, dev),
+            torch.arange(n_pix, device=dev))
+    finally:
+        wavefront._primary_rays = primary
+        prng.bounce_uniforms = draw
+        wavefront.shade_bounce = shade
+    return tally
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sass", metavar="DIR", default=None,
@@ -388,11 +519,13 @@ def main() -> int:
     from pathtracer_tpu_torch.render.renderer import (
         RenderConfig, init_accum, render_image, resolve,
     )
+    from pathtracer_tpu_torch.scene.camera import define_camera
+    from pathtracer_tpu_torch.scene.feature_scenes import FEATURE_CASES
     from pathtracer_tpu_torch.scene.schema import (
         WORLD_BRDF_TEST, WORLD_CORNELL_BOX, WORLD_CORNELL_QUAD, WORLD_DEFAULT,
         WORLD_MESH_UV, WORLD_RAYTRACING_ONE_WEEKEND,
     )
-    from pathtracer_tpu_torch.scene.worlds import finalize_world
+    from pathtracer_tpu_torch.scene.worlds import build_world, finalize_world
 
     W3, W6, W2, W4, W1, W7 = (WORLD_CORNELL_BOX, WORLD_CORNELL_QUAD,
                               WORLD_BRDF_TEST, WORLD_RAYTRACING_ONE_WEEKEND,
@@ -412,6 +545,39 @@ def main() -> int:
     def mip_scale(cam, h):
         """The CLI's --mips constant."""
         return 2.0 * cam.half_film_height / (h * cam.focal_length)
+
+    # the CLI's --fog 0.0012 --fog-albedo 0.9,0.9,0.95 --fog-g 0.5
+    FOG = {"fog_sigma_t": 0.0012, "fog_albedo": (0.9, 0.9, 0.95),
+           "fog_g": 0.5}
+
+    def feature(name, w, h, lens=False):
+        """A feature scene (scene/feature_scenes.py) on the card, its camera
+        at w x h and its RenderConfig options (everything: RR)."""
+        scene, (pos, target, fov), cfg_kw = FEATURE_CASES[name]()
+        return (scene.to(dev), define_camera(pos, target, fov, w, h,
+                                             use_pinhole=not lens), cfg_kw)
+
+    def planar_world1(w, h):
+        """World 1 with three planar 512x512 maps (albedo, metalness,
+        roughness) instead of the combined set: the feature kernel's
+        planar fetch over a large stack."""
+        b, cp = build_world(W1)
+        b.textures = b.textures[:3]
+        for m in b.materials:
+            m.normal_idx = 0
+        _, cam = finalize_world(W1, w, h)
+        return b.finalize(view_origin=cp.pos).to(dev), cam
+
+    def feature_case(tag, w, h, lens=False):
+        """(scene, camera, RenderConfig options) of a feature case: a
+        feature scene by name, "w6 fog" / "w3 fog" (the CLI's fog on world
+        6 or 3) or "w1 planar"."""
+        if tag in FEATURE_CASES:
+            return feature(tag, w, h, lens)
+        if tag == "w1 planar":
+            return (*planar_world1(w, h), {})
+        kind = {"w6 fog": W6, "w3 fog": W3}[tag]
+        return (*world(kind, w, h, lens, statics=FOG), {})
 
     # --- 1. device ---------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -502,6 +668,42 @@ def main() -> int:
         check(count_eq, "kernel vs plain valid counts")
         check(abs(rk - rp) <= 0.005 * rp, "kernel vs plain ray counts")
     check(disk_slots == set(range(12)), f"Poisson-disk slots {disk_slots}")
+
+    # the feature variants: each feature scene at 256x144 and 1280x720,
+    # 4 spp; the CLI's fog on world 6 and on world 3 through the thin lens;
+    # world 1 with three planar maps
+    feature_err = {}
+    for tag, w, h, lens in (
+            *((n, 256, 144, False) for n in FEATURE_CASES),
+            ("everything", 256, 144, True),
+            *((n, 1280, 720, False) for n in FEATURE_CASES),
+            ("w6 fog", 1280, 720, False), ("w3 fog", 1280, 720, True),
+            ("w1 planar", 256, 144, False), ("w1 planar", 1280, 720, False)):
+        scene, cam, cfg_kw = feature_case(tag, w, h, lens)
+        cfg = RenderConfig(w, h, pp=2, seed=0, **cfg_kw)
+        var = cb.variant(scene, cam)
+        check(var.startswith("feature"), f"{tag} takes the feature kernel")
+        k = cb.render_chunk_cuda(scene, cam, cfg, 0, 0, 4,
+                                 init_accum(w * h, dev))
+        p = cb.render_chunk_plain(scene, cam, cfg, 0, 0, 4,
+                                  init_accum(w * h, dev))
+        sync()
+        d = (resolve(k, cfg) - resolve(p, cfg)).abs().amax(dim=-1)
+        f3 = float((d > 1e-3).float().mean())
+        f1 = float((d > 0.1).float().mean())
+        count_eq = bool(torch.equal(k.count, p.count))
+        rk, rp = int(k.rays_cast), int(p.rays_cast)
+        max_err[var] = max(max_err[var], float(d.max()))
+        feature_err[tag] = max(feature_err.get(tag, 0.0), float(d.max()))
+        print(f"phase3 feature={tag!r} variant={var} {w}x{h} pp=2 "
+              f"samples=0-3 options={cfg_kw} frac_gt_1e-3={f3} "
+              f"frac_gt_0.1={f1} bit_equal={float((d == 0).float().mean())} "
+              f"count_equal={count_eq} rays_kernel={rk} rays_plain={rp} "
+              f"nan_kernel={int(k.nan_count)} nan_plain={int(p.nan_count)} "
+              f"max_abs_err={float(d.max())}")
+        check(f3 < 0.01 and f1 < 0.001, "kernel vs plain flip fractions")
+        check(count_eq, "kernel vs plain valid counts")
+        check(abs(rk - rp) <= 0.005 * rp, "kernel vs plain ray counts")
 
     # --- 4. the main paths at full width -------------------------------------
     w, h = 1280, 720
@@ -599,6 +801,53 @@ def main() -> int:
               f"nan={int(state.nan_count)} wrote {bmp.name} "
               f"bytes={bmp.stat().st_size}")
 
+    # f. the fog CLI, 1280x720, 16 spp: world 6 (the quad form of the
+    # volume NEE, feature_pinhole) and world 3 through the thin lens (the
+    # sphere form, feature_lens)
+    path_launches = {}
+    fog_argv = ["--fog", "0.0012", "--fog-albedo", "0.9,0.9,0.95",
+                "--fog-g", "0.5"]
+    for argv, var, tag in ((["-w6"], "feature_pinhole", "w6 fog"),
+                           (["-w3", "-d"], "feature_lens", "w3 fog")):
+        bmp = ROOT / f"test_fog_w{argv[0][2:]}.bmp"
+        renderer.render_image = render_image_caught
+        try:
+            reset_counts()
+            rc = cli.main(argv + fog_argv + ["--out", str(bmp)])
+            sync()
+        finally:
+            renderer.render_image = real_render_image
+        check(rc == 0 and bmp.stat().st_size == 58 + w * h * 4,
+              f"{argv} --fog wrote its BMP")
+        read_counts(var, f"{argv} --fog command's")
+        path_launches[tag] = cb.VARIANT_LAUNCHES[var]
+        img, _, state = caught["out"]
+        img = img.cpu().numpy()
+        check(img.shape == (h, w, 3) and bool(np.isfinite(img).all())
+              and float(img.mean()) > 0.01, f"finite, non-black {tag} image")
+        print(f"phase4f command={argv + fog_argv} variant={var} "
+              f"launches={launches[var]} spp=16 mean={float(img.mean())} "
+              f"rays={int(state.rays_cast)} nan={int(state.nan_count)} "
+              f"wrote {bmp.name} bytes={bmp.stat().st_size}")
+
+    # g. the five feature scenes through render_image, 1280x720, 16 spp
+    for fname in FEATURE_CASES:
+        scene, (pos, target, fov), cfg_kw = FEATURE_CASES[fname]()
+        cam = define_camera(pos, target, fov, w, h)
+        reset_counts()
+        img, _, state = render_image(scene, cam, RenderConfig(
+            w, h, pp=4, seed=0, **cfg_kw), device="cuda")
+        sync()
+        read_counts("feature_pinhole", f"the {fname} scene's")
+        path_launches[fname] = cb.VARIANT_LAUNCHES["feature_pinhole"]
+        img = img.cpu().numpy()
+        check(img.shape == (h, w, 3) and bool(np.isfinite(img).all())
+              and float(img.max()) > 0.0, f"finite, non-black {fname} image")
+        print(f"phase4g scene={fname} variant=feature_pinhole "
+              f"launches={path_launches[fname]} spp=16 options={cfg_kw} "
+              f"mean={float(img.mean())} max={float(img.max())} "
+              f"rays={int(state.rays_cast)} nan={int(state.nan_count)}")
+
     # --- 5. timing -----------------------------------------------------------
     def kernel_ms(scene, cam, pp, reps, **cfg_kw):
         """CUDA-event ms of each of ``reps`` launches of pp*pp samples at
@@ -638,7 +887,28 @@ def main() -> int:
                    "mesh_pinhole": (W7, False, None),
                    "mesh_lens": (W7, True, None),
                    f"mesh_pinhole_{MOTHER}": (W7, False, MOTHER)}
-    check(sorted(main_worlds) == sorted(cb.VARIANTS), "every variant timed")
+    # the feature variants, and the TPU kernels and branches they carry,
+    # each timed on the case that exercises it: row -> (case, thin lens,
+    # name in the kernel table, the JAX code it replaces)
+    feature_rows = {
+        "feature_pinhole": ("w6 fog", False, "wave_kernel<feature_pinhole>",
+                            "pathtracer_tpu/render/pallas_backend.py:169"),
+        "feature_lens": ("w3 fog", True, "wave_kernel<feature_lens>",
+                         "pathtracer_tpu/render/pallas_backend.py:169"),
+        "K10 planar": ("tbn", False,
+                       "fetch_planar in wave_kernel<feature_pinhole>",
+                       "pathtracer_tpu/ops/texture.py:380"),
+        "K11": ("bump", False,
+                "fetch_height3 in wave_kernel<feature_pinhole>",
+                "pathtracer_tpu/ops/texture.py:461"),
+        "K4t UV": ("everything", False,
+                   "ray_triangle_uv sweep in wave_kernel<feature_pinhole>",
+                   "pathtracer_tpu/ops/intersect.py:1261"),
+        "transmission": ("dispersion", False, None, None),
+        "large planar stack": ("w1 planar", False, None, None),
+    }
+    check(sorted([*main_worlds, "feature_pinhole", "feature_lens"])
+          == sorted(cb.VARIANTS), "every variant timed")
     timed = {}
     for var, (kind, lens, schedule) in main_worlds.items():
         scene, cam = world(kind, w, h, lens)
@@ -651,6 +921,21 @@ def main() -> int:
               f"kernel_ms={sorted(ks)} rays={rays} kernel_mrays_s="
               f"{rays / np.median(ks) / 1e3} plain_ms={1e3 * ps} "
               f"plain_rays={prays} plain_mrays_s={prays / ps / 1e6}")
+
+    ftimed = {}
+    for row, (tag, lens, _, _) in feature_rows.items():
+        scene, cam, cfg_kw = feature_case(tag, w, h, lens)
+        ks, rays = kernel_ms(scene, cam, 2, 5, **cfg_kw)
+        plain_s(scene, cam, 1, **cfg_kw)  # warm
+        ps, prays = plain_s(scene, cam, 2, **cfg_kw)
+        ftimed[row] = dict(ms=float(np.median(ks)), rays=rays, scene=scene,
+                           cam=cam, cfg_kw=cfg_kw, plain_ms=1e3 * ps)
+        print(f"phase5 row={row!r} case={tag!r} "
+              f"variant={cb.variant(scene, cam)} 720p spp=4 "
+              f"kernel_ms={sorted(ks)} rays={rays} kernel_mrays_s="
+              f"{rays / np.median(ks) / 1e3} plain_ms={1e3 * ps} "
+              f"plain_rays={prays} plain_mrays_s={prays / ps / 1e6} "
+              f"| card: {smi}")
 
     # world 3 at 256 spp and world 1 at 16 spp (the default command), the
     # kernel alone and end to end through render_image
@@ -805,6 +1090,49 @@ def main() -> int:
             "max_abs_err": max_err[var],
             "ms": tm["ms"],
             "plain_ms": tm["plain_ms"],
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None,  # no single PyTorch call computes this
+        })
+    for row, (tag, lens, kname, replaces) in feature_rows.items():
+        tm = ftimed[row]
+        scene, cam = tm["scene"], tm["cam"]
+        cfg4 = RenderConfig(w, h, pp=2, seed=0, **tm["cfg_kw"])
+        fc = feature_counts(scene, cam, cfg4, 4, dev)
+        rays = tm["rays"]
+        check(abs(fc["rays"] - rays) <= 0.005 * rays,
+              f"{row}: counted {fc['rays']} rays, the kernel cast {rays}")
+        n_tris = scene.n_tris if scene.tri_brute else 0
+        isect_ops = (scene.n_spheres * OPS_SPHERE + scene.n_quads * OPS_QUAD
+                     + scene.n_planes * OPS_PLANE + n_tris * OPS_TRI_BRUTE
+                     + OPS_RESOLVE + OPS_EMIT
+                     + (OPS_FOG_FLIGHT if scene.fog_sigma_t > 0.0 else 0))
+        samples = w * h * 4
+        ops = (samples * OPS_PRIMARY["lens" if lens else "pinhole"]
+               + rays * isect_ops + fc["opaque"] * OPS_SHADE
+               + fc["refract"] * OPS_REFRACT
+               + fc["scatter"] * OPS_FOG_SCATTER
+               + fc["planar"] * OPS_PLANAR + fc["planar_x"] * OPS_PLANAR_X
+               + fc["bump"] * OPS_BUMP + fc["uv_fetch"] * OPS_STACK)
+        nbytes = w * h * BYTES_PER_PIXEL + 4 * (
+            scene.tex_packed.numel() if scene.n_textures else 0) + 4 * 16 * n_tris
+        t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
+        bound_ms = 1e3 * max(t_ops, t_bytes)
+        counts = " ".join(f"{k_}={v}" for k_, v in fc.items())
+        print(f"phase6 row={row!r} case={tag!r} {counts} ops={ops:.6e} "
+              f"bytes={nbytes} bound_ms={bound_ms} "
+              f"bound_share={bound_ms / tm['ms']} | card: {smi}")
+        if kname is None:
+            continue
+        var = "feature_lens" if lens else "feature_pinhole"
+        table.append({
+            "name": kname, "route": "cuda",
+            "source": "pathtracer_tpu_torch/csrc/wave_kernel.cu",
+            "replaces": replaces,
+            "launches": path_launches[tag],
+            "max_abs_err": (max_err[var] if row.startswith("feature")
+                            else feature_err[tag]),
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": bound_ms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,  # no single PyTorch call computes this

@@ -4,8 +4,9 @@ Counterpart of ``pathtracer_tpu/cli.py`` for the flags the slice covers:
 the reference's single-dash concatenated flags (``-w3 -p4``, ``-d`` for
 the thin lens, ``-n -m -r`` to turn off the normal, metalness and
 roughness maps; ``-t`` is accepted for compatibility) plus ``--size WxH
---out PATH --seed N --scene-seed N|os --rr --chunk N --mips --tbn --debug
-regular|variance --device cuda|cpu``. With no ``-w`` it renders world 1,
+--out PATH --seed N --scene-seed N|os --rr --chunk N --mips --tbn --fog
+SIGMA_T --fog-albedo R,G,B --fog-g G --debug regular|variance --device
+cuda|cpu``. With no ``-w`` it renders world 1,
 the reference's default textured scene; ``-w7`` renders the mesh-UV world.
 ``--device`` defaults to ``cuda`` and fails without a card. Flags the port
 has not reached raise and name their ROADMAP item.
@@ -62,7 +63,6 @@ _NOT_PORTED = {
     "--live": "the terminal viewer (ROADMAP queue 1 item 12)",
     "--probe-pixel": "--probe-pixel (ROADMAP queue 1 item 11)",
     "--flip": "--flip (ROADMAP queue 1 item 12)",
-    "--fog": "fog (ROADMAP queue 1 item 11)",
     "--denoise": "the a-trous denoiser (ROADMAP queue 1 item 11)",
     "--exposure": "the exposure multiplier (ROADMAP queue 1 item 12)",
 }
@@ -86,8 +86,8 @@ def print_help():
     print("\tr       - Disable roughness maps.")
     print("\th       - Print this help menu.")
     print("\nExtensions: --size WxH --out PATH --seed N --scene-seed N|os "
-          "--rr --chunk N --mips --tbn --debug regular|variance "
-          "--device cuda|cpu")
+          "--rr --chunk N --mips --tbn --fog SIGMA_T --fog-albedo R,G,B "
+          "--fog-g G --debug regular|variance --device cuda|cpu")
 
 
 def main(argv=None):
@@ -114,6 +114,14 @@ def main(argv=None):
     ap.add_argument("--tbn", action="store_true",
                     help="rotate normal maps into the surface's tangent "
                          "frame")
+    ap.add_argument("--fog", type=float, default=0.0, metavar="SIGMA_T",
+                    help="global homogeneous fog's extinction coefficient "
+                         "(0: no fog)")
+    ap.add_argument("--fog-albedo", default="1,1,1", metavar="R,G,B",
+                    help="the fog's single-scatter albedo per channel")
+    ap.add_argument("--fog-g", type=float, default=0.0,
+                    help="Henyey-Greenstein anisotropy in (-1, 1); 0 is "
+                         "isotropic, > 0 scatters forward")
     ap.add_argument("--scene-seed", default=None, metavar="N|os",
                     help="seed of world 4's random layout (default 1337; "
                          "'os' draws one, as the reference does, and "
@@ -160,6 +168,17 @@ def main(argv=None):
                                    rtiow_seed=rtiow_seed)
     if args.tbn:
         scene = dataclasses.replace(scene, tbn_normal_maps=True)
+    if args.fog > 0.0:
+        try:
+            fog_albedo = tuple(float(v) for v in args.fog_albedo.split(","))
+        except ValueError:
+            fog_albedo = ()
+        if len(fog_albedo) != 3:
+            raise SystemExit("--fog-albedo needs R,G,B (three comma-separated "
+                             "numbers)")
+        scene = dataclasses.replace(scene, fog_sigma_t=float(args.fog),
+                                    fog_albedo=fog_albedo,
+                                    fog_g=float(args.fog_g))
     print("DefineCamera():\n===")
     print(f"camera located at c->pos = ({camera.pos[0]:f},{camera.pos[1]:f},"
           f"{camera.pos[2]:f})")

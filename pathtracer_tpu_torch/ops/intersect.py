@@ -15,10 +15,13 @@ the tests carry (t, winner index), and the winner's material and normal
 are gathered once at the end. Exact float ties between different spheres
 then resolve in cluster order instead of table order.
 
-A mesh-UV scene takes :func:`intersect_scene_uv`, whose triangles go
-through the streamed tier's walk (K7): parent, cluster and record-row
-boxes culled per ray, the precomputed records tested strict-< in table
-order, and the winner's texel-space uv resolved once at the end.
+A mesh-UV scene takes :func:`intersect_scene_uv`. A mesh of at most
+``clusters.CLUSTER_MIN`` triangles is swept brute force (K4t): every
+triangle tested with ``ray_planar_triangle_uv``'s expressions, strict-< in
+table order, the winner's uv selected at take. A larger one goes through
+the streamed tier's walk (K7): parent, cluster and record-row boxes culled
+per ray, the precomputed records tested strict-< in table order, and the
+winner's texel-space uv resolved once at the end.
 """
 
 from __future__ import annotations
@@ -100,6 +103,19 @@ def ray_planar_quad(o: Vec3, d: Vec3, A: Vec3, u: Vec3, v: Vec3,
     alpha, beta = _planar_coords(o, d, t, A, u, v)
     inside = (alpha >= 0.0) & (alpha <= 1.0) & (beta >= 0.0) & (beta <= 1.0)
     return t, valid & inside & (t > min_hit)
+
+
+def ray_planar_triangle_uv(o: Vec3, d: Vec3, A: Vec3, u: Vec3, v: Vec3,
+                           min_hit: float = MIN_HIT_DISTANCE):
+    """RayIntersectPlanarShape<PLANAR_TRIANGLE> with its barycentrics
+    (intersect.py:97-111 in JAX): (t, hit, alpha, beta), the hitpoint being
+    A + alpha*u + beta*v."""
+    n_unit = normalize(cross(u, v), eps=1e-30)
+    d_coef = dot(A, n_unit)
+    t, valid = ray_plane(o, d, n_unit, d_coef, min_hit)
+    alpha, beta = _planar_coords(o, d, t, A, u, v)
+    inside = (alpha >= 0.0) & (beta >= 0.0) & ((alpha + beta) <= 1.0)
+    return t, valid & inside & (t > min_hit), alpha, beta
 
 
 _FACE_NORMALS = (
@@ -337,6 +353,30 @@ def _intersect_triangles_streamed_uv(scene: Scene, o: Vec3, d: Vec3,
     return h, uvx, uvy, found
 
 
+def _intersect_triangles_brute_uv(scene: Scene, o: Vec3, d: Vec3,
+                                  best: Hit):
+    """K4t's plain version (``_intersect_triangles_brute_uv``,
+    intersect.py:1261-1306 in JAX): every triangle in table order with
+    ``ray_planar_triangle_uv``, taken strict-< with its unit normal and its
+    uv ``u0 + alpha*du1 + beta*du2`` selected at take. Returns (hit, uvx,
+    uvy, took)."""
+    z = torch.zeros_like(o.x)
+    uvx, uvy = z, z
+    took = torch.zeros_like(o.x, dtype=torch.bool)
+    for i in range(scene.n_tris):
+        A, u, v = (_row(t, i) for t in (scene.tri_a, scene.tri_u, scene.tri_v))
+        t, hit, alpha, beta = ray_planar_triangle_uv(o, d, A, u, v)
+        take = hit & (t < best.t)
+        best = _take(best, take, t, scene.tri_mat[i],
+                     normalize(cross(u, v), eps=1e-30))
+        uvx = torch.where(take, scene.tri_uv0u[i] + alpha * scene.tri_uvdu1[i]
+                          + beta * scene.tri_uvdu2[i], uvx)
+        uvy = torch.where(take, scene.tri_uv0v[i] + alpha * scene.tri_uvdv1[i]
+                          + beta * scene.tri_uvdv2[i], uvy)
+        took = took | take
+    return best, uvx, uvy, took
+
+
 def _miss(o: Vec3) -> Hit:
     z = torch.zeros_like(o.x)
     return Hit(torch.full_like(o.x, F32_MAX),
@@ -358,14 +398,19 @@ def intersect_scene(scene: Scene, o: Vec3, d: Vec3) -> Hit:
 
 def intersect_scene_uv(scene: Scene, o: Vec3, d: Vec3):
     """``intersect_scene`` for a mesh-UV scene (intersect.py:1360-1390 in
-    JAX): spheres, quads, planes, then the streamed triangle walk; returns
-    (hit, uvx, uvy, uv_ok) with the winning triangle's texel-space uv."""
-    if not (scene.tri_streamed and scene.stream_uv_cfm) or scene.tri_dma:
+    JAX): spheres, quads, planes, then the brute triangle sweep (K4t) or
+    the streamed triangle walk (K7); returns (hit, uvx, uvy, uv_ok) with
+    the winning triangle's texel-space uv."""
+    brute = scene.tri_brute
+    if not (brute or (scene.tri_streamed and scene.stream_uv_cfm)) \
+            or scene.tri_dma:
         raise NotImplementedError(
-            "only the resident streamed mesh tier is ported (ROADMAP queue "
-            "2 item 2)")
+            "only the brute sweep and the resident streamed mesh tier are "
+            "ported (ROADMAP queue 2 item 2)")
     assert scene.n_boxes == 0, "mesh-UV scenes have no boxes"
     best = intersect_spheres(scene, o, d, _miss(o))
     best = intersect_quads(scene, o, d, best)
     best = intersect_planes(scene, o, d, best)
+    if brute:
+        return _intersect_triangles_brute_uv(scene, o, d, best)
     return _intersect_triangles_streamed_uv(scene, o, d, best)

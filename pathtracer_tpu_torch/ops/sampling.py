@@ -3,9 +3,10 @@
 Counterpart of ``pathtracer_tpu/ops/sampling.py`` (the reference's
 RandomCosineDirectionHemisphere, RandomHalfVectorGGX, RandomToSphere,
 BuildOrthonormalBasisFromW and the PdfValue family, win32_main.cpp:290-365,
-2252-2353). Every sampler takes its uniforms explicitly from the PCG4D
-streams. Products of Python floats, such as ``2.0 * PI``, are formed in
-double before they meet a tensor, as the JAX code folds them.
+2252-2353, and the Henyey-Greenstein phase function of the fog). Every
+sampler takes its uniforms explicitly from the PCG4D streams. Products of
+Python floats, such as ``2.0 * PI`` or the phase function's ``1 - g*g``,
+are formed in double before they meet a tensor, as the JAX code folds them.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from typing import Tuple
 import torch
 
 from ..utils.vec import (
-    Vec3, cross, dot, magnitude, magnitude_squared, normalize, sdiv, where,
+    Vec3, cross, dot, magnitude, magnitude_squared, normalize, rdiv, sdiv,
+    where,
 )
 
 PI = 3.14159265358979323846264338327
@@ -120,3 +122,29 @@ def sample_to_quad(u1, u2, qp: Vec3, qu: Vec3, qv: Vec3, origin: Vec3) -> Vec3:
         qp.y + u1 * qu.y + u2 * qv.y - origin.y,
         qp.z + u1 * qu.z + u2 * qv.z - origin.z,
     )
+
+
+def henyey_greenstein_sample(u1: torch.Tensor, u2: torch.Tensor,
+                             g: float) -> Vec3:
+    """Henyey-Greenstein sample in tangent space, +z the propagation
+    direction: cos_theta = (1 + g^2 - s^2) / (2g), s = (1 - g^2) / (1 - g +
+    2g*u1); for |g| < 1e-3 (chosen on the host) the isotropic 1 - 2*u1."""
+    if abs(g) < 1e-3:
+        cos_t = 1.0 - 2.0 * u1
+    else:
+        s = rdiv(1.0 - g * g, (1.0 - g) + (2.0 * g) * u1)
+        cos_t = sdiv((1.0 + g * g) - s * s, 2.0 * g)
+    cos_t = torch.clamp(cos_t, -1.0, 1.0)
+    r = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    phi = 2.0 * PI * u2
+    return Vec3(r * torch.cos(phi), r * torch.sin(phi), cos_t)
+
+
+def pdf_henyey_greenstein(cos_theta: torch.Tensor, g: float) -> torch.Tensor:
+    """The normalised HG phase function, (1 - g^2) / (4 pi (1 + g^2 -
+    2g cos_theta)^(3/2)); 1/(4 pi) for |g| < 1e-3."""
+    if abs(g) < 1e-3:
+        return torch.full_like(cos_theta, 1.0 / (4.0 * PI))
+    denom = torch.clamp_min((1.0 + g * g) - (2.0 * g) * cos_theta, 1e-12)
+    inv = torch.reciprocal(torch.sqrt(denom))
+    return sdiv((1.0 - g * g) * inv * inv * inv, 4.0 * PI)

@@ -1,11 +1,13 @@
-"""Texture fetches (the plain versions of K9 and of K10's texel form),
-lane-parallel.
+"""Texture fetches (the plain versions of K9, of K10's texel and planar
+forms and of K11), lane-parallel.
 
 Counterpart of the combined-set functions of ``pathtracer_tpu/ops/
-texture.py`` (:106-228) and of ``sample_texture`` (:52-96), the mesh-UV
+texture.py`` (:106-228), of ``sample_texture`` (:52-96), the mesh-UV
 fetch from the flat per-layer stack (K10's texel form: the CUDA kernel
 reads the same words with four int32 loads; the JAX kernel's tiled stack
-and windowed iteration are TPU shapes). Reference semantics: SampleTexture
+and windowed iteration are TPU shapes), of ``bespoke_sample`` (:99-103,
+K10's planar form: material maps at the hit's world xy) and of the bump
+map's three height samples (:461-489, K11). Reference semantics: SampleTexture
 (win32_main.cpp:1680-1709) takes uv in texel units, takes abs, truncates,
 clamps the fractions to [0, 1], wraps on both axes and blends bilinearly;
 BespokeSampleTexture (:1675-1678) scales world-plane (u, v) by size/2.
@@ -217,3 +219,26 @@ def sample_texture(scene: Scene, layer: torch.Tensor, u: torch.Tensor,
 
     return _bilerp_vec3(fetch(y1, x1), fetch(y1, x2), fetch(y2, x1),
                         fetch(y2, x2), s, t)
+
+
+def bespoke_sample(scene: Scene, layer: torch.Tensor, u: torch.Tensor,
+                   v: torch.Tensor) -> Vec3:
+    """BespokeSampleTexture (texture.py:99-103 in JAX): world-plane (u, v)
+    scaled by the layer's size/2 as ``u * w * 0.5``, then
+    :func:`sample_texture`."""
+    w = scene.tex_w[layer.long()].to(u.dtype)
+    h = scene.tex_h[layer.long()].to(v.dtype)
+    return sample_texture(scene, layer, u * w * 0.5, v * h * 0.5)
+
+
+BUMP_EPS = 0.01  # the bump map's forward-difference step, world units
+
+
+def bespoke_height3(scene: Scene, layer: torch.Tensor, x: torch.Tensor,
+                    y: torch.Tensor):
+    """The bump map's heights (h0, hx, hy): the red channel of
+    :func:`bespoke_sample` at (x, y), (x + 0.01, y) and (x, y + 0.01), which
+    JAX's fused fetch (texture.py:461-489) equals bit for bit."""
+    return (bespoke_sample(scene, layer, x, y).x,
+            bespoke_sample(scene, layer, x + BUMP_EPS, y).x,
+            bespoke_sample(scene, layer, x, y + BUMP_EPS).x)

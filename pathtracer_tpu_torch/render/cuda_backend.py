@@ -10,7 +10,11 @@ primary ray; textured (the combined 4-map set, K9), the brute sweep with
 either primary under ``TEXTURED_SCHEDULE``, and the pinhole under the
 other schedule as its yardstick; mesh (the streamed triangle walk K7 with
 the mesh-UV texel fetch K10), either primary under ``MESH_SCHEDULE`` and
-the pinhole under the other. The file is compiled at first use by one
+the pinhole under the other; feature (fog, transmission with dispersion,
+planar maps from the flat stack with K10's planar form, bump maps with the
+height fetch K11, the brute UV triangle sweep K4t), either primary under
+path regeneration, the schedule JAX runs these scenes under. The file is
+compiled at first use by one
 ``nvcc`` for ``sm_90a`` into ``pathtracer_tpu_torch/_build/`` (a library
 named by the hash of the source and flags, so an edit rebuilds it), loaded
 with ``ctypes`` and launched on PyTorch's current stream.
@@ -18,9 +22,11 @@ with ``ctypes`` and launched on PyTorch's current stream.
 - :func:`render_chunk_cuda` takes the accumulator's device: on CUDA tensors
   it launches the kernel or raises; on CPU tensors it runs the plain version.
   It picks the variant from the scene and camera (:func:`variant`): the
-  textured kernel for a combined texture set, the mesh kernel for a
-  triangle mesh, else the clustered walk when the scene has sphere
-  clusters; the thin-lens primary when the camera has one.
+  feature kernel for a scene with fog, transmission, bump or planar maps or
+  a brute-force mesh (``Scene.featured``), the textured kernel for a
+  combined texture set, the mesh kernel for a streamed triangle mesh, else
+  the clustered walk when the scene has sphere clusters; the thin-lens
+  primary when the camera has one.
 - :func:`render_chunk_plain` is the plain PyTorch version of the same
   function (``render/lockstep.py`` under the lockstep schedule,
   ``render/wavefront.py`` otherwise), which the CPU tests run and which
@@ -68,7 +74,8 @@ _SCHED_CODE = {"lockstep": 1, "regen": 2}  # wave_render's tex/mesh argument
 VARIANTS = ("brute_pinhole", "brute_lens", "clustered_pinhole",
             "clustered_lens", "textured_pinhole", "textured_lens",
             f"textured_pinhole_{OTHER_SCHEDULE}", "mesh_pinhole", "mesh_lens",
-            f"mesh_pinhole_{MESH_OTHER_SCHEDULE}")
+            f"mesh_pinhole_{MESH_OTHER_SCHEDULE}", "feature_pinhole",
+            "feature_lens")
 LAUNCHES = 0      # kernel launches, counted where the launch succeeds
 VARIANT_LAUNCHES = dict.fromkeys(VARIANTS, 0)  # the same, by variant
 BUILD_LOG = ""    # nvcc's output (ptxas registers and spills per variant)
@@ -98,12 +105,22 @@ _CLUSTER_PTR_FIELDS = (
 )
 # the textured variants' fields, after those
 _TEX_PTR_FIELDS = ("mat_tex", "tex_tile", "tex_mip")
-# the mesh variants' fields, last
+# the mesh variants' fields, after those
 _MESH_PTR_FIELDS = ("mtri_pack", "mtri_bounds", "mtri_uvpack", "stream_pbox",
                     "stream_prange", "stack_words", "stack_w", "stack_h")
+# the feature variants' fields, last
+_FEAT_PTR_FIELDS = (
+    "tri_ax", "tri_ay", "tri_az", "tri_ux", "tri_uy", "tri_uz",
+    "tri_vx", "tri_vy", "tri_vz", "tri_mat",
+    "tri_uv0u", "tri_uv0v", "tri_uvdu1", "tri_uvdv1", "tri_uvdu2",
+    "tri_uvdv2", "mat_met_idx", "mat_rgh_idx", "mat_nrm_idx",
+    "mat_bump_idx", "mat_bump_scale", "mat_transmission", "mat_dispersion",
+)
+_FEAT_FLOAT_FIELDS = ("fog_sigma_t", "hg_a", "hg_b", "hg_c", "hg_d")
 _INT_PTRS = ("sph_mat", "q_mat", "p_mat", "csph_mat", "cl_off", "cl_cnt",
              "cl_huge", "nan_px", "rays_px", "stream_prange", "stack_words",
-             "stack_w", "stack_h") + _TEX_PTR_FIELDS
+             "stack_w", "stack_h", "tri_mat", "mat_met_idx", "mat_rgh_idx",
+             "mat_nrm_idx", "mat_bump_idx") + _TEX_PTR_FIELDS
 _INT_FIELDS = (
     "n_spheres", "n_quads", "n_planes", "quad_light",
     "just_cosine", "use_rr",
@@ -128,10 +145,17 @@ class WaveParams(ctypes.Structure):
                                      "tex_lod_k")]
                 + [(n, _P) for n in _MESH_PTR_FIELDS]
                 + [(n, _I) for n in ("n_parents", "stream_rpc", "row_cull",
-                                     "stack_hmax", "stack_wmax")])
+                                     "stack_hmax", "stack_wmax")]
+                + [(n, _P) for n in _FEAT_PTR_FIELDS]
+                + [("n_tris", _I), ("feat_flags", _I)]
+                + [(n, _F) for n in _FEAT_FLOAT_FIELDS]
+                + [("fog_albedo", _F * 3)])
 
 # WaveParams.tex_flags bits (TEX_* in the kernel)
 TEX_METALNESS, TEX_ROUGHNESS, TEX_NORMAL, TEX_TBN = 1, 2, 4, 8
+# WaveParams.feat_flags bits (FEAT_* in the kernel)
+FEAT_PLANAR, FEAT_BUMP, FEAT_TRANS, FEAT_DISP, FEAT_FOG, FEAT_HG_ISO = (
+    1, 2, 4, 8, 16, 32)
 
 
 def check_supported(scene: Scene, camera: Camera, config):
@@ -155,14 +179,21 @@ def textured(scene: Scene) -> bool:
 
 
 def meshed(scene: Scene) -> bool:
-    """Whether the scene has a triangle mesh (the mesh variants)."""
-    return bool(scene.n_tris)
+    """Whether the scene has a streamed triangle mesh (the mesh variants)."""
+    return bool(scene.n_tris and scene.tri_streamed)
 
 
 def _schedule(scene: Scene, schedule):
     """The sample schedule of a textured or mesh scene (None: its main
     one, TEXTURED_SCHEDULE or MESH_SCHEDULE); None for any other scene,
-    which has one schedule."""
+    which has one schedule (a feature scene: path regeneration)."""
+    if scene.featured:
+        if schedule not in (None, "regen"):
+            raise NotImplementedError(
+                f"the {schedule} schedule: feature scenes (fog, "
+                "transmission, bump or planar maps, brute meshes) run under "
+                "path regeneration only")
+        return None
     if textured(scene):
         main = TEXTURED_SCHEDULE
     elif meshed(scene):
@@ -180,6 +211,8 @@ def variant(scene: Scene, camera: Camera, schedule=None) -> str:
     textured or mesh scene under ``schedule``, by default its main one)."""
     lens = "_pinhole" if camera.use_pinhole else "_lens"
     schedule = _schedule(scene, schedule)
+    if scene.featured:
+        return "feature" + lens
     if schedule is None:
         return ("clustered" if scene.sph_clusters else "brute") + lens
     kind, main = (("textured", TEXTURED_SCHEDULE) if textured(scene)
@@ -231,7 +264,7 @@ def build() -> ctypes.CDLL:
     LIB_PATH = lib_path
     lib.wave_render.argtypes = [ctypes.POINTER(WaveParams), ctypes.c_int,
                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                ctypes.c_void_p]
+                                ctypes.c_int, ctypes.c_void_p]
     lib.wave_render.restype = ctypes.c_int
     lib.wave_error_string.argtypes = [ctypes.c_int]
     lib.wave_error_string.restype = ctypes.c_char_p
@@ -243,7 +276,7 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
             n_samples: int, state, nan_px, rays_px) -> WaveParams:
     """Pointers and host-folded constants for one launch."""
     ptrs = dict(zip(_PTR_FIELDS + _CLUSTER_PTR_FIELDS + _TEX_PTR_FIELDS
-                    + _MESH_PTR_FIELDS, (
+                    + _MESH_PTR_FIELDS + _FEAT_PTR_FIELDS, (
         *scene.mat_albedo, *scene.mat_emit, *scene.mat_metal_color,
         scene.mat_metalness, scene.mat_roughness, scene.mat_ior,
         *scene.sph_center, scene.sph_radius, scene.sph_mat,
@@ -258,6 +291,12 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
         scene.mtri_pack, scene.mtri_bounds, scene.mtri_uvpack,
         scene.stream_pbox, scene.stream_prange,
         scene.tex_packed, scene.tex_w, scene.tex_h,
+        *scene.tri_a, *scene.tri_u, *scene.tri_v, scene.tri_mat,
+        scene.tri_uv0u, scene.tri_uv0v, scene.tri_uvdu1, scene.tri_uvdv1,
+        scene.tri_uvdu2, scene.tri_uvdv2,
+        scene.mat_metalness_idx, scene.mat_roughness_idx,
+        scene.mat_normal_idx, scene.mat_bump_idx, scene.mat_bump_scale,
+        scene.mat_transmission, scene.mat_dispersion,
     )))
     for name, t in ptrs.items():
         want = torch.int32 if name in _INT_PTRS else torch.float32
@@ -280,6 +319,13 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
                  | (TEX_ROUGHNESS if scene.use_roughness_maps else 0)
                  | (TEX_NORMAL if scene.use_normal_maps else 0)
                  | (TEX_TBN if scene.tbn_normal_maps else 0))
+    g = scene.fog_g
+    feat_flags = ((FEAT_PLANAR if scene.planar_maps else 0)
+                  | (FEAT_BUMP if scene.any_bump and scene.n_textures else 0)
+                  | (FEAT_TRANS if scene.any_transmissive else 0)
+                  | (FEAT_DISP if scene.any_dispersive else 0)
+                  | (FEAT_FOG if scene.fog_sigma_t > 0.0 else 0)
+                  | (FEAT_HG_ISO if abs(g) < 1e-3 else 0))
     p = WaveParams(
         **{k: t.data_ptr() for k, t in ptrs.items()},
         n_spheres=scene.n_spheres, n_quads=scene.n_quads,
@@ -304,12 +350,18 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
                     if scene.tri_streamed else 0),
         row_cull=int(scene.stream_row_cull),
         stack_hmax=scene.tex_hmax, stack_wmax=scene.tex_wmax,
+        n_tris=scene.n_tris if scene.tri_brute else 0,
+        feat_flags=feat_flags, fog_sigma_t=scene.fog_sigma_t,
+        # the phase function's constants, folded in double as JAX folds
+        # the static g, each rounded once to float
+        hg_a=1.0 - g * g, hg_b=1.0 - g, hg_c=2.0 * g, hg_d=1.0 + g * g,
     )
     p.fc[:] = camera.frustum_center
     p.ax[:] = camera.axis_x
     p.ay[:] = camera.axis_y
     p.pos[:] = camera.pos
     p.lens_n[:] = lens_n
+    p.fog_albedo[:] = scene.fog_albedo
     return p
 
 
@@ -337,7 +389,7 @@ def render_chunk_cuda(scene: Scene, camera: Camera, config, key: int,
                           int(not camera.use_pinhole),
                           code if textured(scene) else 0,
                           code if meshed(scene) else 0,
-                          ctypes.c_void_p(stream))
+                          int(scene.featured), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"wave_kernel ({name}) launch failed: "
                            + lib.wave_error_string(err).decode())

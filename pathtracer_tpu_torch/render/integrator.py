@@ -1,4 +1,4 @@
-"""One bounce of the path integrator for opaque, fog-free scenes.
+"""One bounce of the path integrator.
 
 Counterpart of ``shade_bounce`` and ``russian_roulette`` in
 ``pathtracer_tpu/render/integrator.py`` (RayCast's surface interaction,
@@ -19,14 +19,23 @@ win32_main.cpp:576-792), lane-parallel with masks instead of branches:
   its metalness, roughness and normal, come from one fused fetch
   (``ops/texture.py``) at the hit's world xy, at mip level 0 or, with
   ``mip_scale > 0``, at the level of the hit's footprint;
+- planar maps from the flat stack (``bespoke_sample``): metalness,
+  roughness and normal maps, then bump maps tilting N against the height's
+  forward difference, then the albedo map;
 - mesh-UV albedo maps (world 7, win32_main.cpp:172's TODO realised by the
   JAX package): a hit whose winner is a UV triangle with an albedo map
   samples it at the winner's texel-space uv (``sample_texture``), and the
-  texel modulates the material albedo.
+  texel modulates the untextured material albedo;
+- the delta dielectric lobe of transmissive materials (reflect with
+  Schlick's probability, else refract; total internal reflection
+  reflects), with one RGB channel per path under dispersion;
+- global homogeneous fog: a free flight shorter than the surface hit (sky
+  hits always) scatters in the medium, with a 50/50 Henyey-Greenstein /
+  light-sample mixture toward ``spheres[0]`` or the quad light.
 
 The material lookup is an indexed gather ``tab[mat]``; the JAX package's
 select sweep and constant-column broadcast are TPU shapes of the same
-lookup. Planar texture stacks, transmission, fog and bump maps raise.
+lookup.
 """
 
 from __future__ import annotations
@@ -39,10 +48,14 @@ import torch
 from ..ops import texture
 from ..ops.intersect import Hit, ray_planar_quad, ray_sphere
 from ..ops.sampling import (
-    PI, cosine_hemisphere, from_tangent, ggx_half_vector, orthonormal_basis,
-    pdf_cosine, pdf_quad, pdf_to_sphere, sample_to_quad, to_sphere,
+    PI, cosine_hemisphere, from_tangent, ggx_half_vector,
+    henyey_greenstein_sample, orthonormal_basis, pdf_cosine,
+    pdf_henyey_greenstein, pdf_quad, pdf_to_sphere, sample_to_quad, to_sphere,
 )
-from ..ops.shade import brdf_specular_scalar, effectively_smooth, schlick_metal
+from ..ops.shade import (
+    brdf_specular_scalar, effectively_smooth, find_refraction_direction,
+    schlick_metal,
+)
 from ..scene.schema import MIN_HIT_DISTANCE, N_AIR, Scene
 from ..utils.vec import Vec3, dot, gather, hadamard, normalize, sdiv
 from ..utils.vec import where as vwhere
@@ -89,8 +102,7 @@ def shade_bounce(scene: Scene, o: Vec3, d: Vec3, hit: Hit, u,
     ``u`` holds the bounce's BOUNCE_SLOTS (N,) uniforms; ``mip_scale > 0``
     selects a mip level per hit (``--mips``); ``uv`` is
     ``intersect_scene_uv``'s (uvx, uvy, uv_ok) in a mesh-UV scene. Raises
-    for scene features not ported yet (the static mesh tiers, transmission,
-    fog, bump, planar texture stacks)."""
+    for scene features not ported yet (``Scene.unsupported``)."""
     missing = scene.unsupported()
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
@@ -138,9 +150,43 @@ def shade_bounce(scene: Scene, o: Vec3, d: Vec3, hit: Hit, u,
             N = vwhere(scene.mat_normal_idx[idx] != 0,
                        normalize(n_dec, eps=1e-30), N)
         albedo = vwhere(scene.mat_albedo_idx[idx] != 0, alb_c, albedo)
+    elif scene.planar_maps:
+        # planar maps over the flat stack (JAX :335-357), each at the hit's
+        # world xy on its 1-based layer (0 = unbound, masked)
+        def planar(field):
+            i = field[idx]
+            return i != 0, texture.bespoke_sample(
+                scene, torch.clamp_min(i - 1, 0), hitpoint.x, hitpoint.y)
+        if scene.use_metalness_maps:
+            on, tex = planar(scene.mat_metalness_idx)
+            metalness = torch.where(on, tex.x, metalness)
+        if scene.use_roughness_maps:
+            on, tex = planar(scene.mat_roughness_idx)
+            roughness = torch.where(on, tex.x, roughness)
+        if scene.use_normal_maps:
+            on, tex = planar(scene.mat_normal_idx)
+            n_dec = Vec3(2.0 * tex.x - 1.0, 2.0 * tex.y - 1.0,
+                         2.0 * tex.z - 1.0)
+            if scene.tbn_normal_maps:
+                n_dec = from_tangent(n_dec, *orthonormal_basis(N_geom))
+            N = vwhere(on, normalize(n_dec, eps=1e-30), N)
+        on, tex = planar(scene.mat_albedo_idx)
+        albedo = vwhere(on, tex, albedo)
+    if scene.any_bump and scene.n_textures:
+        # bump maps (JAX :358-387): tilt N, after any normal map, against
+        # the height's forward difference in the planar frame
+        b_idx = scene.mat_bump_idx[idx]
+        h0, hx, hy = texture.bespoke_height3(
+            scene, torch.clamp_min(b_idx - 1, 0), hitpoint.x, hitpoint.y)
+        bs = scene.mat_bump_scale[idx]
+        gx = sdiv(hx - h0, texture.BUMP_EPS) * bs
+        gy = sdiv(hy - h0, texture.BUMP_EPS) * bs
+        N = vwhere(b_idx != 0, normalize(Vec3(N.x - gx, N.y - gy, N.z),
+                                         eps=1e-30), N)
     if uv is not None:
         # a lane whose winner is a UV triangle with an albedo map samples it
-        # at the winner's uv, modulating the material albedo (JAX :499-518)
+        # at the winner's uv, modulating the untextured material albedo
+        # (JAX :499-518)
         uvx, uvy, uv_ok = uv
         alb_idx = scene.mat_albedo_idx[idx]
         tex_uv = texture.sample_texture(scene, torch.clamp_min(alb_idx - 1, 0),
@@ -237,6 +283,87 @@ def shade_bounce(scene: Scene, o: Vec3, d: Vec3, hit: Hit, u,
     weight = brdf * (2.0 * inv_px)
 
     cont = surface & front_facing & in_hemisphere & hv_ok & est_valid
+
+    if scene.any_transmissive:
+        # the delta dielectric lobe (JAX :529-582): reflect with Schlick's
+        # probability, else refract (TIR reflects); weight albedo, no x2;
+        # transmissive lanes bypass the front-facing and hemisphere gates
+        trans = scene.mat_transmission[idx] > 0.0
+        cos_i = -cos_theta_in
+        ior_t, F0_t = ior, F0
+        if scene.any_dispersive:
+            # one RGB channel per path (u[6]), refracted with ior +
+            # dispersion*(c - 1); the throughput keeps that channel x3
+            disp = scene.mat_dispersion[idx]
+            ch = torch.clamp_max((u[6] * 3.0).to(torch.int32), 2)
+            is_disp = disp > 0.0
+            ior_t = torch.where(is_disp, ior + disp * (ch.to(torch.float32)
+                                                       - 1.0), ior)
+            q_t = (N_AIR - ior_t) / (N_AIR + ior_t)
+            F0_t = torch.where(is_disp, q_t * q_t, F0)
+        # lax.integer_pow(x, 5) is x * ((x*x) * (x*x))
+        x = 1.0 - torch.clamp(cos_i, 0.0, 1.0)
+        fres = F0_t + (1.0 - F0_t) * (x * ((x * x) * (x * x)))
+        refr_dir, refracted = find_refraction_direction(d, N_geom, ior_t)
+        mirror = d - N_geom * (2.0 * dot(N_geom, d))
+        take_reflect = (u[0] < fres) | ~refracted
+        L = vwhere(trans, vwhere(take_reflect, mirror, refr_dir), L)
+        w_trans = albedo
+        if scene.any_dispersive:
+            mask = Vec3(*((ch == c).to(torch.float32) * 3.0 for c in range(3)))
+            w_trans = vwhere(is_disp, hadamard(albedo, mask), albedo)
+        weight = vwhere(trans, w_trans, weight)
+        cont = (trans & surface) | (~trans & cont)
+
+    if scene.fog_sigma_t > 0.0:
+        # fog (JAX :584-652): free flight -ln(1 - u[5]) / sigma_t; a flight
+        # shorter than the hit (sky: t = F32_MAX, always) scatters at
+        # o + d*s with the 50/50 phase / light-sample mixture, weight
+        # albedo * phase / px; the surface's slots u[1..3] are reused
+        g = scene.fog_g
+        s_fl = sdiv(-torch.log(torch.clamp_min(1.0 - u[5], 1e-30)),
+                    scene.fog_sigma_t)
+        vol = s_fl < hit.t
+        vp = o + d * s_fl
+        use_phase = u[1] > 0.5
+        ph_t = henyey_greenstein_sample(u[2], u[3], g)
+        L_phase = normalize(from_tangent(ph_t, *orthonormal_basis(d)),
+                            eps=1e-30)
+        if scene.quad_light >= 0:
+            L_light = normalize(sample_to_quad(u[2], u[3], qp, ql_u, ql_v, vp),
+                                eps=1e-30)
+            L_vol = vwhere(use_phase, L_phase, L_light)
+            tq_v, qh_v = ray_planar_quad(vp, L_vol, qp, ql_u, ql_v,
+                                         min_hit=MIN_HIT_DISTANCE)
+            p_light = pdf_quad(tq_v, qh_v, L_vol, ql_u, ql_v)
+            imp_ok = torch.ones_like(use_phase)
+        else:
+            sph_t, imp_ok = to_sphere(u[2], u[3], light_center, light_radius,
+                                      vp)
+            L_light = normalize(from_tangent(
+                sph_t, *orthonormal_basis(light_center - vp)), eps=1e-30)
+            L_vol = vwhere(use_phase, L_phase, L_light)
+            _, sph_ok, _ = ray_sphere(vp, L_vol, light_center, light_radius,
+                                      MIN_HIT_DISTANCE)
+            p_light = pdf_to_sphere(sph_ok, light_center, light_radius, vp)
+        f_p = pdf_henyey_greenstein(dot(d, L_vol), g)
+        px_v = 0.5 * f_p + 0.5 * p_light
+        pos_v = px_v > 0.0
+        vol_ok = pos_v & (use_phase | imp_ok)
+        w_s = f_p * torch.where(pos_v, torch.reciprocal(
+            torch.where(pos_v, px_v, 1.0)), 0.0)
+        fa = scene.fog_albedo
+        w_vol = Vec3(w_s * fa[0], w_s * fa[1], w_s * fa[2])
+        z = torch.zeros_like(w_s)
+        emit = vwhere(vol, Vec3(z, z, z), emit)
+        hitpoint = vwhere(vol, vp, hitpoint)
+        L = vwhere(vol, L_vol, L)
+        weight = vwhere(vol, w_vol, weight)
+        cont = (vol & vol_ok) | (~vol & cont)
+        hit_sky = hit_sky & ~vol
+        hit_light = hit_light & ~vol
+        front_facing = front_facing | vol
+
     return BounceOut(
         emit=emit, hitpoint=hitpoint, L=L, weight=weight, cont=cont,
         hit_sky=hit_sky, hit_light=hit_light, front_facing=front_facing,

@@ -6,7 +6,10 @@ and regenerates the primary ray of the same pixel's next sample. The loop
 runs until every lane has spent its sample budget. Randomness is a pure
 function of (pixel, sample, bounce), so the result does not depend on how
 lanes interleave: ``csrc/wave_kernel.cu`` runs each pixel's paths in one
-thread and must agree with this function.
+thread and must agree with this function. Every live lane draws both PCG4D
+blocks of its bounce, so Russian roulette (u[4]), the fog's free flight
+(u[5]) and dispersion's channel (u[6]) read one set of draws, sky and light
+hits included.
 
 The accumulator tensors are updated in place.
 """

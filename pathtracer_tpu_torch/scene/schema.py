@@ -23,11 +23,18 @@ at ``((y & 7) * 8 + (x & 7)) * 2``). A square power-of-two set also gets
 its mip pyramid, level 0 first, described by the static ``tex_mip_meta``
 rows ``(row_off, tiles_x, word_off, w, h)`` and, for the kernel, the int32
 table ``tex_mip`` (:func:`mip_table`). Any other texture set is kept as the
-flat RGB8 stack ``tex_packed`` with per-layer sizes (:func:`texture_stack`);
-of those the port reads only mesh-UV albedo maps (``tex_mesh_only``).
+flat RGB8 stack ``tex_packed`` with per-layer sizes (:func:`texture_stack`),
+read by mesh-UV albedo maps (``tex_mesh_only``: every textured material is
+a triangle albedo binding) and by planar maps at the hit's world xy
+(``Scene.planar_maps``: albedo, metalness, roughness, normal and bump).
+
+Fog is the static ``fog_sigma_t`` (0: none), ``fog_albedo`` and ``fog_g``
+(``WorldBuilder.set_fog``). A scene with fog, transmission, bump or planar
+maps or a brute-force mesh takes the feature path (``Scene.featured``).
 
 A triangle mesh (``set_mesh``; UVs scaled to texel units there) is kept as
-``tri_*`` tables and, above ``clusters.STREAM_MIN`` triangles, as the
+``tri_*`` tables, swept brute force up to ``clusters.CLUSTER_MIN``
+triangles, and, above ``clusters.STREAM_MIN`` triangles, as the
 streamed tier's tables (``mtri_bounds``, ``mtri_pack``, ``mtri_uvpack``)
 with the static parent descriptors ``stream_parents`` and, for the kernel,
 ``stream_pbox``/``stream_prange`` (:func:`parent_tables`).
@@ -104,7 +111,7 @@ STATIC_FIELDS = (
     "n_spheres", "n_quads", "n_planes", "n_tris", "n_boxes", "n_materials",
     "n_textures", "quad_light", "just_cosine", "any_transmissive",
     "any_dispersive", "any_bump", "has_mesh_uvs", "fog_sigma_t",
-    "sph_clusters",
+    "fog_albedo", "fog_g", "sph_clusters",
     "tri_streamed", "tri_dma", "stream_uv_cfm", "stream_leaf",
     "n_stream_clusters", "stream_parents", "stream_row_cull",
     "tex_combined", "tex_comb_w", "tex_comb_h", "tex_tiles_x",
@@ -221,7 +228,11 @@ class Scene:
     any_dispersive: bool = False
     any_bump: bool = False
     has_mesh_uvs: bool = False
+    # global homogeneous fog (WorldBuilder.set_fog): extinction, the
+    # single-scatter albedo per channel and the Henyey-Greenstein g
     fog_sigma_t: float = 0.0
+    fog_albedo: tuple = (1.0, 1.0, 1.0)
+    fog_g: float = 0.0
     # (offset, count, mn3 | None, mx3 | None) over csph_*; huge first
     sph_clusters: tuple = ()
     # the mesh's tier: streamed (more than clusters.STREAM_MIN triangles),
@@ -270,36 +281,56 @@ class Scene:
         return dataclasses.replace(self, sph_clusters=(),
                                    **cluster_tables(())).to(self.device)
 
+    @property
+    def planar_maps(self) -> bool:
+        """Material maps fetched at the hit's world xy from the flat stack
+        (K10's planar form): textures outside the combined set that are not
+        all mesh-UV albedo bindings."""
+        return bool(self.n_textures and not self.tex_combined
+                    and not self.tex_mesh_only)
+
+    @property
+    def tri_brute(self) -> bool:
+        """A mesh of at most ``clusters.CLUSTER_MIN`` triangles, swept
+        brute force (K4t)."""
+        return bool(self.n_tris and self.n_tris <= clusters.CLUSTER_MIN)
+
+    @property
+    def featured(self) -> bool:
+        """The scene needs the feature path: fog, transmission, bump maps,
+        planar maps or a brute-force mesh."""
+        return bool(self.fog_sigma_t > 0.0 or self.any_transmissive
+                    or self.any_bump or self.planar_maps or self.tri_brute)
+
     def unsupported(self) -> list:
         """Names of the features this scene uses that the port has not yet
         ported (empty when the slice covers it)."""
         out = []
-        if self.n_textures and not (self.tex_combined or self.tex_mesh_only):
-            out.append("textures outside the combined 4-map set and mesh-UV "
-                       "albedo maps (K10/K11 planar forms, ROADMAP queue 2 "
-                       "item 1)")
         if self.tex_combined and self.has_mesh_uvs:
             out.append("a combined texture set with mesh UVs (ROADMAP "
                        "queue 2 item 2)")
-        if self.n_tris and not self.tri_streamed:
+        if self.n_tris and not self.has_mesh_uvs:
+            out.append("meshes without UVs (K4t's plain sweep and the "
+                       "streamed tier without UVs, ROADMAP queue 2 item 2)")
+        elif self.n_tris and not (self.tri_brute or self.tri_streamed):
             out.append(
-                f"meshes of {clusters.CLUSTER_MIN} triangles or fewer "
-                "(the brute sweep K4t, ROADMAP queue 2 item 2)"
-                if self.n_tris <= clusters.CLUSTER_MIN else
                 f"meshes of {clusters.CLUSTER_MIN + 1}-{clusters.STREAM_MIN} "
                 "triangles (the static tier: K5's triangle form and K8, "
                 "ROADMAP queue 2 item 2)")
         elif self.tri_dma:
             out.append("meshes above the resident streamed tier (K7's DMA "
                        "tier, ROADMAP queue 2 item 2)")
-        elif self.n_tris and not self.has_mesh_uvs:
-            out.append("meshes without UVs (ROADMAP queue 2 item 2)")
-        if self.any_transmissive or self.any_dispersive:
-            out.append("transmission/dispersion (ROADMAP queue 1 item 11)")
-        if self.any_bump:
-            out.append("bump maps (K11, ROADMAP queue 2 item 1)")
-        if self.fog_sigma_t > 0.0:
-            out.append("fog (ROADMAP queue 1 item 11)")
+        if self.featured and (self.sph_clusters or self.tex_combined
+                              or self.tri_streamed):
+            used = [name for name, on in (
+                ("fog", self.fog_sigma_t > 0.0),
+                ("transmission", self.any_transmissive),
+                ("bump maps", self.any_bump),
+                ("planar texture maps", self.planar_maps),
+                ("a brute-force mesh", self.tri_brute)) if on]
+            out.append(", ".join(used) + " together with sphere clusters, "
+                       "a combined texture set or the streamed mesh tier "
+                       "(ROADMAP queue 2 item 1)")
         if self.n_boxes:
             out.append("boxes (never populated by the reference worlds)")
         return out
@@ -515,6 +546,8 @@ class WorldBuilder:
         self.tri_mats = None                  # (T,) int32
         self.tri_uvs = None                   # (T, 3, 2) float32, texels
         self.quad_light: int = -1
+        self.fog: tuple = (0.0, (1.0, 1.0, 1.0), 0.0)  # see set_fog
+        self.tbn_normal_maps: bool = False  # see Scene.tbn_normal_maps
 
     def add_material(self, **kw) -> int:
         self.materials.append(HostMaterial(**kw))
@@ -533,6 +566,14 @@ class WorldBuilder:
         if not (0 <= idx < len(self.quads)):
             raise ValueError(f"quad light index {idx} out of range")
         self.quad_light = idx
+
+    def set_fog(self, sigma_t: float, albedo=(1.0, 1.0, 1.0), g: float = 0.0):
+        """Global homogeneous medium: extinction ``sigma_t`` (1/units of
+        free flight), single-scatter ``albedo`` per channel and the
+        Henyey-Greenstein anisotropy ``g`` in (-1, 1)."""
+        if sigma_t < 0.0 or not (-1.0 < g < 1.0):
+            raise ValueError("fog needs sigma_t >= 0 and -1 < g < 1")
+        self.fog = (float(sigma_t), tuple(float(a) for a in albedo), float(g))
 
     def add_plane(self, n, d, mat) -> int:
         self.planes.append((tuple(n), float(d), int(mat)))
@@ -723,6 +764,10 @@ class WorldBuilder:
             n_materials=len(mats),
             n_textures=len(self.textures),
             quad_light=self.quad_light,
+            fog_sigma_t=self.fog[0],
+            fog_albedo=self.fog[1],
+            fog_g=self.fog[2],
+            tbn_normal_maps=self.tbn_normal_maps,
             just_cosine=(world_kind == WORLD_RAYTRACING_ONE_WEEKEND),
             any_transmissive=any(m.transmission > 0.0 for m in mats),
             any_dispersive=any(m.transmission > 0.0 and m.dispersion > 0.0

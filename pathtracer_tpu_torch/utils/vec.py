@@ -8,7 +8,8 @@ rounds.
 
 Division by a Python number goes through :func:`sdiv`: PyTorch's CUDA
 ``div`` multiplies by the reciprocal when the divisor is a host scalar,
-which is not the IEEE quotient the reference and the kernel compute.
+which is not the IEEE quotient the reference and the kernel compute. A
+Python number over a tensor goes through :func:`rdiv` for the same reason.
 """
 
 from __future__ import annotations
@@ -47,6 +48,12 @@ class Vec3(NamedTuple):
 def sdiv(a: torch.Tensor, c: float) -> torch.Tensor:
     """IEEE ``a / float32(c)`` on every device (see the module note)."""
     return a / a.new_full((), c)
+
+
+def rdiv(c: float, a: torch.Tensor) -> torch.Tensor:
+    """IEEE ``float32(c) / a``: PyTorch computes ``c / a`` as
+    ``reciprocal(a) * c``."""
+    return a.new_full((), c) / a
 
 
 def splat(v, like: torch.Tensor) -> Vec3:

@@ -202,3 +202,60 @@ def test_kernel_rejects_bad_accumulator(cuda):
         cuda_backend.render_chunk_cuda(scene, cam,
                                        trenderer.RenderConfig(8, 8, pp=1),
                                        0, 0, 1, st)
+
+
+@pytest.mark.parametrize("name, pinhole", [
+    ("bump", True), ("tbn", True), ("fog", True), ("dispersion", True),
+    ("everything", True), ("everything", False), ("fog", False)])
+def test_feature_kernel_matches_plain(cuda, name, pinhole):
+    """The five feature scenes at 64x36 through the feature variants (fog,
+    transmission with dispersion, planar and bump maps, the brute UV
+    triangle sweep) against the plain regeneration loop."""
+    from pathtracer_tpu_torch.scene.camera import define_camera
+    from pathtracer_tpu_torch.scene.feature_scenes import FEATURE_CASES
+    scene, (pos, target, fov), cfg_kw = FEATURE_CASES[name]()
+    cam = define_camera(pos, target, fov, 64, 36, use_pinhole=pinhole)
+    scene = scene.to(cuda)
+    assert cuda_backend.variant(scene, cam) == (
+        "feature_pinhole" if pinhole else "feature_lens")
+    cfg = trenderer.RenderConfig(64, 36, pp=2, seed=0, **cfg_kw)
+    before = cuda_backend.LAUNCHES
+    k = cuda_backend.render_chunk_cuda(scene, cam, cfg, 0, 0, 4,
+                                       trenderer.init_accum(64 * 36, cuda))
+    assert cuda_backend.LAUNCHES == before + 1
+    p = cuda_backend.render_chunk_plain(scene, cam, cfg, 0, 0, 4,
+                                        trenderer.init_accum(64 * 36, cuda))
+    torch.cuda.synchronize()
+    _assert_verify_gates(cfg, k, p)
+
+
+@pytest.mark.parametrize("kind, pinhole", [
+    (tschema.WORLD_CORNELL_QUAD, True), (tschema.WORLD_CORNELL_BOX, False)])
+def test_fog_world_kernel_matches_plain(cuda, kind, pinhole):
+    """-w6 and -w3 -d with --fog 0.0012 --fog-albedo 0.9,0.9,0.95
+    --fog-g 0.5: the quad and the sphere form of the volume NEE."""
+    fog = dict(fog_sigma_t=0.0012, fog_albedo=(0.9, 0.9, 0.95), fog_g=0.5)
+    _assert_verify_gates(*_pair(
+        cuda, kind, 64, 36, 2, 4, use_pinhole=pinhole, statics=fog,
+        variant="feature_pinhole" if pinhole else "feature_lens"))
+
+
+def test_planar_maps_kernel_matches_plain(cuda):
+    """World 1 with three planar 512x512 maps (albedo, metalness,
+    roughness: no combined set) through the feature variant."""
+    b, cam_p = tworlds.build_world(W1)
+    b.textures = b.textures[:3]
+    for m in b.materials:
+        m.normal_idx = 0
+    scene = b.finalize(view_origin=cam_p.pos)
+    _, cam = tworlds.finalize_world(W1, 64, 36)
+    assert scene.planar_maps
+    scene = scene.to(cuda)
+    assert cuda_backend.variant(scene, cam) == "feature_pinhole"
+    cfg = trenderer.RenderConfig(64, 36, pp=2, seed=0)
+    k = cuda_backend.render_chunk_cuda(scene, cam, cfg, 0, 0, 4,
+                                       trenderer.init_accum(64 * 36, cuda))
+    p = cuda_backend.render_chunk_plain(scene, cam, cfg, 0, 0, 4,
+                                        trenderer.init_accum(64 * 36, cuda))
+    torch.cuda.synchronize()
+    _assert_verify_gates(cfg, k, p)

@@ -73,22 +73,30 @@ def test_render_image_cuda_without_card_raises():
                                device="cuda")
 
 
-def _textured_scene():
-    """World 1 with one map dropped: a texture set other than the combined
-    4-map one (K10/K11, not ported)."""
+def _textured_scene(w=8, h=8):
+    """World 1 with one map dropped: three planar maps (albedo, metalness,
+    roughness) instead of the combined 4-map set, through the feature
+    kernel's planar fetch (K10's planar form). Returns the JAX scene too."""
     b, _ = jworlds.build_world(tschema.WORLD_DEFAULT)
     b.textures = b.textures[:3]
     for m in b.materials:
         if m.normal_idx:
             m.normal_idx = 0
-    _, cam = jworlds.finalize_world(tschema.WORLD_DEFAULT, 8, 8)
-    scene = jax_scene_to_port(b.finalize(view_origin=cam.pos))
+    _, cam = jworlds.finalize_world(tschema.WORLD_DEFAULT, w, h)
+    js = b.finalize(view_origin=cam.pos)
+    scene = jax_scene_to_port(js)
     assert scene.n_textures == 3 and not scene.tex_combined
-    return scene, cam
+    return scene, cam, js
+
+
+def _unported_textured_scene():
+    """World 1 in fog: the combined set's kernel has no fog (ROADMAP)."""
+    scene, cam = tworlds.finalize_world(tschema.WORLD_DEFAULT, 8, 8)
+    return dataclasses.replace(scene, fog_sigma_t=0.01), cam
 
 
 def test_cuda_wrapper_refuses_textured_scene(monkeypatch):
-    scene, cam = _textured_scene()
+    scene, cam = _unported_textured_scene()
 
     def plain(*a, **k):
         raise AssertionError("the plain version must not run")
@@ -96,7 +104,8 @@ def test_cuda_wrapper_refuses_textured_scene(monkeypatch):
     monkeypatch.setattr(cuda_backend, "render_chunk_plain", plain)
     monkeypatch.setattr(cuda_backend, "render_chunk_wavefront", plain)
     launches = cuda_backend.LAUNCHES
-    with pytest.raises(NotImplementedError, match="textures"):
+    with pytest.raises(NotImplementedError,
+                       match="fog.*combined texture set.*ROADMAP"):
         cuda_backend.render_chunk_cuda(scene, cam,
                                        trenderer.RenderConfig(8, 8, pp=1),
                                        0, 0, 1, trenderer.init_accum(64))
@@ -129,10 +138,28 @@ def test_unported_configs_raise(cfg, match):
 
 
 def test_plain_version_refuses_textured_scene():
-    scene, cam = _textured_scene()
-    with pytest.raises(NotImplementedError, match="textures"):
+    scene, cam = _unported_textured_scene()
+    with pytest.raises(NotImplementedError,
+                       match="fog.*combined texture set.*ROADMAP"):
         trenderer.render_chunk(scene, cam, trenderer.RenderConfig(8, 8, pp=1),
                                0, 0, 1, trenderer.init_accum(64))
+
+
+def test_planar_textured_scene_renders_vs_xla():
+    """World 1 with three planar 512x512 maps renders through the feature
+    path against JAX's XLA driver at 16x9 under the golden gates."""
+    import jax.numpy as jnp
+    from pathtracer_tpu.render import renderer as jrenderer
+    from pathtracer_tpu.utils import prng as jprng
+    from test_torch_render import assert_golden_gates
+    scene, cam, js = _textured_scene(16, 9)
+    assert cuda_backend.variant(scene, cam) == "feature_pinhole"
+    jst = jrenderer.render_chunk(
+        js, cam, jrenderer.RenderConfig(16, 9, pp=2, seed=0),
+        jprng.base_key(0), jnp.int32(0), 4, jrenderer.init_accum(16 * 9))
+    tst = trenderer.render_chunk(scene, cam, trenderer.RenderConfig(
+        16, 9, pp=2, seed=0), 0, 0, 4, trenderer.init_accum(16 * 9))
+    assert_golden_gates(jst, tst)
 
 
 def test_cpu_wrapper_runs_plain_version():
@@ -151,6 +178,17 @@ def test_cpu_wrapper_runs_plain_version():
     assert int(a.rays_cast) == int(b.rays_cast) and a.samples_done == 4
 
 
+def _variant_scene(kind, pinhole):
+    """A world, or a feature scene by name, with its camera at 8x8."""
+    if isinstance(kind, str):
+        from pathtracer_tpu_torch.scene.camera import define_camera
+        from pathtracer_tpu_torch.scene.feature_scenes import FEATURE_CASES
+        scene, (pos, target, fov), _ = FEATURE_CASES[kind]()
+        return scene, define_camera(pos, target, fov, 8, 8,
+                                    use_pinhole=pinhole)
+    return tworlds.finalize_world(kind, 8, 8, use_pinhole=pinhole)
+
+
 @pytest.mark.parametrize("kind, pinhole, want", [
     (tschema.WORLD_CORNELL_BOX, True, "brute_pinhole"),
     (tschema.WORLD_CORNELL_BOX, False, "brute_lens"),
@@ -160,15 +198,23 @@ def test_cpu_wrapper_runs_plain_version():
     (tschema.WORLD_DEFAULT, False, "textured_lens"),
     (tschema.WORLD_MESH_UV, True, "mesh_pinhole"),
     (tschema.WORLD_MESH_UV, False, "mesh_lens"),
+    ("fog", True, "feature_pinhole"),
+    ("everything", False, "feature_lens"),
+    ("bump", True, "feature_pinhole"),
 ])
 def test_kernel_variant_by_scene_and_camera(kind, pinhole, want):
-    """The wrapper picks the textured kernel from a combined texture set,
-    the mesh kernel from a triangle mesh, the clustered walk from the
-    scene's clusters and the thin lens from the camera (world 4 forces
-    it)."""
-    scene, cam = tworlds.finalize_world(kind, 8, 8, use_pinhole=pinhole)
+    """The wrapper picks the feature kernel from fog, transmission, bump or
+    planar maps or a brute-force mesh, the textured kernel from a combined
+    texture set, the mesh kernel from a streamed triangle mesh, the
+    clustered walk from the scene's clusters and the thin lens from the
+    camera (world 4 forces it); a feature scene has one schedule."""
+    scene, cam = _variant_scene(kind, pinhole)
     assert cuda_backend.variant(scene, cam) == want
     assert want in cuda_backend.VARIANTS
+    if want.startswith("feature"):
+        assert cuda_backend.variant(scene, cam, "regen") == want
+        with pytest.raises(NotImplementedError, match="regeneration only"):
+            cuda_backend.variant(scene, cam, "lockstep")
 
 
 def test_kernel_params_layout():
@@ -190,3 +236,7 @@ def test_kernel_params_layout():
              ctypes.c_float * 3: "float"}
     py_fields = [(n, kinds[t]) for n, t in cuda_backend.WaveParams._fields_]
     assert py_fields == c_fields
+    # the feature variants' fields come last, after the mesh variants'
+    names = [n for n, _ in c_fields]
+    assert names.index("stack_wmax") < names.index("tri_ax")
+    assert names[-1] == "fog_albedo"

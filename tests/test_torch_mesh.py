@@ -246,11 +246,15 @@ def test_sample_texture_bit_equal(sizes):
 
 
 @pytest.mark.parametrize("n, match", [
-    (40, "K4t"),            # the brute sweep
+    (40, "K4t"),            # the brute sweep without UVs (with UVs: ported)
     (300, "K5's triangle"),  # the static tier
 ])
 def test_unported_mesh_tiers_raise(n, match):
-    ts = _uv_mesh_builder(tschema.WorldBuilder, n).finalize()
+    b = _uv_mesh_builder(tschema.WorldBuilder, n)
+    if n <= tclusters.CLUSTER_MIN:
+        assert b.finalize().unsupported() == []
+        b.tri_uvs = None
+    ts = b.finalize()
     assert not ts.tri_streamed
     assert any(match in m for m in ts.unsupported())
 

@@ -90,6 +90,9 @@ def test_map_flags_reach_the_scene(flags):
 
 
 def test_non_combined_textures_stay_unported():
+    """A planar map outside the combined set takes the feature path (K10's
+    planar form); with sphere clusters it has no kernel and stays
+    unported, naming its ROADMAP item."""
     b = tschema.WorldBuilder()
     b.add_material(emit=(1.0, 1.0, 1.0))
     m = b.add_material(albedo_idx=1)
@@ -97,7 +100,13 @@ def test_non_combined_textures_stay_unported():
     b.add_texture(np.full((8, 8, 3), 0.5, np.float32))
     scene = b.finalize()
     assert scene.n_textures == 1 and not scene.tex_combined
-    assert any("K10/K11" in m for m in scene.unsupported())
+    assert scene.planar_maps and scene.unsupported() == []
+    for i in range(80):
+        b.add_sphere((3.0 * (i % 9), 3.0 * (i // 9), 0.0), 1.0, m)
+    scene = b.finalize()
+    assert scene.sph_clusters
+    assert any("planar texture maps" in m and "sphere clusters" in m
+               and "ROADMAP" in m for m in scene.unsupported())
 
 
 def _channels(out):
