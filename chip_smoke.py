@@ -5,8 +5,9 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and no network,
 and it imports nothing of JAX.
 
-The render kernel csrc/wave_kernel.cu has twelve compile-time variants
-(cuda_backend.VARIANTS), instantiations of one template in one build:
+The render kernel csrc/wave_kernel.cu has twenty-three compile-time
+variants (cuda_backend.VARIANTS), instantiations of one template in one
+build:
 untextured, the brute sphere sweep or the clustered walk (K5/K6), each with
 the pinhole or the thin-lens primary ray; textured (world 1's combined
 4-map fetch, K9), the pinhole and the lens under the main sample schedule
@@ -15,8 +16,23 @@ lockstep or K2 regen), its yardstick; mesh (world 7's streamed triangle
 walk K7 with the mesh-UV texel fetch K10), the pinhole and the lens under
 cuda_backend.MESH_SCHEDULE and the pinhole under the other one; feature
 (fog, transmission with dispersion, planar maps through K10's planar form,
-bump maps through the height fetch K11, the brute UV triangle sweep K4t),
-the pinhole and the lens under path regeneration.
+bump maps through the height fetch K11, the brute triangle sweep K4t with
+or without UVs), the pinhole and the lens under path regeneration; and the
+mesh tiers (cuda_backend.MESH_KINDS), the pinhole and the lens under
+cuda_backend.MESH_SCHEDULE: the static tier's cluster walk (K5's triangle
+form) without UVs (staticplain, with the pinhole under the other schedule
+as its yardstick) and with the winner's uv (K8, static), the streamed walk
+without UVs (meshplain), and the DMA tier's walk with its grandparent level
+with and without UVs (meshgp, meshgpplain).
+
+The mesh cases stand in for world 5's mario.glb, which is not in the
+repository: world 5's builder without its asset (ground plane, sun, sky,
+camera) plus a lat-long sphere (experiments/accel_crossover.py:51's
+tessellated_sphere, a copy here) of 40 triangles without UVs (K4t), 784
+(Mario's tier and size: the static tier), 19,600 (the resident streamed
+tier) and 262,144 (the DMA tier with grandparents), or world 7's UV sphere
+with its checker at 736 triangles (the static tier with UVs) and 99,840
+(the DMA tier with UVs and grandparents).
 
 Phases (each prints its measured values on its own line; any failure raises
 and the script exits non-zero):
@@ -41,7 +57,11 @@ and the script exits non-zero):
      the five feature scenes (scene/feature_scenes.py) at 256x144 and
      1280x720, 4 spp (everything also through the thin lens), the CLI's fog
      on world 6 and on world 3 with -d, and world 1 with three planar
-     512x512 maps at both sizes, through the feature variants;
+     512x512 maps at both sizes, through the feature variants; the six mesh
+     cases at 256x144 and 1280x720, 4 spp, pinhole and thin lens (784 also
+     under the other schedule), each through its tier's variant, and the
+     two DMA-tier meshes bit-equal to themselves with the grandparent level
+     off (the resident walk over the same parents);
   4. main paths, each through the entry point a user calls, at 1280x720
      with the launch counts set to 0 just before it and read just after:
      a. the Cornell box (-w3), 1 sample, seed 0, against the committed CPU
@@ -62,6 +82,12 @@ and the script exits non-zero):
         finite, non-black images (test_fog_w6.bmp, test_fog_w3.bmp);
      g. the five feature scenes through render_image, 16 spp: finite,
         non-black images, each launching feature_pinhole;
+     h. cli.main(["-w5", "--out", "test_w5.bmp"]): world 5, 16 spp, with
+        mario.glb if res/ has it (its mesh through its tier's variant), else
+        ground, sky and sun; a finite, non-black image;
+     i. render_image on the 784-, 19,600- and 262,144-triangle cases, 16
+        spp, and on every other mesh-tier variant's case, 4 spp: finite,
+        non-black images through their variants;
   5. timing (CUDA events, synchronised; no speed gate): every variant and
      its plain version at 1280x720 4 spp; world 3 at 256 spp and world 1
      at 16 spp, kernel alone and end to end through render_image; worlds
@@ -71,7 +97,9 @@ and the script exits non-zero):
      its clusters dropped (brute), alternating; the feature variants and
      the parts they carry, each on the case that exercises it (world 6 and
      world 3 -d in fog; tbn: K10 planar; bump: K11; everything: K4t UV;
-     dispersion: the dielectric lobe; world 1 with planar maps);
+     dispersion: the dielectric lobe; world 1 with planar maps); every
+     mesh-tier variant at 4 spp with its plain version, and each mesh case
+     at 64 spp, with rays per sample and the host seconds of finalize;
   6. bounds: the least time the card could take for each variant's 4-spp
      launch, from FP32 operations counted off the kernel's code and the
      bytes it must move (accumulators; for worlds 1 and 7 also the texture
@@ -81,6 +109,12 @@ and the script exits non-zero):
      walk with the port's ray_slab_entry. For the mesh variants the parent,
      cluster and row box tests, the triangle tests and the triangle wins
      are counted the same way, with the port's box test and record tests.
+     For the mesh variants the box tests (grandparents, parents, clusters,
+     rows; the static tier's clusters), the triangle tests and the triangle
+     wins are counted over every ray of the same 4-spp render, the
+     static tier's by its walk itself (the plain walk is the kernel's), the
+     streamed tiers' against each ray's final nearest hit (the boxes it
+     enters before it: a lower count than the kernel's running t gives).
      For the textured and mesh variants the fetches are counted over every
      shaded hit on a textured material (mesh: with a UV winner) whose path
      continues (a lower count). For the feature rows the plain
@@ -137,6 +171,10 @@ OPS_TEX = 174
 # OPS_SLAB; the winner's uv (4 mul, 4 add)
 OPS_TRI = 47
 OPS_MESH_UV = 8
+# the DMA tier's walk compares an equal t's winner too (t == best), per
+# triangle test; K8's resolve tests the winner again and forms its uv
+OPS_TRI_GP = OPS_TRI + 1
+OPS_K8_RESOLVE = OPS_TRI + OPS_MESH_UV
 # K10 in shade_surface, per mesh-UV fetch: abs, int->float and fractions
 # with their clamps (10), 12 channels unpacked (24), three bilinear blends
 # (36), the albedo product (3)
@@ -179,29 +217,32 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-KERNEL_RE = r"wave_kernelILb([01])ELb([01])ELi([0-9])ELi([0-9])ELb([01])E"
-# ptxas's registers and spill bytes of the ten variants as they were built
-# before the feature variants were added (PERF.md's findings)
+KERNEL_RE = (r"wave_kernelILb([01])ELb([01])ELi([0-9])ELi([0-9])ELb([01])"
+             r"ELi([0-9])E")
+# ptxas's registers and spill bytes of the twelve variants as they were
+# built before the mesh tiers were added (PERF.md's findings)
 EARLIER_PTXAS = {"brute_pinhole": (64, 0), "brute_lens": (72, 16),
                  "clustered_pinhole": (64, 0), "clustered_lens": (64, 16),
                  "textured_pinhole": (64, 68), "textured_lens": (64, 60),
                  "textured_pinhole_regen": (87, 0),
                  "mesh_pinhole": (56, 84), "mesh_lens": (56, 88),
-                 "mesh_pinhole_regen": (64, 112)}
+                 "mesh_pinhole_regen": (64, 112),
+                 "feature_pinhole": (80, 0), "feature_lens": (80, 0)}
 
 
 def variant_of(mangled: re.Match) -> str:
     """The variant name of wave_kernel<kClustered, kThinLens, kTex, kMesh,
-    kFeat>."""
+    kFeat, kTri>."""
     from pathtracer_tpu_torch.render import cuda_backend as cb
-    clustered, lens, tex, mesh, feat = mangled.groups()
+    clustered, lens, tex, mesh, feat, tri = mangled.groups()
     end = "_lens" if lens == "1" else "_pinhole"
     if feat == "1":
         return "feature" + end
     if tex == "0" and mesh == "0":
         return ("clustered" if clustered == "1" else "brute") + end
+    kinds = {v: k for k, v in cb.MESH_KINDS.items()}
     kind, code, main = (("textured", tex, cb.TEXTURED_SCHEDULE) if tex != "0"
-                        else ("mesh", mesh, cb.MESH_SCHEDULE))
+                        else (kinds[int(tri)], mesh, cb.MESH_SCHEDULE))
     sched = {"1": "lockstep", "2": "regen"}[code]
     return kind + end + ("" if sched == main else "_" + sched)
 
@@ -324,80 +365,67 @@ def tex_fetches(scene, cam, cfg, n_samples, dev):
     return int(st.rays_cast), tally["fetches"]
 
 
-def mesh_tests(scene, cam, cfg, n_samples, dev):
-    """Per-ray means of the mesh kernel's box tests (parents, clusters,
-    rows), triangle tests and triangle wins over every ray of samples 0 ..
-    n_samples-1 of ``cfg``, the rays, and the mesh-UV texel fetches. The
-    plain regeneration loop renders the same rays as the kernel (phase 3
-    holds them to it); each bounce's live rays are caught on their way to
-    intersect_scene_uv and walked per ray as a kernel thread walks them
-    (ops/intersect.py's box and record tests, starting from the nearest
-    sphere, quad or plane hit); each shaded hit whose winner is a UV
-    triangle with an albedo map and whose path continues counts a fetch."""
+def mesh_counts(scene, cam, cfg, n_samples, dev):
+    """Per-ray means of a mesh variant's box tests (grandparents, parents,
+    clusters and rows, or the static tier's clusters), triangle tests and
+    triangle wins over every ray of samples 0 .. n_samples-1 of ``cfg``,
+    the rays, and the mesh-UV texel fetches. The plain regeneration loop
+    renders the same rays as the kernel (phase 3 holds them to it); each
+    bounce's live rays are caught on their way to the intersect and walked
+    again after the nearest sphere, quad or plane: the static tier by its
+    own walk, which is the kernel's (exact counts), a streamed tier against
+    each ray's final nearest hit (the boxes it enters before that hit, a
+    lower count than the kernel's running t gives); each shaded hit whose
+    winner is a UV triangle with an albedo map and whose path continues
+    counts a fetch."""
     import torch
     from pathtracer_tpu_torch.ops import intersect as isect
     from pathtracer_tpu_torch.render import wavefront
     from pathtracer_tpu_torch.render.renderer import init_accum
-    from pathtracer_tpu_torch.scene import clusters
     from pathtracer_tpu_torch.utils.vec import Vec3
 
     tally = dict.fromkeys(("rays", "boxes", "tris", "wins", "fetches"), 0)
     live = {}
-    primary = wavefront._primary_rays
-    walk, shade = wavefront.intersect_scene_uv, wavefront.shade_bounce
-    rpc = clusters.stream_rows_per_cluster(scene.stream_leaf)
-    lane = clusters.ROW_BOUNDS_LANE
+    primary, shade = wavefront._primary_rays, wavefront.shade_bounce
+    walks = {k: getattr(wavefront, k)
+             for k in ("intersect_scene", "intersect_scene_uv")}
 
     def primary_caught(camera, config, key, pixel_idx, s):
         live["mask"] = s < n_samples  # lanes with samples left (s0 = 0)
         return primary(camera, config, key, pixel_idx, s)
 
-    def walk_caught(sc, o, d):
+    def count(sc, o, d):
         m = live["mask"]
-        lo, ld = Vec3(*(c[m] for c in o)), Vec3(*(c[m] for c in d))
-        best = isect._miss(lo)
-        for sweep in (isect.intersect_spheres, isect.intersect_quads,
-                      isect.intersect_planes):
-            best = sweep(sc, lo, ld, best)
-        t_run, won = best.t, torch.zeros_like(lo.x, dtype=torch.bool)
-        inv = isect._slab_inverse(ld)
-        tally["rays"] += lo.x.numel()
-        for pstart, pcnt, pmn, pmx in sc.stream_parents:
-            p_live = torch.ones_like(won)
-            if pmn is not None:
-                tally["boxes"] += lo.x.numel()
-                p_live = isect._box_relevant(lo, inv, pmn, pmx, t_run)
-            for c in range(pstart, pstart + pcnt):
-                brow = sc.mtri_bounds[c]
-                tally["boxes"] += int(p_live.sum())
-                c_live = p_live & isect._box_relevant(
-                    lo, inv, brow[0:3], brow[3:6], t_run)
-                for r in range(rpc):
-                    row = sc.mtri_pack[c * rpc + r]
-                    r_live = c_live
-                    if sc.stream_row_cull:
-                        tally["boxes"] += int(c_live.sum())
-                        r_live = c_live & isect._box_relevant(
-                            lo, inv, row[lane:lane + 3],
-                            row[lane + 3:lane + 6], t_run)
-                    tally["tris"] += clusters.STREAM_TRIS_PER_ROW * int(
-                        r_live.sum())
-                    _, _, t, hit, _, _ = isect._row_records(row, lo, ld)
-                    for jj in range(clusters.STREAM_TRIS_PER_ROW):
-                        take = r_live & hit[jj] & (t[jj] < t_run)
-                        t_run = torch.where(take, t[jj], t_run)
-                        won = won | take
-        tally["wins"] += int(won.sum())
-        return walk(sc, o, d)
+        for lo in range(0, int(m.sum()), isect._STREAM_RAY_CHUNK):
+            idx = torch.nonzero(m).reshape(-1)[lo:lo
+                                                + isect._STREAM_RAY_CHUNK]
+            ro, rd = Vec3(*(c[idx] for c in o)), Vec3(*(c[idx] for c in d))
+            best = isect._non_triangles(sc, ro, rd)
+            tally["rays"] += idx.numel()
+            static = not sc.tri_streamed
+            h, _, _, won = isect.intersect_triangles(
+                sc, ro, rd, best, tally=tally if static else None)
+            if not static:
+                isect._stream_rows(sc, ro, isect._slab_inverse(rd), h.t, tally)
+            tally["wins"] += int(won.sum())
+
+    def caught(name):
+        def walk(sc, o, d):
+            count(sc, o, d)
+            return walks[name](sc, o, d)
+        return walk
 
     def shade_caught(sc, o, d, hit, u, uv=None, **kw):
         out = shade(sc, o, d, hit, u, uv=uv, **kw)
-        tex = sc.mat_albedo_idx[hit.mat.long()] != 0
-        tally["fetches"] += int((live["mask"] & uv[2] & tex & out.cont).sum())
+        if uv is not None:
+            tex = sc.mat_albedo_idx[hit.mat.long()] != 0
+            tally["fetches"] += int((live["mask"] & uv[2] & tex
+                                     & out.cont).sum())
         return out
 
     wavefront._primary_rays = primary_caught
-    wavefront.intersect_scene_uv = walk_caught
+    for k in walks:
+        setattr(wavefront, k, caught(k))
     wavefront.shade_bounce = shade_caught
     try:
         # the regeneration loop directly: both schedules cast the same rays,
@@ -408,11 +436,43 @@ def mesh_tests(scene, cam, cfg, n_samples, dev):
             torch.arange(n_pix, device=dev))
     finally:
         wavefront._primary_rays = primary
-        wavefront.intersect_scene_uv = walk
+        for k, f in walks.items():
+            setattr(wavefront, k, f)
         wavefront.shade_bounce = shade
     n = tally["rays"]
     return (n, tally["boxes"] / n, tally["tris"] / n, tally["wins"] / n,
             tally["fetches"])
+
+
+def lat_long_sphere(nlat, nlon, radius=1.0, center=(0.0, 0.0, 1.0)):
+    """experiments/accel_crossover.py:51's lat-long sphere with nlat x nlon
+    quads, two triangles each, wound outward: a (T, 3, 3) soup."""
+    th = np.linspace(0, np.pi, nlat + 1)
+    ph = np.linspace(0, 2 * np.pi, nlon + 1)
+    P = np.zeros((nlat + 1, nlon + 1, 3), np.float32)
+    P[..., 0] = radius * np.outer(np.sin(th), np.cos(ph)) + center[0]
+    P[..., 1] = radius * np.outer(np.sin(th), np.sin(ph)) + center[1]
+    P[..., 2] = radius * np.outer(np.cos(th), np.ones_like(ph)) + center[2]
+    a, b = P[:-1, :-1], P[1:, :-1]
+    c, d = P[1:, 1:], P[:-1, 1:]
+    return np.stack([np.stack([a, b, c], 2), np.stack([a, c, d], 2)],
+                    2).reshape(-1, 3, 3)
+
+
+def tessellated_sphere(n_target):
+    """accel_crossover's tessellated_sphere: 4 * nlat^2 triangles."""
+    nlat = max(4, int(np.sqrt(n_target / 4.0)))
+    return lat_long_sphere(nlat, 2 * nlat)
+
+
+MESH_CASES = {  # tag -> (triangles without UVs, or UV-sphere segments/rings)
+    "tri40": (lambda: lat_long_sphere(4, 5), None),
+    "tri784": (lambda: tessellated_sphere(800), None),
+    "uv736": (None, (16, 24)),
+    "tri19600": (lambda: tessellated_sphere(19600), None),
+    "tri262144": (lambda: tessellated_sphere(262144), None),
+    "uv99840": (None, (256, 196)),
+}
 
 
 def feature_counts(scene, cam, cfg, n_samples, dev):
@@ -521,15 +581,18 @@ def main() -> int:
     )
     from pathtracer_tpu_torch.scene.camera import define_camera
     from pathtracer_tpu_torch.scene.feature_scenes import FEATURE_CASES
+    from pathtracer_tpu_torch.scene import worlds
     from pathtracer_tpu_torch.scene.schema import (
         WORLD_BRDF_TEST, WORLD_CORNELL_BOX, WORLD_CORNELL_QUAD, WORLD_DEFAULT,
-        WORLD_MESH_UV, WORLD_RAYTRACING_ONE_WEEKEND,
+        WORLD_MARIO, WORLD_MESH_UV, WORLD_RAYTRACING_ONE_WEEKEND,
+        parent_tables,
     )
+    from pathtracer_tpu_torch.scene.textures import REFERENCE_RES_DIR
     from pathtracer_tpu_torch.scene.worlds import build_world, finalize_world
 
-    W3, W6, W2, W4, W1, W7 = (WORLD_CORNELL_BOX, WORLD_CORNELL_QUAD,
-                              WORLD_BRDF_TEST, WORLD_RAYTRACING_ONE_WEEKEND,
-                              WORLD_DEFAULT, WORLD_MESH_UV)
+    W3, W6, W2, W4, W1, W7, W5 = (WORLD_CORNELL_BOX, WORLD_CORNELL_QUAD,
+                                  WORLD_BRDF_TEST, WORLD_RAYTRACING_ONE_WEEKEND,
+                                  WORLD_DEFAULT, WORLD_MESH_UV, WORLD_MARIO)
     OTHER = cb.OTHER_SCHEDULE
     MOTHER = cb.MESH_OTHER_SCHEDULE
     NMR = dict(use_normal_maps=False, use_metalness_maps=False,
@@ -568,14 +631,52 @@ def main() -> int:
         _, cam = finalize_world(W1, w, h)
         return b.finalize(view_origin=cp.pos).to(dev), cam
 
+    mesh_built = {}  # tag -> (CPU scene, camera params, finalize s, card)
+
+    def mesh_case(tag, w, h, lens=False, cpu=False):
+        """(scene on the card, or on the CPU, and its camera at w x h) of a
+        mesh case: world 5's builder without its asset plus the case's
+        mesh, finalized once (its host seconds kept)."""
+        if tag not in mesh_built:
+            gen, seg = MESH_CASES[tag]
+            b, cp = build_world(W5, res_dir=str(ROOT / "no asset here"))
+            if seg is None:
+                tris = gen()
+                m = b.add_material(albedo=(0.7, 0.6, 0.5), roughness=0.6)
+                b.set_mesh(tris.reshape(-1, 3),
+                           np.full((3 * len(tris),), m, np.int32))
+            else:
+                pts, uvs = worlds._uv_sphere_mesh((0.0, 0.0, 1.4), 1.4,
+                                                  n_seg=seg[0], n_ring=seg[1])
+                m = b.add_material(
+                    albedo=(1.0, 1.0, 1.0), roughness=0.55,
+                    albedo_idx=b.add_texture(worlds._mesh_uv_demo_texture()))
+                b.set_mesh(pts, np.full((len(pts),), m, np.int32), uvs=uvs)
+            t = time.perf_counter()
+            scene = b.finalize(world_kind=W5, view_origin=cp.pos)
+            mesh_built[tag] = (scene, cp, time.perf_counter() - t,
+                               scene.to(dev))
+        scene, cp, _, on_card = mesh_built[tag]
+        return (scene if cpu else on_card), define_camera(
+            cp.pos, cp.target, cp.fov, w, h, use_pinhole=not lens)
+
+    def resident_twin(scene):
+        """A DMA-tier scene without its grandparent level: its parents in
+        table order, walked as the resident tier walks them."""
+        parents = tuple(sorted(scene.stream_parents))
+        return dataclasses.replace(scene, stream_gparents=(), **{
+            k: v.to(dev) for k, v in parent_tables(parents).items()})
+
     def feature_case(tag, w, h, lens=False):
         """(scene, camera, RenderConfig options) of a feature case: a
         feature scene by name, "w6 fog" / "w3 fog" (the CLI's fog on world
-        6 or 3) or "w1 planar"."""
+        6 or 3), "w1 planar" or the 40-triangle mesh case (K4t)."""
         if tag in FEATURE_CASES:
             return feature(tag, w, h, lens)
         if tag == "w1 planar":
             return (*planar_world1(w, h), {})
+        if tag in MESH_CASES:
+            return (*mesh_case(tag, w, h, lens), {})
         kind = {"w6 fog": W6, "w3 fog": W3}[tag]
         return (*world(kind, w, h, lens, statics=FOG), {})
 
@@ -599,6 +700,8 @@ def main() -> int:
     print(f"phase2 build_s={build_s:.3f} nvcc_s={cb.BUILD_SECONDS} "
           f"ptxas={json.dumps(ptxas)}")
     print(f"phase2 earlier_variants_kept_ptxas={json.dumps(kept)}")
+    print("phase2 mesh_tier_variants " + json.dumps(
+        {v: ptxas[v] for v in cb.VARIANTS if v not in EARLIER_PTXAS}))
     print(f"phase2 sass={json.dumps(sass)}")
 
     # --- 3. kernel vs plain on the card ------------------------------------
@@ -704,6 +807,61 @@ def main() -> int:
         check(f3 < 0.01 and f1 < 0.001, "kernel vs plain flip fractions")
         check(count_eq, "kernel vs plain valid counts")
         check(abs(rk - rp) <= 0.005 * rp, "kernel vs plain ray counts")
+
+    # the mesh tiers: each case at 256x144 and 1280x720, 4 spp, through the
+    # pinhole and the thin lens (784 under the other schedule too)
+    for tag, w, h, lens, sched in (
+            *((t, 256, 144, ln, None) for t in MESH_CASES
+              for ln in (False, True)),
+            ("tri784", 256, 144, False, MOTHER),
+            *((t, 1280, 720, ln, None) for t in MESH_CASES
+              for ln in (False, True)),
+            ("tri784", 1280, 720, False, MOTHER)):
+        scene, cam = mesh_case(tag, w, h, lens)
+        cfg = RenderConfig(w, h, pp=2, seed=0, schedule=sched)
+        var = cb.variant(scene, cam, sched)
+        k = cb.render_chunk_cuda(scene, cam, cfg, 0, 0, 4,
+                                 init_accum(w * h, dev))
+        t = time.perf_counter()
+        p = cb.render_chunk_plain(scene, cam, cfg, 0, 0, 4,
+                                  init_accum(w * h, dev))
+        sync()
+        t_plain = time.perf_counter() - t
+        d = (resolve(k, cfg) - resolve(p, cfg)).abs().amax(dim=-1)
+        f3 = float((d > 1e-3).float().mean())
+        f1 = float((d > 0.1).float().mean())
+        count_eq = bool(torch.equal(k.count, p.count))
+        rk, rp = int(k.rays_cast), int(p.rays_cast)
+        max_err[var] = max(max_err[var], float(d.max()))
+        feature_err[tag] = max(feature_err.get(tag, 0.0), float(d.max()))
+        print(f"phase3 mesh={tag} n_tris={scene.n_tris} variant={var} "
+              f"{w}x{h} pp=2 samples=0-3 frac_gt_1e-3={f3} frac_gt_0.1={f1} "
+              f"bit_equal={float((d == 0).float().mean())} "
+              f"count_equal={count_eq} rays_kernel={rk} rays_plain={rp} "
+              f"nan_kernel={int(k.nan_count)} nan_plain={int(p.nan_count)} "
+              f"max_abs_err={float(d.max())} plain_s={t_plain}")
+        check(f3 < 0.01 and f1 < 0.001, "kernel vs plain flip fractions")
+        check(count_eq, "kernel vs plain valid counts")
+        check(abs(rk - rp) <= 0.005 * rp, "kernel vs plain ray counts")
+    # the DMA tier's grandparent level is pure pruning: its render equals,
+    # bit for bit, the resident walk's over the same parents
+    for tag in ("tri262144", "uv99840"):
+        for w, h in ((256, 144), (1280, 720)):
+            scene, cam = mesh_case(tag, w, h)
+            flat = resident_twin(scene)
+            cfg = RenderConfig(w, h, pp=2, seed=0)
+            out = [cb.render_chunk_cuda(sc, cam, cfg, 0, 0, 4,
+                                        init_accum(w * h, dev))
+                   for sc in (scene, flat)]
+            sync()
+            same = (all(torch.equal(a_, b_)
+                        for a_, b_ in zip(out[0].sum, out[1].sum))
+                    and int(out[0].rays_cast) == int(out[1].rays_cast))
+            print(f"phase3 mesh={tag} {w}x{h} grandparents "
+                  f"({cb.variant(scene, cam)}, {len(scene.stream_gparents)} "
+                  f"over {len(scene.stream_parents)} parents) vs none "
+                  f"({cb.variant(flat, cam)}): bit_equal={same}")
+            check(same, f"{tag}: the grandparent level changed the render")
 
     # --- 4. the main paths at full width -------------------------------------
     w, h = 1280, 720
@@ -848,6 +1006,61 @@ def main() -> int:
               f"mean={float(img.mean())} max={float(img.max())} "
               f"rays={int(state.rays_cast)} nan={int(state.nan_count)}")
 
+    # h. the world-5 command, 1280x720, 16 spp: mario.glb where res/ has
+    # it (its mesh through its tier's variant), else ground, sky and sun
+    w5_scene, w5_cam = finalize_world(W5, w, h)
+    var = cb.variant(w5_scene, w5_cam)
+    bmp = ROOT / "test_w5.bmp"
+    renderer.render_image = render_image_caught
+    try:
+        reset_counts()
+        rc = cli.main(["-w5", "--out", str(bmp)])
+        sync()
+    finally:
+        renderer.render_image = real_render_image
+    check(rc == 0 and bmp.stat().st_size == 58 + w * h * 4,
+          "-w5 wrote its BMP")
+    # (its variant's row keeps the count of its own main path)
+    check(cb.VARIANT_LAUNCHES[var] == cb.LAUNCHES > 0,
+          f"the -w5 command's main path launched {var}")
+    w5_launches = cb.VARIANT_LAUNCHES[var]
+    img, _, state = caught["out"]
+    img = img.cpu().numpy()
+    check(img.shape == (h, w, 3) and bool(np.isfinite(img).all())
+          and float(img.mean()) > 0.01, "finite, non-black world 5 image")
+    found = (Path(REFERENCE_RES_DIR) / "mario.glb").exists()
+    print(f"phase4h command=-w5 mario_glb_found={found} "
+          f"n_tris={w5_scene.n_tris} variant={var} launches={w5_launches} "
+          f"spp=16 mean={float(img.mean())} rays={int(state.rays_cast)} "
+          f"nan={int(state.nan_count)} wrote {bmp.name} "
+          f"bytes={bmp.stat().st_size}")
+
+    # i. the mesh cases through render_image, as a user calls it: the 784-,
+    # 19,600- and 262,144-triangle ones at 16 spp, and every other mesh-tier
+    # variant's case at 4 spp
+    for tag, pp, lens, sched in (
+            ("tri784", 4, False, None), ("tri19600", 4, False, None),
+            ("tri262144", 4, False, None), ("uv736", 2, False, None),
+            ("uv99840", 2, False, None), ("tri40", 2, False, None),
+            *((t, 2, True, None) for t in ("tri784", "uv736", "tri19600",
+                                           "tri262144", "uv99840")),
+            ("tri784", 2, False, MOTHER)):
+        scene, cam = mesh_case(tag, w, h, lens, cpu=True)
+        cfg = RenderConfig(w, h, pp=pp, seed=0, schedule=sched)
+        var = cb.variant(scene, cam, sched)
+        reset_counts()
+        img, _, state = render_image(scene, cam, cfg, device="cuda")
+        sync()
+        read_counts(var, f"the {tag} mesh's")
+        path_launches[tag] = cb.VARIANT_LAUNCHES[var]
+        img = img.cpu().numpy()
+        check(img.shape == (h, w, 3) and bool(np.isfinite(img).all())
+              and float(img.mean()) > 0.01, f"finite, non-black {tag} image")
+        print(f"phase4i mesh={tag} n_tris={scene.n_tris} variant={var} "
+              f"launches={launches[var]} spp={pp * pp} "
+              f"mean={float(img.mean())} rays={int(state.rays_cast)} "
+              f"nan={int(state.nan_count)}")
+
     # --- 5. timing -----------------------------------------------------------
     def kernel_ms(scene, cam, pp, reps, **cfg_kw):
         """CUDA-event ms of each of ``reps`` launches of pp*pp samples at
@@ -904,11 +1117,31 @@ def main() -> int:
         "K4t UV": ("everything", False,
                    "ray_triangle_uv sweep in wave_kernel<feature_pinhole>",
                    "pathtracer_tpu/ops/intersect.py:1261"),
+        "K4t plain": ("tri40", False,
+                      "ray_triangle_uv sweep without uv in "
+                      "wave_kernel<feature_pinhole>",
+                      "pathtracer_tpu/ops/intersect.py:1172"),
         "transmission": ("dispersion", False, None, None),
         "large planar stack": ("w1 planar", False, None, None),
     }
-    check(sorted([*main_worlds, "feature_pinhole", "feature_lens"])
-          == sorted(cb.VARIANTS), "every variant timed")
+    # the mesh tiers' variants: variant -> (mesh case, thin lens, schedule,
+    # the JAX code it replaces)
+    tier_rows = {
+        "staticplain_pinhole": ("tri784", False, None, "intersect.py:225"),
+        "staticplain_lens": ("tri784", True, None, "intersect.py:225"),
+        f"staticplain_pinhole_{MOTHER}": ("tri784", False, MOTHER,
+                                          "intersect.py:225"),
+        "static_pinhole": ("uv736", False, None, "intersect.py:1309"),
+        "static_lens": ("uv736", True, None, "intersect.py:1309"),
+        "meshplain_pinhole": ("tri19600", False, None, "intersect.py:262"),
+        "meshplain_lens": ("tri19600", True, None, "intersect.py:262"),
+        "meshgpplain_pinhole": ("tri262144", False, None, "intersect.py:815"),
+        "meshgpplain_lens": ("tri262144", True, None, "intersect.py:815"),
+        "meshgp_pinhole": ("uv99840", False, None, "intersect.py:815"),
+        "meshgp_lens": ("uv99840", True, None, "intersect.py:815"),
+    }
+    check(sorted([*main_worlds, "feature_pinhole", "feature_lens",
+                  *tier_rows]) == sorted(cb.VARIANTS), "every variant timed")
     timed = {}
     for var, (kind, lens, schedule) in main_worlds.items():
         scene, cam = world(kind, w, h, lens)
@@ -936,6 +1169,31 @@ def main() -> int:
               f"{rays / np.median(ks) / 1e3} plain_ms={1e3 * ps} "
               f"plain_rays={prays} plain_mrays_s={prays / ps / 1e6} "
               f"| card: {smi}")
+
+    ttimed = {}
+    for var, (tag, lens, sched, _) in tier_rows.items():
+        scene, cam = mesh_case(tag, w, h, lens)
+        check(cb.variant(scene, cam, sched) == var, f"{tag} takes {var}")
+        ks, rays = kernel_ms(scene, cam, 2, 5, schedule=sched)
+        plain_s(scene, cam, 1, schedule=sched)  # warm
+        ps, prays = plain_s(scene, cam, 2, schedule=sched)
+        ttimed[var] = dict(ms=float(np.median(ks)), rays=rays, scene=scene,
+                           cam=cam, plain_ms=1e3 * ps, schedule=sched)
+        print(f"phase5 variant={var} mesh={tag} n_tris={scene.n_tris} "
+              f"finalize_s={mesh_built[tag][2]} 720p spp=4 "
+              f"kernel_ms={sorted(ks)} rays={rays} "
+              f"rays_per_sample={rays / (w * h * 4)} kernel_mrays_s="
+              f"{rays / np.median(ks) / 1e3} plain_ms={1e3 * ps} "
+              f"plain_rays={prays} plain_mrays_s={prays / ps / 1e6} "
+              f"| card: {smi}")
+    # each mesh case at 64 spp through its main variant
+    for tag in MESH_CASES:
+        scene, cam = mesh_case(tag, w, h)
+        ks, rays = kernel_ms(scene, cam, 8, 3)
+        print(f"phase5 mesh={tag} n_tris={scene.n_tris} "
+              f"variant={cb.variant(scene, cam)} 64spp kernel_ms={sorted(ks)} "
+              f"rays={rays} rays_per_sample={rays / (w * h * 64)} "
+              f"mrays_s_median={rays / np.median(ks) / 1e3} | card: {smi}")
 
     # world 3 at 256 spp and world 1 at 16 spp (the default command), the
     # kernel alone and end to end through render_image
@@ -1020,7 +1278,7 @@ def main() -> int:
 
     # --- 6. bounds -------------------------------------------------------------
     table = []
-    mesh_counts = {}
+    mesh_tally = {}
     for var, tm in timed.items():
         scene, cam = tm["scene"], tm["cam"]
         cfg4 = RenderConfig(w, h, pp=2, seed=0, schedule=tm["schedule"])
@@ -1040,8 +1298,8 @@ def main() -> int:
         if cb.meshed(scene):
             # the lockstep yardstick casts the pinhole's rays: its counts
             if var != f"mesh_pinhole_{MOTHER}":
-                mesh_counts[var] = mesh_tests(scene, cam, cfg4, 4, dev)
-            mrays, boxes, tris, wins, fetches = mesh_counts[
+                mesh_tally[var] = mesh_counts(scene, cam, cfg4, 4, dev)
+            mrays, boxes, tris, wins, fetches = mesh_tally[
                 "mesh_lens" if var == "mesh_lens" else "mesh_pinhole"]
             check(abs(mrays - tm["rays"]) <= 0.005 * tm["rays"],
                   f"{var}: walked {mrays} rays, the kernel cast {tm['rays']}")
@@ -1132,6 +1390,60 @@ def main() -> int:
             "launches": path_launches[tag],
             "max_abs_err": (max_err[var] if row.startswith("feature")
                             else feature_err[tag]),
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None,  # no single PyTorch call computes this
+        })
+    for var, (tag, lens, sched, replaces) in tier_rows.items():
+        tm = ttimed[var]
+        scene, cam = tm["scene"], tm["cam"]
+        cfg4 = RenderConfig(w, h, pp=2, seed=0, schedule=sched)
+        # the other schedule's yardstick casts the pinhole's rays
+        base = var.replace(f"_{MOTHER}", "")
+        if base not in mesh_tally:
+            mesh_tally[base] = mesh_counts(scene, cam, cfg4, 4, dev)
+        mrays, boxes, tris, wins, fetches = mesh_tally[base]
+        rays = tm["rays"]
+        check(abs(mrays - rays) <= 0.005 * rays,
+              f"{var}: walked {mrays} rays, the kernel cast {rays}")
+        kind = var.split("_")[0]
+        tri_ops = OPS_TRI_GP if kind.startswith("meshgp") else OPS_TRI
+        win_ops = (OPS_K8_RESOLVE if kind == "static" else
+                   OPS_MESH_UV if scene.has_mesh_uvs else 0)
+        isect_ops = (OPS_INV + boxes * OPS_SLAB + tris * tri_ops
+                     + wins * win_ops + scene.n_spheres * OPS_SPHERE
+                     + scene.n_quads * OPS_QUAD + scene.n_planes * OPS_PLANE
+                     + OPS_RESOLVE + OPS_EMIT)
+        samples = w * h * 4
+        ops = (samples * OPS_PRIMARY["lens" if lens else "pinhole"]
+               + rays * isect_ops + (rays - samples) * OPS_SHADE
+               + fetches * OPS_STACK)
+        tables = (scene.mtri_pack, scene.mtri_bounds, scene.stream_pbox,
+                  scene.stream_prange, scene.stream_gbox, scene.stream_grange,
+                  *((scene.mtri_uvpack, scene.tex_packed)
+                    if scene.has_mesh_uvs else ())) \
+            if scene.tri_streamed else (
+                *scene.ctri_n, scene.ctri_d, *scene.ctri_e1, scene.ctri_a0,
+                *scene.ctri_e2, scene.ctri_b0, scene.ctri_mat, scene.tcl_box,
+                scene.tcl_range,
+                *((scene.ctri_uv0u, scene.ctri_uv0v, scene.ctri_uvdu1,
+                   scene.ctri_uvdv1, scene.ctri_uvdu2, scene.ctri_uvdv2,
+                   scene.tex_packed) if scene.has_mesh_uvs else ()))
+        nbytes = w * h * BYTES_PER_PIXEL + 4 * sum(t.numel() for t in tables)
+        t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
+        bound_ms = 1e3 * max(t_ops, t_bytes)
+        print(f"phase6 variant={var} mesh={tag} box_tests_per_ray={boxes} "
+              f"tri_tests_per_ray={tris} tri_wins_per_ray={wins} "
+              f"uv_fetches={fetches} ops={ops:.6e} bytes={nbytes} "
+              f"bound_ms={bound_ms} bound_share={bound_ms / tm['ms']} "
+              f"| card: {smi}")
+        table.append({
+            "name": f"wave_kernel<{var}>", "route": "cuda",
+            "source": "pathtracer_tpu_torch/csrc/wave_kernel.cu",
+            "replaces": "pathtracer_tpu/ops/" + replaces,
+            "launches": launches[var],
+            "max_abs_err": max_err[var],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": bound_ms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",

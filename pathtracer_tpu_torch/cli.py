@@ -7,7 +7,11 @@ roughness maps; ``-t`` is accepted for compatibility) plus ``--size WxH
 --out PATH --seed N --scene-seed N|os --rr --chunk N --mips --tbn --fog
 SIGMA_T --fog-albedo R,G,B --fog-g G --debug regular|variance --device
 cuda|cpu``. With no ``-w`` it renders world 1,
-the reference's default textured scene; ``-w7`` renders the mesh-UV world.
+the reference's default textured scene; ``-w5`` renders the glTF mesh world
+(``res/mario.glb``; without the file, its ground and sky) and ``-w7`` the
+mesh-UV world. ``--out`` writes a BMP for ``.bmp`` or no extension and
+hands any other extension to PIL, as the JAX CLI does. ``--chunk``
+defaults to ``min(spp, 64)`` samples per ``render_chunk`` call.
 ``--device`` defaults to ``cuda`` and fails without a card. Flags the port
 has not reached raise and name their ROADMAP item.
 
@@ -18,6 +22,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 import time
 
@@ -78,6 +83,7 @@ def print_help():
     print("\t\t1:\tDefault scene (textured ground; the default).\n"
           "\t\t2:\tMetal-roughness test.\n\t\t3:\tCornell box.\n"
           "\t\t4:\tRay Tracing in One Weekend book cover.\n"
+          "\t\t5:\tglTF mesh (res/mario.glb) on a ground plane.\n"
           "\t\t6:\tCornell box with a quad area light.\n"
           "\t\t7:\tUV-mapped sphere mesh (mesh-UV texture).")
     print("\td       - Use the thin-lens camera (depth of field).")
@@ -88,6 +94,30 @@ def print_help():
     print("\nExtensions: --size WxH --out PATH --seed N --scene-seed N|os "
           "--rr --chunk N --mips --tbn --fog SIGMA_T --fog-albedo R,G,B "
           "--fog-g G --debug regular|variance --device cuda|cpu")
+
+
+def write_image(path, packed):
+    """--out by its extension (pathtracer_tpu/cli.py:325-339): ``.bmp`` or
+    none writes the reference's BMP bytes; any other goes through PIL,
+    which raises where PIL is missing; an extension PIL does not know
+    falls back to BMP bytes at the same path."""
+    from .io.bmp import packed_to_rgb, write_bmp
+    ext = os.path.splitext(path)[1].lower().lstrip(".")
+    if ext in ("bmp", ""):
+        write_bmp(path, packed)
+        return
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise NotImplementedError(
+            f"--out .{ext} needs PIL, which does not import here; .bmp "
+            "needs nothing (other writers: ROADMAP queue 1 item 12)") from e
+    try:
+        Image.fromarray(packed_to_rgb(packed)[::-1]).save(path)
+    except ValueError:
+        # an unknown extension must not lose a finished render
+        print(f"(--out: unknown extension .{ext}; writing BMP bytes)")
+        write_bmp(path, packed)
 
 
 def main(argv=None):
@@ -104,7 +134,8 @@ def main(argv=None):
     ap.add_argument("--debug", default="regular")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--chunk", type=int, default=None,
-                    help="samples per render_chunk call (default: all)")
+                    help="samples per render_chunk call (default: "
+                         "min(spp, 64))")
     ap.add_argument("--rr", action="store_true",
                     help="Russian-roulette path termination (unbiased)")
     ap.add_argument("--device", default="cuda")
@@ -137,7 +168,6 @@ def main(argv=None):
 
     import torch
 
-    from .io.bmp import write_bmp
     from .render.renderer import RenderConfig, render_image
     from .scene.schema import WORLD_KIND_COUNT
     from .scene.worlds import finalize_world
@@ -187,7 +217,14 @@ def main(argv=None):
     for name in ("axis_x", "axis_y", "axis_z"):
         v = getattr(camera, name)
         print(f"c->{name.replace('_', '')}: ({v[0]:f},{v[1]:f},{v[2]:f})")
-    print()
+    print(
+        "The film plane is embedded in the plane defined by c->axisX and "
+        "c->axisY.\n"
+        "Rays are shot originating at the lens located at c->pos and \"strike "
+        "a sensor on the film to develop the image\".\n"
+        "The camera has a local coordinate system which is different from "
+        "the world coordinate system.\n"
+        "The camera is looking down the negative c->axisZ direction.\n")
 
     mip_scale = 0.0
     if args.mips:
@@ -203,9 +240,11 @@ def main(argv=None):
     cfg = RenderConfig(width=w, height=h, pp=pp, seed=args.seed,
                        debug_kind=args.debug,
                        use_russian_roulette=args.rr, mip_scale=mip_scale)
+    if args.chunk is None:
+        args.chunk = min(cfg.spp, 64)
 
     def progress(s_done, s_total, st):
-        if args.chunk and s_total > args.chunk:
+        if s_total > args.chunk:
             print(f"  {s_done}/{s_total} samples "
                   f"({int(st.rays_cast) / 1e6:.1f} Mrays)")
 
@@ -215,7 +254,7 @@ def main(argv=None):
                                       progress_cb=progress, device=device)
     packed = packed.cpu().numpy()
     wall = time.perf_counter() - t0
-    write_bmp(args.out, packed)
+    write_image(args.out, packed)
 
     rays = int(state.rays_cast)
     print(f"Done. Image written to {args.out}.")  # cf. :985

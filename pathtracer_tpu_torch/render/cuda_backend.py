@@ -8,12 +8,18 @@ instantiations of one kernel template: untextured, the brute sphere sweep
 or the clustered walk (K5/K6), each with the pinhole or the thin-lens
 primary ray; textured (the combined 4-map set, K9), the brute sweep with
 either primary under ``TEXTURED_SCHEDULE``, and the pinhole under the
-other schedule as its yardstick; mesh (the streamed triangle walk K7 with
-the mesh-UV texel fetch K10), either primary under ``MESH_SCHEDULE`` and
-the pinhole under the other; feature (fog, transmission with dispersion,
-planar maps from the flat stack with K10's planar form, bump maps with the
-height fetch K11, the brute UV triangle sweep K4t), either primary under
-path regeneration, the schedule JAX runs these scenes under. The file is
+other schedule as its yardstick; the mesh tiers (``MESH_KINDS``), either
+primary under ``MESH_SCHEDULE``: the streamed triangle walk K7 with the
+mesh-UV texel fetch K10 (``mesh``, with the pinhole under the other
+schedule too) or without UVs (``meshplain``), the same with the DMA
+tier's grandparent level (``meshgp``, ``meshgpplain``), and the static
+tier's cluster walk (K5's triangle form) with the winner's uv (K8,
+``static``) or without (``staticplain``, with the pinhole under the other
+schedule too); feature (fog, transmission with dispersion, planar maps
+from the flat stack with K10's planar form, bump maps with the height
+fetch K11, the brute triangle sweep K4t with or without UVs), either
+primary under path regeneration, the schedule JAX runs these scenes
+under. The file is
 compiled at first use by one
 ``nvcc`` for ``sm_90a`` into ``pathtracer_tpu_torch/_build/`` (a library
 named by the hash of the source and flags, so an edit rebuilds it), loaded
@@ -24,9 +30,10 @@ with ``ctypes`` and launched on PyTorch's current stream.
   It picks the variant from the scene and camera (:func:`variant`): the
   feature kernel for a scene with fog, transmission, bump or planar maps or
   a brute-force mesh (``Scene.featured``), the textured kernel for a
-  combined texture set, the mesh kernel for a streamed triangle mesh, else
-  the clustered walk when the scene has sphere clusters; the thin-lens
-  primary when the camera has one.
+  combined texture set, a mesh kernel for a mesh of more than
+  ``clusters.CLUSTER_MIN`` triangles (by its tier, :func:`mesh_kind`),
+  else the clustered walk when the scene has sphere clusters; the
+  thin-lens primary when the camera has one.
 - :func:`render_chunk_plain` is the plain PyTorch version of the same
   function (``render/lockstep.py`` under the lockstep schedule,
   ``render/wavefront.py`` otherwise), which the CPU tests run and which
@@ -70,12 +77,22 @@ MESH_SCHEDULE = "lockstep"
 MESH_OTHER_SCHEDULE = "regen"
 _SCHED_CODE = {"lockstep": 1, "regen": 2}  # wave_render's tex/mesh argument
 
+# The mesh tiers' kernels by name, with their kTri bits in the kernel:
+# without UVs (1), with the grandparent level (2), the static tier (4).
+MESH_KINDS = {"mesh": 0, "meshplain": 1, "meshgp": 2, "meshgpplain": 3,
+              "static": 4, "staticplain": 5}
+# the mesh tiers instantiated under the other schedule too (the pinhole)
+MESH_OTHER_KINDS = ("mesh", "staticplain")
+
 # the kernel's variants, as variant() names them
 VARIANTS = ("brute_pinhole", "brute_lens", "clustered_pinhole",
             "clustered_lens", "textured_pinhole", "textured_lens",
             f"textured_pinhole_{OTHER_SCHEDULE}", "mesh_pinhole", "mesh_lens",
             f"mesh_pinhole_{MESH_OTHER_SCHEDULE}", "feature_pinhole",
-            "feature_lens")
+            "feature_lens",
+            *(f"{k}_{cam}" for k in MESH_KINDS if k != "mesh"
+              for cam in ("pinhole", "lens")),
+            f"staticplain_pinhole_{MESH_OTHER_SCHEDULE}")
 LAUNCHES = 0      # kernel launches, counted where the launch succeeds
 VARIANT_LAUNCHES = dict.fromkeys(VARIANTS, 0)  # the same, by variant
 BUILD_LOG = ""    # nvcc's output (ptxas registers and spills per variant)
@@ -108,7 +125,7 @@ _TEX_PTR_FIELDS = ("mat_tex", "tex_tile", "tex_mip")
 # the mesh variants' fields, after those
 _MESH_PTR_FIELDS = ("mtri_pack", "mtri_bounds", "mtri_uvpack", "stream_pbox",
                     "stream_prange", "stack_words", "stack_w", "stack_h")
-# the feature variants' fields, last
+# the feature variants' fields, after those
 _FEAT_PTR_FIELDS = (
     "tri_ax", "tri_ay", "tri_az", "tri_ux", "tri_uy", "tri_uz",
     "tri_vx", "tri_vy", "tri_vz", "tri_mat",
@@ -116,11 +133,20 @@ _FEAT_PTR_FIELDS = (
     "tri_uvdv2", "mat_met_idx", "mat_rgh_idx", "mat_nrm_idx",
     "mat_bump_idx", "mat_bump_scale", "mat_transmission", "mat_dispersion",
 )
+# the mesh tiers' fields (static tier, grandparents), last
+_TIER_PTR_FIELDS = (
+    "ctri_nx", "ctri_ny", "ctri_nz", "ctri_d", "ctri_e1x", "ctri_e1y",
+    "ctri_e1z", "ctri_a0", "ctri_e2x", "ctri_e2y", "ctri_e2z", "ctri_b0",
+    "ctri_mat", "ctri_uv0u", "ctri_uv0v", "ctri_uvdu1", "ctri_uvdv1",
+    "ctri_uvdu2", "ctri_uvdv2", "tcl_box", "stream_gbox", "tcl_range",
+    "stream_grange",
+)
 _FEAT_FLOAT_FIELDS = ("fog_sigma_t", "hg_a", "hg_b", "hg_c", "hg_d")
 _INT_PTRS = ("sph_mat", "q_mat", "p_mat", "csph_mat", "cl_off", "cl_cnt",
              "cl_huge", "nan_px", "rays_px", "stream_prange", "stack_words",
              "stack_w", "stack_h", "tri_mat", "mat_met_idx", "mat_rgh_idx",
-             "mat_nrm_idx", "mat_bump_idx") + _TEX_PTR_FIELDS
+             "mat_nrm_idx", "mat_bump_idx", "ctri_mat", "tcl_range",
+             "stream_grange") + _TEX_PTR_FIELDS
 _INT_FIELDS = (
     "n_spheres", "n_quads", "n_planes", "quad_light",
     "just_cosine", "use_rr",
@@ -149,13 +175,16 @@ class WaveParams(ctypes.Structure):
                 + [(n, _P) for n in _FEAT_PTR_FIELDS]
                 + [("n_tris", _I), ("feat_flags", _I)]
                 + [(n, _F) for n in _FEAT_FLOAT_FIELDS]
-                + [("fog_albedo", _F * 3)])
+                + [("fog_albedo", _F * 3)]
+                + [(n, _P) for n in _TIER_PTR_FIELDS]
+                + [("n_tclusters", _I), ("n_gparents", _I)])
 
 # WaveParams.tex_flags bits (TEX_* in the kernel)
 TEX_METALNESS, TEX_ROUGHNESS, TEX_NORMAL, TEX_TBN = 1, 2, 4, 8
 # WaveParams.feat_flags bits (FEAT_* in the kernel)
 FEAT_PLANAR, FEAT_BUMP, FEAT_TRANS, FEAT_DISP, FEAT_FOG, FEAT_HG_ISO = (
     1, 2, 4, 8, 16, 32)
+FEAT_TRI_UV = 64
 
 
 def check_supported(scene: Scene, camera: Camera, config):
@@ -179,8 +208,19 @@ def textured(scene: Scene) -> bool:
 
 
 def meshed(scene: Scene) -> bool:
-    """Whether the scene has a streamed triangle mesh (the mesh variants)."""
-    return bool(scene.n_tris and scene.tri_streamed)
+    """Whether the scene has a mesh of more than ``clusters.CLUSTER_MIN``
+    triangles (the mesh variants)."""
+    return bool(scene.n_tris and not scene.tri_brute)
+
+
+def mesh_kind(scene: Scene) -> str:
+    """The mesh variants' kind for a meshed scene's tier: the static tier
+    (``static``), the streamed walk (``mesh``) or the walk with the DMA
+    tier's grandparent level (``meshgp``); ``plain`` appended for a mesh
+    without UVs."""
+    kind = ("static" if scene.tri_static
+            else "meshgp" if scene.stream_gparents else "mesh")
+    return kind + ("" if scene.has_mesh_uvs else "plain")
 
 
 def _schedule(scene: Scene, schedule):
@@ -216,13 +256,15 @@ def variant(scene: Scene, camera: Camera, schedule=None) -> str:
     if schedule is None:
         return ("clustered" if scene.sph_clusters else "brute") + lens
     kind, main = (("textured", TEXTURED_SCHEDULE) if textured(scene)
-                  else ("mesh", MESH_SCHEDULE))
+                  else (mesh_kind(scene), MESH_SCHEDULE))
     name = kind + lens
     if schedule != main:
         name += "_" + schedule
     if name not in VARIANTS:
-        raise NotImplementedError(f"{name}: the {schedule} schedule is "
-                                  "instantiated for the pinhole only")
+        raise NotImplementedError(
+            f"{name}: the {schedule} schedule is instantiated for the pinhole "
+            f"only (of the textured kernel and the mesh kinds "
+            f"{', '.join(MESH_OTHER_KINDS)})")
     return name
 
 
@@ -264,7 +306,7 @@ def build() -> ctypes.CDLL:
     LIB_PATH = lib_path
     lib.wave_render.argtypes = [ctypes.POINTER(WaveParams), ctypes.c_int,
                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                ctypes.c_int, ctypes.c_void_p]
+                                ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.wave_render.restype = ctypes.c_int
     lib.wave_error_string.argtypes = [ctypes.c_int]
     lib.wave_error_string.restype = ctypes.c_char_p
@@ -276,7 +318,7 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
             n_samples: int, state, nan_px, rays_px) -> WaveParams:
     """Pointers and host-folded constants for one launch."""
     ptrs = dict(zip(_PTR_FIELDS + _CLUSTER_PTR_FIELDS + _TEX_PTR_FIELDS
-                    + _MESH_PTR_FIELDS + _FEAT_PTR_FIELDS, (
+                    + _MESH_PTR_FIELDS + _FEAT_PTR_FIELDS + _TIER_PTR_FIELDS, (
         *scene.mat_albedo, *scene.mat_emit, *scene.mat_metal_color,
         scene.mat_metalness, scene.mat_roughness, scene.mat_ior,
         *scene.sph_center, scene.sph_radius, scene.sph_mat,
@@ -297,6 +339,11 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
         scene.mat_metalness_idx, scene.mat_roughness_idx,
         scene.mat_normal_idx, scene.mat_bump_idx, scene.mat_bump_scale,
         scene.mat_transmission, scene.mat_dispersion,
+        *scene.ctri_n, scene.ctri_d, *scene.ctri_e1, scene.ctri_a0,
+        *scene.ctri_e2, scene.ctri_b0, scene.ctri_mat,
+        scene.ctri_uv0u, scene.ctri_uv0v, scene.ctri_uvdu1, scene.ctri_uvdv1,
+        scene.ctri_uvdu2, scene.ctri_uvdv2, scene.tcl_box, scene.stream_gbox,
+        scene.tcl_range, scene.stream_grange,
     )))
     for name, t in ptrs.items():
         want = torch.int32 if name in _INT_PTRS else torch.float32
@@ -325,7 +372,9 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
                   | (FEAT_TRANS if scene.any_transmissive else 0)
                   | (FEAT_DISP if scene.any_dispersive else 0)
                   | (FEAT_FOG if scene.fog_sigma_t > 0.0 else 0)
-                  | (FEAT_HG_ISO if abs(g) < 1e-3 else 0))
+                  | (FEAT_HG_ISO if abs(g) < 1e-3 else 0)
+                  | (FEAT_TRI_UV if scene.tri_brute and scene.has_mesh_uvs
+                     else 0))
     p = WaveParams(
         **{k: t.data_ptr() for k, t in ptrs.items()},
         n_spheres=scene.n_spheres, n_quads=scene.n_quads,
@@ -355,6 +404,8 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
         # the phase function's constants, folded in double as JAX folds
         # the static g, each rounded once to float
         hg_a=1.0 - g * g, hg_b=1.0 - g, hg_c=2.0 * g, hg_d=1.0 + g * g,
+        n_tclusters=len(scene.tri_clusters),
+        n_gparents=len(scene.stream_gparents),
     )
     p.fc[:] = camera.frustum_center
     p.ax[:] = camera.axis_x
@@ -389,7 +440,9 @@ def render_chunk_cuda(scene: Scene, camera: Camera, config, key: int,
                           int(not camera.use_pinhole),
                           code if textured(scene) else 0,
                           code if meshed(scene) else 0,
-                          int(scene.featured), ctypes.c_void_p(stream))
+                          int(scene.featured),
+                          MESH_KINDS[mesh_kind(scene)] if meshed(scene) else 0,
+                          ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"wave_kernel ({name}) launch failed: "
                            + lib.wave_error_string(err).decode())

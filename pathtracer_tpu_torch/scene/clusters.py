@@ -11,21 +11,27 @@ camera. The walk (``ops/intersect.py`` and ``csrc/wave_kernel.cu``) skips
 a leaf when the ray misses its box or already has a hit nearer than the
 box's entry.
 
-A mesh of more than ``STREAM_MIN`` triangles also gets the streamed
-tier's tables: the precomputed triangle records, parent boxes over groups
-of leaves (:func:`build_parents`), record rows with their own boxes
-(:func:`pack_stream_clusters`) and the cluster-field-major uv rows
-(:func:`pack_stream_uv_cfm`).
+A mesh of more than ``CLUSTER_MIN`` triangles keeps its triangles in
+cluster order in the precomputed barycentric form
+(:func:`triangle_precompute`); up to ``STREAM_MIN`` triangles that is the
+static tier. A larger one also gets the streamed tier's tables: parent
+boxes over groups of leaves (:func:`build_parents`), record rows with
+their own boxes (:func:`pack_stream_clusters`) and the
+cluster-field-major uv rows (:func:`pack_stream_uv_cfm`). Above
+``STREAM_MAX`` triangles (``STREAM_MAX // 2`` with UVs) a mesh takes the
+DMA tier, whose parents regroup under grandparent boxes
+(:func:`build_parents` applied to the parents) once there are
+``GPARENT_MIN`` of them.
 
 The permutations, records and float32 bounds (rounded outward) equal the
 JAX package's bit for bit; the JAX module's ``PT_*`` environment knobs,
-its field-major tier, its row-parallel uv rows and the DMA tier's parent
-tables are not carried over.
+its field-major tier, its row-parallel uv rows and its 128-lane parent
+rows are not carried over.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -216,16 +222,22 @@ def triangle_precompute(A: np.ndarray, u: np.ndarray, v: np.ndarray) -> dict:
 
 # Leaf clusters per parent box in the streamed tier's two-level hierarchy.
 PARENT_GROUP = 16
+# A DMA-tier mesh with at least this many parents regroups them under
+# grandparent boxes (the hierarchy's third level).
+GPARENT_MIN = 64
 
 
-def build_parents(clusters: tuple, group_size: int = PARENT_GROUP,
+def build_parents(clusters: tuple, group_size: Optional[int] = None,
                   sort_origin=None) -> Tuple[np.ndarray, tuple]:
-    """Group leaf clusters under parent boxes by longest-axis median splits
-    of their centres. Returns (perm, parents): the clusters are reordered
-    as ``[clusters[i] for i in perm]``, and ``parents`` is a tuple of
-    (first cluster, cluster count, mn3 | None, mx3 | None) over that order,
-    the huge cluster's parent (bounds None) first. ``sort_origin`` orders
-    the parents, and the clusters within each, near-to-far."""
+    """Group leaf clusters (or parents) under boxes by longest-axis median
+    splits of their centres, ``group_size`` (default ``PARENT_GROUP``) to
+    a box. Returns (perm, parents): the clusters are reordered as
+    ``[clusters[i] for i in perm]``, and ``parents`` is a tuple of (first
+    cluster, cluster count, mn3 | None, mx3 | None) over that order, the
+    huge cluster's parent (bounds None) first. ``sort_origin`` orders the
+    parents, and the clusters within each, near-to-far."""
+    if group_size is None:
+        group_size = PARENT_GROUP
     n = len(clusters)
     huge = [i for i, c in enumerate(clusters) if c[2] is None]
     rest = [i for i, c in enumerate(clusters) if c[2] is not None]

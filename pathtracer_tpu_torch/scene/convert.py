@@ -16,7 +16,17 @@ from ..utils.vec import Vec3
 from .schema import (
     STATIC_FIELDS, TENSOR_FIELDS, VEC_FIELDS, Scene, bake_quad_normals,
     cluster_tables, mip_table, parent_tables, texture_stack,
+    tri_cluster_tables,
 )
+
+# The JAX DMA tier's parent and grandparent rows and their counts (its
+# static parent tuple is empty there), from which the port's descriptors
+# are recovered.
+JAX_PARENT_FIELDS = ("mtri_parents", "mtri_prange", "mtri_gparents",
+                     "mtri_gprange")
+JAX_PARENT_STATICS = ("n_stream_parents", "n_stream_gparents")
+# clusters.pack_parents' box of a huge parent (always relevant)
+_HUGE_LO = float(np.float32(-3e37))
 
 
 def _tensor(a) -> torch.Tensor:
@@ -28,6 +38,19 @@ def _vec(a) -> Vec3:
     return Vec3(_tensor(x), _tensor(y), _tensor(z))
 
 
+def _parents_from_rows(rows, ranges, n: int) -> tuple:
+    """JAX's pack_parents rows (mn3 mx3 in lanes 0-5) and (first, count)
+    ranges -> the port's (first, count, mn3 | None, mx3 | None) tuple."""
+    rows, ranges = np.asarray(rows, np.float32), np.asarray(ranges)
+    out = []
+    for i in range(n):
+        mn, mx = rows[i, 0:3], rows[i, 3:6]
+        box = ((None, None) if float(mn[0]) == _HUGE_LO else
+               (tuple(float(v) for v in mn), tuple(float(v) for v in mx)))
+        out.append((int(ranges[i, 0]), int(ranges[i, 1]), *box))
+    return tuple(out)
+
+
 def scene_from_numpy(fields: dict, statics: dict) -> Scene:
     """JAX scene leaves (by field name) and statics -> a CPU port Scene.
     Fields and statics the port does not read are ignored; a missing
@@ -35,8 +58,11 @@ def scene_from_numpy(fields: dict, statics: dict) -> Scene:
     The cluster-ordered ``csph_*`` tables, the triangle and streamed-tier
     tables and the texture tables come across as they are, except a
     combined set's flat stack, which the port does not keep; the kernel's
-    cluster, mip and parent tables are derived from the ``sph_clusters``,
-    ``tex_mip_meta`` and ``stream_parents`` statics."""
+    cluster, mip, parent and triangle-cluster tables are derived from the
+    ``sph_clusters``, ``tex_mip_meta``, ``stream_parents`` /
+    ``stream_gparents`` and ``tri_clusters`` statics. A JAX DMA-tier scene
+    keeps its parents as rows (``JAX_PARENT_FIELDS``, counted by
+    ``JAX_PARENT_STATICS``); the descriptors are read back from them."""
     kw = {k: _vec(fields[k]) for k in VEC_FIELDS
           if k != "quad_n" or fields.get(k) is not None}
     if "quad_n" not in kw:
@@ -45,7 +71,16 @@ def scene_from_numpy(fields: dict, statics: dict) -> Scene:
     kw.update({k: statics[k] for k in STATIC_FIELDS if k in statics})
     kw.update(cluster_tables(kw.get("sph_clusters", ())))
     kw.update(mip_table(kw.get("tex_mip_meta", ())))
-    kw.update(parent_tables(kw.get("stream_parents", ())))
+    if statics.get("n_stream_parents"):
+        kw["stream_parents"] = _parents_from_rows(
+            fields["mtri_parents"], fields["mtri_prange"],
+            statics["n_stream_parents"])
+        kw["stream_gparents"] = _parents_from_rows(
+            fields["mtri_gparents"], fields["mtri_gprange"],
+            statics.get("n_stream_gparents", 0))
+    kw.update(parent_tables(kw.get("stream_parents", ()),
+                            kw.get("stream_gparents", ())))
+    kw.update(tri_cluster_tables(kw.get("tri_clusters", ())))
     if kw.get("tex_combined"):
         kw.update(texture_stack([], combined=True))
     return Scene(**kw)

@@ -33,11 +33,20 @@ Fog is the static ``fog_sigma_t`` (0: none), ``fog_albedo`` and ``fog_g``
 maps or a brute-force mesh takes the feature path (``Scene.featured``).
 
 A triangle mesh (``set_mesh``; UVs scaled to texel units there) is kept as
-``tri_*`` tables, swept brute force up to ``clusters.CLUSTER_MIN``
-triangles, and, above ``clusters.STREAM_MIN`` triangles, as the
-streamed tier's tables (``mtri_bounds``, ``mtri_pack``, ``mtri_uvpack``)
-with the static parent descriptors ``stream_parents`` and, for the kernel,
-``stream_pbox``/``stream_prange`` (:func:`parent_tables`).
+``tri_*`` tables and swept brute force up to ``clusters.CLUSTER_MIN``
+triangles. A larger one is also kept in cluster order in the precomputed
+barycentric form (``ctri_*``, padded to a multiple of 128, as in JAX); up
+to ``clusters.STREAM_MIN`` triangles that is the static tier, with its
+cluster descriptors ``tri_clusters`` and, for the kernel, ``tcl_box`` /
+``tcl_range`` (:func:`tri_cluster_tables`). Above ``clusters.STREAM_MIN``
+triangles the mesh takes the streamed tier instead (``ctri_*`` then hold
+JAX's zero dummies): ``mtri_bounds``, ``mtri_pack``, ``mtri_uvpack`` with
+the static parent descriptors ``stream_parents`` and, for the kernel,
+``stream_pbox``/``stream_prange`` (:func:`parent_tables`). Above
+``clusters.STREAM_MAX`` triangles (``STREAM_MAX // 2`` with UVs) it is the
+DMA tier (``tri_dma``): with at least ``clusters.GPARENT_MIN`` parents the
+parents are regrouped under the grandparents ``stream_gparents``
+(``stream_gbox``/``stream_grange``), as JAX's finalize regroups them.
 
 Conventions kept from the reference: material 0 is the sky and a miss
 reports material 0; ``spheres[0]`` is the light the next-event estimator
@@ -89,10 +98,12 @@ VEC_FIELDS = (
     "mat_albedo", "mat_emit", "mat_metal_color",
     "sph_center", "quad_point", "quad_u", "quad_v", "quad_n",
     "pln_n", "box_min", "box_max", "csph_center",
-    "tri_a", "tri_u", "tri_v",
+    "tri_a", "tri_u", "tri_v", "ctri_n", "ctri_e1", "ctri_e2",
 )
 TRI_UV_FIELDS = ("tri_uv0u", "tri_uv0v", "tri_uvdu1", "tri_uvdv1",
                  "tri_uvdu2", "tri_uvdv2")
+CTRI_UV_FIELDS = ("ctri_uv0u", "ctri_uv0v", "ctri_uvdu1", "ctri_uvdv1",
+                  "ctri_uvdu2", "ctri_uvdv2")
 TENSOR_FIELDS = (
     "mat_metalness", "mat_roughness", "mat_ior", "mat_transmission",
     "mat_dispersion", "mat_alpha", "mat_albedo_idx", "mat_bump_idx",
@@ -103,7 +114,8 @@ TENSOR_FIELDS = (
     "pln_d", "pln_mat", "pln_mask",
     "box_mat", "box_mask",
     "csph_radius", "csph_mat",
-    "tri_mat", *TRI_UV_FIELDS, "mtri_bounds", "mtri_pack", "mtri_uvpack",
+    "tri_mat", *TRI_UV_FIELDS, "ctri_d", "ctri_a0", "ctri_b0", "ctri_mat",
+    *CTRI_UV_FIELDS, "mtri_bounds", "mtri_pack", "mtri_uvpack",
     "tex_tile", "tex_comb_a", "tex_comb_b",
     "tex_packed", "tex_w", "tex_h",
 )
@@ -111,19 +123,21 @@ STATIC_FIELDS = (
     "n_spheres", "n_quads", "n_planes", "n_tris", "n_boxes", "n_materials",
     "n_textures", "quad_light", "just_cosine", "any_transmissive",
     "any_dispersive", "any_bump", "has_mesh_uvs", "fog_sigma_t",
-    "fog_albedo", "fog_g", "sph_clusters",
+    "fog_albedo", "fog_g", "sph_clusters", "tri_clusters",
     "tri_streamed", "tri_dma", "stream_uv_cfm", "stream_leaf",
-    "n_stream_clusters", "stream_parents", "stream_row_cull",
+    "n_stream_clusters", "stream_parents", "stream_gparents",
+    "stream_row_cull",
     "tex_combined", "tex_comb_w", "tex_comb_h", "tex_tiles_x",
     "tex_mip_meta", "tex_hmax", "tex_wmax", "tex_mesh_only",
     "use_normal_maps", "use_metalness_maps",
     "use_roughness_maps", "tbn_normal_maps",
 )
 # Kernel tables derived from statics (cluster_tables, mip_table,
-# parent_tables).
+# parent_tables, tri_cluster_tables).
 DERIVED_VEC_FIELDS = ("cl_min", "cl_max")
 DERIVED_TENSOR_FIELDS = ("cl_offset", "cl_count", "cl_huge", "tex_mip",
-                         "stream_pbox", "stream_prange")
+                         "stream_pbox", "stream_prange", "stream_gbox",
+                         "stream_grange", "tcl_box", "tcl_range")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -200,6 +214,27 @@ class Scene:
     tri_uvdv1: torch.Tensor
     tri_uvdu2: torch.Tensor
     tri_uvdv2: torch.Tensor
+    # triangles of a clustered mesh in cluster order, precomputed
+    # (clusters.triangle_precompute: unit normal n, plane offset d, edge
+    # covectors e1/e2 with offsets a0/b0), their materials and, with mesh
+    # UVs, their uv tables (zero dummies of 128 rows in the streamed tier,
+    # of one row below it); per static-tier cluster its box (mn3 mx3) and
+    # (first triangle, count, 1 = huge: always tested)
+    ctri_n: Vec3
+    ctri_d: torch.Tensor
+    ctri_e1: Vec3
+    ctri_e2: Vec3
+    ctri_a0: torch.Tensor
+    ctri_b0: torch.Tensor
+    ctri_mat: torch.Tensor
+    ctri_uv0u: torch.Tensor
+    ctri_uv0v: torch.Tensor
+    ctri_uvdu1: torch.Tensor
+    ctri_uvdv1: torch.Tensor
+    ctri_uvdu2: torch.Tensor
+    ctri_uvdv2: torch.Tensor
+    tcl_box: torch.Tensor
+    tcl_range: torch.Tensor
     # the streamed tier (K7; (1, 128) dummies without): one bounds row per
     # cluster, the record rows, the cluster-field-major uv rows
     mtri_bounds: torch.Tensor
@@ -209,6 +244,9 @@ class Scene:
     # 1 = huge: always descended)
     stream_pbox: torch.Tensor
     stream_prange: torch.Tensor
+    # the same per grandparent (DMA tier), over the parents
+    stream_gbox: torch.Tensor
+    stream_grange: torch.Tensor
     # the flat RGB8 texture stack, texel (layer*hmax + y)*wmax + x, and
     # each layer's size ((1,) dummies for a combined set, read via tex_tile)
     tex_packed: torch.Tensor
@@ -235,15 +273,19 @@ class Scene:
     fog_g: float = 0.0
     # (offset, count, mn3 | None, mx3 | None) over csph_*; huge first
     sph_clusters: tuple = ()
+    # the same over ctri_* (the static tier)
+    tri_clusters: tuple = ()
     # the mesh's tier: streamed (more than clusters.STREAM_MIN triangles),
-    # and of those the DMA tier (not ported); the uv rows' layout
+    # and of those the DMA tier; the uv rows' layout
     tri_streamed: bool = False
     tri_dma: bool = False
     stream_uv_cfm: bool = False
     stream_leaf: int = 0            # triangles of the largest cluster
     n_stream_clusters: int = 0
-    # (first cluster, count, mn3 | None, mx3 | None) per parent
+    # (first cluster, count, mn3 | None, mx3 | None) per parent, and
+    # (first parent, count, mn3 | None, mx3 | None) per grandparent
     stream_parents: tuple = ()
+    stream_gparents: tuple = ()
     stream_row_cull: bool = False   # test each record row's own box
     tex_combined: bool = False
     tex_comb_w: int = 1
@@ -296,6 +338,13 @@ class Scene:
         return bool(self.n_tris and self.n_tris <= clusters.CLUSTER_MIN)
 
     @property
+    def tri_static(self) -> bool:
+        """A mesh of ``clusters.CLUSTER_MIN + 1`` to ``clusters.STREAM_MIN``
+        triangles: the static tier's cluster walk (K5's triangle form,
+        with the winner's uv K8)."""
+        return bool(self.tri_clusters) and not self.tri_streamed
+
+    @property
     def featured(self) -> bool:
         """The scene needs the feature path: fog, transmission, bump maps,
         planar maps or a brute-force mesh."""
@@ -306,22 +355,18 @@ class Scene:
         """Names of the features this scene uses that the port has not yet
         ported (empty when the slice covers it)."""
         out = []
-        if self.tex_combined and self.has_mesh_uvs:
-            out.append("a combined texture set with mesh UVs (ROADMAP "
-                       "queue 2 item 2)")
-        if self.n_tris and not self.has_mesh_uvs:
-            out.append("meshes without UVs (K4t's plain sweep and the "
-                       "streamed tier without UVs, ROADMAP queue 2 item 2)")
-        elif self.n_tris and not (self.tri_brute or self.tri_streamed):
-            out.append(
-                f"meshes of {clusters.CLUSTER_MIN + 1}-{clusters.STREAM_MIN} "
-                "triangles (the static tier: K5's triangle form and K8, "
-                "ROADMAP queue 2 item 2)")
-        elif self.tri_dma:
-            out.append("meshes above the resident streamed tier (K7's DMA "
-                       "tier, ROADMAP queue 2 item 2)")
+        if self.tex_combined and self.n_tris:
+            out.append("a triangle mesh together with a combined texture set "
+                       "(ROADMAP queue 1 item 10)")
+        if self.n_tris > clusters.DMA_MAX:
+            out.append(f"meshes of more than {clusters.DMA_MAX} triangles "
+                       "(beyond the DMA tier, ROADMAP queue 1 item 10)")
+        elif self.tri_streamed and self.has_mesh_uvs and not self.stream_uv_cfm:
+            out.append("a streamed UV mesh whose largest cluster exceeds 128 "
+                       "triangles (the row-parallel uv rows, ROADMAP queue 1 "
+                       "item 10)")
         if self.featured and (self.sph_clusters or self.tex_combined
-                              or self.tri_streamed):
+                              or self.n_tris > clusters.CLUSTER_MIN):
             used = [name for name, on in (
                 ("fog", self.fog_sigma_t > 0.0),
                 ("transmission", self.any_transmissive),
@@ -329,8 +374,8 @@ class Scene:
                 ("planar texture maps", self.planar_maps),
                 ("a brute-force mesh", self.tri_brute)) if on]
             out.append(", ".join(used) + " together with sphere clusters, "
-                       "a combined texture set or the streamed mesh tier "
-                       "(ROADMAP queue 2 item 1)")
+                       "a combined texture set or a clustered mesh (the "
+                       "static or streamed tier) (ROADMAP queue 2 item 1)")
         if self.n_boxes:
             out.append("boxes (never populated by the reference worlds)")
         return out
@@ -390,19 +435,32 @@ def cluster_tables(sph_clusters: tuple) -> dict:
     )
 
 
-def parent_tables(stream_parents: tuple) -> dict:
-    """The kernel's parent tables (CPU tensors, at least one row) for the
-    streamed tier's static parent descriptors; a huge parent has no box
-    and is always descended."""
-    rows = stream_parents or ((0, 0, None, None),)
-    return dict(
-        stream_pbox=torch.tensor(
-            [(0.0,) * 6 if p[2] is None else p[2] + p[3] for p in rows],
-            dtype=torch.float32),
-        stream_prange=torch.tensor(
-            [(p[0], p[1], int(p[2] is None)) for p in rows],
-            dtype=torch.int32),
-    )
+def _box_tables(rows: tuple, box: str, rng: str) -> dict:
+    """(first, count, mn3 | None, mx3 | None) descriptors as the kernel's
+    tables (CPU tensors, at least one row): ``box`` (n, 6) float32 mn3 mx3
+    and ``rng`` (n, 3) int32 (first, count, 1 = huge: no box, always
+    descended)."""
+    rows = rows or ((0, 0, None, None),)
+    return {
+        box: torch.tensor([(0.0,) * 6 if r[2] is None else r[2] + r[3]
+                           for r in rows], dtype=torch.float32),
+        rng: torch.tensor([(r[0], r[1], int(r[2] is None)) for r in rows],
+                          dtype=torch.int32),
+    }
+
+
+def parent_tables(stream_parents: tuple, stream_gparents: tuple = ()) -> dict:
+    """The kernel's parent tables (``stream_pbox``/``stream_prange``, in
+    clusters) and grandparent tables (``stream_gbox``/``stream_grange``,
+    in parents) for the streamed tier's static descriptors."""
+    return {**_box_tables(stream_parents, "stream_pbox", "stream_prange"),
+            **_box_tables(stream_gparents, "stream_gbox", "stream_grange")}
+
+
+def tri_cluster_tables(tri_clusters: tuple) -> dict:
+    """The kernel's static-tier cluster tables (``tcl_box``/``tcl_range``,
+    over ``ctri_*``)."""
+    return _box_tables(tri_clusters, "tcl_box", "tcl_range")
 
 
 def texture_stack(textures: list, combined: bool) -> dict:
@@ -608,11 +666,12 @@ class WorldBuilder:
 
     def _mesh_tables(self, view_origin) -> dict:
         """The triangle tables and, for a mesh of more than
-        clusters.STREAM_MIN triangles, the streamed tier's, as the JAX
-        builder makes them (schema.py:562-727): records in cluster order,
-        clusters regrouped under parents, row-aligned record rows and the
-        cluster-field-major uv rows. The static tier's tables (65-1024
-        triangles) are not built."""
+        clusters.CLUSTER_MIN triangles, the clustered ones, as the JAX
+        builder makes them (schema.py:562-727): the static tier's
+        precomputed triangles in cluster order with their clusters, or the
+        streamed tier's records in cluster order, clusters regrouped under
+        parents (and, in the DMA tier, parents under grandparents),
+        row-aligned record rows and the cluster-field-major uv rows."""
         f32, i32 = np.float32, np.int32
         tris = self.triangles
         ntri = 0 if tris is None else len(tris)
@@ -635,39 +694,82 @@ class WorldBuilder:
                    **{k: torch.from_numpy(uvt[:, j].copy())
                       for j, k in enumerate(TRI_UV_FIELDS)},
                    n_tris=ntri, has_mesh_uvs=has_uvs)
+
+        def ctri_dummies():
+            return ({k: np.zeros((1, 3) if k in ("n", "e1", "e2") else (1,),
+                                 f32) for k in ("n", "d", "e1", "e2", "a0",
+                                                "b0")},
+                    np.zeros((1,), i32))
+
+        ctri, ctri_m = ctri_dummies()
+        ctri_uvt = np.zeros((1, 6), f32)
+        tri_clusters = ()
         dummy = lambda: torch.zeros((1, 128), dtype=torch.float32)
         stream = dict(mtri_bounds=dummy(), mtri_pack=dummy(),
-                      mtri_uvpack=dummy(), stream_parents=())
-        if clusters.STREAM_MIN < ntri <= clusters.DMA_MAX:
+                      mtri_uvpack=dummy(), stream_parents=(),
+                      stream_gparents=())
+        if ntri > clusters.CLUSTER_MIN:
             bmn, bmx = clusters.triangle_bounds(tris)
             order, tri_clusters = clusters.build_clusters(
                 bmn, bmx, sort_origin=view_origin)
-            pre = clusters.triangle_precompute(
+            ctri = clusters.triangle_precompute(
                 tri_a[:ntri][order], tri_u[:ntri][order], tri_v[:ntri][order])
-            cperm, parents = clusters.build_parents(tri_clusters,
-                                                    sort_origin=view_origin)
-            tri_clusters = tuple(tri_clusters[i] for i in cperm)
-            leaf = max(c[1] for c in tri_clusters)
-            bounds, pack = clusters.pack_stream_clusters(
-                pre, tri_m[:ntri][order], tri_clusters, leaf,
-                (bmn[order], bmx[order]))
-            cfm = has_uvs and leaf <= 128
-            uvpack = (clusters.pack_stream_uv_cfm(uvt[:ntri][order],
-                                                  tri_clusters, leaf)
-                      if cfm else np.zeros((1, 128), f32))
-            # the DMA tier keeps no static parents (JAX packs them as rows)
-            dma = ntri > (clusters.STREAM_MAX // 2 if has_uvs
-                          else clusters.STREAM_MAX)
-            stream = dict(
-                mtri_bounds=torch.from_numpy(bounds),
-                mtri_pack=torch.from_numpy(pack),
-                mtri_uvpack=torch.from_numpy(uvpack),
-                stream_parents=() if dma else parents,
-                tri_streamed=True, tri_dma=dma, stream_uv_cfm=cfm,
-                stream_leaf=leaf, n_stream_clusters=len(tri_clusters),
-                stream_row_cull=ntri >= clusters.ROW_CULL_MIN)
+            ctri_m = tri_m[:ntri][order]
+            if has_uvs:
+                ctri_uvt = uvt[:ntri][order]
+            if clusters.STREAM_MIN < ntri <= clusters.DMA_MAX:
+                cperm, parents = clusters.build_parents(
+                    tri_clusters, sort_origin=view_origin)
+                tri_clusters = tuple(tri_clusters[i] for i in cperm)
+                leaf = max(c[1] for c in tri_clusters)
+                bounds, pack = clusters.pack_stream_clusters(
+                    ctri, ctri_m, tri_clusters, leaf,
+                    (bmn[order], bmx[order]))
+                cfm = has_uvs and leaf <= 128
+                uvpack = (clusters.pack_stream_uv_cfm(ctri_uvt, tri_clusters,
+                                                      leaf)
+                          if cfm else np.zeros((1, 128), f32))
+                # the DMA tier regroups many parents under grandparents: a
+                # permutation of the parent list (their cluster ranges move
+                # with them), as JAX's finalize does (schema.py:691-707)
+                dma = ntri > (clusters.STREAM_MAX // 2 if has_uvs
+                              else clusters.STREAM_MAX)
+                gparents = ()
+                if dma and len(parents) >= clusters.GPARENT_MIN:
+                    pperm, gparents = clusters.build_parents(
+                        parents, sort_origin=view_origin)
+                    parents = tuple(parents[i] for i in pperm)
+                stream = dict(
+                    mtri_bounds=torch.from_numpy(bounds),
+                    mtri_pack=torch.from_numpy(pack),
+                    mtri_uvpack=torch.from_numpy(uvpack),
+                    stream_parents=parents, stream_gparents=gparents,
+                    tri_streamed=True, tri_dma=dma, stream_uv_cfm=cfm,
+                    stream_leaf=leaf, n_stream_clusters=len(tri_clusters),
+                    stream_row_cull=ntri >= clusters.ROW_CULL_MIN)
+                # the records carry what the static tier's tables would
+                tri_clusters = ()
+                ctri, ctri_m = ctri_dummies()
+                ctri_uvt = np.zeros((1, 6), f32)
+            # JAX pads these to a multiple of 128, dummies included
+            pad = -len(ctri_m) % 128
+            ctri = {k: np.concatenate([v, np.zeros((pad,) + v.shape[1:], f32)])
+                    for k, v in ctri.items()}
+            ctri_m = np.concatenate([ctri_m, np.zeros((pad,), i32)])
+            ctri_uvt = np.concatenate(
+                [ctri_uvt, np.zeros((-len(ctri_uvt) % 128, 6), f32)])
+        out.update(
+            ctri_n=_vec_columns(ctri["n"]), ctri_d=torch.from_numpy(ctri["d"]),
+            ctri_e1=_vec_columns(ctri["e1"]), ctri_e2=_vec_columns(ctri["e2"]),
+            ctri_a0=torch.from_numpy(ctri["a0"]),
+            ctri_b0=torch.from_numpy(ctri["b0"]),
+            ctri_mat=torch.from_numpy(np.ascontiguousarray(ctri_m)),
+            **{k: torch.from_numpy(ctri_uvt[:, j].copy())
+               for j, k in enumerate(CTRI_UV_FIELDS)},
+            tri_clusters=tri_clusters, **tri_cluster_tables(tri_clusters))
         out.update(stream)
-        out.update(parent_tables(stream["stream_parents"]))
+        out.update(parent_tables(stream["stream_parents"],
+                                 stream["stream_gparents"]))
         return out
 
     def _sphere_clusters(self, view_origin):

@@ -7,11 +7,13 @@ Cornell box (``-w3``), the Cornell box with a quad area light (``-w6``),
 the metal/roughness sphere grid (``-w2``), the "Ray Tracing in One
 Weekend" cover (``-w4``: 484 spheres from a seeded
 ``np.random.RandomState``, the forced thin lens) and the mesh-UV world
-(``-w7``: a 1472-triangle UV sphere wearing a procedural checker). Material
-order, sphere order (``spheres[0]`` is the NEE light), random draws,
-textures, meshes and camera parameters are those of the JAX worlds, line
-for line. World 5 (Mario, from ``mario.glb``) raises
-``NotImplementedError``.
+(``-w7``: a 1472-triangle UV sphere wearing a procedural checker) and
+world 5 (``-w5``: the reference's glTF mesh ``mario.glb`` from ``res_dir``
+on a ground plane under the sun; where the file is absent or unreadable
+the loader no-ops and the world renders without its mesh, as JAX's does).
+Material order, sphere order (``spheres[0]`` is the NEE light), random
+draws, textures, meshes and camera parameters are those of the JAX
+worlds, line for line.
 """
 
 from __future__ import annotations
@@ -23,19 +25,13 @@ import numpy as np
 
 from . import textures as tex_mod
 from .camera import Camera, define_camera
+from .gltf import load_glb_triangles
 from .schema import (
     Scene, WorldBuilder,
     WORLD_DEFAULT, WORLD_BRDF_TEST, WORLD_CORNELL_BOX,
     WORLD_RAYTRACING_ONE_WEEKEND, WORLD_MARIO, WORLD_CORNELL_QUAD,
     WORLD_MESH_UV, WORLD_KIND_COUNT,
 )
-
-# World kinds not yet ported, with the ROADMAP item that brings them.
-_NOT_PORTED = {
-    WORLD_MARIO: "world 5 needs mario.glb, which is not in the repository, "
-                 "and the static mesh tier (ROADMAP queue 1 item 10)",
-}
-
 
 @dataclasses.dataclass
 class CameraParams:
@@ -155,11 +151,10 @@ def build_world(kind: int, use_pinhole: bool = True,
                 ) -> Tuple[WorldBuilder, CameraParams]:
     """LoadWorld for the ported worlds: the host builder and the camera
     parameters before derivation. ``rtiow_seed`` seeds world 4's layout;
-    ``res_dir`` holds world 1's PNGs (procedural stand-ins where absent)."""
+    ``res_dir`` holds world 1's PNGs (procedural stand-ins where absent)
+    and world 5's ``mario.glb`` (the mesh is skipped where absent)."""
     if not (0 <= kind < WORLD_KIND_COUNT):
         raise ValueError(f"world kind {kind} out of range")
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[kind])
 
     b = WorldBuilder()
     cam = CameraParams(use_pinhole=use_pinhole)
@@ -262,6 +257,19 @@ def build_world(kind: int, use_pinhole: bool = True,
         cam.pos = (2.5, 7.0, 2.0)
         cam.fov = 50.0
         cam.focal_distance = 10.0
+
+    elif kind == WORLD_MARIO:
+        # win32_main.cpp:1930-1958: the glTF mesh on a ground plane
+        _add_sky(b, (65 / 255.0, 108 / 255.0, 162 / 255.0))
+        _add_sun(b)
+        plane_mat = b.add_material(albedo=(0.5, 0.5, 0.5))
+        _ground_plane(b, plane_mat)
+        points, mat_indices = load_glb_triangles(res_dir + "/mario.glb", b)
+        if points is not None:
+            b.set_mesh(points, mat_indices)
+        cam.target = (0.0, 0.0, 1.0)
+        cam.pos = (-5.0, -5.0, 1.0)
+        cam.fov = 30.0
 
     elif kind == WORLD_MESH_UV:
         # -w7 (beyond the reference's five): a UV-mapped sphere mesh of 1472

@@ -259,3 +259,82 @@ def test_planar_maps_kernel_matches_plain(cuda):
                                         trenderer.init_accum(64 * 36, cuda))
     torch.cuda.synchronize()
     _assert_verify_gates(cfg, k, p)
+
+
+def _tier_scene(case, monkeypatch):
+    """A mesh-tier case of tests/test_torch_meshes.py on world 5's ground,
+    the DMA cases forced on a small mesh (parents of 4 clusters,
+    grandparents from 4 parents)."""
+    from pathtracer_tpu_torch.scene import clusters as tclusters
+    from test_torch_meshes import (
+        lat_long_sphere, tessellated_sphere, uv_sphere,
+    )
+    if case.startswith("dma"):
+        monkeypatch.setattr(tclusters, "STREAM_MAX", 1024)
+        monkeypatch.setattr(tclusters, "PARENT_GROUP", 4)
+        monkeypatch.setattr(tclusters, "GPARENT_MIN", 4)
+    return {"tri40": lambda: (lat_long_sphere(4, 5), None),
+            "tri784": lambda: (tessellated_sphere(800), None),
+            "uv736": lambda: uv_sphere(16, 24),
+            "tri1936": lambda: (tessellated_sphere(2000), None),
+            "dma1936": lambda: (tessellated_sphere(2000), None),
+            "dma1984uv": lambda: uv_sphere(32, 32)}[case]()
+
+
+@pytest.mark.parametrize("case, pinhole, schedule, variant", [
+    ("tri40", True, None, "feature_pinhole"),       # K4t without UVs
+    ("tri40", False, None, "feature_lens"),
+    ("tri784", True, None, "staticplain_pinhole"),  # K5's triangle form
+    ("tri784", False, None, "staticplain_lens"),
+    ("tri784", True, cuda_backend.MESH_OTHER_SCHEDULE,
+     f"staticplain_pinhole_{cuda_backend.MESH_OTHER_SCHEDULE}"),
+    ("uv736", True, None, "static_pinhole"),        # K8
+    ("uv736", False, None, "static_lens"),
+    ("tri1936", True, None, "meshplain_pinhole"),   # K7 without UVs
+    ("tri1936", False, None, "meshplain_lens"),
+    ("dma1936", True, None, "meshgpplain_pinhole"),  # K7's DMA tier
+    ("dma1936", False, None, "meshgpplain_lens"),
+    ("dma1984uv", True, None, "meshgp_pinhole"),
+    ("dma1984uv", False, None, "meshgp_lens"),
+])
+def test_mesh_tier_kernels_match_plain(cuda, monkeypatch, case, pinhole,
+                                       schedule, variant):
+    """Each mesh-tier instantiation at 64x36 against its plain version."""
+    from test_torch_meshes import mesh_scene
+    tris, uvs = _tier_scene(case, monkeypatch)
+    scene, cam = mesh_scene(tworlds, tris, uvs, 64, 36, pinhole=pinhole)
+    scene = scene.to(cuda)
+    assert cuda_backend.variant(scene, cam, schedule) == variant
+    cfg = trenderer.RenderConfig(64, 36, pp=2, seed=0, schedule=schedule)
+    before = cuda_backend.VARIANT_LAUNCHES[variant]
+    k = cuda_backend.render_chunk_cuda(scene, cam, cfg, 0, 0, 4,
+                                       trenderer.init_accum(64 * 36, cuda))
+    assert cuda_backend.VARIANT_LAUNCHES[variant] == before + 1
+    p = cuda_backend.render_chunk_plain(scene, cam, cfg, 0, 0, 4,
+                                        trenderer.init_accum(64 * 36, cuda))
+    torch.cuda.synchronize()
+    _assert_verify_gates(cfg, k, p)
+
+
+@pytest.mark.parametrize("case", ["dma1936", "dma1984uv"])
+def test_dma_tier_kernel_bit_equal_to_resident(cuda, monkeypatch, case):
+    """The same mesh through the resident walk, the DMA tier's walk with
+    grandparents and without them: bit-equal kernel renders."""
+    from pathtracer_tpu_torch.scene import clusters as tclusters
+    from test_torch_meshes import mesh_scene
+    tris, uvs = _tier_scene(case, monkeypatch)
+    monkeypatch.setattr(tclusters, "STREAM_MAX", 1 << 20)
+    resident, cam = mesh_scene(tworlds, tris, uvs, 64, 36)
+    monkeypatch.setattr(tclusters, "STREAM_MAX", 1024)
+    gp, _ = mesh_scene(tworlds, tris, uvs, 64, 36)
+    monkeypatch.setattr(tclusters, "GPARENT_MIN", 1 << 30)
+    flat, _ = mesh_scene(tworlds, tris, uvs, 64, 36)
+    assert gp.stream_gparents and not flat.stream_gparents
+    cfg = trenderer.RenderConfig(64, 36, pp=2, seed=0)
+    out = [cuda_backend.render_chunk_cuda(s.to(cuda), cam, cfg, 0, 0, 4,
+                                          trenderer.init_accum(64 * 36, cuda))
+           for s in (resident, gp, flat)]
+    for st in out[1:]:
+        for a, b in zip(out[0].sum, st.sum):
+            assert torch.equal(a, b)
+        assert int(st.rays_cast) == int(out[0].rays_cast)

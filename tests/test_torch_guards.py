@@ -10,6 +10,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -54,14 +55,24 @@ def test_imports_and_renders_without_jax(tmp_path):
     assert (tmp_path / "w3.bmp.w7").stat().st_size == 58 + 8 * 8 * 4
 
 
-def test_cli_world5_raises_naming_its_item(tmp_path):
-    """World 5 needs mario.glb and the static mesh tier: the CLI raises and
-    names both and the ROADMAP item."""
+def test_cli_world5_raises_naming_its_item(tmp_path, monkeypatch):
+    """World 5 renders through the CLI: without mario.glb its ground, sky
+    and sun. With a mesh of the static tier loaded (a stand-in for the
+    asset), fog is refused, naming the ROADMAP item that brings it."""
     from pathtracer_tpu_torch.cli import main
+    out = tmp_path / "w5.bmp"
+    assert main(["-w5", "-p1", "--size", "8x8", "--device", "cpu", "--out",
+                 str(out)]) == 0
+    assert out.stat().st_size == 58 + 8 * 8 * 4
+    from test_torch_meshes import tessellated_sphere
+    tris = tessellated_sphere(800).reshape(-1, 3)
+    monkeypatch.setattr(tworlds, "load_glb_triangles", lambda path, b: (
+        tris, np.full((len(tris),), b.add_material(albedo=(0.5, 0.5, 0.5)),
+                      np.int32)))
     with pytest.raises(NotImplementedError,
-                       match="mario.glb.*ROADMAP queue 1 item 10"):
-        main(["-w5", "-p1", "--size", "8x8", "--device", "cpu", "--out",
-              str(tmp_path / "w5.bmp")])
+                       match="fog.*clustered mesh.*ROADMAP queue 2 item 1"):
+        main(["-w5", "-p1", "--size", "8x8", "--device", "cpu", "--fog",
+              "0.01", "--out", str(out)])
 
 
 def test_render_image_cuda_without_card_raises():
@@ -236,7 +247,9 @@ def test_kernel_params_layout():
              ctypes.c_float * 3: "float"}
     py_fields = [(n, kinds[t]) for n, t in cuda_backend.WaveParams._fields_]
     assert py_fields == c_fields
-    # the feature variants' fields come last, after the mesh variants'
+    # the feature variants' fields come after the mesh variants', and the
+    # mesh tiers' (static tier, grandparents) last
     names = [n for n, _ in c_fields]
     assert names.index("stack_wmax") < names.index("tri_ax")
-    assert names[-1] == "fog_albedo"
+    assert names.index("fog_albedo") < names.index("ctri_nx")
+    assert names[-1] == "n_gparents"

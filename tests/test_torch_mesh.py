@@ -245,32 +245,71 @@ def test_sample_texture_bit_equal(sizes):
     assert np.isfinite(tc.x.numpy()[:n]).all()
 
 
+def _plain_mesh_builder(n):
+    """_uv_mesh_builder's mesh without its UVs and its texture."""
+    b = _uv_mesh_builder(tschema.WorldBuilder, n)
+    b.tri_uvs, b.textures = None, []
+    for m in b.materials:
+        m.albedo_idx = 0
+    return b
+
+
 @pytest.mark.parametrize("n, match", [
-    (40, "K4t"),            # the brute sweep without UVs (with UVs: ported)
+    (40, "K4t"),            # the brute sweep, now without UVs too
     (300, "K5's triangle"),  # the static tier
 ])
 def test_unported_mesh_tiers_raise(n, match):
-    b = _uv_mesh_builder(tschema.WorldBuilder, n)
-    if n <= tclusters.CLUSTER_MIN:
-        assert b.finalize().unsupported() == []
-        b.tri_uvs = None
-    ts = b.finalize()
-    assert not ts.tri_streamed
-    assert any(match in m for m in ts.unsupported())
+    """A mesh without UVs of either tier is ported (the brute sweep K4t in
+    the feature kernel, the static tier's K5 triangle walk in its own);
+    what stays unported raises: the brute mesh with a combined texture set,
+    the static tier in fog (ROADMAP items named)."""
+    ts = _plain_mesh_builder(n).finalize()
+    assert not ts.tri_streamed and ts.unsupported() == []
+    assert ts.tri_brute == (match == "K4t")
+    assert ts.tri_static == (match == "K5's triangle")
+    from pathtracer_tpu_torch.render import cuda_backend
+    cam = tworlds.finalize_world(W7, 8, 8)[1]
+    assert cuda_backend.variant(ts, cam) == {
+        "K4t": "feature_pinhole", "K5's triangle": "staticplain_pinhole"}[match]
+    if match == "K4t":
+        w1, _ = tworlds.finalize_world(tschema.WORLD_DEFAULT, 8, 8)
+        bad = dataclasses.replace(
+            ts, n_textures=4, tex_combined=True,
+            **{k: getattr(w1, k) for k in ("tex_tile", "tex_comb_a",
+                                           "tex_comb_b", "tex_mip")})
+        want = "combined texture set"
+    else:
+        bad = dataclasses.replace(ts, fog_sigma_t=0.01)
+        want = "clustered mesh"
+    assert any(want in m and "ROADMAP" in m for m in bad.unsupported())
 
 
 def test_mesh_without_uvs_and_dma_tier_raise():
-    b = _uv_mesh_builder(tschema.WorldBuilder, 1100)
-    b.tri_uvs = None
-    ts = b.finalize()
+    """The streamed tier without UVs and the DMA tier are ported (the walk
+    runs without the uv rows, world 7 with tri_dma set is a plain flag);
+    a streamed mesh with sphere clusters or in fog still raises."""
+    ts = _plain_mesh_builder(1100).finalize()
     assert ts.tri_streamed and not ts.has_mesh_uvs
-    assert any("without UVs" in m for m in ts.unsupported())
-    w7, _ = tworlds.finalize_world(W7, 8, 8)
+    assert ts.unsupported() == []
+    z = torch.zeros(4)
+    h = tint.intersect_scene(ts, TVec3(z, z, z), TVec3(z, z, z + 1.0))
+    assert h.t.shape == (4,)
+    w7, cam = tworlds.finalize_world(W7, 8, 8)
     dma = dataclasses.replace(w7, tri_dma=True)
-    assert any("DMA" in m for m in dma.unsupported())
-    with pytest.raises(NotImplementedError, match="resident streamed"):
-        z = torch.zeros(4)
-        tint.intersect_scene_uv(dma, TVec3(z, z, z), TVec3(z, z, z + 1.0))
+    assert dma.unsupported() == []
+    a = tint.intersect_scene_uv(dma, TVec3(z, z, z + 1.4),
+                                TVec3(z + 1.0, z, z))
+    b_ = tint.intersect_scene_uv(w7, TVec3(z, z, z + 1.4),
+                                 TVec3(z + 1.0, z, z))
+    assert torch.equal(a[0].t, b_[0].t) and bool(a[3].all())
+    assert any("ROADMAP" in m for m in dataclasses.replace(
+        ts, fog_sigma_t=0.01).unsupported())
+    from pathtracer_tpu_torch.render import cuda_backend
+    from pathtracer_tpu_torch.render import renderer as trenderer
+    w2, _ = tworlds.finalize_world(tschema.WORLD_BRDF_TEST, 8, 8)
+    both = dataclasses.replace(
+        ts, sph_clusters=w2.sph_clusters,
+        **{k: getattr(w2, k) for k in ("cl_offset", "cl_count", "cl_min",
+                                       "cl_max", "cl_huge")})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        z = torch.zeros(4)
-        tint.intersect_scene(w7, TVec3(z, z, z), TVec3(z, z, z + 1.0))
+        cuda_backend.check_supported(both, cam, trenderer.RenderConfig(8, 8))

@@ -9,7 +9,9 @@ import pytest
 from pathtracer_tpu.scene import worlds as jworlds
 from pathtracer_tpu_torch.scene import schema as tschema
 from pathtracer_tpu_torch.scene import worlds as tworlds
-from pathtracer_tpu_torch.scene.convert import scene_from_numpy
+from pathtracer_tpu_torch.scene.convert import (
+    JAX_PARENT_FIELDS, JAX_PARENT_STATICS, scene_from_numpy,
+)
 
 # -w2 metal/roughness grid (122 spheres), -w3 Cornell, -w6 Cornell quad
 # light, -w4 RTIOW cover (484 spheres in 9 clusters, thin lens)
@@ -28,9 +30,10 @@ def scene_fields(scene):
 
 def jax_scene_to_port(js):
     """A JAX Scene -> port Scene through its leaves as numpy arrays."""
-    names = tschema.VEC_FIELDS + tschema.TENSOR_FIELDS
+    names = tschema.VEC_FIELDS + tschema.TENSOR_FIELDS + JAX_PARENT_FIELDS
     fields = {k: np.asarray(getattr(js, k)) for k in names}
-    statics = {k: getattr(js, k) for k in tschema.STATIC_FIELDS}
+    statics = {k: getattr(js, k) for k in tschema.STATIC_FIELDS
+               + JAX_PARENT_STATICS if hasattr(js, k)}
     return scene_from_numpy(fields, statics)
 
 
@@ -93,10 +96,18 @@ def test_quad_light_and_sphere_light():
 
 
 @pytest.mark.parametrize("kind", [tschema.WORLD_MARIO])
-def test_unported_worlds_raise(kind):
-    """World 5 needs mario.glb (world 7 is ported: test_torch_mesh.py)."""
-    with pytest.raises(NotImplementedError, match="mario.glb.*ROADMAP"):
-        tworlds.finalize_world(kind, 8, 8)
+def test_unported_worlds_raise(kind, tmp_path):
+    """World 5 builds without its asset (mario.glb absent: no mesh, as in
+    JAX) with JAX's tables; a mesh together with a combined texture set
+    stays unported and names its ROADMAP item."""
+    js, _ = jworlds.finalize_world(kind, 8, 8, res_dir=str(tmp_path))
+    ts, _ = tworlds.finalize_world(kind, 8, 8, res_dir=str(tmp_path))
+    assert ts.n_tris == 0 and ts.unsupported() == []
+    assert_tables_equal(js, ts)
+    w1, _ = tworlds.finalize_world(tschema.WORLD_DEFAULT, 8, 8)
+    mesh = dataclasses.replace(w1, n_tris=100)
+    assert any("combined texture set" in m and "ROADMAP queue 1 item 10" in m
+               for m in mesh.unsupported())
 
 
 def test_thin_lens_raises():
