@@ -5,7 +5,7 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and no network,
 and it imports nothing of JAX.
 
-The render kernel csrc/wave_kernel.cu has twenty-three compile-time
+The render kernel csrc/wave_kernel.cu has forty-two compile-time
 variants (cuda_backend.VARIANTS), instantiations of one template in one
 build:
 untextured, the brute sphere sweep or the clustered walk (K5/K6), each with
@@ -23,7 +23,13 @@ cuda_backend.MESH_SCHEDULE: the static tier's cluster walk (K5's triangle
 form) without UVs (staticplain, with the pinhole under the other schedule
 as its yardstick) and with the winner's uv (K8, static), the streamed walk
 without UVs (meshplain), and the DMA tier's walk with its grandparent level
-with and without UVs (meshgp, meshgpplain).
+with and without UVs (meshgp, meshgpplain). The feature bounce also runs on
+each of the other bases, as "feat" + the base's name: sphere clusters
+(featclustered, regen), the combined set (feattextured, lockstep, with its
+pinhole under regen) and every mesh tier (featmesh ... featstaticplain,
+lockstep, with featmesh's pinhole under regen); and the brute feature
+form's pinhole also runs under lockstep (feature_pinhole_lockstep), each
+yardstick of its schedule.
 
 The mesh cases stand in for world 5's mario.glb, which is not in the
 repository: world 5's builder without its asset (ground plane, sun, sky,
@@ -38,11 +44,11 @@ Phases (each prints its measured values on its own line; any failure raises
 and the script exits non-zero):
   1. device: the card's name and power limit;
   2. build: compiles csrc/wave_kernel.cu (one nvcc), prints the seconds,
-     ptxas's registers and spills for each variant (and whether the ten
-     earlier variants kept the values they were built at before the feature
-     variants came) and, from cuobjdump, the count of BSSY/BSYNC/WARPSYNC
-     instructions in each variant's SASS (``--sass DIR`` also writes the
-     full SASS there);
+     ptxas's registers and spills for each variant (and whether the
+     twenty-three earlier variants kept the values they were built at
+     before the feature forms came, EARLIER_PTXAS) and, from cuobjdump, the
+     count of BSSY/BSYNC/WARPSYNC instructions in each variant's SASS
+     (``--sass DIR`` also writes the full SASS there);
   3. kernel vs plain: render_chunk on CUDA tensors (the kernel) against
      render_chunk_plain (eager PyTorch) on the same inputs, gated like
      bench.py --verify (fewer than 1% of pixels with resolved |diff| > 1e-3
@@ -61,7 +67,14 @@ and the script exits non-zero):
      cases at 256x144 and 1280x720, 4 spp, pinhole and thin lens (784 also
      under the other schedule), each through its tier's variant, and the
      two DMA-tier meshes bit-equal to themselves with the grandparent level
-     off (the resident walk over the same parents);
+     off (the resident walk over the same parents); the feature bounce on
+     the other bases at 256x144 and 1280x720, 4 spp (base_case): worlds 1
+     (pinhole, lens, regen), 2 (pinhole, lens), 4, 7 (pinhole, lens, regen)
+     and 6 (lockstep) in the CLI's fog, world 1's combined-set material and
+     world 2's spheres as dispersive glass, planar albedo and bump maps on
+     world 2 and on the 784-triangle case, every mesh case in fog through
+     both cameras; and the two DMA meshes in fog bit-equal to their
+     resident twins;
   4. main paths, each through the entry point a user calls, at 1280x720
      with the launch counts set to 0 just before it and read just after:
      a. the Cornell box (-w3), 1 sample, seed 0, against the committed CPU
@@ -88,6 +101,13 @@ and the script exits non-zero):
      i. render_image on the 784-, 19,600- and 262,144-triangle cases, 16
         spp, and on every other mesh-tier variant's case, 4 spp: finite,
         non-black images through their variants;
+     j. the fog commands, 16 spp: the default command with --fog (world 1,
+        test_fog_w1.bmp), -w7, -w4 and -w2 with --fog, through the feature
+        forms of their bases; finite images, non-black but world 4's (its
+        only light is the sky, which fog occludes: black, as JAX's is);
+     k. render_image, 4 spp, on every other new variant's case: worlds 1
+        and 7 in fog through the thin lens and the other schedule, world 6
+        in fog under lockstep, the mesh cases in fog through both cameras;
   5. timing (CUDA events, synchronised; no speed gate): every variant and
      its plain version at 1280x720 4 spp; world 3 at 256 spp and world 1
      at 16 spp, kernel alone and end to end through render_image; worlds
@@ -100,6 +120,9 @@ and the script exits non-zero):
      dispersion: the dielectric lobe; world 1 with planar maps); every
      mesh-tier variant at 4 spp with its plain version, and each mesh case
      at 64 spp, with rays per sample and the host seconds of finalize;
+     every feature form on another base at 4 spp with its plain version,
+     and worlds 1, 7 and 6 in fog at 64 spp under both schedules,
+     alternating;
   6. bounds: the least time the card could take for each variant's 4-spp
      launch, from FP32 operations counted off the kernel's code and the
      bytes it must move (accumulators; for worlds 1 and 7 also the texture
@@ -120,8 +143,9 @@ and the script exits non-zero):
      continues (a lower count). For the feature rows the plain
      regeneration loop's lanes are counted below the depth limit as a
      kernel thread evaluates them: opaque and dielectric shades, fog
-     scatters, planar, height and mesh-UV fetches; every ray's triangle
-     tests and fog flight.
+     scatters, planar, height, mesh-UV and combined-set fetches; every
+     ray's triangle tests and fog flight; on the other bases with the
+     base's walk counted as its own rows count it.
 
 The last two lines are the kernel table as JSON and the result line
 {"ok": true, "device": {...}}.
@@ -217,32 +241,44 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-KERNEL_RE = (r"wave_kernelILb([01])ELb([01])ELi([0-9])ELi([0-9])ELb([01])"
+KERNEL_RE = (r"wave_kernelILb([01])ELb([01])ELi([0-9])ELi([0-9])ELi([0-9])"
              r"ELi([0-9])E")
-# ptxas's registers and spill bytes of the twelve variants as they were
-# built before the mesh tiers were added (PERF.md's findings)
+# ptxas's registers and spill bytes of the twenty-three variants as they
+# were built before the feature bounce came to the other bases (phase 2 on
+# the H100, PERF.md's findings)
 EARLIER_PTXAS = {"brute_pinhole": (64, 0), "brute_lens": (72, 16),
                  "clustered_pinhole": (64, 0), "clustered_lens": (64, 16),
                  "textured_pinhole": (64, 68), "textured_lens": (64, 60),
-                 "textured_pinhole_regen": (87, 0),
-                 "mesh_pinhole": (56, 84), "mesh_lens": (56, 88),
-                 "mesh_pinhole_regen": (64, 112),
-                 "feature_pinhole": (80, 0), "feature_lens": (80, 0)}
+                 "textured_pinhole_regen": (87, 0), "mesh_pinhole": (56, 84),
+                 "mesh_lens": (56, 88), "mesh_pinhole_regen": (64, 112),
+                 "feature_pinhole": (80, 0), "feature_lens": (80, 0),
+                 "meshplain_pinhole": (48, 124), "meshplain_lens": (40, 212),
+                 "meshgp_pinhole": (48, 172), "meshgp_lens": (56, 88),
+                 "meshgpplain_pinhole": (40, 224),
+                 "meshgpplain_lens": (40, 228), "static_pinhole": (64, 60),
+                 "static_lens": (64, 44), "staticplain_pinhole": (64, 28),
+                 "staticplain_lens": (64, 28),
+                 "staticplain_pinhole_regen": (79, 0)}
 
 
 def variant_of(mangled: re.Match) -> str:
     """The variant name of wave_kernel<kClustered, kThinLens, kTex, kMesh,
-    kFeat, kTri>."""
+    kFeat, kTri> (kFeat: 0, or the feature form's schedule)."""
     from pathtracer_tpu_torch.render import cuda_backend as cb
     clustered, lens, tex, mesh, feat, tri = mangled.groups()
     end = "_lens" if lens == "1" else "_pinhole"
-    if feat == "1":
-        return "feature" + end
-    if tex == "0" and mesh == "0":
-        return ("clustered" if clustered == "1" else "brute") + end
-    kinds = {v: k for k, v in cb.MESH_KINDS.items()}
-    kind, code, main = (("textured", tex, cb.TEXTURED_SCHEDULE) if tex != "0"
-                        else (kinds[int(tri)], mesh, cb.MESH_SCHEDULE))
+    spheres = "clustered" if clustered == "1" else "brute"
+    if tex != "0":
+        kind, code, main = "textured", tex, cb.TEXTURED_SCHEDULE
+    elif mesh != "0":
+        kinds = {v: k for k, v in cb.MESH_KINDS.items()}
+        kind, code, main = kinds[int(tri)], mesh, cb.MESH_SCHEDULE
+    elif feat != "0":
+        kind, code, main = spheres, feat, cb.FEATURE_SCHEDULE
+    else:
+        return spheres + end
+    if feat != "0":
+        kind = "feature" if kind == "brute" else "feat" + kind
     sched = {"1": "lockstep", "2": "regen"}[code]
     return kind + end + ("" if sched == main else "_" + sched)
 
@@ -480,7 +516,8 @@ def feature_counts(scene, cam, cfg, n_samples, dev):
     n_samples-1 of ``cfg``: rays, and below the depth limit the opaque
     shades, dielectric (refraction) shades and fog scatters, the planar
     fetches (RGB: normal and albedo maps; red only: metalness and roughness
-    maps), bumped hits (K11) and mesh-UV fetches. The plain regeneration
+    maps), bumped hits (K11), mesh-UV fetches and combined-set fetches
+    (K9). The plain regeneration
     loop renders the same rays as the kernel (phase 3 holds them to it);
     each bounce's lanes are caught in shade_bounce with their bounce index
     and counted as a kernel thread evaluates them (only the estimator its
@@ -493,7 +530,7 @@ def feature_counts(scene, cam, cfg, n_samples, dev):
     from pathtracer_tpu_torch.utils.vec import sdiv
 
     keys = ("rays", "opaque", "refract", "scatter", "planar", "planar_x",
-            "bump", "uv_fetch")
+            "bump", "uv_fetch", "tex_fetch")
     tally = dict.fromkeys(keys, 0)
     live = {}
     primary, draw, shade = (wavefront._primary_rays, prng.bounce_uniforms,
@@ -543,6 +580,9 @@ def feature_counts(scene, cam, cfg, n_samples, dev):
                     tally["planar_x"] += int((front & (field[m] != 0)).sum())
         if sc.any_bump and sc.n_textures:
             tally["bump"] += int((opaque & (sc.mat_bump_idx[m] != 0)).sum())
+        if sc.tex_combined and sc.n_textures:
+            # K9: each opaque shade and dielectric of a combined-set material
+            tally["tex_fetch"] += int(((opaque | refract) & alb).sum())
         return out
 
     wavefront._primary_rays = primary_caught
@@ -595,6 +635,7 @@ def main() -> int:
                                   WORLD_DEFAULT, WORLD_MESH_UV, WORLD_MARIO)
     OTHER = cb.OTHER_SCHEDULE
     MOTHER = cb.MESH_OTHER_SCHEDULE
+    FOTHER = cb.FEATURE_OTHER_SCHEDULE
     NMR = dict(use_normal_maps=False, use_metalness_maps=False,
                use_roughness_maps=False)
     dev = torch.device("cuda:0")
@@ -633,25 +674,31 @@ def main() -> int:
 
     mesh_built = {}  # tag -> (CPU scene, camera params, finalize s, card)
 
+    def mesh_builder(tag):
+        """World 5's builder without its asset plus the mesh case's mesh,
+        and its camera parameters."""
+        gen, seg = MESH_CASES[tag]
+        b, cp = build_world(W5, res_dir=str(ROOT / "no asset here"))
+        if seg is None:
+            tris = gen()
+            m = b.add_material(albedo=(0.7, 0.6, 0.5), roughness=0.6)
+            b.set_mesh(tris.reshape(-1, 3),
+                       np.full((3 * len(tris),), m, np.int32))
+        else:
+            pts, uvs = worlds._uv_sphere_mesh((0.0, 0.0, 1.4), 1.4,
+                                              n_seg=seg[0], n_ring=seg[1])
+            m = b.add_material(
+                albedo=(1.0, 1.0, 1.0), roughness=0.55,
+                albedo_idx=b.add_texture(worlds._mesh_uv_demo_texture()))
+            b.set_mesh(pts, np.full((len(pts),), m, np.int32), uvs=uvs)
+        return b, cp
+
     def mesh_case(tag, w, h, lens=False, cpu=False):
         """(scene on the card, or on the CPU, and its camera at w x h) of a
         mesh case: world 5's builder without its asset plus the case's
         mesh, finalized once (its host seconds kept)."""
         if tag not in mesh_built:
-            gen, seg = MESH_CASES[tag]
-            b, cp = build_world(W5, res_dir=str(ROOT / "no asset here"))
-            if seg is None:
-                tris = gen()
-                m = b.add_material(albedo=(0.7, 0.6, 0.5), roughness=0.6)
-                b.set_mesh(tris.reshape(-1, 3),
-                           np.full((3 * len(tris),), m, np.int32))
-            else:
-                pts, uvs = worlds._uv_sphere_mesh((0.0, 0.0, 1.4), 1.4,
-                                                  n_seg=seg[0], n_ring=seg[1])
-                m = b.add_material(
-                    albedo=(1.0, 1.0, 1.0), roughness=0.55,
-                    albedo_idx=b.add_texture(worlds._mesh_uv_demo_texture()))
-                b.set_mesh(pts, np.full((len(pts),), m, np.int32), uvs=uvs)
+            b, cp = mesh_builder(tag)
             t = time.perf_counter()
             scene = b.finalize(world_kind=W5, view_origin=cp.pos)
             mesh_built[tag] = (scene, cp, time.perf_counter() - t,
@@ -680,6 +727,59 @@ def main() -> int:
         kind = {"w6 fog": W6, "w3 fog": W3}[tag]
         return (*world(kind, w, h, lens, statics=FOG), {})
 
+    def ground_maps(b):
+        """Planar maps on the ground plane's material: world 7's checker as
+        its albedo and an 8x8 height field as its bump map (K10 planar,
+        K11)."""
+        m = b.materials[b.planes[0][2]]
+        m.albedo_idx = b.add_texture(worlds._mesh_uv_demo_texture())
+        hf = np.repeat(np.random.RandomState(7).rand(8, 8, 1), 3, 2)
+        m.bump_idx = b.add_texture((np.round(hf * 255.0) / 255.0)
+                                   .astype(np.float32))
+        m.bump_scale = 0.5
+
+    BASE_WORLDS = {"w1": W1, "w2": W2, "w3": W3, "w4": W4, "w6": W6,
+                   "w7": W7}
+
+    def base_case(tag, w, h, lens=False):
+        """(scene on the card, camera at w x h) of the feature bounce on
+        another base: "<world> fog" (the CLI's fog on a world), "<mesh
+        case> fog", "w1 glass" (world 1's combined-set material as
+        dispersive glass), "w2 glass" (every seventh sphere of world 2),
+        "w2 maps" and "tri784 maps" (planar albedo and bump maps on the
+        ground plane: sphere clusters, the static tier), or "w1 planar"
+        (planar_world1: three planar 512x512 maps on world 1)."""
+        if tag == "w1 planar":
+            return planar_world1(w, h)
+        name, what = tag.split(" ")
+        if what == "fog" and name in MESH_CASES:
+            scene, cam = mesh_case(name, w, h, lens)
+            return dataclasses.replace(scene, **FOG), cam
+        if what == "fog":
+            return world(BASE_WORLDS[name], w, h, lens, statics=FOG)
+        if name in MESH_CASES:
+            b, cp = mesh_builder(name)
+            kind = W5
+        else:
+            kind = BASE_WORLDS[name]
+            b, cp = build_world(kind)
+        if what == "maps":
+            ground_maps(b)
+        elif kind == W2:
+            g = b.add_material(albedo=(1.0, 1.0, 1.0), roughness=0.0,
+                               ior=1.5, transmission=1.0, dispersion=0.05)
+            b.spheres = [(c, r, g if i % 7 == 3 else m)
+                         for i, (c, r, m) in enumerate(b.spheres)]
+        else:
+            for m in b.materials:
+                if m.albedo_idx:
+                    m.transmission, m.ior, m.dispersion = 1.0, 1.5, 0.05
+        scene = b.finalize(world_kind=kind, view_origin=cp.pos).to(dev)
+        return scene, define_camera(
+            cp.pos, cp.target, cp.fov, w, h, use_pinhole=not lens,
+            focal_distance=cp.focal_distance,
+            aperture_radius=cp.aperture_radius)
+
     # --- 1. device ---------------------------------------------------------
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -699,13 +799,47 @@ def main() -> int:
             for v, rs in EARLIER_PTXAS.items()}
     print(f"phase2 build_s={build_s:.3f} nvcc_s={cb.BUILD_SECONDS} "
           f"ptxas={json.dumps(ptxas)}")
-    print(f"phase2 earlier_variants_kept_ptxas={json.dumps(kept)}")
-    print("phase2 mesh_tier_variants " + json.dumps(
+    print(f"phase2 earlier_variants_kept_ptxas={json.dumps(kept)} "
+          f"all_kept={all(kept.values())}")
+    print("phase2 new_variants " + json.dumps(
         {v: ptxas[v] for v in cb.VARIANTS if v not in EARLIER_PTXAS}))
     print(f"phase2 sass={json.dumps(sass)}")
+    new_vars = [v for v in cb.VARIANTS if v not in EARLIER_PTXAS]
 
     # --- 3. kernel vs plain on the card ------------------------------------
     max_err = dict.fromkeys(cb.VARIANTS, 0.0)
+
+    def held(label, scene, cam, cfg, n, s0=0):
+        """The kernel against its plain version on the same inputs under
+        the verify gates, printed on one line; returns the variant and the
+        largest per-pixel |diff|."""
+        var = cb.variant(scene, cam, cfg.schedule)
+        k = cb.render_chunk_cuda(scene, cam, cfg, 0, s0, n,
+                                 init_accum(cfg.width * cfg.height, dev))
+        t = time.perf_counter()
+        p = cb.render_chunk_plain(scene, cam, cfg, 0, s0, n,
+                                  init_accum(cfg.width * cfg.height, dev))
+        sync()
+        t_plain = time.perf_counter() - t
+        d = (resolve(k, cfg) - resolve(p, cfg)).abs().amax(dim=-1)
+        f3 = float((d > 1e-3).float().mean())
+        f1 = float((d > 0.1).float().mean())
+        count_eq = bool(torch.equal(k.count, p.count))
+        rk, rp = int(k.rays_cast), int(p.rays_cast)
+        err = float(d.max())
+        max_err[var] = max(max_err[var], err)
+        print(f"phase3 {label} variant={var} {cfg.width}x{cfg.height} "
+              f"pp={cfg.pp} samples={s0}-{s0 + n - 1} frac_gt_1e-3={f3} "
+              f"frac_gt_0.1={f1} bit_equal={float((d == 0).float().mean())} "
+              f"count_equal={count_eq} rays_kernel={rk} rays_plain={rp} "
+              f"nan_kernel={int(k.nan_count)} nan_plain={int(p.nan_count)} "
+              f"max_abs_err={err} mean={float(resolve(k, cfg).mean())} "
+              f"plain_s={t_plain}")
+        check(f3 < 0.01 and f1 < 0.001, "kernel vs plain flip fractions")
+        check(count_eq, "kernel vs plain valid counts")
+        check(abs(rk - rp) <= 0.005 * rp, "kernel vs plain ray counts")
+        return var, err
+
     disk_slots = set()
     # (world, width, height, pp, first sample, samples, thin lens, options);
     # the 1280x720 cases are the main paths of phase 4
@@ -743,38 +877,20 @@ def main() -> int:
                            schedule=opt.get("schedule"),
                            mip_scale=mip_scale(cam, h) if opt.get("mips")
                            else 0.0)
-        var = cb.variant(scene, cam, cfg.schedule)
-        k = cb.render_chunk_cuda(scene, cam, cfg, 0, s0, n,
-                                 init_accum(w * h, dev))
-        p = cb.render_chunk_plain(scene, cam, cfg, 0, s0, n,
-                                  init_accum(w * h, dev))
         slots = sorted({(s % pp) * (s // pp) % 12 for s in range(s0, s0 + n)}
                        if lens else ())
         disk_slots.update(slots)
-        sync()
-        d = (resolve(k, cfg) - resolve(p, cfg)).abs().amax(dim=-1)
-        f3 = float((d > 1e-3).float().mean())
-        f1 = float((d > 0.1).float().mean())
-        count_eq = bool(torch.equal(k.count, p.count))
-        rk, rp = int(k.rays_cast), int(p.rays_cast)
-        bit_eq = float((d == 0).float().mean())
-        max_err[var] = max(max_err[var], float(d.max()))
         opts = {k_: v for k_, v in opt.items() if k_ != "statics"}
         opts.update(opt.get("statics") or {})
-        print(f"phase3 world={kind + 1} variant={var} {w}x{h} pp={pp} "
-              f"samples={s0}-{s0 + n - 1} options={opts} disk_slots={slots} "
-              f"frac_gt_1e-3={f3} frac_gt_0.1={f1} bit_equal={bit_eq} "
-              f"count_equal={count_eq} rays_kernel={rk} rays_plain={rp} "
-              f"nan_kernel={int(k.nan_count)} nan_plain={int(p.nan_count)} "
-              f"max_abs_err={float(d.max())}")
-        check(f3 < 0.01 and f1 < 0.001, "kernel vs plain flip fractions")
-        check(count_eq, "kernel vs plain valid counts")
-        check(abs(rk - rp) <= 0.005 * rp, "kernel vs plain ray counts")
+        held(f"world={kind + 1} options={opts} disk_slots={slots}", scene,
+             cam, cfg, n, s0)
     check(disk_slots == set(range(12)), f"Poisson-disk slots {disk_slots}")
 
     # the feature variants: each feature scene at 256x144 and 1280x720,
     # 4 spp; the CLI's fog on world 6 and on world 3 through the thin lens;
-    # world 1 with three planar maps
+    # world 1 with three planar maps; the mesh tiers: each case at 256x144
+    # and 1280x720, 4 spp, through the pinhole and the thin lens (784 under
+    # the other schedule too)
     feature_err = {}
     for tag, w, h, lens in (
             *((n, 256, 144, False) for n in FEATURE_CASES),
@@ -783,33 +899,10 @@ def main() -> int:
             ("w6 fog", 1280, 720, False), ("w3 fog", 1280, 720, True),
             ("w1 planar", 256, 144, False), ("w1 planar", 1280, 720, False)):
         scene, cam, cfg_kw = feature_case(tag, w, h, lens)
-        cfg = RenderConfig(w, h, pp=2, seed=0, **cfg_kw)
-        var = cb.variant(scene, cam)
+        var, err = held(f"feature={tag!r} options={cfg_kw}", scene, cam,
+                        RenderConfig(w, h, pp=2, seed=0, **cfg_kw), 4)
         check(var.startswith("feature"), f"{tag} takes the feature kernel")
-        k = cb.render_chunk_cuda(scene, cam, cfg, 0, 0, 4,
-                                 init_accum(w * h, dev))
-        p = cb.render_chunk_plain(scene, cam, cfg, 0, 0, 4,
-                                  init_accum(w * h, dev))
-        sync()
-        d = (resolve(k, cfg) - resolve(p, cfg)).abs().amax(dim=-1)
-        f3 = float((d > 1e-3).float().mean())
-        f1 = float((d > 0.1).float().mean())
-        count_eq = bool(torch.equal(k.count, p.count))
-        rk, rp = int(k.rays_cast), int(p.rays_cast)
-        max_err[var] = max(max_err[var], float(d.max()))
-        feature_err[tag] = max(feature_err.get(tag, 0.0), float(d.max()))
-        print(f"phase3 feature={tag!r} variant={var} {w}x{h} pp=2 "
-              f"samples=0-3 options={cfg_kw} frac_gt_1e-3={f3} "
-              f"frac_gt_0.1={f1} bit_equal={float((d == 0).float().mean())} "
-              f"count_equal={count_eq} rays_kernel={rk} rays_plain={rp} "
-              f"nan_kernel={int(k.nan_count)} nan_plain={int(p.nan_count)} "
-              f"max_abs_err={float(d.max())}")
-        check(f3 < 0.01 and f1 < 0.001, "kernel vs plain flip fractions")
-        check(count_eq, "kernel vs plain valid counts")
-        check(abs(rk - rp) <= 0.005 * rp, "kernel vs plain ray counts")
-
-    # the mesh tiers: each case at 256x144 and 1280x720, 4 spp, through the
-    # pinhole and the thin lens (784 under the other schedule too)
+        feature_err[tag] = max(feature_err.get(tag, 0.0), err)
     for tag, w, h, lens, sched in (
             *((t, 256, 144, ln, None) for t in MESH_CASES
               for ln in (False, True)),
@@ -818,36 +911,39 @@ def main() -> int:
               for ln in (False, True)),
             ("tri784", 1280, 720, False, MOTHER)):
         scene, cam = mesh_case(tag, w, h, lens)
-        cfg = RenderConfig(w, h, pp=2, seed=0, schedule=sched)
-        var = cb.variant(scene, cam, sched)
-        k = cb.render_chunk_cuda(scene, cam, cfg, 0, 0, 4,
-                                 init_accum(w * h, dev))
-        t = time.perf_counter()
-        p = cb.render_chunk_plain(scene, cam, cfg, 0, 0, 4,
-                                  init_accum(w * h, dev))
-        sync()
-        t_plain = time.perf_counter() - t
-        d = (resolve(k, cfg) - resolve(p, cfg)).abs().amax(dim=-1)
-        f3 = float((d > 1e-3).float().mean())
-        f1 = float((d > 0.1).float().mean())
-        count_eq = bool(torch.equal(k.count, p.count))
-        rk, rp = int(k.rays_cast), int(p.rays_cast)
-        max_err[var] = max(max_err[var], float(d.max()))
-        feature_err[tag] = max(feature_err.get(tag, 0.0), float(d.max()))
-        print(f"phase3 mesh={tag} n_tris={scene.n_tris} variant={var} "
-              f"{w}x{h} pp=2 samples=0-3 frac_gt_1e-3={f3} frac_gt_0.1={f1} "
-              f"bit_equal={float((d == 0).float().mean())} "
-              f"count_equal={count_eq} rays_kernel={rk} rays_plain={rp} "
-              f"nan_kernel={int(k.nan_count)} nan_plain={int(p.nan_count)} "
-              f"max_abs_err={float(d.max())} plain_s={t_plain}")
-        check(f3 < 0.01 and f1 < 0.001, "kernel vs plain flip fractions")
-        check(count_eq, "kernel vs plain valid counts")
-        check(abs(rk - rp) <= 0.005 * rp, "kernel vs plain ray counts")
-    # the DMA tier's grandparent level is pure pruning: its render equals,
-    # bit for bit, the resident walk's over the same parents
-    for tag in ("tri262144", "uv99840"):
+        _, err = held(f"mesh={tag} n_tris={scene.n_tris}", scene, cam,
+                      RenderConfig(w, h, pp=2, seed=0, schedule=sched), 4)
+        feature_err[tag] = max(feature_err.get(tag, 0.0), err)
+
+    # the feature bounce on the other bases (fog, transmission with
+    # dispersion, planar and bump maps): each case at 256x144 and 1280x720,
+    # 4 spp, through its base's feature variant, the yardstick schedules
+    # too
+    base_cases = (
+        ("w1 fog", False, None), ("w1 fog", True, None),
+        ("w1 fog", False, OTHER), ("w1 glass", False, None),
+        ("w2 fog", False, None), ("w2 fog", True, None),
+        ("w4 fog", True, None), ("w2 glass", False, None),
+        ("w2 maps", False, None), ("w7 fog", False, None),
+        ("w7 fog", True, None), ("w7 fog", False, MOTHER),
+        *((f"{t} fog", ln, None) for t in MESH_CASES for ln in (False, True)),
+        ("tri784 maps", False, None), ("w6 fog", False, FOTHER),
+        ("w1 planar", False, FOTHER))
+    feat_vars = set()
+    for tag, lens, sched in base_cases:
         for w, h in ((256, 144), (1280, 720)):
-            scene, cam = mesh_case(tag, w, h)
+            scene, cam = base_case(tag, w, h, lens)
+            feat_vars.add(held(f"base={tag!r}", scene, cam, RenderConfig(
+                w, h, pp=2, seed=0, schedule=sched), 4)[0])
+    check(feat_vars >= set(new_vars), "every feature base held")
+
+    # the DMA tier's grandparent level is pure pruning: its render equals,
+    # bit for bit, the resident walk's over the same parents, in fog too
+    for tag in ("tri262144", "uv99840"):
+        for fog, (w, h) in ((f, s_) for f in ("", " fog")
+                            for s_ in ((256, 144), (1280, 720))):
+            scene, cam = (base_case(tag + fog, w, h) if fog
+                          else mesh_case(tag, w, h))
             flat = resident_twin(scene)
             cfg = RenderConfig(w, h, pp=2, seed=0)
             out = [cb.render_chunk_cuda(sc, cam, cfg, 0, 0, 4,
@@ -857,11 +953,12 @@ def main() -> int:
             same = (all(torch.equal(a_, b_)
                         for a_, b_ in zip(out[0].sum, out[1].sum))
                     and int(out[0].rays_cast) == int(out[1].rays_cast))
-            print(f"phase3 mesh={tag} {w}x{h} grandparents "
+            print(f"phase3 mesh={tag}{fog} {w}x{h} grandparents "
                   f"({cb.variant(scene, cam)}, {len(scene.stream_gparents)} "
                   f"over {len(scene.stream_parents)} parents) vs none "
                   f"({cb.variant(flat, cam)}): bit_equal={same}")
-            check(same, f"{tag}: the grandparent level changed the render")
+            check(same, f"{tag}{fog}: the grandparent level changed the "
+                  "render")
 
     # --- 4. the main paths at full width -------------------------------------
     w, h = 1280, 720
@@ -934,10 +1031,10 @@ def main() -> int:
         caught["out"] = real_render_image(*a, **k)
         return caught["out"]
 
-    for tag, argv, var, kind in (("4d default command:", [], "textured_pinhole",
-                                  W1),
-                                 ("4e", ["-w7"], "mesh_pinhole", W7)):
-        bmp = ROOT / f"test_w{kind + 1}.bmp"
+    def command(argv, bmp):
+        """cli.main(argv + ["--out", bmp]) with the launch counts set to 0
+        just before it; checks the BMP's size and returns the image (numpy)
+        and the accumulator render_image returned."""
         renderer.render_image = render_image_caught
         try:
             reset_counts()
@@ -947,9 +1044,15 @@ def main() -> int:
             renderer.render_image = real_render_image
         check(rc == 0 and bmp.stat().st_size == 58 + w * h * 4,
               f"{argv} wrote its BMP")
-        read_counts(var, f"{argv} command's")
         img, _, state = caught["out"]
-        img = img.cpu().numpy()
+        return img.cpu().numpy(), state
+
+    for tag, argv, var, kind in (("4d default command:", [], "textured_pinhole",
+                                  W1),
+                                 ("4e", ["-w7"], "mesh_pinhole", W7)):
+        bmp = ROOT / f"test_w{kind + 1}.bmp"
+        img, state = command(argv, bmp)
+        read_counts(var, f"{argv} command's")
         check(img.shape == (h, w, 3) and bool(np.isfinite(img).all())
               and float(img.mean()) > 0.05,
               f"finite, non-black world {kind + 1} image")
@@ -968,19 +1071,9 @@ def main() -> int:
     for argv, var, tag in ((["-w6"], "feature_pinhole", "w6 fog"),
                            (["-w3", "-d"], "feature_lens", "w3 fog")):
         bmp = ROOT / f"test_fog_w{argv[0][2:]}.bmp"
-        renderer.render_image = render_image_caught
-        try:
-            reset_counts()
-            rc = cli.main(argv + fog_argv + ["--out", str(bmp)])
-            sync()
-        finally:
-            renderer.render_image = real_render_image
-        check(rc == 0 and bmp.stat().st_size == 58 + w * h * 4,
-              f"{argv} --fog wrote its BMP")
+        img, state = command(argv + fog_argv, bmp)
         read_counts(var, f"{argv} --fog command's")
         path_launches[tag] = cb.VARIANT_LAUNCHES[var]
-        img, _, state = caught["out"]
-        img = img.cpu().numpy()
         check(img.shape == (h, w, 3) and bool(np.isfinite(img).all())
               and float(img.mean()) > 0.01, f"finite, non-black {tag} image")
         print(f"phase4f command={argv + fog_argv} variant={var} "
@@ -1011,21 +1104,11 @@ def main() -> int:
     w5_scene, w5_cam = finalize_world(W5, w, h)
     var = cb.variant(w5_scene, w5_cam)
     bmp = ROOT / "test_w5.bmp"
-    renderer.render_image = render_image_caught
-    try:
-        reset_counts()
-        rc = cli.main(["-w5", "--out", str(bmp)])
-        sync()
-    finally:
-        renderer.render_image = real_render_image
-    check(rc == 0 and bmp.stat().st_size == 58 + w * h * 4,
-          "-w5 wrote its BMP")
+    img, state = command(["-w5"], bmp)
     # (its variant's row keeps the count of its own main path)
     check(cb.VARIANT_LAUNCHES[var] == cb.LAUNCHES > 0,
           f"the -w5 command's main path launched {var}")
     w5_launches = cb.VARIANT_LAUNCHES[var]
-    img, _, state = caught["out"]
-    img = img.cpu().numpy()
     check(img.shape == (h, w, 3) and bool(np.isfinite(img).all())
           and float(img.mean()) > 0.01, "finite, non-black world 5 image")
     found = (Path(REFERENCE_RES_DIR) / "mario.glb").exists()
@@ -1060,6 +1143,56 @@ def main() -> int:
               f"launches={launches[var]} spp={pp * pp} "
               f"mean={float(img.mean())} rays={int(state.rays_cast)} "
               f"nan={int(state.nan_count)}")
+
+    # j. the fog commands, 1280x720, 16 spp: the default command (world 1,
+    # the combined set under lockstep), -w7 (the streamed walk with UVs),
+    # -w4 (clusters, thin lens) and -w2 (clusters, pinhole), each through
+    # its base's feature variant. World 4's only light is the sky, which
+    # fog occludes (every sky ray scatters), so its image is black, as
+    # JAX's is.
+    for argv, var in (([], "feattextured_pinhole"),
+                      (["-w7"], "featmesh_pinhole"),
+                      (["-w4"], "featclustered_lens"),
+                      (["-w2"], "featclustered_pinhole")):
+        kind = int(argv[0][2:]) if argv else 1
+        bmp = ROOT / f"test_fog_w{kind}.bmp"
+        img, state = command(argv + fog_argv, bmp)
+        read_counts(var, f"{argv} --fog command's")
+        check(img.shape == (h, w, 3) and bool(np.isfinite(img).all())
+              and int(state.rays_cast) > w * h * 16,
+              f"finite world {kind} image in fog")
+        check(float(img.max()) == 0.0 if kind == 4 else
+              float(img.mean()) > 0.01, f"world {kind} in fog: brightness")
+        print(f"phase4j command={argv + fog_argv} variant={var} "
+              f"launches={launches[var]} spp=16 mean={float(img.mean())} "
+              f"max={float(img.max())} rays={int(state.rays_cast)} "
+              f"nan={int(state.nan_count)} wrote {bmp.name} "
+              f"bytes={bmp.stat().st_size}")
+
+    # k. render_image on every other new variant's case, 4 spp: the thin
+    # lens and the yardstick schedules of worlds 1, 7 and 6 in fog, and the
+    # mesh cases in fog through both cameras
+    for tag, lens, sched in (
+            ("w1 fog", True, None), ("w1 fog", False, OTHER),
+            ("w7 fog", True, None), ("w7 fog", False, MOTHER),
+            ("w6 fog", False, FOTHER),
+            *((f"{t} fog", ln, None) for t in MESH_CASES if t != "tri40"
+              for ln in (False, True))):
+        scene, cam = base_case(tag, w, h, lens)
+        cfg = RenderConfig(w, h, pp=2, seed=0, schedule=sched)
+        var = cb.variant(scene, cam, sched)
+        reset_counts()
+        img, _, state = render_image(scene, cam, cfg, device="cuda")
+        sync()
+        read_counts(var, f"the {tag} case's")
+        img = img.cpu().numpy()
+        check(img.shape == (h, w, 3) and bool(np.isfinite(img).all())
+              and float(img.mean()) > 0.01, f"finite, non-black {tag} image")
+        print(f"phase4k case={tag!r} variant={var} launches={launches[var]} "
+              f"spp=4 mean={float(img.mean())} rays={int(state.rays_cast)} "
+              f"nan={int(state.nan_count)}")
+    check(all(launches[v] > 0 for v in new_vars), "every new variant's "
+          "main path launched it")
 
     # --- 5. timing -----------------------------------------------------------
     def kernel_ms(scene, cam, pp, reps, **cfg_kw):
@@ -1140,8 +1273,37 @@ def main() -> int:
         "meshgp_pinhole": ("uv99840", False, None, "intersect.py:815"),
         "meshgp_lens": ("uv99840", True, None, "intersect.py:815"),
     }
+    # the feature bounce on the other bases: variant -> (base case, thin
+    # lens, schedule, the JAX code it replaces: the loop or walk it runs in)
+    new_rows = {
+        "featclustered_pinhole": ("w2 fog", False, None,
+                                  "ops/intersect.py:225"),
+        "featclustered_lens": ("w4 fog", True, None,
+                               "ops/intersect.py:225"),
+        "feattextured_pinhole": ("w1 fog", False, None,
+                                 "render/pallas_backend.py:306"),
+        "feattextured_lens": ("w1 fog", True, None,
+                              "render/pallas_backend.py:306"),
+        f"feattextured_pinhole_{OTHER}": ("w1 fog", False, OTHER,
+                                          "render/pallas_backend.py:169"),
+        "featmesh_pinhole": ("w7 fog", False, None, "ops/intersect.py:262"),
+        "featmesh_lens": ("w7 fog", True, None, "ops/intersect.py:262"),
+        f"featmesh_pinhole_{MOTHER}": ("w7 fog", False, MOTHER,
+                                       "ops/intersect.py:262"),
+        **{f"feat{kind}_{c}": (f"{tag} fog", c == "lens", None,
+                               "ops/intersect.py:" + line)
+           for tag, kind, line in (("tri784", "staticplain", "225"),
+                                   ("uv736", "static", "1309"),
+                                   ("tri19600", "meshplain", "262"),
+                                   ("tri262144", "meshgpplain", "815"),
+                                   ("uv99840", "meshgp", "815"))
+           for c in ("pinhole", "lens")},
+        f"feature_pinhole_{FOTHER}": ("w6 fog", False, FOTHER,
+                                      "render/pallas_backend.py:306"),
+    }
     check(sorted([*main_worlds, "feature_pinhole", "feature_lens",
-                  *tier_rows]) == sorted(cb.VARIANTS), "every variant timed")
+                  *tier_rows, *new_rows]) == sorted(cb.VARIANTS),
+          "every variant timed")
     timed = {}
     for var, (kind, lens, schedule) in main_worlds.items():
         scene, cam = world(kind, w, h, lens)
@@ -1186,6 +1348,21 @@ def main() -> int:
               f"{rays / np.median(ks) / 1e3} plain_ms={1e3 * ps} "
               f"plain_rays={prays} plain_mrays_s={prays / ps / 1e6} "
               f"| card: {smi}")
+    ntimed = {}
+    for var, (tag, lens, sched, _) in new_rows.items():
+        scene, cam = base_case(tag, w, h, lens)
+        check(cb.variant(scene, cam, sched) == var, f"{tag} takes {var}")
+        ks, rays = kernel_ms(scene, cam, 2, 5, schedule=sched)
+        plain_s(scene, cam, 1, schedule=sched)  # warm
+        ps, prays = plain_s(scene, cam, 2, schedule=sched)
+        ntimed[var] = dict(ms=float(np.median(ks)), rays=rays, scene=scene,
+                           cam=cam, plain_ms=1e3 * ps)
+        print(f"phase5 variant={var} case={tag!r} 720p spp=4 "
+              f"kernel_ms={sorted(ks)} rays={rays} "
+              f"rays_per_sample={rays / (w * h * 4)} kernel_mrays_s="
+              f"{rays / np.median(ks) / 1e3} plain_ms={1e3 * ps} "
+              f"plain_rays={prays} plain_mrays_s={prays / ps / 1e6} "
+              f"| card: {smi}")
     # each mesh case at 64 spp through its main variant
     for tag in MESH_CASES:
         scene, cam = mesh_case(tag, w, h)
@@ -1225,11 +1402,9 @@ def main() -> int:
               f"rays={rays} mrays_s_median={rays / np.median(ks) / 1e3} "
               f"mrays_s_range={rays / max(ks) / 1e3}-{rays / min(ks) / 1e3}")
 
-    def schedules(var, main_s, other, e2e):
-        """The world of ``var`` at 720p 64 spp under its two schedules, four
-        launches each, alternating; with ``e2e`` also one render_image under
-        each."""
-        scene, cam = timed[var]["scene"], timed[var]["cam"]
+    def schedules(label, scene, cam, main_s, other, e2e):
+        """``scene`` at 720p 64 spp under its two schedules, four launches
+        each, alternating; with ``e2e`` also one render_image under each."""
         res, rays_ = {main_s: [], other: []}, {}
         for which in (main_s, other, other, main_s) * 2:
             (ms,), rays_[which] = kernel_ms(scene, cam, 8, 1, schedule=which)
@@ -1247,7 +1422,7 @@ def main() -> int:
             e2e_s = time.perf_counter() - t
             e2e_txt += (f" {which}_render_image_s={e2e_s} {which}_e2e_mrays_s="
                         f"{int(st.rays_cast) / e2e_s / 1e6}")
-        print(f"phase5 world={main_worlds[var][0] + 1} 64spp "
+        print(f"phase5 {label} 64spp "
               f"{main_s}_ms={res[main_s]} {other}_ms={res[other]} "
               f"rays_{main_s}={rays_[main_s]} rays_{other}={rays_[other]} "
               f"{main_s}_mrays_s="
@@ -1257,9 +1432,20 @@ def main() -> int:
               f"{np.median(res[main_s]) / np.median(res[other])} "
               f"spread={spread}{e2e_txt} | card: {smi}")
 
-    # worlds 1 and 7 at 64 spp: the two schedules, alternating
-    schedules("textured_pinhole", cb.TEXTURED_SCHEDULE, OTHER, e2e=False)
-    schedules("mesh_pinhole", cb.MESH_SCHEDULE, MOTHER, e2e=True)
+    # worlds 1 and 7 at 64 spp, and in fog with world 6 (the brute feature
+    # form): the two schedules, alternating
+    schedules("world=1", timed["textured_pinhole"]["scene"],
+              timed["textured_pinhole"]["cam"], cb.TEXTURED_SCHEDULE, OTHER,
+              False)
+    schedules("world=7", timed["mesh_pinhole"]["scene"],
+              timed["mesh_pinhole"]["cam"], cb.MESH_SCHEDULE, MOTHER, True)
+    for tag, main_s, other in (("w1 fog", cb.TEXTURED_SCHEDULE, OTHER),
+                               ("w7 fog", cb.MESH_SCHEDULE, MOTHER),
+                               ("w6 fog", cb.FEATURE_SCHEDULE, FOTHER),
+                               ("w1 planar", cb.FEATURE_SCHEDULE, FOTHER)):
+        scene, cam = base_case(tag, w, h)
+        schedules(f"case={tag!r} variant={cb.variant(scene, cam)}", scene,
+                  cam, main_s, other, False)
 
     # world 2: clustered against brute on the same scene, alternating
     clu, cam = world(W2, w, h)
@@ -1449,7 +1635,86 @@ def main() -> int:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,  # no single PyTorch call computes this
         })
+    # the feature bounce on the other bases: the feature counts of each
+    # case's rays, with its base's walk counted as the base's rows count it
+    # (the yardsticks cast the main schedule's rays: the same counts)
+    ncounts = {}
+    for var, (tag, lens, sched, replaces) in new_rows.items():
+        tm = ntimed[var]
+        scene, cam = tm["scene"], tm["cam"]
+        cfg4 = RenderConfig(w, h, pp=2, seed=0)
+        if (tag, lens) not in ncounts:
+            fc = feature_counts(scene, cam, cfg4, 4, dev)
+            base_txt = ""
+            if scene.sph_clusters:
+                _, slabs, spheres = walk_tests(scene, cam, cfg4, 4, dev)
+                base_ops = OPS_INV + slabs * OPS_SLAB + spheres * OPS_SPHERE
+                base_txt = (f"slab_tests_per_ray={slabs} "
+                            f"sphere_tests_per_ray={spheres}")
+            elif cb.meshed(scene):
+                _, boxes, tris, wins, _ = mesh_counts(scene, cam, cfg4, 4, dev)
+                kind = cb.mesh_kind(scene)
+                win_ops = (OPS_K8_RESOLVE if kind == "static" else
+                           OPS_MESH_UV if scene.has_mesh_uvs else 0)
+                base_ops = (OPS_INV + boxes * OPS_SLAB + wins * win_ops
+                            + tris * (OPS_TRI_GP if kind.startswith("meshgp")
+                                      else OPS_TRI)
+                            + scene.n_spheres * OPS_SPHERE)
+                base_txt = (f"box_tests_per_ray={boxes} "
+                            f"tri_tests_per_ray={tris} tri_wins_per_ray={wins}")
+            else:
+                n_tris = scene.n_tris if scene.tri_brute else 0
+                base_ops = (scene.n_spheres * OPS_SPHERE
+                            + n_tris * OPS_TRI_BRUTE)
+            ncounts[(tag, lens)] = (fc, base_ops, base_txt)
+        fc, base_ops, base_txt = ncounts[(tag, lens)]
+        rays = tm["rays"]
+        check(abs(fc["rays"] - rays) <= 0.005 * rays,
+              f"{var}: counted {fc['rays']} rays, the kernel cast {rays}")
+        isect_ops = (base_ops + scene.n_quads * OPS_QUAD
+                     + scene.n_planes * OPS_PLANE + OPS_RESOLVE + OPS_EMIT
+                     + OPS_FOG_FLIGHT * (scene.fog_sigma_t > 0.0))
+        ops = (w * h * 4 * OPS_PRIMARY["lens" if lens else "pinhole"]
+               + rays * isect_ops + fc["opaque"] * OPS_SHADE
+               + fc["refract"] * OPS_REFRACT
+               + fc["scatter"] * OPS_FOG_SCATTER
+               + fc["planar"] * OPS_PLANAR + fc["planar_x"] * OPS_PLANAR_X
+               + fc["bump"] * OPS_BUMP + fc["uv_fetch"] * OPS_STACK
+               + fc["tex_fetch"] * OPS_TEX)
+        tables = ((scene.tex_tile,) if cb.textured(scene) else
+                  (scene.tex_packed,) if scene.n_textures else ())
+        if scene.tri_streamed:
+            tables += (scene.mtri_pack, scene.mtri_bounds, scene.stream_pbox,
+                       scene.stream_prange, scene.stream_gbox,
+                       scene.stream_grange,
+                       *((scene.mtri_uvpack,) if scene.has_mesh_uvs else ()))
+        elif cb.meshed(scene):
+            tables += (*scene.ctri_n, scene.ctri_d, *scene.ctri_e1,
+                       scene.ctri_a0, *scene.ctri_e2, scene.ctri_b0,
+                       scene.ctri_mat, scene.tcl_box, scene.tcl_range)
+        nbytes = w * h * BYTES_PER_PIXEL + 4 * sum(t.numel() for t in tables)
+        t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
+        bound_ms = 1e3 * max(t_ops, t_bytes)
+        counts = " ".join(f"{k_}={v}" for k_, v in fc.items())
+        print(f"phase6 variant={var} case={tag!r} {base_txt} {counts} "
+              f"ops={ops:.6e} bytes={nbytes} bound_ms={bound_ms} "
+              f"bound_share={bound_ms / tm['ms']} | card: {smi}")
+        table.append({
+            "name": f"wave_kernel<{var}>", "route": "cuda",
+            "source": "pathtracer_tpu_torch/csrc/wave_kernel.cu",
+            "replaces": "pathtracer_tpu/" + replaces,
+            "launches": launches[var],
+            "max_abs_err": max_err[var],
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None,  # no single PyTorch call computes this
+        })
     check(all(k_["launches"] > 0 for k_ in table), "every variant launched")
+    check(sorted({k_["name"] for k_ in table if k_["name"].endswith(">")
+                  and " " not in k_["name"]})
+          == sorted(f"wave_kernel<{v}>" for v in cb.VARIANTS),
+          "every variant in the kernel table")
     print(f"phase6 total_s={time.perf_counter() - t_start}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

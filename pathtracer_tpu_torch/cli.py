@@ -146,8 +146,8 @@ def main(argv=None):
                     help="rotate normal maps into the surface's tangent "
                          "frame")
     ap.add_argument("--fog", type=float, default=0.0, metavar="SIGMA_T",
-                    help="global homogeneous fog's extinction coefficient "
-                         "(0: no fog)")
+                    help="global homogeneous fog's extinction coefficient, "
+                         "on any world (0: no fog)")
     ap.add_argument("--fog-albedo", default="1,1,1", metavar="R,G,B",
                     help="the fog's single-scatter albedo per channel")
     ap.add_argument("--fog-g", type=float, default=0.0,

@@ -19,21 +19,26 @@ schedule too); feature (fog, transmission with dispersion, planar maps
 from the flat stack with K10's planar form, bump maps with the height
 fetch K11, the brute triangle sweep K4t with or without UVs), either
 primary under path regeneration, the schedule JAX runs these scenes
-under. The file is
-compiled at first use by one
-``nvcc`` for ``sm_90a`` into ``pathtracer_tpu_torch/_build/`` (a library
-named by the hash of the source and flags, so an edit rebuilds it), loaded
-with ``ctypes`` and launched on PyTorch's current stream.
+under, with the pinhole also under lockstep as its yardstick; and the same
+feature bounce on each other base, named "feat" + the base: sphere
+clusters (``featclustered``, regen), the combined set (``feattextured``
+under ``TEXTURED_SCHEDULE``, its pinhole also under the other schedule)
+and every mesh tier (``featmesh`` ... ``featstaticplain`` under
+``MESH_SCHEDULE``, ``featmesh``'s pinhole also under the other one). The
+file is compiled at first use by one ``nvcc`` for ``sm_90a`` into
+``pathtracer_tpu_torch/_build/`` (a library named by the hash of the
+source and flags, so an edit rebuilds it), loaded with ``ctypes`` and
+launched on PyTorch's current stream.
 
 - :func:`render_chunk_cuda` takes the accumulator's device: on CUDA tensors
   it launches the kernel or raises; on CPU tensors it runs the plain version.
   It picks the variant from the scene and camera (:func:`variant`): the
-  feature kernel for a scene with fog, transmission, bump or planar maps or
-  a brute-force mesh (``Scene.featured``), the textured kernel for a
-  combined texture set, a mesh kernel for a mesh of more than
-  ``clusters.CLUSTER_MIN`` triangles (by its tier, :func:`mesh_kind`),
-  else the clustered walk when the scene has sphere clusters; the
-  thin-lens primary when the camera has one.
+  base from the scene (the textured kernel for a combined texture set, a
+  mesh kernel for a mesh of more than ``clusters.CLUSTER_MIN`` triangles
+  by its tier, :func:`mesh_kind`, else the clustered walk when the scene
+  has sphere clusters, else the brute sweep), its feature form for a
+  scene with fog, transmission, bump or planar maps or a brute-force mesh
+  (``Scene.featured``), and the thin-lens primary when the camera has one.
 - :func:`render_chunk_plain` is the plain PyTorch version of the same
   function (``render/lockstep.py`` under the lockstep schedule,
   ``render/wavefront.py`` otherwise), which the CPU tests run and which
@@ -70,21 +75,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # The sample schedule of the textured variants (world 1's main path), and
 # the other one, instantiated for the pinhole only, as its yardstick; the
-# same for the mesh variants (world 7's main path; kMeshMain in the kernel).
+# same for the mesh variants (world 7's main path; kMeshMain in the kernel)
+# and for the feature forms of brute and clustered spheres (JAX runs them
+# under path regeneration; the brute pinhole also under lockstep).
 TEXTURED_SCHEDULE = "lockstep"
 OTHER_SCHEDULE = "regen"
 MESH_SCHEDULE = "lockstep"
 MESH_OTHER_SCHEDULE = "regen"
-_SCHED_CODE = {"lockstep": 1, "regen": 2}  # wave_render's tex/mesh argument
+FEATURE_SCHEDULE = "regen"
+FEATURE_OTHER_SCHEDULE = "lockstep"
+_SCHED_CODE = {"lockstep": 1, "regen": 2}  # wave_render's tex/mesh/feat
 
 # The mesh tiers' kernels by name, with their kTri bits in the kernel:
 # without UVs (1), with the grandparent level (2), the static tier (4).
 MESH_KINDS = {"mesh": 0, "meshplain": 1, "meshgp": 2, "meshgpplain": 3,
               "static": 4, "staticplain": 5}
-# the mesh tiers instantiated under the other schedule too (the pinhole)
-MESH_OTHER_KINDS = ("mesh", "staticplain")
 
-# the kernel's variants, as variant() names them
+# the kernel's variants, as variant() names them: each base with the
+# pinhole and the lens under its main schedule and, as a yardstick, the
+# pinhole under the other one (the textured set, the mesh tiers mesh and
+# staticplain); then the feature forms of the other bases and their
+# yardsticks
 VARIANTS = ("brute_pinhole", "brute_lens", "clustered_pinhole",
             "clustered_lens", "textured_pinhole", "textured_lens",
             f"textured_pinhole_{OTHER_SCHEDULE}", "mesh_pinhole", "mesh_lens",
@@ -92,7 +103,12 @@ VARIANTS = ("brute_pinhole", "brute_lens", "clustered_pinhole",
             "feature_lens",
             *(f"{k}_{cam}" for k in MESH_KINDS if k != "mesh"
               for cam in ("pinhole", "lens")),
-            f"staticplain_pinhole_{MESH_OTHER_SCHEDULE}")
+            f"staticplain_pinhole_{MESH_OTHER_SCHEDULE}",
+            *(f"feat{k}_{cam}" for k in ("clustered", "textured", *MESH_KINDS)
+              for cam in ("pinhole", "lens")),
+            f"feattextured_pinhole_{OTHER_SCHEDULE}",
+            f"featmesh_pinhole_{MESH_OTHER_SCHEDULE}",
+            f"feature_pinhole_{FEATURE_OTHER_SCHEDULE}")
 LAUNCHES = 0      # kernel launches, counted where the launch succeeds
 VARIANT_LAUNCHES = dict.fromkeys(VARIANTS, 0)  # the same, by variant
 BUILD_LOG = ""    # nvcc's output (ptxas registers and spills per variant)
@@ -194,10 +210,10 @@ def check_supported(scene: Scene, camera: Camera, config):
     missing = scene.unsupported()
     if textured(scene) and scene.sph_clusters:
         missing.append("a textured scene with sphere clusters (ROADMAP "
-                       "queue 2 item 1)")
+                       "queue 1 item 10)")
     if meshed(scene) and scene.sph_clusters:
-        missing.append("a mesh scene with sphere clusters (ROADMAP queue 2 "
-                       "item 2)")
+        missing.append("a mesh scene with sphere clusters (ROADMAP queue 1 "
+                       "item 10)")
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
 
@@ -223,22 +239,34 @@ def mesh_kind(scene: Scene) -> str:
     return kind + ("" if scene.has_mesh_uvs else "plain")
 
 
-def _schedule(scene: Scene, schedule):
-    """The sample schedule of a textured or mesh scene (None: its main
-    one, TEXTURED_SCHEDULE or MESH_SCHEDULE); None for any other scene,
-    which has one schedule (a feature scene: path regeneration)."""
-    if scene.featured:
-        if schedule not in (None, "regen"):
-            raise NotImplementedError(
-                f"the {schedule} schedule: feature scenes (fog, "
-                "transmission, bump or planar maps, brute meshes) run under "
-                "path regeneration only")
-        return None
+def _base(scene: Scene) -> str:
+    """The scene's base kind: ``textured``, a mesh kind, ``clustered`` or
+    ``brute``."""
     if textured(scene):
-        main = TEXTURED_SCHEDULE
-    elif meshed(scene):
-        main = MESH_SCHEDULE
-    else:
+        return "textured"
+    if meshed(scene):
+        return mesh_kind(scene)
+    return "clustered" if scene.sph_clusters else "brute"
+
+
+def _main_schedule(scene: Scene):
+    """The main sample schedule of the scene's variants: the textured or
+    mesh one for those bases, FEATURE_SCHEDULE for the feature form of
+    brute or clustered spheres; None for untextured spheres without
+    features, which have one schedule."""
+    base = _base(scene)
+    if base == "textured":
+        return TEXTURED_SCHEDULE
+    if base in MESH_KINDS:
+        return MESH_SCHEDULE
+    return FEATURE_SCHEDULE if scene.featured else None
+
+
+def _schedule(scene: Scene, schedule):
+    """The sample schedule the scene runs under (None: its main one);
+    None for a scene with one schedule."""
+    main = _main_schedule(scene)
+    if main is None:
         return None
     schedule = schedule or main
     if schedule not in _SCHED_CODE:
@@ -247,24 +275,23 @@ def _schedule(scene: Scene, schedule):
 
 
 def variant(scene: Scene, camera: Camera, schedule=None) -> str:
-    """The kernel variant that renders this scene through this camera (a
-    textured or mesh scene under ``schedule``, by default its main one)."""
-    lens = "_pinhole" if camera.use_pinhole else "_lens"
-    schedule = _schedule(scene, schedule)
+    """The kernel variant that renders this scene through this camera
+    under ``schedule`` (by default the scene's main one). A featured scene
+    takes its base's feature form: ``feature`` for brute spheres, else
+    ``feat`` + the base."""
+    base = _base(scene)
     if scene.featured:
-        return "feature" + lens
-    if schedule is None:
-        return ("clustered" if scene.sph_clusters else "brute") + lens
-    kind, main = (("textured", TEXTURED_SCHEDULE) if textured(scene)
-                  else (mesh_kind(scene), MESH_SCHEDULE))
-    name = kind + lens
-    if schedule != main:
+        base = "feature" if base == "brute" else "feat" + base
+    name = base + ("_pinhole" if camera.use_pinhole else "_lens")
+    schedule = _schedule(scene, schedule)
+    if schedule != _main_schedule(scene):
         name += "_" + schedule
     if name not in VARIANTS:
+        others = sorted({v.split("_")[0] for v in VARIANTS
+                         if v.count("_") == 2})
         raise NotImplementedError(
-            f"{name}: the {schedule} schedule is instantiated for the pinhole "
-            f"only (of the textured kernel and the mesh kinds "
-            f"{', '.join(MESH_OTHER_KINDS)})")
+            f"{name}: not instantiated (the other schedule runs the pinhole "
+            f"only, of {', '.join(others)})")
     return name
 
 
@@ -440,7 +467,7 @@ def render_chunk_cuda(scene: Scene, camera: Camera, config, key: int,
                           int(not camera.use_pinhole),
                           code if textured(scene) else 0,
                           code if meshed(scene) else 0,
-                          int(scene.featured),
+                          code if scene.featured else 0,
                           MESH_KINDS[mesh_kind(scene)] if meshed(scene) else 0,
                           ctypes.c_void_p(stream))
     if err != 0:
@@ -457,8 +484,8 @@ def render_chunk_cuda(scene: Scene, camera: Camera, config, key: int,
 def render_chunk_plain(scene: Scene, camera: Camera, config, key: int,
                        s0: int, n_samples: int, state):
     """The plain PyTorch version of :func:`render_chunk_cuda`, on whatever
-    device the tensors live: the lockstep loop for a textured scene under
-    the lockstep schedule, path regeneration otherwise."""
+    device the tensors live: the lockstep loop for a scene under the
+    lockstep schedule, path regeneration otherwise."""
     check_supported(scene, camera, config)
     variant(scene, camera, config.schedule)  # raises without an instantiation
     pixel_idx = torch.arange(config.width * config.height, device=state.device)

@@ -96,6 +96,14 @@ def mip_lod(scene: Scene, t: torch.Tensor, cos_theta_in: torch.Tensor,
     return lod
 
 
+def fog_flight(scene: Scene, u, t: torch.Tensor):
+    """The fog's free flight -ln(1 - u[5]) / sigma_t and whether it ends
+    before the hit at ``t`` (a scatter; sky hits, t = F32_MAX, always)."""
+    s_fl = sdiv(-torch.log(torch.clamp_min(1.0 - u[5], 1e-30)),
+                scene.fog_sigma_t)
+    return s_fl, s_fl < t
+
+
 def shade_bounce(scene: Scene, o: Vec3, d: Vec3, hit: Hit, u,
                  mip_scale: float = 0.0, uv=None) -> BounceOut:
     """Material fetch, estimator selection and BSDF weight for one bounce.
@@ -321,9 +329,7 @@ def shade_bounce(scene: Scene, o: Vec3, d: Vec3, hit: Hit, u,
         # o + d*s with the 50/50 phase / light-sample mixture, weight
         # albedo * phase / px; the surface's slots u[1..3] are reused
         g = scene.fog_g
-        s_fl = sdiv(-torch.log(torch.clamp_min(1.0 - u[5], 1e-30)),
-                    scene.fog_sigma_t)
-        vol = s_fl < hit.t
+        s_fl, vol = fog_flight(scene, u, hit.t)
         vp = o + d * s_fl
         use_phase = u[1] > 0.5
         ph_t = henyey_greenstein_sample(u[2], u[3], g)

@@ -5,8 +5,9 @@ with ``render/integrator.py::trace_fori``. For each sample in order, every
 pixel casts its primary ray (pinhole or thin lens, keyed as
 ``wavefront._primary_rays`` keys it), then all lanes run bounces 0 ..
 MAX_BOUNCE_COUNT-2 together under an alive mask, with Russian roulette
-from bounce 1 as in ``trace_fori``; the last bounce only adds emission
-(its shading could not continue the path, which is ``body_last``'s peel).
+from bounce 1 as in ``trace_fori``; the last bounce only adds emission,
+zeroed where the fog's free flight scatters, as ``shade_bounce``'s is (its
+shading could not continue the path, which is ``body_last``'s peel).
 Rays are counted per live lane, and the NaN-masked fold runs once per
 sample.
 
@@ -27,7 +28,7 @@ from ..scene.camera import Camera
 from ..scene.schema import MAX_BOUNCE_COUNT, Scene
 from ..utils import prng
 from ..utils.vec import Vec3, gather, hadamard, splat, where as vwhere
-from .integrator import russian_roulette, shade_bounce
+from .integrator import fog_flight, russian_roulette, shade_bounce
 from .wavefront import _primary_rays, intersect
 
 
@@ -44,11 +45,15 @@ def trace_lockstep(scene: Scene, o: Vec3, d: Vec3, pkeys: prng.PathStream,
     for b in range(MAX_BOUNCE_COUNT):
         casts += alive
         hit, uv = intersect(scene, o, d)
+        u = prng.bounce_uniforms(pkeys, b)
         if b == MAX_BOUNCE_COUNT - 1:
+            # shade_bounce's emission: zero where the fog's flight scatters
             emit = gather(scene.mat_emit, hit.mat.long())
+            if scene.fog_sigma_t > 0.0:
+                emit = vwhere(fog_flight(scene, u, hit.t)[1], Vec3(z, z, z),
+                              emit)
             return vwhere(alive, radiance + hadamard(throughput, emit),
                           radiance), casts
-        u = prng.bounce_uniforms(pkeys, b)
         out = shade_bounce(scene, o, d, hit, u, mip_scale=mip_scale, uv=uv)
         radiance = vwhere(alive, radiance + hadamard(throughput, out.emit),
                           radiance)

@@ -30,7 +30,8 @@ a triangle albedo binding) and by planar maps at the hit's world xy
 
 Fog is the static ``fog_sigma_t`` (0: none), ``fog_albedo`` and ``fog_g``
 (``WorldBuilder.set_fog``). A scene with fog, transmission, bump or planar
-maps or a brute-force mesh takes the feature path (``Scene.featured``).
+maps or a brute-force mesh takes the feature path (``Scene.featured``),
+whatever its spheres, texture set or mesh tier.
 
 A triangle mesh (``set_mesh``; UVs scaled to texel units there) is kept as
 ``tri_*`` tables and swept brute force up to ``clusters.CLUSTER_MIN``
@@ -347,7 +348,8 @@ class Scene:
     @property
     def featured(self) -> bool:
         """The scene needs the feature path: fog, transmission, bump maps,
-        planar maps or a brute-force mesh."""
+        planar maps or a brute-force mesh (on any base: brute or clustered
+        spheres, the combined texture set or a mesh tier)."""
         return bool(self.fog_sigma_t > 0.0 or self.any_transmissive
                     or self.any_bump or self.planar_maps or self.tri_brute)
 
@@ -365,17 +367,9 @@ class Scene:
             out.append("a streamed UV mesh whose largest cluster exceeds 128 "
                        "triangles (the row-parallel uv rows, ROADMAP queue 1 "
                        "item 10)")
-        if self.featured and (self.sph_clusters or self.tex_combined
-                              or self.n_tris > clusters.CLUSTER_MIN):
-            used = [name for name, on in (
-                ("fog", self.fog_sigma_t > 0.0),
-                ("transmission", self.any_transmissive),
-                ("bump maps", self.any_bump),
-                ("planar texture maps", self.planar_maps),
-                ("a brute-force mesh", self.tri_brute)) if on]
-            out.append(", ".join(used) + " together with sphere clusters, "
-                       "a combined texture set or a clustered mesh (the "
-                       "static or streamed tier) (ROADMAP queue 2 item 1)")
+        if self.tex_combined and self.n_textures and self.any_bump:
+            out.append("a bump map together with a combined texture set "
+                       "(XLA-only in JAX, ROADMAP queue 1 item 10)")
         if self.n_boxes:
             out.append("boxes (never populated by the reference worlds)")
         return out

@@ -338,3 +338,128 @@ def test_dma_tier_kernel_bit_equal_to_resident(cuda, monkeypatch, case):
         for a, b in zip(out[0].sum, st.sum):
             assert torch.equal(a, b)
         assert int(st.rays_cast) == int(out[0].rays_cast)
+
+
+FOG = dict(fog_sigma_t=0.0012, fog_albedo=(0.9, 0.9, 0.95), fog_g=0.5)
+
+
+@pytest.mark.parametrize("kind, pinhole, schedule, variant", [
+    (W1, True, None, "feattextured_pinhole"),
+    (W1, False, None, "feattextured_lens"),
+    (W1, True, "regen", "feattextured_pinhole_regen"),
+    (tschema.WORLD_BRDF_TEST, True, None, "featclustered_pinhole"),
+    (tschema.WORLD_BRDF_TEST, False, None, "featclustered_lens"),
+    (W4, True, None, "featclustered_lens"),
+    (tschema.WORLD_MESH_UV, True, None, "featmesh_pinhole"),
+    (tschema.WORLD_MESH_UV, False, None, "featmesh_lens"),
+    (tschema.WORLD_MESH_UV, True, "regen", "featmesh_pinhole_regen"),
+    (tschema.WORLD_CORNELL_QUAD, True, "lockstep",
+     "feature_pinhole_lockstep"),
+])
+def test_fog_base_kernels_match_plain(cuda, kind, pinhole, schedule,
+                                      variant):
+    """Worlds 1, 2, 4, 7 and 6 in the CLI's fog at 64x36 through the
+    feature forms of their bases (the combined set under lockstep, sphere
+    clusters, the streamed walk with UVs) and the yardstick schedules."""
+    _assert_verify_gates(*_pair(cuda, kind, 64, 36, 2, 4,
+                                use_pinhole=pinhole, statics=FOG,
+                                variant=variant, schedule=schedule))
+
+
+@pytest.mark.parametrize("case, pinhole, variant", [
+    ("tri784", True, "featstaticplain_pinhole"),
+    ("tri784", False, "featstaticplain_lens"),
+    ("uv736", True, "featstatic_pinhole"),
+    ("uv736", False, "featstatic_lens"),
+    ("tri1936", True, "featmeshplain_pinhole"),
+    ("tri1936", False, "featmeshplain_lens"),
+    ("dma1936", True, "featmeshgpplain_pinhole"),
+    ("dma1936", False, "featmeshgpplain_lens"),
+    ("dma1984uv", True, "featmeshgp_pinhole"),
+    ("dma1984uv", False, "featmeshgp_lens"),
+])
+def test_fog_mesh_tier_kernels_match_plain(cuda, monkeypatch, case, pinhole,
+                                           variant):
+    """Each mesh tier in fog at 64x36 through its feature form."""
+    from test_torch_meshes import mesh_scene
+    tris, uvs = _tier_scene(case, monkeypatch)
+    scene, cam = mesh_scene(tworlds, tris, uvs, 64, 36, pinhole=pinhole)
+    scene = dataclasses.replace(scene, **FOG).to(cuda)
+    assert cuda_backend.variant(scene, cam) == variant
+    cfg = trenderer.RenderConfig(64, 36, pp=2, seed=0)
+    k = cuda_backend.render_chunk_cuda(scene, cam, cfg, 0, 0, 4,
+                                       trenderer.init_accum(64 * 36, cuda))
+    p = cuda_backend.render_chunk_plain(scene, cam, cfg, 0, 0, 4,
+                                        trenderer.init_accum(64 * 36, cuda))
+    torch.cuda.synchronize()
+    _assert_verify_gates(cfg, k, p)
+
+
+def _maps_or_glass(case):
+    """(scene, camera params, world kind): world 2 or the 784-triangle
+    mesh with planar albedo and bump maps on the ground plane, or world 1
+    with its combined-set material as dispersive glass."""
+    import numpy as np
+    from test_torch_meshes import mesh_builder, tessellated_sphere
+    if case == "tri784 maps":
+        b, cp = mesh_builder(tworlds, tessellated_sphere(800))
+        kind = tschema.WORLD_MARIO
+    else:
+        kind = tschema.WORLD_BRDF_TEST if case == "w2 maps" else W1
+        b, cp = tworlds.build_world(kind)
+    if case.endswith("maps"):
+        m = b.materials[b.planes[0][2]]
+        m.albedo_idx = b.add_texture(tworlds._mesh_uv_demo_texture())
+        hf = np.repeat(np.random.RandomState(7).rand(8, 8, 1), 3, 2)
+        m.bump_idx = b.add_texture((np.round(hf * 255.0) / 255.0)
+                                   .astype(np.float32))
+        m.bump_scale = 0.5
+    else:
+        for m in b.materials:
+            if m.albedo_idx:
+                m.transmission, m.ior, m.dispersion = 1.0, 1.5, 0.05
+    return b.finalize(world_kind=kind, view_origin=cp.pos), cp
+
+
+@pytest.mark.parametrize("case, variant", [
+    ("w2 maps", "featclustered_pinhole"),
+    ("tri784 maps", "featstaticplain_pinhole"),
+    ("w1 glass", "feattextured_pinhole"),
+])
+def test_maps_and_glass_on_bases_match_plain(cuda, case, variant):
+    """Planar and bump maps on a clustered and a static-tier scene, and
+    dispersive glass on world 1's combined set (its K9 albedo weights the
+    dielectric lobe), at 64x36."""
+    from pathtracer_tpu_torch.scene.camera import define_camera
+    scene, cp = _maps_or_glass(case)
+    scene = scene.to(cuda)
+    cam = define_camera(cp.pos, cp.target, cp.fov, 64, 36)
+    assert cuda_backend.variant(scene, cam) == variant
+    cfg = trenderer.RenderConfig(64, 36, pp=2, seed=0)
+    k = cuda_backend.render_chunk_cuda(scene, cam, cfg, 0, 0, 4,
+                                       trenderer.init_accum(64 * 36, cuda))
+    p = cuda_backend.render_chunk_plain(scene, cam, cfg, 0, 0, 4,
+                                        trenderer.init_accum(64 * 36, cuda))
+    torch.cuda.synchronize()
+    _assert_verify_gates(cfg, k, p)
+
+
+@pytest.mark.parametrize("case", ["dma1936", "dma1984uv"])
+def test_fog_dma_tier_kernel_bit_equal_to_resident(cuda, monkeypatch, case):
+    """In fog too, the DMA tier's walk with and without its grandparents
+    renders bit-equal to the resident walk."""
+    from pathtracer_tpu_torch.scene import clusters as tclusters
+    from test_torch_meshes import mesh_scene
+    tris, uvs = _tier_scene(case, monkeypatch)
+    monkeypatch.setattr(tclusters, "STREAM_MAX", 1 << 20)
+    resident, cam = mesh_scene(tworlds, tris, uvs, 64, 36)
+    monkeypatch.setattr(tclusters, "STREAM_MAX", 1024)
+    gp, _ = mesh_scene(tworlds, tris, uvs, 64, 36)
+    assert gp.stream_gparents
+    cfg = trenderer.RenderConfig(64, 36, pp=2, seed=0)
+    out = [cuda_backend.render_chunk_cuda(
+        dataclasses.replace(s, **FOG).to(cuda), cam, cfg, 0, 0, 4,
+        trenderer.init_accum(64 * 36, cuda)) for s in (resident, gp)]
+    for a, b in zip(out[0].sum, out[1].sum):
+        assert torch.equal(a, b)
+    assert int(out[1].rays_cast) == int(out[0].rays_cast)

@@ -57,8 +57,9 @@ def test_imports_and_renders_without_jax(tmp_path):
 
 def test_cli_world5_raises_naming_its_item(tmp_path, monkeypatch):
     """World 5 renders through the CLI: without mario.glb its ground, sky
-    and sun. With a mesh of the static tier loaded (a stand-in for the
-    asset), fog is refused, naming the ROADMAP item that brings it."""
+    and sun, and with a mesh of the static tier loaded (a stand-in for the
+    asset) also in fog; the denoiser is refused, naming its ROADMAP
+    item."""
     from pathtracer_tpu_torch.cli import main
     out = tmp_path / "w5.bmp"
     assert main(["-w5", "-p1", "--size", "8x8", "--device", "cpu", "--out",
@@ -69,10 +70,13 @@ def test_cli_world5_raises_naming_its_item(tmp_path, monkeypatch):
     monkeypatch.setattr(tworlds, "load_glb_triangles", lambda path, b: (
         tris, np.full((len(tris),), b.add_material(albedo=(0.5, 0.5, 0.5)),
                       np.int32)))
+    assert main(["-w5", "-p1", "--size", "8x8", "--device", "cpu", "--fog",
+                 "0.01", "--out", str(out)]) == 0
+    assert out.stat().st_size == 58 + 8 * 8 * 4
     with pytest.raises(NotImplementedError,
-                       match="fog.*clustered mesh.*ROADMAP queue 2 item 1"):
+                       match="denoise.*ROADMAP queue 1 item 11"):
         main(["-w5", "-p1", "--size", "8x8", "--device", "cpu", "--fog",
-              "0.01", "--out", str(out)])
+              "0.01", "--denoise", "--out", str(out)])
 
 
 def test_render_image_cuda_without_card_raises():
@@ -101,9 +105,10 @@ def _textured_scene(w=8, h=8):
 
 
 def _unported_textured_scene():
-    """World 1 in fog: the combined set's kernel has no fog (ROADMAP)."""
+    """World 1 with a bump map on its combined set: XLA-only in JAX
+    (ROADMAP queue 1 item 10)."""
     scene, cam = tworlds.finalize_world(tschema.WORLD_DEFAULT, 8, 8)
-    return dataclasses.replace(scene, fog_sigma_t=0.01), cam
+    return dataclasses.replace(scene, any_bump=True), cam
 
 
 def test_cuda_wrapper_refuses_textured_scene(monkeypatch):
@@ -116,7 +121,7 @@ def test_cuda_wrapper_refuses_textured_scene(monkeypatch):
     monkeypatch.setattr(cuda_backend, "render_chunk_wavefront", plain)
     launches = cuda_backend.LAUNCHES
     with pytest.raises(NotImplementedError,
-                       match="fog.*combined texture set.*ROADMAP"):
+                       match="bump.*combined texture set.*ROADMAP"):
         cuda_backend.render_chunk_cuda(scene, cam,
                                        trenderer.RenderConfig(8, 8, pp=1),
                                        0, 0, 1, trenderer.init_accum(64))
@@ -131,7 +136,8 @@ def test_cuda_wrapper_refuses_textured_clustered_scene():
         scene, sph_clusters=w2.sph_clusters,
         **{k: getattr(w2, k) for k in ("cl_offset", "cl_count", "cl_min",
                                        "cl_max", "cl_huge")})
-    with pytest.raises(NotImplementedError, match="sphere clusters"):
+    with pytest.raises(NotImplementedError,
+                       match="sphere clusters.*ROADMAP queue 1 item 10"):
         cuda_backend.render_chunk_cuda(scene, cam,
                                        trenderer.RenderConfig(8, 8, pp=1),
                                        0, 0, 1, trenderer.init_accum(64))
@@ -151,7 +157,7 @@ def test_unported_configs_raise(cfg, match):
 def test_plain_version_refuses_textured_scene():
     scene, cam = _unported_textured_scene()
     with pytest.raises(NotImplementedError,
-                       match="fog.*combined texture set.*ROADMAP"):
+                       match="bump.*combined texture set.*ROADMAP"):
         trenderer.render_chunk(scene, cam, trenderer.RenderConfig(8, 8, pp=1),
                                0, 0, 1, trenderer.init_accum(64))
 
@@ -190,7 +196,12 @@ def test_cpu_wrapper_runs_plain_version():
 
 
 def _variant_scene(kind, pinhole):
-    """A world, or a feature scene by name, with its camera at 8x8."""
+    """A world, a world in fog ("w<n> fog") or a feature scene by name,
+    with its camera at 8x8."""
+    if isinstance(kind, str) and kind.endswith(" fog"):
+        scene, cam = tworlds.finalize_world(int(kind[1]) - 1, 8, 8,
+                                            use_pinhole=pinhole)
+        return dataclasses.replace(scene, fog_sigma_t=0.0012), cam
     if isinstance(kind, str):
         from pathtracer_tpu_torch.scene.camera import define_camera
         from pathtracer_tpu_torch.scene.feature_scenes import FEATURE_CASES
@@ -212,19 +223,30 @@ def _variant_scene(kind, pinhole):
     ("fog", True, "feature_pinhole"),
     ("everything", False, "feature_lens"),
     ("bump", True, "feature_pinhole"),
+    ("w1 fog", True, "feattextured_pinhole"),
+    ("w1 fog", False, "feattextured_lens"),
+    ("w2 fog", True, "featclustered_pinhole"),
+    ("w4 fog", True, "featclustered_lens"),
+    ("w7 fog", True, "featmesh_pinhole"),
+    ("w7 fog", False, "featmesh_lens"),
 ])
 def test_kernel_variant_by_scene_and_camera(kind, pinhole, want):
     """The wrapper picks the feature kernel from fog, transmission, bump or
-    planar maps or a brute-force mesh, the textured kernel from a combined
-    texture set, the mesh kernel from a streamed triangle mesh, the
-    clustered walk from the scene's clusters and the thin lens from the
-    camera (world 4 forces it); a feature scene has one schedule."""
+    planar maps or a brute-force mesh, on the base the scene has: the
+    textured kernel's from a combined texture set, the mesh kernel's from
+    a streamed triangle mesh, the clustered walk's from the scene's
+    clusters; and the thin lens from the camera (world 4 forces it). The
+    brute feature form runs path regeneration, with its pinhole also under
+    lockstep; the clustered one has no other schedule."""
     scene, cam = _variant_scene(kind, pinhole)
     assert cuda_backend.variant(scene, cam) == want
     assert want in cuda_backend.VARIANTS
-    if want.startswith("feature"):
+    if want == "feature_pinhole":
         assert cuda_backend.variant(scene, cam, "regen") == want
-        with pytest.raises(NotImplementedError, match="regeneration only"):
+        assert cuda_backend.variant(scene, cam, "lockstep") == (
+            "feature_pinhole_lockstep")
+    elif want.startswith(("feature", "featclustered")):
+        with pytest.raises(NotImplementedError, match="pinhole only"):
             cuda_backend.variant(scene, cam, "lockstep")
 
 

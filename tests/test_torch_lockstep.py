@@ -96,6 +96,28 @@ def test_lockstep_equals_regen_twin(case):
            int(b.rays_cast))
 
 
+@pytest.mark.parametrize("rr", [False, True])
+def test_lockstep_equals_regen_in_fog(rr):
+    """World 3 in a fog where last-bounce scatters are common: the lockstep
+    loop's peeled last bounce adds shade_bounce's emission, zeroed where
+    the fog's free flight scatters, so both plain loops accumulate the
+    same sums (both draw the same numbers per pixel, sample and bounce)."""
+    ts, cam = tworlds.finalize_world(tschema.WORLD_CORNELL_BOX, W, H)
+    ts = dataclasses.replace(ts, fog_sigma_t=0.01,
+                             fog_albedo=(0.9, 0.9, 0.95), fog_g=0.5)
+    cfg = trenderer.RenderConfig(W, H, pp=2, seed=1, use_russian_roulette=rr)
+    pix = torch.arange(W * H)
+    a = lockstep.render_chunk_lockstep(ts, cam, cfg, 1, 0, 4,
+                                       trenderer.init_accum(W * H), pix)
+    b = wavefront.render_chunk_wavefront(ts, cam, cfg, 1, 0, 4,
+                                         trenderer.init_accum(W * H), pix)
+    for x, y in zip(a.sum + a.sum_sq, b.sum + b.sum_sq):
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-7)
+    assert torch.equal(a.count, b.count)
+    assert int(a.rays_cast) == int(b.rays_cast) > W * H * 4
+    assert float(a.sum[0].max()) > 0.0
+
+
 def test_render_chunk_uses_lockstep_for_world1(monkeypatch):
     """On CPU tensors a combined-set scene runs the lockstep loop, an
     untextured one the regeneration loop."""

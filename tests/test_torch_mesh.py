@@ -260,9 +260,9 @@ def _plain_mesh_builder(n):
 ])
 def test_unported_mesh_tiers_raise(n, match):
     """A mesh without UVs of either tier is ported (the brute sweep K4t in
-    the feature kernel, the static tier's K5 triangle walk in its own);
-    what stays unported raises: the brute mesh with a combined texture set,
-    the static tier in fog (ROADMAP items named)."""
+    the feature kernel, the static tier's K5 triangle walk in its own), in
+    fog too (the feature forms); what stays unported raises: either mesh
+    with a combined texture set (ROADMAP queue 1 item 10)."""
     ts = _plain_mesh_builder(n).finalize()
     assert not ts.tri_streamed and ts.unsupported() == []
     assert ts.tri_brute == (match == "K4t")
@@ -271,23 +271,25 @@ def test_unported_mesh_tiers_raise(n, match):
     cam = tworlds.finalize_world(W7, 8, 8)[1]
     assert cuda_backend.variant(ts, cam) == {
         "K4t": "feature_pinhole", "K5's triangle": "staticplain_pinhole"}[match]
-    if match == "K4t":
-        w1, _ = tworlds.finalize_world(tschema.WORLD_DEFAULT, 8, 8)
-        bad = dataclasses.replace(
-            ts, n_textures=4, tex_combined=True,
-            **{k: getattr(w1, k) for k in ("tex_tile", "tex_comb_a",
-                                           "tex_comb_b", "tex_mip")})
-        want = "combined texture set"
-    else:
-        bad = dataclasses.replace(ts, fog_sigma_t=0.01)
-        want = "clustered mesh"
-    assert any(want in m and "ROADMAP" in m for m in bad.unsupported())
+    fog = dataclasses.replace(ts, fog_sigma_t=0.01)
+    assert fog.unsupported() == []
+    assert cuda_backend.variant(fog, cam) == {
+        "K4t": "feature_pinhole",
+        "K5's triangle": "featstaticplain_pinhole"}[match]
+    w1, _ = tworlds.finalize_world(tschema.WORLD_DEFAULT, 8, 8)
+    bad = dataclasses.replace(
+        fog, n_textures=4, tex_combined=True,
+        **{k: getattr(w1, k) for k in ("tex_tile", "tex_comb_a",
+                                       "tex_comb_b", "tex_mip")})
+    assert any("combined texture set" in m and "ROADMAP queue 1 item 10" in m
+               for m in bad.unsupported())
 
 
 def test_mesh_without_uvs_and_dma_tier_raise():
     """The streamed tier without UVs and the DMA tier are ported (the walk
-    runs without the uv rows, world 7 with tri_dma set is a plain flag);
-    a streamed mesh with sphere clusters or in fog still raises."""
+    runs without the uv rows, world 7 with tri_dma set is a plain flag),
+    in fog too (the feature form); a streamed mesh with sphere clusters
+    still raises."""
     ts = _plain_mesh_builder(1100).finalize()
     assert ts.tri_streamed and not ts.has_mesh_uvs
     assert ts.unsupported() == []
@@ -302,14 +304,17 @@ def test_mesh_without_uvs_and_dma_tier_raise():
     b_ = tint.intersect_scene_uv(w7, TVec3(z, z, z + 1.4),
                                  TVec3(z + 1.0, z, z))
     assert torch.equal(a[0].t, b_[0].t) and bool(a[3].all())
-    assert any("ROADMAP" in m for m in dataclasses.replace(
-        ts, fog_sigma_t=0.01).unsupported())
+    fog = dataclasses.replace(ts, fog_sigma_t=0.01)
+    assert fog.unsupported() == []
     from pathtracer_tpu_torch.render import cuda_backend
+    assert cuda_backend.variant(fog, cam) == "featmeshplain_pinhole"
+    assert cuda_backend.variant(dataclasses.replace(
+        dma, fog_sigma_t=0.01), cam) == "featmesh_pinhole"
     from pathtracer_tpu_torch.render import renderer as trenderer
     w2, _ = tworlds.finalize_world(tschema.WORLD_BRDF_TEST, 8, 8)
     both = dataclasses.replace(
         ts, sph_clusters=w2.sph_clusters,
         **{k: getattr(w2, k) for k in ("cl_offset", "cl_count", "cl_min",
                                        "cl_max", "cl_huge")})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
         cuda_backend.check_supported(both, cam, trenderer.RenderConfig(8, 8))

@@ -213,19 +213,20 @@ def test_tie_goes_to_the_lower_record():
 
 
 def test_mesh_refusals():
-    """What stays unported raises, naming its ROADMAP item: a clustered
-    mesh in fog, a mesh with sphere clusters, a mesh with a combined
-    texture set."""
+    """A clustered mesh in fog is ported (the static tier's feature form);
+    what stays unported raises, naming its ROADMAP item: a mesh with
+    sphere clusters, a mesh with a combined texture set."""
     ts, cam = mesh_scene(tworlds, tessellated_sphere(800))
     fog = dataclasses.replace(ts, fog_sigma_t=0.01)
-    assert any("clustered mesh" in m and "ROADMAP queue 2 item 1" in m
-               for m in fog.unsupported())
+    assert fog.unsupported() == []
+    assert cuda_backend.variant(fog, cam) == "featstaticplain_pinhole"
     w2, _ = tworlds.finalize_world(tschema.WORLD_BRDF_TEST, 8, 8)
     both = dataclasses.replace(
         ts, sph_clusters=w2.sph_clusters,
         **{k: getattr(w2, k) for k in ("cl_offset", "cl_count", "cl_min",
                                        "cl_max", "cl_huge")})
-    with pytest.raises(NotImplementedError, match="sphere clusters"):
+    with pytest.raises(NotImplementedError,
+                       match="sphere clusters.*ROADMAP queue 1 item 10"):
         cuda_backend.check_supported(both, cam, trenderer.RenderConfig(8, 8))
     w1, _ = tworlds.finalize_world(tschema.WORLD_DEFAULT, 8, 8)
     comb = dataclasses.replace(

@@ -91,22 +91,36 @@ def test_map_flags_reach_the_scene(flags):
 
 def test_non_combined_textures_stay_unported():
     """A planar map outside the combined set takes the feature path (K10's
-    planar form); with sphere clusters it has no kernel and stays
-    unported, naming its ROADMAP item."""
-    b = tschema.WorldBuilder()
-    b.add_material(emit=(1.0, 1.0, 1.0))
-    m = b.add_material(albedo_idx=1)
-    b.add_sphere((0.0, 0.0, 0.0), 1.0, m)
-    b.add_texture(np.full((8, 8, 3), 0.5, np.float32))
-    scene = b.finalize()
-    assert scene.n_textures == 1 and not scene.tex_combined
-    assert scene.planar_maps and scene.unsupported() == []
-    for i in range(80):
-        b.add_sphere((3.0 * (i % 9), 3.0 * (i // 9), 0.0), 1.0, m)
-    scene = b.finalize()
-    assert scene.sph_clusters
-    assert any("planar texture maps" in m and "sphere clusters" in m
-               and "ROADMAP" in m for m in scene.unsupported())
+    planar form), with sphere clusters too (their feature form); a
+    combined set with sphere clusters has no kernel and stays unported,
+    naming its ROADMAP item."""
+    from pathtracer_tpu_torch.render import cuda_backend
+    from pathtracer_tpu_torch.render.renderer import RenderConfig
+    from pathtracer_tpu_torch.scene.camera import define_camera
+    cam = define_camera((0.0, -10.0, 1.0), (0.0, 0.0, 0.0), 45.0, 8, 8)
+    for idx in ((1, 0, 0, 0), (1, 2, 3, 4)):
+        b = tschema.WorldBuilder()
+        b.add_material(emit=(1.0, 1.0, 1.0))
+        m = b.add_material(albedo_idx=idx[0], metalness_idx=idx[1],
+                           roughness_idx=idx[2], normal_idx=idx[3])
+        b.add_sphere((0.0, 0.0, 0.0), 1.0, m)
+        for _ in range(max(idx)):
+            b.add_texture(np.full((8, 8, 3), 0.5, np.float32))
+        scene = b.finalize()
+        if max(idx) == 1:
+            assert scene.n_textures == 1 and not scene.tex_combined
+            assert scene.planar_maps and scene.unsupported() == []
+        for i in range(80):
+            b.add_sphere((3.0 * (i % 9), 3.0 * (i // 9), 0.0), 1.0, m)
+        scene = b.finalize()
+        assert scene.sph_clusters and scene.unsupported() == []
+        if max(idx) == 1:
+            assert cuda_backend.variant(scene, cam) == "featclustered_pinhole"
+            continue
+        assert scene.tex_combined
+        with pytest.raises(NotImplementedError,
+                           match="sphere clusters.*ROADMAP queue 1 item 10"):
+            cuda_backend.check_supported(scene, cam, RenderConfig(8, 8))
 
 
 def _channels(out):
