@@ -5,7 +5,7 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and no network,
 and it imports nothing of JAX.
 
-The render kernel csrc/wave_kernel.cu has forty-two compile-time
+The render kernel csrc/wave_kernel.cu has fifty-five compile-time
 variants (cuda_backend.VARIANTS), instantiations of one template in one
 build:
 untextured, the brute sphere sweep or the clustered walk (K5/K6), each with
@@ -29,7 +29,11 @@ each of the other bases, as "feat" + the base's name: sphere clusters
 pinhole under regen) and every mesh tier (featmesh ... featstaticplain,
 lockstep, with featmesh's pinhole under regen); and the brute feature
 form's pinhole also runs under lockstep (feature_pinhole_lockstep), each
-yardstick of its schedule.
+yardstick of its schedule. Where two bases meet, the mixed variants
+(cuda_backend.MIXED_VARIANTS, named by their parts joined with "+": sphere
+clusters with the combined set, with each mesh tier, or with both, and the
+combined set with each tier without UVs) carry the feature bounce under
+lockstep and pick the camera at run time, one instantiation per base.
 
 The mesh cases stand in for world 5's mario.glb, which is not in the
 repository: world 5's builder without its asset (ground plane, sun, sky,
@@ -38,15 +42,21 @@ tessellated_sphere, a copy here) of 40 triangles without UVs (K4t), 784
 (Mario's tier and size: the static tier), 19,600 (the resident streamed
 tier) and 262,144 (the DMA tier with grandparents), or world 7's UV sphere
 with its checker at 736 triangles (the static tier with UVs) and 99,840
-(the DMA tier with UVs and grandparents).
+(the DMA tier with UVs and grandparents). The mixed cases (MIXED_CASES,
+built by scene/mixed_scenes.py) put those meshes, and world 7's UV sphere
+at 1472 triangles, above world 2's clustered spheres (with world 1's
+combined ground material on its plane where the variant names
+"textured") or beside world 1's spheres, some with dispersive glass or
+planar maps.
 
 Phases (each prints its measured values on its own line; any failure raises
 and the script exits non-zero):
   1. device: the card's name and power limit;
-  2. build: compiles csrc/wave_kernel.cu (one nvcc), prints the seconds,
+  2. build: compiles csrc/wave_kernel.cu (one nvcc per build part, all
+     started together, and a link), prints the seconds,
      ptxas's registers and spills for each variant (and whether the
-     twenty-three earlier variants kept the values they were built at
-     before the feature forms came, EARLIER_PTXAS) and, from cuobjdump, the
+     forty-two earlier variants kept the values they were built at
+     before the mixed variants came, EARLIER_PTXAS) and, from cuobjdump, the
      count of BSSY/BSYNC/WARPSYNC instructions in each variant's SASS
      (``--sass DIR`` also writes the full SASS there);
   3. kernel vs plain: render_chunk on CUDA tensors (the kernel) against
@@ -58,8 +68,9 @@ and the script exits non-zero):
      schedules, with -d, --mips, --tbn and -nmr; world 7 at 256x144 4 spp
      under both schedules and with -d; every main path of phase 4 at its
      own 1280x720 and spp (world 7's default command, 16 spp, at 4); world
-     4 at pp=4 (16 spp, the CLI's default) and at pp=12 over samples 12-23,
-     which together reach all 12 slots of the kernel's Poisson-disk table;
+     4 at 256x144 at pp=4 (16 spp, the CLI's default) and at pp=12 over
+     samples 12-23, which together reach all 12 slots of the kernel's
+     Poisson-disk table;
      the five feature scenes (scene/feature_scenes.py) at 256x144 and
      1280x720, 4 spp (everything also through the thin lens), the CLI's fog
      on world 6 and on world 3 with -d, and world 1 with three planar
@@ -73,8 +84,13 @@ and the script exits non-zero):
      and 6 (lockstep) in the CLI's fog, world 1's combined-set material and
      world 2's spheres as dispersive glass, planar albedo and bump maps on
      world 2 and on the 784-triangle case, every mesh case in fog through
-     both cameras; and the two DMA meshes in fog bit-equal to their
-     resident twins;
+     both cameras; the two DMA meshes in fog bit-equal to their
+     resident twins; and every mixed case at 256x144 (pinhole without
+     features, thin lens in the CLI's fog) and 1280x720 (thin lens
+     without features, pinhole in fog), 4 spp: every mixed variant, the
+     combined set with the 40-triangle mesh alone and beside clusters,
+     dispersive glass on clusters, the combined set and the 784-triangle
+     mesh, and planar albedo and bump maps beside clusters and that mesh;
   4. main paths, each through the entry point a user calls, at 1280x720
      with the launch counts set to 0 just before it and read just after:
      a. the Cornell box (-w3), 1 sample, seed 0, against the committed CPU
@@ -108,6 +124,8 @@ and the script exits non-zero):
      k. render_image, 4 spp, on every other new variant's case: worlds 1
         and 7 in fog through the thin lens and the other schedule, world 6
         in fog under lockstep, the mesh cases in fog through both cameras;
+     l. render_image, 4 spp in one chunk, on every mixed case: one launch
+        of its own variant;
   5. timing (CUDA events, synchronised; no speed gate): every variant and
      its plain version at 1280x720 4 spp; world 3 at 256 spp and world 1
      at 16 spp, kernel alone and end to end through render_image; worlds
@@ -122,7 +140,8 @@ and the script exits non-zero):
      at 64 spp, with rays per sample and the host seconds of finalize;
      every feature form on another base at 4 spp with its plain version,
      and worlds 1, 7 and 6 in fog at 64 spp under both schedules,
-     alternating;
+     alternating; every mixed variant at 4 spp with its plain version and
+     its case's host seconds of finalize;
   6. bounds: the least time the card could take for each variant's 4-spp
      launch, from FP32 operations counted off the kernel's code and the
      bytes it must move (accumulators; for worlds 1 and 7 also the texture
@@ -145,7 +164,8 @@ and the script exits non-zero):
      kernel thread evaluates them: opaque and dielectric shades, fog
      scatters, planar, height, mesh-UV and combined-set fetches; every
      ray's triangle tests and fog flight; on the other bases with the
-     base's walk counted as its own rows count it.
+     base's walk counted as its own rows count it; for the mixed variants
+     the same tallies and both walks' tests in one pass (mixed_counts).
 
 The last two lines are the kernel table as JSON and the result line
 {"ok": true, "device": {...}}.
@@ -243,9 +263,9 @@ def nvidia_smi() -> str:
 
 KERNEL_RE = (r"wave_kernelILb([01])ELb([01])ELi([0-9])ELi([0-9])ELi([0-9])"
              r"ELi([0-9])E")
-# ptxas's registers and spill bytes of the twenty-three variants as they
-# were built before the feature bounce came to the other bases (phase 2 on
-# the H100, PERF.md's findings)
+# ptxas's registers and spill bytes of the forty-two variants as they
+# were built before the mixed bases came (phase 2 on the H100, PERF.md's
+# findings)
 EARLIER_PTXAS = {"brute_pinhole": (64, 0), "brute_lens": (72, 16),
                  "clustered_pinhole": (64, 0), "clustered_lens": (64, 16),
                  "textured_pinhole": (64, 68), "textured_lens": (64, 60),
@@ -258,7 +278,23 @@ EARLIER_PTXAS = {"brute_pinhole": (64, 0), "brute_lens": (72, 16),
                  "meshgpplain_lens": (40, 228), "static_pinhole": (64, 60),
                  "static_lens": (64, 44), "staticplain_pinhole": (64, 28),
                  "staticplain_lens": (64, 28),
-                 "staticplain_pinhole_regen": (79, 0)}
+                 "staticplain_pinhole_regen": (79, 0),
+                 "featclustered_lens": (72, 16),
+                 "featclustered_pinhole": (72, 32), "featmesh_lens": (64, 96),
+                 "featmesh_pinhole": (64, 100),
+                 "featmesh_pinhole_regen": (64, 136),
+                 "featmeshgp_lens": (48, 212), "featmeshgp_pinhole": (56, 140),
+                 "featmeshgpplain_lens": (48, 192),
+                 "featmeshgpplain_pinhole": (56, 144),
+                 "featmeshplain_lens": (56, 136),
+                 "featmeshplain_pinhole": (56, 140),
+                 "featstatic_lens": (72, 44), "featstatic_pinhole": (64, 100),
+                 "featstaticplain_lens": (72, 12),
+                 "featstaticplain_pinhole": (72, 12),
+                 "feattextured_lens": (80, 44),
+                 "feattextured_pinhole": (80, 44),
+                 "feattextured_pinhole_regen": (92, 0),
+                 "feature_pinhole_lockstep": (72, 28)}
 
 
 def variant_of(mangled: re.Match) -> str:
@@ -268,10 +304,15 @@ def variant_of(mangled: re.Match) -> str:
     clustered, lens, tex, mesh, feat, tri = mangled.groups()
     end = "_lens" if lens == "1" else "_pinhole"
     spheres = "clustered" if clustered == "1" else "brute"
+    kinds = {v: k for k, v in cb.MESH_KINDS.items()}
+    parts = ((["clustered"] if clustered == "1" else [])
+             + (["textured"] if tex != "0" else [])
+             + ([kinds[int(tri)]] if mesh != "0" else []))
+    if len(parts) > 1:  # a mixed base: one instantiation, either camera
+        return "+".join(parts)
     if tex != "0":
         kind, code, main = "textured", tex, cb.TEXTURED_SCHEDULE
     elif mesh != "0":
-        kinds = {v: k for k, v in cb.MESH_KINDS.items()}
         kind, code, main = kinds[int(tri)], mesh, cb.MESH_SCHEDULE
     elif feat != "0":
         kind, code, main = spheres, feat, cb.FEATURE_SCHEDULE
@@ -321,6 +362,38 @@ def sass_report(lib_path, dump_dir=None) -> dict:
     return out
 
 
+def cluster_tally(sc, o, d, m, tally):
+    """Adds the slab and sphere tests of the kernel's clustered walk over
+    the rays ``m`` of (o, d) to ``tally``: the huge cluster always, a leaf
+    only where ray_slab_entry says the ray enters its box before its
+    nearest hit so far."""
+    import torch
+    from pathtracer_tpu_torch.ops.intersect import _sphere_t, ray_slab_entry
+    from pathtracer_tpu_torch.utils.vec import Vec3
+    far = 3.4028234663852886e38
+    rows = torch.nonzero(m).reshape(-1)
+    for r0 in range(0, rows.numel(), 1 << 18):  # bounded (rays, spheres)
+        idx = rows[r0:r0 + (1 << 18)]
+        lo, ld = Vec3(*(c[idx] for c in o)), Vec3(*(c[idx] for c in d))
+        t_run = torch.full_like(lo.x, far)
+        for off, cnt, mn, mx in sc.sph_clusters:
+            hot = torch.ones_like(lo.x, dtype=torch.bool)
+            if mn is not None:
+                t_enter, hb = ray_slab_entry(lo, ld, mn, mx)
+                tally["slabs"] += lo.x.numel()
+                hot = hb & (t_enter < t_run)
+            tally["spheres"] += cnt * int(hot.sum())
+            # the cluster's nearest hit, all its spheres at once: the same
+            # value as the kernel's in-order strict-< carry
+            t, hit, _ = _sphere_t(
+                Vec3(*(c[:, None] for c in lo)),
+                Vec3(*(c[:, None] for c in ld)),
+                Vec3(*(v[off:off + cnt] for v in sc.csph_center)),
+                sc.csph_radius[off:off + cnt])
+            t = torch.where(hit, t, far).amin(dim=1)
+            t_run = torch.where(hot & (t < t_run), t, t_run)
+
+
 def walk_tests(scene, cam, cfg, n_samples, dev):
     """(rays, mean slab tests, mean sphere tests per ray) of the kernel's
     clustered walk over every ray of samples 0 .. n_samples-1 of ``cfg``.
@@ -329,11 +402,8 @@ def walk_tests(scene, cam, cfg, n_samples, dev):
     intersect_scene and walked per ray, as a kernel thread walks it: the
     huge cluster always, a leaf only where ray_slab_entry says the ray
     enters its box before its nearest hit so far."""
-    import torch
-    from pathtracer_tpu_torch.ops.intersect import ray_slab_entry, ray_sphere
     from pathtracer_tpu_torch.render import cuda_backend as cb, wavefront
     from pathtracer_tpu_torch.render.renderer import init_accum
-    from pathtracer_tpu_torch.utils.vec import Vec3
 
     tally = {"rays": 0, "slabs": 0, "spheres": 0}
     live = {}
@@ -344,21 +414,8 @@ def walk_tests(scene, cam, cfg, n_samples, dev):
         return primary(camera, config, key, pixel_idx, s)
 
     def intersect_caught(sc, o, d):
-        m = live["mask"]
-        lo, ld = Vec3(*(c[m] for c in o)), Vec3(*(c[m] for c in d))
-        t_run = torch.full_like(lo.x, 3.4028234663852886e38)
-        tally["rays"] += lo.x.numel()
-        for off, cnt, mn, mx in sc.sph_clusters:
-            hot = torch.ones_like(lo.x, dtype=torch.bool)
-            if mn is not None:
-                t_enter, hb = ray_slab_entry(lo, ld, mn, mx)
-                tally["slabs"] += lo.x.numel()
-                hot = hb & (t_enter < t_run)
-            tally["spheres"] += cnt * int(hot.sum())
-            for i in range(off, off + cnt):
-                c = Vec3(*(v[i] for v in sc.csph_center))
-                t, hit, _ = ray_sphere(lo, ld, c, sc.csph_radius[i])
-                t_run = torch.where(hot & hit & (t < t_run), t, t_run)
+        tally["rays"] += int(live["mask"].sum())
+        cluster_tally(sc, o, d, live["mask"], tally)
         return intersect(sc, o, d)
 
     wavefront._primary_rays = primary_caught
@@ -401,6 +458,26 @@ def tex_fetches(scene, cam, cfg, n_samples, dev):
     return int(st.rays_cast), tally["fetches"]
 
 
+def mesh_tally(sc, o, d, m, tally):
+    """Adds the mesh walk's box tests, triangle tests and triangle wins over
+    the rays ``m`` of (o, d) to ``tally``, each ray walked again after its
+    nearest sphere, quad or plane: the static tier by its own walk, which
+    is the kernel's, a streamed tier against the ray's final nearest hit."""
+    import torch
+    from pathtracer_tpu_torch.ops import intersect as isect
+    from pathtracer_tpu_torch.utils.vec import Vec3
+    for lo in range(0, int(m.sum()), isect._STREAM_RAY_CHUNK):
+        idx = torch.nonzero(m).reshape(-1)[lo:lo + isect._STREAM_RAY_CHUNK]
+        ro, rd = Vec3(*(c[idx] for c in o)), Vec3(*(c[idx] for c in d))
+        best = isect._non_triangles(sc, ro, rd)
+        static = not sc.tri_streamed
+        h, _, _, won = isect.intersect_triangles(
+            sc, ro, rd, best, tally=tally if static else None)
+        if not static:
+            isect._stream_rows(sc, ro, isect._slab_inverse(rd), h.t, tally)
+        tally["wins"] += int(won.sum())
+
+
 def mesh_counts(scene, cam, cfg, n_samples, dev):
     """Per-ray means of a mesh variant's box tests (grandparents, parents,
     clusters and rows, or the static tier's clusters), triangle tests and
@@ -415,10 +492,8 @@ def mesh_counts(scene, cam, cfg, n_samples, dev):
     winner is a UV triangle with an albedo map and whose path continues
     counts a fetch."""
     import torch
-    from pathtracer_tpu_torch.ops import intersect as isect
     from pathtracer_tpu_torch.render import wavefront
     from pathtracer_tpu_torch.render.renderer import init_accum
-    from pathtracer_tpu_torch.utils.vec import Vec3
 
     tally = dict.fromkeys(("rays", "boxes", "tris", "wins", "fetches"), 0)
     live = {}
@@ -430,24 +505,10 @@ def mesh_counts(scene, cam, cfg, n_samples, dev):
         live["mask"] = s < n_samples  # lanes with samples left (s0 = 0)
         return primary(camera, config, key, pixel_idx, s)
 
-    def count(sc, o, d):
-        m = live["mask"]
-        for lo in range(0, int(m.sum()), isect._STREAM_RAY_CHUNK):
-            idx = torch.nonzero(m).reshape(-1)[lo:lo
-                                                + isect._STREAM_RAY_CHUNK]
-            ro, rd = Vec3(*(c[idx] for c in o)), Vec3(*(c[idx] for c in d))
-            best = isect._non_triangles(sc, ro, rd)
-            tally["rays"] += idx.numel()
-            static = not sc.tri_streamed
-            h, _, _, won = isect.intersect_triangles(
-                sc, ro, rd, best, tally=tally if static else None)
-            if not static:
-                isect._stream_rows(sc, ro, isect._slab_inverse(rd), h.t, tally)
-            tally["wins"] += int(won.sum())
-
     def caught(name):
         def walk(sc, o, d):
-            count(sc, o, d)
+            tally["rays"] += int(live["mask"].sum())
+            mesh_tally(sc, o, d, live["mask"], tally)
             return walks[name](sc, o, d)
         return walk
 
@@ -495,10 +556,10 @@ def lat_long_sphere(nlat, nlon, radius=1.0, center=(0.0, 0.0, 1.0)):
                     2).reshape(-1, 3, 3)
 
 
-def tessellated_sphere(n_target):
+def tessellated_sphere(n_target, radius=1.0, center=(0.0, 0.0, 1.0)):
     """accel_crossover's tessellated_sphere: 4 * nlat^2 triangles."""
     nlat = max(4, int(np.sqrt(n_target / 4.0)))
-    return lat_long_sphere(nlat, 2 * nlat)
+    return lat_long_sphere(nlat, 2 * nlat, radius, center)
 
 
 MESH_CASES = {  # tag -> (triangles without UVs, or UV-sphere segments/rings)
@@ -509,6 +570,120 @@ MESH_CASES = {  # tag -> (triangles without UVs, or UV-sphere segments/rings)
     "tri262144": (lambda: tessellated_sphere(262144), None),
     "uv99840": (None, (256, 196)),
 }
+
+# The mixed bases' cases (scene/mixed_scenes.py): case -> (mesh case or
+# None, mixed_builder's options). A case named by a variant renders through
+# it; "textured+brute" (the combined set with a brute mesh) through
+# feattextured, "clustered+textured+brute" through clustered+textured's
+# K4t sweep, and a case with a second word through its first word's
+# variant, with a feature: dispersive glass on every seventh sphere and the
+# mesh, or planar albedo and bump maps on the ground. A "textured+" case's
+# scene is world 1 (the combined set, no clusters) with the mesh beside
+# its spheres; every other is world 2 (its 11x11 spheres in clusters),
+# with world 1's combined ground material on its plane where the variant
+# names "textured", and the mesh above its grid. The meshes are the mesh
+# cases' (and world 7's UV sphere at 1472 triangles, the streamed tier
+# with UVs), moved there.
+MIXED_MESHES = {**MESH_CASES, "uv1472": (None, (32, 24))}
+MIXED_CASES = {
+    "clustered+textured": (None, {}),
+    "textured+staticplain": ("tri784", {}),
+    "textured+meshplain": ("tri19600", {}),
+    "textured+meshgpplain": ("tri262144", {}),
+    "clustered+mesh": ("uv1472", {}),
+    "clustered+meshplain": ("tri19600", {}),
+    "clustered+meshgp": ("uv99840", {}),
+    "clustered+meshgpplain": ("tri262144", {}),
+    "clustered+static": ("uv736", {}),
+    "clustered+staticplain": ("tri784", {}),
+    "clustered+textured+meshplain": ("tri19600", {}),
+    "clustered+textured+meshgpplain": ("tri262144",
+                                       {"mesh_material": "ground"}),
+    "clustered+textured+staticplain": ("tri784", {"mesh_material": "ground"}),
+    "textured+brute": ("tri40", {}),
+    "clustered+textured+brute": ("tri40", {}),
+    "clustered+textured+staticplain glass": ("tri784", {"glass": True}),
+    "clustered+staticplain maps": ("tri784", {"maps": True}),
+}
+
+
+def mixed_variant(case):
+    """The variant a mixed case renders through (MIXED_CASES)."""
+    var = case.split(" ")[0]
+    return {"textured+brute": "feattextured_",
+            "clustered+textured+brute": "clustered+textured"}.get(var, var)
+
+
+def mixed_builder(case):
+    """The builder, camera parameters and world kind of a mixed case
+    (MIXED_CASES), through scene/mixed_scenes.py with the case's mesh
+    generated about its place."""
+    from pathtracer_tpu_torch.scene import mixed_scenes, worlds
+    from pathtracer_tpu_torch.scene.schema import WORLD_BRDF_TEST, WORLD_DEFAULT
+    mesh, opts = MIXED_CASES[case]
+    world = WORLD_DEFAULT if case.startswith("textured+") else WORLD_BRDF_TEST
+    if mesh is not None:
+        (center, radius), (gen, seg) = (mixed_scenes.MESH_AT[world],
+                                        MIXED_MESHES[mesh])
+        if seg is None:  # the lat-long sphere about (0, 0, 1), radius 1
+            tris = ((gen() - np.float32([0.0, 0.0, 1.0])) * np.float32(radius)
+                    + np.float32(center))
+            mesh = (tris, None)
+        else:
+            pts, uvs = worlds._uv_sphere_mesh(center, radius, n_seg=seg[0],
+                                              n_ring=seg[1])
+            mesh = (pts.reshape(-1, 3, 3), uvs)
+    b, cp = mixed_scenes.mixed_builder(
+        world=world, combined="textured" in case, mesh=mesh, **opts)
+    return b, cp, world
+
+
+FEATURE_KEYS = ("rays", "opaque", "refract", "scatter", "planar", "planar_x",
+                "bump", "uv_fetch", "tex_fetch")
+
+
+def feature_tally(sc, hit, u, uv, out, act, bounce, tally):
+    """Adds what the feature bounce evaluates for the lanes ``act`` of one
+    bounce to ``tally`` (see feature_counts)."""
+    import torch
+    from pathtracer_tpu_torch.scene.schema import MAX_BOUNCE_COUNT
+    from pathtracer_tpu_torch.utils.vec import sdiv
+    m = hit.mat.long()
+    tally["rays"] += int(act.sum())
+    below = act & (bounce < MAX_BOUNCE_COUNT - 1)
+    em = [c[m] for c in sc.mat_emit]
+    surface = (hit.mat != 0) & (em[0] == 0) & (em[1] == 0) & (em[2] == 0)
+    vol = torch.zeros_like(act)
+    if sc.fog_sigma_t > 0.0:
+        s_fl = sdiv(-torch.log(torch.clamp_min(1.0 - u[5], 1e-30)),
+                    sc.fog_sigma_t)
+        vol = s_fl < hit.t
+    shaded = below & surface & ~vol
+    trans = sc.mat_transmission[m] > 0.0
+    opaque, refract = shaded & ~trans, shaded & trans
+    front = opaque & out.front_facing
+    diffuse = front & (u[0] <= 0.5)
+    uv_ok = uv[2] if uv is not None else torch.zeros_like(act)
+    alb = sc.mat_albedo_idx[m] != 0
+    albedo = (diffuse | refract) & alb
+    tally["opaque"] += int(opaque.sum())
+    tally["refract"] += int(refract.sum())
+    tally["scatter"] += int((below & vol).sum())
+    tally["uv_fetch"] += int((albedo & uv_ok).sum())
+    if sc.planar_maps:
+        planar = albedo & ~uv_ok
+        if sc.use_normal_maps:
+            planar = planar | (opaque & (sc.mat_normal_idx[m] != 0))
+        tally["planar"] += int(planar.sum())
+        for on, field in ((sc.use_metalness_maps, sc.mat_metalness_idx),
+                          (sc.use_roughness_maps, sc.mat_roughness_idx)):
+            if on:
+                tally["planar_x"] += int((front & (field[m] != 0)).sum())
+    if sc.any_bump and sc.n_textures:
+        tally["bump"] += int((opaque & (sc.mat_bump_idx[m] != 0)).sum())
+    if sc.tex_combined and sc.n_textures:
+        # K9: each opaque shade and dielectric of a combined-set material
+        tally["tex_fetch"] += int(((opaque | refract) & alb).sum())
 
 
 def feature_counts(scene, cam, cfg, n_samples, dev):
@@ -525,13 +700,9 @@ def feature_counts(scene, cam, cfg, n_samples, dev):
     import torch
     from pathtracer_tpu_torch.render import wavefront
     from pathtracer_tpu_torch.render.renderer import init_accum
-    from pathtracer_tpu_torch.scene.schema import MAX_BOUNCE_COUNT
     from pathtracer_tpu_torch.utils import prng
-    from pathtracer_tpu_torch.utils.vec import sdiv
 
-    keys = ("rays", "opaque", "refract", "scatter", "planar", "planar_x",
-            "bump", "uv_fetch", "tex_fetch")
-    tally = dict.fromkeys(keys, 0)
+    tally = dict.fromkeys(FEATURE_KEYS, 0)
     live = {}
     primary, draw, shade = (wavefront._primary_rays, prng.bounce_uniforms,
                             wavefront.shade_bounce)
@@ -546,43 +717,7 @@ def feature_counts(scene, cam, cfg, n_samples, dev):
 
     def shade_caught(sc, o, d, hit, u, uv=None, **kw):
         out = shade(sc, o, d, hit, u, uv=uv, **kw)
-        m = hit.mat.long()
-        act = live["mask"]
-        tally["rays"] += int(act.sum())
-        below = act & (live["bounce"] < MAX_BOUNCE_COUNT - 1)
-        em = [c[m] for c in sc.mat_emit]
-        surface = (hit.mat != 0) & (em[0] == 0) & (em[1] == 0) & (em[2] == 0)
-        vol = torch.zeros_like(act)
-        if sc.fog_sigma_t > 0.0:
-            s_fl = sdiv(-torch.log(torch.clamp_min(1.0 - u[5], 1e-30)),
-                        sc.fog_sigma_t)
-            vol = s_fl < hit.t
-        shaded = below & surface & ~vol
-        trans = sc.mat_transmission[m] > 0.0
-        opaque, refract = shaded & ~trans, shaded & trans
-        front = opaque & out.front_facing
-        diffuse = front & (u[0] <= 0.5)
-        uv_ok = uv[2] if uv is not None else torch.zeros_like(act)
-        alb = sc.mat_albedo_idx[m] != 0
-        albedo = (diffuse | refract) & alb
-        tally["opaque"] += int(opaque.sum())
-        tally["refract"] += int(refract.sum())
-        tally["scatter"] += int((below & vol).sum())
-        tally["uv_fetch"] += int((albedo & uv_ok).sum())
-        if sc.planar_maps:
-            planar = albedo & ~uv_ok
-            if sc.use_normal_maps:
-                planar = planar | (opaque & (sc.mat_normal_idx[m] != 0))
-            tally["planar"] += int(planar.sum())
-            for on, field in ((sc.use_metalness_maps, sc.mat_metalness_idx),
-                              (sc.use_roughness_maps, sc.mat_roughness_idx)):
-                if on:
-                    tally["planar_x"] += int((front & (field[m] != 0)).sum())
-        if sc.any_bump and sc.n_textures:
-            tally["bump"] += int((opaque & (sc.mat_bump_idx[m] != 0)).sum())
-        if sc.tex_combined and sc.n_textures:
-            # K9: each opaque shade and dielectric of a combined-set material
-            tally["tex_fetch"] += int(((opaque | refract) & alb).sum())
+        feature_tally(sc, hit, u, uv, out, live["mask"], live["bounce"], tally)
         return out
 
     wavefront._primary_rays = primary_caught
@@ -597,6 +732,66 @@ def feature_counts(scene, cam, cfg, n_samples, dev):
         wavefront._primary_rays = primary
         prng.bounce_uniforms = draw
         wavefront.shade_bounce = shade
+    return tally
+
+
+def mixed_counts(scene, cam, cfg, n_samples, dev):
+    """feature_counts' tallies of a mixed variant's render, with its bases'
+    walks counted on the same rays: the clustered walk's slab and sphere
+    tests (cluster_tally) and the mesh walk's box tests, triangle tests
+    and wins (mesh_tally), all in one pass of the plain regeneration loop
+    (both schedules cast the same rays)."""
+    import torch
+    from pathtracer_tpu_torch.render import cuda_backend as cb, wavefront
+    from pathtracer_tpu_torch.render.renderer import init_accum
+    from pathtracer_tpu_torch.utils import prng
+
+    tally = dict.fromkeys(FEATURE_KEYS + ("slabs", "spheres", "boxes", "tris",
+                                          "wins"), 0)
+    live = {}
+    primary, draw, shade = (wavefront._primary_rays, prng.bounce_uniforms,
+                            wavefront.shade_bounce)
+    walks = {k: getattr(wavefront, k)
+             for k in ("intersect_scene", "intersect_scene_uv")}
+
+    def primary_caught(camera, config, key, pixel_idx, s):
+        live["mask"] = s < n_samples  # lanes with samples left (s0 = 0)
+        return primary(camera, config, key, pixel_idx, s)
+
+    def draw_caught(stream, bounce):
+        live["bounce"] = bounce
+        return draw(stream, bounce)
+
+    def caught(name):
+        def walk(sc, o, d):
+            if sc.sph_clusters:
+                cluster_tally(sc, o, d, live["mask"], tally)
+            if cb.meshed(sc):
+                mesh_tally(sc, o, d, live["mask"], tally)
+            return walks[name](sc, o, d)
+        return walk
+
+    def shade_caught(sc, o, d, hit, u, uv=None, **kw):
+        out = shade(sc, o, d, hit, u, uv=uv, **kw)
+        feature_tally(sc, hit, u, uv, out, live["mask"], live["bounce"], tally)
+        return out
+
+    wavefront._primary_rays = primary_caught
+    prng.bounce_uniforms = draw_caught
+    wavefront.shade_bounce = shade_caught
+    for k in walks:
+        setattr(wavefront, k, caught(k))
+    try:
+        n_pix = cfg.width * cfg.height
+        wavefront.render_chunk_wavefront(
+            scene, cam, cfg, 0, 0, n_samples, init_accum(n_pix, dev),
+            torch.arange(n_pix, device=dev))
+    finally:
+        wavefront._primary_rays = primary
+        prng.bounce_uniforms = draw
+        wavefront.shade_bounce = shade
+        for k, f in walks.items():
+            setattr(wavefront, k, f)
     return tally
 
 
@@ -780,6 +975,26 @@ def main() -> int:
             focal_distance=cp.focal_distance,
             aperture_radius=cp.aperture_radius)
 
+    mixed_built = {}  # case -> (CPU scene, camera params, finalize s, card)
+
+    def mixed_case(case, w, h, lens=False, fog=False, cpu=False):
+        """(scene on the card, or on the CPU, and its camera at w x h) of a
+        mixed case (MIXED_CASES), in the CLI's fog with ``fog``; finalized
+        once (its host seconds kept)."""
+        if case not in mixed_built:
+            b, cp, kind = mixed_builder(case)
+            t = time.perf_counter()
+            scene = b.finalize(world_kind=kind, view_origin=cp.pos)
+            mixed_built[case] = (scene, cp, time.perf_counter() - t,
+                                 scene.to(dev))
+        scene, cp, _, on_card = mixed_built[case]
+        scene = scene if cpu else on_card
+        return (dataclasses.replace(scene, **FOG) if fog else scene,
+                define_camera(cp.pos, cp.target, cp.fov, w, h,
+                              use_pinhole=not lens,
+                              focal_distance=cp.focal_distance,
+                              aperture_radius=cp.aperture_radius))
+
     # --- 1. device ---------------------------------------------------------
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -801,12 +1016,15 @@ def main() -> int:
           f"ptxas={json.dumps(ptxas)}")
     print(f"phase2 earlier_variants_kept_ptxas={json.dumps(kept)} "
           f"all_kept={all(kept.values())}")
+    check(all(kept.values()), "the earlier variants kept their registers "
+          "and spills")
     print("phase2 new_variants " + json.dumps(
         {v: ptxas[v] for v in cb.VARIANTS if v not in EARLIER_PTXAS}))
     print(f"phase2 sass={json.dumps(sass)}")
     new_vars = [v for v in cb.VARIANTS if v not in EARLIER_PTXAS]
 
     # --- 3. kernel vs plain on the card ------------------------------------
+    print(f"phase3 start_s={time.perf_counter() - t_start}")
     max_err = dict.fromkeys(cb.VARIANTS, 0.0)
 
     def held(label, scene, cam, cfg, n, s0=0):
@@ -935,7 +1153,9 @@ def main() -> int:
             scene, cam = base_case(tag, w, h, lens)
             feat_vars.add(held(f"base={tag!r}", scene, cam, RenderConfig(
                 w, h, pp=2, seed=0, schedule=sched), 4)[0])
-    check(feat_vars >= set(new_vars), "every feature base held")
+    check(feat_vars >= {v for v in cb.VARIANTS if v.startswith("feat")
+                        and not v.startswith("feature_")}
+          | {f"feature_pinhole_{FOTHER}"}, "every feature base held")
 
     # the DMA tier's grandparent level is pure pruning: its render equals,
     # bit for bit, the resident walk's over the same parents, in fog too
@@ -960,7 +1180,27 @@ def main() -> int:
             check(same, f"{tag}{fog}: the grandparent level changed the "
                   "render")
 
+    print(f"phase3 mixed_start_s={time.perf_counter() - t_start}")
+    # the mixed bases: each case against its plain version at 256x144
+    # and 1280x720, 4 spp, each camera once at each size, once with no
+    # feature and once in the CLI's fog: every mixed variant, the combined
+    # set with a brute mesh (feattextured) and beside clusters, dispersive
+    # glass and planar maps on mixed bases
+    for case in MIXED_CASES:
+        want = mixed_variant(case)
+        for (mw, mh), lens, fog in (((256, 144), False, False),
+                                    ((256, 144), True, True),
+                                    ((1280, 720), True, False),
+                                    ((1280, 720), False, True)):
+            scene, cam = mixed_case(case, mw, mh, lens, fog)
+            got, _ = held(f"mixed={case!r} lens={lens} fog={fog} "
+                          f"n_tris={scene.n_tris}", scene, cam,
+                          RenderConfig(mw, mh, pp=2, seed=0), 4)
+            check(got == want or want.endswith("_")
+                  and got.startswith(want), f"{case}'s case takes {got}")
+
     # --- 4. the main paths at full width -------------------------------------
+    print(f"phase4 start_s={time.perf_counter() - t_start}")
     w, h = 1280, 720
     launches = dict.fromkeys(cb.VARIANTS, 0)
 
@@ -1191,10 +1431,36 @@ def main() -> int:
         print(f"phase4k case={tag!r} variant={var} launches={launches[var]} "
               f"spp=4 mean={float(img.mean())} rays={int(state.rays_cast)} "
               f"nan={int(state.nan_count)}")
+    print(f"phase4 mixed_start_s={time.perf_counter() - t_start}")
+    # l. the mixed scenes through render_image, 4 spp in one chunk: one
+    # launch of each scene's own variant (feattextured_pinhole for the
+    # combined set with a brute mesh; its row keeps -w1 --fog's count)
+    for case in MIXED_CASES:
+        scene, cam = mixed_case(case, w, h, cpu=True)
+        var = cb.variant(scene, cam)
+        reset_counts()
+        img, _, state = render_image(scene, cam, RenderConfig(w, h, pp=2,
+                                                              seed=0),
+                                     device="cuda")
+        sync()
+        check(cb.VARIANT_LAUNCHES[var] == cb.LAUNCHES == 1,
+              f"{case}: one launch of {var} for its one chunk")
+        if var in cb.MIXED_VARIANTS:
+            launches[var] = cb.VARIANT_LAUNCHES[var]
+        img = img.cpu().numpy()
+        check(img.shape == (h, w, 3) and bool(np.isfinite(img).all())
+              and float(img.mean()) > 0.01, f"finite, non-black {case} image")
+        print(f"phase4l case={case} n_tris={scene.n_tris} "
+              f"clusters={len(scene.sph_clusters)} variant={var} "
+              f"launches={cb.LAUNCHES} variant_launches="
+              f"{json.dumps({k_: v for k_, v in cb.VARIANT_LAUNCHES.items() if v})} "
+              f"spp=4 mean={float(img.mean())} rays={int(state.rays_cast)} "
+              f"nan={int(state.nan_count)}")
     check(all(launches[v] > 0 for v in new_vars), "every new variant's "
           "main path launched it")
 
     # --- 5. timing -----------------------------------------------------------
+    print(f"phase5 start_s={time.perf_counter() - t_start}")
     def kernel_ms(scene, cam, pp, reps, **cfg_kw):
         """CUDA-event ms of each of ``reps`` launches of pp*pp samples at
         720p after one warm launch, and the rays of one launch."""
@@ -1213,6 +1479,7 @@ def main() -> int:
             times.append(a.elapsed_time(b))
         return times, int(st.rays_cast)
 
+    # (each plain version ran on the same scene at 720p in phase 3: warm)
     def plain_s(scene, cam, pp, **cfg_kw):
         cfg = RenderConfig(w, h, pp=pp, seed=0, **cfg_kw)
         st = init_accum(w * h, dev)
@@ -1302,13 +1569,12 @@ def main() -> int:
                                       "render/pallas_backend.py:306"),
     }
     check(sorted([*main_worlds, "feature_pinhole", "feature_lens",
-                  *tier_rows, *new_rows]) == sorted(cb.VARIANTS),
-          "every variant timed")
+                  *tier_rows, *new_rows, *cb.MIXED_VARIANTS])
+          == sorted(cb.VARIANTS), "every variant timed")
     timed = {}
     for var, (kind, lens, schedule) in main_worlds.items():
         scene, cam = world(kind, w, h, lens)
         ks, rays = kernel_ms(scene, cam, 2, 5, schedule=schedule)
-        plain_s(scene, cam, 1, schedule=schedule)  # warm
         ps, prays = plain_s(scene, cam, 2, schedule=schedule)
         timed[var] = dict(ms=float(np.median(ks)), rays=rays, scene=scene,
                           cam=cam, plain_ms=1e3 * ps, schedule=schedule)
@@ -1321,7 +1587,6 @@ def main() -> int:
     for row, (tag, lens, _, _) in feature_rows.items():
         scene, cam, cfg_kw = feature_case(tag, w, h, lens)
         ks, rays = kernel_ms(scene, cam, 2, 5, **cfg_kw)
-        plain_s(scene, cam, 1, **cfg_kw)  # warm
         ps, prays = plain_s(scene, cam, 2, **cfg_kw)
         ftimed[row] = dict(ms=float(np.median(ks)), rays=rays, scene=scene,
                            cam=cam, cfg_kw=cfg_kw, plain_ms=1e3 * ps)
@@ -1337,7 +1602,6 @@ def main() -> int:
         scene, cam = mesh_case(tag, w, h, lens)
         check(cb.variant(scene, cam, sched) == var, f"{tag} takes {var}")
         ks, rays = kernel_ms(scene, cam, 2, 5, schedule=sched)
-        plain_s(scene, cam, 1, schedule=sched)  # warm
         ps, prays = plain_s(scene, cam, 2, schedule=sched)
         ttimed[var] = dict(ms=float(np.median(ks)), rays=rays, scene=scene,
                            cam=cam, plain_ms=1e3 * ps, schedule=sched)
@@ -1353,11 +1617,25 @@ def main() -> int:
         scene, cam = base_case(tag, w, h, lens)
         check(cb.variant(scene, cam, sched) == var, f"{tag} takes {var}")
         ks, rays = kernel_ms(scene, cam, 2, 5, schedule=sched)
-        plain_s(scene, cam, 1, schedule=sched)  # warm
         ps, prays = plain_s(scene, cam, 2, schedule=sched)
         ntimed[var] = dict(ms=float(np.median(ks)), rays=rays, scene=scene,
                            cam=cam, plain_ms=1e3 * ps)
         print(f"phase5 variant={var} case={tag!r} 720p spp=4 "
+              f"kernel_ms={sorted(ks)} rays={rays} "
+              f"rays_per_sample={rays / (w * h * 4)} kernel_mrays_s="
+              f"{rays / np.median(ks) / 1e3} plain_ms={1e3 * ps} "
+              f"plain_rays={prays} plain_mrays_s={prays / ps / 1e6} "
+              f"| card: {smi}")
+    print(f"phase5 mixed_start_s={time.perf_counter() - t_start}")
+    mtimed = {}
+    for var in cb.MIXED_VARIANTS:
+        scene, cam = mixed_case(var, w, h)
+        ks, rays = kernel_ms(scene, cam, 2, 5)
+        ps, prays = plain_s(scene, cam, 2)
+        mtimed[var] = dict(ms=float(np.median(ks)), rays=rays, scene=scene,
+                           cam=cam, plain_ms=1e3 * ps)
+        print(f"phase5 variant={var} n_tris={scene.n_tris} "
+              f"finalize_s={mixed_built[var][2]} 720p spp=4 "
               f"kernel_ms={sorted(ks)} rays={rays} "
               f"rays_per_sample={rays / (w * h * 4)} kernel_mrays_s="
               f"{rays / np.median(ks) / 1e3} plain_ms={1e3 * ps} "
@@ -1463,6 +1741,7 @@ def main() -> int:
           f"| card: {smi}")
 
     # --- 6. bounds -------------------------------------------------------------
+    print(f"phase6 start_s={time.perf_counter() - t_start}")
     table = []
     mesh_tally = {}
     for var, tm in timed.items():
@@ -1703,6 +1982,73 @@ def main() -> int:
             "name": f"wave_kernel<{var}>", "route": "cuda",
             "source": "pathtracer_tpu_torch/csrc/wave_kernel.cu",
             "replaces": "pathtracer_tpu/" + replaces,
+            "launches": launches[var],
+            "max_abs_err": max_err[var],
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None,  # no single PyTorch call computes this
+        })
+    # the mixed bases: one pass counts the feature tallies and both walks
+    print(f"phase6 mixed_start_s={time.perf_counter() - t_start}")
+    for var, tm in mtimed.items():
+        scene, cam = tm["scene"], tm["cam"]
+        fc = mixed_counts(scene, cam, RenderConfig(w, h, pp=2, seed=0), 4, dev)
+        rays = tm["rays"]
+        check(abs(fc["rays"] - rays) <= 0.005 * rays,
+              f"{var}: counted {fc['rays']} rays, the kernel cast {rays}")
+        n_tris = scene.n_tris if scene.tri_brute else 0
+        walk_ops = (fc["slabs"] * OPS_SLAB + fc["spheres"] * OPS_SPHERE
+                    if scene.sph_clusters else rays * scene.n_spheres
+                    * OPS_SPHERE) + rays * n_tris * OPS_TRI_BRUTE
+        tables = (scene.tex_tile,) if cb.textured(scene) else ()
+        if cb.meshed(scene):
+            kind = cb.mesh_kind(scene)
+            win_ops = (OPS_K8_RESOLVE if kind == "static" else
+                       OPS_MESH_UV if scene.has_mesh_uvs else 0)
+            walk_ops += (rays * OPS_INV + fc["boxes"] * OPS_SLAB
+                         + fc["wins"] * win_ops + fc["tris"]
+                         * (OPS_TRI_GP if kind.startswith("meshgp")
+                            else OPS_TRI))
+            tables += ((scene.mtri_pack, scene.mtri_bounds, scene.stream_pbox,
+                        scene.stream_prange, scene.stream_gbox,
+                        scene.stream_grange,
+                        *((scene.mtri_uvpack,) if scene.has_mesh_uvs else ()))
+                       if scene.tri_streamed else
+                       (*scene.ctri_n, scene.ctri_d, *scene.ctri_e1,
+                        scene.ctri_a0, *scene.ctri_e2, scene.ctri_b0,
+                        scene.ctri_mat, scene.tcl_box, scene.tcl_range,
+                        *((scene.ctri_uv0u, scene.ctri_uv0v, scene.ctri_uvdu1,
+                           scene.ctri_uvdv1, scene.ctri_uvdu2,
+                           scene.ctri_uvdv2) if scene.has_mesh_uvs else ())))
+            if scene.has_mesh_uvs:
+                tables += (scene.tex_packed,)
+        ops = (w * h * 4 * OPS_PRIMARY["pinhole"] + walk_ops
+               + rays * (OPS_INV * bool(scene.sph_clusters)
+                         + scene.n_quads * OPS_QUAD
+                         + scene.n_planes * OPS_PLANE + OPS_RESOLVE
+                         + OPS_EMIT)
+               + fc["opaque"] * OPS_SHADE + fc["refract"] * OPS_REFRACT
+               + fc["scatter"] * OPS_FOG_SCATTER + fc["uv_fetch"] * OPS_STACK
+               + fc["tex_fetch"] * OPS_TEX)
+        nbytes = w * h * BYTES_PER_PIXEL + 4 * sum(t.numel() for t in tables)
+        t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
+        bound_ms = 1e3 * max(t_ops, t_bytes)
+        counts = " ".join(f"{k_}={v}" for k_, v in fc.items())
+        print(f"phase6 variant={var} {counts} ops={ops:.6e} bytes={nbytes} "
+              f"bound_ms={bound_ms} bound_share={bound_ms / tm['ms']} "
+              f"| card: {smi}")
+        mesh = MIXED_CASES[var][0]
+        table.append({
+            "name": f"wave_kernel<{var}>", "route": "cuda",
+            "source": "pathtracer_tpu_torch/csrc/wave_kernel.cu",
+            # K3's lockstep loop with the combined set; else the mesh walk
+            "replaces": "pathtracer_tpu/" + (
+                "render/pallas_backend.py:306" if cb.textured(scene)
+                else "ops/intersect.py:" + (
+                    "1309" if mesh == "uv736" else "225" if mesh == "tri784"
+                    else "262" if mesh in ("tri19600", "uv1472")
+                    else "815")),
             "launches": launches[var],
             "max_abs_err": max_err[var],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],

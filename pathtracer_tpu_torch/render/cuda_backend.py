@@ -24,11 +24,17 @@ feature bounce on each other base, named "feat" + the base: sphere
 clusters (``featclustered``, regen), the combined set (``feattextured``
 under ``TEXTURED_SCHEDULE``, its pinhole also under the other schedule)
 and every mesh tier (``featmesh`` ... ``featstaticplain`` under
-``MESH_SCHEDULE``, ``featmesh``'s pinhole also under the other one). The
-file is compiled at first use by one ``nvcc`` for ``sm_90a`` into
+``MESH_SCHEDULE``, ``featmesh``'s pinhole also under the other one).
+The mixed bases (``MIXED_VARIANTS``: sphere clusters with the combined set
+or with any mesh tier, the combined set with a mesh tier without UVs, and
+all three), named by their parts joined with "+", each carry the feature
+bounce and pick the primary ray at run time, so one instantiation covers
+either camera with or without features, under ``MIXED_SCHEDULE``. The
+file is compiled at first use for ``sm_90a`` into
 ``pathtracer_tpu_torch/_build/`` (a library named by the hash of the
-source and flags, so an edit rebuilds it), loaded with ``ctypes`` and
-launched on PyTorch's current stream.
+source and flags, so an edit rebuilds it): one ``nvcc`` for each of its
+parts (:func:`build_parts`), all started together, and one link. It is loaded
+with ``ctypes`` and launched on PyTorch's current stream.
 
 - :func:`render_chunk_cuda` takes the accumulator's device: on CUDA tensors
   it launches the kernel or raises; on CPU tensors it runs the plain version.
@@ -36,9 +42,10 @@ launched on PyTorch's current stream.
   base from the scene (the textured kernel for a combined texture set, a
   mesh kernel for a mesh of more than ``clusters.CLUSTER_MIN`` triangles
   by its tier, :func:`mesh_kind`, else the clustered walk when the scene
-  has sphere clusters, else the brute sweep), its feature form for a
-  scene with fog, transmission, bump or planar maps or a brute-force mesh
-  (``Scene.featured``), and the thin-lens primary when the camera has one.
+  has sphere clusters, else the brute sweep; a mixed base where two of
+  those meet), its feature form for a scene with fog, transmission, bump
+  or planar maps or a brute-force mesh (``Scene.featured``), and the
+  thin-lens primary when the camera has one.
 - :func:`render_chunk_plain` is the plain PyTorch version of the same
   function (``render/lockstep.py`` under the lockstep schedule,
   ``render/wavefront.py`` otherwise), which the CPU tests run and which
@@ -52,6 +59,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -71,7 +79,7 @@ _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "wave_kernel.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+              "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 # The sample schedule of the textured variants (world 1's main path), and
 # the other one, instantiated for the pinhole only, as its yardstick; the
@@ -84,12 +92,22 @@ MESH_SCHEDULE = "lockstep"
 MESH_OTHER_SCHEDULE = "regen"
 FEATURE_SCHEDULE = "regen"
 FEATURE_OTHER_SCHEDULE = "lockstep"
+MIXED_SCHEDULE = "lockstep"  # kMixedMain in the kernel
 _SCHED_CODE = {"lockstep": 1, "regen": 2}  # wave_render's tex/mesh/feat
 
 # The mesh tiers' kernels by name, with their kTri bits in the kernel:
 # without UVs (1), with the grandparent level (2), the static tier (4).
 MESH_KINDS = {"mesh": 0, "meshplain": 1, "meshgp": 2, "meshgpplain": 3,
               "static": 4, "staticplain": 5}
+# the mixed bases' instantiations, one per base tuple (either camera, with
+# or without features): sphere clusters with the combined set, the
+# combined set with a tier without UVs, sphere clusters with every tier,
+# and all three
+_NOUV_KINDS = ("meshplain", "meshgpplain", "staticplain")
+MIXED_VARIANTS = ("clustered+textured",
+                  *(f"textured+{k}" for k in _NOUV_KINDS),
+                  *(f"clustered+{k}" for k in MESH_KINDS),
+                  *(f"clustered+textured+{k}" for k in _NOUV_KINDS))
 
 # the kernel's variants, as variant() names them: each base with the
 # pinhole and the lens under its main schedule and, as a yardstick, the
@@ -108,7 +126,7 @@ VARIANTS = ("brute_pinhole", "brute_lens", "clustered_pinhole",
               for cam in ("pinhole", "lens")),
             f"feattextured_pinhole_{OTHER_SCHEDULE}",
             f"featmesh_pinhole_{MESH_OTHER_SCHEDULE}",
-            f"feature_pinhole_{FEATURE_OTHER_SCHEDULE}")
+            f"feature_pinhole_{FEATURE_OTHER_SCHEDULE}", *MIXED_VARIANTS)
 LAUNCHES = 0      # kernel launches, counted where the launch succeeds
 VARIANT_LAUNCHES = dict.fromkeys(VARIANTS, 0)  # the same, by variant
 BUILD_LOG = ""    # nvcc's output (ptxas registers and spills per variant)
@@ -193,7 +211,8 @@ class WaveParams(ctypes.Structure):
                 + [(n, _F) for n in _FEAT_FLOAT_FIELDS]
                 + [("fog_albedo", _F * 3)]
                 + [(n, _P) for n in _TIER_PTR_FIELDS]
-                + [("n_tclusters", _I), ("n_gparents", _I)])
+                + [("n_tclusters", _I), ("n_gparents", _I)]
+                + [("cam_lens", _I)])
 
 # WaveParams.tex_flags bits (TEX_* in the kernel)
 TEX_METALNESS, TEX_ROUGHNESS, TEX_NORMAL, TEX_TBN = 1, 2, 4, 8
@@ -208,12 +227,6 @@ def check_supported(scene: Scene, camera: Camera, config):
     its plain version covers yet."""
     config.check_supported()
     missing = scene.unsupported()
-    if textured(scene) and scene.sph_clusters:
-        missing.append("a textured scene with sphere clusters (ROADMAP "
-                       "queue 1 item 10)")
-    if meshed(scene) and scene.sph_clusters:
-        missing.append("a mesh scene with sphere clusters (ROADMAP queue 1 "
-                       "item 10)")
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
 
@@ -239,21 +252,32 @@ def mesh_kind(scene: Scene) -> str:
     return kind + ("" if scene.has_mesh_uvs else "plain")
 
 
+def _parts(scene: Scene) -> list:
+    """The bases the scene has, in the kernel's order: ``clustered``
+    (sphere clusters), ``textured``, a mesh kind."""
+    return ((["clustered"] if scene.sph_clusters else [])
+            + (["textured"] if textured(scene) else [])
+            + ([mesh_kind(scene)] if meshed(scene) else []))
+
+
+def mixed(scene: Scene) -> bool:
+    """Whether two bases meet in the scene (a ``MIXED_VARIANTS`` base)."""
+    return len(_parts(scene)) > 1
+
+
 def _base(scene: Scene) -> str:
     """The scene's base kind: ``textured``, a mesh kind, ``clustered`` or
-    ``brute``."""
-    if textured(scene):
-        return "textured"
-    if meshed(scene):
-        return mesh_kind(scene)
-    return "clustered" if scene.sph_clusters else "brute"
+    ``brute``; a mixed base's parts joined with "+"."""
+    return "+".join(_parts(scene)) or "brute"
 
 
 def _main_schedule(scene: Scene):
-    """The main sample schedule of the scene's variants: the textured or
-    mesh one for those bases, FEATURE_SCHEDULE for the feature form of
-    brute or clustered spheres; None for untextured spheres without
-    features, which have one schedule."""
+    """The main sample schedule of the scene's variants: the textured,
+    mesh or mixed one for those bases, FEATURE_SCHEDULE for the feature
+    form of brute or clustered spheres; None for untextured spheres
+    without features, which have one schedule."""
+    if mixed(scene):
+        return MIXED_SCHEDULE
     base = _base(scene)
     if base == "textured":
         return TEXTURED_SCHEDULE
@@ -278,15 +302,23 @@ def variant(scene: Scene, camera: Camera, schedule=None) -> str:
     """The kernel variant that renders this scene through this camera
     under ``schedule`` (by default the scene's main one). A featured scene
     takes its base's feature form: ``feature`` for brute spheres, else
-    ``feat`` + the base."""
+    ``feat`` + the base. A mixed base is its own name: its instantiation
+    carries the feature bounce and serves either camera."""
     base = _base(scene)
-    if scene.featured:
-        base = "feature" if base == "brute" else "feat" + base
-    name = base + ("_pinhole" if camera.use_pinhole else "_lens")
+    if "+" in base:
+        name = base
+    else:
+        if scene.featured:
+            base = "feature" if base == "brute" else "feat" + base
+        name = base + ("_pinhole" if camera.use_pinhole else "_lens")
     schedule = _schedule(scene, schedule)
     if schedule != _main_schedule(scene):
         name += "_" + schedule
     if name not in VARIANTS:
+        if "+" in base:
+            raise NotImplementedError(
+                f"{name}: not instantiated (the mixed bases run "
+                f"{MIXED_SCHEDULE} only)")
         others = sorted({v.split("_")[0] for v in VARIANTS
                          if v.count("_") == 2})
         raise NotImplementedError(
@@ -305,28 +337,51 @@ def _nvcc() -> str:
     return found
 
 
+def build_parts(source: str) -> tuple[int, ...]:
+    """The kernel source's build parts: the numbers of its
+    ``#if WAVE_HAS(n)`` blocks, each compiled with ``-DWAVE_PART=n``."""
+    return tuple(sorted({int(n) for n in
+                         re.findall(r"^#if WAVE_HAS\((\d+)\)", source,
+                                    re.MULTILINE)}))
+
+
 def build() -> ctypes.CDLL:
     """Compile (if this source and these flags have not been built yet) and
     load the kernel library. Raises on a failed build."""
     global _lib, BUILD_LOG, BUILD_SECONDS, LIB_PATH
     if _lib is not None:
         return _lib
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    source = SOURCE.read_bytes()
+    tag = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()
+                         ).hexdigest()[:16]
     lib_path = BUILD_DIR / f"libwave_{tag}.so"
     log_path = lib_path.with_suffix(".log")
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+        parts = build_parts(source.decode())
+        objs = [tmp.with_name(f"{tmp.name}.part{k}.o") for k in parts]
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True, check=False)
+        try:
+            procs = [subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, f"-DWAVE_PART={k}", "-c", "-o",
+                 str(obj), str(SOURCE)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+                for k, obj in zip(parts, objs)]
+            log = "".join(proc.communicate()[0] for proc in procs)
+            if any(proc.returncode != 0 for proc in procs):
+                raise RuntimeError(f"nvcc failed:\n{log}")
+            link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
+                                   *map(str, objs)],
+                                  capture_output=True, text=True, check=False)
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
         BUILD_SECONDS = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        log_path.write_text(proc.stdout + proc.stderr)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+        log_path.write_text(log + link.stdout + link.stderr)
         os.replace(tmp, lib_path)
     BUILD_LOG = log_path.read_text() if log_path.exists() else ""
     lib = ctypes.CDLL(str(lib_path))
@@ -467,7 +522,7 @@ def render_chunk_cuda(scene: Scene, camera: Camera, config, key: int,
                           int(not camera.use_pinhole),
                           code if textured(scene) else 0,
                           code if meshed(scene) else 0,
-                          code if scene.featured else 0,
+                          code if scene.featured or mixed(scene) else 0,
                           MESH_KINDS[mesh_kind(scene)] if meshed(scene) else 0,
                           ctypes.c_void_p(stream))
     if err != 0:

@@ -357,9 +357,9 @@ class Scene:
         """Names of the features this scene uses that the port has not yet
         ported (empty when the slice covers it)."""
         out = []
-        if self.tex_combined and self.n_tris:
-            out.append("a triangle mesh together with a combined texture set "
-                       "(ROADMAP queue 1 item 10)")
+        if self.tex_combined and self.n_tris and self.has_mesh_uvs:
+            out.append("a UV mesh together with a combined texture set "
+                       "(XLA-only in JAX, ROADMAP queue 1 item 10)")
         if self.n_tris > clusters.DMA_MAX:
             out.append(f"meshes of more than {clusters.DMA_MAX} triangles "
                        "(beyond the DMA tier, ROADMAP queue 1 item 10)")

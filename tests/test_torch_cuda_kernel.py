@@ -463,3 +463,63 @@ def test_fog_dma_tier_kernel_bit_equal_to_resident(cuda, monkeypatch, case):
     for a, b in zip(out[0].sum, out[1].sum):
         assert torch.equal(a, b)
     assert int(out[1].rays_cast) == int(out[0].rays_cast)
+
+
+@pytest.mark.parametrize("variant, world, mesh, opts, pinhole, fog", [
+    ("clustered+textured", "w2", None, {}, True, False),
+    ("clustered+textured", "w2", None, {}, False, True),
+    ("clustered+textured", "w2", "brute", {}, True, True),
+    ("textured+staticplain", "w1", "static", {}, False, True),
+    ("textured+meshplain", "w1", "streamed", {}, True, False),
+    ("textured+meshgpplain", "w1", "dma", {}, True, True),
+    ("clustered+mesh", "w2", "uv1472", {}, True, False),
+    ("clustered+meshplain", "w2", "streamed", {}, False, False),
+    ("clustered+meshgp", "w2", "uv1472 dma", {}, True, True),
+    ("clustered+meshgpplain", "w2", "dma", {}, True, False),
+    ("clustered+static", "w2", "uv736", {}, False, True),
+    ("clustered+staticplain", "w2", "static", {}, True, False),
+    ("clustered+staticplain", "w2", "static", {"maps": True}, False, True),
+    ("clustered+textured+meshplain", "w2", "streamed", {}, True, True),
+    ("clustered+textured+meshgpplain", "w2", "dma", {}, False, False),
+    ("clustered+textured+staticplain", "w2", "static",
+     {"mesh_material": "ground"}, True, False),
+    ("clustered+textured+staticplain", "w2", "static", {"glass": True},
+     False, True),
+])
+def test_mixed_kernels_match_plain(cuda, monkeypatch, variant, world, mesh,
+                                   opts, pinhole, fog):
+    """Each mixed instantiation (sphere clusters with the combined set or
+    a mesh tier, the combined set with a tier without UVs, all three) at
+    64x36 against the lockstep plain version, through the camera and with
+    or without the CLI's fog (one instantiation covers both); the DMA tier
+    forced on a small mesh. Clusters with the combined set also beside a
+    brute mesh (its K4t sweep), and the feature bounce's dispersive glass
+    and planar maps on mixed bases."""
+    from pathtracer_tpu_torch.scene import clusters as tclusters
+    from pathtracer_tpu_torch.scene.camera import define_camera
+    from pathtracer_tpu_torch.scene.mixed_scenes import mixed_builder
+    from test_torch_meshes import mixed_mesh
+    if mesh is not None and mesh.endswith("dma"):
+        monkeypatch.setattr(tclusters, "STREAM_MAX", 1024)
+        monkeypatch.setattr(tclusters, "PARENT_GROUP", 4)
+        monkeypatch.setattr(tclusters, "GPARENT_MIN", 4)
+    kind = W1 if world == "w1" else tschema.WORLD_BRDF_TEST
+    b, cp = mixed_builder(
+        world=kind, combined="textured" in variant,
+        mesh=None if mesh is None else mixed_mesh(mesh.split()[0], kind),
+        **opts)
+    scene = b.finalize(world_kind=kind, view_origin=cp.pos)
+    scene = dataclasses.replace(scene, **(FOG if fog else {})).to(cuda)
+    cam = define_camera(cp.pos, cp.target, cp.fov, 64, 36,
+                        use_pinhole=pinhole, focal_distance=cp.focal_distance,
+                        aperture_radius=cp.aperture_radius)
+    assert cuda_backend.variant(scene, cam) == variant
+    cfg = trenderer.RenderConfig(64, 36, pp=2, seed=0)
+    before = cuda_backend.VARIANT_LAUNCHES[variant]
+    k = cuda_backend.render_chunk_cuda(scene, cam, cfg, 0, 0, 4,
+                                       trenderer.init_accum(64 * 36, cuda))
+    assert cuda_backend.VARIANT_LAUNCHES[variant] == before + 1
+    p = cuda_backend.render_chunk_plain(scene, cam, cfg, 0, 0, 4,
+                                        trenderer.init_accum(64 * 36, cuda))
+    torch.cuda.synchronize()
+    _assert_verify_gates(cfg, k, p)

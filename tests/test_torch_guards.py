@@ -129,17 +129,22 @@ def test_cuda_wrapper_refuses_textured_scene(monkeypatch):
 
 
 def test_cuda_wrapper_refuses_textured_clustered_scene():
-    """A combined texture set with sphere clusters has no instantiation."""
+    """A combined texture set with sphere clusters is the mixed variant
+    ``clustered+textured``; with a bump map on the combined set (XLA-only
+    in JAX) the wrapper refuses it, naming its ROADMAP item."""
     scene, cam = tworlds.finalize_world(tschema.WORLD_DEFAULT, 8, 8)
     w2, _ = tworlds.finalize_world(tschema.WORLD_BRDF_TEST, 8, 8)
     scene = dataclasses.replace(
         scene, sph_clusters=w2.sph_clusters,
         **{k: getattr(w2, k) for k in ("cl_offset", "cl_count", "cl_min",
                                        "cl_max", "cl_huge")})
+    assert cuda_backend.variant(scene, cam) == "clustered+textured"
     with pytest.raises(NotImplementedError,
-                       match="sphere clusters.*ROADMAP queue 1 item 10"):
-        cuda_backend.render_chunk_cuda(scene, cam,
-                                       trenderer.RenderConfig(8, 8, pp=1),
+                       match="bump.*combined texture set.*ROADMAP queue 1 "
+                             "item 10"):
+        cuda_backend.render_chunk_cuda(dataclasses.replace(scene,
+                                                           any_bump=True),
+                                       cam, trenderer.RenderConfig(8, 8, pp=1),
                                        0, 0, 1, trenderer.init_accum(64))
 
 
@@ -274,4 +279,4 @@ def test_kernel_params_layout():
     names = [n for n, _ in c_fields]
     assert names.index("stack_wmax") < names.index("tri_ax")
     assert names.index("fog_albedo") < names.index("ctri_nx")
-    assert names[-1] == "n_gparents"
+    assert names[-2:] == ["n_gparents", "cam_lens"]

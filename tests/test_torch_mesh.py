@@ -261,8 +261,10 @@ def _plain_mesh_builder(n):
 def test_unported_mesh_tiers_raise(n, match):
     """A mesh without UVs of either tier is ported (the brute sweep K4t in
     the feature kernel, the static tier's K5 triangle walk in its own), in
-    fog too (the feature forms); what stays unported raises: either mesh
-    with a combined texture set (ROADMAP queue 1 item 10)."""
+    fog too (the feature forms), and beside a combined texture set (the
+    combined set's feature form, the mixed ``textured+staticplain``); what
+    stays unported raises: either mesh with UVs beside a combined set
+    (XLA-only in JAX, ROADMAP queue 1 item 10)."""
     ts = _plain_mesh_builder(n).finalize()
     assert not ts.tri_streamed and ts.unsupported() == []
     assert ts.tri_brute == (match == "K4t")
@@ -277,19 +279,25 @@ def test_unported_mesh_tiers_raise(n, match):
         "K4t": "feature_pinhole",
         "K5's triangle": "featstaticplain_pinhole"}[match]
     w1, _ = tworlds.finalize_world(tschema.WORLD_DEFAULT, 8, 8)
-    bad = dataclasses.replace(
+    comb = dataclasses.replace(
         fog, n_textures=4, tex_combined=True,
         **{k: getattr(w1, k) for k in ("tex_tile", "tex_comb_a",
                                        "tex_comb_b", "tex_mip")})
-    assert any("combined texture set" in m and "ROADMAP queue 1 item 10" in m
-               for m in bad.unsupported())
+    assert comb.unsupported() == []
+    assert cuda_backend.variant(comb, cam) == {
+        "K4t": "feattextured_pinhole",
+        "K5's triangle": "textured+staticplain"}[match]
+    bad = dataclasses.replace(comb, has_mesh_uvs=True)
+    assert any("UV mesh together with a combined texture set" in m
+               and "ROADMAP queue 1 item 10" in m for m in bad.unsupported())
 
 
 def test_mesh_without_uvs_and_dma_tier_raise():
     """The streamed tier without UVs and the DMA tier are ported (the walk
     runs without the uv rows, world 7 with tri_dma set is a plain flag),
-    in fog too (the feature form); a streamed mesh with sphere clusters
-    still raises."""
+    in fog too (the feature form), and beside sphere clusters (the mixed
+    ``clustered+meshplain``); a mesh above the DMA tier's limit still
+    raises."""
     ts = _plain_mesh_builder(1100).finalize()
     assert ts.tri_streamed and not ts.has_mesh_uvs
     assert ts.unsupported() == []
@@ -316,5 +324,9 @@ def test_mesh_without_uvs_and_dma_tier_raise():
         ts, sph_clusters=w2.sph_clusters,
         **{k: getattr(w2, k) for k in ("cl_offset", "cl_count", "cl_min",
                                        "cl_max", "cl_huge")})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        cuda_backend.check_supported(both, cam, trenderer.RenderConfig(8, 8))
+    cuda_backend.check_supported(both, cam, trenderer.RenderConfig(8, 8))
+    assert cuda_backend.variant(both, cam) == "clustered+meshplain"
+    huge = dataclasses.replace(both, n_tris=tclusters.DMA_MAX + 1)
+    with pytest.raises(NotImplementedError,
+                       match="beyond the DMA tier, ROADMAP queue 1 item 10"):
+        cuda_backend.check_supported(huge, cam, trenderer.RenderConfig(8, 8))

@@ -213,9 +213,11 @@ def test_tie_goes_to_the_lower_record():
 
 
 def test_mesh_refusals():
-    """A clustered mesh in fog is ported (the static tier's feature form);
-    what stays unported raises, naming its ROADMAP item: a mesh with
-    sphere clusters, a mesh with a combined texture set."""
+    """A clustered mesh in fog is ported (the static tier's feature form),
+    and so are a mesh with sphere clusters and a mesh without UVs with a
+    combined texture set (the mixed variants); what stays unported raises,
+    naming its ROADMAP item: a UV mesh or a bump map with a combined
+    texture set."""
     ts, cam = mesh_scene(tworlds, tessellated_sphere(800))
     fog = dataclasses.replace(ts, fog_sigma_t=0.01)
     assert fog.unsupported() == []
@@ -225,15 +227,21 @@ def test_mesh_refusals():
         ts, sph_clusters=w2.sph_clusters,
         **{k: getattr(w2, k) for k in ("cl_offset", "cl_count", "cl_min",
                                        "cl_max", "cl_huge")})
-    with pytest.raises(NotImplementedError,
-                       match="sphere clusters.*ROADMAP queue 1 item 10"):
-        cuda_backend.check_supported(both, cam, trenderer.RenderConfig(8, 8))
+    cuda_backend.check_supported(both, cam, trenderer.RenderConfig(8, 8))
+    assert cuda_backend.variant(both, cam) == "clustered+staticplain"
     w1, _ = tworlds.finalize_world(tschema.WORLD_DEFAULT, 8, 8)
     comb = dataclasses.replace(
         ts, n_textures=4, tex_combined=True,
         **{k: getattr(w1, k) for k in ("tex_tile", "tex_comb_a",
                                        "tex_comb_b", "tex_mip")})
-    assert any("combined texture set" in m and "ROADMAP" in m
-               for m in comb.unsupported())
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        cuda_backend.check_supported(comb, cam, trenderer.RenderConfig(8, 8))
+    assert comb.unsupported() == []
+    assert cuda_backend.variant(comb, cam) == "textured+staticplain"
+    for bad, what in ((dataclasses.replace(comb, has_mesh_uvs=True),
+                       "UV mesh together with a combined texture set"),
+                      (dataclasses.replace(comb, any_bump=True),
+                       "bump map together with a combined texture set")):
+        assert any(what in m and "ROADMAP" in m for m in bad.unsupported())
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 1 item 10"):
+            cuda_backend.check_supported(bad, cam,
+                                         trenderer.RenderConfig(8, 8))

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 from pathtracer_tpu_torch.render import cuda_backend
+from pathtracer_tpu_torch.scene import mixed_scenes
 from pathtracer_tpu_torch.scene import schema as tschema
 from pathtracer_tpu_torch.scene import worlds as tworlds
 from pathtracer_tpu_torch.scene.camera import define_camera
@@ -69,6 +70,25 @@ def mesh_builder(worlds_mod, tris, uvs=None):
     b.set_mesh(tris.reshape(-1, 3), np.full((3 * len(tris),), m, np.int32),
                uvs=uvs)
     return b, cp
+
+
+def mixed_mesh(kind, world=tschema.WORLD_BRDF_TEST):
+    """(triangles (T, 3, 3), uvs or None) of a mixed scene's mesh at
+    ``mixed_scenes.MESH_AT[world]``: the lat-long sphere in the brute tier
+    (40 triangles), the static tier (784) or the streamed tier (1936; the
+    DMA tier where it is forced), or world 7's UV sphere at 736 triangles
+    (the static tier with UVs) or 1472 (the streamed tier with UVs; the
+    DMA tier where it is forced)."""
+    center, radius = mixed_scenes.MESH_AT[world]
+    if kind.startswith("uv"):
+        n_seg = {"uv736": 16, "uv1472": 32}[kind]
+        pts, uvs = tworlds._uv_sphere_mesh(center, radius, n_seg=n_seg,
+                                           n_ring=24)
+        return pts.reshape(-1, 3, 3), uvs
+    if kind == "brute":
+        return lat_long_sphere(4, 5, radius, center), None
+    n = {"static": 800, "streamed": 2000, "dma": 2000}[kind]
+    return tessellated_sphere(n, radius, center), None
 
 
 def mesh_scene(worlds_mod, tris, uvs=None, w=32, h=18, pinhole=True):

@@ -98,16 +98,20 @@ def test_quad_light_and_sphere_light():
 @pytest.mark.parametrize("kind", [tschema.WORLD_MARIO])
 def test_unported_worlds_raise(kind, tmp_path):
     """World 5 builds without its asset (mario.glb absent: no mesh, as in
-    JAX) with JAX's tables; a mesh together with a combined texture set
-    stays unported and names its ROADMAP item."""
+    JAX) with JAX's tables; a mesh without UVs together with a combined
+    texture set is ported (a mixed variant), a UV mesh there stays
+    unported (XLA-only in JAX) and names its ROADMAP item."""
     js, _ = jworlds.finalize_world(kind, 8, 8, res_dir=str(tmp_path))
     ts, _ = tworlds.finalize_world(kind, 8, 8, res_dir=str(tmp_path))
     assert ts.n_tris == 0 and ts.unsupported() == []
     assert_tables_equal(js, ts)
     w1, _ = tworlds.finalize_world(tschema.WORLD_DEFAULT, 8, 8)
     mesh = dataclasses.replace(w1, n_tris=100)
-    assert any("combined texture set" in m and "ROADMAP queue 1 item 10" in m
-               for m in mesh.unsupported())
+    assert mesh.unsupported() == []
+    uv_mesh = dataclasses.replace(mesh, has_mesh_uvs=True)
+    assert any("UV mesh together with a combined texture set" in m
+               and "ROADMAP queue 1 item 10" in m
+               for m in uv_mesh.unsupported())
 
 
 def test_thin_lens_raises():

@@ -92,8 +92,9 @@ def test_map_flags_reach_the_scene(flags):
 def test_non_combined_textures_stay_unported():
     """A planar map outside the combined set takes the feature path (K10's
     planar form), with sphere clusters too (their feature form); a
-    combined set with sphere clusters has no kernel and stays unported,
-    naming its ROADMAP item."""
+    combined set with sphere clusters is the mixed variant
+    ``clustered+textured``, and a bump map on it stays unported, naming
+    its ROADMAP item."""
     from pathtracer_tpu_torch.render import cuda_backend
     from pathtracer_tpu_torch.render.renderer import RenderConfig
     from pathtracer_tpu_torch.scene.camera import define_camera
@@ -118,9 +119,12 @@ def test_non_combined_textures_stay_unported():
             assert cuda_backend.variant(scene, cam) == "featclustered_pinhole"
             continue
         assert scene.tex_combined
+        assert cuda_backend.variant(scene, cam) == "clustered+textured"
         with pytest.raises(NotImplementedError,
-                           match="sphere clusters.*ROADMAP queue 1 item 10"):
-            cuda_backend.check_supported(scene, cam, RenderConfig(8, 8))
+                           match="bump.*ROADMAP queue 1 item 10"):
+            cuda_backend.check_supported(
+                dataclasses.replace(scene, any_bump=True), cam,
+                RenderConfig(8, 8))
 
 
 def _channels(out):

@@ -102,5 +102,14 @@ def test_world7_kernel_variants():
         ts, sph_clusters=clustered.sph_clusters,
         **{k: getattr(clustered, k) for k in ("cl_offset", "cl_count",
                                               "cl_min", "cl_max", "cl_huge")})
-    with pytest.raises(NotImplementedError, match="sphere clusters"):
-        cuda_backend.check_supported(both, cam, trenderer.RenderConfig(8, 8))
+    cuda_backend.check_supported(both, cam, trenderer.RenderConfig(8, 8))
+    assert cuda_backend.variant(both, cam) == "clustered+mesh"
+    assert cuda_backend.variant(both, lens) == "clustered+mesh"
+    w1, _ = tworlds.finalize_world(tschema.WORLD_DEFAULT, 8, 8)
+    comb = dataclasses.replace(
+        both, n_textures=4, tex_combined=True,
+        **{k: getattr(w1, k) for k in ("tex_tile", "tex_comb_a",
+                                       "tex_comb_b", "tex_mip")})
+    with pytest.raises(NotImplementedError,
+                       match="UV mesh together with a combined texture set"):
+        cuda_backend.check_supported(comb, cam, trenderer.RenderConfig(8, 8))
