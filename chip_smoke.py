@@ -3,9 +3,12 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and no network,
-and it imports nothing of JAX.
+and it imports nothing of JAX. ``python3 chip_smoke.py --parent DIR`` runs
+phase 1 and then, instead of the others, times the kernel of another
+checkout at DIR (the parent commit, unpacked with git archive) against
+this one's in turns (parent_turns).
 
-The render kernel csrc/wave_kernel.cu has fifty-five compile-time
+The render kernel csrc/wave_kernel.cu has forty-three compile-time
 variants (cuda_backend.VARIANTS), instantiations of one template in one
 build:
 untextured, the brute sphere sweep or the clustered walk (K5/K6), each with
@@ -21,9 +24,10 @@ or without UVs), the pinhole and the lens under path regeneration; and the
 mesh tiers (cuda_backend.MESH_KINDS), the pinhole and the lens under
 cuda_backend.MESH_SCHEDULE: the static tier's cluster walk (K5's triangle
 form) without UVs (staticplain, with the pinhole under the other schedule
-as its yardstick) and with the winner's uv (K8, static), the streamed walk
-without UVs (meshplain), and the DMA tier's walk with its grandparent level
-with and without UVs (meshgp, meshgpplain). The feature bounce also runs on
+as its yardstick) and with the winner's uv (K8, static), and the streamed
+walk without UVs (meshplain); the streamed walk (K7) is one near-first walk
+over a BVH of the record rows for the resident and the DMA tier alike, each
+warp on an 8x4 pixel tile. The feature bounce also runs on
 each of the other bases, as "feat" + the base's name: sphere clusters
 (featclustered, regen), the combined set (feattextured, lockstep, with its
 pinhole under regen) and every mesh tier (featmesh ... featstaticplain,
@@ -40,9 +44,9 @@ repository: world 5's builder without its asset (ground plane, sun, sky,
 camera) plus a lat-long sphere (experiments/accel_crossover.py:51's
 tessellated_sphere, a copy here) of 40 triangles without UVs (K4t), 784
 (Mario's tier and size: the static tier), 19,600 (the resident streamed
-tier) and 262,144 (the DMA tier with grandparents), or world 7's UV sphere
-with its checker at 736 triangles (the static tier with UVs) and 99,840
-(the DMA tier with UVs and grandparents). The mixed cases (MIXED_CASES,
+tier) and 262,144 (the DMA tier), or world 7's UV sphere with its checker
+at 736 triangles (the static tier with UVs) and 99,840 (the DMA tier with
+UVs). The mixed cases (MIXED_CASES,
 built by scene/mixed_scenes.py) put those meshes, and world 7's UV sphere
 at 1472 triangles, above world 2's clustered spheres (with world 1's
 combined ground material on its plane where the variant names
@@ -54,15 +58,20 @@ and the script exits non-zero):
   1. device: the card's name and power limit;
   2. build: compiles csrc/wave_kernel.cu (one nvcc per build part, all
      started together, and a link), prints the seconds,
-     ptxas's registers and spills for each variant (and whether the
-     forty-two earlier variants kept the values they were built at
-     before the mixed variants came, EARLIER_PTXAS) and, from cuobjdump, the
-     count of BSSY/BSYNC/WARPSYNC instructions in each variant's SASS
-     (``--sass DIR`` also writes the full SASS there);
+     ptxas's registers and spills for each variant (whether every variant
+     that walks no streamed mesh kept the values it was built at before
+     the BVH walk, KEPT_PTXAS, and the streamed walk's variants beside
+     their values under the table-order walk, K7_EARLIER_PTXAS) and, from
+     cuobjdump, the count of BSSY/BSYNC/WARPSYNC instructions in each variant's SASS
+     (``--sass DIR`` also writes the full SASS there); then, in the
+     background, phase 5's yardstick: the same source with
+     -DWAVE_SCANLINE_WARPS, where each warp of the streamed walk's
+     variants shades 32 pixels of a scanline instead of an 8x4 tile;
   3. kernel vs plain: render_chunk on CUDA tensors (the kernel) against
      render_chunk_plain (eager PyTorch) on the same inputs, gated like
      bench.py --verify (fewer than 1% of pixels with resolved |diff| > 1e-3
-     and 0.1% with |diff| > 0.1, equal valid counts, rays within 0.5%):
+     and 0.1% with |diff| > 0.1, equal valid counts, rays within 0.5%;
+     each line gives the bit-equal fraction and the differing pixels):
      worlds 3 and 6 at 256x144 16 spp; worlds 4 and 2 and world 3 with the
      thin lens at 256x144 4 spp; world 1 at 256x144 4 spp under both
      schedules, with -d, --mips, --tbn and -nmr; world 7 at 256x144 4 spp
@@ -76,16 +85,16 @@ and the script exits non-zero):
      on world 6 and on world 3 with -d, and world 1 with three planar
      512x512 maps at both sizes, through the feature variants; the six mesh
      cases at 256x144 and 1280x720, 4 spp, pinhole and thin lens (784 also
-     under the other schedule), each through its tier's variant, and the
-     two DMA-tier meshes bit-equal to themselves with the grandparent level
-     off (the resident walk over the same parents); the feature bounce on
+     under the other schedule), each through its tier's variant; the
+     streamed walk's cases at 60x34, a size that is not a whole number of
+     its 8x4 warp tiles (world 7, the 19,600-, 262,144- and
+     99,840-triangle meshes, in fog too, and a mixed base); the feature bounce on
      the other bases at 256x144 and 1280x720, 4 spp (base_case): worlds 1
      (pinhole, lens, regen), 2 (pinhole, lens), 4, 7 (pinhole, lens, regen)
      and 6 (lockstep) in the CLI's fog, world 1's combined-set material and
      world 2's spheres as dispersive glass, planar albedo and bump maps on
      world 2 and on the 784-triangle case, every mesh case in fog through
-     both cameras; the two DMA meshes in fog bit-equal to their
-     resident twins; and every mixed case at 256x144 (pinhole without
+     both cameras; and every mixed case at 256x144 (pinhole without
      features, thin lens in the CLI's fog) and 1280x720 (thin lens
      without features, pinhole in fog), 4 spp: every mixed variant, the
      combined set with the 40-triangle mesh alone and beside clusters,
@@ -127,7 +136,10 @@ and the script exits non-zero):
      l. render_image, 4 spp in one chunk, on every mixed case: one launch
         of its own variant;
   5. timing (CUDA events, synchronised; no speed gate): every variant and
-     its plain version at 1280x720 4 spp; world 3 at 256 spp and world 1
+     its plain version at 1280x720 4 spp, each row of the streamed walk
+     (K7_EARLIER_MS: its variants on the DMA meshes too) beside its time
+     under the table-order walk and in turns with the scanline-warp
+     yardstick (each first in one half of eight launches); world 3 at 256 spp and world 1
      at 16 spp, kernel alone and end to end through render_image; worlds
      3, 6 and 4 at 64 spp; worlds 1 and 7 at 64 spp under both schedules,
      alternating (world 7 also end to end through render_image), and world
@@ -148,15 +160,18 @@ and the script exits non-zero):
      and mesh tables). For the clustered variants the slab and sphere tests
      are counted over every ray of the same 4-spp render: the plain version
      renders it, and each bounce's live rays replay the kernel's per-thread
-     walk with the port's ray_slab_entry. For the mesh variants the parent,
-     cluster and row box tests, the triangle tests and the triangle wins
-     are counted the same way, with the port's box test and record tests.
-     For the mesh variants the box tests (grandparents, parents, clusters,
-     rows; the static tier's clusters), the triangle tests and the triangle
-     wins are counted over every ray of the same 4-spp render, the
-     static tier's by its walk itself (the plain walk is the kernel's), the
-     streamed tiers' against each ray's final nearest hit (the boxes it
-     enters before it: a lower count than the kernel's running t gives).
+     walk with the port's ray_slab_entry. For the mesh variants the box
+     tests (grandparents, parents, clusters, rows; the static tier's
+     clusters), the triangle tests and the triangle wins are counted over
+     every ray of the same 4-spp render, the static tier's by its walk
+     itself (the plain walk is the kernel's); the streamed tier's twice,
+     by the table-order walk against each ray's final nearest hit (the
+     boxes it enters before that hit: a lower count) and by the card's BVH
+     walk, exact (ops/intersect.py::_bvh_winners replays it step for
+     step). A streamed row's bound counts the fewer of the two, over the
+     tables the BVH walk reads (k7_terms); its bound under the earlier
+     definition (the table-order count over that walk's tables) is printed
+     beside it.
      For the textured and mesh variants the fetches are counted over every
      shaded hit on a textured material (mesh: with a UV winner) whose path
      continues (a lower count). For the feature rows the plain
@@ -174,6 +189,7 @@ The last two lines are the kernel table as JSON and the result line
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import json
 import re
@@ -263,38 +279,180 @@ def nvidia_smi() -> str:
 
 KERNEL_RE = (r"wave_kernelILb([01])ELb([01])ELi([0-9])ELi([0-9])ELi([0-9])"
              r"ELi([0-9])E")
-# ptxas's registers and spill bytes of the forty-two variants as they
-# were built before the mixed bases came (phase 2 on the H100, PERF.md's
-# findings)
-EARLIER_PTXAS = {"brute_pinhole": (64, 0), "brute_lens": (72, 16),
-                 "clustered_pinhole": (64, 0), "clustered_lens": (64, 16),
-                 "textured_pinhole": (64, 68), "textured_lens": (64, 60),
-                 "textured_pinhole_regen": (87, 0), "mesh_pinhole": (56, 84),
-                 "mesh_lens": (56, 88), "mesh_pinhole_regen": (64, 112),
-                 "feature_pinhole": (80, 0), "feature_lens": (80, 0),
-                 "meshplain_pinhole": (48, 124), "meshplain_lens": (40, 212),
-                 "meshgp_pinhole": (48, 172), "meshgp_lens": (56, 88),
-                 "meshgpplain_pinhole": (40, 224),
-                 "meshgpplain_lens": (40, 228), "static_pinhole": (64, 60),
-                 "static_lens": (64, 44), "staticplain_pinhole": (64, 28),
-                 "staticplain_lens": (64, 28),
-                 "staticplain_pinhole_regen": (79, 0),
-                 "featclustered_lens": (72, 16),
-                 "featclustered_pinhole": (72, 32), "featmesh_lens": (64, 96),
-                 "featmesh_pinhole": (64, 100),
-                 "featmesh_pinhole_regen": (64, 136),
-                 "featmeshgp_lens": (48, 212), "featmeshgp_pinhole": (56, 140),
-                 "featmeshgpplain_lens": (48, 192),
-                 "featmeshgpplain_pinhole": (56, 144),
-                 "featmeshplain_lens": (56, 136),
-                 "featmeshplain_pinhole": (56, 140),
-                 "featstatic_lens": (72, 44), "featstatic_pinhole": (64, 100),
-                 "featstaticplain_lens": (72, 12),
-                 "featstaticplain_pinhole": (72, 12),
-                 "feattextured_lens": (80, 44),
-                 "feattextured_pinhole": (80, 44),
-                 "feattextured_pinhole_regen": (92, 0),
-                 "feature_pinhole_lockstep": (72, 28)}
+# ptxas's registers and spill bytes as the variants were built before the
+# near-first BVH walk (phase 2 on the H100, PERF.md's findings): the
+# variants that walk no streamed mesh, which must keep them, and those of
+# the table-order streamed walk (K7), printed beside the new walk's; the
+# DMA tier's own variants (meshgp*, now folded into mesh*) by their names
+KEPT_PTXAS = {"brute_pinhole": (64, 0), "brute_lens": (72, 16),
+              "clustered_pinhole": (64, 0), "clustered_lens": (64, 16),
+              "textured_pinhole": (64, 68), "textured_lens": (64, 60),
+              "textured_pinhole_regen": (87, 0),
+              "feature_pinhole": (80, 0), "feature_lens": (80, 0),
+              "static_pinhole": (64, 60), "static_lens": (64, 44),
+              "staticplain_pinhole": (64, 28), "staticplain_lens": (64, 28),
+              "staticplain_pinhole_regen": (79, 0),
+              "featclustered_lens": (72, 16),
+              "featclustered_pinhole": (72, 32),
+              "featstatic_lens": (72, 44), "featstatic_pinhole": (64, 100),
+              "featstaticplain_lens": (72, 12),
+              "featstaticplain_pinhole": (72, 12),
+              "feattextured_lens": (80, 44), "feattextured_pinhole": (80, 44),
+              "feattextured_pinhole_regen": (92, 0),
+              "feature_pinhole_lockstep": (72, 28),
+              "clustered+textured": (80, 52),
+              "textured+staticplain": (72, 96),
+              "clustered+static": (64, 80), "clustered+staticplain": (64, 80),
+              "clustered+textured+staticplain": (72, 96)}
+K7_EARLIER_PTXAS = {"mesh_pinhole": (56, 84), "mesh_lens": (56, 88),
+                "mesh_pinhole_regen": (64, 112),
+                "meshplain_pinhole": (48, 124), "meshplain_lens": (40, 212),
+                "meshgp_pinhole": (48, 172), "meshgp_lens": (56, 88),
+                "meshgpplain_pinhole": (40, 224),
+                "meshgpplain_lens": (40, 228),
+                "featmesh_lens": (64, 96), "featmesh_pinhole": (64, 100),
+                "featmesh_pinhole_regen": (64, 136),
+                "featmeshgp_lens": (48, 212), "featmeshgp_pinhole": (56, 140),
+                "featmeshgpplain_lens": (48, 192),
+                "featmeshgpplain_pinhole": (56, 144),
+                "featmeshplain_lens": (56, 136),
+                "featmeshplain_pinhole": (56, 140),
+                "textured+meshplain": (72, 96),
+                "textured+meshgpplain": (48, 264),
+                "clustered+mesh": (56, 152), "clustered+meshplain": (56, 132),
+                "clustered+meshgp": (56, 152),
+                "clustered+meshgpplain": (48, 204),
+                "clustered+textured+meshplain": (72, 96),
+                "clustered+textured+meshgpplain": (48, 268)}
+
+
+# PERF.md's K7 rows: row (variant, and its case where the variant's main
+# case differs) -> (the variant that rendered it under the table-order
+# walk, its median 720p 4-spp kernel ms there, on an H100 80GB HBM3 at
+# 700 W, PERF.md's table)
+K7_EARLIER_MS = {
+    "mesh_pinhole": ("mesh_pinhole", 2.866),
+    "mesh_lens": ("mesh_lens", 2.996),
+    "mesh_pinhole_regen": ("mesh_pinhole_regen", 3.118),
+    "meshplain_pinhole": ("meshplain_pinhole", 5.186),
+    "meshplain_lens": ("meshplain_lens", 5.188),
+    "meshplain_pinhole tri262144": ("meshgpplain_pinhole", 10.191),
+    "meshplain_lens tri262144": ("meshgpplain_lens", 10.378),
+    "mesh_pinhole uv99840": ("meshgp_pinhole", 9.670),
+    "mesh_lens uv99840": ("meshgp_lens", 9.550),
+    "featmesh_pinhole": ("featmesh_pinhole", 5.185),
+    "featmesh_lens": ("featmesh_lens", 5.172),
+    "featmesh_pinhole_regen": ("featmesh_pinhole_regen", 6.640),
+    "featmeshplain_pinhole": ("featmeshplain_pinhole", 6.843),
+    "featmeshplain_lens": ("featmeshplain_lens", 6.808),
+    "featmeshplain_pinhole tri262144": ("featmeshgpplain_pinhole", 11.015),
+    "featmeshplain_lens tri262144": ("featmeshgpplain_lens", 11.140),
+    "featmesh_pinhole uv99840": ("featmeshgp_pinhole", 10.251),
+    "featmesh_lens uv99840": ("featmeshgp_lens", 10.184),
+    "textured+meshplain": ("textured+meshplain", 6.125),
+    "textured+meshplain dma": ("textured+meshgpplain", 12.199),
+    "clustered+mesh": ("clustered+mesh", 5.219),
+    "clustered+meshplain": ("clustered+meshplain", 8.436),
+    "clustered+mesh dma": ("clustered+meshgp", 10.374),
+    "clustered+meshplain dma": ("clustered+meshgpplain", 12.877),
+    "clustered+textured+meshplain": ("clustered+textured+meshplain", 9.690),
+    "clustered+textured+meshplain dma": ("clustered+textured+meshgpplain",
+                                         12.328),
+}
+
+
+def earlier(row: str) -> str:
+    """A K7 row's earlier time, for its phase-5 line ("" for another row)."""
+    if row not in K7_EARLIER_MS:
+        return ""
+    was, ms = K7_EARLIER_MS[row]
+    return f"earlier_ms={ms} ({was}) "
+
+
+def row_name(row: str) -> str:
+    """A kernel-table row's name: its variant's kernel, then its case where
+    the row is not the variant's own case."""
+    var, _, case = row.partition(" ")
+    return f"wave_kernel<{var}>" + (f" {case}" if case else "")
+
+
+def k7_note(var: str) -> dict:
+    """The kernel-table key that marks the streamed walk (K7) redesigned."""
+    return ({"k7": "redesigned: near-first BVH walk over the record rows, "
+                   "16-byte triangle records, 8x4 warp tiles"}
+            if walks_k7(var) else {})
+
+
+def tri_test_ops(scene) -> int:
+    """FP32 operations the bound counts per triangle test of a mesh: the
+    table-order walk's DMA tier with grandparents compared an equal t's
+    winner too, and its rows keep that count so they compare over time."""
+    return OPS_TRI_GP if scene.stream_gparents else OPS_TRI
+
+
+def k7_terms(scene, boxes, tris, bvh_boxes, bvh_tris):
+    """The streamed walk's (K7) part of a row's bound: (FP32 operations per
+    ray, bytes of the tables it reads) twice. First the bound's own: the
+    fewer of the two walks' box and triangle tests per ray (the card's BVH
+    walk, exact; the table-order walk's, replayed against each ray's final
+    hit), at OPS_SLAB and OPS_TRI, over the tables the BVH walk and the
+    resolve read. Then the earlier definition, printed beside it so that
+    rows compare with earlier runs: the table-order walk's replayed count at
+    tri_test_ops, over the table-order walk's tables. The winners' uv
+    operations are the row's own, in neither."""
+    size = lambda ts: 4 * sum(t.numel() for t in ts)
+    uv = (scene.mtri_uvpack,) if scene.has_mesh_uvs else ()
+    bvh = (OPS_INV + min(boxes, bvh_boxes) * OPS_SLAB
+           + min(tris, bvh_tris) * OPS_TRI,
+           size((scene.bvh_nodes, scene.bvh_tris, scene.bvh_tri_k,
+                 scene.mtri_pack, *uv)))
+    table_order = (OPS_INV + boxes * OPS_SLAB + tris * tri_test_ops(scene),
+                   size((scene.mtri_pack, scene.mtri_bounds,
+                         scene.stream_pbox, scene.stream_prange,
+                         scene.stream_gbox, scene.stream_grange, *uv)))
+    return bvh, table_order
+
+
+def bound(ops, nbytes):
+    """(the least ms for ``ops`` FP32 operations and ``nbytes`` bytes at
+    the card's peaks, and which of the two it is)."""
+    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def row_bound(ops, nbytes, rays, k7=None):
+    """A kernel-table row's bound from its FP32 operations and bytes, to
+    which a K7 row (``k7``: k7_terms' pair) adds the streamed walk's part
+    over its ``rays``: (ms, "operations" or "bytes", the operations, the
+    bytes, and a K7 row's bound ms under the earlier definition or None)."""
+    if k7 is None:
+        return (*bound(ops, nbytes), ops, nbytes, None)
+    (ops_bvh, bytes_bvh), (ops_old, bytes_old) = k7
+    ops_new, bytes_new = ops + rays * ops_bvh, nbytes + bytes_bvh
+    return (*bound(ops_new, bytes_new), ops_new, bytes_new,
+            bound(ops + rays * ops_old, nbytes + bytes_old)[0])
+
+
+def old_bound(ms) -> dict:
+    """A K7 row's kernel-table key for its bound under the earlier
+    definition (the table-order walk's count over its tables)."""
+    return {} if ms is None else {"bound_ms_table_order": ms}
+
+
+def walks_k7(var: str) -> bool:
+    """Whether a variant walks the streamed tier (K7): a mesh kind that is
+    not the static tier's, alone or in a mixed base."""
+    return any(part.split("_")[0].removeprefix("feat") in ("mesh", "meshplain")
+               for part in var.split("+"))
+
+
+def folded_dma(var: str) -> str:
+    """The name of a K7 variant's DMA-tier twin under the table-order walk
+    (meshgp*), which the BVH walk folded into it."""
+    return re.sub(r"mesh(plain)?(?=_|$)", lambda m: "meshgp" + (m.group(1)
+                                                                or ""), var,
+                  count=1)
 
 
 def variant_of(mangled: re.Match) -> str:
@@ -462,40 +620,72 @@ def mesh_tally(sc, o, d, m, tally):
     """Adds the mesh walk's box tests, triangle tests and triangle wins over
     the rays ``m`` of (o, d) to ``tally``, each ray walked again after its
     nearest sphere, quad or plane: the static tier by its own walk, which
-    is the kernel's, a streamed tier against the ray's final nearest hit."""
+    is the kernel's, a streamed tier against the ray's final nearest hit
+    (the table-order walk's lower count, the bound's work). A streamed
+    tier's rays are also kept, with that nearest hit, under "bvh_rays" for
+    bvh_tally."""
     import torch
     from pathtracer_tpu_torch.ops import intersect as isect
     from pathtracer_tpu_torch.utils.vec import Vec3
-    for lo in range(0, int(m.sum()), isect._STREAM_RAY_CHUNK):
-        idx = torch.nonzero(m).reshape(-1)[lo:lo + isect._STREAM_RAY_CHUNK]
-        ro, rd = Vec3(*(c[idx] for c in o)), Vec3(*(c[idx] for c in d))
+    idx = torch.nonzero(m).reshape(-1)
+    for lo in range(0, idx.numel(), isect._STREAM_RAY_CHUNK):
+        part = idx[lo:lo + isect._STREAM_RAY_CHUNK]
+        ro, rd = Vec3(*(c[part] for c in o)), Vec3(*(c[part] for c in d))
         best = isect._non_triangles(sc, ro, rd)
         static = not sc.tri_streamed
         h, _, _, won = isect.intersect_triangles(
             sc, ro, rd, best, tally=tally if static else None)
         if not static:
             isect._stream_rows(sc, ro, isect._slab_inverse(rd), h.t, tally)
+            tally.setdefault("bvh_rays", []).append((ro, rd, best.t))
         tally["wins"] += int(won.sum())
 
 
+def bvh_tally(sc, tally):
+    """Adds the box and triangle tests of the card's BVH walk over the rays
+    mesh_tally kept to tally's "bvh_boxes" and "bvh_tris": the walk replayed
+    step for step (ops/intersect.py::_bvh_winners: exact counts), over all
+    of a render's rays at once."""
+    import torch
+    from pathtracer_tpu_torch.ops import intersect as isect
+    from pathtracer_tpu_torch.utils.vec import Vec3
+    rays = tally.pop("bvh_rays", [])
+    if not rays:
+        return
+    cat = lambda k, i: torch.cat([r[k][i] if i is not None else r[k]
+                                  for r in rays])
+    o = Vec3(*(cat(0, i) for i in range(3)))
+    d = Vec3(*(cat(1, i) for i in range(3)))
+    t0 = cat(2, None)
+    counts = {}
+    for lo in range(0, t0.numel(), 1 << 22):
+        sl = slice(lo, lo + (1 << 22))
+        isect._bvh_winners(sc, Vec3(*(c[sl] for c in o)),
+                           Vec3(*(c[sl] for c in d)), t0[sl], counts)
+    tally["bvh_boxes"] += counts["boxes"]
+    tally["bvh_tris"] += counts["tris"]
+
+
 def mesh_counts(scene, cam, cfg, n_samples, dev):
-    """Per-ray means of a mesh variant's box tests (grandparents, parents,
-    clusters and rows, or the static tier's clusters), triangle tests and
-    triangle wins over every ray of samples 0 .. n_samples-1 of ``cfg``,
-    the rays, and the mesh-UV texel fetches. The plain regeneration loop
-    renders the same rays as the kernel (phase 3 holds them to it); each
-    bounce's live rays are caught on their way to the intersect and walked
-    again after the nearest sphere, quad or plane: the static tier by its
-    own walk, which is the kernel's (exact counts), a streamed tier against
-    each ray's final nearest hit (the boxes it enters before that hit, a
-    lower count than the kernel's running t gives); each shaded hit whose
-    winner is a UV triangle with an albedo map and whose path continues
-    counts a fetch."""
+    """The rays, per-ray means of a mesh variant's box tests (grandparents,
+    parents, clusters and rows, or the static tier's clusters), triangle
+    tests and triangle wins over every ray of samples 0 .. n_samples-1 of
+    ``cfg``, the mesh-UV texel fetches, and for a streamed mesh the per-ray
+    box and triangle tests of the card's BVH walk. The plain regeneration
+    loop renders the same rays as the kernel (phase 3 holds them to it);
+    each bounce's live rays are caught on their way to the intersect and
+    walked again after the nearest sphere, quad or plane (mesh_tally): the
+    static tier by its own walk, which is the kernel's (exact counts), a
+    streamed tier against each ray's final nearest hit by the table-order
+    walk (the boxes it enters before that hit: a lower count) and by the
+    BVH walk step for step (exact); each shaded hit whose winner is a UV
+    triangle with an albedo map and whose path continues counts a fetch."""
     import torch
     from pathtracer_tpu_torch.render import wavefront
     from pathtracer_tpu_torch.render.renderer import init_accum
 
-    tally = dict.fromkeys(("rays", "boxes", "tris", "wins", "fetches"), 0)
+    tally = dict.fromkeys(("rays", "boxes", "tris", "wins", "fetches",
+                           "bvh_boxes", "bvh_tris"), 0)
     live = {}
     primary, shade = wavefront._primary_rays, wavefront.shade_bounce
     walks = {k: getattr(wavefront, k)
@@ -536,9 +726,10 @@ def mesh_counts(scene, cam, cfg, n_samples, dev):
         for k, f in walks.items():
             setattr(wavefront, k, f)
         wavefront.shade_bounce = shade
+    bvh_tally(scene, tally)
     n = tally["rays"]
     return (n, tally["boxes"] / n, tally["tris"] / n, tally["wins"] / n,
-            tally["fetches"])
+            tally["fetches"], tally["bvh_boxes"] / n, tally["bvh_tris"] / n)
 
 
 def lat_long_sphere(nlat, nlon, radius=1.0, center=(0.0, 0.0, 1.0)):
@@ -585,20 +776,22 @@ MESH_CASES = {  # tag -> (triangles without UVs, or UV-sphere segments/rings)
 # cases' (and world 7's UV sphere at 1472 triangles, the streamed tier
 # with UVs), moved there.
 MIXED_MESHES = {**MESH_CASES, "uv1472": (None, (32, 24))}
+# the CLI's --fog 0.0012 --fog-albedo 0.9,0.9,0.95 --fog-g 0.5
+FOG = {"fog_sigma_t": 0.0012, "fog_albedo": (0.9, 0.9, 0.95), "fog_g": 0.5}
 MIXED_CASES = {
     "clustered+textured": (None, {}),
     "textured+staticplain": ("tri784", {}),
     "textured+meshplain": ("tri19600", {}),
-    "textured+meshgpplain": ("tri262144", {}),
+    "textured+meshplain dma": ("tri262144", {}),
     "clustered+mesh": ("uv1472", {}),
     "clustered+meshplain": ("tri19600", {}),
-    "clustered+meshgp": ("uv99840", {}),
-    "clustered+meshgpplain": ("tri262144", {}),
+    "clustered+mesh dma": ("uv99840", {}),
+    "clustered+meshplain dma": ("tri262144", {}),
     "clustered+static": ("uv736", {}),
     "clustered+staticplain": ("tri784", {}),
     "clustered+textured+meshplain": ("tri19600", {}),
-    "clustered+textured+meshgpplain": ("tri262144",
-                                       {"mesh_material": "ground"}),
+    "clustered+textured+meshplain dma": ("tri262144",
+                                         {"mesh_material": "ground"}),
     "clustered+textured+staticplain": ("tri784", {"mesh_material": "ground"}),
     "textured+brute": ("tri40", {}),
     "clustered+textured+brute": ("tri40", {}),
@@ -747,7 +940,7 @@ def mixed_counts(scene, cam, cfg, n_samples, dev):
     from pathtracer_tpu_torch.utils import prng
 
     tally = dict.fromkeys(FEATURE_KEYS + ("slabs", "spheres", "boxes", "tris",
-                                          "wins"), 0)
+                                          "wins", "bvh_boxes", "bvh_tris"), 0)
     live = {}
     primary, draw, shade = (wavefront._primary_rays, prng.bounce_uniforms,
                             wavefront.shade_bounce)
@@ -792,13 +985,132 @@ def mixed_counts(scene, cam, cfg, n_samples, dev):
         wavefront.shade_bounce = shade
         for k, f in walks.items():
             setattr(wavefront, k, f)
+    bvh_tally(scene, tally)
     return tally
+
+
+def load_package(root: Path, name: str):
+    """The port's package of another checkout at ``root``, imported as
+    ``name`` beside this one (its modules import each other relatively):
+    a function from a submodule's dotted name to the module."""
+    import importlib
+    import importlib.util
+    pkg = root / "pathtracer_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return lambda sub: importlib.import_module(f"{name}.{sub}")
+
+
+# --parent's rows: (case, thin lens, schedule); "w7" is world 7 (its
+# 1472-triangle UV sphere), "w7 fog" the same in the CLI's fog, "triN"
+# world 5's ground with tessellated_sphere(N) (the streamed tier without
+# UVs from 2048 triangles to the DMA tier's 262,144)
+PARENT_ROWS = (("w7", False, None), ("w7", True, None), ("w7", False, "regen"),
+               ("w7 fog", False, None), ("w7 fog", True, None),
+               ("w7 fog", False, "regen"), ("tri2048", False, None),
+               ("tri4096", False, None), ("tri8192", False, None),
+               ("tri19600", False, None), ("tri262144", False, None))
+
+
+def parent_turns(parent: Path, smi: str):
+    """``--parent DIR``: the kernel of another checkout of this repository
+    at DIR (the parent commit, unpacked with git archive) against this
+    one's, in one process: both built at once; the host seconds of
+    ``WorldBuilder.finalize`` on world 5's ground with the 262,144- and
+    the 1,048,576-triangle sphere under each (the parent's is the
+    table-order tables' alone); and the kernel ms of each PARENT_ROWS row
+    at 1280x720, 4 spp, after a warm launch each, in turns (parent, this,
+    this, parent, this, parent, parent, this: each first in one half)."""
+    import importlib
+    import torch
+    dev = torch.device("cuda:0")
+    trees = {"parent": load_package(parent.resolve(), "parent_port"),
+             "this": lambda sub: importlib.import_module(
+                 f"pathtracer_tpu_torch.{sub}")}
+
+    def build(tree):
+        t = time.perf_counter()
+        tree("render.cuda_backend").build()
+        return time.perf_counter() - t
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        secs = dict(zip(trees, pool.map(build, trees.values())))
+    print(f"parent build_s={json.dumps(secs)}")
+
+    def mesh_builder(tree, n):
+        worlds, schema = tree("scene.worlds"), tree("scene.schema")
+        b, cp = worlds.build_world(schema.WORLD_MARIO,
+                                   res_dir=str(ROOT / "no asset here"))
+        m = b.add_material(albedo=(0.7, 0.6, 0.5), roughness=0.6)
+        tris = tessellated_sphere(n)
+        b.set_mesh(tris.reshape(-1, 3), np.full((3 * len(tris),), m, np.int32))
+        return b, cp, schema.WORLD_MARIO
+
+    for n in (262144, 1 << 20):
+        for k in ("parent", "this"):
+            b, cp, kind = mesh_builder(trees[k], n)
+            t = time.perf_counter()
+            scene = b.finalize(world_kind=kind, view_origin=cp.pos)
+            print(f"parent finalize tree={k} n_tris={scene.n_tris} "
+                  f"dma={scene.tri_dma} finalize_s={time.perf_counter() - t}")
+            del b, scene
+
+    def case(tree, tag, lens, w, h):
+        worlds, schema = tree("scene.worlds"), tree("scene.schema")
+        if tag.startswith("w7"):
+            scene, cam = worlds.finalize_world(schema.WORLD_MESH_UV, w, h,
+                                               use_pinhole=not lens)
+            if tag.endswith("fog"):
+                scene = dataclasses.replace(scene, **FOG)
+            return scene.to(dev), cam
+        b, cp, kind = mesh_builder(tree, int(tag[3:]))
+        scene = b.finalize(world_kind=kind, view_origin=cp.pos)
+        return scene.to(dev), tree("scene.camera").define_camera(
+            cp.pos, cp.target, cp.fov, w, h, use_pinhole=not lens)
+
+    w, h = 1280, 720
+    for tag, lens, sched in PARENT_ROWS:
+        runs, res, rays = {}, {k: [] for k in trees}, {}
+        for k, tree in trees.items():
+            scene, cam = case(tree, tag, lens, w, h)
+            rd, cb = tree("render.renderer"), tree("render.cuda_backend")
+            cfg = rd.RenderConfig(w, h, pp=2, seed=0, schedule=sched)
+            launch = (lambda cb=cb, rd=rd, scene=scene, cam=cam, cfg=cfg:
+                      cb.render_chunk_cuda(scene, cam, cfg, 0, 0, 4,
+                                           rd.init_accum(w * h, dev)))
+            runs[k] = (launch, cb.variant(scene, cam, sched), scene.n_tris)
+            launch()
+        for k in ("parent", "this", "this", "parent",
+                  "this", "parent", "parent", "this"):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            st = runs[k][0]()
+            b.record()
+            torch.cuda.synchronize()
+            res[k].append(a.elapsed_time(b))
+            rays[k] = int(st.rays_cast)
+        med = {k: float(np.median(v)) for k, v in res.items()}
+        print(f"parent row case={tag!r} lens={lens} schedule={sched} "
+              f"n_tris={runs['this'][2]} variant_parent={runs['parent'][1]} "
+              f"variant_this={runs['this'][1]} parent_ms={res['parent']} "
+              f"this_ms={res['this']} parent_median={med['parent']} "
+              f"this_median={med['this']} "
+              f"this_over_parent={med['this'] / med['parent']} "
+              f"rays_parent={rays['parent']} rays_this={rays['this']} "
+              f"| card: {smi}")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sass", metavar="DIR", default=None,
                     help="also write each variant's SASS to DIR")
+    ap.add_argument("--parent", metavar="DIR", default=None,
+                    help="instead of phases 2-6, time another checkout's "
+                         "kernel (DIR) against this one's (parent_turns)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     import torch
@@ -820,7 +1132,6 @@ def main() -> int:
     from pathtracer_tpu_torch.scene.schema import (
         WORLD_BRDF_TEST, WORLD_CORNELL_BOX, WORLD_CORNELL_QUAD, WORLD_DEFAULT,
         WORLD_MARIO, WORLD_MESH_UV, WORLD_RAYTRACING_ONE_WEEKEND,
-        parent_tables,
     )
     from pathtracer_tpu_torch.scene.textures import REFERENCE_RES_DIR
     from pathtracer_tpu_torch.scene.worlds import build_world, finalize_world
@@ -844,10 +1155,6 @@ def main() -> int:
     def mip_scale(cam, h):
         """The CLI's --mips constant."""
         return 2.0 * cam.half_film_height / (h * cam.focal_length)
-
-    # the CLI's --fog 0.0012 --fog-albedo 0.9,0.9,0.95 --fog-g 0.5
-    FOG = {"fog_sigma_t": 0.0012, "fog_albedo": (0.9, 0.9, 0.95),
-           "fog_g": 0.5}
 
     def feature(name, w, h, lens=False):
         """A feature scene (scene/feature_scenes.py) on the card, its camera
@@ -901,13 +1208,6 @@ def main() -> int:
         scene, cp, _, on_card = mesh_built[tag]
         return (scene if cpu else on_card), define_camera(
             cp.pos, cp.target, cp.fov, w, h, use_pinhole=not lens)
-
-    def resident_twin(scene):
-        """A DMA-tier scene without its grandparent level: its parents in
-        table order, walked as the resident tier walks them."""
-        parents = tuple(sorted(scene.stream_parents))
-        return dataclasses.replace(scene, stream_gparents=(), **{
-            k: v.to(dev) for k, v in parent_tables(parents).items()})
 
     def feature_case(tag, w, h, lens=False):
         """(scene, camera, RenderConfig options) of a feature case: a
@@ -1001,27 +1301,44 @@ def main() -> int:
     print(f"phase1 device={name!r} torch={torch.__version__} "
           f"cuda={torch.version.cuda}")
     print(smi)  # the card's name and power limit, as nvidia-smi reports
+    if args.parent:
+        parent_turns(Path(args.parent), smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # --- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    cb.build()
+    tile_lib = cb.build()
     build_s = time.perf_counter() - t0
+    # phase 5's yardstick for the K7 variants' 8x4 warp tiles: a build
+    # whose every variant maps each warp to a scanline, made meanwhile
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    yardstick = pool.submit(cb.compile_library, ("WAVE_SCANLINE_WARPS",))
     ptxas = ptxas_report(cb.BUILD_LOG)
     check(sorted(ptxas) == sorted(cb.VARIANTS), f"ptxas report {ptxas}")
     sass = sass_report(cb.LIB_PATH, args.sass)
     check(sorted(sass) == sorted(cb.VARIANTS), f"SASS report {sass}")
+    check(sorted(KEPT_PTXAS) == sorted(v for v in cb.VARIANTS
+                                       if not walks_k7(v)),
+          "KEPT_PTXAS names every variant without the streamed walk")
     kept = {v: (ptxas[v]["registers"], ptxas[v]["spill_stores"]) == rs
-            for v, rs in EARLIER_PTXAS.items()}
+            for v, rs in KEPT_PTXAS.items()}
     print(f"phase2 build_s={build_s:.3f} nvcc_s={cb.BUILD_SECONDS} "
           f"ptxas={json.dumps(ptxas)}")
-    print(f"phase2 earlier_variants_kept_ptxas={json.dumps(kept)} "
+    print(f"phase2 variants_without_k7_kept_ptxas={json.dumps(kept)} "
           f"all_kept={all(kept.values())}")
-    check(all(kept.values()), "the earlier variants kept their registers "
-          "and spills")
-    print("phase2 new_variants " + json.dumps(
-        {v: ptxas[v] for v in cb.VARIANTS if v not in EARLIER_PTXAS}))
+    check(all(kept.values()), "the variants without the streamed walk kept "
+          "their registers and spills")
+    print("phase2 k7_variants (registers, spill stores) now and under the "
+          "table-order walk (its DMA tier's variant too) " + json.dumps(
+              {v: {"now": (ptxas[v]["registers"], ptxas[v]["spill_stores"]),
+                   "before": K7_EARLIER_PTXAS[v],
+                   **({"before_dma": K7_EARLIER_PTXAS[folded_dma(v)]}
+                      if folded_dma(v) in K7_EARLIER_PTXAS else {})}
+               for v in cb.VARIANTS if walks_k7(v)}))
     print(f"phase2 sass={json.dumps(sass)}")
-    new_vars = [v for v in cb.VARIANTS if v not in EARLIER_PTXAS]
 
     # --- 3. kernel vs plain on the card ------------------------------------
     print(f"phase3 start_s={time.perf_counter() - t_start}")
@@ -1049,6 +1366,7 @@ def main() -> int:
         print(f"phase3 {label} variant={var} {cfg.width}x{cfg.height} "
               f"pp={cfg.pp} samples={s0}-{s0 + n - 1} frac_gt_1e-3={f3} "
               f"frac_gt_0.1={f1} bit_equal={float((d == 0).float().mean())} "
+              f"differing_pixels={int((d != 0).sum())} "
               f"count_equal={count_eq} rays_kernel={rk} rays_plain={rp} "
               f"nan_kernel={int(k.nan_count)} nan_plain={int(p.nan_count)} "
               f"max_abs_err={err} mean={float(resolve(k, cfg).mean())} "
@@ -1157,28 +1475,25 @@ def main() -> int:
                         and not v.startswith("feature_")}
           | {f"feature_pinhole_{FOTHER}"}, "every feature base held")
 
-    # the DMA tier's grandparent level is pure pruning: its render equals,
-    # bit for bit, the resident walk's over the same parents, in fog too
-    for tag in ("tri262144", "uv99840"):
-        for fog, (w, h) in ((f, s_) for f in ("", " fog")
-                            for s_ in ((256, 144), (1280, 720))):
-            scene, cam = (base_case(tag + fog, w, h) if fog
-                          else mesh_case(tag, w, h))
-            flat = resident_twin(scene)
-            cfg = RenderConfig(w, h, pp=2, seed=0)
-            out = [cb.render_chunk_cuda(sc, cam, cfg, 0, 0, 4,
-                                        init_accum(w * h, dev))
-                   for sc in (scene, flat)]
-            sync()
-            same = (all(torch.equal(a_, b_)
-                        for a_, b_ in zip(out[0].sum, out[1].sum))
-                    and int(out[0].rays_cast) == int(out[1].rays_cast))
-            print(f"phase3 mesh={tag}{fog} {w}x{h} grandparents "
-                  f"({cb.variant(scene, cam)}, {len(scene.stream_gparents)} "
-                  f"over {len(scene.stream_parents)} parents) vs none "
-                  f"({cb.variant(flat, cam)}): bit_equal={same}")
-            check(same, f"{tag}{fog}: the grandparent level changed the "
-                  "render")
+    # the streamed walk's 8x4 warp tiles at a size that is not a whole
+    # number of tiles (60x34: ragged in x and y), 4 spp: world 7 and the
+    # streamed and DMA meshes through both cameras, one in fog, and a mixed
+    # base
+    for tag, lens, fog in (("w7", False, False), ("w7", True, True),
+                           ("tri19600", False, False),
+                           ("tri262144", True, False),
+                           ("uv99840", False, False),
+                           ("tri19600", True, True)):
+        if tag == "w7":
+            scene, cam = world(W7, 60, 34, lens, statics=FOG if fog else None)
+        else:
+            scene, cam = (base_case(f"{tag} fog", 60, 34, lens) if fog
+                          else mesh_case(tag, 60, 34, lens))
+        held(f"ragged mesh={tag} lens={lens} fog={fog}", scene, cam,
+             RenderConfig(60, 34, pp=2, seed=0), 4)
+    scene, cam = mixed_case("clustered+textured+meshplain", 60, 34)
+    held("ragged mixed=clustered+textured+meshplain", scene, cam,
+         RenderConfig(60, 34, pp=2, seed=0), 4)
 
     print(f"phase3 mixed_start_s={time.perf_counter() - t_start}")
     # the mixed bases: each case against its plain version at 256x144
@@ -1203,6 +1518,7 @@ def main() -> int:
     print(f"phase4 start_s={time.perf_counter() - t_start}")
     w, h = 1280, 720
     launches = dict.fromkeys(cb.VARIANTS, 0)
+    case_launches = {}  # (variant, case) -> launches of that case's path
 
     def reset_counts():
         cb.LAUNCHES = 0
@@ -1376,6 +1692,7 @@ def main() -> int:
         sync()
         read_counts(var, f"the {tag} mesh's")
         path_launches[tag] = cb.VARIANT_LAUNCHES[var]
+        case_launches[(var, tag)] = cb.VARIANT_LAUNCHES[var]
         img = img.cpu().numpy()
         check(img.shape == (h, w, 3) and bool(np.isfinite(img).all())
               and float(img.mean()) > 0.01, f"finite, non-black {tag} image")
@@ -1425,6 +1742,7 @@ def main() -> int:
         img, _, state = render_image(scene, cam, cfg, device="cuda")
         sync()
         read_counts(var, f"the {tag} case's")
+        case_launches[(var, tag)] = cb.VARIANT_LAUNCHES[var]
         img = img.cpu().numpy()
         check(img.shape == (h, w, 3) and bool(np.isfinite(img).all())
               and float(img.mean()) > 0.01, f"finite, non-black {tag} image")
@@ -1447,6 +1765,7 @@ def main() -> int:
               f"{case}: one launch of {var} for its one chunk")
         if var in cb.MIXED_VARIANTS:
             launches[var] = cb.VARIANT_LAUNCHES[var]
+        case_launches[(var, case)] = cb.VARIANT_LAUNCHES[var]
         img = img.cpu().numpy()
         check(img.shape == (h, w, 3) and bool(np.isfinite(img).all())
               and float(img.mean()) > 0.01, f"finite, non-black {case} image")
@@ -1456,8 +1775,8 @@ def main() -> int:
               f"{json.dumps({k_: v for k_, v in cb.VARIANT_LAUNCHES.items() if v})} "
               f"spp=4 mean={float(img.mean())} rays={int(state.rays_cast)} "
               f"nan={int(state.nan_count)}")
-    check(all(launches[v] > 0 for v in new_vars), "every new variant's "
-          "main path launched it")
+    check(all(launches[v] > 0 for v in cb.VARIANTS), "every variant's main "
+          "path launched it")
 
     # --- 5. timing -----------------------------------------------------------
     print(f"phase5 start_s={time.perf_counter() - t_start}")
@@ -1478,6 +1797,53 @@ def main() -> int:
             sync()
             times.append(a.elapsed_time(b))
         return times, int(st.rays_cast)
+
+    scan_lib, _, _, scan_build_s = yardstick.result()
+    pool.shutdown()
+    print(f"phase5 scanline_yardstick_build_s={scan_build_s}")
+    warps = {}  # K7 row -> (median ms with 8x4 tiles, with scanline warps)
+
+    def row_ms(row, scene, cam, **cfg_kw):
+        """A row's kernel ms at 720p, 4 spp, and its rays: five launches
+        after a warm one (kernel_ms); for a row of the streamed walk (K7),
+        this build and the scanline-warp yardstick in turns after a warm
+        launch each (tiles, scanline, scanline, tiles, scanline, tiles,
+        tiles, scanline: each first in one half), the yardstick's times
+        and whether its sums equal this build's given as text for the
+        row's line."""
+        if not walks_k7(row.split(" ")[0]):
+            return (*kernel_ms(scene, cam, 2, 5, **cfg_kw), "")
+        cfg = RenderConfig(w, h, pp=2, seed=0, **cfg_kw)
+        libs = {"tiles": tile_lib, "scanline": scan_lib}
+        res, sums = {"tiles": [], "scanline": []}, {}
+        try:
+            for which in ("tiles", "scanline"):
+                cb._lib = libs[which]
+                cb.render_chunk_cuda(scene, cam, cfg, 0, 0, 4,
+                                     init_accum(w * h, dev))
+            for which in ("tiles", "scanline", "scanline", "tiles",
+                          "scanline", "tiles", "tiles", "scanline"):
+                cb._lib = libs[which]
+                st = init_accum(w * h, dev)
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                cb.render_chunk_cuda(scene, cam, cfg, 0, 0, 4, st)
+                b.record()
+                sync()
+                res[which].append(a.elapsed_time(b))
+                sums[which] = st
+        finally:
+            cb._lib = tile_lib
+        t_med, s_med = np.median(res["tiles"]), np.median(res["scanline"])
+        warps[row] = (t_med, s_med)
+        same = all(torch.equal(x, y) for x, y in zip(
+            (*sums["tiles"].sum, sums["tiles"].count),
+            (*sums["scanline"].sum, sums["scanline"].count)))
+        return res["tiles"], int(sums["tiles"].rays_cast), (
+            f"scanline_ms={sorted(res['scanline'])} "
+            f"tiles_over_scanline={t_med / s_med} "
+            f"scanline_sums_equal={same} ")
 
     # (each plain version ran on the same scene at 720p in phase 3: warm)
     def plain_s(scene, cam, pp, **cfg_kw):
@@ -1535,10 +1901,12 @@ def main() -> int:
         "static_lens": ("uv736", True, None, "intersect.py:1309"),
         "meshplain_pinhole": ("tri19600", False, None, "intersect.py:262"),
         "meshplain_lens": ("tri19600", True, None, "intersect.py:262"),
-        "meshgpplain_pinhole": ("tri262144", False, None, "intersect.py:815"),
-        "meshgpplain_lens": ("tri262144", True, None, "intersect.py:815"),
-        "meshgp_pinhole": ("uv99840", False, None, "intersect.py:815"),
-        "meshgp_lens": ("uv99840", True, None, "intersect.py:815"),
+        "meshplain_pinhole tri262144": ("tri262144", False, None,
+                                        "intersect.py:815"),
+        "meshplain_lens tri262144": ("tri262144", True, None,
+                                     "intersect.py:815"),
+        "mesh_pinhole uv99840": ("uv99840", False, None, "intersect.py:815"),
+        "mesh_lens uv99840": ("uv99840", True, None, "intersect.py:815"),
     }
     # the feature bounce on the other bases: variant -> (base case, thin
     # lens, schedule, the JAX code it replaces: the loop or walk it runs in)
@@ -1557,29 +1925,35 @@ def main() -> int:
         "featmesh_lens": ("w7 fog", True, None, "ops/intersect.py:262"),
         f"featmesh_pinhole_{MOTHER}": ("w7 fog", False, MOTHER,
                                        "ops/intersect.py:262"),
-        **{f"feat{kind}_{c}": (f"{tag} fog", c == "lens", None,
-                               "ops/intersect.py:" + line)
-           for tag, kind, line in (("tri784", "staticplain", "225"),
-                                   ("uv736", "static", "1309"),
-                                   ("tri19600", "meshplain", "262"),
-                                   ("tri262144", "meshgpplain", "815"),
-                                   ("uv99840", "meshgp", "815"))
+        **{f"feat{kind}_{c}{label}": (f"{tag} fog", c == "lens", None,
+                                      "ops/intersect.py:" + line)
+           for tag, kind, line, label in (
+               ("tri784", "staticplain", "225", ""),
+               ("uv736", "static", "1309", ""),
+               ("tri19600", "meshplain", "262", ""),
+               ("tri262144", "meshplain", "815", " tri262144"),
+               ("uv99840", "mesh", "815", " uv99840"))
            for c in ("pinhole", "lens")},
         f"feature_pinhole_{FOTHER}": ("w6 fog", False, FOTHER,
                                       "render/pallas_backend.py:306"),
     }
-    check(sorted([*main_worlds, "feature_pinhole", "feature_lens",
-                  *tier_rows, *new_rows, *cb.MIXED_VARIANTS])
-          == sorted(cb.VARIANTS), "every variant timed")
+    # the mixed rows: each variant on its case, and the DMA tier's cases
+    mixed_rows = (*cb.MIXED_VARIANTS,
+                  *(c for c in MIXED_CASES if c.endswith(" dma")))
+    check(sorted({r.split(" ")[0] for r in (
+        *main_worlds, "feature_pinhole", "feature_lens", *tier_rows,
+        *new_rows, *mixed_rows)}) == sorted(cb.VARIANTS),
+        "every variant timed")
     timed = {}
     for var, (kind, lens, schedule) in main_worlds.items():
         scene, cam = world(kind, w, h, lens)
-        ks, rays = kernel_ms(scene, cam, 2, 5, schedule=schedule)
+        ks, rays, warp_txt = row_ms(var, scene, cam, schedule=schedule)
         ps, prays = plain_s(scene, cam, 2, schedule=schedule)
         timed[var] = dict(ms=float(np.median(ks)), rays=rays, scene=scene,
                           cam=cam, plain_ms=1e3 * ps, schedule=schedule)
         print(f"phase5 variant={var} world={kind + 1} 720p spp=4 "
-              f"kernel_ms={sorted(ks)} rays={rays} kernel_mrays_s="
+              f"{earlier(var)}kernel_ms={sorted(ks)} {warp_txt}rays={rays} "
+              f"kernel_mrays_s="
               f"{rays / np.median(ks) / 1e3} plain_ms={1e3 * ps} "
               f"plain_rays={prays} plain_mrays_s={prays / ps / 1e6}")
 
@@ -1598,49 +1972,60 @@ def main() -> int:
               f"| card: {smi}")
 
     ttimed = {}
-    for var, (tag, lens, sched, _) in tier_rows.items():
+    for row, (tag, lens, sched, _) in tier_rows.items():
+        var = row.split(" ")[0]
         scene, cam = mesh_case(tag, w, h, lens)
         check(cb.variant(scene, cam, sched) == var, f"{tag} takes {var}")
-        ks, rays = kernel_ms(scene, cam, 2, 5, schedule=sched)
+        ks, rays, warp_txt = row_ms(row, scene, cam, schedule=sched)
         ps, prays = plain_s(scene, cam, 2, schedule=sched)
-        ttimed[var] = dict(ms=float(np.median(ks)), rays=rays, scene=scene,
+        ttimed[row] = dict(ms=float(np.median(ks)), rays=rays, scene=scene,
                            cam=cam, plain_ms=1e3 * ps, schedule=sched)
-        print(f"phase5 variant={var} mesh={tag} n_tris={scene.n_tris} "
-              f"finalize_s={mesh_built[tag][2]} 720p spp=4 "
-              f"kernel_ms={sorted(ks)} rays={rays} "
+        print(f"phase5 variant={var} row={row!r} mesh={tag} "
+              f"n_tris={scene.n_tris} dma={scene.tri_dma} "
+              f"bvh_depth={scene.bvh_depth} finalize_s={mesh_built[tag][2]} "
+              f"720p spp=4 {earlier(row)}"
+              f"kernel_ms={sorted(ks)} {warp_txt}rays={rays} "
               f"rays_per_sample={rays / (w * h * 4)} kernel_mrays_s="
               f"{rays / np.median(ks) / 1e3} plain_ms={1e3 * ps} "
               f"plain_rays={prays} plain_mrays_s={prays / ps / 1e6} "
               f"| card: {smi}")
     ntimed = {}
-    for var, (tag, lens, sched, _) in new_rows.items():
+    for row, (tag, lens, sched, _) in new_rows.items():
+        var = row.split(" ")[0]
         scene, cam = base_case(tag, w, h, lens)
         check(cb.variant(scene, cam, sched) == var, f"{tag} takes {var}")
-        ks, rays = kernel_ms(scene, cam, 2, 5, schedule=sched)
+        ks, rays, warp_txt = row_ms(row, scene, cam, schedule=sched)
         ps, prays = plain_s(scene, cam, 2, schedule=sched)
-        ntimed[var] = dict(ms=float(np.median(ks)), rays=rays, scene=scene,
+        ntimed[row] = dict(ms=float(np.median(ks)), rays=rays, scene=scene,
                            cam=cam, plain_ms=1e3 * ps)
-        print(f"phase5 variant={var} case={tag!r} 720p spp=4 "
-              f"kernel_ms={sorted(ks)} rays={rays} "
+        print(f"phase5 variant={var} row={row!r} case={tag!r} 720p spp=4 "
+              f"{earlier(row)}"
+              f"kernel_ms={sorted(ks)} {warp_txt}rays={rays} "
               f"rays_per_sample={rays / (w * h * 4)} kernel_mrays_s="
               f"{rays / np.median(ks) / 1e3} plain_ms={1e3 * ps} "
               f"plain_rays={prays} plain_mrays_s={prays / ps / 1e6} "
               f"| card: {smi}")
     print(f"phase5 mixed_start_s={time.perf_counter() - t_start}")
     mtimed = {}
-    for var in cb.MIXED_VARIANTS:
-        scene, cam = mixed_case(var, w, h)
-        ks, rays = kernel_ms(scene, cam, 2, 5)
+    for row in mixed_rows:
+        scene, cam = mixed_case(row, w, h)
+        ks, rays, warp_txt = row_ms(row, scene, cam)
         ps, prays = plain_s(scene, cam, 2)
-        mtimed[var] = dict(ms=float(np.median(ks)), rays=rays, scene=scene,
+        mtimed[row] = dict(ms=float(np.median(ks)), rays=rays, scene=scene,
                            cam=cam, plain_ms=1e3 * ps)
-        print(f"phase5 variant={var} n_tris={scene.n_tris} "
-              f"finalize_s={mixed_built[var][2]} 720p spp=4 "
-              f"kernel_ms={sorted(ks)} rays={rays} "
+        print(f"phase5 variant={cb.variant(scene, cam)} row={row!r} "
+              f"n_tris={scene.n_tris} dma={scene.tri_dma} "
+              f"finalize_s={mixed_built[row][2]} 720p spp=4 {earlier(row)}"
+              f"kernel_ms={sorted(ks)} {warp_txt}rays={rays} "
               f"rays_per_sample={rays / (w * h * 4)} kernel_mrays_s="
               f"{rays / np.median(ks) / 1e3} plain_ms={1e3 * ps} "
               f"plain_rays={prays} plain_mrays_s={prays / ps / 1e6} "
               f"| card: {smi}")
+    ratios = {r: t / s_ for r, (t, s_) in warps.items()}
+    print(f"phase5 warp_tiles rows={len(ratios)} "
+          f"tiles_faster={sum(v < 1.0 for v in ratios.values())} "
+          f"median_tiles_over_scanline={np.median(list(ratios.values()))} "
+          f"tiles_over_scanline={json.dumps(ratios)} | card: {smi}")
     # each mesh case at 64 spp through its main variant
     for tag in MESH_CASES:
         scene, cam = mesh_case(tag, w, h)
@@ -1747,7 +2132,7 @@ def main() -> int:
     for var, tm in timed.items():
         scene, cam = tm["scene"], tm["cam"]
         cfg4 = RenderConfig(w, h, pp=2, seed=0, schedule=tm["schedule"])
-        fetches, mesh_txt = 0, ""
+        fetches, mesh_txt, k7 = 0, "", None
         if scene.sph_clusters:
             wrays, slabs, spheres = walk_tests(scene, cam, cfg4, 4, dev)
             check(abs(wrays - tm["rays"]) <= 0.005 * tm["rays"],
@@ -1764,14 +2149,17 @@ def main() -> int:
             # the lockstep yardstick casts the pinhole's rays: its counts
             if var != f"mesh_pinhole_{MOTHER}":
                 mesh_tally[var] = mesh_counts(scene, cam, cfg4, 4, dev)
-            mrays, boxes, tris, wins, fetches = mesh_tally[
-                "mesh_lens" if var == "mesh_lens" else "mesh_pinhole"]
+            mrays, boxes, tris, wins, fetches, bvh_boxes, bvh_tris = \
+                mesh_tally["mesh_lens" if var == "mesh_lens"
+                           else "mesh_pinhole"]
             check(abs(mrays - tm["rays"]) <= 0.005 * tm["rays"],
                   f"{var}: walked {mrays} rays, the kernel cast {tm['rays']}")
-            isect_ops += (OPS_INV + boxes * OPS_SLAB + tris * OPS_TRI
-                          + wins * OPS_MESH_UV)
+            k7 = k7_terms(scene, boxes, tris, bvh_boxes, bvh_tris)
+            isect_ops += wins * OPS_MESH_UV
             mesh_txt = (f"box_tests_per_ray={boxes} tri_tests_per_ray={tris} "
-                        f"tri_wins_per_ray={wins} ")
+                        f"tri_wins_per_ray={wins} "
+                        f"bvh_box_tests_per_ray={bvh_boxes} "
+                        f"bvh_tri_tests_per_ray={bvh_tris} ")
         isect_ops += (scene.n_quads * OPS_QUAD + scene.n_planes * OPS_PLANE
                       + OPS_RESOLVE + OPS_EMIT)
         samples = w * h * 4
@@ -1783,16 +2171,15 @@ def main() -> int:
         nbytes = w * h * BYTES_PER_PIXEL + (
             scene.tex_tile.numel() * 4 if cb.textured(scene) else 0)
         if cb.meshed(scene):
-            nbytes += 4 * sum(t.numel() for t in (
-                scene.mtri_pack, scene.mtri_bounds, scene.mtri_uvpack,
-                scene.stream_pbox, scene.stream_prange, scene.tex_packed))
-        t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
-        bound_ms = 1e3 * max(t_ops, t_bytes)
+            nbytes += 4 * scene.tex_packed.numel()
+        bound_ms, bound_by, ops, nbytes, bound_old = row_bound(
+            ops, nbytes, rays, k7)
         print(f"phase6 variant={var} slab_tests_per_ray={slabs} "
               f"sphere_tests_per_ray={spheres} {mesh_txt}"
               f"tex_fetches={fetches} "
               f"ops={ops:.6e} bytes={nbytes} bound_ms={bound_ms} "
-              f"bound_share={bound_ms / tm['ms']}")
+              f"bound_share={bound_ms / tm['ms']} "
+              f"bound_ms_table_order={bound_old}")
         table.append({
             "name": f"wave_kernel<{var}>",
             "route": "cuda",
@@ -1814,8 +2201,9 @@ def main() -> int:
             "ms": tm["ms"],
             "plain_ms": tm["plain_ms"],
             "bound_ms": bound_ms,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes this
+            **k7_note(var), **old_bound(bound_old),
         })
     for row, (tag, lens, kname, replaces) in feature_rows.items():
         tm = ftimed[row]
@@ -1839,8 +2227,7 @@ def main() -> int:
                + fc["bump"] * OPS_BUMP + fc["uv_fetch"] * OPS_STACK)
         nbytes = w * h * BYTES_PER_PIXEL + 4 * (
             scene.tex_packed.numel() if scene.n_textures else 0) + 4 * 16 * n_tris
-        t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
-        bound_ms = 1e3 * max(t_ops, t_bytes)
+        bound_ms, bound_by = bound(ops, nbytes)
         counts = " ".join(f"{k_}={v}" for k_, v in fc.items())
         print(f"phase6 row={row!r} case={tag!r} {counts} ops={ops:.6e} "
               f"bytes={nbytes} bound_ms={bound_ms} "
@@ -1857,37 +2244,38 @@ def main() -> int:
                             else feature_err[tag]),
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": bound_ms,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes this
         })
-    for var, (tag, lens, sched, replaces) in tier_rows.items():
-        tm = ttimed[var]
+    for row, (tag, lens, sched, replaces) in tier_rows.items():
+        var = row.split(" ")[0]
+        tm = ttimed[row]
         scene, cam = tm["scene"], tm["cam"]
         cfg4 = RenderConfig(w, h, pp=2, seed=0, schedule=sched)
         # the other schedule's yardstick casts the pinhole's rays
-        base = var.replace(f"_{MOTHER}", "")
-        if base not in mesh_tally:
-            mesh_tally[base] = mesh_counts(scene, cam, cfg4, 4, dev)
-        mrays, boxes, tris, wins, fetches = mesh_tally[base]
+        if (tag, lens) not in mesh_tally:
+            mesh_tally[(tag, lens)] = mesh_counts(scene, cam, cfg4, 4, dev)
+        (mrays, boxes, tris, wins, fetches, bvh_boxes,
+         bvh_tris) = mesh_tally[(tag, lens)]
         rays = tm["rays"]
         check(abs(mrays - rays) <= 0.005 * rays,
-              f"{var}: walked {mrays} rays, the kernel cast {rays}")
+              f"{row}: walked {mrays} rays, the kernel cast {rays}")
         kind = var.split("_")[0]
-        tri_ops = OPS_TRI_GP if kind.startswith("meshgp") else OPS_TRI
+        k7 = (k7_terms(scene, boxes, tris, bvh_boxes, bvh_tris)
+              if scene.tri_streamed else None)
         win_ops = (OPS_K8_RESOLVE if kind == "static" else
                    OPS_MESH_UV if scene.has_mesh_uvs else 0)
-        isect_ops = (OPS_INV + boxes * OPS_SLAB + tris * tri_ops
-                     + wins * win_ops + scene.n_spheres * OPS_SPHERE
+        walk_ops = (0 if k7 else OPS_INV + boxes * OPS_SLAB
+                    + tris * tri_test_ops(scene))
+        isect_ops = (walk_ops + wins * win_ops + scene.n_spheres * OPS_SPHERE
                      + scene.n_quads * OPS_QUAD + scene.n_planes * OPS_PLANE
                      + OPS_RESOLVE + OPS_EMIT)
         samples = w * h * 4
         ops = (samples * OPS_PRIMARY["lens" if lens else "pinhole"]
                + rays * isect_ops + (rays - samples) * OPS_SHADE
                + fetches * OPS_STACK)
-        tables = (scene.mtri_pack, scene.mtri_bounds, scene.stream_pbox,
-                  scene.stream_prange, scene.stream_gbox, scene.stream_grange,
-                  *((scene.mtri_uvpack, scene.tex_packed)
-                    if scene.has_mesh_uvs else ())) \
+        # the streamed walk's tables are k7_terms'
+        tables = ((scene.tex_packed,) if scene.has_mesh_uvs else ()) \
             if scene.tri_streamed else (
                 *scene.ctri_n, scene.ctri_d, *scene.ctri_e1, scene.ctri_a0,
                 *scene.ctri_e2, scene.ctri_b0, scene.ctri_mat, scene.tcl_box,
@@ -1896,57 +2284,66 @@ def main() -> int:
                    scene.ctri_uvdv1, scene.ctri_uvdu2, scene.ctri_uvdv2,
                    scene.tex_packed) if scene.has_mesh_uvs else ()))
         nbytes = w * h * BYTES_PER_PIXEL + 4 * sum(t.numel() for t in tables)
-        t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
-        bound_ms = 1e3 * max(t_ops, t_bytes)
-        print(f"phase6 variant={var} mesh={tag} box_tests_per_ray={boxes} "
-              f"tri_tests_per_ray={tris} tri_wins_per_ray={wins} "
+        bound_ms, bound_by, ops, nbytes, bound_old = row_bound(
+            ops, nbytes, rays, k7)
+        print(f"phase6 variant={var} row={row!r} mesh={tag} "
+              f"box_tests_per_ray={boxes} tri_tests_per_ray={tris} "
+              f"tri_wins_per_ray={wins} bvh_box_tests_per_ray={bvh_boxes} "
+              f"bvh_tri_tests_per_ray={bvh_tris} "
               f"uv_fetches={fetches} ops={ops:.6e} bytes={nbytes} "
               f"bound_ms={bound_ms} bound_share={bound_ms / tm['ms']} "
-              f"| card: {smi}")
+              f"bound_ms_table_order={bound_old} | card: {smi}")
         table.append({
-            "name": f"wave_kernel<{var}>", "route": "cuda",
+            "name": row_name(row), "route": "cuda",
             "source": "pathtracer_tpu_torch/csrc/wave_kernel.cu",
             "replaces": "pathtracer_tpu/ops/" + replaces,
-            "launches": launches[var],
+            "launches": case_launches.get((var, tag), launches[var]),
             "max_abs_err": max_err[var],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": bound_ms,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes this
+            **k7_note(var), **old_bound(bound_old),
         })
     # the feature bounce on the other bases: the feature counts of each
     # case's rays, with its base's walk counted as the base's rows count it
     # (the yardsticks cast the main schedule's rays: the same counts)
     ncounts = {}
-    for var, (tag, lens, sched, replaces) in new_rows.items():
-        tm = ntimed[var]
+    for row, (tag, lens, sched, replaces) in new_rows.items():
+        var = row.split(" ")[0]
+        tm = ntimed[row]
         scene, cam = tm["scene"], tm["cam"]
         cfg4 = RenderConfig(w, h, pp=2, seed=0)
         if (tag, lens) not in ncounts:
             fc = feature_counts(scene, cam, cfg4, 4, dev)
-            base_txt = ""
+            base_txt, k7 = "", None
             if scene.sph_clusters:
                 _, slabs, spheres = walk_tests(scene, cam, cfg4, 4, dev)
                 base_ops = OPS_INV + slabs * OPS_SLAB + spheres * OPS_SPHERE
                 base_txt = (f"slab_tests_per_ray={slabs} "
                             f"sphere_tests_per_ray={spheres}")
             elif cb.meshed(scene):
-                _, boxes, tris, wins, _ = mesh_counts(scene, cam, cfg4, 4, dev)
+                _, boxes, tris, wins, _, bvh_boxes, bvh_tris = mesh_counts(
+                    scene, cam, cfg4, 4, dev)
                 kind = cb.mesh_kind(scene)
                 win_ops = (OPS_K8_RESOLVE if kind == "static" else
                            OPS_MESH_UV if scene.has_mesh_uvs else 0)
-                base_ops = (OPS_INV + boxes * OPS_SLAB + wins * win_ops
-                            + tris * (OPS_TRI_GP if kind.startswith("meshgp")
-                                      else OPS_TRI)
-                            + scene.n_spheres * OPS_SPHERE)
+                if scene.tri_streamed:
+                    k7 = k7_terms(scene, boxes, tris, bvh_boxes, bvh_tris)
+                base_ops = ((0 if k7 else OPS_INV + boxes * OPS_SLAB
+                             + tris * tri_test_ops(scene))
+                            + wins * win_ops + scene.n_spheres * OPS_SPHERE)
                 base_txt = (f"box_tests_per_ray={boxes} "
-                            f"tri_tests_per_ray={tris} tri_wins_per_ray={wins}")
+                            f"tri_tests_per_ray={tris} tri_wins_per_ray={wins}"
+                            + (f" bvh_box_tests_per_ray={bvh_boxes} "
+                               f"bvh_tri_tests_per_ray={bvh_tris}"
+                               if scene.tri_streamed else ""))
             else:
                 n_tris = scene.n_tris if scene.tri_brute else 0
                 base_ops = (scene.n_spheres * OPS_SPHERE
                             + n_tris * OPS_TRI_BRUTE)
-            ncounts[(tag, lens)] = (fc, base_ops, base_txt)
-        fc, base_ops, base_txt = ncounts[(tag, lens)]
+            ncounts[(tag, lens)] = (fc, base_ops, base_txt, k7)
+        fc, base_ops, base_txt, k7 = ncounts[(tag, lens)]
         rays = tm["rays"]
         check(abs(fc["rays"] - rays) <= 0.005 * rays,
               f"{var}: counted {fc['rays']} rays, the kernel cast {rays}")
@@ -1962,42 +2359,42 @@ def main() -> int:
                + fc["tex_fetch"] * OPS_TEX)
         tables = ((scene.tex_tile,) if cb.textured(scene) else
                   (scene.tex_packed,) if scene.n_textures else ())
-        if scene.tri_streamed:
-            tables += (scene.mtri_pack, scene.mtri_bounds, scene.stream_pbox,
-                       scene.stream_prange, scene.stream_gbox,
-                       scene.stream_grange,
-                       *((scene.mtri_uvpack,) if scene.has_mesh_uvs else ()))
-        elif cb.meshed(scene):
+        if cb.meshed(scene) and not scene.tri_streamed:
             tables += (*scene.ctri_n, scene.ctri_d, *scene.ctri_e1,
                        scene.ctri_a0, *scene.ctri_e2, scene.ctri_b0,
                        scene.ctri_mat, scene.tcl_box, scene.tcl_range)
         nbytes = w * h * BYTES_PER_PIXEL + 4 * sum(t.numel() for t in tables)
-        t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
-        bound_ms = 1e3 * max(t_ops, t_bytes)
+        bound_ms, bound_by, ops, nbytes, bound_old = row_bound(
+            ops, nbytes, rays, k7)
         counts = " ".join(f"{k_}={v}" for k_, v in fc.items())
-        print(f"phase6 variant={var} case={tag!r} {base_txt} {counts} "
-              f"ops={ops:.6e} bytes={nbytes} bound_ms={bound_ms} "
-              f"bound_share={bound_ms / tm['ms']} | card: {smi}")
+        print(f"phase6 variant={var} row={row!r} case={tag!r} {base_txt} "
+              f"{counts} ops={ops:.6e} bytes={nbytes} bound_ms={bound_ms} "
+              f"bound_share={bound_ms / tm['ms']} "
+              f"bound_ms_table_order={bound_old} | card: {smi}")
         table.append({
-            "name": f"wave_kernel<{var}>", "route": "cuda",
+            "name": row_name(row), "route": "cuda",
             "source": "pathtracer_tpu_torch/csrc/wave_kernel.cu",
             "replaces": "pathtracer_tpu/" + replaces,
-            "launches": launches[var],
+            "launches": (case_launches.get((var, tag), launches[var])
+                         if row != var else launches[var]),
             "max_abs_err": max_err[var],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": bound_ms,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes this
+            **k7_note(var), **old_bound(bound_old),
         })
     # the mixed bases: one pass counts the feature tallies and both walks
     print(f"phase6 mixed_start_s={time.perf_counter() - t_start}")
-    for var, tm in mtimed.items():
+    for row, tm in mtimed.items():
         scene, cam = tm["scene"], tm["cam"]
+        var = cb.variant(scene, cam)
         fc = mixed_counts(scene, cam, RenderConfig(w, h, pp=2, seed=0), 4, dev)
         rays = tm["rays"]
         check(abs(fc["rays"] - rays) <= 0.005 * rays,
               f"{var}: counted {fc['rays']} rays, the kernel cast {rays}")
         n_tris = scene.n_tris if scene.tri_brute else 0
+        k7 = None
         walk_ops = (fc["slabs"] * OPS_SLAB + fc["spheres"] * OPS_SPHERE
                     if scene.sph_clusters else rays * scene.n_spheres
                     * OPS_SPHERE) + rays * n_tris * OPS_TRI_BRUTE
@@ -2006,15 +2403,15 @@ def main() -> int:
             kind = cb.mesh_kind(scene)
             win_ops = (OPS_K8_RESOLVE if kind == "static" else
                        OPS_MESH_UV if scene.has_mesh_uvs else 0)
-            walk_ops += (rays * OPS_INV + fc["boxes"] * OPS_SLAB
-                         + fc["wins"] * win_ops + fc["tris"]
-                         * (OPS_TRI_GP if kind.startswith("meshgp")
-                            else OPS_TRI))
-            tables += ((scene.mtri_pack, scene.mtri_bounds, scene.stream_pbox,
-                        scene.stream_prange, scene.stream_gbox,
-                        scene.stream_grange,
-                        *((scene.mtri_uvpack,) if scene.has_mesh_uvs else ()))
-                       if scene.tri_streamed else
+            if scene.tri_streamed:
+                k7 = k7_terms(scene, fc["boxes"] / rays, fc["tris"] / rays,
+                              fc["bvh_boxes"] / rays, fc["bvh_tris"] / rays)
+            else:
+                walk_ops += (rays * OPS_INV + fc["boxes"] * OPS_SLAB
+                             + fc["tris"] * tri_test_ops(scene))
+            walk_ops += fc["wins"] * win_ops
+            # the streamed walk's tables are k7_terms'
+            tables += (() if scene.tri_streamed else
                        (*scene.ctri_n, scene.ctri_d, *scene.ctri_e1,
                         scene.ctri_a0, *scene.ctri_e2, scene.ctri_b0,
                         scene.ctri_mat, scene.tcl_box, scene.tcl_range,
@@ -2032,15 +2429,18 @@ def main() -> int:
                + fc["scatter"] * OPS_FOG_SCATTER + fc["uv_fetch"] * OPS_STACK
                + fc["tex_fetch"] * OPS_TEX)
         nbytes = w * h * BYTES_PER_PIXEL + 4 * sum(t.numel() for t in tables)
-        t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
-        bound_ms = 1e3 * max(t_ops, t_bytes)
+        bound_ms, bound_by, ops, nbytes, bound_old = row_bound(
+            ops, nbytes, rays, k7)
         counts = " ".join(f"{k_}={v}" for k_, v in fc.items())
-        print(f"phase6 variant={var} {counts} ops={ops:.6e} bytes={nbytes} "
-              f"bound_ms={bound_ms} bound_share={bound_ms / tm['ms']} "
-              f"| card: {smi}")
-        mesh = MIXED_CASES[var][0]
+        print(f"phase6 variant={var} row={row!r} {counts} "
+              f"bvh_box_tests_per_ray={fc['bvh_boxes'] / rays} "
+              f"bvh_tri_tests_per_ray={fc['bvh_tris'] / rays} ops={ops:.6e} "
+              f"bytes={nbytes} bound_ms={bound_ms} "
+              f"bound_share={bound_ms / tm['ms']} "
+              f"bound_ms_table_order={bound_old} | card: {smi}")
+        mesh = MIXED_CASES[row][0]
         table.append({
-            "name": f"wave_kernel<{var}>", "route": "cuda",
+            "name": row_name(row), "route": "cuda",
             "source": "pathtracer_tpu_torch/csrc/wave_kernel.cu",
             # K3's lockstep loop with the combined set; else the mesh walk
             "replaces": "pathtracer_tpu/" + (
@@ -2049,12 +2449,13 @@ def main() -> int:
                     "1309" if mesh == "uv736" else "225" if mesh == "tri784"
                     else "262" if mesh in ("tri19600", "uv1472")
                     else "815")),
-            "launches": launches[var],
+            "launches": case_launches[(var, row)],
             "max_abs_err": max_err[var],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": bound_ms,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes this
+            **k7_note(var), **old_bound(bound_old),
         })
     check(all(k_["launches"] > 0 for k_ in table), "every variant launched")
     check(sorted({k_["name"] for k_ in table if k_["name"].endswith(">")

@@ -23,7 +23,10 @@ strict-< in table order. Up to ``clusters.STREAM_MIN`` triangles the
 static tier's cluster walk runs (K5's triangle form, K8), and above that
 the streamed tier's walk (K7: parents, clusters and record rows, and in
 the DMA tier grandparents above the parents); both test the precomputed
-triangles and resolve the winner's normal, material and uv once.
+triangles and resolve the winner's normal, material and uv once. The
+kernel walks the streamed tier another way, near-first over a BVH of the
+same record rows; :func:`_bvh_winners` is that walk step for step, with
+the same winners, which the tests and chip_smoke.py's counters use.
 """
 
 from __future__ import annotations
@@ -383,34 +386,15 @@ def _stream_winners(scene: Scene, o: Vec3, d: Vec3, t0, tally=None):
     return t_win, torch.where(win == big, -1, win)
 
 
-def _intersect_triangles_streamed(scene: Scene, o: Vec3, d: Vec3, best: Hit,
-                                  want_uv: bool, tally=None):
-    """K7's plain version: the streamed tier's walk
-    (``_intersect_triangles_streamed``, intersect.py:262-964 in JAX), the
-    resident tier and the DMA tier with its grandparent level (:815-922),
-    with or without the winner's uv.
-
-    The kernel walks each ray through grandparents, parents, clusters and
-    record rows, skipping a box the ray does not enter before its running
-    nearest t, and tests a row's 9 records in order with the strict-<
-    carry; culling only skips boxes whose triangles could not be taken.
-    This version visits, per ray, every row whose boxes the ray enters
-    before its nearest sphere, quad or plane hit (:func:`_stream_rows`,
-    in passes of rays), tests their records with ``row_test``'s expressions
-    and keeps the least (t, record) (:func:`_stream_winners`). The winner's
-    normal and material come from its record and its uv from its
-    cluster-field-major uv column, ``u0 + alpha*du1 + beta*du2``, once
-    (:649-683, :945-963). Returns (hit, uvx, uvy, uv_ok), uv_ok meaning a
-    triangle won (uvx = uvy = 0 without ``want_uv``)."""
+def _resolve_streamed(scene: Scene, o: Vec3, d: Vec3, best: Hit, t_run, win,
+                      want_uv: bool):
+    """The streamed walk's resolve (:649-683, :945-963 in JAX) of the
+    winners ``win`` (record numbers row * 9 + slot, or -1) at ``t_run``:
+    the winner's normal and material from its record and its uv from its
+    cluster-field-major uv column, ``u0 + alpha*du1 + beta*du2``, once.
+    Returns (hit, uvx, uvy, uv_ok), uv_ok meaning a triangle won (uvx =
+    uvy = 0 without ``want_uv``)."""
     per, nf = clusters.STREAM_TRIS_PER_ROW, clusters.STREAM_FIELDS
-    t_run = torch.empty_like(best.t)
-    win = torch.empty_like(best.t, dtype=torch.int64)
-    n = o.x.numel()
-    for lo in range(0, n, _STREAM_RAY_CHUNK):
-        sl = slice(lo, min(n, lo + _STREAM_RAY_CHUNK))
-        part = lambda v: Vec3(v.x[sl], v.y[sl], v.z[sl])
-        t_run[sl], win[sl] = _stream_winners(scene, part(o), part(d),
-                                             best.t[sl], tally)
     found = win >= 0
     w = win.clamp_min(0)
     row, slot = w // per, w % per
@@ -431,6 +415,170 @@ def _intersect_triangles_streamed(scene: Scene, o: Vec3, d: Vec3, best: Hit,
     uvx = torch.where(found, g(0) + aw * g(2) + bw * g(4), 0.0)
     uvy = torch.where(found, g(1) + aw * g(3) + bw * g(5), 0.0)
     return h, uvx, uvy, found
+
+
+def _intersect_triangles_streamed(scene: Scene, o: Vec3, d: Vec3, best: Hit,
+                                  want_uv: bool, tally=None):
+    """K7's plain version: the streamed tier's walk
+    (``_intersect_triangles_streamed``, intersect.py:262-964 in JAX), the
+    resident tier and the DMA tier with its grandparent level (:815-922),
+    with or without the winner's uv.
+
+    JAX's kernel walks each ray through grandparents, parents, clusters and
+    record rows, skipping a box the ray does not enter before its running
+    nearest t, and tests a row's 9 records in order with the strict-<
+    carry; culling only skips boxes whose triangles could not be taken.
+    This version visits, per ray, every row whose boxes the ray enters
+    before its nearest sphere, quad or plane hit (:func:`_stream_rows`,
+    in passes of rays), tests their records with ``row_test``'s expressions
+    and keeps the least (t, record) (:func:`_stream_winners`), then
+    resolves the winner (:func:`_resolve_streamed`)."""
+    t_run = torch.empty_like(best.t)
+    win = torch.empty_like(best.t, dtype=torch.int64)
+    n = o.x.numel()
+    for lo in range(0, n, _STREAM_RAY_CHUNK):
+        sl = slice(lo, min(n, lo + _STREAM_RAY_CHUNK))
+        part = lambda v: Vec3(v.x[sl], v.y[sl], v.z[sl])
+        t_run[sl], win[sl] = _stream_winners(scene, part(o), part(d),
+                                             best.t[sl], tally)
+    return _resolve_streamed(scene, o, d, best, t_run, win, want_uv)
+
+
+def _bvh_record_number(scene: Scene, k):
+    """A winner number of the BVH's records (``bvh_tri_k``: the uv column
+    with UVs, else row * 9 + slot) as the record number row * 9 + slot."""
+    if not scene.has_mesh_uvs:
+        return k
+    per, rpc = (clusters.STREAM_TRIS_PER_ROW,
+                clusters.stream_rows_per_cluster(scene.stream_leaf))
+    c, kk = k // (clusters.UV_CFM_ROWS * 128), k % (clusters.UV_CFM_ROWS * 128)
+    return (c * rpc + kk // per) * per + kk % per
+
+
+# bvh_walk's state of a ray whose next step pops its stack
+_BVH_POP = -(1 << 40)
+
+
+def _bvh_winners(scene: Scene, o: Vec3, d: Vec3, t0, tally=None):
+    """The card's streamed walk (``bvh_walk`` in csrc/wave_kernel.cu), step
+    for step, vectorised over the rays with a stack per ray, for rays whose
+    nearest hit so far is ``t0``: (t, winning record of ``bvh_tris`` or -1,
+    its alpha, its beta).
+
+    Each ray first tests the root box, then walks ``scene.bvh_nodes``
+    near-first: at an inner node it tests both children's boxes, descends
+    the one it enters first and pushes the other with its entry (the left
+    one on an equal entry); the root, a child or a popped entry is skipped
+    unless the ray enters it at or before its running nearest t
+    (``_box_relevant``'s expression with ``<=``: a box entered at exactly
+    that t may hold a tie with a lower number). A leaf's records are tested with ``row_test``'s
+    expressions and taken when t is below the running t, or equal to a
+    triangle's t with a lower table-order number (``bvh_tri_k``), so the
+    winner is the least (t, number) and a sphere, quad or plane at an equal
+    t keeps its hit. With ``tally`` the box tests and triangle tests of the
+    card's walk are added to its "boxes" and "tris"."""
+    dev = o.x.device
+    n = o.x.numel()
+    inv = _slab_inverse(d)
+    t_run = t0.clone()
+    win = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    a_win, b_win = torch.zeros_like(t_run), torch.zeros_like(t_run)
+    nodes, tris = scene.bvh_nodes, scene.bvh_tris
+    kids = nodes[:, 12:14].contiguous().view(torch.int32).long()
+    tri_k = scene.bvh_tri_k.long()
+    leaf_bit, per = clusters.BVH_LEAF, clusters.STREAM_TRIS_PER_ROW
+    root = scene.bvh_root
+    t_root, x_root = _slab(o, inv, root[0:3], root[3:6])
+    enter = (x_root >= t_root) & (x_root >= 0.0) & (t_root <= t_run)
+    ref = torch.where(enter, 0, _BVH_POP)
+    live = enter.clone()
+    sp = torch.zeros((n,), dtype=torch.int64, device=dev)
+    stack_ref = torch.zeros((n, clusters.BVH_MAX_DEPTH), dtype=torch.int64,
+                            device=dev)
+    stack_t = torch.zeros((n, clusters.BVH_MAX_DEPTH), device=dev)
+    n_box, n_tri = n, 0
+    pick = lambda v, i: Vec3(v.x[i], v.y[i], v.z[i])
+    col = lambda v: Vec3(v.x[:, None], v.y[:, None], v.z[:, None])
+    slot = torch.arange(per, device=dev)
+    while bool(live.any()):
+        act = torch.nonzero(live).reshape(-1)
+        r = ref[act]
+        # inner nodes: both children's boxes, the nearer descended first
+        i = act[(r >= 0) & (r & leaf_bit == 0)]
+        if i.numel():
+            nd = nodes[ref[i]]
+            oi, vi, ti = pick(o, i), pick(inv, i), t_run[i]
+            tl, xl = _slab(oi, vi, nd[:, 0:3].unbind(1), nd[:, 3:6].unbind(1))
+            tr, xr = _slab(oi, vi, nd[:, 6:9].unbind(1), nd[:, 9:12].unbind(1))
+            okl = (xl >= tl) & (xl >= 0.0) & (tl <= ti)
+            okr = (xr >= tr) & (xr >= 0.0) & (tr <= ti)
+            n_box += 2 * i.numel()
+            right_first = okr & (~okl | (tr < tl))
+            kid = kids[ref[i]]
+            push = okl & okr
+            j = i[push]
+            stack_ref[j, sp[j]] = torch.where(right_first, kid[:, 0],
+                                              kid[:, 1])[push]
+            stack_t[j, sp[j]] = torch.where(right_first, tl, tr)[push]
+            sp[j] += 1
+            ref[i] = torch.where(okl | okr, torch.where(
+                right_first, kid[:, 1], kid[:, 0]), _BVH_POP)
+        # leaves: their records against the running (t, number)
+        i = act[(r >= 0) & (r & leaf_bit != 0)]
+        if i.numel():
+            code = ref[i]
+            first, cnt = (code & (leaf_bit - 1)) >> 4, code & 15
+            valid = slot < cnt[:, None]
+            rid = torch.where(valid, first[:, None] + slot, 0)
+            n_tri += int(cnt.sum())
+            rec = tris[rid]
+            _, _, t, hit, alpha, beta = _record_tests(
+                torch.cat([rec, torch.zeros_like(rec[..., :1])], -1),
+                col(pick(o, i)), col(pick(d, i)))
+            ti, wi = t_run[i], win[i]
+            kw = torch.where(wi >= 0, tri_k[wi.clamp_min(0)], -1)
+            kr = tri_k[rid]
+            ok = valid & hit & ((t < ti[:, None])
+                                | ((t == ti[:, None]) & (kr < kw[:, None])))
+            # the least (t, number) of the taken records: the in-order
+            # carry's result
+            t_min = torch.where(ok, t, torch.inf).amin(dim=1)
+            at_min = ok & (t == t_min[:, None])
+            k_min = torch.where(at_min, kr, torch.iinfo(torch.int64).max
+                                ).amin(dim=1)
+            s_w = torch.where(at_min & (kr == k_min[:, None]), slot,
+                              per).amin(dim=1).clamp_max(per - 1)
+            take = ok.any(dim=1)
+            g = lambda v: v.gather(1, s_w[:, None])[:, 0]
+            t_run[i] = torch.where(take, t_min, ti)
+            win[i] = torch.where(take, first + s_w, wi)
+            a_win[i] = torch.where(take, g(alpha), a_win[i])
+            b_win[i] = torch.where(take, g(beta), b_win[i])
+            ref[i] = _BVH_POP
+        # pops: the top entry, taken if the ray enters it by its t
+        i = act[r == _BVH_POP]
+        if i.numel():
+            empty = sp[i] == 0
+            live[i[empty]] = False
+            i = i[~empty]
+            sp[i] -= 1
+            ref[i] = torch.where(stack_t[i, sp[i]] <= t_run[i],
+                                 stack_ref[i, sp[i]], _BVH_POP)
+    if tally is not None:
+        tally["boxes"] = tally.get("boxes", 0) + n_box
+        tally["tris"] = tally.get("tris", 0) + n_tri
+    return t_run, win, a_win, b_win
+
+
+def _intersect_triangles_bvh(scene: Scene, o: Vec3, d: Vec3, best: Hit,
+                             want_uv: bool, tally=None):
+    """:func:`_intersect_triangles_streamed`'s function by the card's walk
+    (:func:`_bvh_winners`), its winner resolved by the same code
+    (:func:`_resolve_streamed`). Returns (hit, uvx, uvy, uv_ok)."""
+    t_run, win, _, _ = _bvh_winners(scene, o, d, best.t, tally)
+    number = scene.bvh_tri_k.long()[win.clamp_min(0)]
+    rec = torch.where(win >= 0, _bvh_record_number(scene, number), -1)
+    return _resolve_streamed(scene, o, d, best, t_run, rec, want_uv)
 
 
 def _ctri_tests(scene: Scene, o: Vec3, d: Vec3, idx):

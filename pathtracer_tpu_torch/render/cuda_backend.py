@@ -11,10 +11,10 @@ either primary under ``TEXTURED_SCHEDULE``, and the pinhole under the
 other schedule as its yardstick; the mesh tiers (``MESH_KINDS``), either
 primary under ``MESH_SCHEDULE``: the streamed triangle walk K7 with the
 mesh-UV texel fetch K10 (``mesh``, with the pinhole under the other
-schedule too) or without UVs (``meshplain``), the same with the DMA
-tier's grandparent level (``meshgp``, ``meshgpplain``), and the static
-tier's cluster walk (K5's triangle form) with the winner's uv (K8,
-``static``) or without (``staticplain``, with the pinhole under the other
+schedule too) or without UVs (``meshplain``), the resident and the DMA
+tier alike (one near-first walk over a BVH of the record rows, each warp
+on an 8x4 pixel tile), and the static tier's cluster walk (K5's
+triangle form) with the winner's uv (K8, ``static``) or without (``staticplain``, with the pinhole under the other
 schedule too); feature (fog, transmission with dispersion, planar maps
 from the flat stack with K10's planar form, bump maps with the height
 fetch K11, the brute triangle sweep K4t with or without UVs), either
@@ -96,14 +96,14 @@ MIXED_SCHEDULE = "lockstep"  # kMixedMain in the kernel
 _SCHED_CODE = {"lockstep": 1, "regen": 2}  # wave_render's tex/mesh/feat
 
 # The mesh tiers' kernels by name, with their kTri bits in the kernel:
-# without UVs (1), with the grandparent level (2), the static tier (4).
-MESH_KINDS = {"mesh": 0, "meshplain": 1, "meshgp": 2, "meshgpplain": 3,
-              "static": 4, "staticplain": 5}
+# without UVs (1), the static tier (4); the streamed walk serves the
+# resident and the DMA tier alike.
+MESH_KINDS = {"mesh": 0, "meshplain": 1, "static": 4, "staticplain": 5}
 # the mixed bases' instantiations, one per base tuple (either camera, with
 # or without features): sphere clusters with the combined set, the
 # combined set with a tier without UVs, sphere clusters with every tier,
 # and all three
-_NOUV_KINDS = ("meshplain", "meshgpplain", "staticplain")
+_NOUV_KINDS = ("meshplain", "staticplain")
 MIXED_VARIANTS = ("clustered+textured",
                   *(f"textured+{k}" for k in _NOUV_KINDS),
                   *(f"clustered+{k}" for k in MESH_KINDS),
@@ -157,8 +157,8 @@ _CLUSTER_PTR_FIELDS = (
 # the textured variants' fields, after those
 _TEX_PTR_FIELDS = ("mat_tex", "tex_tile", "tex_mip")
 # the mesh variants' fields, after those
-_MESH_PTR_FIELDS = ("mtri_pack", "mtri_bounds", "mtri_uvpack", "stream_pbox",
-                    "stream_prange", "stack_words", "stack_w", "stack_h")
+_MESH_PTR_FIELDS = ("mtri_pack", "mtri_uvpack", "stack_words", "stack_w",
+                    "stack_h")
 # the feature variants' fields, after those
 _FEAT_PTR_FIELDS = (
     "tri_ax", "tri_ay", "tri_az", "tri_ux", "tri_uy", "tri_uz",
@@ -167,20 +167,21 @@ _FEAT_PTR_FIELDS = (
     "tri_uvdv2", "mat_met_idx", "mat_rgh_idx", "mat_nrm_idx",
     "mat_bump_idx", "mat_bump_scale", "mat_transmission", "mat_dispersion",
 )
-# the mesh tiers' fields (static tier, grandparents), last
+# the static tier's fields, after those
 _TIER_PTR_FIELDS = (
     "ctri_nx", "ctri_ny", "ctri_nz", "ctri_d", "ctri_e1x", "ctri_e1y",
     "ctri_e1z", "ctri_a0", "ctri_e2x", "ctri_e2y", "ctri_e2z", "ctri_b0",
     "ctri_mat", "ctri_uv0u", "ctri_uv0v", "ctri_uvdu1", "ctri_uvdv1",
-    "ctri_uvdu2", "ctri_uvdv2", "tcl_box", "stream_gbox", "tcl_range",
-    "stream_grange",
+    "ctri_uvdu2", "ctri_uvdv2", "tcl_box", "tcl_range",
 )
+# the streamed walk's BVH, last
+_BVH_PTR_FIELDS = ("bvh_nodes", "bvh_tris", "bvh_tri_k")
 _FEAT_FLOAT_FIELDS = ("fog_sigma_t", "hg_a", "hg_b", "hg_c", "hg_d")
 _INT_PTRS = ("sph_mat", "q_mat", "p_mat", "csph_mat", "cl_off", "cl_cnt",
-             "cl_huge", "nan_px", "rays_px", "stream_prange", "stack_words",
+             "cl_huge", "nan_px", "rays_px", "stack_words",
              "stack_w", "stack_h", "tri_mat", "mat_met_idx", "mat_rgh_idx",
              "mat_nrm_idx", "mat_bump_idx", "ctri_mat", "tcl_range",
-             "stream_grange") + _TEX_PTR_FIELDS
+             "bvh_tri_k") + _TEX_PTR_FIELDS
 _INT_FIELDS = (
     "n_spheres", "n_quads", "n_planes", "quad_light",
     "just_cosine", "use_rr",
@@ -204,15 +205,16 @@ class WaveParams(ctypes.Structure):
                 + [(n, _F) for n in ("tex_half_w", "tex_half_h",
                                      "tex_lod_k")]
                 + [(n, _P) for n in _MESH_PTR_FIELDS]
-                + [(n, _I) for n in ("n_parents", "stream_rpc", "row_cull",
-                                     "stack_hmax", "stack_wmax")]
+                + [(n, _I) for n in ("stream_rpc", "stack_hmax", "stack_wmax")]
                 + [(n, _P) for n in _FEAT_PTR_FIELDS]
                 + [("n_tris", _I), ("feat_flags", _I)]
                 + [(n, _F) for n in _FEAT_FLOAT_FIELDS]
                 + [("fog_albedo", _F * 3)]
                 + [(n, _P) for n in _TIER_PTR_FIELDS]
-                + [("n_tclusters", _I), ("n_gparents", _I)]
-                + [("cam_lens", _I)])
+                + [("n_tclusters", _I)]
+                + [("cam_lens", _I)]
+                + [(n, _P) for n in _BVH_PTR_FIELDS]
+                + [("bvh_root", _F * 6)])
 
 # WaveParams.tex_flags bits (TEX_* in the kernel)
 TEX_METALNESS, TEX_ROUGHNESS, TEX_NORMAL, TEX_TBN = 1, 2, 4, 8
@@ -244,11 +246,9 @@ def meshed(scene: Scene) -> bool:
 
 def mesh_kind(scene: Scene) -> str:
     """The mesh variants' kind for a meshed scene's tier: the static tier
-    (``static``), the streamed walk (``mesh``) or the walk with the DMA
-    tier's grandparent level (``meshgp``); ``plain`` appended for a mesh
-    without UVs."""
-    kind = ("static" if scene.tri_static
-            else "meshgp" if scene.stream_gparents else "mesh")
+    (``static``) or the streamed walk, resident or DMA (``mesh``);
+    ``plain`` appended for a mesh without UVs."""
+    kind = "static" if scene.tri_static else "mesh"
     return kind + ("" if scene.has_mesh_uvs else "plain")
 
 
@@ -345,17 +345,19 @@ def build_parts(source: str) -> tuple[int, ...]:
                                     re.MULTILINE)}))
 
 
-def build() -> ctypes.CDLL:
-    """Compile (if this source and these flags have not been built yet) and
-    load the kernel library. Raises on a failed build."""
-    global _lib, BUILD_LOG, BUILD_SECONDS, LIB_PATH
-    if _lib is not None:
-        return _lib
+def compile_library(defines: tuple = ()) -> tuple:
+    """Compile the kernel source with ``NVCC_FLAGS`` and ``-D`` each of
+    ``defines`` into ``BUILD_DIR`` (one nvcc for each build part, all
+    started together, then a link), unless this source and these flags
+    were built already, and load it. Returns (the library, its path,
+    nvcc's output, the build's wall seconds or None when it was built
+    before). Raises on a failed build."""
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     source = SOURCE.read_bytes()
-    tag = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()
-                         ).hexdigest()[:16]
+    tag = hashlib.sha256(source + " ".join(flags).encode()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"libwave_{tag}.so"
     log_path = lib_path.with_suffix(".log")
+    seconds = None
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
@@ -364,7 +366,7 @@ def build() -> ctypes.CDLL:
         t0 = time.perf_counter()
         try:
             procs = [subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, f"-DWAVE_PART={k}", "-c", "-o",
+                [_nvcc(), *flags, f"-DWAVE_PART={k}", "-c", "-o",
                  str(obj), str(SOURCE)], stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True)
                 for k, obj in zip(parts, objs)]
@@ -377,30 +379,41 @@ def build() -> ctypes.CDLL:
         finally:
             for obj in objs:
                 obj.unlink(missing_ok=True)
-        BUILD_SECONDS = time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
                                f"{link.stdout}{link.stderr}")
         log_path.write_text(log + link.stdout + link.stderr)
         os.replace(tmp, lib_path)
-    BUILD_LOG = log_path.read_text() if log_path.exists() else ""
     lib = ctypes.CDLL(str(lib_path))
-    LIB_PATH = lib_path
     lib.wave_render.argtypes = [ctypes.POINTER(WaveParams), ctypes.c_int,
                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.wave_render.restype = ctypes.c_int
     lib.wave_error_string.argtypes = [ctypes.c_int]
     lib.wave_error_string.restype = ctypes.c_char_p
-    _lib = lib
-    return lib
+    log = log_path.read_text() if log_path.exists() else ""
+    return lib, lib_path, log, seconds
+
+
+def build() -> ctypes.CDLL:
+    """Compile (if this source and these flags have not been built yet) and
+    load the kernel library. Raises on a failed build."""
+    global _lib, BUILD_LOG, BUILD_SECONDS, LIB_PATH
+    if _lib is not None:
+        return _lib
+    _lib, LIB_PATH, BUILD_LOG, seconds = compile_library()
+    if seconds is not None:
+        BUILD_SECONDS = seconds
+    return _lib
 
 
 def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
             n_samples: int, state, nan_px, rays_px) -> WaveParams:
     """Pointers and host-folded constants for one launch."""
     ptrs = dict(zip(_PTR_FIELDS + _CLUSTER_PTR_FIELDS + _TEX_PTR_FIELDS
-                    + _MESH_PTR_FIELDS + _FEAT_PTR_FIELDS + _TIER_PTR_FIELDS, (
+                    + _MESH_PTR_FIELDS + _FEAT_PTR_FIELDS + _TIER_PTR_FIELDS
+                    + _BVH_PTR_FIELDS, (
         *scene.mat_albedo, *scene.mat_emit, *scene.mat_metal_color,
         scene.mat_metalness, scene.mat_roughness, scene.mat_ior,
         *scene.sph_center, scene.sph_radius, scene.sph_mat,
@@ -412,8 +425,7 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
         scene.cl_offset, scene.cl_count, scene.cl_huge,
         *scene.cl_min, *scene.cl_max,
         scene.mat_albedo_idx, scene.tex_tile, scene.tex_mip,
-        scene.mtri_pack, scene.mtri_bounds, scene.mtri_uvpack,
-        scene.stream_pbox, scene.stream_prange,
+        scene.mtri_pack, scene.mtri_uvpack,
         scene.tex_packed, scene.tex_w, scene.tex_h,
         *scene.tri_a, *scene.tri_u, *scene.tri_v, scene.tri_mat,
         scene.tri_uv0u, scene.tri_uv0v, scene.tri_uvdu1, scene.tri_uvdv1,
@@ -424,8 +436,8 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
         *scene.ctri_n, scene.ctri_d, *scene.ctri_e1, scene.ctri_a0,
         *scene.ctri_e2, scene.ctri_b0, scene.ctri_mat,
         scene.ctri_uv0u, scene.ctri_uv0v, scene.ctri_uvdu1, scene.ctri_uvdv1,
-        scene.ctri_uvdu2, scene.ctri_uvdv2, scene.tcl_box, scene.stream_gbox,
-        scene.tcl_range, scene.stream_grange,
+        scene.ctri_uvdu2, scene.ctri_uvdv2, scene.tcl_box, scene.tcl_range,
+        scene.bvh_nodes, scene.bvh_tris, scene.bvh_tri_k,
     )))
     for name, t in ptrs.items():
         want = torch.int32 if name in _INT_PTRS else torch.float32
@@ -476,10 +488,8 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
         tex_flags=tex_flags, tex_half_w=w_tex * 0.5,
         tex_half_h=scene.tex_comb_h * 0.5,
         tex_lod_k=float(np.float32(config.mip_scale * w_tex * 0.5)),
-        n_parents=len(scene.stream_parents),
         stream_rpc=(stream_rows_per_cluster(scene.stream_leaf)
                     if scene.tri_streamed else 0),
-        row_cull=int(scene.stream_row_cull),
         stack_hmax=scene.tex_hmax, stack_wmax=scene.tex_wmax,
         n_tris=scene.n_tris if scene.tri_brute else 0,
         feat_flags=feat_flags, fog_sigma_t=scene.fog_sigma_t,
@@ -487,7 +497,6 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
         # the static g, each rounded once to float
         hg_a=1.0 - g * g, hg_b=1.0 - g, hg_c=2.0 * g, hg_d=1.0 + g * g,
         n_tclusters=len(scene.tri_clusters),
-        n_gparents=len(scene.stream_gparents),
     )
     p.fc[:] = camera.frustum_center
     p.ax[:] = camera.axis_x
@@ -495,6 +504,7 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
     p.pos[:] = camera.pos
     p.lens_n[:] = lens_n
     p.fog_albedo[:] = scene.fog_albedo
+    p.bvh_root[:] = scene.bvh_root or (0.0,) * 6
     return p
 
 

@@ -363,3 +363,120 @@ def pack_stream_uv_cfm(uvt: np.ndarray, clusters: tuple, leaf: int):
         rows[ci * UV_CFM_ROWS:(ci + 1) * UV_CFM_ROWS, :cnt] = \
             uvt[off:off + cnt].T
     return rows
+
+
+# The streamed tier's BVH for the card's walk (csrc/wave_kernel.cu's
+# bvh_walk): binary nodes over the record rows. A leaf is one record row
+# with its row box (ROW_BOX), bit for bit; a row whose box is ROW_EMPTY_FAR
+# holds no triangle and is left out. A node holds its two children's boxes,
+# each the exact float32 min/max union of its own children's boxes, so a
+# node's slab entry is never later than its rows' and the walk never culls a
+# row that the table-order walk would test with the same nearest hit.
+# Node layout, 16 float32 (four 16-byte loads): the left box (mn3 mx3), the
+# right box, then as int32 bits the left and right references, an inner
+# node's index or BVH_LEAF | first record << 4 | triangle count for a leaf
+# (each a finite float's bits), and two zero words. An absent child (a
+# one-row mesh) is a leaf of no triangles with a NaN box, which no ray
+# enters.
+BVH_NODE_FLOATS = 16
+BVH_LEAF = 1 << 30
+# Triangle records: 12 float32 per triangle, three 16-byte loads
+# (n.xyz d | e1.xyz a0 | e2.xyz b0), contiguous by leaf; beside them each
+# record's table-order winner number (bvh_tri_k).
+BVH_TRI_FLOATS = 12
+# Inner levels of a root-to-leaf path at most: the kernel's near-first walk
+# pushes at most one child a level, onto a stack of this many entries.
+BVH_MAX_DEPTH = 24
+# Subtrees of at most this many rows split at the longest-axis median (the
+# binned SAH's cost dominates the build there and gains little).
+BVH_SAH_MIN = 16
+
+
+def _ceil_log2(n: int) -> int:
+    return max(0, int(n - 1).bit_length())
+
+
+def build_stream_bvh(pack: np.ndarray, rpc: int, uv_numbering: bool) -> dict:
+    """The streamed tier's BVH over :func:`pack_stream_clusters`' record
+    rows (``pack``, ``rpc`` rows per cluster, in table order). A row's
+    triangles are its records up to the last that is not all zero (padding
+    records, and any all-zero record, never hit). Inner nodes split the
+    rows by binned SAH (:func:`_sah_partition` over the row boxes'
+    centres), at the longest-axis median for small subtrees and where a
+    split would exceed ``BVH_MAX_DEPTH``. Each record carries its
+    table-order winner number, as the kernel and the plain walks number
+    it: ``c * UV_CFM_ROWS * 128 + r * 9 + j`` for slot j of row r of
+    cluster c with UVs (``uv_numbering``), ``row * 9 + j`` without.
+
+    Returns ``bvh_nodes`` ((M, 16) float32), ``bvh_tris`` ((T, 12)
+    float32), ``bvh_tri_k`` ((T,) int32), ``bvh_root`` (the root box, mn3 +
+    mx3) and ``bvh_depth`` (inner levels of the deepest path)."""
+    per = STREAM_TRIS_PER_ROW
+    recs = pack[:, :per * STREAM_FIELDS].reshape(len(pack), per,
+                                                  STREAM_FIELDS)
+    filled = (recs != 0).any(axis=2)
+    counts = np.where(filled.any(axis=1),
+                      per - np.argmax(filled[:, ::-1], axis=1), 0)
+    rows = np.nonzero((pack[:, ROW_BOUNDS_LANE] != np.float32(ROW_EMPTY_FAR))
+                      & (counts > 0))[0]
+    counts = counts[rows]
+    assert len(rows) and _ceil_log2(len(rows)) <= BVH_MAX_DEPTH
+    assert int(counts.sum()) < (1 << 26), "leaf references overflow"
+    box = pack[rows, ROW_BOUNDS_LANE:ROW_BOUNDS_LANE + 6].astype(np.float32)
+    bmin, bmax = box[:, :3].astype(np.float64), box[:, 3:].astype(np.float64)
+    cent = (bmin + bmax) * 0.5
+
+    nodes: list = []
+    leaf_rows: list = []  # table rows in record order
+    n_recs = [0]
+    depth = [0]
+
+    def leaf(i: int):
+        ref = BVH_LEAF | n_recs[0] << 4 | int(counts[i])
+        leaf_rows.append(i)
+        n_recs[0] += int(counts[i])
+        return ref, box[i]
+
+    def node(kids):
+        row = np.zeros((BVH_NODE_FLOATS,), np.float32)
+        row[0:6], row[6:12] = kids[0][1], kids[1][1]
+        row[12:14] = np.asarray([kids[0][0], kids[1][0]],
+                                np.int32).view(np.float32)
+        return row
+
+    def build(idx: np.ndarray, level: int):
+        """(reference, box) of the subtree over rows ``idx``, whose root
+        sits ``level`` inner levels deep (1 = the root)."""
+        if len(idx) == 1:
+            return leaf(int(idx[0]))
+        depth[0] = max(depth[0], level)
+        lr = (_sah_partition(idx, cent, bmin, bmax)
+              if len(idx) > BVH_SAH_MIN else None)
+        if lr is None or (max(_ceil_log2(len(lr[0])), _ceil_log2(len(lr[1])))
+                          > BVH_MAX_DEPTH - level):
+            lr = _median_halves(idx, cent)
+        me = len(nodes)
+        nodes.append(None)
+        kids = [build(part, level + 1) for part in lr]
+        nodes[me] = node(kids)
+        both = np.stack([kids[0][1], kids[1][1]])
+        return me, np.concatenate([both[:, :3].min(0), both[:, 3:].max(0)])
+
+    if len(rows) == 1:
+        # one row: the root's second child is empty
+        ref, root = leaf(0)
+        nodes.append(node([(ref, root),
+                           (BVH_LEAF | n_recs[0] << 4,
+                            np.full((6,), np.nan, np.float32))]))
+        depth[0] = 1
+    else:
+        _, root = build(np.arange(len(rows)), 1)
+    lc = counts[leaf_rows]
+    r_sel = np.repeat(rows[leaf_rows], lc)
+    j_sel = np.arange(len(r_sel)) - np.repeat(np.cumsum(lc) - lc, lc)
+    k = (((r_sel // rpc) * UV_CFM_ROWS * 128 + (r_sel % rpc) * per)
+         if uv_numbering else r_sel * per) + j_sel
+    return dict(bvh_nodes=np.stack(nodes),
+                bvh_tris=np.ascontiguousarray(recs[r_sel, j_sel, :12]),
+                bvh_tri_k=k.astype(np.int32),
+                bvh_root=tuple(float(v) for v in root), bvh_depth=depth[0])

@@ -15,7 +15,7 @@ from ..render.renderer import AccumState
 from ..utils.vec import Vec3
 from .schema import (
     STATIC_FIELDS, TENSOR_FIELDS, VEC_FIELDS, Scene, bake_quad_normals,
-    cluster_tables, mip_table, parent_tables, texture_stack,
+    bvh_tables, cluster_tables, mip_table, parent_tables, texture_stack,
     tri_cluster_tables,
 )
 
@@ -60,7 +60,8 @@ def scene_from_numpy(fields: dict, statics: dict) -> Scene:
     combined set's flat stack, which the port does not keep; the kernel's
     cluster, mip, parent and triangle-cluster tables are derived from the
     ``sph_clusters``, ``tex_mip_meta``, ``stream_parents`` /
-    ``stream_gparents`` and ``tri_clusters`` statics. A JAX DMA-tier scene
+    ``stream_gparents`` and ``tri_clusters`` statics, and the streamed
+    tier's BVH from its record rows. A JAX DMA-tier scene
     keeps its parents as rows (``JAX_PARENT_FIELDS``, counted by
     ``JAX_PARENT_STATICS``); the descriptors are read back from them."""
     kw = {k: _vec(fields[k]) for k in VEC_FIELDS
@@ -81,6 +82,9 @@ def scene_from_numpy(fields: dict, statics: dict) -> Scene:
     kw.update(parent_tables(kw.get("stream_parents", ()),
                             kw.get("stream_gparents", ())))
     kw.update(tri_cluster_tables(kw.get("tri_clusters", ())))
+    kw.update(bvh_tables(kw["mtri_pack"], kw.get("tri_streamed", False),
+                         kw.get("stream_leaf", 0),
+                         kw.get("has_mesh_uvs", False)))
     if kw.get("tex_combined"):
         kw.update(texture_stack([], combined=True))
     return Scene(**kw)

@@ -47,7 +47,9 @@ the static parent descriptors ``stream_parents`` and, for the kernel,
 ``clusters.STREAM_MAX`` triangles (``STREAM_MAX // 2`` with UVs) it is the
 DMA tier (``tri_dma``): with at least ``clusters.GPARENT_MIN`` parents the
 parents are regrouped under the grandparents ``stream_gparents``
-(``stream_gbox``/``stream_grange``), as JAX's finalize regroups them.
+(``stream_gbox``/``stream_grange``), as JAX's finalize regroups them. The
+kernel walks either tier through a BVH over the record rows
+(``bvh_nodes``/``bvh_tris``/``bvh_tri_k``, :func:`bvh_tables`).
 
 Conventions kept from the reference: material 0 is the sky and a miss
 reports material 0; ``spheres[0]`` is the light the next-event estimator
@@ -127,18 +129,20 @@ STATIC_FIELDS = (
     "fog_albedo", "fog_g", "sph_clusters", "tri_clusters",
     "tri_streamed", "tri_dma", "stream_uv_cfm", "stream_leaf",
     "n_stream_clusters", "stream_parents", "stream_gparents",
-    "stream_row_cull",
+    "stream_row_cull", "bvh_root", "bvh_depth",
     "tex_combined", "tex_comb_w", "tex_comb_h", "tex_tiles_x",
     "tex_mip_meta", "tex_hmax", "tex_wmax", "tex_mesh_only",
     "use_normal_maps", "use_metalness_maps",
     "use_roughness_maps", "tbn_normal_maps",
 )
 # Kernel tables derived from statics (cluster_tables, mip_table,
-# parent_tables, tri_cluster_tables).
+# parent_tables, tri_cluster_tables) and, for the streamed tier's BVH, from
+# the record rows (bvh_tables; its bvh_root and bvh_depth are statics).
 DERIVED_VEC_FIELDS = ("cl_min", "cl_max")
 DERIVED_TENSOR_FIELDS = ("cl_offset", "cl_count", "cl_huge", "tex_mip",
                          "stream_pbox", "stream_prange", "stream_gbox",
-                         "stream_grange", "tcl_box", "tcl_range")
+                         "stream_grange", "tcl_box", "tcl_range",
+                         "bvh_nodes", "bvh_tris", "bvh_tri_k")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -248,6 +252,13 @@ class Scene:
     # the same per grandparent (DMA tier), over the parents
     stream_gbox: torch.Tensor
     stream_grange: torch.Tensor
+    # the card's walk of the streamed tier (bvh_tables): binary nodes over
+    # the record rows, the rows' triangles as 16-byte-aligned records and
+    # each record's table-order winner number ((1, 16), (1, 12) and (1,)
+    # dummies without)
+    bvh_nodes: torch.Tensor
+    bvh_tris: torch.Tensor
+    bvh_tri_k: torch.Tensor
     # the flat RGB8 texture stack, texel (layer*hmax + y)*wmax + x, and
     # each layer's size ((1,) dummies for a combined set, read via tex_tile)
     tex_packed: torch.Tensor
@@ -288,6 +299,8 @@ class Scene:
     stream_parents: tuple = ()
     stream_gparents: tuple = ()
     stream_row_cull: bool = False   # test each record row's own box
+    bvh_root: tuple = ()            # the BVH's root box, mn3 + mx3
+    bvh_depth: int = 0              # its inner levels on the deepest path
     tex_combined: bool = False
     tex_comb_w: int = 1
     tex_comb_h: int = 1
@@ -449,6 +462,23 @@ def parent_tables(stream_parents: tuple, stream_gparents: tuple = ()) -> dict:
     in parents) for the streamed tier's static descriptors."""
     return {**_box_tables(stream_parents, "stream_pbox", "stream_prange"),
             **_box_tables(stream_gparents, "stream_gbox", "stream_grange")}
+
+
+def bvh_tables(mtri_pack: torch.Tensor, tri_streamed: bool, stream_leaf: int,
+               has_mesh_uvs: bool) -> dict:
+    """The streamed tier's BVH (``clusters.build_stream_bvh``) over the
+    record rows ``mtri_pack``, its winners numbered as the uv rows number
+    them with UVs; the dummies without a streamed mesh."""
+    if not tri_streamed:
+        return dict(bvh_nodes=torch.zeros((1, clusters.BVH_NODE_FLOATS)),
+                    bvh_tris=torch.zeros((1, clusters.BVH_TRI_FLOATS)),
+                    bvh_tri_k=torch.zeros((1,), dtype=torch.int32),
+                    bvh_root=(), bvh_depth=0)
+    b = clusters.build_stream_bvh(
+        mtri_pack.cpu().numpy(), clusters.stream_rows_per_cluster(stream_leaf),
+        has_mesh_uvs)
+    return dict(b, **{k: torch.from_numpy(b[k])
+                      for k in ("bvh_nodes", "bvh_tris", "bvh_tri_k")})
 
 
 def tri_cluster_tables(tri_clusters: tuple) -> dict:
@@ -764,6 +794,9 @@ class WorldBuilder:
         out.update(stream)
         out.update(parent_tables(stream["stream_parents"],
                                  stream["stream_gparents"]))
+        out.update(bvh_tables(stream["mtri_pack"],
+                              stream.get("tri_streamed", False),
+                              stream.get("stream_leaf", 0), has_uvs))
         return out
 
     def _sphere_clusters(self, view_origin):

@@ -292,10 +292,10 @@ def _tier_scene(case, monkeypatch):
     ("uv736", False, None, "static_lens"),
     ("tri1936", True, None, "meshplain_pinhole"),   # K7 without UVs
     ("tri1936", False, None, "meshplain_lens"),
-    ("dma1936", True, None, "meshgpplain_pinhole"),  # K7's DMA tier
-    ("dma1936", False, None, "meshgpplain_lens"),
-    ("dma1984uv", True, None, "meshgp_pinhole"),
-    ("dma1984uv", False, None, "meshgp_lens"),
+    ("dma1936", True, None, "meshplain_pinhole"),  # K7's DMA tier
+    ("dma1936", False, None, "meshplain_lens"),
+    ("dma1984uv", True, None, "mesh_pinhole"),
+    ("dma1984uv", False, None, "mesh_lens"),
 ])
 def test_mesh_tier_kernels_match_plain(cuda, monkeypatch, case, pinhole,
                                        schedule, variant):
@@ -373,10 +373,10 @@ def test_fog_base_kernels_match_plain(cuda, kind, pinhole, schedule,
     ("uv736", False, "featstatic_lens"),
     ("tri1936", True, "featmeshplain_pinhole"),
     ("tri1936", False, "featmeshplain_lens"),
-    ("dma1936", True, "featmeshgpplain_pinhole"),
-    ("dma1936", False, "featmeshgpplain_lens"),
-    ("dma1984uv", True, "featmeshgp_pinhole"),
-    ("dma1984uv", False, "featmeshgp_lens"),
+    ("dma1936", True, "featmeshplain_pinhole"),
+    ("dma1936", False, "featmeshplain_lens"),
+    ("dma1984uv", True, "featmesh_pinhole"),
+    ("dma1984uv", False, "featmesh_lens"),
 ])
 def test_fog_mesh_tier_kernels_match_plain(cuda, monkeypatch, case, pinhole,
                                            variant):
@@ -471,16 +471,16 @@ def test_fog_dma_tier_kernel_bit_equal_to_resident(cuda, monkeypatch, case):
     ("clustered+textured", "w2", "brute", {}, True, True),
     ("textured+staticplain", "w1", "static", {}, False, True),
     ("textured+meshplain", "w1", "streamed", {}, True, False),
-    ("textured+meshgpplain", "w1", "dma", {}, True, True),
+    ("textured+meshplain", "w1", "dma", {}, True, True),
     ("clustered+mesh", "w2", "uv1472", {}, True, False),
     ("clustered+meshplain", "w2", "streamed", {}, False, False),
-    ("clustered+meshgp", "w2", "uv1472 dma", {}, True, True),
-    ("clustered+meshgpplain", "w2", "dma", {}, True, False),
+    ("clustered+mesh", "w2", "uv1472 dma", {}, True, True),
+    ("clustered+meshplain", "w2", "dma", {}, True, False),
     ("clustered+static", "w2", "uv736", {}, False, True),
     ("clustered+staticplain", "w2", "static", {}, True, False),
     ("clustered+staticplain", "w2", "static", {"maps": True}, False, True),
     ("clustered+textured+meshplain", "w2", "streamed", {}, True, True),
-    ("clustered+textured+meshgpplain", "w2", "dma", {}, False, False),
+    ("clustered+textured+meshplain", "w2", "dma", {}, False, False),
     ("clustered+textured+staticplain", "w2", "static",
      {"mesh_material": "ground"}, True, False),
     ("clustered+textured+staticplain", "w2", "static", {"glass": True},

@@ -186,10 +186,10 @@ def _tier(case, pinhole=True):
     ("uv736", False, None, "featstatic_lens"),
     ("tri1936", True, None, "featmeshplain_pinhole"),
     ("tri1936", False, None, "featmeshplain_lens"),
-    ("dma1936", True, None, "featmeshgpplain_pinhole"),
-    ("dma1936", False, None, "featmeshgpplain_lens"),
-    ("dma1984uv", True, None, "featmeshgp_pinhole"),
-    ("dma1984uv", False, None, "featmeshgp_lens"),
+    ("dma1936", True, None, "featmeshplain_pinhole"),
+    ("dma1936", False, None, "featmeshplain_lens"),
+    ("dma1984uv", True, None, "featmesh_pinhole"),
+    ("dma1984uv", False, None, "featmesh_lens"),
     ("w7", True, None, "featmesh_pinhole"),
     ("w7", False, None, "featmesh_lens"),
     ("w7", True, "regen", "featmesh_pinhole_regen"),

@@ -271,12 +271,14 @@ def test_kernel_params_layout():
             c_fields.append((name.lstrip("*").split("[")[0], kind))
     kinds = {ctypes.c_void_p: "ptr", ctypes.c_int: "int",
              ctypes.c_uint32: "uint32_t", ctypes.c_float: "float",
-             ctypes.c_float * 3: "float"}
+             ctypes.c_float * 3: "float", ctypes.c_float * 6: "float"}
     py_fields = [(n, kinds[t]) for n, t in cuda_backend.WaveParams._fields_]
     assert py_fields == c_fields
-    # the feature variants' fields come after the mesh variants', and the
-    # mesh tiers' (static tier, grandparents) last
+    # the feature variants' fields come after the mesh variants', then the
+    # static tier's, the mixed variants' camera and, last, the streamed
+    # walk's BVH
     names = [n for n, _ in c_fields]
     assert names.index("stack_wmax") < names.index("tri_ax")
     assert names.index("fog_albedo") < names.index("ctri_nx")
-    assert names[-2:] == ["n_gparents", "cam_lens"]
+    assert names[-6:] == ["n_tclusters", "cam_lens", "bvh_nodes", "bvh_tris",
+                          "bvh_tri_k", "bvh_root"]

@@ -20,7 +20,8 @@ plain version, the lockstep loop ``render/lockstep.py``, is held here.
   mesh.
 - Tables: each scene's tables bit-equal to JAX's finalize.
 - Renders: the port's render_chunk against JAX's XLA driver at 32x18,
-  pp=2, 4 samples, under the golden gates (tests/test_torch_render.py).
+  pp=2, 4 samples, under the golden gates (tests/test_torch_render.py);
+  test_torch_mixed_meshes.py runs eleven of the seventeen cases.
   JAX's XLA driver takes the forms it takes for world 4's large tables
   (the per-lane material gather and the chunked primitive sweep, the same
   values) by lowering ``_SELECT_LOOKUP_MAX`` and ``_UNROLL_MAX`` here:
@@ -109,11 +110,11 @@ CASES = {
                         "clustered+staticplain"),
     "clu+streamed-d": (dict(combined=False, mesh="streamed", pinhole=False),
                        "clustered+meshplain"),
-    "clu+dma": (dict(combined=False, mesh="dma"), "clustered+meshgpplain"),
+    "clu+dma": (dict(combined=False, mesh="dma"), "clustered+meshplain"),
     "clu+uv736": (dict(combined=False, mesh="uv736"), "clustered+static"),
     "clu+uv1472": (dict(combined=False, mesh="uv1472"), "clustered+mesh"),
     "clu+uv1472-dma": (dict(combined=False, mesh="uv1472"),
-                       "clustered+meshgp"),
+                       "clustered+mesh"),
     "clu+tex+static": (dict(mesh="static", mesh_material="ground"),
                        "clustered+textured+staticplain"),
     "clu+tex+static-glass": (dict(mesh="static", glass=True),
@@ -121,17 +122,31 @@ CASES = {
     "clu+tex+streamed": (dict(mesh="streamed"),
                          "clustered+textured+meshplain"),
     "clu+tex+dma-d": (dict(mesh="dma", pinhole=False),
-                      "clustered+textured+meshgpplain"),
+                      "clustered+textured+meshplain"),
     "tex+streamed": (dict(world=W1, mesh="streamed"), "textured+meshplain"),
-    "tex+dma": (dict(world=W1, mesh="dma"), "textured+meshgpplain"),
+    "tex+dma": (dict(world=W1, mesh="dma"), "textured+meshplain"),
     "tex+brute": (dict(world=W1, mesh="brute"), "feattextured_pinhole"),
 }
 
 
-@pytest.mark.parametrize("case", list(CASES))
+# the cases that test_torch_mixed_meshes.py runs (the meshes of the
+# streamed tier, resident or DMA, the static tier's UV mesh, and the glass
+# and planar-map cases): the same test in a file of its own, so that two
+# workers share the renders
+SPLIT_OFF = ("clu+static-maps", "clu+streamed-d", "clu+dma", "clu+uv736",
+             "clu+uv1472", "clu+uv1472-dma", "clu+tex+static-glass",
+             "clu+tex+streamed", "clu+tex+dma-d", "tex+streamed", "tex+dma")
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c not in SPLIT_OFF])
 def test_mixed_base_vs_xla(request, case):
     """Tables bit-equal to JAX's, the variant, and the plain version's
     render against JAX's XLA driver under the golden gates."""
+    check_mixed_base_vs_xla(request, case)
+
+
+def check_mixed_base_vs_xla(request, case):
+    """test_mixed_base_vs_xla's checks of one case."""
     kw, want = CASES[case]
     if "dma" in case:
         request.getfixturevalue("force_dma")
@@ -221,14 +236,14 @@ def _port_scene(pinhole=True, world=W2, mesh=None, **kw):
 @pytest.mark.parametrize("case, want", [
     ("tex+static", "textured+staticplain"),
     ("tex+streamed", "textured+meshplain"),
-    ("tex+dma", "textured+meshgpplain"),
+    ("tex+dma", "textured+meshplain"),
     ("tex+brute", "feattextured_pinhole"),
     ("clu+brute", "featclustered_pinhole"),
     ("clu+tex+brute", "clustered+textured"),
     ("clu+streamed-uv", "clustered+mesh"),
-    ("clu+dma-uv", "clustered+meshgp"),
+    ("clu+dma-uv", "clustered+mesh"),
     ("clu+tex+streamed", "clustered+textured+meshplain"),
-    ("clu+tex+dma", "clustered+textured+meshgpplain"),
+    ("clu+tex+dma", "clustered+textured+meshplain"),
     ("clu+tex-d", "clustered+textured"),
 ])
 def test_mixed_variant_names(request, case, want):
@@ -265,11 +280,11 @@ def test_mixed_variant_names(request, case, want):
 
 
 def test_every_mixed_variant_is_named():
-    """Thirteen mixed instantiations: the combined set with clusters, with
-    each tier without UVs, and with both; clusters with each of the six
-    tiers."""
-    assert len(cuda_backend.MIXED_VARIANTS) == 13
-    assert len(set(cuda_backend.VARIANTS)) == len(cuda_backend.VARIANTS) == 55
+    """Nine mixed instantiations: the combined set with clusters, with each
+    mesh kind without UVs, and with both; clusters with each of the four
+    mesh kinds (the streamed walk serves the resident and the DMA tier)."""
+    assert len(cuda_backend.MIXED_VARIANTS) == 9
+    assert len(set(cuda_backend.VARIANTS)) == len(cuda_backend.VARIANTS) == 43
     kinds = {v.split("+")[-1] for v in cuda_backend.MIXED_VARIANTS}
     assert kinds == set(cuda_backend.MESH_KINDS) | {"textured"}
 
