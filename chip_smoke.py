@@ -11,8 +11,10 @@ this one's in turns (parent_turns).
 The render kernel csrc/wave_kernel.cu has forty-three compile-time
 variants (cuda_backend.VARIANTS), instantiations of one template in one
 build:
-untextured, the brute sphere sweep or the clustered walk (K5/K6), each with
-the pinhole or the thin-lens primary ray; textured (world 1's combined
+untextured, the brute sphere sweep or the clustered walk (K5/K6: the huge
+cluster, then one near-first walk over a BVH of the other spheres, each
+warp on an 8x4 pixel tile), each with the pinhole or the thin-lens primary
+ray; textured (world 1's combined
 4-map fetch, K9), the pinhole and the lens under the main sample schedule
 (cuda_backend.TEXTURED_SCHEDULE) and the pinhole under the other one (K3
 lockstep or K2 regen), its yardstick; mesh (world 7's streamed triangle
@@ -46,12 +48,14 @@ tessellated_sphere, a copy here) of 40 triangles without UVs (K4t), 784
 (Mario's tier and size: the static tier), 19,600 (the resident streamed
 tier) and 262,144 (the DMA tier), or world 7's UV sphere with its checker
 at 736 triangles (the static tier with UVs) and 99,840 (the DMA tier with
-UVs). The mixed cases (MIXED_CASES,
-built by scene/mixed_scenes.py) put those meshes, and world 7's UV sphere
-at 1472 triangles, above world 2's clustered spheres (with world 1's
-combined ground material on its plane where the variant names
-"textured") or beside world 1's spheres, some with dispersive glass or
-planar maps.
+UVs); with 200 slivers across world 7's 1472-triangle sphere or the
+99,840 one (SLIVER_CASES), the streamed tier keeps its uv rows parallel to
+its record rows (K7's row-parallel uv form), resident and DMA. The mixed
+cases (MIXED_CASES, built by scene/mixed_scenes.py) put those meshes, and
+world 7's UV sphere at 1472 triangles (also with slivers), above world 2's
+clustered spheres (with world 1's combined ground material on its plane
+where the variant names "textured") or beside world 1's spheres, some with
+dispersive glass or planar maps.
 
 Phases (each prints its measured values on its own line; any failure raises
 and the script exits non-zero):
@@ -59,14 +63,15 @@ and the script exits non-zero):
   2. build: compiles csrc/wave_kernel.cu (one nvcc per build part, all
      started together, and a link), prints the seconds,
      ptxas's registers and spills for each variant (whether every variant
-     that walks no streamed mesh kept the values it was built at before
-     the BVH walk, KEPT_PTXAS, and the streamed walk's variants beside
-     their values under the table-order walk, K7_EARLIER_PTXAS) and, from
-     cuobjdump, the count of BSSY/BSYNC/WARPSYNC instructions in each variant's SASS
-     (``--sass DIR`` also writes the full SASS there); then, in the
-     background, phase 5's yardstick: the same source with
-     -DWAVE_SCANLINE_WARPS, where each warp of the streamed walk's
-     variants shades 32 pixels of a scanline instead of an 8x4 tile;
+     without sphere clusters kept the values it was built at before the
+     sphere clusters' BVH walk, KEPT_PTXAS, and the clustered variants
+     beside their earlier values, CLUSTERED_EARLIER_PTXAS) and, from
+     cuobjdump, the count of BSSY/BSYNC/WARPSYNC instructions in each
+     variant's SASS (``--sass DIR`` also writes the full SASS there); then,
+     in the background, phase 5's yardstick: the same source with
+     -DWAVE_SCANLINE_WARPS, where each warp of the BVH walks' variants
+     (the streamed walk's and the sphere clusters') shades 32 pixels of a
+     scanline instead of an 8x4 tile;
   3. kernel vs plain: render_chunk on CUDA tensors (the kernel) against
      render_chunk_plain (eager PyTorch) on the same inputs, gated like
      bench.py --verify (fewer than 1% of pixels with resolved |diff| > 1e-3
@@ -80,26 +85,32 @@ and the script exits non-zero):
      4 at 256x144 at pp=4 (16 spp, the CLI's default) and at pp=12 over
      samples 12-23, which together reach all 12 slots of the kernel's
      Poisson-disk table;
-     the five feature scenes (scene/feature_scenes.py) at 256x144 and
-     1280x720, 4 spp (everything also through the thin lens), the CLI's fog
-     on world 6 and on world 3 with -d, and world 1 with three planar
-     512x512 maps at both sizes, through the feature variants; the six mesh
-     cases at 256x144 and 1280x720, 4 spp, pinhole and thin lens (784 also
-     under the other schedule), each through its tier's variant; the
-     streamed walk's cases at 60x34, a size that is not a whole number of
-     its 8x4 warp tiles (world 7, the 19,600-, 262,144- and
-     99,840-triangle meshes, in fog too, and a mixed base); the feature bounce on
-     the other bases at 256x144 and 1280x720, 4 spp (base_case): worlds 1
+     below those main paths, each case at 256x144 with 4 spp and at
+     1280x720 with 1 (depth): the five feature scenes
+     (scene/feature_scenes.py; everything also through the thin lens), the
+     CLI's fog on world 6 and on world 3 with -d, and world 1 with three
+     planar 512x512 maps at both sizes, through the feature variants; the
+     six mesh cases at both sizes, pinhole and thin lens (784 also
+     under the other schedule), each through its tier's variant, and the
+     two sliver cases (K7's row-parallel uv rows) at 256x144 through both
+     cameras and at 1280x720; the BVH walks' cases at 60x34, a size that is
+     not a whole number of their 8x4 warp tiles, 4 spp (world 7, the
+     19,600-, 262,144- and 99,840-triangle meshes, in fog too, world 7's
+     sphere with slivers, worlds 2 and 4, world 2 in fog, and three mixed
+     bases); the feature bounce on the other bases at both sizes
+     (base_case): worlds 1
      (pinhole, lens, regen), 2 (pinhole, lens), 4, 7 (pinhole, lens, regen)
      and 6 (lockstep) in the CLI's fog, world 1's combined-set material and
      world 2's spheres as dispersive glass, planar albedo and bump maps on
      world 2 and on the 784-triangle case, every mesh case in fog through
      both cameras; and every mixed case at 256x144 (pinhole without
      features, thin lens in the CLI's fog) and 1280x720 (thin lens
-     without features, pinhole in fog), 4 spp: every mixed variant, the
+     without features, pinhole in fog): every mixed variant, the
      combined set with the 40-triangle mesh alone and beside clusters,
      dispersive glass on clusters, the combined set and the 784-triangle
-     mesh, and planar albedo and bump maps beside clusters and that mesh;
+     mesh, planar albedo and bump maps beside clusters and that mesh, and
+     world 7's sphere with slivers beside clusters; then the count of the
+     BVH walks' cases whose every pixel is bit-equal;
   4. main paths, each through the entry point a user calls, at 1280x720
      with the launch counts set to 0 just before it and read just after:
      a. the Cornell box (-w3), 1 sample, seed 0, against the committed CPU
@@ -134,12 +145,13 @@ and the script exits non-zero):
         and 7 in fog through the thin lens and the other schedule, world 6
         in fog under lockstep, the mesh cases in fog through both cameras;
      l. render_image, 4 spp in one chunk, on every mixed case: one launch
-        of its own variant;
+        of its own variant (the sliver cases run in i.);
   5. timing (CUDA events, synchronised; no speed gate): every variant and
-     its plain version at 1280x720 4 spp, each row of the streamed walk
-     (K7_EARLIER_MS: its variants on the DMA meshes too) beside its time
-     under the table-order walk and in turns with the scanline-warp
-     yardstick (each first in one half of eight launches); world 3 at 256 spp and world 1
+     its plain version at 1280x720 4 spp, each row of the two BVH walks
+     (the streamed walk's, its variants on the DMA meshes and the sliver
+     meshes too, and the sphere clusters') beside its earlier time
+     (EARLIER_MS) and in turns with the scanline-warp yardstick (each first
+     in one half of eight launches); world 3 at 256 spp and world 1
      at 16 spp, kernel alone and end to end through render_image; worlds
      3, 6 and 4 at 64 spp; worlds 1 and 7 at 64 spp under both schedules,
      alternating (world 7 also end to end through render_image), and world
@@ -158,9 +170,14 @@ and the script exits non-zero):
      launch, from FP32 operations counted off the kernel's code and the
      bytes it must move (accumulators; for worlds 1 and 7 also the texture
      and mesh tables). For the clustered variants the slab and sphere tests
-     are counted over every ray of the same 4-spp render: the plain version
-     renders it, and each bounce's live rays replay the kernel's per-thread
-     walk with the port's ray_slab_entry. For the mesh variants the box
+     are counted over every ray of the same 4-spp render twice: the plain
+     version renders it, and each bounce's live rays replay the table-order
+     walk with the port's ray_slab_entry (its count) and the card's walk,
+     the huge cluster and the sphere BVH, step for step
+     (ops/intersect.py::_sphere_bvh_winners: exact); a clustered row's
+     bound counts the fewer of the two (sphere_terms), and its bound under
+     the earlier definition (the table-order count) is printed beside it.
+     For the mesh variants the box
      tests (grandparents, parents, clusters, rows; the static tier's
      clusters), the triangle tests and the triangle wins are counted over
      every ray of the same 4-spp render, the static tier's by its walk
@@ -280,93 +297,90 @@ def nvidia_smi() -> str:
 KERNEL_RE = (r"wave_kernelILb([01])ELb([01])ELi([0-9])ELi([0-9])ELi([0-9])"
              r"ELi([0-9])E")
 # ptxas's registers and spill bytes as the variants were built before the
-# near-first BVH walk (phase 2 on the H100, PERF.md's findings): the
-# variants that walk no streamed mesh, which must keep them, and those of
-# the table-order streamed walk (K7), printed beside the new walk's; the
-# DMA tier's own variants (meshgp*, now folded into mesh*) by their names
+# sphere clusters' BVH walk (the parent commit's build, phase 2 on the H100,
+# PERF.md's findings): the variants without sphere clusters, which must
+# keep them, and those with sphere clusters, printed beside the new walk's
 KEPT_PTXAS = {"brute_pinhole": (64, 0), "brute_lens": (72, 16),
-              "clustered_pinhole": (64, 0), "clustered_lens": (64, 16),
               "textured_pinhole": (64, 68), "textured_lens": (64, 60),
               "textured_pinhole_regen": (87, 0),
               "feature_pinhole": (80, 0), "feature_lens": (80, 0),
+              "mesh_pinhole": (64, 56), "mesh_lens": (64, 64),
+              "mesh_pinhole_regen": (80, 0),
+              "meshplain_pinhole": (64, 20), "meshplain_lens": (64, 28),
               "static_pinhole": (64, 60), "static_lens": (64, 44),
               "staticplain_pinhole": (64, 28), "staticplain_lens": (64, 28),
               "staticplain_pinhole_regen": (79, 0),
-              "featclustered_lens": (72, 16),
-              "featclustered_pinhole": (72, 32),
+              "featmesh_pinhole": (64, 100), "featmesh_lens": (72, 76),
+              "featmesh_pinhole_regen": (80, 16),
+              "featmeshplain_lens": (64, 68),
+              "featmeshplain_pinhole": (64, 88),
               "featstatic_lens": (72, 44), "featstatic_pinhole": (64, 100),
               "featstaticplain_lens": (72, 12),
               "featstaticplain_pinhole": (72, 12),
               "feattextured_lens": (80, 44), "feattextured_pinhole": (80, 44),
               "feattextured_pinhole_regen": (92, 0),
               "feature_pinhole_lockstep": (72, 28),
-              "clustered+textured": (80, 52),
-              "textured+staticplain": (72, 96),
-              "clustered+static": (64, 80), "clustered+staticplain": (64, 80),
-              "clustered+textured+staticplain": (72, 96)}
-K7_EARLIER_PTXAS = {"mesh_pinhole": (56, 84), "mesh_lens": (56, 88),
-                "mesh_pinhole_regen": (64, 112),
-                "meshplain_pinhole": (48, 124), "meshplain_lens": (40, 212),
-                "meshgp_pinhole": (48, 172), "meshgp_lens": (56, 88),
-                "meshgpplain_pinhole": (40, 224),
-                "meshgpplain_lens": (40, 228),
-                "featmesh_lens": (64, 96), "featmesh_pinhole": (64, 100),
-                "featmesh_pinhole_regen": (64, 136),
-                "featmeshgp_lens": (48, 212), "featmeshgp_pinhole": (56, 140),
-                "featmeshgpplain_lens": (48, 192),
-                "featmeshgpplain_pinhole": (56, 144),
-                "featmeshplain_lens": (56, 136),
-                "featmeshplain_pinhole": (56, 140),
-                "textured+meshplain": (72, 96),
-                "textured+meshgpplain": (48, 264),
-                "clustered+mesh": (56, 152), "clustered+meshplain": (56, 132),
-                "clustered+meshgp": (56, 152),
-                "clustered+meshgpplain": (48, 204),
-                "clustered+textured+meshplain": (72, 96),
-                "clustered+textured+meshgpplain": (48, 268)}
+              "textured+meshplain": (72, 92),
+              "textured+staticplain": (72, 96)}
+CLUSTERED_EARLIER_PTXAS = {
+    "clustered_pinhole": (64, 0), "clustered_lens": (64, 16),
+    "featclustered_pinhole": (72, 32), "featclustered_lens": (72, 16),
+    "clustered+textured": (80, 52), "clustered+mesh": (72, 76),
+    "clustered+meshplain": (64, 88), "clustered+static": (64, 80),
+    "clustered+staticplain": (64, 80),
+    "clustered+textured+meshplain": (80, 44),
+    "clustered+textured+staticplain": (72, 96)}
 
 
-# PERF.md's K7 rows: row (variant, and its case where the variant's main
-# case differs) -> (the variant that rendered it under the table-order
-# walk, its median 720p 4-spp kernel ms there, on an H100 80GB HBM3 at
-# 700 W, PERF.md's table)
-K7_EARLIER_MS = {
-    "mesh_pinhole": ("mesh_pinhole", 2.866),
-    "mesh_lens": ("mesh_lens", 2.996),
-    "mesh_pinhole_regen": ("mesh_pinhole_regen", 3.118),
-    "meshplain_pinhole": ("meshplain_pinhole", 5.186),
-    "meshplain_lens": ("meshplain_lens", 5.188),
-    "meshplain_pinhole tri262144": ("meshgpplain_pinhole", 10.191),
-    "meshplain_lens tri262144": ("meshgpplain_lens", 10.378),
-    "mesh_pinhole uv99840": ("meshgp_pinhole", 9.670),
-    "mesh_lens uv99840": ("meshgp_lens", 9.550),
-    "featmesh_pinhole": ("featmesh_pinhole", 5.185),
-    "featmesh_lens": ("featmesh_lens", 5.172),
-    "featmesh_pinhole_regen": ("featmesh_pinhole_regen", 6.640),
-    "featmeshplain_pinhole": ("featmeshplain_pinhole", 6.843),
-    "featmeshplain_lens": ("featmeshplain_lens", 6.808),
-    "featmeshplain_pinhole tri262144": ("featmeshgpplain_pinhole", 11.015),
-    "featmeshplain_lens tri262144": ("featmeshgpplain_lens", 11.140),
-    "featmesh_pinhole uv99840": ("featmeshgp_pinhole", 10.251),
-    "featmesh_lens uv99840": ("featmeshgp_lens", 10.184),
-    "textured+meshplain": ("textured+meshplain", 6.125),
-    "textured+meshplain dma": ("textured+meshgpplain", 12.199),
-    "clustered+mesh": ("clustered+mesh", 5.219),
-    "clustered+meshplain": ("clustered+meshplain", 8.436),
-    "clustered+mesh dma": ("clustered+meshgp", 10.374),
-    "clustered+meshplain dma": ("clustered+meshgpplain", 12.877),
-    "clustered+textured+meshplain": ("clustered+textured+meshplain", 9.690),
-    "clustered+textured+meshplain dma": ("clustered+textured+meshgpplain",
-                                         12.328),
+# PERF.md's rows of the two BVH walks, K7's (the streamed mesh walk) and
+# K5's (the clustered sphere walk): row (variant, and its case where the
+# variant's main case differs) -> its median 720p 4-spp kernel ms before
+# the sphere clusters' BVH walk, on an H100 80GB HBM3 at 700 W (PERF.md's
+# table)
+EARLIER_MS = {
+    "clustered_pinhole": 2.350,
+    "clustered_lens": 4.604,
+    "featclustered_pinhole": 6.847,
+    "featclustered_lens": 9.228,
+    "clustered+textured": 3.789,
+    "clustered+static": 5.505,
+    "clustered+staticplain": 5.663,
+    "clustered+textured+staticplain": 5.833,
+    "mesh_pinhole": 2.413,
+    "mesh_lens": 2.399,
+    "mesh_pinhole_regen": 2.946,
+    "meshplain_pinhole": 2.594,
+    "meshplain_lens": 2.808,
+    "meshplain_pinhole tri262144": 4.123,
+    "meshplain_lens tri262144": 3.962,
+    "mesh_pinhole uv99840": 4.549,
+    "mesh_lens uv99840": 4.651,
+    "featmesh_pinhole": 5.028,
+    "featmesh_lens": 5.802,
+    "featmesh_pinhole_regen": 8.168,
+    "featmeshplain_pinhole": 4.977,
+    "featmeshplain_lens": 5.033,
+    "featmeshplain_pinhole tri262144": 6.034,
+    "featmeshplain_lens tri262144": 6.034,
+    "featmesh_pinhole uv99840": 7.425,
+    "featmesh_lens uv99840": 7.734,
+    "textured+meshplain": 3.148,
+    "textured+meshplain dma": 4.417,
+    "clustered+mesh": 4.737,
+    "clustered+meshplain": 5.171,
+    "clustered+mesh dma": 5.830,
+    "clustered+meshplain dma": 6.226,
+    "clustered+textured+meshplain": 5.853,
+    "clustered+textured+meshplain dma": 6.891,
 }
 
 
 def earlier(row: str) -> str:
-    """A K7 row's earlier time, for its phase-5 line ("" for another row)."""
-    if row not in K7_EARLIER_MS:
+    """A BVH walk's row's earlier time, for its phase-5 line ("" for
+    another row)."""
+    if row not in EARLIER_MS:
         return ""
-    was, ms = K7_EARLIER_MS[row]
-    return f"earlier_ms={ms} ({was}) "
+    return f"earlier_ms={EARLIER_MS[row]} "
 
 
 def row_name(row: str) -> str:
@@ -376,11 +390,15 @@ def row_name(row: str) -> str:
     return f"wave_kernel<{var}>" + (f" {case}" if case else "")
 
 
-def k7_note(var: str) -> dict:
-    """The kernel-table key that marks the streamed walk (K7) redesigned."""
-    return ({"k7": "redesigned: near-first BVH walk over the record rows, "
-                   "16-byte triangle records, 8x4 warp tiles"}
-            if walks_k7(var) else {})
+def bvh_note(var: str) -> dict:
+    """The kernel-table keys that mark the streamed walk (K7) and the
+    clustered sphere walk (K5) redesigned."""
+    return ({**({"k7": "redesigned: near-first BVH walk over the record "
+                       "rows, 16-byte triangle records, 8x4 warp tiles"}
+                if walks_k7(var) else {}),
+             **({"k5": "redesigned: the huge cluster, then a near-first BVH "
+                       "walk over the other spheres, 16-byte sphere records"}
+                if walks_spheres(var) else {})})
 
 
 def tri_test_ops(scene) -> int:
@@ -413,6 +431,22 @@ def k7_terms(scene, boxes, tris, bvh_boxes, bvh_tris):
     return bvh, table_order
 
 
+def sphere_terms(scene, slabs, spheres, bvh_slabs, bvh_spheres):
+    """The clustered sphere walk's (K5) part of a row's bound, as k7_terms
+    gives the streamed walk's: the fewer of the two walks' box and sphere
+    tests per ray (the card's walk, the huge cluster and the BVH, exact;
+    the table-order walk's, replayed) at OPS_SLAB and OPS_SPHERE, over the
+    tables the card's walk and K6's resolve read; then the table-order
+    walk's count, the earlier definition, which counted no table bytes."""
+    size = lambda ts: 4 * sum(t.numel() for t in ts)
+    bvh = (OPS_INV + min(slabs, bvh_slabs) * OPS_SLAB
+           + min(spheres, bvh_spheres) * OPS_SPHERE,
+           size((scene.sbvh_nodes, scene.sbvh_sph, scene.sbvh_idx,
+                 *scene.csph_center, scene.csph_radius, scene.csph_mat)))
+    table_order = (OPS_INV + slabs * OPS_SLAB + spheres * OPS_SPHERE, 0)
+    return bvh, table_order
+
+
 def bound(ops, nbytes):
     """(the least ms for ``ops`` FP32 operations and ``nbytes`` bytes at
     the card's peaks, and which of the two it is)."""
@@ -421,22 +455,26 @@ def bound(ops, nbytes):
                                        else "bytes")
 
 
-def row_bound(ops, nbytes, rays, k7=None):
+def row_bound(ops, nbytes, rays, *walks):
     """A kernel-table row's bound from its FP32 operations and bytes, to
-    which a K7 row (``k7``: k7_terms' pair) adds the streamed walk's part
-    over its ``rays``: (ms, "operations" or "bytes", the operations, the
-    bytes, and a K7 row's bound ms under the earlier definition or None)."""
-    if k7 is None:
+    which each of a BVH walk's rows ``walks`` (k7_terms' or sphere_terms'
+    pairs, None for none) adds the walk's part over its ``rays``: (ms,
+    "operations" or "bytes", the operations, the bytes, and the bound ms
+    under the earlier definition, or None without a walk)."""
+    walks = [w for w in walks if w is not None]
+    if not walks:
         return (*bound(ops, nbytes), ops, nbytes, None)
-    (ops_bvh, bytes_bvh), (ops_old, bytes_old) = k7
-    ops_new, bytes_new = ops + rays * ops_bvh, nbytes + bytes_bvh
+    ops_new = ops + rays * sum(w[0][0] for w in walks)
+    bytes_new = nbytes + sum(w[0][1] for w in walks)
+    ops_old = ops + rays * sum(w[1][0] for w in walks)
+    bytes_old = nbytes + sum(w[1][1] for w in walks)
     return (*bound(ops_new, bytes_new), ops_new, bytes_new,
-            bound(ops + rays * ops_old, nbytes + bytes_old)[0])
+            bound(ops_old, bytes_old)[0])
 
 
 def old_bound(ms) -> dict:
-    """A K7 row's kernel-table key for its bound under the earlier
-    definition (the table-order walk's count over its tables)."""
+    """A BVH walk's row's kernel-table key for its bound under the earlier
+    definition (the table-order walks' counts over their tables)."""
     return {} if ms is None else {"bound_ms_table_order": ms}
 
 
@@ -447,12 +485,10 @@ def walks_k7(var: str) -> bool:
                for part in var.split("+"))
 
 
-def folded_dma(var: str) -> str:
-    """The name of a K7 variant's DMA-tier twin under the table-order walk
-    (meshgp*), which the BVH walk folded into it."""
-    return re.sub(r"mesh(plain)?(?=_|$)", lambda m: "meshgp" + (m.group(1)
-                                                                or ""), var,
-                  count=1)
+def walks_spheres(var: str) -> bool:
+    """Whether a variant walks sphere clusters (K5), alone or in a mixed
+    base."""
+    return var.split("+")[0].split("_")[0].removeprefix("feat") == "clustered"
 
 
 def variant_of(mangled: re.Match) -> str:
@@ -521,15 +557,27 @@ def sass_report(lib_path, dump_dir=None) -> dict:
 
 
 def cluster_tally(sc, o, d, m, tally):
-    """Adds the slab and sphere tests of the kernel's clustered walk over
-    the rays ``m`` of (o, d) to ``tally``: the huge cluster always, a leaf
-    only where ray_slab_entry says the ray enters its box before its
-    nearest hit so far."""
+    """Adds the slab and sphere tests of the clustered walk over the rays
+    ``m`` of (o, d) to ``tally`` twice: the table-order walk's ("slabs",
+    "spheres": the huge cluster always, a leaf only where ray_slab_entry
+    says the ray enters its box before its nearest hit so far) and the
+    card's ("bvh_slabs", "bvh_spheres": the huge cluster, then the BVH
+    walk step for step, ops/intersect.py::_sphere_bvh_winners)."""
     import torch
-    from pathtracer_tpu_torch.ops.intersect import _sphere_t, ray_slab_entry
+    from pathtracer_tpu_torch.ops.intersect import (
+        _sphere_bvh_winners, _sphere_t, ray_slab_entry,
+    )
     from pathtracer_tpu_torch.utils.vec import Vec3
     far = 3.4028234663852886e38
     rows = torch.nonzero(m).reshape(-1)
+    for r0 in range(0, rows.numel(), 1 << 21):  # bounded stacks
+        idx = rows[r0:r0 + (1 << 21)]
+        counts = {}
+        _sphere_bvh_winners(sc, Vec3(*(c[idx] for c in o)),
+                            Vec3(*(c[idx] for c in d)),
+                            torch.full_like(idx, far, dtype=o.x.dtype), counts)
+        tally["bvh_slabs"] = tally.get("bvh_slabs", 0) + counts["boxes"]
+        tally["bvh_spheres"] = tally.get("bvh_spheres", 0) + counts["spheres"]
     for r0 in range(0, rows.numel(), 1 << 18):  # bounded (rays, spheres)
         idx = rows[r0:r0 + (1 << 18)]
         lo, ld = Vec3(*(c[idx] for c in o)), Vec3(*(c[idx] for c in d))
@@ -553,17 +601,17 @@ def cluster_tally(sc, o, d, m, tally):
 
 
 def walk_tests(scene, cam, cfg, n_samples, dev):
-    """(rays, mean slab tests, mean sphere tests per ray) of the kernel's
-    clustered walk over every ray of samples 0 .. n_samples-1 of ``cfg``.
+    """(rays, mean slab tests and mean sphere tests per ray of the
+    table-order walk, the same of the card's walk) of the clustered walk
+    over every ray of samples 0 .. n_samples-1 of ``cfg``.
     The plain version renders the same rays as the kernel (phase 3 holds
     them to it); each bounce's batch of live rays is caught on its way to
-    intersect_scene and walked per ray, as a kernel thread walks it: the
-    huge cluster always, a leaf only where ray_slab_entry says the ray
-    enters its box before its nearest hit so far."""
+    intersect_scene and walked per ray by both walks (cluster_tally)."""
     from pathtracer_tpu_torch.render import cuda_backend as cb, wavefront
     from pathtracer_tpu_torch.render.renderer import init_accum
 
-    tally = {"rays": 0, "slabs": 0, "spheres": 0}
+    tally = dict.fromkeys(("rays", "slabs", "spheres", "bvh_slabs",
+                           "bvh_spheres"), 0)
     live = {}
     primary, intersect = wavefront._primary_rays, wavefront.intersect_scene
 
@@ -585,7 +633,8 @@ def walk_tests(scene, cam, cfg, n_samples, dev):
         wavefront._primary_rays = primary
         wavefront.intersect_scene = intersect
     n = tally["rays"]
-    return n, tally["slabs"] / n, tally["spheres"] / n
+    return (n, tally["slabs"] / n, tally["spheres"] / n,
+            tally["bvh_slabs"] / n, tally["bvh_spheres"] / n)
 
 
 def tex_fetches(scene, cam, cfg, n_samples, dev):
@@ -761,6 +810,11 @@ MESH_CASES = {  # tag -> (triangles without UVs, or UV-sphere segments/rings)
     "tri262144": (lambda: tessellated_sphere(262144), None),
     "uv99840": (None, (256, 196)),
 }
+# world 7's UV sphere at 1472 triangles and at 99,840, each with 200 slivers
+# across it (scene/mixed_scenes.py::with_slivers): the huge cluster holds
+# 200 triangles, so the streamed tier keeps its uv rows parallel to its
+# record rows, resident and in the DMA tier (K7's row-parallel uv form)
+SLIVER_CASES = {"uv1472s": (32, 24), "uv99840s": (256, 196)}
 
 # The mixed bases' cases (scene/mixed_scenes.py): case -> (mesh case or
 # None, mixed_builder's options). A case named by a variant renders through
@@ -775,7 +829,8 @@ MESH_CASES = {  # tag -> (triangles without UVs, or UV-sphere segments/rings)
 # names "textured", and the mesh above its grid. The meshes are the mesh
 # cases' (and world 7's UV sphere at 1472 triangles, the streamed tier
 # with UVs), moved there.
-MIXED_MESHES = {**MESH_CASES, "uv1472": (None, (32, 24))}
+MIXED_MESHES = {**MESH_CASES, "uv1472": (None, (32, 24)),
+                "uv1472s": (None, SLIVER_CASES["uv1472s"])}
 # the CLI's --fog 0.0012 --fog-albedo 0.9,0.9,0.95 --fog-g 0.5
 FOG = {"fog_sigma_t": 0.0012, "fog_albedo": (0.9, 0.9, 0.95), "fog_g": 0.5}
 MIXED_CASES = {
@@ -786,6 +841,7 @@ MIXED_CASES = {
     "clustered+mesh": ("uv1472", {}),
     "clustered+meshplain": ("tri19600", {}),
     "clustered+mesh dma": ("uv99840", {}),
+    "clustered+mesh slivers": ("uv1472s", {}),
     "clustered+meshplain dma": ("tri262144", {}),
     "clustered+static": ("uv736", {}),
     "clustered+staticplain": ("tri784", {}),
@@ -807,13 +863,19 @@ def mixed_variant(case):
             "clustered+textured+brute": "clustered+textured"}.get(var, var)
 
 
-def mixed_builder(case):
+def mixed_builder(case, tree=None):
     """The builder, camera parameters and world kind of a mixed case
     (MIXED_CASES), through scene/mixed_scenes.py with the case's mesh
-    generated about its place."""
-    from pathtracer_tpu_torch.scene import mixed_scenes, worlds
-    from pathtracer_tpu_torch.scene.schema import WORLD_BRDF_TEST, WORLD_DEFAULT
-    mesh, opts = MIXED_CASES[case]
+    generated about its place; ``tree`` (load_package's) names another
+    checkout's package."""
+    import importlib
+    tree = tree or (lambda sub: importlib.import_module(
+        f"pathtracer_tpu_torch.{sub}"))
+    mixed_scenes, worlds = tree("scene.mixed_scenes"), tree("scene.worlds")
+    schema = tree("scene.schema")
+    WORLD_BRDF_TEST, WORLD_DEFAULT = schema.WORLD_BRDF_TEST, schema.WORLD_DEFAULT
+    tag, opts = MIXED_CASES[case]
+    mesh = tag
     world = WORLD_DEFAULT if case.startswith("textured+") else WORLD_BRDF_TEST
     if mesh is not None:
         (center, radius), (gen, seg) = (mixed_scenes.MESH_AT[world],
@@ -826,6 +888,8 @@ def mixed_builder(case):
             pts, uvs = worlds._uv_sphere_mesh(center, radius, n_seg=seg[0],
                                               n_ring=seg[1])
             mesh = (pts.reshape(-1, 3, 3), uvs)
+            if tag in SLIVER_CASES:
+                mesh = mixed_scenes.with_slivers(*mesh)
     b, cp = mixed_scenes.mixed_builder(
         world=world, combined="textured" in case, mesh=mesh, **opts)
     return b, cp, world
@@ -939,7 +1003,8 @@ def mixed_counts(scene, cam, cfg, n_samples, dev):
     from pathtracer_tpu_torch.render.renderer import init_accum
     from pathtracer_tpu_torch.utils import prng
 
-    tally = dict.fromkeys(FEATURE_KEYS + ("slabs", "spheres", "boxes", "tris",
+    tally = dict.fromkeys(FEATURE_KEYS + ("slabs", "spheres", "bvh_slabs",
+                                          "bvh_spheres", "boxes", "tris",
                                           "wins", "bvh_boxes", "bvh_tris"), 0)
     live = {}
     primary, draw, shade = (wavefront._primary_rays, prng.bounce_uniforms,
@@ -1004,15 +1069,21 @@ def load_package(root: Path, name: str):
     return lambda sub: importlib.import_module(f"{name}.{sub}")
 
 
-# --parent's rows: (case, thin lens, schedule); "w7" is world 7 (its
-# 1472-triangle UV sphere), "w7 fog" the same in the CLI's fog, "triN"
-# world 5's ground with tessellated_sphere(N) (the streamed tier without
-# UVs from 2048 triangles to the DMA tier's 262,144)
+# --parent's rows: (case, thin lens, schedule); "wN" is world N ("w7": its
+# 1472-triangle UV sphere; "w2", "w4": the clustered spheres), "wN fog" the
+# same in the CLI's fog, "triN" world 5's ground with tessellated_sphere(N)
+# (the streamed tier without UVs from 2048 triangles to the DMA tier's
+# 262,144), and a MIXED_CASES name that mixed case
 PARENT_ROWS = (("w7", False, None), ("w7", True, None), ("w7", False, "regen"),
                ("w7 fog", False, None), ("w7 fog", True, None),
-               ("w7 fog", False, "regen"), ("tri2048", False, None),
-               ("tri4096", False, None), ("tri8192", False, None),
-               ("tri19600", False, None), ("tri262144", False, None))
+               ("w7 fog", False, "regen"), ("tri19600", False, None),
+               ("tri262144", False, None), ("w2", False, None),
+               ("w4", True, None), ("w2 fog", False, None),
+               ("w4 fog", True, None), ("clustered+textured", False, None),
+               ("clustered+staticplain", False, None),
+               ("clustered+mesh", False, None),
+               ("clustered+meshplain", False, None),
+               ("clustered+textured+meshplain dma", False, None))
 
 
 def parent_turns(parent: Path, smi: str):
@@ -1060,16 +1131,21 @@ def parent_turns(parent: Path, smi: str):
 
     def case(tree, tag, lens, w, h):
         worlds, schema = tree("scene.worlds"), tree("scene.schema")
-        if tag.startswith("w7"):
-            scene, cam = worlds.finalize_world(schema.WORLD_MESH_UV, w, h,
+        if tag[0] == "w":
+            scene, cam = worlds.finalize_world(int(tag[1]) - 1, w, h,
                                                use_pinhole=not lens)
             if tag.endswith("fog"):
                 scene = dataclasses.replace(scene, **FOG)
             return scene.to(dev), cam
-        b, cp, kind = mesh_builder(tree, int(tag[3:]))
+        if tag in MIXED_CASES:
+            b, cp, kind = mixed_builder(tag, tree)
+        else:
+            b, cp, kind = mesh_builder(tree, int(tag[3:]))
         scene = b.finalize(world_kind=kind, view_origin=cp.pos)
         return scene.to(dev), tree("scene.camera").define_camera(
-            cp.pos, cp.target, cp.fov, w, h, use_pinhole=not lens)
+            cp.pos, cp.target, cp.fov, w, h, use_pinhole=not lens,
+            focal_distance=cp.focal_distance,
+            aperture_radius=cp.aperture_radius)
 
     w, h = 1280, 720
     for tag, lens, sched in PARENT_ROWS:
@@ -1128,7 +1204,7 @@ def main() -> int:
     )
     from pathtracer_tpu_torch.scene.camera import define_camera
     from pathtracer_tpu_torch.scene.feature_scenes import FEATURE_CASES
-    from pathtracer_tpu_torch.scene import worlds
+    from pathtracer_tpu_torch.scene import mixed_scenes, worlds
     from pathtracer_tpu_torch.scene.schema import (
         WORLD_BRDF_TEST, WORLD_CORNELL_BOX, WORLD_CORNELL_QUAD, WORLD_DEFAULT,
         WORLD_MARIO, WORLD_MESH_UV, WORLD_RAYTRACING_ONE_WEEKEND,
@@ -1177,9 +1253,9 @@ def main() -> int:
     mesh_built = {}  # tag -> (CPU scene, camera params, finalize s, card)
 
     def mesh_builder(tag):
-        """World 5's builder without its asset plus the mesh case's mesh,
-        and its camera parameters."""
-        gen, seg = MESH_CASES[tag]
+        """World 5's builder without its asset plus the mesh case's mesh
+        (MESH_CASES, SLIVER_CASES), and its camera parameters."""
+        gen, seg = MESH_CASES.get(tag) or (None, SLIVER_CASES[tag])
         b, cp = build_world(W5, res_dir=str(ROOT / "no asset here"))
         if seg is None:
             tris = gen()
@@ -1189,6 +1265,10 @@ def main() -> int:
         else:
             pts, uvs = worlds._uv_sphere_mesh((0.0, 0.0, 1.4), 1.4,
                                               n_seg=seg[0], n_ring=seg[1])
+            if tag in SLIVER_CASES:
+                tris, uvs = mixed_scenes.with_slivers(pts.reshape(-1, 3, 3),
+                                                      uvs)
+                pts = tris.reshape(-1, 3)
             m = b.add_material(
                 albedo=(1.0, 1.0, 1.0), roughness=0.55,
                 albedo_idx=b.add_texture(worlds._mesh_uv_demo_texture()))
@@ -1321,28 +1401,29 @@ def main() -> int:
     sass = sass_report(cb.LIB_PATH, args.sass)
     check(sorted(sass) == sorted(cb.VARIANTS), f"SASS report {sass}")
     check(sorted(KEPT_PTXAS) == sorted(v for v in cb.VARIANTS
-                                       if not walks_k7(v)),
-          "KEPT_PTXAS names every variant without the streamed walk")
-    kept = {v: (ptxas[v]["registers"], ptxas[v]["spill_stores"]) == rs
-            for v, rs in KEPT_PTXAS.items()}
+                                       if not walks_spheres(v))
+          and sorted(CLUSTERED_EARLIER_PTXAS) == sorted(
+              v for v in cb.VARIANTS if walks_spheres(v)),
+          "KEPT_PTXAS names every variant without sphere clusters, "
+          "CLUSTERED_EARLIER_PTXAS every one with them")
+    now = {v: (r["registers"], r["spill_stores"]) for v, r in ptxas.items()}
+    kept = {v: now[v] == rs for v, rs in KEPT_PTXAS.items()}
     print(f"phase2 build_s={build_s:.3f} nvcc_s={cb.BUILD_SECONDS} "
           f"ptxas={json.dumps(ptxas)}")
-    print(f"phase2 variants_without_k7_kept_ptxas={json.dumps(kept)} "
+    print(f"phase2 variants_without_clusters_kept_ptxas={json.dumps(kept)} "
           f"all_kept={all(kept.values())}")
-    check(all(kept.values()), "the variants without the streamed walk kept "
+    check(all(kept.values()), "the variants without sphere clusters kept "
           "their registers and spills")
-    print("phase2 k7_variants (registers, spill stores) now and under the "
-          "table-order walk (its DMA tier's variant too) " + json.dumps(
-              {v: {"now": (ptxas[v]["registers"], ptxas[v]["spill_stores"]),
-                   "before": K7_EARLIER_PTXAS[v],
-                   **({"before_dma": K7_EARLIER_PTXAS[folded_dma(v)]}
-                      if folded_dma(v) in K7_EARLIER_PTXAS else {})}
-               for v in cb.VARIANTS if walks_k7(v)}))
+    print("phase2 variants with sphere clusters: (registers, spill stores) "
+          "now and before the BVH walk " + json.dumps(
+              {v: {"now": now[v], "before": rs}
+               for v, rs in CLUSTERED_EARLIER_PTXAS.items()}))
     print(f"phase2 sass={json.dumps(sass)}")
 
     # --- 3. kernel vs plain on the card ------------------------------------
     print(f"phase3 start_s={time.perf_counter() - t_start}")
     max_err = dict.fromkeys(cb.VARIANTS, 0.0)
+    differing = {}  # label -> pixels where the kernel and plain differ
 
     def held(label, scene, cam, cfg, n, s0=0):
         """The kernel against its plain version on the same inputs under
@@ -1363,6 +1444,8 @@ def main() -> int:
         rk, rp = int(k.rays_cast), int(p.rays_cast)
         err = float(d.max())
         max_err[var] = max(max_err[var], err)
+        differing[f"{label} {cfg.width}x{cfg.height} {var}"] = int(
+            (d != 0).sum())
         print(f"phase3 {label} variant={var} {cfg.width}x{cfg.height} "
               f"pp={cfg.pp} samples={s0}-{s0 + n - 1} frac_gt_1e-3={f3} "
               f"frac_gt_0.1={f1} bit_equal={float((d == 0).float().mean())} "
@@ -1375,6 +1458,12 @@ def main() -> int:
         check(count_eq, "kernel vs plain valid counts")
         check(abs(rk - rp) <= 0.005 * rp, "kernel vs plain ray counts")
         return var, err
+
+    def depth(w):
+        """(pp, samples) of the cases below the main paths: 4 spp at
+        256x144 and 60x34, 1 at 1280x720 (the plain version's time grows
+        with the samples; the main paths keep their own)."""
+        return (1, 1) if w == 1280 else (2, 4)
 
     disk_slots = set()
     # (world, width, height, pp, first sample, samples, thin lens, options);
@@ -1422,11 +1511,11 @@ def main() -> int:
              cam, cfg, n, s0)
     check(disk_slots == set(range(12)), f"Poisson-disk slots {disk_slots}")
 
-    # the feature variants: each feature scene at 256x144 and 1280x720,
-    # 4 spp; the CLI's fog on world 6 and on world 3 through the thin lens;
-    # world 1 with three planar maps; the mesh tiers: each case at 256x144
-    # and 1280x720, 4 spp, through the pinhole and the thin lens (784 under
-    # the other schedule too)
+    # the feature variants: each feature scene at 256x144 and 1280x720
+    # (depth); the CLI's fog on world 6 and on world 3 through the thin
+    # lens; world 1 with three planar maps; the mesh tiers: each case at
+    # both sizes, through the pinhole and the thin lens (784 under the
+    # other schedule too), and the sliver cases
     feature_err = {}
     for tag, w, h, lens in (
             *((n, 256, 144, False) for n in FEATURE_CASES),
@@ -1435,8 +1524,9 @@ def main() -> int:
             ("w6 fog", 1280, 720, False), ("w3 fog", 1280, 720, True),
             ("w1 planar", 256, 144, False), ("w1 planar", 1280, 720, False)):
         scene, cam, cfg_kw = feature_case(tag, w, h, lens)
+        pp, n = depth(w)
         var, err = held(f"feature={tag!r} options={cfg_kw}", scene, cam,
-                        RenderConfig(w, h, pp=2, seed=0, **cfg_kw), 4)
+                        RenderConfig(w, h, pp=pp, seed=0, **cfg_kw), n)
         check(var.startswith("feature"), f"{tag} takes the feature kernel")
         feature_err[tag] = max(feature_err.get(tag, 0.0), err)
     for tag, w, h, lens, sched in (
@@ -1445,15 +1535,20 @@ def main() -> int:
             ("tri784", 256, 144, False, MOTHER),
             *((t, 1280, 720, ln, None) for t in MESH_CASES
               for ln in (False, True)),
-            ("tri784", 1280, 720, False, MOTHER)):
+            ("tri784", 1280, 720, False, MOTHER),
+            # K7's row-parallel uv rows, resident and in the DMA tier
+            *((t, 256, 144, ln, None) for t in SLIVER_CASES
+              for ln in (False, True)),
+            *((t, 1280, 720, False, None) for t in SLIVER_CASES)):
         scene, cam = mesh_case(tag, w, h, lens)
+        pp, n = depth(w)
         _, err = held(f"mesh={tag} n_tris={scene.n_tris}", scene, cam,
-                      RenderConfig(w, h, pp=2, seed=0, schedule=sched), 4)
+                      RenderConfig(w, h, pp=pp, seed=0, schedule=sched), n)
         feature_err[tag] = max(feature_err.get(tag, 0.0), err)
 
     # the feature bounce on the other bases (fog, transmission with
-    # dispersion, planar and bump maps): each case at 256x144 and 1280x720,
-    # 4 spp, through its base's feature variant, the yardstick schedules
+    # dispersion, planar and bump maps): each case at 256x144 and 1280x720
+    # (depth), through its base's feature variant, the yardstick schedules
     # too
     base_cases = (
         ("w1 fog", False, None), ("w1 fog", True, None),
@@ -1469,8 +1564,9 @@ def main() -> int:
     for tag, lens, sched in base_cases:
         for w, h in ((256, 144), (1280, 720)):
             scene, cam = base_case(tag, w, h, lens)
+            pp, n = depth(w)
             feat_vars.add(held(f"base={tag!r}", scene, cam, RenderConfig(
-                w, h, pp=2, seed=0, schedule=sched), 4)[0])
+                w, h, pp=pp, seed=0, schedule=sched), n)[0])
     check(feat_vars >= {v for v in cb.VARIANTS if v.startswith("feat")
                         and not v.startswith("feature_")}
           | {f"feature_pinhole_{FOTHER}"}, "every feature base held")
@@ -1483,21 +1579,27 @@ def main() -> int:
                            ("tri19600", False, False),
                            ("tri262144", True, False),
                            ("uv99840", False, False),
-                           ("tri19600", True, True)):
-        if tag == "w7":
-            scene, cam = world(W7, 60, 34, lens, statics=FOG if fog else None)
+                           ("tri19600", True, True),
+                           ("uv1472s", False, False),
+                           ("w2", False, False), ("w4", True, False),
+                           ("w2", False, True)):
+        if tag[0] == "w":
+            scene, cam = world(BASE_WORLDS[tag], 60, 34, lens,
+                               statics=FOG if fog else None)
         else:
             scene, cam = (base_case(f"{tag} fog", 60, 34, lens) if fog
                           else mesh_case(tag, 60, 34, lens))
         held(f"ragged mesh={tag} lens={lens} fog={fog}", scene, cam,
              RenderConfig(60, 34, pp=2, seed=0), 4)
-    scene, cam = mixed_case("clustered+textured+meshplain", 60, 34)
-    held("ragged mixed=clustered+textured+meshplain", scene, cam,
-         RenderConfig(60, 34, pp=2, seed=0), 4)
+    for case in ("clustered+textured+meshplain", "clustered+textured",
+                 "clustered+mesh slivers"):
+        scene, cam = mixed_case(case, 60, 34)
+        held(f"ragged mixed={case}", scene, cam,
+             RenderConfig(60, 34, pp=2, seed=0), 4)
 
     print(f"phase3 mixed_start_s={time.perf_counter() - t_start}")
     # the mixed bases: each case against its plain version at 256x144
-    # and 1280x720, 4 spp, each camera once at each size, once with no
+    # and 1280x720 (depth), each camera once at each size, once with no
     # feature and once in the CLI's fog: every mixed variant, the combined
     # set with a brute mesh (feattextured) and beside clusters, dispersive
     # glass and planar maps on mixed bases
@@ -1508,11 +1610,21 @@ def main() -> int:
                                     ((1280, 720), True, False),
                                     ((1280, 720), False, True)):
             scene, cam = mixed_case(case, mw, mh, lens, fog)
+            pp, n = depth(mw)
             got, _ = held(f"mixed={case!r} lens={lens} fog={fog} "
                           f"n_tris={scene.n_tris}", scene, cam,
-                          RenderConfig(mw, mh, pp=2, seed=0), 4)
+                          RenderConfig(mw, mh, pp=pp, seed=0), n)
             check(got == want or want.endswith("_")
                   and got.startswith(want), f"{case}'s case takes {got}")
+    # the cases of the two BVH walks (a variant with sphere clusters, or
+    # one that walks the streamed tier) with every pixel bit-equal
+    bvh = {k: v for k, v in differing.items()
+           if walks_spheres(k.split(" ")[-1]) or walks_k7(k.split(" ")[-1])}
+    print(f"phase3 bvh_walk_cases={len(bvh)} "
+          f"bit_equal={sum(v == 0 for v in bvh.values())} "
+          f"not_bit_equal={json.dumps({k: v for k, v in bvh.items() if v})} "
+          f"all_cases={len(differing)} "
+          f"all_bit_equal={sum(v == 0 for v in differing.values())}")
 
     # --- 4. the main paths at full width -------------------------------------
     print(f"phase4 start_s={time.perf_counter() - t_start}")
@@ -1681,6 +1793,7 @@ def main() -> int:
             ("tri784", 4, False, None), ("tri19600", 4, False, None),
             ("tri262144", 4, False, None), ("uv736", 2, False, None),
             ("uv99840", 2, False, None), ("tri40", 2, False, None),
+            *((t, 2, False, None) for t in SLIVER_CASES),
             *((t, 2, True, None) for t in ("tri784", "uv736", "tri19600",
                                            "tri262144", "uv99840")),
             ("tri784", 2, False, MOTHER)):
@@ -1801,17 +1914,19 @@ def main() -> int:
     scan_lib, _, _, scan_build_s = yardstick.result()
     pool.shutdown()
     print(f"phase5 scanline_yardstick_build_s={scan_build_s}")
-    warps = {}  # K7 row -> (median ms with 8x4 tiles, with scanline warps)
+    warps = {}  # BVH row -> (median ms with 8x4 tiles, with scanline warps)
 
     def row_ms(row, scene, cam, **cfg_kw):
         """A row's kernel ms at 720p, 4 spp, and its rays: five launches
-        after a warm one (kernel_ms); for a row of the streamed walk (K7),
-        this build and the scanline-warp yardstick in turns after a warm
+        after a warm one (kernel_ms); for a row of a BVH walk (the streamed
+        walk, K7, or the sphere clusters', K5), this build and the
+        scanline-warp yardstick in turns after a warm
         launch each (tiles, scanline, scanline, tiles, scanline, tiles,
         tiles, scanline: each first in one half), the yardstick's times
         and whether its sums equal this build's given as text for the
         row's line."""
-        if not walks_k7(row.split(" ")[0]):
+        var = row.split(" ")[0]
+        if not (walks_k7(var) or walks_spheres(var)):
             return (*kernel_ms(scene, cam, 2, 5, **cfg_kw), "")
         cfg = RenderConfig(w, h, pp=2, seed=0, **cfg_kw)
         libs = {"tiles": tile_lib, "scanline": scan_lib}
@@ -1893,6 +2008,11 @@ def main() -> int:
     # the mesh tiers' variants: variant -> (mesh case, thin lens, schedule,
     # the JAX code it replaces)
     tier_rows = {
+        # K7's row-parallel uv form: the fetch_uv branch over
+        # clusters.pack_stream_uv's rows, resident and in the DMA tier
+        "mesh_pinhole uv1472s": ("uv1472s", False, None, "intersect.py:482"),
+        "mesh_pinhole uv99840s": ("uv99840s", False, None,
+                                  "intersect.py:482"),
         "staticplain_pinhole": ("tri784", False, None, "intersect.py:225"),
         "staticplain_lens": ("tri784", True, None, "intersect.py:225"),
         f"staticplain_pinhole_{MOTHER}": ("tri784", False, MOTHER,
@@ -2021,11 +2141,14 @@ def main() -> int:
               f"{rays / np.median(ks) / 1e3} plain_ms={1e3 * ps} "
               f"plain_rays={prays} plain_mrays_s={prays / ps / 1e6} "
               f"| card: {smi}")
-    ratios = {r: t / s_ for r, (t, s_) in warps.items()}
-    print(f"phase5 warp_tiles rows={len(ratios)} "
-          f"tiles_faster={sum(v < 1.0 for v in ratios.values())} "
-          f"median_tiles_over_scanline={np.median(list(ratios.values()))} "
-          f"tiles_over_scanline={json.dumps(ratios)} | card: {smi}")
+    for walk, of in (("k7", walks_k7), ("k5", walks_spheres)):
+        ratios = {r: t / s_ for r, (t, s_) in warps.items()
+                  if of(r.split(" ")[0])}
+        print(f"phase5 warp_tiles walk={walk} rows={len(ratios)} "
+              f"tiles_faster={sum(v < 1.0 for v in ratios.values())} "
+              f"median_tiles_over_scanline="
+              f"{np.median(list(ratios.values()))} "
+              f"tiles_over_scanline={json.dumps(ratios)} | card: {smi}")
     # each mesh case at 64 spp through its main variant
     for tag in MESH_CASES:
         scene, cam = mesh_case(tag, w, h)
@@ -2132,12 +2255,16 @@ def main() -> int:
     for var, tm in timed.items():
         scene, cam = tm["scene"], tm["cam"]
         cfg4 = RenderConfig(w, h, pp=2, seed=0, schedule=tm["schedule"])
-        fetches, mesh_txt, k7 = 0, "", None
+        fetches, mesh_txt, k7, sph, sph_txt = 0, "", None, None, ""
         if scene.sph_clusters:
-            wrays, slabs, spheres = walk_tests(scene, cam, cfg4, 4, dev)
+            wrays, slabs, spheres, bvh_slabs, bvh_spheres = walk_tests(
+                scene, cam, cfg4, 4, dev)
             check(abs(wrays - tm["rays"]) <= 0.005 * tm["rays"],
                   f"{var}: walked {wrays} rays, the kernel cast {tm['rays']}")
-            isect_ops = OPS_INV + slabs * OPS_SLAB + spheres * OPS_SPHERE
+            sph = sphere_terms(scene, slabs, spheres, bvh_slabs, bvh_spheres)
+            sph_txt = (f"bvh_slab_tests_per_ray={bvh_slabs} "
+                       f"bvh_sphere_tests_per_ray={bvh_spheres} ")
+            isect_ops = 0.0
         else:
             slabs, spheres = 0.0, float(scene.n_spheres)
             isect_ops = spheres * OPS_SPHERE
@@ -2173,9 +2300,9 @@ def main() -> int:
         if cb.meshed(scene):
             nbytes += 4 * scene.tex_packed.numel()
         bound_ms, bound_by, ops, nbytes, bound_old = row_bound(
-            ops, nbytes, rays, k7)
+            ops, nbytes, rays, k7, sph)
         print(f"phase6 variant={var} slab_tests_per_ray={slabs} "
-              f"sphere_tests_per_ray={spheres} {mesh_txt}"
+              f"sphere_tests_per_ray={spheres} {sph_txt}{mesh_txt}"
               f"tex_fetches={fetches} "
               f"ops={ops:.6e} bytes={nbytes} bound_ms={bound_ms} "
               f"bound_share={bound_ms / tm['ms']} "
@@ -2203,7 +2330,7 @@ def main() -> int:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes this
-            **k7_note(var), **old_bound(bound_old),
+            **bvh_note(var), **old_bound(bound_old),
         })
     for row, (tag, lens, kname, replaces) in feature_rows.items():
         tm = ftimed[row]
@@ -2303,7 +2430,7 @@ def main() -> int:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes this
-            **k7_note(var), **old_bound(bound_old),
+            **bvh_note(var), **old_bound(bound_old),
         })
     # the feature bounce on the other bases: the feature counts of each
     # case's rays, with its base's walk counted as the base's rows count it
@@ -2316,12 +2443,17 @@ def main() -> int:
         cfg4 = RenderConfig(w, h, pp=2, seed=0)
         if (tag, lens) not in ncounts:
             fc = feature_counts(scene, cam, cfg4, 4, dev)
-            base_txt, k7 = "", None
+            base_txt, k7, sph = "", None, None
             if scene.sph_clusters:
-                _, slabs, spheres = walk_tests(scene, cam, cfg4, 4, dev)
-                base_ops = OPS_INV + slabs * OPS_SLAB + spheres * OPS_SPHERE
+                _, slabs, spheres, bvh_slabs, bvh_spheres = walk_tests(
+                    scene, cam, cfg4, 4, dev)
+                sph = sphere_terms(scene, slabs, spheres, bvh_slabs,
+                                   bvh_spheres)
+                base_ops = 0.0
                 base_txt = (f"slab_tests_per_ray={slabs} "
-                            f"sphere_tests_per_ray={spheres}")
+                            f"sphere_tests_per_ray={spheres} "
+                            f"bvh_slab_tests_per_ray={bvh_slabs} "
+                            f"bvh_sphere_tests_per_ray={bvh_spheres}")
             elif cb.meshed(scene):
                 _, boxes, tris, wins, _, bvh_boxes, bvh_tris = mesh_counts(
                     scene, cam, cfg4, 4, dev)
@@ -2342,8 +2474,8 @@ def main() -> int:
                 n_tris = scene.n_tris if scene.tri_brute else 0
                 base_ops = (scene.n_spheres * OPS_SPHERE
                             + n_tris * OPS_TRI_BRUTE)
-            ncounts[(tag, lens)] = (fc, base_ops, base_txt, k7)
-        fc, base_ops, base_txt, k7 = ncounts[(tag, lens)]
+            ncounts[(tag, lens)] = (fc, base_ops, base_txt, k7, sph)
+        fc, base_ops, base_txt, k7, sph = ncounts[(tag, lens)]
         rays = tm["rays"]
         check(abs(fc["rays"] - rays) <= 0.005 * rays,
               f"{var}: counted {fc['rays']} rays, the kernel cast {rays}")
@@ -2365,7 +2497,7 @@ def main() -> int:
                        scene.ctri_mat, scene.tcl_box, scene.tcl_range)
         nbytes = w * h * BYTES_PER_PIXEL + 4 * sum(t.numel() for t in tables)
         bound_ms, bound_by, ops, nbytes, bound_old = row_bound(
-            ops, nbytes, rays, k7)
+            ops, nbytes, rays, k7, sph)
         counts = " ".join(f"{k_}={v}" for k_, v in fc.items())
         print(f"phase6 variant={var} row={row!r} case={tag!r} {base_txt} "
               f"{counts} ops={ops:.6e} bytes={nbytes} bound_ms={bound_ms} "
@@ -2382,7 +2514,7 @@ def main() -> int:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes this
-            **k7_note(var), **old_bound(bound_old),
+            **bvh_note(var), **old_bound(bound_old),
         })
     # the mixed bases: one pass counts the feature tallies and both walks
     print(f"phase6 mixed_start_s={time.perf_counter() - t_start}")
@@ -2394,10 +2526,15 @@ def main() -> int:
         check(abs(fc["rays"] - rays) <= 0.005 * rays,
               f"{var}: counted {fc['rays']} rays, the kernel cast {rays}")
         n_tris = scene.n_tris if scene.tri_brute else 0
-        k7 = None
-        walk_ops = (fc["slabs"] * OPS_SLAB + fc["spheres"] * OPS_SPHERE
-                    if scene.sph_clusters else rays * scene.n_spheres
-                    * OPS_SPHERE) + rays * n_tris * OPS_TRI_BRUTE
+        k7 = sph = None
+        if scene.sph_clusters:
+            sph = sphere_terms(scene, fc["slabs"] / rays, fc["spheres"] / rays,
+                               fc["bvh_slabs"] / rays,
+                               fc["bvh_spheres"] / rays)
+            walk_ops = 0.0
+        else:
+            walk_ops = rays * scene.n_spheres * OPS_SPHERE
+        walk_ops += rays * n_tris * OPS_TRI_BRUTE
         tables = (scene.tex_tile,) if cb.textured(scene) else ()
         if cb.meshed(scene):
             kind = cb.mesh_kind(scene)
@@ -2421,8 +2558,7 @@ def main() -> int:
             if scene.has_mesh_uvs:
                 tables += (scene.tex_packed,)
         ops = (w * h * 4 * OPS_PRIMARY["pinhole"] + walk_ops
-               + rays * (OPS_INV * bool(scene.sph_clusters)
-                         + scene.n_quads * OPS_QUAD
+               + rays * (scene.n_quads * OPS_QUAD
                          + scene.n_planes * OPS_PLANE + OPS_RESOLVE
                          + OPS_EMIT)
                + fc["opaque"] * OPS_SHADE + fc["refract"] * OPS_REFRACT
@@ -2430,9 +2566,13 @@ def main() -> int:
                + fc["tex_fetch"] * OPS_TEX)
         nbytes = w * h * BYTES_PER_PIXEL + 4 * sum(t.numel() for t in tables)
         bound_ms, bound_by, ops, nbytes, bound_old = row_bound(
-            ops, nbytes, rays, k7)
+            ops, nbytes, rays, k7, sph)
         counts = " ".join(f"{k_}={v}" for k_, v in fc.items())
         print(f"phase6 variant={var} row={row!r} {counts} "
+              f"slab_tests_per_ray={fc['slabs'] / rays} "
+              f"sphere_tests_per_ray={fc['spheres'] / rays} "
+              f"bvh_slab_tests_per_ray={fc['bvh_slabs'] / rays} "
+              f"bvh_sphere_tests_per_ray={fc['bvh_spheres'] / rays} "
               f"bvh_box_tests_per_ray={fc['bvh_boxes'] / rays} "
               f"bvh_tri_tests_per_ray={fc['bvh_tris'] / rays} ops={ops:.6e} "
               f"bytes={nbytes} bound_ms={bound_ms} "
@@ -2455,7 +2595,7 @@ def main() -> int:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes this
-            **k7_note(var), **old_bound(bound_old),
+            **bvh_note(var), **old_bound(bound_old),
         })
     check(all(k_["launches"] > 0 for k_ in table), "every variant launched")
     check(sorted({k_["name"] for k_ in table if k_["name"].endswith(">")

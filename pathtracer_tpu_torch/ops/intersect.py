@@ -13,7 +13,11 @@ A scene with sphere clusters takes the clustered walk of the JAX kernel
 K6): per cluster a slab test culls the batch unless some lane is relevant,
 the tests carry (t, winner index), and the winner's material and normal
 are gathered once at the end. Exact float ties between different spheres
-then resolve in cluster order instead of table order.
+then resolve in cluster order instead of table order. The kernel walks
+the clusters another way, the huge one first and then near-first over a
+BVH of the other spheres; :func:`_sphere_bvh_winners` is that walk step
+for step, with the same winners, which the tests and chip_smoke.py's
+counters use.
 
 Triangles come last (:func:`intersect_triangles`), with the winner's
 texel-space uv in a mesh-UV scene (:func:`intersect_scene_uv`). A mesh of
@@ -390,10 +394,12 @@ def _resolve_streamed(scene: Scene, o: Vec3, d: Vec3, best: Hit, t_run, win,
                       want_uv: bool):
     """The streamed walk's resolve (:649-683, :945-963 in JAX) of the
     winners ``win`` (record numbers row * 9 + slot, or -1) at ``t_run``:
-    the winner's normal and material from its record and its uv from its
-    cluster-field-major uv column, ``u0 + alpha*du1 + beta*du2``, once.
-    Returns (hit, uvx, uvy, uv_ok), uv_ok meaning a triangle won (uvx =
-    uvy = 0 without ``want_uv``)."""
+    the winner's normal and material from its record and its uv, ``u0 +
+    alpha*du1 + beta*du2``, once, from its cluster-field-major uv column
+    or, in the row-parallel layout (``fetch_uv``, :482-510), from lanes
+    slot * 6 .. of its record row's parallel uv row. Returns (hit, uvx,
+    uvy, uv_ok), uv_ok meaning a triangle won (uvx = uvy = 0 without
+    ``want_uv``)."""
     per, nf = clusters.STREAM_TRIS_PER_ROW, clusters.STREAM_FIELDS
     found = win >= 0
     w = win.clamp_min(0)
@@ -407,11 +413,15 @@ def _resolve_streamed(scene: Scene, o: Vec3, d: Vec3, best: Hit, t_run, win,
     z = torch.zeros_like(t_run)
     if not want_uv:
         return h, z, z, found
-    rpc = clusters.stream_rows_per_cluster(scene.stream_leaf)
-    col = ((row // rpc) * clusters.UV_CFM_ROWS * 128 + (row % rpc) * per
-           + slot)
     uv = scene.mtri_uvpack.reshape(-1)
-    g = lambda k: uv[col + k * 128]
+    if scene.stream_uv_cfm:
+        rpc = clusters.stream_rows_per_cluster(scene.stream_leaf)
+        col = ((row // rpc) * clusters.UV_CFM_ROWS * 128 + (row % rpc) * per
+               + slot)
+        g = lambda k: uv[col + k * 128]
+    else:
+        col = row * 128 + slot * 6
+        g = lambda k: uv[col + k]
     uvx = torch.where(found, g(0) + aw * g(2) + bw * g(4), 0.0)
     uvy = torch.where(found, g(1) + aw * g(3) + bw * g(5), 0.0)
     return h, uvx, uvy, found
@@ -446,8 +456,9 @@ def _intersect_triangles_streamed(scene: Scene, o: Vec3, d: Vec3, best: Hit,
 
 def _bvh_record_number(scene: Scene, k):
     """A winner number of the BVH's records (``bvh_tri_k``: the uv column
-    with UVs, else row * 9 + slot) as the record number row * 9 + slot."""
-    if not scene.has_mesh_uvs:
+    with the cluster-field-major uv rows, else row * 9 + slot) as the
+    record number row * 9 + slot."""
+    if not scene.stream_uv_cfm:
         return k
     per, rpc = (clusters.STREAM_TRIS_PER_ROW,
                 clusters.stream_rows_per_cluster(scene.stream_leaf))
@@ -459,35 +470,23 @@ def _bvh_record_number(scene: Scene, k):
 _BVH_POP = -(1 << 40)
 
 
-def _bvh_winners(scene: Scene, o: Vec3, d: Vec3, t0, tally=None):
-    """The card's streamed walk (``bvh_walk`` in csrc/wave_kernel.cu), step
-    for step, vectorised over the rays with a stack per ray, for rays whose
-    nearest hit so far is ``t0``: (t, winning record of ``bvh_tris`` or -1,
-    its alpha, its beta).
-
-    Each ray first tests the root box, then walks ``scene.bvh_nodes``
-    near-first: at an inner node it tests both children's boxes, descends
-    the one it enters first and pushes the other with its entry (the left
-    one on an equal entry); the root, a child or a popped entry is skipped
-    unless the ray enters it at or before its running nearest t
-    (``_box_relevant``'s expression with ``<=``: a box entered at exactly
-    that t may hold a tie with a lower number). A leaf's records are tested with ``row_test``'s
-    expressions and taken when t is below the running t, or equal to a
-    triangle's t with a lower table-order number (``bvh_tri_k``), so the
-    winner is the least (t, number) and a sphere, quad or plane at an equal
-    t keeps its hit. With ``tally`` the box tests and triangle tests of the
-    card's walk are added to its "boxes" and "tris"."""
+def _bvh_walk(nodes: torch.Tensor, root: tuple, o: Vec3, d: Vec3, t_run,
+              leaf) -> int:
+    """``bvh_walk`` in csrc/wave_kernel.cu, step for step, vectorised over
+    the rays with a stack per ray. Each ray first tests the root box, then
+    walks ``nodes`` near-first: at an inner node it tests both children's
+    boxes, descends the one it enters first and pushes the other with its
+    entry (the left one on an equal entry); the root, a child or a popped
+    entry is skipped unless the ray enters it at or before its running
+    nearest t (``_box_relevant``'s expression with ``<=``: a box entered at
+    exactly that t may hold a tie with a lower number). At a leaf,
+    ``leaf(i, first, count)`` tests its records first .. first+count-1 for
+    the rays ``i`` and updates ``t_run`` in place. Returns the box tests."""
     dev = o.x.device
     n = o.x.numel()
     inv = _slab_inverse(d)
-    t_run = t0.clone()
-    win = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    a_win, b_win = torch.zeros_like(t_run), torch.zeros_like(t_run)
-    nodes, tris = scene.bvh_nodes, scene.bvh_tris
     kids = nodes[:, 12:14].contiguous().view(torch.int32).long()
-    tri_k = scene.bvh_tri_k.long()
-    leaf_bit, per = clusters.BVH_LEAF, clusters.STREAM_TRIS_PER_ROW
-    root = scene.bvh_root
+    leaf_bit = clusters.BVH_LEAF
     t_root, x_root = _slab(o, inv, root[0:3], root[3:6])
     enter = (x_root >= t_root) & (x_root >= 0.0) & (t_root <= t_run)
     ref = torch.where(enter, 0, _BVH_POP)
@@ -496,10 +495,8 @@ def _bvh_winners(scene: Scene, o: Vec3, d: Vec3, t0, tally=None):
     stack_ref = torch.zeros((n, clusters.BVH_MAX_DEPTH), dtype=torch.int64,
                             device=dev)
     stack_t = torch.zeros((n, clusters.BVH_MAX_DEPTH), device=dev)
-    n_box, n_tri = n, 0
+    n_box = n
     pick = lambda v, i: Vec3(v.x[i], v.y[i], v.z[i])
-    col = lambda v: Vec3(v.x[:, None], v.y[:, None], v.z[:, None])
-    slot = torch.arange(per, device=dev)
     while bool(live.any()):
         act = torch.nonzero(live).reshape(-1)
         r = ref[act]
@@ -523,37 +520,11 @@ def _bvh_winners(scene: Scene, o: Vec3, d: Vec3, t0, tally=None):
             sp[j] += 1
             ref[i] = torch.where(okl | okr, torch.where(
                 right_first, kid[:, 1], kid[:, 0]), _BVH_POP)
-        # leaves: their records against the running (t, number)
+        # leaves: their records against the running nearest hit
         i = act[(r >= 0) & (r & leaf_bit != 0)]
         if i.numel():
             code = ref[i]
-            first, cnt = (code & (leaf_bit - 1)) >> 4, code & 15
-            valid = slot < cnt[:, None]
-            rid = torch.where(valid, first[:, None] + slot, 0)
-            n_tri += int(cnt.sum())
-            rec = tris[rid]
-            _, _, t, hit, alpha, beta = _record_tests(
-                torch.cat([rec, torch.zeros_like(rec[..., :1])], -1),
-                col(pick(o, i)), col(pick(d, i)))
-            ti, wi = t_run[i], win[i]
-            kw = torch.where(wi >= 0, tri_k[wi.clamp_min(0)], -1)
-            kr = tri_k[rid]
-            ok = valid & hit & ((t < ti[:, None])
-                                | ((t == ti[:, None]) & (kr < kw[:, None])))
-            # the least (t, number) of the taken records: the in-order
-            # carry's result
-            t_min = torch.where(ok, t, torch.inf).amin(dim=1)
-            at_min = ok & (t == t_min[:, None])
-            k_min = torch.where(at_min, kr, torch.iinfo(torch.int64).max
-                                ).amin(dim=1)
-            s_w = torch.where(at_min & (kr == k_min[:, None]), slot,
-                              per).amin(dim=1).clamp_max(per - 1)
-            take = ok.any(dim=1)
-            g = lambda v: v.gather(1, s_w[:, None])[:, 0]
-            t_run[i] = torch.where(take, t_min, ti)
-            win[i] = torch.where(take, first + s_w, wi)
-            a_win[i] = torch.where(take, g(alpha), a_win[i])
-            b_win[i] = torch.where(take, g(beta), b_win[i])
+            leaf(i, (code & (leaf_bit - 1)) >> 4, code & 15)
             ref[i] = _BVH_POP
         # pops: the top entry, taken if the ray enters it by its t
         i = act[r == _BVH_POP]
@@ -564,10 +535,126 @@ def _bvh_winners(scene: Scene, o: Vec3, d: Vec3, t0, tally=None):
             sp[i] -= 1
             ref[i] = torch.where(stack_t[i, sp[i]] <= t_run[i],
                                  stack_ref[i, sp[i]], _BVH_POP)
+    return n_box
+
+
+def _least_taken(ok, t, num, slots: int):
+    """Per row of a leaf's (rays, slots) tests: whether any record is taken
+    (``ok``), the least (t, number) of the taken records (the in-order
+    carry's result) and its slot."""
+    t_min = torch.where(ok, t, torch.inf).amin(dim=1)
+    at_min = ok & (t == t_min[:, None])
+    k_min = torch.where(at_min, num, torch.iinfo(torch.int64).max).amin(dim=1)
+    slot = torch.arange(slots, device=t.device)
+    s_w = torch.where(at_min & (num == k_min[:, None]), slot,
+                      slots).amin(dim=1).clamp_max(slots - 1)
+    return ok.any(dim=1), t_min, s_w
+
+
+def _bvh_winners(scene: Scene, o: Vec3, d: Vec3, t0, tally=None):
+    """The card's streamed walk (``bvh_walk`` over ``scene.bvh_nodes`` in
+    csrc/wave_kernel.cu, :func:`_bvh_walk`) for rays whose nearest hit so
+    far is ``t0``: (t, winning record of ``bvh_tris`` or -1, its alpha, its
+    beta). A leaf's records are tested with ``row_test``'s expressions and
+    taken when t is below the running t, or equal to a triangle's t with a
+    lower table-order number (``bvh_tri_k``), so the winner is the least
+    (t, number) and a sphere, quad or plane at an equal t keeps its hit.
+    With ``tally`` the box tests and triangle tests of the card's walk are
+    added to its "boxes" and "tris"."""
+    n = o.x.numel()
+    t_run = t0.clone()
+    win = torch.full((n,), -1, dtype=torch.int64, device=o.x.device)
+    a_win, b_win = torch.zeros_like(t_run), torch.zeros_like(t_run)
+    tris, tri_k = scene.bvh_tris, scene.bvh_tri_k.long()
+    per = clusters.STREAM_TRIS_PER_ROW
+    slot = torch.arange(per, device=o.x.device)
+    n_tri = 0
+    pick = lambda v, i: Vec3(v.x[i, None], v.y[i, None], v.z[i, None])
+
+    def leaf(i, first, cnt):
+        nonlocal n_tri
+        valid = slot < cnt[:, None]
+        rid = torch.where(valid, first[:, None] + slot, 0)
+        n_tri += int(cnt.sum())
+        rec = tris[rid]
+        _, _, t, hit, alpha, beta = _record_tests(
+            torch.cat([rec, torch.zeros_like(rec[..., :1])], -1),
+            pick(o, i), pick(d, i))
+        ti, wi = t_run[i], win[i]
+        kw = torch.where(wi >= 0, tri_k[wi.clamp_min(0)], -1)
+        kr = tri_k[rid]
+        ok = valid & hit & ((t < ti[:, None])
+                            | ((t == ti[:, None]) & (kr < kw[:, None])))
+        take, t_min, s_w = _least_taken(ok, t, kr, per)
+        g = lambda v: v.gather(1, s_w[:, None])[:, 0]
+        t_run[i] = torch.where(take, t_min, ti)
+        win[i] = torch.where(take, first + s_w, wi)
+        a_win[i] = torch.where(take, g(alpha), a_win[i])
+        b_win[i] = torch.where(take, g(beta), b_win[i])
+
+    n_box = _bvh_walk(scene.bvh_nodes, scene.bvh_root, o, d, t_run, leaf)
     if tally is not None:
         tally["boxes"] = tally.get("boxes", 0) + n_box
         tally["tris"] = tally.get("tris", 0) + n_tri
     return t_run, win, a_win, b_win
+
+
+def _sphere_bvh_winners(scene: Scene, o: Vec3, d: Vec3, t0, tally=None):
+    """The card's clustered sphere walk (``sphere_walk`` in
+    csrc/wave_kernel.cu) step for step, for rays whose nearest hit so far
+    is ``t0``: (t, the winning sphere's cluster-order index or -1). The
+    huge cluster's spheres are tested first, in order with the strict-<
+    carry, as the table-order walk tests them; then the BVH over the other
+    spheres (``scene.sbvh_*``) is walked near-first (:func:`_bvh_walk`), a
+    leaf's spheres tested with ``ray_sphere``'s expressions and taken when
+    t is below the running t, or equal to it with a lower cluster-order
+    index. The winner is the least (t, index): the sphere the table-order
+    walk's strict-< carry finds (``_intersect_spheres_clustered``), a huge
+    sphere keeping a tie. With ``tally`` the box tests and sphere tests of
+    the card's walk are added to its "boxes" and "spheres"."""
+    n = o.x.numel()
+    t_run = t0.clone()
+    win = torch.full((n,), -1, dtype=torch.int64, device=o.x.device)
+    n_sph, n_box = 0, 0
+    for off, cnt, mn, _ in scene.sph_clusters:
+        if mn is not None:
+            continue
+        n_sph += n * cnt
+        for i in range(off, off + cnt):
+            t, hit, _ = _sphere_t(o, d, _row(scene.csph_center, i),
+                                  scene.csph_radius[i])
+            take = hit & (t < t_run)
+            t_run = torch.where(take, t, t_run)
+            win = torch.where(take, i, win)
+    per = clusters.SPHERE_LEAF
+    slot = torch.arange(per, device=o.x.device)
+    sph, idx = scene.sbvh_sph, scene.sbvh_idx.long()
+    pick = lambda v, i: Vec3(v.x[i, None], v.y[i, None], v.z[i, None])
+
+    def leaf(i, first, cnt):
+        nonlocal n_sph
+        valid = slot < cnt[:, None]
+        rid = torch.where(valid, first[:, None] + slot, 0)
+        n_sph += int(cnt.sum())
+        rec = sph[rid]
+        t, hit, _ = _sphere_t(pick(o, i), pick(d, i),
+                              Vec3(rec[..., 0], rec[..., 1], rec[..., 2]),
+                              rec[..., 3])
+        ti, wi = t_run[i], win[i]
+        ki = idx[rid]
+        ok = valid & hit & ((t < ti[:, None]) | (
+            (t == ti[:, None]) & (wi[:, None] >= 0) & (ki < wi[:, None])))
+        take, t_min, s_w = _least_taken(ok, t, ki, per)
+        t_run[i] = torch.where(take, t_min, ti)
+        win[i] = torch.where(take, ki.gather(1, s_w[:, None])[:, 0], wi)
+
+    if scene.sbvh_root:
+        n_box = _bvh_walk(scene.sbvh_nodes, scene.sbvh_root, o, d, t_run,
+                          leaf)
+    if tally is not None:
+        tally["boxes"] = tally.get("boxes", 0) + n_box
+        tally["spheres"] = tally.get("spheres", 0) + n_sph
+    return t_run, win
 
 
 def _intersect_triangles_bvh(scene: Scene, o: Vec3, d: Vec3, best: Hit,
@@ -721,7 +808,5 @@ def intersect_scene_uv(scene: Scene, o: Vec3, d: Vec3):
     winner's uv; returns (hit, uvx, uvy, uv_ok) with the winning
     triangle's texel-space uv."""
     assert scene.n_boxes == 0, "mesh-UV scenes have no boxes"
-    assert not scene.tri_streamed or scene.stream_uv_cfm, \
-        "the streamed tier resolves uv from cluster-field-major rows"
     return intersect_triangles(scene, o, d, _non_triangles(scene, o, d),
                                want_uv=True)

@@ -5,8 +5,9 @@ Pallas kernel, ``render/pallas_backend.py::render_chunk_pallas`` with its
 path-regeneration loop ``_wave_loop`` (K2) and its bounce-lockstep loop
 ``_lockstep_loop`` (K3). Its compile-time variants (``VARIANTS``) are the
 instantiations of one kernel template: untextured, the brute sphere sweep
-or the clustered walk (K5/K6), each with the pinhole or the thin-lens
-primary ray; textured (the combined 4-map set, K9), the brute sweep with
+or the clustered walk (K5/K6: the huge cluster, then one near-first walk
+over a BVH of the other spheres, each warp on an 8x4 pixel tile), each
+with the pinhole or the thin-lens primary ray; textured (the combined 4-map set, K9), the brute sweep with
 either primary under ``TEXTURED_SCHEDULE``, and the pinhole under the
 other schedule as its yardstick; the mesh tiers (``MESH_KINDS``), either
 primary under ``MESH_SCHEDULE``: the streamed triangle walk K7 with the
@@ -174,14 +175,16 @@ _TIER_PTR_FIELDS = (
     "ctri_mat", "ctri_uv0u", "ctri_uv0v", "ctri_uvdu1", "ctri_uvdv1",
     "ctri_uvdu2", "ctri_uvdv2", "tcl_box", "tcl_range",
 )
-# the streamed walk's BVH, last
+# the streamed walk's BVH, after those
 _BVH_PTR_FIELDS = ("bvh_nodes", "bvh_tris", "bvh_tri_k")
+# the sphere clusters' BVH, last
+_SBVH_PTR_FIELDS = ("sbvh_nodes", "sbvh_sph", "sbvh_idx")
 _FEAT_FLOAT_FIELDS = ("fog_sigma_t", "hg_a", "hg_b", "hg_c", "hg_d")
 _INT_PTRS = ("sph_mat", "q_mat", "p_mat", "csph_mat", "cl_off", "cl_cnt",
              "cl_huge", "nan_px", "rays_px", "stack_words",
              "stack_w", "stack_h", "tri_mat", "mat_met_idx", "mat_rgh_idx",
              "mat_nrm_idx", "mat_bump_idx", "ctri_mat", "tcl_range",
-             "bvh_tri_k") + _TEX_PTR_FIELDS
+             "bvh_tri_k", "sbvh_idx") + _TEX_PTR_FIELDS
 _INT_FIELDS = (
     "n_spheres", "n_quads", "n_planes", "quad_light",
     "just_cosine", "use_rr",
@@ -214,7 +217,10 @@ class WaveParams(ctypes.Structure):
                 + [("n_tclusters", _I)]
                 + [("cam_lens", _I)]
                 + [(n, _P) for n in _BVH_PTR_FIELDS]
-                + [("bvh_root", _F * 6)])
+                + [("bvh_root", _F * 6)]
+                + [(n, _P) for n in _SBVH_PTR_FIELDS]
+                + [("sbvh_root", _F * 6), ("n_sph_huge", _I),
+                   ("stream_uv_cfm", _I)])
 
 # WaveParams.tex_flags bits (TEX_* in the kernel)
 TEX_METALNESS, TEX_ROUGHNESS, TEX_NORMAL, TEX_TBN = 1, 2, 4, 8
@@ -413,7 +419,7 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
     """Pointers and host-folded constants for one launch."""
     ptrs = dict(zip(_PTR_FIELDS + _CLUSTER_PTR_FIELDS + _TEX_PTR_FIELDS
                     + _MESH_PTR_FIELDS + _FEAT_PTR_FIELDS + _TIER_PTR_FIELDS
-                    + _BVH_PTR_FIELDS, (
+                    + _BVH_PTR_FIELDS + _SBVH_PTR_FIELDS, (
         *scene.mat_albedo, *scene.mat_emit, *scene.mat_metal_color,
         scene.mat_metalness, scene.mat_roughness, scene.mat_ior,
         *scene.sph_center, scene.sph_radius, scene.sph_mat,
@@ -438,6 +444,7 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
         scene.ctri_uv0u, scene.ctri_uv0v, scene.ctri_uvdu1, scene.ctri_uvdv1,
         scene.ctri_uvdu2, scene.ctri_uvdv2, scene.tcl_box, scene.tcl_range,
         scene.bvh_nodes, scene.bvh_tris, scene.bvh_tri_k,
+        scene.sbvh_nodes, scene.sbvh_sph, scene.sbvh_idx,
     )))
     for name, t in ptrs.items():
         want = torch.int32 if name in _INT_PTRS else torch.float32
@@ -497,6 +504,9 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
         # the static g, each rounded once to float
         hg_a=1.0 - g * g, hg_b=1.0 - g, hg_c=2.0 * g, hg_d=1.0 + g * g,
         n_tclusters=len(scene.tri_clusters),
+        # the huge cluster comes first in cluster order
+        n_sph_huge=sum(c[1] for c in scene.sph_clusters if c[2] is None),
+        stream_uv_cfm=int(scene.stream_uv_cfm),
     )
     p.fc[:] = camera.frustum_center
     p.ax[:] = camera.axis_x
@@ -505,6 +515,8 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
     p.lens_n[:] = lens_n
     p.fog_albedo[:] = scene.fog_albedo
     p.bvh_root[:] = scene.bvh_root or (0.0,) * 6
+    # no sphere outside the huge cluster: a NaN root, which no ray enters
+    p.sbvh_root[:] = scene.sbvh_root or (float("nan"),) * 6
     return p
 
 

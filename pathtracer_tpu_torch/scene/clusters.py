@@ -7,26 +7,30 @@ back to the longest-axis centroid median, into leaves of at most
 ``LEAF_SIZE``; a primitive whose AABB spans more than ``HUGE_FRAC`` of the
 scene diagonal (the r=1000 ground or sun sphere) goes to an unconditional
 "huge" cluster that comes first. Leaves are ordered near-to-far from the
-camera. The walk (``ops/intersect.py`` and ``csrc/wave_kernel.cu``) skips
-a leaf when the ray misses its box or already has a hit nearer than the
-box's entry.
+camera. The walk (``ops/intersect.py``) skips a leaf when the ray misses
+its box or already has a hit nearer than the box's entry.
 
 A mesh of more than ``CLUSTER_MIN`` triangles keeps its triangles in
 cluster order in the precomputed barycentric form
 (:func:`triangle_precompute`); up to ``STREAM_MIN`` triangles that is the
 static tier. A larger one also gets the streamed tier's tables: parent
 boxes over groups of leaves (:func:`build_parents`), record rows with
-their own boxes (:func:`pack_stream_clusters`) and the
-cluster-field-major uv rows (:func:`pack_stream_uv_cfm`). Above
-``STREAM_MAX`` triangles (``STREAM_MAX // 2`` with UVs) a mesh takes the
-DMA tier, whose parents regroup under grandparent boxes
-(:func:`build_parents` applied to the parents) once there are
-``GPARENT_MIN`` of them.
+their own boxes (:func:`pack_stream_clusters`) and, with UVs, the
+cluster-field-major uv rows (:func:`pack_stream_uv_cfm`) or, where the
+largest cluster holds more than 128 triangles, the uv rows parallel to the
+record rows (:func:`pack_stream_uv`). Above ``STREAM_MAX`` triangles
+(``STREAM_MAX // 2`` with UVs) a mesh takes the DMA tier, whose parents
+regroup under grandparent boxes (:func:`build_parents` applied to the
+parents) once there are ``GPARENT_MIN`` of them.
 
 The permutations, records and float32 bounds (rounded outward) equal the
 JAX package's bit for bit; the JAX module's ``PT_*`` environment knobs,
-its field-major tier, its row-parallel uv rows and its 128-lane parent
-rows are not carried over.
+its field-major tier and its 128-lane parent rows are not carried over.
+
+The card walks neither table in table order: it walks a binary BVH near
+first, over the streamed tier's record rows (:func:`build_stream_bvh`) and
+over the cluster-ordered spheres outside the huge cluster
+(:func:`build_sphere_bvh`), both built by :func:`_build_bvh`.
 """
 
 from __future__ import annotations
@@ -365,18 +369,40 @@ def pack_stream_uv_cfm(uvt: np.ndarray, clusters: tuple, leaf: int):
     return rows
 
 
-# The streamed tier's BVH for the card's walk (csrc/wave_kernel.cu's
-# bvh_walk): binary nodes over the record rows. A leaf is one record row
-# with its row box (ROW_BOX), bit for bit; a row whose box is ROW_EMPTY_FAR
-# holds no triangle and is left out. A node holds its two children's boxes,
-# each the exact float32 min/max union of its own children's boxes, so a
-# node's slab entry is never later than its rows' and the walk never culls a
-# row that the table-order walk would test with the same nearest hit.
+def pack_stream_uv(uvt: np.ndarray, clusters: tuple, leaf: int):
+    """The uv rows parallel to :func:`pack_stream_clusters`' record rows,
+    for a streamed UV mesh whose largest cluster exceeds the 128 lanes of
+    the cluster-field-major layout: row ``c * rpc + r`` holds the six
+    texel-space fields (u0 v0 du1 dv1 du2 dv2) of the same 9 triangles as
+    record row r of cluster c, triangle j at lanes ``j * 6 ..`` (lanes 54-127
+    zero); ``uvt`` is the (T, 6) table in cluster order."""
+    per = STREAM_TRIS_PER_ROW
+    rpc = stream_rows_per_cluster(leaf)
+    rows = np.zeros((len(clusters) * rpc, 128), np.float32)
+    for ci, (off, cnt, _, _) in enumerate(clusters):
+        block = np.zeros((rpc * per, 6), np.float32)
+        block[:cnt] = uvt[off:off + cnt]
+        rows[ci * rpc:(ci + 1) * rpc, :per * 6] = block.reshape(rpc, per * 6)
+    return rows
+
+
+# The card's BVHs (csrc/wave_kernel.cu's bvh_walk and sphere_walk): binary
+# nodes over
+# boxed items, built by _build_bvh. The streamed tier's is over the record
+# rows: a leaf is one record row with its row box (ROW_BOX), bit for bit; a
+# row whose box is ROW_EMPTY_FAR holds no triangle and is left out. The
+# sphere clusters' is over the cluster-ordered spheres outside the huge
+# cluster, at most SPHERE_LEAF to a leaf, a leaf's box the exact float32
+# union of its spheres' boxes (each rounded outward, as _bounds_of rounds
+# a cluster's). A node holds its two children's boxes, each the exact
+# float32 min/max union of its own children's boxes, so a node's slab
+# entry is never later than its leaves' and the walk never culls a leaf
+# that the table-order walk would test with the same nearest hit.
 # Node layout, 16 float32 (four 16-byte loads): the left box (mn3 mx3), the
 # right box, then as int32 bits the left and right references, an inner
-# node's index or BVH_LEAF | first record << 4 | triangle count for a leaf
+# node's index or BVH_LEAF | first record << 4 | record count for a leaf
 # (each a finite float's bits), and two zero words. An absent child (a
-# one-row mesh) is a leaf of no triangles with a NaN box, which no ray
+# one-leaf tree) is a leaf of no records with a NaN box, which no ray
 # enters.
 BVH_NODE_FLOATS = 16
 BVH_LEAF = 1 << 30
@@ -387,26 +413,84 @@ BVH_TRI_FLOATS = 12
 # Inner levels of a root-to-leaf path at most: the kernel's near-first walk
 # pushes at most one child a level, onto a stack of this many entries.
 BVH_MAX_DEPTH = 24
-# Subtrees of at most this many rows split at the longest-axis median (the
+# Subtrees of at most this many items split at the longest-axis median (the
 # binned SAH's cost dominates the build there and gains little).
 BVH_SAH_MIN = 16
+# Spheres per leaf of the sphere BVH at most. An inner node costs the walk
+# two box tests (25 FP32 operations each, four 16-byte loads) and a sphere
+# test 35 (one 16-byte load): splitting a leaf of 4 into two of 2 adds a
+# node's 50 operations to save at most two sphere tests' 70, so leaves of
+# up to 4 keep the tree two levels shallower for little wasted testing.
+SPHERE_LEAF = 4
 
 
 def _ceil_log2(n: int) -> int:
     return max(0, int(n - 1).bit_length())
 
 
+def _build_bvh(box: np.ndarray, leaf_size: int, leaf) -> tuple:
+    """Binary nodes over N items with float32 boxes ``box`` ((N, 6): mn3
+    mx3). A subtree of at most ``leaf_size`` items is a leaf, made by
+    ``leaf(idx)`` (the items in order; returns its reference and box, and
+    lays out its records). Inner nodes split the items by binned SAH
+    (:func:`_sah_partition` over the boxes' centres), at the longest-axis
+    median for subtrees of at most ``BVH_SAH_MIN`` items and where a split
+    would exceed ``BVH_MAX_DEPTH``. Returns (nodes ((M, 16) float32), the
+    root box as six floats, the inner levels of the deepest path)."""
+    levels = lambda n: _ceil_log2(-(-n // leaf_size))
+    assert len(box) and levels(len(box)) <= BVH_MAX_DEPTH
+    bmin, bmax = box[:, :3].astype(np.float64), box[:, 3:].astype(np.float64)
+    cent = (bmin + bmax) * 0.5
+    nodes: list = []
+    depth = [0]
+
+    def node(kids):
+        row = np.zeros((BVH_NODE_FLOATS,), np.float32)
+        row[0:6], row[6:12] = kids[0][1], kids[1][1]
+        row[12:14] = np.asarray([kids[0][0], kids[1][0]],
+                                np.int32).view(np.float32)
+        return row
+
+    def build(idx: np.ndarray, level: int):
+        """(reference, box) of the subtree over items ``idx``, whose root
+        sits ``level`` inner levels deep (1 = the root)."""
+        if len(idx) <= leaf_size:
+            return leaf(idx)
+        depth[0] = max(depth[0], level)
+        lr = (_sah_partition(idx, cent, bmin, bmax)
+              if len(idx) > BVH_SAH_MIN else None)
+        if lr is None or (max(levels(len(lr[0])), levels(len(lr[1])))
+                          > BVH_MAX_DEPTH - level):
+            lr = _median_halves(idx, cent)
+        me = len(nodes)
+        nodes.append(None)
+        kids = [build(part, level + 1) for part in lr]
+        nodes[me] = node(kids)
+        both = np.stack([kids[0][1], kids[1][1]])
+        return me, np.concatenate([both[:, :3].min(0), both[:, 3:].max(0)])
+
+    if len(box) <= leaf_size:
+        # one leaf: the root's second child is empty
+        ref, root = leaf(np.arange(len(box)))
+        empty = (ref & ~15) + ((ref & 15) << 4)  # no records, after these
+        nodes.append(node([(ref, root),
+                           (empty, np.full((6,), np.nan, np.float32))]))
+        depth[0] = 1
+    else:
+        _, root = build(np.arange(len(box)), 1)
+    return np.stack(nodes), tuple(float(v) for v in root), depth[0]
+
+
 def build_stream_bvh(pack: np.ndarray, rpc: int, uv_numbering: bool) -> dict:
     """The streamed tier's BVH over :func:`pack_stream_clusters`' record
-    rows (``pack``, ``rpc`` rows per cluster, in table order). A row's
-    triangles are its records up to the last that is not all zero (padding
-    records, and any all-zero record, never hit). Inner nodes split the
-    rows by binned SAH (:func:`_sah_partition` over the row boxes'
-    centres), at the longest-axis median for small subtrees and where a
-    split would exceed ``BVH_MAX_DEPTH``. Each record carries its
-    table-order winner number, as the kernel and the plain walks number
-    it: ``c * UV_CFM_ROWS * 128 + r * 9 + j`` for slot j of row r of
-    cluster c with UVs (``uv_numbering``), ``row * 9 + j`` without.
+    rows (``pack``, ``rpc`` rows per cluster, in table order), one leaf per
+    row (:func:`_build_bvh`). A row's triangles are its records up to the
+    last that is not all zero (padding records, and any all-zero record,
+    never hit). Each record carries its table-order winner number, as the
+    kernel and the plain walks number it: ``c * UV_CFM_ROWS * 128 + r * 9 +
+    j`` for slot j of row r of cluster c with the cluster-field-major uv
+    rows (``uv_numbering``: its uv column), ``row * 9 + j`` otherwise (the
+    record, which also keys the parallel uv rows of :func:`pack_stream_uv`).
 
     Returns ``bvh_nodes`` ((M, 16) float32), ``bvh_tris`` ((T, 12)
     float32), ``bvh_tri_k`` ((T,) int32), ``bvh_root`` (the root box, mn3 +
@@ -420,63 +504,68 @@ def build_stream_bvh(pack: np.ndarray, rpc: int, uv_numbering: bool) -> dict:
     rows = np.nonzero((pack[:, ROW_BOUNDS_LANE] != np.float32(ROW_EMPTY_FAR))
                       & (counts > 0))[0]
     counts = counts[rows]
-    assert len(rows) and _ceil_log2(len(rows)) <= BVH_MAX_DEPTH
     assert int(counts.sum()) < (1 << 26), "leaf references overflow"
     box = pack[rows, ROW_BOUNDS_LANE:ROW_BOUNDS_LANE + 6].astype(np.float32)
-    bmin, bmax = box[:, :3].astype(np.float64), box[:, 3:].astype(np.float64)
-    cent = (bmin + bmax) * 0.5
-
-    nodes: list = []
     leaf_rows: list = []  # table rows in record order
     n_recs = [0]
-    depth = [0]
 
-    def leaf(i: int):
+    def leaf(idx: np.ndarray):
+        i = int(idx[0])
         ref = BVH_LEAF | n_recs[0] << 4 | int(counts[i])
         leaf_rows.append(i)
         n_recs[0] += int(counts[i])
         return ref, box[i]
 
-    def node(kids):
-        row = np.zeros((BVH_NODE_FLOATS,), np.float32)
-        row[0:6], row[6:12] = kids[0][1], kids[1][1]
-        row[12:14] = np.asarray([kids[0][0], kids[1][0]],
-                                np.int32).view(np.float32)
-        return row
-
-    def build(idx: np.ndarray, level: int):
-        """(reference, box) of the subtree over rows ``idx``, whose root
-        sits ``level`` inner levels deep (1 = the root)."""
-        if len(idx) == 1:
-            return leaf(int(idx[0]))
-        depth[0] = max(depth[0], level)
-        lr = (_sah_partition(idx, cent, bmin, bmax)
-              if len(idx) > BVH_SAH_MIN else None)
-        if lr is None or (max(_ceil_log2(len(lr[0])), _ceil_log2(len(lr[1])))
-                          > BVH_MAX_DEPTH - level):
-            lr = _median_halves(idx, cent)
-        me = len(nodes)
-        nodes.append(None)
-        kids = [build(part, level + 1) for part in lr]
-        nodes[me] = node(kids)
-        both = np.stack([kids[0][1], kids[1][1]])
-        return me, np.concatenate([both[:, :3].min(0), both[:, 3:].max(0)])
-
-    if len(rows) == 1:
-        # one row: the root's second child is empty
-        ref, root = leaf(0)
-        nodes.append(node([(ref, root),
-                           (BVH_LEAF | n_recs[0] << 4,
-                            np.full((6,), np.nan, np.float32))]))
-        depth[0] = 1
-    else:
-        _, root = build(np.arange(len(rows)), 1)
+    nodes, root, depth = _build_bvh(box, 1, leaf)
     lc = counts[leaf_rows]
     r_sel = np.repeat(rows[leaf_rows], lc)
     j_sel = np.arange(len(r_sel)) - np.repeat(np.cumsum(lc) - lc, lc)
     k = (((r_sel // rpc) * UV_CFM_ROWS * 128 + (r_sel % rpc) * per)
          if uv_numbering else r_sel * per) + j_sel
-    return dict(bvh_nodes=np.stack(nodes),
+    return dict(bvh_nodes=nodes,
                 bvh_tris=np.ascontiguousarray(recs[r_sel, j_sel, :12]),
-                bvh_tri_k=k.astype(np.int32),
-                bvh_root=tuple(float(v) for v in root), bvh_depth=depth[0])
+                bvh_tri_k=k.astype(np.int32), bvh_root=root, bvh_depth=depth)
+
+
+def build_sphere_bvh(centers: np.ndarray, radii: np.ndarray,
+                     sph_clusters: tuple) -> dict:
+    """The sphere clusters' BVH over the cluster-ordered spheres
+    (``centers`` (N, 3) and ``radii`` (N,) float32, the ``csph_*`` tables)
+    of every cluster but the huge one, which the walk tests first as the
+    table-order walk does. Leaves hold at most ``SPHERE_LEAF`` spheres,
+    contiguous; each sphere's box is its float64 centre -+ radius rounded
+    outward to float32.
+
+    Returns ``sbvh_nodes`` ((M, 16) float32, :func:`_build_bvh`'s nodes),
+    ``sbvh_sph`` ((S, 4) float32: cx cy cz r, contiguous by leaf),
+    ``sbvh_idx`` ((S,) int32: each record's cluster-order index),
+    ``sbvh_root`` (the root box, mn3 + mx3; () when every sphere is huge)
+    and ``sbvh_depth``."""
+    items = np.concatenate([np.arange(off, off + cnt, dtype=np.int64)
+                            for off, cnt, mn, _ in sph_clusters
+                            if mn is not None] or [np.zeros((0,), np.int64)])
+    if not len(items):
+        return dict(sbvh_nodes=np.zeros((1, BVH_NODE_FLOATS), np.float32),
+                    sbvh_sph=np.zeros((1, 4), np.float32),
+                    sbvh_idx=np.zeros((1,), np.int32), sbvh_root=(),
+                    sbvh_depth=0)
+    c = np.asarray(centers, np.float32)[items]
+    r = np.asarray(radii, np.float32)[items]
+    lo, hi = sphere_bounds(c, r)
+    box = np.concatenate(
+        [np.nextafter(lo.astype(np.float32), np.float32(-np.inf)),
+         np.nextafter(hi.astype(np.float32), np.float32(np.inf))], axis=1)
+    order: list = []
+
+    def leaf(idx: np.ndarray):
+        ref = BVH_LEAF | len(order) << 4 | len(idx)
+        order.extend(int(i) for i in idx)
+        return ref, np.concatenate([box[idx, :3].min(0), box[idx, 3:].max(0)])
+
+    nodes, root, depth = _build_bvh(box, SPHERE_LEAF, leaf)
+    order = np.asarray(order, np.int64)
+    return dict(sbvh_nodes=nodes,
+                sbvh_sph=np.ascontiguousarray(
+                    np.concatenate([c[order], r[order, None]], axis=1)),
+                sbvh_idx=items[order].astype(np.int32), sbvh_root=root,
+                sbvh_depth=depth)

@@ -15,8 +15,8 @@ from ..render.renderer import AccumState
 from ..utils.vec import Vec3
 from .schema import (
     STATIC_FIELDS, TENSOR_FIELDS, VEC_FIELDS, Scene, bake_quad_normals,
-    bvh_tables, cluster_tables, mip_table, parent_tables, texture_stack,
-    tri_cluster_tables,
+    bvh_tables, cluster_tables, mip_table, parent_tables, sphere_bvh_tables,
+    texture_stack, tri_cluster_tables,
 )
 
 # The JAX DMA tier's parent and grandparent rows and their counts (its
@@ -60,8 +60,9 @@ def scene_from_numpy(fields: dict, statics: dict) -> Scene:
     combined set's flat stack, which the port does not keep; the kernel's
     cluster, mip, parent and triangle-cluster tables are derived from the
     ``sph_clusters``, ``tex_mip_meta``, ``stream_parents`` /
-    ``stream_gparents`` and ``tri_clusters`` statics, and the streamed
-    tier's BVH from its record rows. A JAX DMA-tier scene
+    ``stream_gparents`` and ``tri_clusters`` statics, the streamed tier's
+    BVH from its record rows and the sphere clusters' BVH from the
+    cluster-ordered spheres. A JAX DMA-tier scene
     keeps its parents as rows (``JAX_PARENT_FIELDS``, counted by
     ``JAX_PARENT_STATICS``); the descriptors are read back from them."""
     kw = {k: _vec(fields[k]) for k in VEC_FIELDS
@@ -71,6 +72,8 @@ def scene_from_numpy(fields: dict, statics: dict) -> Scene:
     kw.update({k: _tensor(fields[k]) for k in TENSOR_FIELDS})
     kw.update({k: statics[k] for k in STATIC_FIELDS if k in statics})
     kw.update(cluster_tables(kw.get("sph_clusters", ())))
+    kw.update(sphere_bvh_tables(kw["csph_center"], kw["csph_radius"],
+                                kw.get("sph_clusters", ())))
     kw.update(mip_table(kw.get("tex_mip_meta", ())))
     if statics.get("n_stream_parents"):
         kw["stream_parents"] = _parents_from_rows(
@@ -84,7 +87,7 @@ def scene_from_numpy(fields: dict, statics: dict) -> Scene:
     kw.update(tri_cluster_tables(kw.get("tri_clusters", ())))
     kw.update(bvh_tables(kw["mtri_pack"], kw.get("tri_streamed", False),
                          kw.get("stream_leaf", 0),
-                         kw.get("has_mesh_uvs", False)))
+                         kw.get("stream_uv_cfm", False)))
     if kw.get("tex_combined"):
         kw.update(texture_stack([], combined=True))
     return Scene(**kw)

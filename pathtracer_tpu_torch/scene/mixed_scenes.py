@@ -11,7 +11,9 @@ bounce's dielectric and planar fetches on a mixed base.
 package's ``worlds`` and ``textures`` modules, so the two packages'
 tables compare equal. The mesh is the caller's, placed at
 ``MESH_AT[world]``: the tests pass small meshes, ``chip_smoke.py``
-full-size ones.
+full-size ones. :func:`with_slivers` adds long thin triangles across a UV
+mesh, which fill its huge cluster past 128 triangles: the streamed tier's
+row-parallel uv rows, alone or beside clusters.
 """
 
 from __future__ import annotations
@@ -82,3 +84,30 @@ def mixed_builder(world=WORLD_BRDF_TEST, combined=True, mesh=None,
         b.set_mesh(np.reshape(tris, (-1, 3)),
                    np.full((3 * len(tris),), m, np.int32), uvs=uvs)
     return b, cp
+
+
+def with_slivers(tris: np.ndarray, uvs: np.ndarray, n: int = 200,
+                 seed: int = 0):
+    """``tris`` ((T, 3, 3)) and their ``uvs`` ((3T, 2)) with ``n`` slivers
+    appended: each runs from near one corner of the mesh's box to near the
+    opposite one, 1e-3 of the box's diagonal wide, with random uvs in [0,
+    1) at its two ends (its third corner shares the first's, so its uv
+    varies along it and not across its width). Each spans more than half the diagonal, so each is a huge triangle
+    (``clusters.HUGE_FRAC``), and with more than 128 of them the streamed
+    tier keeps its uv rows parallel to the record rows."""
+    rng = np.random.RandomState(seed)
+    lo, hi = tris.reshape(-1, 3).min(0), tris.reshape(-1, 3).max(0)
+    ext = hi - lo
+    flip = rng.rand(n, 3) < 0.5  # which corner each sliver starts from
+    a = lo + ext * np.where(flip, 1.0 - 0.2 * rng.rand(n, 3),
+                            0.2 * rng.rand(n, 3))
+    b = lo + ext * np.where(flip, 0.2 * rng.rand(n, 3),
+                            1.0 - 0.2 * rng.rand(n, 3))
+    side = rng.randn(n, 3)
+    side /= np.linalg.norm(side, axis=1, keepdims=True)
+    c = a + side * (1e-3 * np.linalg.norm(ext))
+    slivers = np.stack([a, b, c], 1).astype(np.float32)
+    ends = rng.rand(n, 2, 2)
+    sliver_uvs = np.concatenate([ends, ends[:, :1]], 1).reshape(3 * n, 2)
+    return (np.concatenate([tris.astype(np.float32), slivers]),
+            np.concatenate([uvs, sliver_uvs]).astype(np.float32))

@@ -12,7 +12,9 @@ A sphere table of more than ``clusters.CLUSTER_MIN`` rows is also kept in
 cluster order (``csph_*``, padded to a multiple of 128, as in JAX) with its
 cluster descriptors: the static tuple ``sph_clusters`` and, for the
 kernel, the small ``cl_*`` tables (offset, count, bounds, huge flag) that
-:func:`cluster_tables` derives from it.
+:func:`cluster_tables` derives from it. The kernel walks the spheres outside
+the huge cluster through a BVH over them (``sbvh_nodes``/``sbvh_sph``/
+``sbvh_idx``, :func:`sphere_bvh_tables`).
 
 Textures: the reference's canonical 4-map set (four equal-size maps, every
 material's indices all 0 or exactly (1, 2, 3, 4): world 1) packs into two
@@ -41,7 +43,9 @@ to ``clusters.STREAM_MIN`` triangles that is the static tier, with its
 cluster descriptors ``tri_clusters`` and, for the kernel, ``tcl_box`` /
 ``tcl_range`` (:func:`tri_cluster_tables`). Above ``clusters.STREAM_MIN``
 triangles the mesh takes the streamed tier instead (``ctri_*`` then hold
-JAX's zero dummies): ``mtri_bounds``, ``mtri_pack``, ``mtri_uvpack`` with
+JAX's zero dummies): ``mtri_bounds``, ``mtri_pack``, ``mtri_uvpack`` (the
+uv rows, cluster-field-major, or parallel to the record rows where the
+largest cluster exceeds 128 triangles: ``stream_uv_cfm`` False) with
 the static parent descriptors ``stream_parents`` and, for the kernel,
 ``stream_pbox``/``stream_prange`` (:func:`parent_tables`). Above
 ``clusters.STREAM_MAX`` triangles (``STREAM_MAX // 2`` with UVs) it is the
@@ -129,20 +133,22 @@ STATIC_FIELDS = (
     "fog_albedo", "fog_g", "sph_clusters", "tri_clusters",
     "tri_streamed", "tri_dma", "stream_uv_cfm", "stream_leaf",
     "n_stream_clusters", "stream_parents", "stream_gparents",
-    "stream_row_cull", "bvh_root", "bvh_depth",
+    "stream_row_cull", "bvh_root", "bvh_depth", "sbvh_root", "sbvh_depth",
     "tex_combined", "tex_comb_w", "tex_comb_h", "tex_tiles_x",
     "tex_mip_meta", "tex_hmax", "tex_wmax", "tex_mesh_only",
     "use_normal_maps", "use_metalness_maps",
     "use_roughness_maps", "tbn_normal_maps",
 )
 # Kernel tables derived from statics (cluster_tables, mip_table,
-# parent_tables, tri_cluster_tables) and, for the streamed tier's BVH, from
-# the record rows (bvh_tables; its bvh_root and bvh_depth are statics).
+# parent_tables, tri_cluster_tables) and, for the card's BVHs, from the
+# record rows (bvh_tables) and the cluster-ordered spheres
+# (sphere_bvh_tables); their roots and depths are statics.
 DERIVED_VEC_FIELDS = ("cl_min", "cl_max")
 DERIVED_TENSOR_FIELDS = ("cl_offset", "cl_count", "cl_huge", "tex_mip",
                          "stream_pbox", "stream_prange", "stream_gbox",
                          "stream_grange", "tcl_box", "tcl_range",
-                         "bvh_nodes", "bvh_tris", "bvh_tri_k")
+                         "bvh_nodes", "bvh_tris", "bvh_tri_k",
+                         "sbvh_nodes", "sbvh_sph", "sbvh_idx")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -199,6 +205,13 @@ class Scene:
     cl_min: Vec3
     cl_max: Vec3
     cl_huge: torch.Tensor
+    # the card's walk of the sphere clusters (sphere_bvh_tables): binary
+    # nodes over the spheres outside the huge cluster, their records (cx cy
+    # cz r, by leaf) and each record's cluster-order index ((1, 16), (1, 4)
+    # and (1,) dummies without)
+    sbvh_nodes: torch.Tensor
+    sbvh_sph: torch.Tensor
+    sbvh_idx: torch.Tensor
 
     # the combined texture set ((1,)/(1, 128) dummies without one)
     tex_tile: torch.Tensor      # (rows, 128) int32, 8x8-texel tiles, A/B
@@ -241,7 +254,8 @@ class Scene:
     tcl_box: torch.Tensor
     tcl_range: torch.Tensor
     # the streamed tier (K7; (1, 128) dummies without): one bounds row per
-    # cluster, the record rows, the cluster-field-major uv rows
+    # cluster, the record rows, the uv rows (cluster-field-major, or
+    # parallel to the record rows where a cluster exceeds 128 triangles)
     mtri_bounds: torch.Tensor
     mtri_pack: torch.Tensor
     mtri_uvpack: torch.Tensor
@@ -288,7 +302,8 @@ class Scene:
     # the same over ctri_* (the static tier)
     tri_clusters: tuple = ()
     # the mesh's tier: streamed (more than clusters.STREAM_MIN triangles),
-    # and of those the DMA tier; the uv rows' layout
+    # and of those the DMA tier; the uv rows' layout (cluster-field-major,
+    # or row-parallel)
     tri_streamed: bool = False
     tri_dma: bool = False
     stream_uv_cfm: bool = False
@@ -301,6 +316,8 @@ class Scene:
     stream_row_cull: bool = False   # test each record row's own box
     bvh_root: tuple = ()            # the BVH's root box, mn3 + mx3
     bvh_depth: int = 0              # its inner levels on the deepest path
+    sbvh_root: tuple = ()           # the same of the sphere clusters' BVH
+    sbvh_depth: int = 0
     tex_combined: bool = False
     tex_comb_w: int = 1
     tex_comb_h: int = 1
@@ -334,8 +351,10 @@ class Scene:
         """The same scene with its sphere clusters dropped: the brute sweep
         over ``sph_*`` (the yardstick the clustered walk is measured
         against)."""
-        return dataclasses.replace(self, sph_clusters=(),
-                                   **cluster_tables(())).to(self.device)
+        return dataclasses.replace(
+            self, sph_clusters=(), **cluster_tables(()),
+            **sphere_bvh_tables(self.csph_center, self.csph_radius, ())
+        ).to(self.device)
 
     @property
     def planar_maps(self) -> bool:
@@ -376,10 +395,6 @@ class Scene:
         if self.n_tris > clusters.DMA_MAX:
             out.append(f"meshes of more than {clusters.DMA_MAX} triangles "
                        "(beyond the DMA tier, ROADMAP queue 1 item 10)")
-        elif self.tri_streamed and self.has_mesh_uvs and not self.stream_uv_cfm:
-            out.append("a streamed UV mesh whose largest cluster exceeds 128 "
-                       "triangles (the row-parallel uv rows, ROADMAP queue 1 "
-                       "item 10)")
         if self.tex_combined and self.n_textures and self.any_bump:
             out.append("a bump map together with a combined texture set "
                        "(XLA-only in JAX, ROADMAP queue 1 item 10)")
@@ -465,10 +480,11 @@ def parent_tables(stream_parents: tuple, stream_gparents: tuple = ()) -> dict:
 
 
 def bvh_tables(mtri_pack: torch.Tensor, tri_streamed: bool, stream_leaf: int,
-               has_mesh_uvs: bool) -> dict:
+               stream_uv_cfm: bool) -> dict:
     """The streamed tier's BVH (``clusters.build_stream_bvh``) over the
-    record rows ``mtri_pack``, its winners numbered as the uv rows number
-    them with UVs; the dummies without a streamed mesh."""
+    record rows ``mtri_pack``, its winners numbered by their uv column with
+    the cluster-field-major uv rows, else by record; the dummies without a
+    streamed mesh."""
     if not tri_streamed:
         return dict(bvh_nodes=torch.zeros((1, clusters.BVH_NODE_FLOATS)),
                     bvh_tris=torch.zeros((1, clusters.BVH_TRI_FLOATS)),
@@ -476,9 +492,20 @@ def bvh_tables(mtri_pack: torch.Tensor, tri_streamed: bool, stream_leaf: int,
                     bvh_root=(), bvh_depth=0)
     b = clusters.build_stream_bvh(
         mtri_pack.cpu().numpy(), clusters.stream_rows_per_cluster(stream_leaf),
-        has_mesh_uvs)
+        stream_uv_cfm)
     return dict(b, **{k: torch.from_numpy(b[k])
                       for k in ("bvh_nodes", "bvh_tris", "bvh_tri_k")})
+
+
+def sphere_bvh_tables(csph_center: Vec3, csph_radius: torch.Tensor,
+                      sph_clusters: tuple) -> dict:
+    """The sphere clusters' BVH (``clusters.build_sphere_bvh``) over the
+    cluster-ordered spheres (CPU tensors), the dummies without clusters."""
+    b = clusters.build_sphere_bvh(
+        torch.stack([c.cpu() for c in csph_center], 1).numpy(),
+        csph_radius.cpu().numpy(), sph_clusters)
+    return dict(b, **{k: torch.from_numpy(b[k])
+                      for k in ("sbvh_nodes", "sbvh_sph", "sbvh_idx")})
 
 
 def tri_cluster_tables(tri_clusters: tuple) -> dict:
@@ -695,7 +722,9 @@ class WorldBuilder:
         precomputed triangles in cluster order with their clusters, or the
         streamed tier's records in cluster order, clusters regrouped under
         parents (and, in the DMA tier, parents under grandparents),
-        row-aligned record rows and the cluster-field-major uv rows."""
+        row-aligned record rows and the uv rows: cluster-field-major where
+        the largest cluster fits the 128 lanes, else parallel to the record
+        rows (schema.py:656-665 in JAX)."""
         f32, i32 = np.float32, np.int32
         tris = self.triangles
         ntri = 0 if tris is None else len(tris)
@@ -751,8 +780,10 @@ class WorldBuilder:
                     (bmn[order], bmx[order]))
                 cfm = has_uvs and leaf <= 128
                 uvpack = (clusters.pack_stream_uv_cfm(ctri_uvt, tri_clusters,
-                                                      leaf)
-                          if cfm else np.zeros((1, 128), f32))
+                                                      leaf) if cfm
+                          else clusters.pack_stream_uv(ctri_uvt, tri_clusters,
+                                                       leaf) if has_uvs
+                          else np.zeros((1, 128), f32))
                 # the DMA tier regroups many parents under grandparents: a
                 # permutation of the parent list (their cluster ranges move
                 # with them), as JAX's finalize does (schema.py:691-707)
@@ -796,7 +827,8 @@ class WorldBuilder:
                                  stream["stream_gparents"]))
         out.update(bvh_tables(stream["mtri_pack"],
                               stream.get("tri_streamed", False),
-                              stream.get("stream_leaf", 0), has_uvs))
+                              stream.get("stream_leaf", 0),
+                              stream.get("stream_uv_cfm", False)))
         return out
 
     def _sphere_clusters(self, view_origin):
@@ -882,6 +914,8 @@ class WorldBuilder:
             csph_radius=torch.from_numpy(csph_r),
             csph_mat=torch.from_numpy(csph_m),
             **cluster_tables(sph_clusters),
+            **sphere_bvh_tables(_vec_columns(csph_c), torch.from_numpy(csph_r),
+                                sph_clusters),
             **tex_set,
             **texture_stack(self.textures, tex_set["tex_combined"]),
             **mesh,

@@ -275,10 +275,12 @@ def test_kernel_params_layout():
     py_fields = [(n, kinds[t]) for n, t in cuda_backend.WaveParams._fields_]
     assert py_fields == c_fields
     # the feature variants' fields come after the mesh variants', then the
-    # static tier's, the mixed variants' camera and, last, the streamed
-    # walk's BVH
+    # static tier's, the mixed variants' camera, the streamed walk's BVH
+    # and, last, the sphere clusters' BVH and the uv rows' layout
     names = [n for n, _ in c_fields]
     assert names.index("stack_wmax") < names.index("tri_ax")
     assert names.index("fog_albedo") < names.index("ctri_nx")
-    assert names[-6:] == ["n_tclusters", "cam_lens", "bvh_nodes", "bvh_tris",
-                          "bvh_tri_k", "bvh_root"]
+    assert names[-12:] == ["n_tclusters", "cam_lens", "bvh_nodes", "bvh_tris",
+                           "bvh_tri_k", "bvh_root", "sbvh_nodes", "sbvh_sph",
+                           "sbvh_idx", "sbvh_root", "n_sph_huge",
+                           "stream_uv_cfm"]
