@@ -24,12 +24,14 @@ cuda_backend.MESH_SCHEDULE and the pinhole under the other one; feature
 bump maps through the height fetch K11, the brute triangle sweep K4t with
 or without UVs), the pinhole and the lens under path regeneration; and the
 mesh tiers (cuda_backend.MESH_KINDS), the pinhole and the lens under
-cuda_backend.MESH_SCHEDULE: the static tier's cluster walk (K5's triangle
-form) without UVs (staticplain, with the pinhole under the other schedule
-as its yardstick) and with the winner's uv (K8, static), and the streamed
-walk without UVs (meshplain); the streamed walk (K7) is one near-first walk
-over a BVH of the record rows for the resident and the DMA tier alike, each
-warp on an 8x4 pixel tile. The feature bounce also runs on
+cuda_backend.MESH_SCHEDULE: the static tier's walk (K5's triangle form:
+the huge cluster, then one near-first walk over a BVH of the other
+triangles, each warp on an 8x4 pixel tile; a ray whose winner lies outside
+its cluster's box walks again in table order) without UVs (staticplain,
+with the pinhole under the other schedule as its yardstick) and with the
+winner's uv (K8, static), and the streamed walk without UVs (meshplain);
+the streamed walk (K7) is one near-first walk over a BVH of the record rows
+for the resident and the DMA tier alike, each warp on an 8x4 pixel tile. The feature bounce also runs on
 each of the other bases, as "feat" + the base's name: sphere clusters
 (featclustered, regen), the combined set (feattextured, lockstep, with its
 pinhole under regen) and every mesh tier (featmesh ... featstaticplain,
@@ -63,15 +65,16 @@ and the script exits non-zero):
   2. build: compiles csrc/wave_kernel.cu (one nvcc per build part, all
      started together, and a link), prints the seconds,
      ptxas's registers and spills for each variant (whether every variant
-     without sphere clusters kept the values it was built at before the
-     sphere clusters' BVH walk, KEPT_PTXAS, and the clustered variants
-     beside their earlier values, CLUSTERED_EARLIER_PTXAS) and, from
+     that walks neither sphere clusters nor the static tier kept the values
+     it was built at before those walks' BVHs, KEPT_PTXAS, and the others
+     beside their earlier values, CLUSTERED_EARLIER_PTXAS and
+     STATIC_EARLIER_PTXAS) and, from
      cuobjdump, the count of BSSY/BSYNC/WARPSYNC instructions in each
      variant's SASS (``--sass DIR`` also writes the full SASS there); then,
      in the background, phase 5's yardstick: the same source with
      -DWAVE_SCANLINE_WARPS, where each warp of the BVH walks' variants
-     (the streamed walk's and the sphere clusters') shades 32 pixels of a
-     scanline instead of an 8x4 tile;
+     (the streamed walk's, the sphere clusters' and the static tier's)
+     shades 32 pixels of a scanline instead of an 8x4 tile;
   3. kernel vs plain: render_chunk on CUDA tensors (the kernel) against
      render_chunk_plain (eager PyTorch) on the same inputs, gated like
      bench.py --verify (fewer than 1% of pixels with resolved |diff| > 1e-3
@@ -82,8 +85,8 @@ and the script exits non-zero):
      schedules, with -d, --mips, --tbn and -nmr; world 7 at 256x144 4 spp
      under both schedules and with -d; every main path of phase 4 at its
      own 1280x720 and spp (world 7's default command, 16 spp, at 4); world
-     4 at 256x144 at pp=4 (16 spp, the CLI's default) and at pp=12 over
-     samples 12-23, which together reach all 12 slots of the kernel's
+     4 at 256x144 at pp=4 (the CLI's default, samples 0-3) and at pp=12
+     over samples 12-23, which reaches all 12 slots of the kernel's
      Poisson-disk table;
      below those main paths, each case at 256x144 with 4 spp and at
      1280x720 with 1 (depth): the five feature scenes
@@ -96,15 +99,18 @@ and the script exits non-zero):
      cameras and at 1280x720; the BVH walks' cases at 60x34, a size that is
      not a whole number of their 8x4 warp tiles, 4 spp (world 7, the
      19,600-, 262,144- and 99,840-triangle meshes, in fog too, world 7's
-     sphere with slivers, worlds 2 and 4, world 2 in fog, and three mixed
-     bases); the feature bounce on the other bases at both sizes
+     sphere with slivers, worlds 2 and 4, world 2 in fog, the 784- and
+     736-triangle static meshes through both cameras, one in fog, and three
+     mixed bases); the static tier's exact ties (tie_builder: a grid and a
+     copy of it in another material) at 256x144 and 60x34; the feature
+     bounce on the other bases at both sizes
      (base_case): worlds 1
      (pinhole, lens, regen), 2 (pinhole, lens), 4, 7 (pinhole, lens, regen)
      and 6 (lockstep) in the CLI's fog, world 1's combined-set material and
      world 2's spheres as dispersive glass, planar albedo and bump maps on
      world 2 and on the 784-triangle case, every mesh case in fog through
-     both cameras; and every mixed case at 256x144 (pinhole without
-     features, thin lens in the CLI's fog) and 1280x720 (thin lens
+     both cameras; and every mixed case at 256x144 with 2 spp (pinhole
+     without features, thin lens in the CLI's fog) and 1280x720 (thin lens
      without features, pinhole in fog): every mixed variant, the
      combined set with the 40-triangle mesh alone and beside clusters,
      dispersive glass on clusters, the combined set and the 784-triangle
@@ -147,9 +153,10 @@ and the script exits non-zero):
      l. render_image, 4 spp in one chunk, on every mixed case: one launch
         of its own variant (the sliver cases run in i.);
   5. timing (CUDA events, synchronised; no speed gate): every variant and
-     its plain version at 1280x720 4 spp, each row of the two BVH walks
-     (the streamed walk's, its variants on the DMA meshes and the sliver
-     meshes too, and the sphere clusters') beside its earlier time
+     its plain version at 1280x720 4 spp, each row of the BVH walks (the
+     streamed walk's, its variants on the DMA meshes and the sliver meshes
+     too, the sphere clusters' and the static tier's) beside its earlier
+     time
      (EARLIER_MS) and in turns with the scanline-warp yardstick (each first
      in one half of eight launches); world 3 at 256 spp and world 1
      at 16 spp, kernel alone and end to end through render_image; worlds
@@ -180,24 +187,25 @@ and the script exits non-zero):
      For the mesh variants the box
      tests (grandparents, parents, clusters, rows; the static tier's
      clusters), the triangle tests and the triangle wins are counted over
-     every ray of the same 4-spp render, the static tier's by its walk
-     itself (the plain walk is the kernel's); the streamed tier's twice,
-     by the table-order walk against each ray's final nearest hit (the
-     boxes it enters before that hit: a lower count) and by the card's BVH
-     walk, exact (ops/intersect.py::_bvh_winners replays it step for
-     step). A streamed row's bound counts the fewer of the two, over the
-     tables the BVH walk reads (k7_terms); its bound under the earlier
-     definition (the table-order count over that walk's tables) is printed
-     beside it.
+     every ray of the same 4-spp render twice: by the table-order walk (the
+     static tier's with its running nearest hit, as JAX walks it; the
+     streamed tier's against each ray's final nearest hit, the boxes it
+     enters before that hit: a lower count) and by the card's BVH walk,
+     exact (ops/intersect.py::_bvh_winners and _static_bvh_winners replay
+     it step for step, the static tier's rays walked again in table order
+     counted too). A mesh row's bound counts the fewer of the two, over the
+     tables the BVH walk reads (k7_terms, static_terms); its bound under
+     the earlier definition (the table-order count over that walk's tables)
+     is printed beside it.
      For the textured and mesh variants the fetches are counted over every
      shaded hit on a textured material (mesh: with a UV winner) whose path
      continues (a lower count). For the feature rows the plain
      regeneration loop's lanes are counted below the depth limit as a
      kernel thread evaluates them: opaque and dielectric shades, fog
      scatters, planar, height, mesh-UV and combined-set fetches; every
-     ray's triangle tests and fog flight; on the other bases with the
-     base's walk counted as its own rows count it; for the mixed variants
-     the same tallies and both walks' tests in one pass (mixed_counts).
+     ray's triangle tests and fog flight; on the other bases and for the
+     mixed variants with the bases' walks counted in the same pass
+     (render_counts).
 
 The last two lines are the kernel table as JSON and the result line
 {"ok": true, "device": {...}}.
@@ -249,7 +257,8 @@ OPS_TEX = 174
 OPS_TRI = 47
 OPS_MESH_UV = 8
 # the DMA tier's walk compares an equal t's winner too (t == best), per
-# triangle test; K8's resolve tests the winner again and forms its uv
+# triangle test; K8's resolve tested the winner again and formed its uv
+# (the static rows' earlier definition, static_terms)
 OPS_TRI_GP = OPS_TRI + 1
 OPS_K8_RESOLVE = OPS_TRI + OPS_MESH_UV
 # K10 in shade_surface, per mesh-UV fetch: abs, int->float and fractions
@@ -307,45 +316,58 @@ KEPT_PTXAS = {"brute_pinhole": (64, 0), "brute_lens": (72, 16),
               "mesh_pinhole": (64, 56), "mesh_lens": (64, 64),
               "mesh_pinhole_regen": (80, 0),
               "meshplain_pinhole": (64, 20), "meshplain_lens": (64, 28),
-              "static_pinhole": (64, 60), "static_lens": (64, 44),
-              "staticplain_pinhole": (64, 28), "staticplain_lens": (64, 28),
-              "staticplain_pinhole_regen": (79, 0),
               "featmesh_pinhole": (64, 100), "featmesh_lens": (72, 76),
               "featmesh_pinhole_regen": (80, 16),
               "featmeshplain_lens": (64, 68),
               "featmeshplain_pinhole": (64, 88),
-              "featstatic_lens": (72, 44), "featstatic_pinhole": (64, 100),
-              "featstaticplain_lens": (72, 12),
-              "featstaticplain_pinhole": (72, 12),
               "feattextured_lens": (80, 44), "feattextured_pinhole": (80, 44),
               "feattextured_pinhole_regen": (92, 0),
               "feature_pinhole_lockstep": (72, 28),
-              "textured+meshplain": (72, 92),
-              "textured+staticplain": (72, 96)}
+              "textured+meshplain": (72, 92)}
 CLUSTERED_EARLIER_PTXAS = {
     "clustered_pinhole": (64, 0), "clustered_lens": (64, 16),
     "featclustered_pinhole": (72, 32), "featclustered_lens": (72, 16),
     "clustered+textured": (80, 52), "clustered+mesh": (72, 76),
-    "clustered+meshplain": (64, 88), "clustered+static": (64, 80),
-    "clustered+staticplain": (64, 80),
-    "clustered+textured+meshplain": (80, 44),
-    "clustered+textured+staticplain": (72, 96)}
+    "clustered+meshplain": (64, 88),
+    "clustered+textured+meshplain": (80, 44)}
+# the variants that walk the static tier, as built before its BVH walk (the
+# parent commit's build, printed by --parent), printed beside the new walk's
+STATIC_EARLIER_PTXAS = {
+    "static_pinhole": (64, 60), "static_lens": (64, 44),
+    "staticplain_pinhole": (64, 28), "staticplain_lens": (64, 28),
+    "staticplain_pinhole_regen": (79, 0),
+    "featstatic_pinhole": (64, 100), "featstatic_lens": (72, 44),
+    "featstaticplain_pinhole": (72, 12), "featstaticplain_lens": (72, 12),
+    "textured+staticplain": (72, 96), "clustered+static": (72, 76),
+    "clustered+staticplain": (64, 88),
+    "clustered+textured+staticplain": (72, 92)}
 
 
-# PERF.md's rows of the two BVH walks, K7's (the streamed mesh walk) and
-# K5's (the clustered sphere walk): row (variant, and its case where the
-# variant's main case differs) -> its median 720p 4-spp kernel ms before
-# the sphere clusters' BVH walk, on an H100 80GB HBM3 at 700 W (PERF.md's
-# table)
+# PERF.md's rows of the BVH walks, K7's (the streamed mesh walk), K5's (the
+# clustered sphere walk) and the static tier's (K5's triangle form, K8):
+# row (variant, and its case where the variant's main case differs) -> its
+# median 720p 4-spp kernel ms before its walk's BVH (the static tier's rows,
+# and clustered+static*, before the static tier's), on an H100 80GB HBM3 at
+# 700 W (PERF.md's table)
 EARLIER_MS = {
     "clustered_pinhole": 2.350,
     "clustered_lens": 4.604,
     "featclustered_pinhole": 6.847,
     "featclustered_lens": 9.228,
     "clustered+textured": 3.789,
-    "clustered+static": 5.505,
-    "clustered+staticplain": 5.663,
-    "clustered+textured+staticplain": 5.833,
+    "clustered+static": 4.872,
+    "clustered+staticplain": 5.210,
+    "clustered+textured+staticplain": 4.957,
+    "staticplain_pinhole": 2.932,
+    "staticplain_lens": 2.972,
+    "staticplain_pinhole_regen": 3.192,
+    "static_pinhole": 4.926,
+    "static_lens": 4.839,
+    "featstaticplain_pinhole": 5.140,
+    "featstaticplain_lens": 5.212,
+    "featstatic_pinhole": 6.237,
+    "featstatic_lens": 6.494,
+    "textured+staticplain": 3.011,
     "mesh_pinhole": 2.413,
     "mesh_lens": 2.399,
     "mesh_pinhole_regen": 2.946,
@@ -391,14 +413,20 @@ def row_name(row: str) -> str:
 
 
 def bvh_note(var: str) -> dict:
-    """The kernel-table keys that mark the streamed walk (K7) and the
-    clustered sphere walk (K5) redesigned."""
+    """The kernel-table keys that mark the streamed walk (K7), the
+    clustered sphere walk (K5) and the static tier's walk redesigned."""
     return ({**({"k7": "redesigned: near-first BVH walk over the record "
                        "rows, 16-byte triangle records, 8x4 warp tiles"}
                 if walks_k7(var) else {}),
              **({"k5": "redesigned: the huge cluster, then a near-first BVH "
                        "walk over the other spheres, 16-byte sphere records"}
-                if walks_spheres(var) else {})})
+                if walks_spheres(var) else {}),
+             **({"static": "redesigned: the huge cluster, then a near-first "
+                           "BVH walk over the other triangles, 16-byte "
+                           "triangle records, 8x4 warp tiles; a winner "
+                           "outside its cluster's box walks again in table "
+                           "order"}
+                if walks_static(var) else {})})
 
 
 def tri_test_ops(scene) -> int:
@@ -447,6 +475,43 @@ def sphere_terms(scene, slabs, spheres, bvh_slabs, bvh_spheres):
     return bvh, table_order
 
 
+def static_terms(scene, boxes, tris, bvh_boxes, bvh_tris, wins):
+    """The static tier's walk's part of a row's bound, as k7_terms gives the
+    streamed walk's, with the winners' resolve: the fewer of the two walks'
+    box and triangle tests per ray (the card's walk, exact, its winner's
+    cluster box and any walk again in table order included; the table-order
+    walk's, replayed) at OPS_SLAB and OPS_TRI and, with UVs, each winner's
+    uv (OPS_MESH_UV), over the tables the card's walk and the resolve read;
+    then the earlier definition: the table-order count, K8's resolve
+    testing the winner again (OPS_K8_RESOLVE), over the table-order walk's
+    tables."""
+    size = lambda ts: 4 * sum(t.numel() for t in ts)
+    uv = scene.has_mesh_uvs
+    uvt = ((scene.ctri_uv0u, scene.ctri_uv0v, scene.ctri_uvdu1,
+            scene.ctri_uvdv1, scene.ctri_uvdu2, scene.ctri_uvdv2) if uv
+           else ())
+    resolve = (*scene.ctri_n, scene.ctri_mat, *uvt)
+    bvh = (OPS_INV + min(boxes, bvh_boxes) * OPS_SLAB
+           + min(tris, bvh_tris) * OPS_TRI + wins * (OPS_MESH_UV if uv else 0),
+           size((scene.bvh_nodes, scene.bvh_tris, scene.bvh_tri_k,
+                 scene.tcl_box, scene.tcl_range, *resolve)))
+    table_order = (OPS_INV + boxes * OPS_SLAB + tris * OPS_TRI
+                   + wins * (OPS_K8_RESOLVE if uv else 0),
+                   size((scene.ctri_d, *scene.ctri_e1, scene.ctri_a0,
+                         *scene.ctri_e2, scene.ctri_b0, scene.tcl_box,
+                         scene.tcl_range, *resolve)))
+    return bvh, table_order
+
+
+def mesh_terms(scene, boxes, tris, bvh_boxes, bvh_tris, wins):
+    """A mesh's walk's part of a row's bound: k7_terms' for the streamed
+    tier (its winners' uv counted by the row), static_terms' for the static
+    tier."""
+    if scene.tri_streamed:
+        return k7_terms(scene, boxes, tris, bvh_boxes, bvh_tris)
+    return static_terms(scene, boxes, tris, bvh_boxes, bvh_tris, wins)
+
+
 def bound(ops, nbytes):
     """(the least ms for ``ops`` FP32 operations and ``nbytes`` bytes at
     the card's peaks, and which of the two it is)."""
@@ -483,6 +548,20 @@ def walks_k7(var: str) -> bool:
     not the static tier's, alone or in a mixed base."""
     return any(part.split("_")[0].removeprefix("feat") in ("mesh", "meshplain")
                for part in var.split("+"))
+
+
+def walks_static(var: str) -> bool:
+    """Whether a variant walks the static tier (K5's triangle form, K8),
+    alone or in a mixed base."""
+    return any(part.split("_")[0].removeprefix("feat")
+               in ("static", "staticplain") for part in var.split("+"))
+
+
+def walks_bvh(var: str) -> bool:
+    """Whether a variant walks a BVH (K7's, the sphere clusters' or the
+    static tier's): phase 5 times its rows against the scanline-warp
+    build."""
+    return walks_k7(var) or walks_spheres(var) or walks_static(var)
 
 
 def walks_spheres(var: str) -> bool:
@@ -668,33 +747,39 @@ def tex_fetches(scene, cam, cfg, n_samples, dev):
 def mesh_tally(sc, o, d, m, tally):
     """Adds the mesh walk's box tests, triangle tests and triangle wins over
     the rays ``m`` of (o, d) to ``tally``, each ray walked again after its
-    nearest sphere, quad or plane: the static tier by its own walk, which
-    is the kernel's, a streamed tier against the ray's final nearest hit
-    (the table-order walk's lower count, the bound's work). A streamed
-    tier's rays are also kept, with that nearest hit, under "bvh_rays" for
-    bvh_tally."""
+    nearest sphere, quad or plane (found for all of them at once): the
+    static tier by its table-order walk (JAX's count), a streamed tier
+    against the ray's final nearest hit (the table-order walk's lower
+    count, the bound's work), in passes of rays. The rays are also kept,
+    with that nearest hit, under "bvh_rays" for bvh_tally."""
     import torch
     from pathtracer_tpu_torch.ops import intersect as isect
     from pathtracer_tpu_torch.utils.vec import Vec3
     idx = torch.nonzero(m).reshape(-1)
-    for lo in range(0, idx.numel(), isect._STREAM_RAY_CHUNK):
-        part = idx[lo:lo + isect._STREAM_RAY_CHUNK]
-        ro, rd = Vec3(*(c[part] for c in o)), Vec3(*(c[part] for c in d))
-        best = isect._non_triangles(sc, ro, rd)
-        static = not sc.tri_streamed
+    ro, rd = Vec3(*(c[idx] for c in o)), Vec3(*(c[idx] for c in d))
+    best = isect._non_triangles(sc, ro, rd)
+    static = not sc.tri_streamed
+    step = 1 << 18 if static else isect._STREAM_RAY_CHUNK
+    cut = lambda v, sl: Vec3(*(c[sl] for c in v))
+    for lo in range(0, idx.numel(), step):
+        sl = slice(lo, lo + step)
+        po, pd = cut(ro, sl), cut(rd, sl)
         h, _, _, won = isect.intersect_triangles(
-            sc, ro, rd, best, tally=tally if static else None)
+            sc, po, pd, isect.Hit(best.t[sl], best.mat[sl],
+                                  cut(best.normal, sl)),
+            tally=tally if static else None)
         if not static:
-            isect._stream_rows(sc, ro, isect._slab_inverse(rd), h.t, tally)
-            tally.setdefault("bvh_rays", []).append((ro, rd, best.t))
+            isect._stream_rows(sc, po, isect._slab_inverse(pd), h.t, tally)
         tally["wins"] += int(won.sum())
+    tally.setdefault("bvh_rays", []).append((ro, rd, best.t))
 
 
 def bvh_tally(sc, tally):
     """Adds the box and triangle tests of the card's BVH walk over the rays
     mesh_tally kept to tally's "bvh_boxes" and "bvh_tris": the walk replayed
-    step for step (ops/intersect.py::_bvh_winners: exact counts), over all
-    of a render's rays at once."""
+    step for step (ops/intersect.py::_bvh_winners, or for the static tier
+    _static_bvh_winners, whose rays walked again in table order go to
+    "table_rays": exact counts), over all of a render's rays at once."""
     import torch
     from pathtracer_tpu_torch.ops import intersect as isect
     from pathtracer_tpu_torch.utils.vec import Vec3
@@ -707,26 +792,30 @@ def bvh_tally(sc, tally):
     d = Vec3(*(cat(1, i) for i in range(3)))
     t0 = cat(2, None)
     counts = {}
+    walk = isect._static_bvh_winners if sc.tri_static else isect._bvh_winners
     for lo in range(0, t0.numel(), 1 << 22):
         sl = slice(lo, lo + (1 << 22))
-        isect._bvh_winners(sc, Vec3(*(c[sl] for c in o)),
-                           Vec3(*(c[sl] for c in d)), t0[sl], counts)
+        walk(sc, Vec3(*(c[sl] for c in o)), Vec3(*(c[sl] for c in d)), t0[sl],
+             counts)
     tally["bvh_boxes"] += counts["boxes"]
     tally["bvh_tris"] += counts["tris"]
+    tally["table_rays"] = (tally.get("table_rays", 0)
+                           + counts.get("table_rays", 0))
 
 
 def mesh_counts(scene, cam, cfg, n_samples, dev):
     """The rays, per-ray means of a mesh variant's box tests (grandparents,
     parents, clusters and rows, or the static tier's clusters), triangle
     tests and triangle wins over every ray of samples 0 .. n_samples-1 of
-    ``cfg``, the mesh-UV texel fetches, and for a streamed mesh the per-ray
-    box and triangle tests of the card's BVH walk. The plain regeneration
+    ``cfg``, the mesh-UV texel fetches, the per-ray box and triangle tests
+    of the card's BVH walk, and the rays that walk walked again in table
+    order (the static tier). The plain regeneration
     loop renders the same rays as the kernel (phase 3 holds them to it);
     each bounce's live rays are caught on their way to the intersect and
     walked again after the nearest sphere, quad or plane (mesh_tally): the
-    static tier by its own walk, which is the kernel's (exact counts), a
-    streamed tier against each ray's final nearest hit by the table-order
-    walk (the boxes it enters before that hit: a lower count) and by the
+    static tier by the table-order walk (JAX's count), a streamed tier
+    against each ray's final nearest hit by the table-order walk (the boxes
+    it enters before that hit: a lower count), and either by the card's
     BVH walk step for step (exact); each shaded hit whose winner is a UV
     triangle with an albedo map and whose path continues counts a fetch."""
     import torch
@@ -734,7 +823,7 @@ def mesh_counts(scene, cam, cfg, n_samples, dev):
     from pathtracer_tpu_torch.render.renderer import init_accum
 
     tally = dict.fromkeys(("rays", "boxes", "tris", "wins", "fetches",
-                           "bvh_boxes", "bvh_tris"), 0)
+                           "bvh_boxes", "bvh_tris", "table_rays"), 0)
     live = {}
     primary, shade = wavefront._primary_rays, wavefront.shade_bounce
     walks = {k: getattr(wavefront, k)
@@ -778,7 +867,8 @@ def mesh_counts(scene, cam, cfg, n_samples, dev):
     bvh_tally(scene, tally)
     n = tally["rays"]
     return (n, tally["boxes"] / n, tally["tris"] / n, tally["wins"] / n,
-            tally["fetches"], tally["bvh_boxes"] / n, tally["bvh_tris"] / n)
+            tally["fetches"], tally["bvh_boxes"] / n, tally["bvh_tris"] / n,
+            tally["table_rays"])
 
 
 def lat_long_sphere(nlat, nlon, radius=1.0, center=(0.0, 0.0, 1.0)):
@@ -895,13 +985,43 @@ def mixed_builder(case, tree=None):
     return b, cp, world
 
 
+def tie_builder(tree=None):
+    """World 5's builder without its asset plus a static-tier mesh of exact
+    ties, and its camera parameters: a 15 x 15 grid of 0.25-wide cells at z
+    = 0.5, two triangles a cell sharing their edges, and a copy of every
+    triangle in a second material. A copy's record is its original's, so
+    every hit on the grid ties two triangles at one t: the lower
+    cluster-order index wins, and a wrong pick shows in the other colour.
+    World 5's camera, 0.5 above the grid, meets its far rows at grazing
+    angles. ``tree`` (load_package's) names another checkout's package."""
+    import importlib
+    tree = tree or (lambda sub: importlib.import_module(
+        f"pathtracer_tpu_torch.{sub}"))
+    b, cp = tree("scene.worlds").build_world(
+        tree("scene.schema").WORLD_MARIO, res_dir=str(ROOT / "no asset here"))
+    s, n, cells = 0.25, 15, []
+    for i in range(n):
+        for k in range(n):
+            x, y = (i - n / 2) * s, (k - n / 2) * s
+            a, bb, c, d = ((x, y, 0.5), (x + s, y, 0.5), (x + s, y + s, 0.5),
+                           (x, y + s, 0.5))
+            cells += [[a, bb, c], [a, c, d]]
+    tris = np.asarray(cells + cells, np.float32)
+    red = b.add_material(albedo=(0.8, 0.2, 0.2), roughness=0.6)
+    green = b.add_material(albedo=(0.2, 0.8, 0.2), roughness=0.6)
+    mats = np.repeat(np.asarray([red] * len(cells) + [green] * len(cells),
+                                np.int32), 3)
+    b.set_mesh(tris.reshape(-1, 3), mats)
+    return b, cp
+
+
 FEATURE_KEYS = ("rays", "opaque", "refract", "scatter", "planar", "planar_x",
                 "bump", "uv_fetch", "tex_fetch")
 
 
 def feature_tally(sc, hit, u, uv, out, act, bounce, tally):
     """Adds what the feature bounce evaluates for the lanes ``act`` of one
-    bounce to ``tally`` (see feature_counts)."""
+    bounce to ``tally`` (see render_counts)."""
     import torch
     from pathtracer_tpu_torch.scene.schema import MAX_BOUNCE_COUNT
     from pathtracer_tpu_torch.utils.vec import sdiv
@@ -943,61 +1063,19 @@ def feature_tally(sc, hit, u, uv, out, act, bounce, tally):
         tally["tex_fetch"] += int(((opaque | refract) & alb).sum())
 
 
-def feature_counts(scene, cam, cfg, n_samples, dev):
-    """What the feature kernel evaluates over every ray of samples 0 ..
-    n_samples-1 of ``cfg``: rays, and below the depth limit the opaque
-    shades, dielectric (refraction) shades and fog scatters, the planar
-    fetches (RGB: normal and albedo maps; red only: metalness and roughness
-    maps), bumped hits (K11), mesh-UV fetches and combined-set fetches
-    (K9). The plain regeneration
-    loop renders the same rays as the kernel (phase 3 holds them to it);
-    each bounce's lanes are caught in shade_bounce with their bounce index
-    and counted as a kernel thread evaluates them (only the estimator its
-    coins pick)."""
-    import torch
-    from pathtracer_tpu_torch.render import wavefront
-    from pathtracer_tpu_torch.render.renderer import init_accum
-    from pathtracer_tpu_torch.utils import prng
-
-    tally = dict.fromkeys(FEATURE_KEYS, 0)
-    live = {}
-    primary, draw, shade = (wavefront._primary_rays, prng.bounce_uniforms,
-                            wavefront.shade_bounce)
-
-    def primary_caught(camera, config, key, pixel_idx, s):
-        live["mask"] = s < n_samples  # lanes with samples left (s0 = 0)
-        return primary(camera, config, key, pixel_idx, s)
-
-    def draw_caught(stream, bounce):
-        live["bounce"] = bounce
-        return draw(stream, bounce)
-
-    def shade_caught(sc, o, d, hit, u, uv=None, **kw):
-        out = shade(sc, o, d, hit, u, uv=uv, **kw)
-        feature_tally(sc, hit, u, uv, out, live["mask"], live["bounce"], tally)
-        return out
-
-    wavefront._primary_rays = primary_caught
-    prng.bounce_uniforms = draw_caught
-    wavefront.shade_bounce = shade_caught
-    try:
-        n_pix = cfg.width * cfg.height
-        wavefront.render_chunk_wavefront(
-            scene, cam, cfg, 0, 0, n_samples, init_accum(n_pix, dev),
-            torch.arange(n_pix, device=dev))
-    finally:
-        wavefront._primary_rays = primary
-        prng.bounce_uniforms = draw
-        wavefront.shade_bounce = shade
-    return tally
-
-
-def mixed_counts(scene, cam, cfg, n_samples, dev):
-    """feature_counts' tallies of a mixed variant's render, with its bases'
-    walks counted on the same rays: the clustered walk's slab and sphere
-    tests (cluster_tally) and the mesh walk's box tests, triangle tests
-    and wins (mesh_tally), all in one pass of the plain regeneration loop
-    (both schedules cast the same rays)."""
+def render_counts(scene, cam, cfg, n_samples, dev):
+    """What the kernel evaluates over every ray of samples 0 .. n_samples-1
+    of ``cfg``: rays, and below the depth limit the opaque shades,
+    dielectric (refraction) shades and fog scatters, the planar fetches
+    (RGB: normal and albedo maps; red only: metalness and roughness maps),
+    bumped hits (K11), mesh-UV fetches and combined-set fetches (K9); with
+    sphere clusters the clustered walk's slab and sphere tests
+    (cluster_tally), with a mesh tier the mesh walk's box tests, triangle
+    tests and wins (mesh_tally, bvh_tally). The plain regeneration loop
+    renders the same rays as the kernel (phase 3 holds them to it; both
+    schedules cast the same rays); each bounce's lanes are caught in
+    shade_bounce with their bounce index and counted as a kernel thread
+    evaluates them (only the estimator its coins pick), all in one pass."""
     import torch
     from pathtracer_tpu_torch.render import cuda_backend as cb, wavefront
     from pathtracer_tpu_torch.render.renderer import init_accum
@@ -1005,7 +1083,8 @@ def mixed_counts(scene, cam, cfg, n_samples, dev):
 
     tally = dict.fromkeys(FEATURE_KEYS + ("slabs", "spheres", "bvh_slabs",
                                           "bvh_spheres", "boxes", "tris",
-                                          "wins", "bvh_boxes", "bvh_tris"), 0)
+                                          "wins", "bvh_boxes", "bvh_tris",
+                                          "table_rays"), 0)
     live = {}
     primary, draw, shade = (wavefront._primary_rays, prng.bounce_uniforms,
                             wavefront.shade_bounce)
@@ -1070,31 +1149,42 @@ def load_package(root: Path, name: str):
 
 
 # --parent's rows: (case, thin lens, schedule); "wN" is world N ("w7": its
-# 1472-triangle UV sphere; "w2", "w4": the clustered spheres), "wN fog" the
-# same in the CLI's fog, "triN" world 5's ground with tessellated_sphere(N)
-# (the streamed tier without UVs from 2048 triangles to the DMA tier's
-# 262,144), and a MIXED_CASES name that mixed case
+# 1472-triangle UV sphere; "w2", "w4": the clustered spheres), "triN" world
+# 5's ground with tessellated_sphere(N) (the static tier at 784, the
+# streamed tier without UVs from 2048 triangles to the DMA tier's 262,144),
+# "uv736" world 5's ground with MESH_CASES' 736-triangle UV sphere (the
+# static tier with UVs), each + " fog" in the CLI's fog, and a MIXED_CASES
+# name that mixed case
 PARENT_ROWS = (("w7", False, None), ("w7", True, None), ("w7", False, "regen"),
                ("w7 fog", False, None), ("w7 fog", True, None),
                ("w7 fog", False, "regen"), ("tri19600", False, None),
                ("tri262144", False, None), ("w2", False, None),
                ("w4", True, None), ("w2 fog", False, None),
                ("w4 fog", True, None), ("clustered+textured", False, None),
-               ("clustered+staticplain", False, None),
                ("clustered+mesh", False, None),
                ("clustered+meshplain", False, None),
-               ("clustered+textured+meshplain dma", False, None))
+               ("clustered+textured+meshplain dma", False, None),
+               ("tri784", False, None), ("tri784", True, None),
+               ("tri784", False, "regen"), ("uv736", False, None),
+               ("uv736", True, None), ("tri784 fog", False, None),
+               ("tri784 fog", True, None), ("uv736 fog", False, None),
+               ("uv736 fog", True, None), ("textured+staticplain", False, None),
+               ("clustered+static", False, None),
+               ("clustered+staticplain", False, None),
+               ("clustered+textured+staticplain", False, None))
 
 
 def parent_turns(parent: Path, smi: str):
     """``--parent DIR``: the kernel of another checkout of this repository
     at DIR (the parent commit, unpacked with git archive) against this
-    one's, in one process: both built at once; the host seconds of
+    one's, in one process: both built at once, with ptxas's registers and
+    spills of each variant under each build; the host seconds of
     ``WorldBuilder.finalize`` on world 5's ground with the 262,144- and
     the 1,048,576-triangle sphere under each (the parent's is the
-    table-order tables' alone); and the kernel ms of each PARENT_ROWS row
-    at 1280x720, 4 spp, after a warm launch each, in turns (parent, this,
-    this, parent, this, parent, parent, this: each first in one half)."""
+    table-order tables' alone); the kernel ms of each PARENT_ROWS row at
+    1280x720, 4 spp, after a warm launch each, in turns (parent, this,
+    this, parent, this, parent, parent, this: each first in one half); and
+    this one's static tier with leaves of at most 4 against 8 in turns."""
     import importlib
     import torch
     dev = torch.device("cuda:0")
@@ -1110,11 +1200,25 @@ def parent_turns(parent: Path, smi: str):
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         secs = dict(zip(trees, pool.map(build, trees.values())))
     print(f"parent build_s={json.dumps(secs)}")
+    for k, tree in trees.items():
+        print(f"parent ptxas tree={k} " + json.dumps(
+            ptxas_report(tree("render.cuda_backend").BUILD_LOG)))
 
     def mesh_builder(tree, n):
+        """World 5's ground with tessellated_sphere(n), or with n "uv736"
+        MESH_CASES' UV sphere and world 7's checker."""
         worlds, schema = tree("scene.worlds"), tree("scene.schema")
         b, cp = worlds.build_world(schema.WORLD_MARIO,
                                    res_dir=str(ROOT / "no asset here"))
+        if n == "uv736":
+            pts, uvs = worlds._uv_sphere_mesh(
+                (0.0, 0.0, 1.4), 1.4, n_seg=MESH_CASES[n][1][0],
+                n_ring=MESH_CASES[n][1][1])
+            m = b.add_material(
+                albedo=(1.0, 1.0, 1.0), roughness=0.55,
+                albedo_idx=b.add_texture(worlds._mesh_uv_demo_texture()))
+            b.set_mesh(pts, np.full((len(pts),), m, np.int32), uvs=uvs)
+            return b, cp, schema.WORLD_MARIO
         m = b.add_material(albedo=(0.7, 0.6, 0.5), roughness=0.6)
         tris = tessellated_sphere(n)
         b.set_mesh(tris.reshape(-1, 3), np.full((3 * len(tris),), m, np.int32))
@@ -1137,30 +1241,40 @@ def parent_turns(parent: Path, smi: str):
             if tag.endswith("fog"):
                 scene = dataclasses.replace(scene, **FOG)
             return scene.to(dev), cam
+        name = tag.removesuffix(" fog")
         if tag in MIXED_CASES:
             b, cp, kind = mixed_builder(tag, tree)
         else:
-            b, cp, kind = mesh_builder(tree, int(tag[3:]))
+            b, cp, kind = mesh_builder(
+                tree, name if name == "uv736" else int(name[3:]))
         scene = b.finalize(world_kind=kind, view_origin=cp.pos)
+        if tag.endswith(" fog"):
+            scene = dataclasses.replace(scene, **FOG)
         return scene.to(dev), tree("scene.camera").define_camera(
             cp.pos, cp.target, cp.fov, w, h, use_pinhole=not lens,
             focal_distance=cp.focal_distance,
             aperture_radius=cp.aperture_radius)
 
     w, h = 1280, 720
-    for tag, lens, sched in PARENT_ROWS:
-        runs, res, rays = {}, {k: [] for k in trees}, {}
-        for k, tree in trees.items():
-            scene, cam = case(tree, tag, lens, w, h)
-            rd, cb = tree("render.renderer"), tree("render.cuda_backend")
-            cfg = rd.RenderConfig(w, h, pp=2, seed=0, schedule=sched)
-            launch = (lambda cb=cb, rd=rd, scene=scene, cam=cam, cfg=cfg:
-                      cb.render_chunk_cuda(scene, cam, cfg, 0, 0, 4,
-                                           rd.init_accum(w * h, dev)))
-            runs[k] = (launch, cb.variant(scene, cam, sched), scene.n_tris)
-            launch()
-        for k in ("parent", "this", "this", "parent",
-                  "this", "parent", "parent", "this"):
+
+    def launcher(tree, tag, lens, sched):
+        """(a warmed 720p 4-spp launch of ``tree``'s kernel on a case, its
+        variant, its triangles)."""
+        scene, cam = case(tree, tag, lens, w, h)
+        rd, cb = tree("render.renderer"), tree("render.cuda_backend")
+        cfg = rd.RenderConfig(w, h, pp=2, seed=0, schedule=sched)
+        launch = (lambda: cb.render_chunk_cuda(scene, cam, cfg, 0, 0, 4,
+                                               rd.init_accum(w * h, dev)))
+        launch()
+        return launch, cb.variant(scene, cam, sched), scene.n_tris
+
+    def in_turns(runs):
+        """The ms and rays of two launchers' launches in turns (first,
+        second, second, first, second, first, first, second), with their
+        medians."""
+        one, two = runs
+        res, rays = {k: [] for k in runs}, {}
+        for k in (one, two, two, one, two, one, one, two):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -1169,7 +1283,12 @@ def parent_turns(parent: Path, smi: str):
             torch.cuda.synchronize()
             res[k].append(a.elapsed_time(b))
             rays[k] = int(st.rays_cast)
-        med = {k: float(np.median(v)) for k, v in res.items()}
+        return res, rays, {k: float(np.median(v)) for k, v in res.items()}
+
+    for tag, lens, sched in PARENT_ROWS:
+        runs = {k: launcher(tree, tag, lens, sched)
+                for k, tree in trees.items()}
+        res, rays, med = in_turns(runs)
         print(f"parent row case={tag!r} lens={lens} schedule={sched} "
               f"n_tris={runs['this'][2]} variant_parent={runs['parent'][1]} "
               f"variant_this={runs['this'][1]} parent_ms={res['parent']} "
@@ -1178,6 +1297,23 @@ def parent_turns(parent: Path, smi: str):
               f"this_over_parent={med['this'] / med['parent']} "
               f"rays_parent={rays['parent']} rays_this={rays['this']} "
               f"| card: {smi}")
+
+    # this tree's static tier with leaves of at most 4 against 8
+    # (clusters.STATIC_LEAF), the same kernel
+    clusters = trees["this"]("scene.clusters")
+    kept = clusters.STATIC_LEAF
+    for tag, lens in (("tri784", False), ("tri784", True), ("uv736", False),
+                      ("uv736", True), ("tri784 fog", False),
+                      ("uv736 fog", True)):
+        runs = {}
+        for leaf in (4, 8):
+            clusters.STATIC_LEAF = leaf
+            runs[leaf] = launcher(trees["this"], tag, lens, None)
+        clusters.STATIC_LEAF = kept
+        res, _, med = in_turns(runs)
+        print(f"parent static_leaf case={tag!r} lens={lens} "
+              f"variant={runs[8][1]} leaf4_ms={res[4]} leaf8_ms={res[8]} "
+              f"leaf8_over_leaf4={med[8] / med[4]} | card: {smi}")
 
 
 def main() -> int:
@@ -1400,24 +1536,31 @@ def main() -> int:
     check(sorted(ptxas) == sorted(cb.VARIANTS), f"ptxas report {ptxas}")
     sass = sass_report(cb.LIB_PATH, args.sass)
     check(sorted(sass) == sorted(cb.VARIANTS), f"SASS report {sass}")
-    check(sorted(KEPT_PTXAS) == sorted(v for v in cb.VARIANTS
-                                       if not walks_spheres(v))
+    check(sorted(KEPT_PTXAS) == sorted(
+              v for v in cb.VARIANTS
+              if not walks_spheres(v) and not walks_static(v))
           and sorted(CLUSTERED_EARLIER_PTXAS) == sorted(
-              v for v in cb.VARIANTS if walks_spheres(v)),
-          "KEPT_PTXAS names every variant without sphere clusters, "
-          "CLUSTERED_EARLIER_PTXAS every one with them")
+              v for v in cb.VARIANTS
+              if walks_spheres(v) and not walks_static(v))
+          and sorted(STATIC_EARLIER_PTXAS) == sorted(
+              v for v in cb.VARIANTS if walks_static(v)),
+          "KEPT_PTXAS names every variant that walks neither sphere "
+          "clusters nor the static tier, CLUSTERED_EARLIER_PTXAS every other "
+          "one with clusters, STATIC_EARLIER_PTXAS every static one")
     now = {v: (r["registers"], r["spill_stores"]) for v, r in ptxas.items()}
     kept = {v: now[v] == rs for v, rs in KEPT_PTXAS.items()}
     print(f"phase2 build_s={build_s:.3f} nvcc_s={cb.BUILD_SECONDS} "
           f"ptxas={json.dumps(ptxas)}")
-    print(f"phase2 variants_without_clusters_kept_ptxas={json.dumps(kept)} "
+    print(f"phase2 variants_kept_ptxas={json.dumps(kept)} "
           f"all_kept={all(kept.values())}")
-    check(all(kept.values()), "the variants without sphere clusters kept "
-          "their registers and spills")
-    print("phase2 variants with sphere clusters: (registers, spill stores) "
-          "now and before the BVH walk " + json.dumps(
-              {v: {"now": now[v], "before": rs}
-               for v, rs in CLUSTERED_EARLIER_PTXAS.items()}))
+    check(all(kept.values()), "the variants that walk neither sphere "
+          "clusters nor the static tier kept their registers and spills")
+    for what, earlier_ptxas in (("with sphere clusters", CLUSTERED_EARLIER_PTXAS),
+                                ("of the static tier", STATIC_EARLIER_PTXAS)):
+        print(f"phase2 variants {what}: (registers, spill stores) now and "
+              "before their BVH walk " + json.dumps(
+                  {v: {"now": now[v], "before": rs}
+                   for v, rs in earlier_ptxas.items()}))
     print(f"phase2 sass={json.dumps(sass)}")
 
     # --- 3. kernel vs plain on the card ------------------------------------
@@ -1495,7 +1638,7 @@ def main() -> int:
             (W7, 1280, 720, 2, 0, 4, False, {}),
             (W7, 1280, 720, 2, 0, 4, True, {}),
             (W7, 1280, 720, 2, 0, 4, False, {"schedule": MOTHER}),
-            (W4, 256, 144, 4, 0, 16, True, {}),
+            (W4, 256, 144, 4, 0, 4, True, {}),
             (W4, 128, 72, 12, 12, 12, True, {})):
         scene, cam = world(kind, w, h, lens, statics=opt.get("statics"))
         cfg = RenderConfig(w, h, pp=pp, seed=0,
@@ -1582,7 +1725,9 @@ def main() -> int:
                            ("tri19600", True, True),
                            ("uv1472s", False, False),
                            ("w2", False, False), ("w4", True, False),
-                           ("w2", False, True)):
+                           ("w2", False, True), ("tri784", False, False),
+                           ("tri784", True, True), ("uv736", False, False),
+                           ("uv736", True, False)):
         if tag[0] == "w":
             scene, cam = world(BASE_WORLDS[tag], 60, 34, lens,
                                statics=FOG if fog else None)
@@ -1596,13 +1741,23 @@ def main() -> int:
         scene, cam = mixed_case(case, 60, 34)
         held(f"ragged mixed={case}", scene, cam,
              RenderConfig(60, 34, pp=2, seed=0), 4)
+    # the static tier's exact ties (tie_builder) through both cameras
+    b, cp = tie_builder()
+    tie_scene = b.finalize(world_kind=W5, view_origin=cp.pos).to(dev)
+    check(tie_scene.tri_static, "the tie mesh is in the static tier")
+    for (tw, th), lens in (((256, 144), False), ((60, 34), True)):
+        held(f"ties n_tris={tie_scene.n_tris} lens={lens}", tie_scene,
+             define_camera(cp.pos, cp.target, cp.fov, tw, th,
+                           use_pinhole=not lens),
+             RenderConfig(tw, th, pp=2, seed=0), 4)
 
     print(f"phase3 mixed_start_s={time.perf_counter() - t_start}")
     # the mixed bases: each case against its plain version at 256x144
-    # and 1280x720 (depth), each camera once at each size, once with no
-    # feature and once in the CLI's fog: every mixed variant, the combined
-    # set with a brute mesh (feattextured) and beside clusters, dispersive
-    # glass and planar maps on mixed bases
+    # and 1280x720 (depth; 2 spp at 256x144, to keep the run within its
+    # time), each camera once at each size, once with no feature and once
+    # in the CLI's fog: every mixed variant, the combined set with a brute
+    # mesh (feattextured) and beside clusters, dispersive glass and planar
+    # maps on mixed bases
     for case in MIXED_CASES:
         want = mixed_variant(case)
         for (mw, mh), lens, fog in (((256, 144), False, False),
@@ -1611,15 +1766,15 @@ def main() -> int:
                                     ((1280, 720), False, True)):
             scene, cam = mixed_case(case, mw, mh, lens, fog)
             pp, n = depth(mw)
+            n = min(n, 2)
             got, _ = held(f"mixed={case!r} lens={lens} fog={fog} "
                           f"n_tris={scene.n_tris}", scene, cam,
                           RenderConfig(mw, mh, pp=pp, seed=0), n)
             check(got == want or want.endswith("_")
                   and got.startswith(want), f"{case}'s case takes {got}")
-    # the cases of the two BVH walks (a variant with sphere clusters, or
-    # one that walks the streamed tier) with every pixel bit-equal
-    bvh = {k: v for k, v in differing.items()
-           if walks_spheres(k.split(" ")[-1]) or walks_k7(k.split(" ")[-1])}
+    # the cases of the BVH walks (a variant with sphere clusters, or one
+    # that walks the streamed or the static tier) with every pixel bit-equal
+    bvh = {k: v for k, v in differing.items() if walks_bvh(k.split(" ")[-1])}
     print(f"phase3 bvh_walk_cases={len(bvh)} "
           f"bit_equal={sum(v == 0 for v in bvh.values())} "
           f"not_bit_equal={json.dumps({k: v for k, v in bvh.items() if v})} "
@@ -1919,14 +2074,15 @@ def main() -> int:
     def row_ms(row, scene, cam, **cfg_kw):
         """A row's kernel ms at 720p, 4 spp, and its rays: five launches
         after a warm one (kernel_ms); for a row of a BVH walk (the streamed
-        walk, K7, or the sphere clusters', K5), this build and the
+        walk, K7, the sphere clusters', K5, or the static tier's), this
+        build and the
         scanline-warp yardstick in turns after a warm
         launch each (tiles, scanline, scanline, tiles, scanline, tiles,
         tiles, scanline: each first in one half), the yardstick's times
         and whether its sums equal this build's given as text for the
         row's line."""
         var = row.split(" ")[0]
-        if not (walks_k7(var) or walks_spheres(var)):
+        if not walks_bvh(var):
             return (*kernel_ms(scene, cam, 2, 5, **cfg_kw), "")
         cfg = RenderConfig(w, h, pp=2, seed=0, **cfg_kw)
         libs = {"tiles": tile_lib, "scanline": scan_lib}
@@ -2141,7 +2297,8 @@ def main() -> int:
               f"{rays / np.median(ks) / 1e3} plain_ms={1e3 * ps} "
               f"plain_rays={prays} plain_mrays_s={prays / ps / 1e6} "
               f"| card: {smi}")
-    for walk, of in (("k7", walks_k7), ("k5", walks_spheres)):
+    for walk, of in (("k7", walks_k7), ("k5", walks_spheres),
+                     ("static", walks_static)):
         ratios = {r: t / s_ for r, (t, s_) in warps.items()
                   if of(r.split(" ")[0])}
         print(f"phase5 warp_tiles walk={walk} rows={len(ratios)} "
@@ -2253,6 +2410,7 @@ def main() -> int:
     table = []
     mesh_tally = {}
     for var, tm in timed.items():
+        t_row = time.perf_counter()
         scene, cam = tm["scene"], tm["cam"]
         cfg4 = RenderConfig(w, h, pp=2, seed=0, schedule=tm["schedule"])
         fetches, mesh_txt, k7, sph, sph_txt = 0, "", None, None, ""
@@ -2276,7 +2434,7 @@ def main() -> int:
             # the lockstep yardstick casts the pinhole's rays: its counts
             if var != f"mesh_pinhole_{MOTHER}":
                 mesh_tally[var] = mesh_counts(scene, cam, cfg4, 4, dev)
-            mrays, boxes, tris, wins, fetches, bvh_boxes, bvh_tris = \
+            mrays, boxes, tris, wins, fetches, bvh_boxes, bvh_tris, _ = \
                 mesh_tally["mesh_lens" if var == "mesh_lens"
                            else "mesh_pinhole"]
             check(abs(mrays - tm["rays"]) <= 0.005 * tm["rays"],
@@ -2301,7 +2459,8 @@ def main() -> int:
             nbytes += 4 * scene.tex_packed.numel()
         bound_ms, bound_by, ops, nbytes, bound_old = row_bound(
             ops, nbytes, rays, k7, sph)
-        print(f"phase6 variant={var} slab_tests_per_ray={slabs} "
+        print(f"phase6 count_s={time.perf_counter() - t_row} "
+              f"variant={var} slab_tests_per_ray={slabs} "
               f"sphere_tests_per_ray={spheres} {sph_txt}{mesh_txt}"
               f"tex_fetches={fetches} "
               f"ops={ops:.6e} bytes={nbytes} bound_ms={bound_ms} "
@@ -2333,10 +2492,12 @@ def main() -> int:
             **bvh_note(var), **old_bound(bound_old),
         })
     for row, (tag, lens, kname, replaces) in feature_rows.items():
+        t_row = time.perf_counter()
         tm = ftimed[row]
         scene, cam = tm["scene"], tm["cam"]
         cfg4 = RenderConfig(w, h, pp=2, seed=0, **tm["cfg_kw"])
-        fc = feature_counts(scene, cam, cfg4, 4, dev)
+        tally = render_counts(scene, cam, cfg4, 4, dev)
+        fc = {k_: tally[k_] for k_ in FEATURE_KEYS}
         rays = tm["rays"]
         check(abs(fc["rays"] - rays) <= 0.005 * rays,
               f"{row}: counted {fc['rays']} rays, the kernel cast {rays}")
@@ -2356,7 +2517,8 @@ def main() -> int:
             scene.tex_packed.numel() if scene.n_textures else 0) + 4 * 16 * n_tris
         bound_ms, bound_by = bound(ops, nbytes)
         counts = " ".join(f"{k_}={v}" for k_, v in fc.items())
-        print(f"phase6 row={row!r} case={tag!r} {counts} ops={ops:.6e} "
+        print(f"phase6 count_s={time.perf_counter() - t_row} "
+              f"row={row!r} case={tag!r} {counts} ops={ops:.6e} "
               f"bytes={nbytes} bound_ms={bound_ms} "
               f"bound_share={bound_ms / tm['ms']} | card: {smi}")
         if kname is None:
@@ -2375,6 +2537,7 @@ def main() -> int:
             "library_ms": None,  # no single PyTorch call computes this
         })
     for row, (tag, lens, sched, replaces) in tier_rows.items():
+        t_row = time.perf_counter()
         var = row.split(" ")[0]
         tm = ttimed[row]
         scene, cam = tm["scene"], tm["cam"]
@@ -2382,41 +2545,32 @@ def main() -> int:
         # the other schedule's yardstick casts the pinhole's rays
         if (tag, lens) not in mesh_tally:
             mesh_tally[(tag, lens)] = mesh_counts(scene, cam, cfg4, 4, dev)
-        (mrays, boxes, tris, wins, fetches, bvh_boxes,
-         bvh_tris) = mesh_tally[(tag, lens)]
+        (mrays, boxes, tris, wins, fetches, bvh_boxes, bvh_tris,
+         table_rays) = mesh_tally[(tag, lens)]
         rays = tm["rays"]
         check(abs(mrays - rays) <= 0.005 * rays,
               f"{row}: walked {mrays} rays, the kernel cast {rays}")
-        kind = var.split("_")[0]
-        k7 = (k7_terms(scene, boxes, tris, bvh_boxes, bvh_tris)
-              if scene.tri_streamed else None)
-        win_ops = (OPS_K8_RESOLVE if kind == "static" else
-                   OPS_MESH_UV if scene.has_mesh_uvs else 0)
-        walk_ops = (0 if k7 else OPS_INV + boxes * OPS_SLAB
-                    + tris * tri_test_ops(scene))
-        isect_ops = (walk_ops + wins * win_ops + scene.n_spheres * OPS_SPHERE
+        walk = mesh_terms(scene, boxes, tris, bvh_boxes, bvh_tris, wins)
+        # the streamed tier's winners' uv (the static tier's: static_terms)
+        win_ops = OPS_MESH_UV if scene.tri_streamed and scene.has_mesh_uvs \
+            else 0
+        isect_ops = (wins * win_ops + scene.n_spheres * OPS_SPHERE
                      + scene.n_quads * OPS_QUAD + scene.n_planes * OPS_PLANE
                      + OPS_RESOLVE + OPS_EMIT)
         samples = w * h * 4
         ops = (samples * OPS_PRIMARY["lens" if lens else "pinhole"]
                + rays * isect_ops + (rays - samples) * OPS_SHADE
                + fetches * OPS_STACK)
-        # the streamed walk's tables are k7_terms'
-        tables = ((scene.tex_packed,) if scene.has_mesh_uvs else ()) \
-            if scene.tri_streamed else (
-                *scene.ctri_n, scene.ctri_d, *scene.ctri_e1, scene.ctri_a0,
-                *scene.ctri_e2, scene.ctri_b0, scene.ctri_mat, scene.tcl_box,
-                scene.tcl_range,
-                *((scene.ctri_uv0u, scene.ctri_uv0v, scene.ctri_uvdu1,
-                   scene.ctri_uvdv1, scene.ctri_uvdu2, scene.ctri_uvdv2,
-                   scene.tex_packed) if scene.has_mesh_uvs else ()))
+        # the walk's tables are mesh_terms'
+        tables = (scene.tex_packed,) if scene.has_mesh_uvs else ()
         nbytes = w * h * BYTES_PER_PIXEL + 4 * sum(t.numel() for t in tables)
         bound_ms, bound_by, ops, nbytes, bound_old = row_bound(
-            ops, nbytes, rays, k7)
-        print(f"phase6 variant={var} row={row!r} mesh={tag} "
+            ops, nbytes, rays, walk)
+        print(f"phase6 count_s={time.perf_counter() - t_row} "
+              f"variant={var} row={row!r} mesh={tag} "
               f"box_tests_per_ray={boxes} tri_tests_per_ray={tris} "
               f"tri_wins_per_ray={wins} bvh_box_tests_per_ray={bvh_boxes} "
-              f"bvh_tri_tests_per_ray={bvh_tris} "
+              f"bvh_tri_tests_per_ray={bvh_tris} table_rays={table_rays} "
               f"uv_fetches={fetches} ops={ops:.6e} bytes={nbytes} "
               f"bound_ms={bound_ms} bound_share={bound_ms / tm['ms']} "
               f"bound_ms_table_order={bound_old} | card: {smi}")
@@ -2437,16 +2591,21 @@ def main() -> int:
     # (the yardsticks cast the main schedule's rays: the same counts)
     ncounts = {}
     for row, (tag, lens, sched, replaces) in new_rows.items():
+        t_row = time.perf_counter()
         var = row.split(" ")[0]
         tm = ntimed[row]
         scene, cam = tm["scene"], tm["cam"]
         cfg4 = RenderConfig(w, h, pp=2, seed=0)
         if (tag, lens) not in ncounts:
-            fc = feature_counts(scene, cam, cfg4, 4, dev)
+            # the feature tallies and the base's walk in one pass
+            tally = render_counts(scene, cam, cfg4, 4, dev)
+            fc = {k_: tally[k_] for k_ in FEATURE_KEYS}
+            per = {k_: v / fc["rays"] for k_, v in tally.items()}
             base_txt, k7, sph = "", None, None
             if scene.sph_clusters:
-                _, slabs, spheres, bvh_slabs, bvh_spheres = walk_tests(
-                    scene, cam, cfg4, 4, dev)
+                slabs, spheres, bvh_slabs, bvh_spheres = (
+                    per["slabs"], per["spheres"], per["bvh_slabs"],
+                    per["bvh_spheres"])
                 sph = sphere_terms(scene, slabs, spheres, bvh_slabs,
                                    bvh_spheres)
                 base_ops = 0.0
@@ -2455,21 +2614,19 @@ def main() -> int:
                             f"bvh_slab_tests_per_ray={bvh_slabs} "
                             f"bvh_sphere_tests_per_ray={bvh_spheres}")
             elif cb.meshed(scene):
-                _, boxes, tris, wins, _, bvh_boxes, bvh_tris = mesh_counts(
-                    scene, cam, cfg4, 4, dev)
-                kind = cb.mesh_kind(scene)
-                win_ops = (OPS_K8_RESOLVE if kind == "static" else
-                           OPS_MESH_UV if scene.has_mesh_uvs else 0)
-                if scene.tri_streamed:
-                    k7 = k7_terms(scene, boxes, tris, bvh_boxes, bvh_tris)
-                base_ops = ((0 if k7 else OPS_INV + boxes * OPS_SLAB
-                             + tris * tri_test_ops(scene))
-                            + wins * win_ops + scene.n_spheres * OPS_SPHERE)
+                boxes, tris, wins, bvh_boxes, bvh_tris = (
+                    per["boxes"], per["tris"], per["wins"], per["bvh_boxes"],
+                    per["bvh_tris"])
+                table_rays = tally["table_rays"]
+                k7 = mesh_terms(scene, boxes, tris, bvh_boxes, bvh_tris, wins)
+                win_ops = (OPS_MESH_UV if scene.tri_streamed
+                           and scene.has_mesh_uvs else 0)
+                base_ops = wins * win_ops + scene.n_spheres * OPS_SPHERE
                 base_txt = (f"box_tests_per_ray={boxes} "
                             f"tri_tests_per_ray={tris} tri_wins_per_ray={wins}"
-                            + (f" bvh_box_tests_per_ray={bvh_boxes} "
-                               f"bvh_tri_tests_per_ray={bvh_tris}"
-                               if scene.tri_streamed else ""))
+                            f" bvh_box_tests_per_ray={bvh_boxes} "
+                            f"bvh_tri_tests_per_ray={bvh_tris} "
+                            f"table_rays={table_rays}")
             else:
                 n_tris = scene.n_tris if scene.tri_brute else 0
                 base_ops = (scene.n_spheres * OPS_SPHERE
@@ -2491,15 +2648,12 @@ def main() -> int:
                + fc["tex_fetch"] * OPS_TEX)
         tables = ((scene.tex_tile,) if cb.textured(scene) else
                   (scene.tex_packed,) if scene.n_textures else ())
-        if cb.meshed(scene) and not scene.tri_streamed:
-            tables += (*scene.ctri_n, scene.ctri_d, *scene.ctri_e1,
-                       scene.ctri_a0, *scene.ctri_e2, scene.ctri_b0,
-                       scene.ctri_mat, scene.tcl_box, scene.tcl_range)
         nbytes = w * h * BYTES_PER_PIXEL + 4 * sum(t.numel() for t in tables)
         bound_ms, bound_by, ops, nbytes, bound_old = row_bound(
             ops, nbytes, rays, k7, sph)
         counts = " ".join(f"{k_}={v}" for k_, v in fc.items())
-        print(f"phase6 variant={var} row={row!r} case={tag!r} {base_txt} "
+        print(f"phase6 count_s={time.perf_counter() - t_row} "
+              f"variant={var} row={row!r} case={tag!r} {base_txt} "
               f"{counts} ops={ops:.6e} bytes={nbytes} bound_ms={bound_ms} "
               f"bound_share={bound_ms / tm['ms']} "
               f"bound_ms_table_order={bound_old} | card: {smi}")
@@ -2519,9 +2673,10 @@ def main() -> int:
     # the mixed bases: one pass counts the feature tallies and both walks
     print(f"phase6 mixed_start_s={time.perf_counter() - t_start}")
     for row, tm in mtimed.items():
+        t_row = time.perf_counter()
         scene, cam = tm["scene"], tm["cam"]
         var = cb.variant(scene, cam)
-        fc = mixed_counts(scene, cam, RenderConfig(w, h, pp=2, seed=0), 4, dev)
+        fc = render_counts(scene, cam, RenderConfig(w, h, pp=2, seed=0), 4, dev)
         rays = tm["rays"]
         check(abs(fc["rays"] - rays) <= 0.005 * rays,
               f"{var}: counted {fc['rays']} rays, the kernel cast {rays}")
@@ -2537,24 +2692,13 @@ def main() -> int:
         walk_ops += rays * n_tris * OPS_TRI_BRUTE
         tables = (scene.tex_tile,) if cb.textured(scene) else ()
         if cb.meshed(scene):
-            kind = cb.mesh_kind(scene)
-            win_ops = (OPS_K8_RESOLVE if kind == "static" else
-                       OPS_MESH_UV if scene.has_mesh_uvs else 0)
-            if scene.tri_streamed:
-                k7 = k7_terms(scene, fc["boxes"] / rays, fc["tris"] / rays,
-                              fc["bvh_boxes"] / rays, fc["bvh_tris"] / rays)
-            else:
-                walk_ops += (rays * OPS_INV + fc["boxes"] * OPS_SLAB
-                             + fc["tris"] * tri_test_ops(scene))
-            walk_ops += fc["wins"] * win_ops
-            # the streamed walk's tables are k7_terms'
-            tables += (() if scene.tri_streamed else
-                       (*scene.ctri_n, scene.ctri_d, *scene.ctri_e1,
-                        scene.ctri_a0, *scene.ctri_e2, scene.ctri_b0,
-                        scene.ctri_mat, scene.tcl_box, scene.tcl_range,
-                        *((scene.ctri_uv0u, scene.ctri_uv0v, scene.ctri_uvdu1,
-                           scene.ctri_uvdv1, scene.ctri_uvdu2,
-                           scene.ctri_uvdv2) if scene.has_mesh_uvs else ())))
+            k7 = mesh_terms(scene, fc["boxes"] / rays, fc["tris"] / rays,
+                            fc["bvh_boxes"] / rays, fc["bvh_tris"] / rays,
+                            fc["wins"] / rays)
+            # the streamed tier's winners' uv (the static tier's: in
+            # static_terms); the walk's tables are mesh_terms'
+            if scene.tri_streamed and scene.has_mesh_uvs:
+                walk_ops += fc["wins"] * OPS_MESH_UV
             if scene.has_mesh_uvs:
                 tables += (scene.tex_packed,)
         ops = (w * h * 4 * OPS_PRIMARY["pinhole"] + walk_ops
@@ -2568,13 +2712,15 @@ def main() -> int:
         bound_ms, bound_by, ops, nbytes, bound_old = row_bound(
             ops, nbytes, rays, k7, sph)
         counts = " ".join(f"{k_}={v}" for k_, v in fc.items())
-        print(f"phase6 variant={var} row={row!r} {counts} "
+        print(f"phase6 count_s={time.perf_counter() - t_row} "
+              f"variant={var} row={row!r} {counts} "
               f"slab_tests_per_ray={fc['slabs'] / rays} "
               f"sphere_tests_per_ray={fc['spheres'] / rays} "
               f"bvh_slab_tests_per_ray={fc['bvh_slabs'] / rays} "
               f"bvh_sphere_tests_per_ray={fc['bvh_spheres'] / rays} "
               f"bvh_box_tests_per_ray={fc['bvh_boxes'] / rays} "
-              f"bvh_tri_tests_per_ray={fc['bvh_tris'] / rays} ops={ops:.6e} "
+              f"bvh_tri_tests_per_ray={fc['bvh_tris'] / rays} "
+              f"table_rays={fc['table_rays']} ops={ops:.6e} "
               f"bytes={nbytes} bound_ms={bound_ms} "
               f"bound_share={bound_ms / tm['ms']} "
               f"bound_ms_table_order={bound_old} | card: {smi}")

@@ -28,8 +28,10 @@ static tier's cluster walk runs (K5's triangle form, K8), and above that
 the streamed tier's walk (K7: parents, clusters and record rows, and in
 the DMA tier grandparents above the parents); both test the precomputed
 triangles and resolve the winner's normal, material and uv once. The
-kernel walks the streamed tier another way, near-first over a BVH of the
-same record rows; :func:`_bvh_winners` is that walk step for step, with
+kernel walks both tiers another way, near-first over a BVH: of the same
+record rows (:func:`_bvh_winners`), or of the static tier's triangles
+outside its huge cluster, after the huge cluster in order
+(:func:`_static_bvh_winners`); each replays its walk step for step, with
 the same winners, which the tests and chip_smoke.py's counters use.
 """
 
@@ -551,23 +553,22 @@ def _least_taken(ok, t, num, slots: int):
     return ok.any(dim=1), t_min, s_w
 
 
-def _bvh_winners(scene: Scene, o: Vec3, d: Vec3, t0, tally=None):
-    """The card's streamed walk (``bvh_walk`` over ``scene.bvh_nodes`` in
-    csrc/wave_kernel.cu, :func:`_bvh_walk`) for rays whose nearest hit so
-    far is ``t0``: (t, winning record of ``bvh_tris`` or -1, its alpha, its
-    beta). A leaf's records are tested with ``row_test``'s expressions and
-    taken when t is below the running t, or equal to a triangle's t with a
-    lower table-order number (``bvh_tri_k``), so the winner is the least
-    (t, number) and a sphere, quad or plane at an equal t keeps its hit.
-    With ``tally`` the box tests and triangle tests of the card's walk are
-    added to its "boxes" and "tris"."""
-    n = o.x.numel()
-    t_run = t0.clone()
-    win = torch.full((n,), -1, dtype=torch.int64, device=o.x.device)
-    a_win, b_win = torch.zeros_like(t_run), torch.zeros_like(t_run)
+def _with_w(rec: torch.Tensor) -> torch.Tensor:
+    """(..., 12) BVH triangle records as :func:`_record_tests`' (..., 13)
+    (a zero material)."""
+    return torch.cat([rec, torch.zeros_like(rec[..., :1])], -1)
+
+
+def _record_walk(scene: Scene, o: Vec3, d: Vec3, t_run, win, a_win, b_win,
+                 slots: int):
+    """``bvh_walk`` over ``scene.bvh_nodes`` (:func:`_bvh_walk`), its
+    winner state (t, record of ``bvh_tris`` or -1, alpha, beta) updated in
+    place. A leaf's records (at most ``slots``) are tested with
+    ``row_test``'s expressions and taken when t is below the running t, or
+    equal to a triangle's t with a lower number (``bvh_tri_k``). Returns
+    (box tests, triangle tests)."""
     tris, tri_k = scene.bvh_tris, scene.bvh_tri_k.long()
-    per = clusters.STREAM_TRIS_PER_ROW
-    slot = torch.arange(per, device=o.x.device)
+    slot = torch.arange(slots, device=o.x.device)
     n_tri = 0
     pick = lambda v, i: Vec3(v.x[i, None], v.y[i, None], v.z[i, None])
 
@@ -576,27 +577,138 @@ def _bvh_winners(scene: Scene, o: Vec3, d: Vec3, t0, tally=None):
         valid = slot < cnt[:, None]
         rid = torch.where(valid, first[:, None] + slot, 0)
         n_tri += int(cnt.sum())
-        rec = tris[rid]
-        _, _, t, hit, alpha, beta = _record_tests(
-            torch.cat([rec, torch.zeros_like(rec[..., :1])], -1),
-            pick(o, i), pick(d, i))
+        _, _, t, hit, alpha, beta = _record_tests(_with_w(tris[rid]),
+                                                  pick(o, i), pick(d, i))
         ti, wi = t_run[i], win[i]
         kw = torch.where(wi >= 0, tri_k[wi.clamp_min(0)], -1)
         kr = tri_k[rid]
         ok = valid & hit & ((t < ti[:, None])
                             | ((t == ti[:, None]) & (kr < kw[:, None])))
-        take, t_min, s_w = _least_taken(ok, t, kr, per)
+        take, t_min, s_w = _least_taken(ok, t, kr, slots)
         g = lambda v: v.gather(1, s_w[:, None])[:, 0]
         t_run[i] = torch.where(take, t_min, ti)
         win[i] = torch.where(take, first + s_w, wi)
         a_win[i] = torch.where(take, g(alpha), a_win[i])
         b_win[i] = torch.where(take, g(beta), b_win[i])
 
-    n_box = _bvh_walk(scene.bvh_nodes, scene.bvh_root, o, d, t_run, leaf)
+    n_box = (_bvh_walk(scene.bvh_nodes, scene.bvh_root, o, d, t_run, leaf)
+             if scene.bvh_root else 0)
+    return n_box, n_tri
+
+
+def _winner_state(t0):
+    """A walk's winner state before any triangle: (t, record -1, alpha,
+    beta)."""
+    return (t0.clone(), torch.full(t0.shape, -1, dtype=torch.int64,
+                                   device=t0.device),
+            torch.zeros_like(t0), torch.zeros_like(t0))
+
+
+def _tally(tally, boxes, tris):
     if tally is not None:
-        tally["boxes"] = tally.get("boxes", 0) + n_box
-        tally["tris"] = tally.get("tris", 0) + n_tri
-    return t_run, win, a_win, b_win
+        tally["boxes"] = tally.get("boxes", 0) + boxes
+        tally["tris"] = tally.get("tris", 0) + tris
+
+
+def _bvh_winners(scene: Scene, o: Vec3, d: Vec3, t0, tally=None):
+    """The card's streamed walk (``bvh_walk`` in csrc/wave_kernel.cu,
+    :func:`_record_walk`) for rays whose nearest hit so far is ``t0``: (t,
+    winning record of ``bvh_tris`` or -1, its alpha, its beta). An equal t
+    takes a lower table-order number (``bvh_tri_k``), so the winner is the
+    least (t, number) and a sphere, quad or plane at an equal t keeps its
+    hit. With ``tally`` the box tests and triangle tests of the card's walk
+    are added to its "boxes" and "tris"."""
+    state = _winner_state(t0)
+    _tally(tally, *_record_walk(scene, o, d, *state,
+                                clusters.STREAM_TRIS_PER_ROW))
+    return state
+
+
+def _bvh_huge(scene: Scene) -> int:
+    """The records ahead of the BVH's leaves (the static tier's huge
+    cluster): the root node's ``clusters.BVH_HUGE_WORD``."""
+    w = clusters.BVH_HUGE_WORD
+    return int(scene.bvh_nodes[0, w:w + 1].contiguous().view(torch.int32))
+
+
+def _outside_box(scene: Scene, o: Vec3, d: Vec3, t_run, key):
+    """``static_walk``'s test of the winners' cluster boxes: the rays whose
+    winner (its key, ``clusters.STATIC_KEY_SHIFT``; -1 for none) has the
+    check bit, lies at ``t_run`` outside its cluster's box by 2^-18 of |o| +
+    |t d| or more, and whose slab test (``_box_relevant``) finds the box not
+    entered before ``t_run``; and the slab tests made."""
+    check = torch.nonzero((key >= 0) & (key & 1 == 1)).reshape(-1)
+    box = scene.tcl_box[key[check] >> clusters.STATIC_KEY_SHIFT]
+    pick = lambda v, i: Vec3(v.x[i], v.y[i], v.z[i])
+    oc, dc, tc = pick(o, check), pick(d, check), t_run[check]
+    # a hit point inside the box by that much is entered before its t
+    amax = lambda v: torch.maximum(torch.maximum(v.x.abs(), v.y.abs()),
+                                   v.z.abs())
+    m = (amax(oc) + tc * amax(dc)) * 2.0 ** -18
+    q = oc + dc * tc
+    inside = ((q.x - m > box[:, 0]) & (q.y - m > box[:, 1])
+              & (q.z - m > box[:, 2]) & (q.x + m < box[:, 3])
+              & (q.y + m < box[:, 4]) & (q.z + m < box[:, 5]))
+    slab = torch.nonzero(~inside).reshape(-1)
+    r = check[slab]
+    inside[slab] = _box_relevant(pick(o, r), _slab_inverse(pick(d, r)),
+                                 box[slab, 0:3].unbind(1),
+                                 box[slab, 3:6].unbind(1), t_run[r])
+    return check[~inside], slab.numel()
+
+
+def _static_bvh_winners(scene: Scene, o: Vec3, d: Vec3, t0, tally=None):
+    """The card's static-tier walk (``static_walk`` in csrc/wave_kernel.cu)
+    step for step, for rays whose nearest hit so far is ``t0``: (t, the
+    winning triangle's cluster-order index or -1, its alpha, its beta). The
+    huge cluster's records (the first :func:`_bvh_huge` of ``bvh_tris``)
+    are tested first, in order with the strict-< carry, as the table-order
+    walk tests them; then the BVH over the other triangles is walked
+    near-first (:func:`_record_walk`), an equal t taking the lower key
+    (``clusters.STATIC_KEY_SHIFT``: ordered as the cluster-order index; a
+    huge triangle's is lower than any other, so it keeps a tie). The winner
+    is the least (t, index), which the table-order walk
+    (:func:`_intersect_triangles_clustered`) finds too when the ray enters
+    the winner's cluster box before its t (``_box_relevant``), as it does
+    for a winner whose padded bound lies inside that box. The box of any
+    other winner (its key's check bit) is tested unless its hit point lies
+    inside it by 2^-18 of |o| + |t d| (more than the rounding of the point
+    and of the box's slab entry), and where the ray does not enter it
+    before the winner's t (a grazing hit just outside a tight box, which the
+    table-order walk takes or culls by its running t at the visit), the ray
+    is walked again in table order from ``t0``. With
+    ``tally`` the box tests (those winners' boxes among them) and triangle
+    tests of the card's walk are added to its "boxes" and "tris", and the
+    rays walked again to its "table_rays"."""
+    t_run, win, a_win, b_win = state = _winner_state(t0)
+    n_huge = _bvh_huge(scene)
+    if n_huge:
+        col = lambda v: Vec3(*(c[:, None] for c in v))
+        _, _, t, hit, alpha, beta = _record_tests(
+            _with_w(scene.bvh_tris[:n_huge]), col(o), col(d))
+        for j in range(n_huge):
+            take = hit[:, j] & (t[:, j] < t_run)
+            t_run.copy_(torch.where(take, t[:, j], t_run))
+            win.copy_(torch.where(take, j, win))
+            a_win.copy_(torch.where(take, alpha[:, j], a_win))
+            b_win.copy_(torch.where(take, beta[:, j], b_win))
+    boxes, tris = _record_walk(scene, o, d, *state, clusters.STATIC_LEAF)
+    key = torch.where(win >= 0, scene.bvh_tri_k.long()[win.clamp_min(0)], -1)
+    shift = clusters.STATIC_KEY_SHIFT
+    idx = torch.where(win >= 0, (key >> 1) & ((1 << (shift - 1)) - 1), -1)
+    again, slabs = _outside_box(scene, o, d, t_run, key)
+    table = {}
+    if again.numel():
+        pick = lambda v: Vec3(v.x[again], v.y[again], v.z[again])
+        ta, ia = _static_table_winners(scene, pick(o), pick(d), t0[again],
+                                       table)
+        _, _, aa, ba = _ctri_tests(scene, pick(o), pick(d), ia.clamp_min(0))
+        t_run[again], idx[again], a_win[again], b_win[again] = ta, ia, aa, ba
+    _tally(tally, boxes + slabs + table.get("boxes", 0),
+           tris + n_huge * o.x.numel() + table.get("tris", 0))
+    if tally is not None:
+        tally["table_rays"] = tally.get("table_rays", 0) + again.numel()
+    return t_run, idx, a_win, b_win
 
 
 def _sphere_bvh_winners(scene: Scene, o: Vec3, d: Vec3, t0, tally=None):
@@ -685,6 +797,29 @@ def _ctri_tests(scene: Scene, o: Vec3, d: Vec3, idx):
     return t, valid & inside & (t > MIN_HIT_DISTANCE), alpha, beta
 
 
+def _resolve_static(scene: Scene, best: Hit, t_run, idx, alpha, beta,
+                    want_uv: bool):
+    """The static tier's resolve (:1184-1195 in JAX; with ``want_uv`` K8's,
+    :1309-1358) of the winners ``idx`` (cluster-order indices, or -1) at
+    ``t_run``: the winner's normal and material by its index and its uv
+    ``u0 + alpha*du1 + beta*du2`` from ``ctri_uv*``. Returns (hit, uvx,
+    uvy, uv_ok)."""
+    found = idx >= 0
+    win = idx.clamp_min(0)
+    h = Hit(t_run, torch.where(found, scene.ctri_mat[win], best.mat),
+            vwhere(found, Vec3(*(c[win] for c in scene.ctri_n)),
+                   best.normal))
+    z = torch.zeros_like(t_run)
+    if not want_uv:
+        return h, z, z, found
+    uvx = (scene.ctri_uv0u[win] + alpha * scene.ctri_uvdu1[win]
+           + beta * scene.ctri_uvdu2[win])
+    uvy = (scene.ctri_uv0v[win] + alpha * scene.ctri_uvdv1[win]
+           + beta * scene.ctri_uvdv2[win])
+    return (h, torch.where(found, uvx, 0.0), torch.where(found, uvy, 0.0),
+            found)
+
+
 def _intersect_triangles_clustered(scene: Scene, o: Vec3, d: Vec3,
                                    best: Hit, want_uv: bool, tally=None):
     """K5's triangle form and, with ``want_uv``, K8: the static tier's
@@ -697,21 +832,32 @@ def _intersect_triangles_clustered(scene: Scene, o: Vec3, d: Vec3,
     ``want_uv`` its alpha and beta are recomputed from its covectors by
     the in-loop expressions and its uv interpolated from ``ctri_uv*``
     (:1309-1358). Returns (hit, uvx, uvy, uv_ok)."""
+    t_run, idx_run = _static_table_winners(scene, o, d, best.t, tally)
+    alpha = beta = None
+    if want_uv:
+        # the winner's test again: the same expressions on the same values
+        _, _, alpha, beta = _ctri_tests(scene, o, d, idx_run.clamp_min(0))
+    return _resolve_static(scene, best, t_run, idx_run, alpha, beta, want_uv)
+
+
+def _static_table_winners(scene: Scene, o: Vec3, d: Vec3, t0, tally=None):
+    """The table-order walk of :func:`_intersect_triangles_clustered` for
+    rays whose nearest hit so far is ``t0``: (t, the winner's cluster-order
+    index or -1). With ``tally`` its box and triangle tests are added to
+    its "boxes" and "tris"."""
     inv = _slab_inverse(d)
-    t_run = best.t
-    idx_run = torch.full_like(best.mat, -1, dtype=torch.int64)
+    t_run = t0
+    idx_run = torch.full(t0.shape, -1, dtype=torch.int64, device=t0.device)
     col = lambda v: Vec3(v.x[None], v.y[None], v.z[None])
     o1, d1 = col(o), col(d)
     for off, cnt, mn, mx in scene.tri_clusters:
         live = torch.ones_like(t_run, dtype=torch.bool)
         if mn is not None:
             live = _box_relevant(o, inv, mn, mx, t_run)
-            if tally is not None:
-                tally["boxes"] = tally.get("boxes", 0) + live.numel()
+            _tally(tally, live.numel(), 0)
             if not bool(live.any()):
                 continue
-        if tally is not None:
-            tally["tris"] = tally.get("tris", 0) + cnt * int(live.sum())
+        _tally(tally, 0, cnt * int(live.sum()))
         sl = slice(off, off + cnt)
         t, hit, _, _ = _ctri_tests(scene, o1, d1, (sl, None))
         ok = hit & (t < t_run) & live
@@ -719,22 +865,17 @@ def _intersect_triangles_clustered(scene: Scene, o: Vec3, d: Vec3,
         take = ok.any(dim=0)
         t_run = torch.where(take, t_min, t_run)
         idx_run = torch.where(take, off + j, idx_run)
-    found = idx_run >= 0
-    win = idx_run.clamp_min(0)
-    h = Hit(t_run, torch.where(found, scene.ctri_mat[win], best.mat),
-            vwhere(found, Vec3(*(c[win] for c in scene.ctri_n)),
-                   best.normal))
-    z = torch.zeros_like(t_run)
-    if not want_uv:
-        return h, z, z, found
-    # the winner's test again: the same expressions on the same values
-    _, _, alpha, beta = _ctri_tests(scene, o, d, win)
-    uvx = (scene.ctri_uv0u[win] + alpha * scene.ctri_uvdu1[win]
-           + beta * scene.ctri_uvdu2[win])
-    uvy = (scene.ctri_uv0v[win] + alpha * scene.ctri_uvdv1[win]
-           + beta * scene.ctri_uvdv2[win])
-    return (h, torch.where(found, uvx, 0.0), torch.where(found, uvy, 0.0),
-            found)
+    return t_run, idx_run
+
+
+def _intersect_triangles_static_bvh(scene: Scene, o: Vec3, d: Vec3,
+                                    best: Hit, want_uv: bool, tally=None):
+    """:func:`_intersect_triangles_clustered`'s function by the card's walk
+    (:func:`_static_bvh_winners`), its winner resolved by the same code
+    (:func:`_resolve_static`) from the alpha and beta the walk carried.
+    Returns (hit, uvx, uvy, uv_ok)."""
+    t_run, idx, a_win, b_win = _static_bvh_winners(scene, o, d, best.t, tally)
+    return _resolve_static(scene, best, t_run, idx, a_win, b_win, want_uv)
 
 
 def _intersect_triangles_brute(scene: Scene, o: Vec3, d: Vec3, best: Hit,

@@ -14,8 +14,10 @@ primary under ``MESH_SCHEDULE``: the streamed triangle walk K7 with the
 mesh-UV texel fetch K10 (``mesh``, with the pinhole under the other
 schedule too) or without UVs (``meshplain``), the resident and the DMA
 tier alike (one near-first walk over a BVH of the record rows, each warp
-on an 8x4 pixel tile), and the static tier's cluster walk (K5's
-triangle form) with the winner's uv (K8, ``static``) or without (``staticplain``, with the pinhole under the other
+on an 8x4 pixel tile), and the static tier's walk (K5's triangle form:
+the huge cluster, then the same near-first walk over a BVH of the other
+triangles, each warp on an 8x4 pixel tile) with the winner's uv (K8,
+``static``) or without (``staticplain``, with the pinhole under the other
 schedule too); feature (fog, transmission with dispersion, planar maps
 from the flat stack with K10's planar form, bump maps with the height
 fetch K11, the brute triangle sweep K4t with or without UVs), either
@@ -514,8 +516,9 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
     p.pos[:] = camera.pos
     p.lens_n[:] = lens_n
     p.fog_albedo[:] = scene.fog_albedo
-    p.bvh_root[:] = scene.bvh_root or (0.0,) * 6
+    # no mesh BVH (or no triangle outside the static tier's huge cluster),
     # no sphere outside the huge cluster: a NaN root, which no ray enters
+    p.bvh_root[:] = scene.bvh_root or (float("nan"),) * 6
     p.sbvh_root[:] = scene.sbvh_root or (float("nan"),) * 6
     return p
 

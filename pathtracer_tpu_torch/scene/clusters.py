@@ -27,10 +27,12 @@ The permutations, records and float32 bounds (rounded outward) equal the
 JAX package's bit for bit; the JAX module's ``PT_*`` environment knobs,
 its field-major tier and its 128-lane parent rows are not carried over.
 
-The card walks neither table in table order: it walks a binary BVH near
-first, over the streamed tier's record rows (:func:`build_stream_bvh`) and
+The card walks no table in table order: it walks a binary BVH near
+first, over the streamed tier's record rows (:func:`build_stream_bvh`),
 over the cluster-ordered spheres outside the huge cluster
-(:func:`build_sphere_bvh`), both built by :func:`_build_bvh`.
+(:func:`build_sphere_bvh`) and over the static tier's cluster-ordered
+triangles outside its huge cluster (:func:`build_static_bvh`), all built
+by :func:`_build_bvh`.
 """
 
 from __future__ import annotations
@@ -386,25 +388,31 @@ def pack_stream_uv(uvt: np.ndarray, clusters: tuple, leaf: int):
     return rows
 
 
-# The card's BVHs (csrc/wave_kernel.cu's bvh_walk and sphere_walk): binary
-# nodes over
+# The card's BVHs (csrc/wave_kernel.cu's bvh_walk, sphere_walk and
+# static_walk): binary nodes over
 # boxed items, built by _build_bvh. The streamed tier's is over the record
 # rows: a leaf is one record row with its row box (ROW_BOX), bit for bit; a
 # row whose box is ROW_EMPTY_FAR holds no triangle and is left out. The
 # sphere clusters' is over the cluster-ordered spheres outside the huge
 # cluster, at most SPHERE_LEAF to a leaf, a leaf's box the exact float32
 # union of its spheres' boxes (each rounded outward, as _bounds_of rounds
-# a cluster's). A node holds its two children's boxes, each the exact
+# a cluster's). The static tier's is over its cluster-ordered triangles
+# outside the huge cluster, at most STATIC_LEAF to a leaf, a leaf's box its
+# triangles' bound rounded outward and padded (build_static_bvh). A node
+# holds its two children's boxes, each the exact
 # float32 min/max union of its own children's boxes, so a node's slab
 # entry is never later than its leaves' and the walk never culls a leaf
 # that the table-order walk would test with the same nearest hit.
 # Node layout, 16 float32 (four 16-byte loads): the left box (mn3 mx3), the
 # right box, then as int32 bits the left and right references, an inner
 # node's index or BVH_LEAF | first record << 4 | record count for a leaf
-# (each a finite float's bits), and two zero words. An absent child (a
+# (each a finite float's bits), the count of records ahead of the leaves'
+# (BVH_HUGE_WORD of the root node: the static tier's huge cluster, which
+# the walk tests first; 0 elsewhere) and a zero word. An absent child (a
 # one-leaf tree) is a leaf of no records with a NaN box, which no ray
 # enters.
 BVH_NODE_FLOATS = 16
+BVH_HUGE_WORD = 14
 BVH_LEAF = 1 << 30
 # Triangle records: 12 float32 per triangle, three 16-byte loads
 # (n.xyz d | e1.xyz a0 | e2.xyz b0), contiguous by leaf; beside them each
@@ -422,6 +430,25 @@ BVH_SAH_MIN = 16
 # node's 50 operations to save at most two sphere tests' 70, so leaves of
 # up to 4 keep the tree two levels shallower for little wasted testing.
 SPHERE_LEAF = 4
+# Triangles per leaf of the static tier's BVH at most. SPHERE_LEAF's count
+# (a split adds a node's 50 operations to save at most two triangle tests'
+# 94) gives 4; leaves of up to 8 took 0.971-1.016x the time of leaves of 4
+# on the H100, faster on 4 of 6 cases (the 784- and 736-triangle spheres,
+# alone and in fog; chip_smoke.py --parent times both in turns): fewer
+# 64-byte node loads per triangle tested.
+STATIC_LEAF = 8
+# The static tier's leaf boxes are padded outward by this many float32
+# ulps of the box's largest coordinate: the precomputed triangle test can
+# report a grazing hit a few ulps outside the triangle's own bound, which
+# the table-order walk's larger cluster boxes keep; a looser box costs only
+# box tests, never the least (t, index).
+STATIC_PAD_ULPS = 64
+# A static-tier record's key (bvh_tri_k): its cluster (tri_clusters' row)
+# << STATIC_KEY_SHIFT | its cluster-order index << 1 | 1 where a hit on it
+# may lie outside its cluster's box (its bound, widened by the padding,
+# reaches the box's faces), which the walk then checks. The keys order as
+# the indices do, so an equal t still takes the lower index.
+STATIC_KEY_SHIFT = 20
 
 
 def _ceil_log2(n: int) -> int:
@@ -569,3 +596,83 @@ def build_sphere_bvh(centers: np.ndarray, radii: np.ndarray,
                     np.concatenate([c[order], r[order, None]], axis=1)),
                 sbvh_idx=items[order].astype(np.int32), sbvh_root=root,
                 sbvh_depth=depth)
+
+
+def build_static_bvh(pre: dict, A: np.ndarray, u: np.ndarray, v: np.ndarray,
+                     tri_clusters: tuple) -> dict:
+    """The static tier's BVH over its cluster-ordered triangles
+    (:func:`triangle_precompute`'s records ``pre`` and the float32 vertex
+    arrays ``A``, ``u``, ``v`` they were made from, all in cluster order)
+    outside the huge cluster. The walk tests the huge cluster first, in
+    order, as the table-order walk does: its triangles are records 0 ..
+    n-1, n in the root node's ``BVH_HUGE_WORD``. Leaves hold at most
+    ``STATIC_LEAF`` triangles, contiguous after them; a triangle whose
+    record is all zero (a zero normal: it never hits) is left out, as
+    :func:`build_stream_bvh` leaves such records out. A leaf's box is the
+    float64 bound of its triangles' vertices A, A + u, A + v (the triangle
+    the precomputed test sees), rounded outward to float32 and padded by
+    ``STATIC_PAD_ULPS``. Records are :func:`build_stream_bvh`'s (n.xyz d |
+    e1.xyz a0 | e2.xyz b0), bit for bit, each with its key (its cluster,
+    cluster-order index and check bit, ``STATIC_KEY_SHIFT``).
+
+    Returns ``bvh_nodes``, ``bvh_tris``, ``bvh_tri_k``, ``bvh_root`` (()
+    when every triangle is huge: no ray enters it) and ``bvh_depth``, as
+    :func:`build_stream_bvh` does."""
+    assert STATIC_LEAF <= 15, "a leaf's count fits its reference's 4 bits"
+    n_tri = sum(c[1] for c in tri_clusters)
+    huge = [c for c in tri_clusters if c[2] is None]
+    assert len(huge) <= 1 and (not huge or huge[0][0] == 0), \
+        "the huge cluster comes first"
+    n_huge = huge[0][1] if huge else 0
+    rec = np.concatenate(
+        [pre["n"][:n_tri], pre["d"][:n_tri, None], pre["e1"][:n_tri],
+         pre["a0"][:n_tri, None], pre["e2"][:n_tri], pre["b0"][:n_tri, None]],
+        axis=1).astype(np.float32)
+    a = np.asarray(A, np.float64)[:n_tri]
+    corners = np.stack([a, a + np.asarray(u, np.float64)[:n_tri],
+                        a + np.asarray(v, np.float64)[:n_tri]])
+    lo, hi = corners.min(axis=0), corners.max(axis=0)
+    pad = lambda mn, mx: STATIC_PAD_ULPS * np.spacing(np.maximum(
+        np.abs(mn), np.abs(mx)).max(axis=-1).astype(np.float32)).astype(
+            np.float64)
+    assert n_tri < 1 << (STATIC_KEY_SHIFT - 1) \
+        and len(tri_clusters) < 1 << (31 - STATIC_KEY_SHIFT)
+    key = np.arange(n_tri, dtype=np.int64) << 1
+    for c, (off, cnt, cmn, cmx) in enumerate(tri_clusters):
+        sl = slice(off, off + cnt)
+        key[sl] |= c << STATIC_KEY_SHIFT
+        if cmn is not None:  # the huge cluster is always tested
+            m = pad(lo[sl], hi[sl])[:, None]
+            inside = ((lo[sl] - m > np.asarray(cmn)).all(axis=1)
+                      & (hi[sl] + m < np.asarray(cmx)).all(axis=1))
+            key[sl] |= (~inside).astype(np.int64)
+    # an all-zero record (u x v = 0: a zero normal) never hits
+    items = n_huge + np.nonzero(rec[n_huge:].any(axis=1))[0]
+    huge_bits = np.asarray([n_huge], np.int32).view(np.float32)[0]
+    if not len(items):
+        nodes = np.zeros((1, BVH_NODE_FLOATS), np.float32)
+        nodes[0, BVH_HUGE_WORD] = huge_bits
+        keep = np.arange(max(n_huge, 1))
+        return dict(bvh_nodes=nodes, bvh_tris=rec[keep] if n_huge else
+                    np.zeros((1, BVH_TRI_FLOATS), np.float32),
+                    bvh_tri_k=key[keep].astype(np.int32) if n_huge else
+                    np.zeros((1,), np.int32), bvh_root=(), bvh_depth=0)
+    out = lambda x, way: np.nextafter(x.astype(np.float32), np.float32(way))
+    box = np.concatenate([out(lo[items], -np.inf), out(hi[items], np.inf)],
+                         axis=1)
+    order: list = []
+
+    def leaf(idx: np.ndarray):
+        sel = items[idx]
+        ref = BVH_LEAF | (n_huge + len(order)) << 4 | len(idx)
+        order.extend(int(i) for i in sel)
+        mn, mx = lo[sel].min(axis=0), hi[sel].max(axis=0)
+        m = pad(mn, mx)
+        return ref, np.concatenate([out(mn - m, -np.inf), out(mx + m, np.inf)])
+
+    nodes, root, depth = _build_bvh(box, STATIC_LEAF, leaf)
+    nodes[0, BVH_HUGE_WORD] = huge_bits
+    keep = np.concatenate([np.arange(n_huge), np.asarray(order, np.int64)])
+    return dict(bvh_nodes=nodes, bvh_tris=np.ascontiguousarray(rec[keep]),
+                bvh_tri_k=key[keep].astype(np.int32), bvh_root=root,
+                bvh_depth=depth)

@@ -13,6 +13,7 @@ import torch
 
 from ..render.renderer import AccumState
 from ..utils.vec import Vec3
+from .clusters import triangle_precompute
 from .schema import (
     STATIC_FIELDS, TENSOR_FIELDS, VEC_FIELDS, Scene, bake_quad_normals,
     bvh_tables, cluster_tables, mip_table, parent_tables, sphere_bvh_tables,
@@ -51,6 +52,30 @@ def _parents_from_rows(rows, ranges, n: int) -> tuple:
     return tuple(out)
 
 
+def _static_bvh_args(kw: dict):
+    """``clusters.build_static_bvh``'s arguments for a static-tier scene's
+    fields ``kw``, or None for another tier. JAX's scene keeps no cluster
+    order, so each cluster-ordered ``ctri_*`` record is matched, bit for
+    bit, to the table-order triangle (``tri_a``/``tri_u``/``tri_v``) whose
+    precomputed record it is (a copy of a triangle to the next copy)."""
+    if not kw.get("tri_clusters") or kw.get("tri_streamed"):
+        return None
+    n = kw["n_tris"]
+    cols = lambda v: np.stack([c.numpy()[:n] for c in v], axis=1)
+    A, u, v = cols(kw["tri_a"]), cols(kw["tri_u"]), cols(kw["tri_v"])
+    pre = {k: (cols(kw["ctri_" + k]) if k in ("n", "e1", "e2")
+               else kw["ctri_" + k].numpy()[:n])
+           for k in ("n", "d", "e1", "a0", "e2", "b0")}
+    row = lambda p: np.concatenate(
+        [p[k].reshape(n, -1) for k in ("n", "d", "e1", "a0", "e2", "b0")],
+        axis=1).astype(np.float32)
+    slots: dict = {}
+    for i, r in enumerate(row(triangle_precompute(A, u, v))):
+        slots.setdefault(r.tobytes(), []).append(i)
+    order = np.asarray([slots[r.tobytes()].pop(0) for r in row(pre)])
+    return pre, A[order], u[order], v[order], kw["tri_clusters"]
+
+
 def scene_from_numpy(fields: dict, statics: dict) -> Scene:
     """JAX scene leaves (by field name) and statics -> a CPU port Scene.
     Fields and statics the port does not read are ignored; a missing
@@ -61,8 +86,9 @@ def scene_from_numpy(fields: dict, statics: dict) -> Scene:
     cluster, mip, parent and triangle-cluster tables are derived from the
     ``sph_clusters``, ``tex_mip_meta``, ``stream_parents`` /
     ``stream_gparents`` and ``tri_clusters`` statics, the streamed tier's
-    BVH from its record rows and the sphere clusters' BVH from the
-    cluster-ordered spheres. A JAX DMA-tier scene
+    BVH from its record rows, the static tier's from its cluster-ordered
+    triangles and the sphere clusters' BVH from the cluster-ordered
+    spheres. A JAX DMA-tier scene
     keeps its parents as rows (``JAX_PARENT_FIELDS``, counted by
     ``JAX_PARENT_STATICS``); the descriptors are read back from them."""
     kw = {k: _vec(fields[k]) for k in VEC_FIELDS
@@ -87,7 +113,7 @@ def scene_from_numpy(fields: dict, statics: dict) -> Scene:
     kw.update(tri_cluster_tables(kw.get("tri_clusters", ())))
     kw.update(bvh_tables(kw["mtri_pack"], kw.get("tri_streamed", False),
                          kw.get("stream_leaf", 0),
-                         kw.get("stream_uv_cfm", False)))
+                         kw.get("stream_uv_cfm", False), _static_bvh_args(kw)))
     if kw.get("tex_combined"):
         kw.update(texture_stack([], combined=True))
     return Scene(**kw)

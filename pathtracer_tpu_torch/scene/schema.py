@@ -40,8 +40,10 @@ A triangle mesh (``set_mesh``; UVs scaled to texel units there) is kept as
 triangles. A larger one is also kept in cluster order in the precomputed
 barycentric form (``ctri_*``, padded to a multiple of 128, as in JAX); up
 to ``clusters.STREAM_MIN`` triangles that is the static tier, with its
-cluster descriptors ``tri_clusters`` and, for the kernel, ``tcl_box`` /
-``tcl_range`` (:func:`tri_cluster_tables`). Above ``clusters.STREAM_MIN``
+cluster descriptors ``tri_clusters`` and ``tcl_box`` / ``tcl_range``
+(:func:`tri_cluster_tables`, read by the plain version's table-order
+walk); the kernel walks it through a BVH over the triangles outside the
+huge cluster (:func:`bvh_tables`). Above ``clusters.STREAM_MIN``
 triangles the mesh takes the streamed tier instead (``ctri_*`` then hold
 JAX's zero dummies): ``mtri_bounds``, ``mtri_pack``, ``mtri_uvpack`` (the
 uv rows, cluster-field-major, or parallel to the record rows where the
@@ -268,8 +270,9 @@ class Scene:
     stream_grange: torch.Tensor
     # the card's walk of the streamed tier (bvh_tables): binary nodes over
     # the record rows, the rows' triangles as 16-byte-aligned records and
-    # each record's table-order winner number ((1, 16), (1, 12) and (1,)
-    # dummies without)
+    # each record's table-order winner number; of the static tier: the huge
+    # cluster's records, then nodes over the other triangles, each record's
+    # cluster-order index ((1, 16), (1, 12) and (1,) dummies without)
     bvh_nodes: torch.Tensor
     bvh_tris: torch.Tensor
     bvh_tri_k: torch.Tensor
@@ -480,19 +483,25 @@ def parent_tables(stream_parents: tuple, stream_gparents: tuple = ()) -> dict:
 
 
 def bvh_tables(mtri_pack: torch.Tensor, tri_streamed: bool, stream_leaf: int,
-               stream_uv_cfm: bool) -> dict:
-    """The streamed tier's BVH (``clusters.build_stream_bvh``) over the
-    record rows ``mtri_pack``, its winners numbered by their uv column with
-    the cluster-field-major uv rows, else by record; the dummies without a
-    streamed mesh."""
-    if not tri_streamed:
+               stream_uv_cfm: bool, static=None) -> dict:
+    """The card's mesh BVH: the streamed tier's
+    (``clusters.build_stream_bvh``) over the record rows ``mtri_pack``, its
+    winners numbered by their uv column with the cluster-field-major uv
+    rows, else by record; or the static tier's
+    (``clusters.build_static_bvh``, whose arguments ``static`` holds: the
+    cluster-ordered precomputed triangles, their A, u, v and the
+    clusters); the dummies without either."""
+    if static is not None:
+        b = clusters.build_static_bvh(*static)
+    elif not tri_streamed:
         return dict(bvh_nodes=torch.zeros((1, clusters.BVH_NODE_FLOATS)),
                     bvh_tris=torch.zeros((1, clusters.BVH_TRI_FLOATS)),
                     bvh_tri_k=torch.zeros((1,), dtype=torch.int32),
                     bvh_root=(), bvh_depth=0)
-    b = clusters.build_stream_bvh(
-        mtri_pack.cpu().numpy(), clusters.stream_rows_per_cluster(stream_leaf),
-        stream_uv_cfm)
+    else:
+        b = clusters.build_stream_bvh(
+            mtri_pack.cpu().numpy(),
+            clusters.stream_rows_per_cluster(stream_leaf), stream_uv_cfm)
     return dict(b, **{k: torch.from_numpy(b[k])
                       for k in ("bvh_nodes", "bvh_tris", "bvh_tri_k")})
 
@@ -757,6 +766,7 @@ class WorldBuilder:
         ctri, ctri_m = ctri_dummies()
         ctri_uvt = np.zeros((1, 6), f32)
         tri_clusters = ()
+        static = None  # build_static_bvh's arguments
         dummy = lambda: torch.zeros((1, 128), dtype=torch.float32)
         stream = dict(mtri_bounds=dummy(), mtri_pack=dummy(),
                       mtri_uvpack=dummy(), stream_parents=(),
@@ -806,6 +816,9 @@ class WorldBuilder:
                 tri_clusters = ()
                 ctri, ctri_m = ctri_dummies()
                 ctri_uvt = np.zeros((1, 6), f32)
+            else:
+                static = (ctri, tri_a[:ntri][order], tri_u[:ntri][order],
+                          tri_v[:ntri][order], tri_clusters)
             # JAX pads these to a multiple of 128, dummies included
             pad = -len(ctri_m) % 128
             ctri = {k: np.concatenate([v, np.zeros((pad,) + v.shape[1:], f32)])
@@ -828,7 +841,7 @@ class WorldBuilder:
         out.update(bvh_tables(stream["mtri_pack"],
                               stream.get("tri_streamed", False),
                               stream.get("stream_leaf", 0),
-                              stream.get("stream_uv_cfm", False)))
+                              stream.get("stream_uv_cfm", False), static))
         return out
 
     def _sphere_clusters(self, view_origin):
