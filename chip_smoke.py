@@ -42,6 +42,12 @@ yardstick of its schedule. Where two bases meet, the mixed variants
 clusters with the combined set, with each mesh tier, or with both, and the
 combined set with each tier without UVs) carry the feature bounce under
 lockstep and pick the camera at run time, one instantiation per base.
+Every variant with the feature bounce but textured+meshplain and
+featstaticplain_pinhole regroups
+its shading lanes by event each bounce (regroup_shading: each block lays
+its fog scatters, opaque shades and glass out in whole warps through
+shared memory); the -DWAVE_NO_REGROUP build, where none does, is its
+yardstick.
 
 The mesh cases stand in for world 5's mario.glb, which is not in the
 repository: world 5's builder without its asset (ground plane, sun, sky,
@@ -63,15 +69,19 @@ Phases (each prints its measured values on its own line; any failure raises
 and the script exits non-zero):
   1. device: the card's name and power limit;
   2. build: compiles csrc/wave_kernel.cu (one nvcc per build part, all
-     started together, and a link), prints the seconds,
-     ptxas's registers and spills for each variant (whether every variant
-     that walks neither sphere clusters nor the static tier kept the values
-     it was built at before those walks' BVHs, KEPT_PTXAS, and the others
-     beside their earlier values, CLUSTERED_EARLIER_PTXAS and
-     STATIC_EARLIER_PTXAS) and, from
-     cuobjdump, the count of BSSY/BSYNC/WARPSYNC instructions in each
+     started together, and a link) and, beside it, the regroup's
+     yardstick, the same source with -DWAVE_NO_REGROUP, where every
+     feature variant shades each path in its own thread (the parent's
+     code); prints the seconds, ptxas's registers and spills for each
+     variant (whether every variant without the feature bounce kept the
+     parent's, KEPT_PTXAS, and the feature variants now, in the yardstick,
+     which must keep them, and in the parent, FEATURE_EARLIER_PTXAS),
+     which variants regroup (regroup_shading), each variant's resident
+     blocks per SM, static shared memory and registers in both builds
+     (cudaOccupancyMaxActiveBlocksPerMultiprocessor; none may fall) and,
+     from cuobjdump, the count of BSSY/BSYNC/WARPSYNC instructions in each
      variant's SASS (``--sass DIR`` also writes the full SASS there); then,
-     in the background, phase 5's yardstick: the same source with
+     in the background, the warp tiles' yardstick: the same source with
      -DWAVE_SCANLINE_WARPS, where each warp of the BVH walks' variants
      (the streamed walk's, the sphere clusters' and the static tier's)
      shades 32 pixels of a scanline instead of an 8x4 tile;
@@ -116,7 +126,9 @@ and the script exits non-zero):
      dispersive glass on clusters, the combined set and the 784-triangle
      mesh, planar albedo and bump maps beside clusters and that mesh, and
      world 7's sphere with slivers beside clusters; then the count of the
-     BVH walks' cases whose every pixel is bit-equal;
+     cases whose every pixel is bit-equal, which must be all; every
+     feature variant's case also through the -DWAVE_NO_REGROUP yardstick,
+     whose sums, counts and rays must equal the kernel's;
   4. main paths, each through the entry point a user calls, at 1280x720
      with the launch counts set to 0 just before it and read just after:
      a. the Cornell box (-w3), 1 sample, seed 0, against the committed CPU
@@ -157,8 +169,11 @@ and the script exits non-zero):
      streamed walk's, its variants on the DMA meshes and the sliver meshes
      too, the sphere clusters' and the static tier's) beside its earlier
      time
-     (EARLIER_MS) and in turns with the scanline-warp yardstick (each first
-     in one half of eight launches); world 3 at 256 spp and world 1
+     (EARLIER_MS), each feature variant's row in turns with the
+     -DWAVE_NO_REGROUP yardstick (each first in one half of eight
+     launches; then each variant's geometric mean over its rows, and
+     whether every variant regroup_shading names is the faster) and each other BVH
+     walk's row in turns with the scanline-warp yardstick; world 3 at 256 spp and world 1
      at 16 spp, kernel alone and end to end through render_image; worlds
      3, 6 and 4 at 64 spp; worlds 1 and 7 at 64 spp under both schedules,
      alternating (world 7 also end to end through render_image), and world
@@ -205,7 +220,10 @@ and the script exits non-zero):
      scatters, planar, height, mesh-UV and combined-set fetches; every
      ray's triangle tests and fog flight; on the other bases and for the
      mixed variants with the bases' walks counted in the same pass
-     (render_counts).
+     (render_counts); and beside each feature row's bound the replay of
+     its shading's warp-branch issue in place and regrouped over the
+     kernel's warp map, with the share of blocks that regroup
+     (render/regroup.py, issue_tally).
 
 The last two lines are the kernel table as JSON and the result line
 {"ok": true, "device": {...}}.
@@ -303,44 +321,58 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-KERNEL_RE = (r"wave_kernelILb([01])ELb([01])ELi([0-9])ELi([0-9])ELi([0-9])"
+KERNEL_RE = (r"wave_kernel(?:_grouped)?ILb([01])ELb([01])ELi([0-9])ELi([0-9])ELi([0-9])"
              r"ELi([0-9])E")
-# ptxas's registers and spill bytes as the variants were built before the
-# sphere clusters' BVH walk (the parent commit's build, phase 2 on the H100,
-# PERF.md's findings): the variants without sphere clusters, which must
-# keep them, and those with sphere clusters, printed beside the new walk's
+# ptxas's registers and spill bytes of the variants as the parent commit
+# built them (phase 2 on the H100, PERF.md's findings): those without the
+# feature bounce, which must keep them, and the feature variants (kFeat set:
+# the "feat*" and "feature_*" ones and the mixed bases), which the
+# -DWAVE_NO_REGROUP yardstick must keep and which are printed beside the
+# regrouped build's
 KEPT_PTXAS = {"brute_pinhole": (64, 0), "brute_lens": (72, 16),
+              "clustered_pinhole": (56, 72), "clustered_lens": (56, 84),
               "textured_pinhole": (64, 68), "textured_lens": (64, 60),
               "textured_pinhole_regen": (87, 0),
-              "feature_pinhole": (80, 0), "feature_lens": (80, 0),
               "mesh_pinhole": (64, 56), "mesh_lens": (64, 64),
               "mesh_pinhole_regen": (80, 0),
               "meshplain_pinhole": (64, 20), "meshplain_lens": (64, 28),
-              "featmesh_pinhole": (64, 100), "featmesh_lens": (72, 76),
-              "featmesh_pinhole_regen": (80, 16),
-              "featmeshplain_lens": (64, 68),
-              "featmeshplain_pinhole": (64, 88),
-              "feattextured_lens": (80, 44), "feattextured_pinhole": (80, 44),
-              "feattextured_pinhole_regen": (92, 0),
-              "feature_pinhole_lockstep": (72, 28),
-              "textured+meshplain": (72, 92)}
-CLUSTERED_EARLIER_PTXAS = {
-    "clustered_pinhole": (64, 0), "clustered_lens": (64, 16),
-    "featclustered_pinhole": (72, 32), "featclustered_lens": (72, 16),
-    "clustered+textured": (80, 52), "clustered+mesh": (72, 76),
-    "clustered+meshplain": (64, 88),
-    "clustered+textured+meshplain": (80, 44)}
-# the variants that walk the static tier, as built before its BVH walk (the
-# parent commit's build, printed by --parent), printed beside the new walk's
-STATIC_EARLIER_PTXAS = {
-    "static_pinhole": (64, 60), "static_lens": (64, 44),
-    "staticplain_pinhole": (64, 28), "staticplain_lens": (64, 28),
-    "staticplain_pinhole_regen": (79, 0),
-    "featstatic_pinhole": (64, 100), "featstatic_lens": (72, 44),
-    "featstaticplain_pinhole": (72, 12), "featstaticplain_lens": (72, 12),
-    "textured+staticplain": (72, 96), "clustered+static": (72, 76),
-    "clustered+staticplain": (64, 88),
-    "clustered+textured+staticplain": (72, 92)}
+              "static_pinhole": (64, 68), "static_lens": (64, 80),
+              "staticplain_pinhole": (56, 104), "staticplain_lens": (56, 108),
+              "staticplain_pinhole_regen": (80, 4)}
+FEATURE_EARLIER_PTXAS = {
+    "feature_pinhole": (80, 0), "feature_lens": (80, 0),
+    "feature_pinhole_lockstep": (72, 28),
+    "featclustered_pinhole": (72, 24), "featclustered_lens": (72, 24),
+    "feattextured_pinhole": (80, 44), "feattextured_lens": (80, 44),
+    "feattextured_pinhole_regen": (92, 0),
+    "featmesh_pinhole": (64, 100), "featmesh_lens": (72, 76),
+    "featmesh_pinhole_regen": (80, 16),
+    "featmeshplain_pinhole": (64, 88), "featmeshplain_lens": (64, 68),
+    "featstatic_pinhole": (64, 116), "featstatic_lens": (64, 84),
+    "featstaticplain_pinhole": (64, 68), "featstaticplain_lens": (64, 68),
+    "clustered+textured": (80, 60), "clustered+mesh": (72, 76),
+    "clustered+meshplain": (64, 88), "clustered+static": (72, 76),
+    "clustered+staticplain": (64, 68), "textured+meshplain": (72, 92),
+    "textured+staticplain": (80, 36),
+    "clustered+textured+meshplain": (80, 36),
+    "clustered+textured+staticplain": (80, 36)}
+
+
+def feature_bounce(var: str) -> bool:
+    """Whether a variant's bounce is the feature bounce (kFeat set: the
+    feature forms and the mixed bases), the regroup's candidates."""
+    return var.startswith("feat") or "+" in var
+
+
+# the BVH walks' variants that map each warp to a scanline (warp_tiles)
+SCANLINE_BVH = ("featclustered_lens", "featstaticplain_pinhole",
+                "featstatic_lens")
+
+
+def warp_tiles(var: str) -> bool:
+    """Whether a variant maps each warp to an 8x4 pixel tile (the kernel's
+    warp_tiles), else to 32 pixels of a scanline."""
+    return walks_bvh(var) and var not in SCANLINE_BVH
 
 
 # PERF.md's rows of the BVH walks, K7's (the streamed mesh walk), K5's (the
@@ -427,6 +459,32 @@ def bvh_note(var: str) -> dict:
                            "outside its cluster's box walks again in table "
                            "order"}
                 if walks_static(var) else {})})
+
+
+def issue_text(issue) -> str:
+    """A feature row's replayed warp-branch issue for its phase-6 line."""
+    return (f"issue_before={issue['issue_before']} "
+            f"issue_after={issue['issue_after']} "
+            f"issue_after_over_before="
+            f"{issue['issue_after'] / max(issue['issue_before'], 1)} "
+            f"blocks_regrouped_share="
+            f"{issue['blocks_regrouped'] / max(issue['blocks'], 1)}")
+
+
+def regroup_note(var: str, issue, regrouped) -> dict:
+    """The kernel-table keys of a feature variant's row: whether it
+    regroups its shading lanes (``regrouped``: the variants that do), and
+    the replay's issue ratio and share of blocks that regroup."""
+    if not feature_bounce(var):
+        return {}
+    return {"regroup": (
+        "redesigned: each block regroups its shading lanes by event (fog "
+        "scatter, opaque, glass) through shared memory" if var in regrouped
+        else "shades each path in its own thread (faster in turns)"),
+        "issue_after_over_before": issue["issue_after"]
+        / max(issue["issue_before"], 1),
+        "blocks_regrouped_share": issue["blocks_regrouped"]
+        / max(issue["blocks"], 1)}
 
 
 def tri_test_ops(scene) -> int:
@@ -570,11 +628,12 @@ def walks_spheres(var: str) -> bool:
     return var.split("+")[0].split("_")[0].removeprefix("feat") == "clustered"
 
 
-def variant_of(mangled: re.Match) -> str:
+def variant_of(args) -> str:
     """The variant name of wave_kernel<kClustered, kThinLens, kTex, kMesh,
-    kFeat, kTri> (kFeat: 0, or the feature form's schedule)."""
+    kFeat, kTri> (kFeat: 0, or the feature form's schedule), from its six
+    template arguments as digit strings."""
     from pathtracer_tpu_torch.render import cuda_backend as cb
-    clustered, lens, tex, mesh, feat, tri = mangled.groups()
+    clustered, lens, tex, mesh, feat, tri = args
     end = "_lens" if lens == "1" else "_pinhole"
     spheres = "clustered" if clustered == "1" else "brute"
     kinds = {v: k for k, v in cb.MESH_KINDS.items()}
@@ -607,9 +666,30 @@ def ptxas_report(log: str) -> dict:
             continue
         regs = re.search(r"Used (\d+) registers", part)
         spills = re.search(r"(\d+) bytes spill stores", part)
-        out[variant_of(m)] = {
+        out[variant_of(m.groups())] = {
             "registers": int(regs.group(1)) if regs else None,
-            "spill_stores": int(spills.group(1)) if spills else None}
+            "spill_stores": int(spills.group(1)) if spills else None,
+            "regrouped": "wave_kernel_grouped" in part.split("'", 1)[0]}
+    return out
+
+
+def occupancy_report(lib) -> dict:
+    """variant -> [resident blocks of 128 threads per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), static shared memory
+    bytes, registers] of each instantiation in the kernel library ``lib``
+    (wave_occupancy, asked for every argument tuple wave_render takes)."""
+    import ctypes
+    import itertools
+    out, buf = {}, (ctypes.c_int * 3)()
+    for args in itertools.product((0, 1), (0, 1), (0, 1, 2), (0, 1, 2),
+                                  (0, 1, 2), (0, 1, 4, 5)):
+        if lib.wave_occupancy(*args, buf) != 0:
+            continue
+        clustered, lens, tex, mesh, feat, tri = args
+        # a mixed base's one instantiation serves both cameras (cam_lens)
+        mixed = (clustered and (tex or mesh)) or (tex and mesh)
+        out[variant_of(tuple(str(a) for a in (
+            clustered, 0 if mixed else lens, tex, mesh, feat, tri)))] = list(buf)
     return out
 
 
@@ -626,7 +706,7 @@ def sass_report(lib_path, dump_dir=None) -> dict:
         m = re.search(KERNEL_RE, part.split("\n", 1)[0])
         if m is None:
             continue
-        var = variant_of(m)
+        var = variant_of(m.groups())
         out[var] = {op: len(re.findall(rf"\b{op}\b", part))
                     for op in ("BSSY", "BSYNC", "WARPSYNC")}
         if dump_dir is not None:
@@ -1063,7 +1143,31 @@ def feature_tally(sc, hit, u, uv, out, act, bounce, tally):
         tally["tex_fetch"] += int(((opaque | refract) & alb).sum())
 
 
-def render_counts(scene, cam, cfg, n_samples, dev):
+REPLAY_KEYS = ("issue_before", "issue_after", "blocks", "blocks_regrouped")
+
+
+def issue_tally(sc, hit, u, act, bounce, lanes, n_threads, tally):
+    """Adds the replay of one bounce's warp-branch issue to ``tally``
+    (regroup.warp_branch_issue): each lane's event and its shading
+    operations (a scatter OPS_FOG_SCATTER, an opaque shade OPS_SHADE, a
+    dielectric OPS_REFRACT, each with OPS_TEX for a combined-set
+    material's K9 fetch), the warps' issue in place and regrouped, the
+    blocks with a lane to shade and those that regroup."""
+    import torch
+    from pathtracer_tpu_torch.render import regroup
+    ev = regroup.shade_events(sc, hit, u, bounce, act)
+    ops = torch.tensor((OPS_FOG_SCATTER, OPS_SHADE, OPS_REFRACT, 0),
+                       device=ev.device)[ev]
+    if sc.tex_combined and sc.n_textures:
+        k9 = (((ev == regroup.EV_OPAQUE) | (ev == regroup.EV_GLASS))
+              & (sc.mat_albedo_idx[hit.mat.long()] != 0))
+        ops = ops + torch.where(k9, OPS_TEX, 0)
+    r = regroup.warp_branch_issue(ev, ops, lanes, n_threads)
+    for k_, key in zip(("before", "after", "blocks", "regrouped"), REPLAY_KEYS):
+        tally[key] += r[k_]
+
+
+def render_counts(scene, cam, cfg, n_samples, dev, tiles=False):
     """What the kernel evaluates over every ray of samples 0 .. n_samples-1
     of ``cfg``: rays, and below the depth limit the opaque shades,
     dielectric (refraction) shades and fog scatters, the planar fetches
@@ -1071,8 +1175,12 @@ def render_counts(scene, cam, cfg, n_samples, dev):
     bumped hits (K11), mesh-UV fetches and combined-set fetches (K9); with
     sphere clusters the clustered walk's slab and sphere tests
     (cluster_tally), with a mesh tier the mesh walk's box tests, triangle
-    tests and wins (mesh_tally, bvh_tally). The plain regeneration loop
-    renders the same rays as the kernel (phase 3 holds them to it; both
+    tests and wins (mesh_tally, bvh_tally); and the replay of the feature
+    bounce's warp-branch issue in place and regrouped (issue_tally) over
+    the kernel's warp map (8x4 tiles with ``tiles``, else scanlines), each
+    iteration of the plain loop taken as one of the kernel's regen loop (a
+    lockstep variant's iterations group its lanes otherwise). The plain
+    regeneration loop renders the same rays as the kernel (phase 3 holds them to it; both
     schedules cast the same rays); each bounce's lanes are caught in
     shade_bounce with their bounce index and counted as a kernel thread
     evaluates them (only the estimator its coins pick), all in one pass."""
@@ -1081,10 +1189,13 @@ def render_counts(scene, cam, cfg, n_samples, dev):
     from pathtracer_tpu_torch.render.renderer import init_accum
     from pathtracer_tpu_torch.utils import prng
 
+    from pathtracer_tpu_torch.render import regroup
+
     tally = dict.fromkeys(FEATURE_KEYS + ("slabs", "spheres", "bvh_slabs",
                                           "bvh_spheres", "boxes", "tris",
                                           "wins", "bvh_boxes", "bvh_tris",
-                                          "table_rays"), 0)
+                                          "table_rays") + REPLAY_KEYS, 0)
+    lanes, n_threads = regroup.kernel_lanes(cfg.width, cfg.height, tiles, dev)
     live = {}
     primary, draw, shade = (wavefront._primary_rays, prng.bounce_uniforms,
                             wavefront.shade_bounce)
@@ -1111,6 +1222,8 @@ def render_counts(scene, cam, cfg, n_samples, dev):
     def shade_caught(sc, o, d, hit, u, uv=None, **kw):
         out = shade(sc, o, d, hit, u, uv=uv, **kw)
         feature_tally(sc, hit, u, uv, out, live["mask"], live["bounce"], tally)
+        issue_tally(sc, hit, u, live["mask"], live["bounce"], lanes,
+                    n_threads, tally)
         return out
 
     wavefront._primary_rays = primary_caught
@@ -1153,8 +1266,9 @@ def load_package(root: Path, name: str):
 # 5's ground with tessellated_sphere(N) (the static tier at 784, the
 # streamed tier without UVs from 2048 triangles to the DMA tier's 262,144),
 # "uv736" world 5's ground with MESH_CASES' 736-triangle UV sphere (the
-# static tier with UVs), each + " fog" in the CLI's fog, and a MIXED_CASES
-# name that mixed case
+# static tier with UVs), each + " fog" in the CLI's fog, a MIXED_CASES
+# name that mixed case, and a feature scene's name (FEATURE_CASES) that
+# scene
 PARENT_ROWS = (("w7", False, None), ("w7", True, None), ("w7", False, "regen"),
                ("w7 fog", False, None), ("w7 fog", True, None),
                ("w7 fog", False, "regen"), ("tri19600", False, None),
@@ -1171,7 +1285,9 @@ PARENT_ROWS = (("w7", False, None), ("w7", True, None), ("w7", False, "regen"),
                ("uv736 fog", True, None), ("textured+staticplain", False, None),
                ("clustered+static", False, None),
                ("clustered+staticplain", False, None),
-               ("clustered+textured+staticplain", False, None))
+               ("clustered+textured+staticplain", False, None),
+               ("w6 fog", False, None), ("w3 fog", True, None),
+               ("everything", False, None))
 
 
 def parent_turns(parent: Path, smi: str):
@@ -1234,13 +1350,20 @@ def parent_turns(parent: Path, smi: str):
             del b, scene
 
     def case(tree, tag, lens, w, h):
+        """(scene on the card, camera, RenderConfig options) of a row's
+        case under ``tree``."""
         worlds, schema = tree("scene.worlds"), tree("scene.schema")
+        features = tree("scene.feature_scenes").FEATURE_CASES
+        if tag in features:
+            scene, (pos, target, fov), kw = features[tag]()
+            return scene.to(dev), tree("scene.camera").define_camera(
+                pos, target, fov, w, h, use_pinhole=not lens), kw
         if tag[0] == "w":
             scene, cam = worlds.finalize_world(int(tag[1]) - 1, w, h,
                                                use_pinhole=not lens)
             if tag.endswith("fog"):
                 scene = dataclasses.replace(scene, **FOG)
-            return scene.to(dev), cam
+            return scene.to(dev), cam, {}
         name = tag.removesuffix(" fog")
         if tag in MIXED_CASES:
             b, cp, kind = mixed_builder(tag, tree)
@@ -1253,16 +1376,16 @@ def parent_turns(parent: Path, smi: str):
         return scene.to(dev), tree("scene.camera").define_camera(
             cp.pos, cp.target, cp.fov, w, h, use_pinhole=not lens,
             focal_distance=cp.focal_distance,
-            aperture_radius=cp.aperture_radius)
+            aperture_radius=cp.aperture_radius), {}
 
     w, h = 1280, 720
 
     def launcher(tree, tag, lens, sched):
         """(a warmed 720p 4-spp launch of ``tree``'s kernel on a case, its
         variant, its triangles)."""
-        scene, cam = case(tree, tag, lens, w, h)
+        scene, cam, kw = case(tree, tag, lens, w, h)
         rd, cb = tree("render.renderer"), tree("render.cuda_backend")
-        cfg = rd.RenderConfig(w, h, pp=2, seed=0, schedule=sched)
+        cfg = rd.RenderConfig(w, h, pp=2, seed=0, schedule=sched, **kw)
         launch = (lambda: cb.render_chunk_cuda(scene, cam, cfg, 0, 0, 4,
                                                rd.init_accum(w * h, dev)))
         launch()
@@ -1525,42 +1648,67 @@ def main() -> int:
         return 0
 
     # --- 2. build ----------------------------------------------------------
+    # this build and the regroup's yardstick (-DWAVE_NO_REGROUP: every
+    # feature variant shades each path in its own thread, the parent's
+    # code) together; then, in the background, the warp tiles' yardstick
+    # (-DWAVE_SCANLINE_WARPS: each warp of the BVH walks' variants on 32
+    # pixels of a scanline)
     t0 = time.perf_counter()
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    no_regroup = pool.submit(cb.compile_library, ("WAVE_NO_REGROUP",))
     tile_lib = cb.build()
     build_s = time.perf_counter() - t0
-    # phase 5's yardstick for the K7 variants' 8x4 warp tiles: a build
-    # whose every variant maps each warp to a scanline, made meanwhile
-    pool = concurrent.futures.ThreadPoolExecutor(1)
+    flat_lib, _, flat_log, flat_s = no_regroup.result()
     yardstick = pool.submit(cb.compile_library, ("WAVE_SCANLINE_WARPS",))
     ptxas = ptxas_report(cb.BUILD_LOG)
     check(sorted(ptxas) == sorted(cb.VARIANTS), f"ptxas report {ptxas}")
+    flat_ptxas = ptxas_report(flat_log)
+    check(sorted(flat_ptxas) == sorted(cb.VARIANTS), "the yardstick's ptxas report")
     sass = sass_report(cb.LIB_PATH, args.sass)
     check(sorted(sass) == sorted(cb.VARIANTS), f"SASS report {sass}")
     check(sorted(KEPT_PTXAS) == sorted(
-              v for v in cb.VARIANTS
-              if not walks_spheres(v) and not walks_static(v))
-          and sorted(CLUSTERED_EARLIER_PTXAS) == sorted(
-              v for v in cb.VARIANTS
-              if walks_spheres(v) and not walks_static(v))
-          and sorted(STATIC_EARLIER_PTXAS) == sorted(
-              v for v in cb.VARIANTS if walks_static(v)),
-          "KEPT_PTXAS names every variant that walks neither sphere "
-          "clusters nor the static tier, CLUSTERED_EARLIER_PTXAS every other "
-          "one with clusters, STATIC_EARLIER_PTXAS every static one")
+              v for v in cb.VARIANTS if not feature_bounce(v))
+          and sorted(FEATURE_EARLIER_PTXAS) == sorted(
+              v for v in cb.VARIANTS if feature_bounce(v)),
+          "KEPT_PTXAS names every variant without the feature bounce, "
+          "FEATURE_EARLIER_PTXAS every one with it")
     now = {v: (r["registers"], r["spill_stores"]) for v, r in ptxas.items()}
+    flat = {v: (r["registers"], r["spill_stores"])
+            for v, r in flat_ptxas.items()}
     kept = {v: now[v] == rs for v, rs in KEPT_PTXAS.items()}
+    flat_kept = {v: flat[v] == rs for v, rs in FEATURE_EARLIER_PTXAS.items()}
+    regrouped = sorted(v for v, r in ptxas.items() if r["regrouped"])
     print(f"phase2 build_s={build_s:.3f} nvcc_s={cb.BUILD_SECONDS} "
-          f"ptxas={json.dumps(ptxas)}")
+          f"no_regroup_build_s={flat_s} ptxas={json.dumps(ptxas)}")
     print(f"phase2 variants_kept_ptxas={json.dumps(kept)} "
           f"all_kept={all(kept.values())}")
-    check(all(kept.values()), "the variants that walk neither sphere "
-          "clusters nor the static tier kept their registers and spills")
-    for what, earlier_ptxas in (("with sphere clusters", CLUSTERED_EARLIER_PTXAS),
-                                ("of the static tier", STATIC_EARLIER_PTXAS)):
-        print(f"phase2 variants {what}: (registers, spill stores) now and "
-              "before their BVH walk " + json.dumps(
-                  {v: {"now": now[v], "before": rs}
-                   for v, rs in earlier_ptxas.items()}))
+    check(all(kept.values()), "the variants without the feature bounce "
+          "kept their registers and spills")
+    check(not any(r["regrouped"] for r in flat_ptxas.values())
+          and all(feature_bounce(v) for v in regrouped),
+          "only feature variants regroup, and none in the yardstick")
+    print(f"phase2 feature variants: (registers, spill stores) of this build, "
+          f"of the -DWAVE_NO_REGROUP yardstick and of the parent "
+          f"(FEATURE_EARLIER_PTXAS) " + json.dumps(
+              {v: {"now": now[v], "no_regroup": flat[v], "earlier": rs,
+                   "regrouped": v in regrouped}
+               for v, rs in FEATURE_EARLIER_PTXAS.items()}))
+    print(f"phase2 regrouped={json.dumps(regrouped)} "
+          f"yardstick_kept_earlier={all(flat_kept.values())} "
+          f"{json.dumps({v: k for v, k in flat_kept.items() if not k})}")
+    check(all(flat_kept.values()), "the yardstick's feature variants kept "
+          "the parent's registers and spills")
+    # resident blocks of 128 threads per SM, static shared bytes, registers
+    occ, flat_occ = occupancy_report(tile_lib), occupancy_report(flat_lib)
+    check(sorted(occ) == sorted(cb.VARIANTS) == sorted(flat_occ),
+          "an occupancy for every variant")
+    print("phase2 blocks_per_sm (this build, -DWAVE_NO_REGROUP): "
+          + json.dumps({v: [occ[v][0], flat_occ[v][0]] for v in cb.VARIANTS}))
+    print("phase2 occupancy [blocks per SM, static shared bytes, registers] "
+          "this build " + json.dumps(occ) + " -DWAVE_NO_REGROUP "
+          + json.dumps(flat_occ))
+    check(all(occ[v][0] >= flat_occ[v][0] for v in cb.VARIANTS),
+          "no variant runs fewer blocks per SM than without the regroup")
     print(f"phase2 sass={json.dumps(sass)}")
 
     # --- 3. kernel vs plain on the card ------------------------------------
@@ -1568,13 +1716,32 @@ def main() -> int:
     max_err = dict.fromkeys(cb.VARIANTS, 0.0)
     differing = {}  # label -> pixels where the kernel and plain differ
 
+    same_as_flat = {}  # label -> a feature variant's sums equal the yardstick's
+
     def held(label, scene, cam, cfg, n, s0=0):
         """The kernel against its plain version on the same inputs under
-        the verify gates, printed on one line; returns the variant and the
-        largest per-pixel |diff|."""
+        the verify gates, printed on one line, and a feature variant's sums,
+        counts and rays against the -DWAVE_NO_REGROUP yardstick's, which
+        must be equal; returns the variant and the largest per-pixel
+        |diff|."""
         var = cb.variant(scene, cam, cfg.schedule)
         k = cb.render_chunk_cuda(scene, cam, cfg, 0, s0, n,
                                  init_accum(cfg.width * cfg.height, dev))
+        flat_txt = ""
+        if feature_bounce(var):
+            cb._lib = flat_lib
+            try:
+                y = cb.render_chunk_cuda(scene, cam, cfg, 0, s0, n,
+                                         init_accum(cfg.width * cfg.height,
+                                                    dev))
+            finally:
+                cb._lib = tile_lib
+            same = (all(torch.equal(a, b) for a, b in zip(
+                (*k.sum, *k.sum_sq, k.count), (*y.sum, *y.sum_sq, y.count)))
+                and int(k.rays_cast) == int(y.rays_cast)
+                and int(k.nan_count) == int(y.nan_count))
+            same_as_flat[f"{label} {cfg.width}x{cfg.height} {var}"] = same
+            flat_txt = f"equal_to_no_regroup={same} "
         t = time.perf_counter()
         p = cb.render_chunk_plain(scene, cam, cfg, 0, s0, n,
                                   init_accum(cfg.width * cfg.height, dev))
@@ -1596,7 +1763,7 @@ def main() -> int:
               f"count_equal={count_eq} rays_kernel={rk} rays_plain={rp} "
               f"nan_kernel={int(k.nan_count)} nan_plain={int(p.nan_count)} "
               f"max_abs_err={err} mean={float(resolve(k, cfg).mean())} "
-              f"plain_s={t_plain}")
+              f"{flat_txt}plain_s={t_plain}")
         check(f3 < 0.01 and f1 < 0.001, "kernel vs plain flip fractions")
         check(count_eq, "kernel vs plain valid counts")
         check(abs(rk - rp) <= 0.005 * rp, "kernel vs plain ray counts")
@@ -1777,9 +1944,18 @@ def main() -> int:
     bvh = {k: v for k, v in differing.items() if walks_bvh(k.split(" ")[-1])}
     print(f"phase3 bvh_walk_cases={len(bvh)} "
           f"bit_equal={sum(v == 0 for v in bvh.values())} "
-          f"not_bit_equal={json.dumps({k: v for k, v in bvh.items() if v})} "
+          f"not_bit_equal={json.dumps({k: v for k, v in differing.items() if v})} "
           f"all_cases={len(differing)} "
           f"all_bit_equal={sum(v == 0 for v in differing.values())}")
+    # the feature variants' cases: the regrouped kernel and the yardstick
+    print(f"phase3 feature_cases={len(same_as_flat)} "
+          f"equal_to_no_regroup={sum(same_as_flat.values())} "
+          f"regrouped_cases={sum(k.split(' ')[-1] in regrouped for k in same_as_flat)} "
+          f"differing={json.dumps([k for k, v in same_as_flat.items() if not v])}")
+    check(all(same_as_flat.values()), "every feature case equal to the "
+          "-DWAVE_NO_REGROUP yardstick")
+    check(all(v == 0 for v in differing.values()),
+          "every case bit-equal to its plain version")
 
     # --- 4. the main paths at full width -------------------------------------
     print(f"phase4 start_s={time.perf_counter() - t_start}")
@@ -2070,30 +2246,36 @@ def main() -> int:
     pool.shutdown()
     print(f"phase5 scanline_yardstick_build_s={scan_build_s}")
     warps = {}  # BVH row -> (median ms with 8x4 tiles, with scanline warps)
+    turns = {}  # feature row -> (median ms, with -DWAVE_NO_REGROUP)
 
-    def row_ms(row, scene, cam, **cfg_kw):
+    def row_ms(row, scene, cam, var=None, **cfg_kw):
         """A row's kernel ms at 720p, 4 spp, and its rays: five launches
-        after a warm one (kernel_ms); for a row of a BVH walk (the streamed
-        walk, K7, the sphere clusters', K5, or the static tier's), this
-        build and the
-        scanline-warp yardstick in turns after a warm
-        launch each (tiles, scanline, scanline, tiles, scanline, tiles,
-        tiles, scanline: each first in one half), the yardstick's times
-        and whether its sums equal this build's given as text for the
-        row's line."""
-        var = row.split(" ")[0]
-        if not walks_bvh(var):
+        after a warm one (kernel_ms); for a feature variant's row, this
+        build and the -DWAVE_NO_REGROUP yardstick, for another row of a BVH
+        walk (the streamed walk, K7, the sphere clusters', K5, or the
+        static tier's) this build and the scanline-warp yardstick, in turns
+        after a warm launch each (this, yardstick, yardstick, this,
+        yardstick, this, this, yardstick: each first in one half), the
+        yardstick's times and whether its sums equal this build's given as
+        text for the row's line; ``var``: the row's variant where the row
+        is not named by it."""
+        var = var or row.split(" ")[0]
+        if feature_bounce(var):
+            other, lib = "no_regroup", flat_lib
+        elif walks_bvh(var):
+            other, lib = "scanline", scan_lib
+        else:
             return (*kernel_ms(scene, cam, 2, 5, **cfg_kw), "")
         cfg = RenderConfig(w, h, pp=2, seed=0, **cfg_kw)
-        libs = {"tiles": tile_lib, "scanline": scan_lib}
-        res, sums = {"tiles": [], "scanline": []}, {}
+        libs = {"this": tile_lib, other: lib}
+        res, sums = {"this": [], other: []}, {}
         try:
-            for which in ("tiles", "scanline"):
+            for which in libs:
                 cb._lib = libs[which]
                 cb.render_chunk_cuda(scene, cam, cfg, 0, 0, 4,
                                      init_accum(w * h, dev))
-            for which in ("tiles", "scanline", "scanline", "tiles",
-                          "scanline", "tiles", "tiles", "scanline"):
+            for which in ("this", other, other, "this", other, "this",
+                          "this", other):
                 cb._lib = libs[which]
                 st = init_accum(w * h, dev)
                 a = torch.cuda.Event(enable_timing=True)
@@ -2106,15 +2288,18 @@ def main() -> int:
                 sums[which] = st
         finally:
             cb._lib = tile_lib
-        t_med, s_med = np.median(res["tiles"]), np.median(res["scanline"])
-        warps[row] = (t_med, s_med)
+        t_med, o_med = np.median(res["this"]), np.median(res[other])
+        if other == "scanline":
+            warps[row] = (t_med, o_med)
+        else:
+            turns[row] = (var, t_med, o_med)
         same = all(torch.equal(x, y) for x, y in zip(
-            (*sums["tiles"].sum, sums["tiles"].count),
-            (*sums["scanline"].sum, sums["scanline"].count)))
-        return res["tiles"], int(sums["tiles"].rays_cast), (
-            f"scanline_ms={sorted(res['scanline'])} "
-            f"tiles_over_scanline={t_med / s_med} "
-            f"scanline_sums_equal={same} ")
+            (*sums["this"].sum, sums["this"].count),
+            (*sums[other].sum, sums[other].count)))
+        return res["this"], int(sums["this"].rays_cast), (
+            f"{other}_ms={sorted(res[other])} "
+            f"this_over_{other}={t_med / o_med} "
+            f"{other}_sums_equal={same} ")
 
     # (each plain version ran on the same scene at 720p in phase 3: warm)
     def plain_s(scene, cam, pp, **cfg_kw):
@@ -2236,13 +2421,14 @@ def main() -> int:
     ftimed = {}
     for row, (tag, lens, _, _) in feature_rows.items():
         scene, cam, cfg_kw = feature_case(tag, w, h, lens)
-        ks, rays = kernel_ms(scene, cam, 2, 5, **cfg_kw)
+        ks, rays, turn_txt = row_ms(row, scene, cam, cb.variant(scene, cam),
+                                    **cfg_kw)
         ps, prays = plain_s(scene, cam, 2, **cfg_kw)
         ftimed[row] = dict(ms=float(np.median(ks)), rays=rays, scene=scene,
                            cam=cam, cfg_kw=cfg_kw, plain_ms=1e3 * ps)
         print(f"phase5 row={row!r} case={tag!r} "
               f"variant={cb.variant(scene, cam)} 720p spp=4 "
-              f"kernel_ms={sorted(ks)} rays={rays} kernel_mrays_s="
+              f"kernel_ms={sorted(ks)} {turn_txt}rays={rays} kernel_mrays_s="
               f"{rays / np.median(ks) / 1e3} plain_ms={1e3 * ps} "
               f"plain_rays={prays} plain_mrays_s={prays / ps / 1e6} "
               f"| card: {smi}")
@@ -2297,6 +2483,21 @@ def main() -> int:
               f"{rays / np.median(ks) / 1e3} plain_ms={1e3 * ps} "
               f"plain_rays={prays} plain_mrays_s={prays / ps / 1e6} "
               f"| card: {smi}")
+    # the regroup's turns: each feature variant's rows, this build over the
+    # -DWAVE_NO_REGROUP yardstick, and the geometric mean of its rows
+    by_var = {}
+    for var, t_, o_ in turns.values():
+        by_var.setdefault(var, []).append(t_ / o_)
+    gmean = {v: float(np.exp(np.mean(np.log(r)))) for v, r in by_var.items()}
+    check(sorted(gmean) == sorted(v for v in cb.VARIANTS if feature_bounce(v)),
+          "every feature variant timed against the yardstick")
+    faster = sorted(v for v, g in gmean.items() if g < 1.0)
+    print(f"phase5 regroup rows={len(turns)} "
+          f"this_over_no_regroup={json.dumps({r: t_ / o_ for r, (_, t_, o_) in turns.items()})} "
+          f"by_variant={json.dumps(gmean)} faster={json.dumps(faster)} "
+          f"regrouped={json.dumps(regrouped)} "
+          f"regrouped_all_faster={all(gmean[v] < 1.0 for v in regrouped)} "
+          f"| card: {smi}")
     for walk, of in (("k7", walks_k7), ("k5", walks_spheres),
                      ("static", walks_static)):
         ratios = {r: t / s_ for r, (t, s_) in warps.items()
@@ -2496,8 +2697,10 @@ def main() -> int:
         tm = ftimed[row]
         scene, cam = tm["scene"], tm["cam"]
         cfg4 = RenderConfig(w, h, pp=2, seed=0, **tm["cfg_kw"])
-        tally = render_counts(scene, cam, cfg4, 4, dev)
+        var = cb.variant(scene, cam)
+        tally = render_counts(scene, cam, cfg4, 4, dev, warp_tiles(var))
         fc = {k_: tally[k_] for k_ in FEATURE_KEYS}
+        issue = {k_: tally[k_] for k_ in REPLAY_KEYS}
         rays = tm["rays"]
         check(abs(fc["rays"] - rays) <= 0.005 * rays,
               f"{row}: counted {fc['rays']} rays, the kernel cast {rays}")
@@ -2518,12 +2721,12 @@ def main() -> int:
         bound_ms, bound_by = bound(ops, nbytes)
         counts = " ".join(f"{k_}={v}" for k_, v in fc.items())
         print(f"phase6 count_s={time.perf_counter() - t_row} "
-              f"row={row!r} case={tag!r} {counts} ops={ops:.6e} "
-              f"bytes={nbytes} bound_ms={bound_ms} "
-              f"bound_share={bound_ms / tm['ms']} | card: {smi}")
+              f"row={row!r} case={tag!r} variant={var} {counts} "
+              f"ops={ops:.6e} bytes={nbytes} bound_ms={bound_ms} "
+              f"bound_share={bound_ms / tm['ms']} {issue_text(issue)} "
+              f"| card: {smi}")
         if kname is None:
             continue
-        var = "feature_lens" if lens else "feature_pinhole"
         table.append({
             "name": kname, "route": "cuda",
             "source": "pathtracer_tpu_torch/csrc/wave_kernel.cu",
@@ -2535,6 +2738,7 @@ def main() -> int:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes this
+            **regroup_note(var, issue, regrouped),
         })
     for row, (tag, lens, sched, replaces) in tier_rows.items():
         t_row = time.perf_counter()
@@ -2596,10 +2800,11 @@ def main() -> int:
         tm = ntimed[row]
         scene, cam = tm["scene"], tm["cam"]
         cfg4 = RenderConfig(w, h, pp=2, seed=0)
-        if (tag, lens) not in ncounts:
+        if (tag, lens, warp_tiles(var)) not in ncounts:
             # the feature tallies and the base's walk in one pass
-            tally = render_counts(scene, cam, cfg4, 4, dev)
+            tally = render_counts(scene, cam, cfg4, 4, dev, warp_tiles(var))
             fc = {k_: tally[k_] for k_ in FEATURE_KEYS}
+            issue = {k_: tally[k_] for k_ in REPLAY_KEYS}
             per = {k_: v / fc["rays"] for k_, v in tally.items()}
             base_txt, k7, sph = "", None, None
             if scene.sph_clusters:
@@ -2631,8 +2836,10 @@ def main() -> int:
                 n_tris = scene.n_tris if scene.tri_brute else 0
                 base_ops = (scene.n_spheres * OPS_SPHERE
                             + n_tris * OPS_TRI_BRUTE)
-            ncounts[(tag, lens)] = (fc, base_ops, base_txt, k7, sph)
-        fc, base_ops, base_txt, k7, sph = ncounts[(tag, lens)]
+            ncounts[(tag, lens, warp_tiles(var))] = (fc, issue, base_ops,
+                                                     base_txt, k7, sph)
+        fc, issue, base_ops, base_txt, k7, sph = ncounts[
+            (tag, lens, warp_tiles(var))]
         rays = tm["rays"]
         check(abs(fc["rays"] - rays) <= 0.005 * rays,
               f"{var}: counted {fc['rays']} rays, the kernel cast {rays}")
@@ -2656,7 +2863,8 @@ def main() -> int:
               f"variant={var} row={row!r} case={tag!r} {base_txt} "
               f"{counts} ops={ops:.6e} bytes={nbytes} bound_ms={bound_ms} "
               f"bound_share={bound_ms / tm['ms']} "
-              f"bound_ms_table_order={bound_old} | card: {smi}")
+              f"bound_ms_table_order={bound_old} {issue_text(issue)} "
+              f"| card: {smi}")
         table.append({
             "name": row_name(row), "route": "cuda",
             "source": "pathtracer_tpu_torch/csrc/wave_kernel.cu",
@@ -2668,7 +2876,7 @@ def main() -> int:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes this
-            **bvh_note(var), **old_bound(bound_old),
+            **bvh_note(var), **old_bound(bound_old), **regroup_note(var, issue, regrouped),
         })
     # the mixed bases: one pass counts the feature tallies and both walks
     print(f"phase6 mixed_start_s={time.perf_counter() - t_start}")
@@ -2676,7 +2884,9 @@ def main() -> int:
         t_row = time.perf_counter()
         scene, cam = tm["scene"], tm["cam"]
         var = cb.variant(scene, cam)
-        fc = render_counts(scene, cam, RenderConfig(w, h, pp=2, seed=0), 4, dev)
+        fc = render_counts(scene, cam, RenderConfig(w, h, pp=2, seed=0), 4, dev,
+                           warp_tiles(var))
+        issue = {k_: fc.pop(k_) for k_ in REPLAY_KEYS}
         rays = tm["rays"]
         check(abs(fc["rays"] - rays) <= 0.005 * rays,
               f"{var}: counted {fc['rays']} rays, the kernel cast {rays}")
@@ -2723,7 +2933,8 @@ def main() -> int:
               f"table_rays={fc['table_rays']} ops={ops:.6e} "
               f"bytes={nbytes} bound_ms={bound_ms} "
               f"bound_share={bound_ms / tm['ms']} "
-              f"bound_ms_table_order={bound_old} | card: {smi}")
+              f"bound_ms_table_order={bound_old} {issue_text(issue)} "
+              f"| card: {smi}")
         mesh = MIXED_CASES[row][0]
         table.append({
             "name": row_name(row), "route": "cuda",
@@ -2741,7 +2952,7 @@ def main() -> int:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes this
-            **bvh_note(var), **old_bound(bound_old),
+            **bvh_note(var), **old_bound(bound_old), **regroup_note(var, issue, regrouped),
         })
     check(all(k_["launches"] > 0 for k_ in table), "every variant launched")
     check(sorted({k_["name"] for k_ in table if k_["name"].endswith(">")

@@ -32,7 +32,11 @@ The mixed bases (``MIXED_VARIANTS``: sphere clusters with the combined set
 or with any mesh tier, the combined set with a mesh tier without UVs, and
 all three), named by their parts joined with "+", each carry the feature
 bounce and pick the primary ray at run time, so one instantiation covers
-either camera with or without features, under ``MIXED_SCHEDULE``. The
+either camera with or without features, under ``MIXED_SCHEDULE``. Every
+variant with the feature bounce but ``textured+meshplain`` and
+``featstaticplain_pinhole`` regroups its
+shading lanes by event each bounce (the kernel's ``regroup_shading``;
+``render/regroup.py`` is its plain model). The
 file is compiled at first use for ``sm_90a`` into
 ``pathtracer_tpu_torch/_build/`` (a library named by the hash of the
 source and flags, so an edit rebuilds it): one ``nvcc`` for each of its
@@ -398,6 +402,9 @@ def compile_library(defines: tuple = ()) -> tuple:
                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.wave_render.restype = ctypes.c_int
+    lib.wave_occupancy.argtypes = [ctypes.c_int] * 6 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.wave_occupancy.restype = ctypes.c_int
     lib.wave_error_string.argtypes = [ctypes.c_int]
     lib.wave_error_string.restype = ctypes.c_char_p
     log = log_path.read_text() if log_path.exists() else ""

@@ -523,3 +523,66 @@ def test_mixed_kernels_match_plain(cuda, monkeypatch, variant, world, mesh,
                                         trenderer.init_accum(64 * 36, cuda))
     torch.cuda.synchronize()
     _assert_verify_gates(cfg, k, p)
+
+
+@pytest.fixture(scope="module")
+def no_regroup_lib():
+    """The kernel built with -DWAVE_NO_REGROUP: every feature variant
+    shades each path in its own thread (chip_smoke.py's yardstick)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return cuda_backend.compile_library(("WAVE_NO_REGROUP",))[0]
+
+
+@pytest.mark.parametrize("name, pinhole, schedule", [
+    ("bump", True, None), ("tbn", True, None), ("fog", True, None),
+    ("dispersion", True, None), ("everything", True, None),
+    ("everything", False, None), ("w6 fog", True, None),
+    ("w3 fog", False, None), ("w6 fog", True, "lockstep"),
+    ("w1 fog", True, None), ("w2 fog", True, None),
+    ("w7 fog", True, "regen")])
+def test_regrouped_kernel_bit_equal(cuda, no_regroup_lib, name, pinhole,
+                                    schedule):
+    """Each feature scene, and worlds 6, 3, 1, 2 and 7 in the CLI's fog, at
+    64x36 (ragged 8x4 tiles and blocks): the kernel, whose feature variants
+    regroup their shading lanes by event, bit-equal to the
+    -DWAVE_NO_REGROUP build and to the plain version (sums, squares,
+    counts, rays)."""
+    from pathtracer_tpu_torch.scene.camera import define_camera
+    from pathtracer_tpu_torch.scene.feature_scenes import FEATURE_CASES
+    w, h = 64, 36
+    if name in FEATURE_CASES:
+        scene, (pos, target, fov), cfg_kw = FEATURE_CASES[name]()
+        cam = define_camera(pos, target, fov, w, h, use_pinhole=pinhole)
+    else:
+        kind = {"w6": tschema.WORLD_CORNELL_QUAD, "w3": tschema.WORLD_CORNELL_BOX,
+                "w1": W1, "w2": tschema.WORLD_BRDF_TEST,
+                "w7": tschema.WORLD_MESH_UV}[name.split(" ")[0]]
+        scene, cam = tworlds.finalize_world(kind, w, h, use_pinhole=pinhole)
+        scene, cfg_kw = dataclasses.replace(scene, **FOG), {}
+    scene = scene.to(cuda)
+    cfg = trenderer.RenderConfig(w, h, pp=2, seed=0, schedule=schedule,
+                                 **cfg_kw)
+    var = cuda_backend.variant(scene, cam, schedule)
+    assert var.startswith("feat")
+
+    def kernel(lib):
+        kept = cuda_backend._lib
+        cuda_backend._lib = lib
+        try:
+            return cuda_backend.render_chunk_cuda(
+                scene, cam, cfg, 0, 0, 4, trenderer.init_accum(w * h, cuda))
+        finally:
+            cuda_backend._lib = kept
+
+    k = kernel(cuda_backend.build())
+    y = kernel(no_regroup_lib)
+    p = cuda_backend.render_chunk_plain(scene, cam, cfg, 0, 0, 4,
+                                        trenderer.init_accum(w * h, cuda))
+    torch.cuda.synchronize()
+    for other in (y, p):
+        for a, b in zip((*k.sum, *k.sum_sq, k.count),
+                        (*other.sum, *other.sum_sq, other.count)):
+            assert torch.equal(a, b), var
+        assert int(k.rays_cast) == int(other.rays_cast)
+        assert int(k.nan_count) == int(other.nan_count)
