@@ -6,9 +6,10 @@ It needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and no network,
 and it imports nothing of JAX. ``python3 chip_smoke.py --parent DIR`` runs
 phase 1 and then, instead of the others, times the kernel of another
 checkout at DIR (the parent commit, unpacked with git archive) against
-this one's in turns (parent_turns).
+this one's in turns (parent_turns: K4t's rows, the feature rows without
+triangles, a row of each other walk, and K4t's leaf size).
 
-The render kernel csrc/wave_kernel.cu has forty-three compile-time
+The render kernel csrc/wave_kernel.cu has fifty-two compile-time
 variants (cuda_backend.VARIANTS), instantiations of one template in one
 build:
 untextured, the brute sphere sweep or the clustered walk (K5/K6: the huge
@@ -21,8 +22,9 @@ lockstep or K2 regen), its yardstick; mesh (world 7's streamed triangle
 walk K7 with the mesh-UV texel fetch K10), the pinhole and the lens under
 cuda_backend.MESH_SCHEDULE and the pinhole under the other one; feature
 (fog, transmission with dispersion, planar maps through K10's planar form,
-bump maps through the height fetch K11, the brute triangle sweep K4t with
-or without UVs), the pinhole and the lens under path regeneration; and the
+bump maps through the height fetch K11, K4t, the brute triangle sweep, as
+a near-first walk over a BVH of its precomputed 64-byte records with or
+without UVs), the pinhole and the lens under path regeneration; and the
 mesh tiers (cuda_backend.MESH_KINDS), the pinhole and the lens under
 cuda_backend.MESH_SCHEDULE: the static tier's walk (K5's triangle form:
 the huge cluster, then one near-first walk over a BVH of the other
@@ -42,6 +44,10 @@ yardstick of its schedule. Where two bases meet, the mixed variants
 clusters with the combined set, with each mesh tier, or with both, and the
 combined set with each tier without UVs) carry the feature bounce under
 lockstep and pick the camera at run time, one instantiation per base.
+The feature variants without a mesh tier (on brute or clustered spheres,
+the combined set, and clusters with the combined set) carry K4t's walk
+only in forms of their own, named with "_k4t" (cuda_backend.K4T_VARIANTS),
+which a scene with a brute mesh takes.
 Every variant with the feature bounce but textured+meshplain and
 featstaticplain_pinhole regroups
 its shading lanes by event each bounce (regroup_shading: each block lays
@@ -75,7 +81,10 @@ and the script exits non-zero):
      code); prints the seconds, ptxas's registers and spills for each
      variant (whether every variant without the feature bounce kept the
      parent's, KEPT_PTXAS, and the feature variants now, in the yardstick,
-     which must keep them, and in the parent, FEATURE_EARLIER_PTXAS),
+     which must keep them but for the variants whose code K4t's walk
+     changed (k4t_changed), and in the parent's, FEATURE_EARLIER_PTXAS;
+     the feature variants' and the K4t forms' beside
+     the parent's build's, PARENT_FEATURE_PTXAS and PARENT_FEATURE_BLOCKS),
      which variants regroup (regroup_shading), each variant's resident
      blocks per SM, static shared memory and registers in both builds
      (cudaOccupancyMaxActiveBlocksPerMultiprocessor; none may fall) and,
@@ -112,7 +121,13 @@ and the script exits non-zero):
      sphere with slivers, worlds 2 and 4, world 2 in fog, the 784- and
      736-triangle static meshes through both cameras, one in fog, and three
      mixed bases); the static tier's exact ties (tie_builder: a grid and a
-     copy of it in another material) at 256x144 and 60x34; the feature
+     copy of it in another material) at 256x144 and 60x34; K4t's exact ties
+     (brute_tie_builder: 64 triangles) at 256x144 and 60x34, and the
+     kernel's intersect (cuda_backend.intersect_probe_cuda) on 16,384 rays
+     aimed at the edges and vertices of the 40-triangle mesh, the ties and
+     the everything scene's UV triangles (edge_rays: from the camera, from
+     a shell about the mesh, and grazing from 2 to 200 units away) against
+     the plain sweep, t, material, normal and uv bit-equal; the feature
      bounce on the other bases at both sizes
      (base_case): worlds 1
      (pinhole, lens, regen), 2 (pinhole, lens), 4, 7 (pinhole, lens, regen)
@@ -218,7 +233,12 @@ and the script exits non-zero):
      regeneration loop's lanes are counted below the depth limit as a
      kernel thread evaluates them: opaque and dielectric shades, fog
      scatters, planar, height, mesh-UV and combined-set fetches; every
-     ray's triangle tests and fog flight; on the other bases and for the
+     ray's fog flight and, with a brute mesh, the box and triangle tests of
+     K4t's walk, replayed step for step (ops/intersect.py::
+     _brute_bvh_winners: exact), its bound the fewer of the walk's
+     operations and the sweep's at OPS_TRI_BRUTE_WALK and the walk's
+     tables (brute_terms), its bound under the earlier definition (the
+     sweep at OPS_TRI_BRUTE) printed beside it; on the other bases and for the
      mixed variants with the bases' walks counted in the same pass
      (render_counts); and beside each feature row's bound the replay of
      its shading's warp-branch issue in place and regrouped over the
@@ -289,6 +309,13 @@ OPS_STACK = 73
 # division (21), the hit point (9), the barycentrics' reciprocal, crosses
 # and dots (37), six compares with alpha + beta and the take (10)
 OPS_TRI_BRUTE = 97
+# K4t on its walk (brute_walk), per triangle test on a 64-byte record: the
+# plane's dots, test and division (16), the hit point (9), the
+# barycentrics' crosses and dots (28), six compares with alpha + beta and
+# the take (10); its boxes at OPS_SLAB, its slab reciprocals once per ray
+# (OPS_INV). The sweep's count (OPS_TRI_BRUTE on every triangle) is the
+# earlier definition of the K4t rows' bound (brute_terms).
+OPS_TRI_BRUTE_WALK = 63
 # K10 planar, per fetch_planar: the bespoke scale (6) and fetch_stack
 # without the albedo product (70); for a metalness or roughness map only
 # the red channel is blended (36)
@@ -326,9 +353,9 @@ KERNEL_RE = (r"wave_kernel(?:_grouped)?ILb([01])ELb([01])ELi([0-9])ELi([0-9])ELi
 # ptxas's registers and spill bytes of the variants as the parent commit
 # built them (phase 2 on the H100, PERF.md's findings): those without the
 # feature bounce, which must keep them, and the feature variants (kFeat set:
-# the "feat*" and "feature_*" ones and the mixed bases), which the
-# -DWAVE_NO_REGROUP yardstick must keep and which are printed beside the
-# regrouped build's
+# the "feat*" and "feature_*" ones and the mixed bases) under the
+# -DWAVE_NO_REGROUP yardstick, which those whose code K4t's walk left as it
+# was (not k4t_changed) must keep
 KEPT_PTXAS = {"brute_pinhole": (64, 0), "brute_lens": (72, 16),
               "clustered_pinhole": (56, 72), "clustered_lens": (56, 84),
               "textured_pinhole": (64, 68), "textured_lens": (64, 60),
@@ -358,6 +385,45 @@ FEATURE_EARLIER_PTXAS = {
     "clustered+textured+staticplain": (80, 36)}
 
 
+# the feature variants' registers and spill bytes and resident blocks of
+# 128 threads per SM as the parent commit built them (phase 2 on the H100,
+# H100 80GB HBM3 at 700 W), printed beside this build's
+PARENT_FEATURE_PTXAS = {
+    "feature_pinhole": (64, 256), "feature_lens": (64, 256),
+    "feature_pinhole_lockstep": (64, 248),
+    "featclustered_pinhole": (64, 260), "featclustered_lens": (64, 252),
+    "feattextured_pinhole": (64, 320), "feattextured_lens": (64, 332),
+    "feattextured_pinhole_regen": (64, 328),
+    "featmesh_pinhole": (64, 236), "featmesh_lens": (64, 244),
+    "featmesh_pinhole_regen": (64, 272),
+    "featmeshplain_pinhole": (64, 226), "featmeshplain_lens": (64, 250),
+    "featstatic_pinhole": (64, 240), "featstatic_lens": (64, 220),
+    "featstaticplain_pinhole": (64, 68), "featstaticplain_lens": (64, 238),
+    "clustered+textured": (64, 308), "clustered+mesh": (64, 256),
+    "clustered+meshplain": (64, 250), "clustered+static": (64, 256),
+    "clustered+staticplain": (64, 250), "textured+meshplain": (72, 92),
+    "textured+staticplain": (64, 322),
+    "clustered+textured+meshplain": (64, 330),
+    "clustered+textured+staticplain": (64, 334)}
+PARENT_FEATURE_BLOCKS = {
+    **dict.fromkeys(PARENT_FEATURE_PTXAS, 8), "textured+meshplain": 7}
+
+
+# the feature variants without a mesh tier: each has a form with K4t's walk
+# (cuda_backend.K4T_VARIANTS, named with "_k4t"), and without it carries no
+# triangle code (the parent's carried the sweep), so their code changed
+K4T_BASES = ("feature_pinhole", "feature_lens", "feature_pinhole_lockstep",
+             "featclustered_pinhole", "featclustered_lens",
+             "feattextured_pinhole", "feattextured_lens",
+             "feattextured_pinhole_regen", "clustered+textured")
+
+
+def k4t_changed(var: str) -> bool:
+    """Whether a feature variant's code changed with K4t's walk: a K4t form
+    or its base (K4T_BASES)."""
+    return var.removesuffix("_k4t") in K4T_BASES
+
+
 def feature_bounce(var: str) -> bool:
     """Whether a variant's bounce is the feature bounce (kFeat set: the
     feature forms and the mixed bases), the regroup's candidates."""
@@ -376,12 +442,15 @@ def warp_tiles(var: str) -> bool:
 
 
 # PERF.md's rows of the BVH walks, K7's (the streamed mesh walk), K5's (the
-# clustered sphere walk) and the static tier's (K5's triangle form, K8):
-# row (variant, and its case where the variant's main case differs) -> its
-# median 720p 4-spp kernel ms before its walk's BVH (the static tier's rows,
-# and clustered+static*, before the static tier's), on an H100 80GB HBM3 at
-# 700 W (PERF.md's table)
+# clustered sphere walk), the static tier's (K5's triangle form, K8) and
+# K4t's: row (variant, and its case where the variant's main case differs;
+# K4t's by their phase-5 names) -> its median 720p 4-spp kernel ms before
+# its walk's BVH (the static tier's rows, and clustered+static*, before the
+# static tier's; K4t's rows the sweep's), on an H100 80GB HBM3 at 700 W
+# (PERF.md's table)
 EARLIER_MS = {
+    "K4t plain": 2.384,
+    "K4t UV": 2.658,
     "clustered_pinhole": 2.350,
     "clustered_lens": 4.604,
     "featclustered_pinhole": 6.847,
@@ -595,6 +664,17 @@ def row_bound(ops, nbytes, rays, *walks):
             bound(ops_old, bytes_old)[0])
 
 
+def k4t_note(k4t, boxes, tris) -> dict:
+    """The kernel-table keys of a row whose variant walks a brute mesh
+    (``k4t``: brute_terms' pair, None for none): K4t's walk redesigned, its
+    box and triangle tests per ray (exact)."""
+    if k4t is None:
+        return {}
+    return {"k4t": "redesigned: precomputed 64-byte triangle records, a "
+                   "near-first BVH walk over them, winners the sweep's own",
+            "k4t_box_tests_per_ray": boxes, "k4t_tri_tests_per_ray": tris}
+
+
 def old_bound(ms) -> dict:
     """A BVH walk's row's kernel-table key for its bound under the earlier
     definition (the table-order walks' counts over their tables)."""
@@ -641,7 +721,8 @@ def variant_of(args) -> str:
              + (["textured"] if tex != "0" else [])
              + ([kinds[int(tri)]] if mesh != "0" else []))
     if len(parts) > 1:  # a mixed base: one instantiation, either camera
-        return "+".join(parts)
+        return "+".join(parts) + (cb.K4T_SUFFIX if tri == str(cb.K4T_TRI)
+                                  else "")
     if tex != "0":
         kind, code, main = "textured", tex, cb.TEXTURED_SCHEDULE
     elif mesh != "0":
@@ -653,7 +734,8 @@ def variant_of(args) -> str:
     if feat != "0":
         kind = "feature" if kind == "brute" else "feat" + kind
     sched = {"1": "lockstep", "2": "regen"}[code]
-    return kind + end + ("" if sched == main else "_" + sched)
+    return (kind + end + ("" if sched == main else "_" + sched)
+            + (cb.K4T_SUFFIX if tri == str(cb.K4T_TRI) else ""))
 
 
 def ptxas_report(log: str) -> dict:
@@ -682,7 +764,7 @@ def occupancy_report(lib) -> dict:
     import itertools
     out, buf = {}, (ctypes.c_int * 3)()
     for args in itertools.product((0, 1), (0, 1), (0, 1, 2), (0, 1, 2),
-                                  (0, 1, 2), (0, 1, 4, 5)):
+                                  (0, 1, 2), (0, 1, 4, 5, 8)):
         if lib.wave_occupancy(*args, buf) != 0:
             continue
         clustered, lens, tex, mesh, feat, tri = args
@@ -883,6 +965,43 @@ def bvh_tally(sc, tally):
                            + counts.get("table_rays", 0))
 
 
+def brute_tally(sc, o, d, m, tally):
+    """Adds the box and triangle tests of the card's K4t walk over the rays
+    ``m`` of (o, d), each walked after its nearest sphere, quad or plane,
+    to tally's "brute_boxes" and "brute_tris": the walk replayed step for
+    step (ops/intersect.py::_brute_bvh_winners: exact counts)."""
+    import torch
+    from pathtracer_tpu_torch.ops import intersect as isect
+    from pathtracer_tpu_torch.utils.vec import Vec3
+    idx = torch.nonzero(m).reshape(-1)
+    ro, rd = Vec3(*(c[idx] for c in o)), Vec3(*(c[idx] for c in d))
+    counts = {}
+    isect._brute_bvh_winners(sc, ro, rd, isect._non_triangles(sc, ro, rd).t,
+                             counts)
+    tally["brute_boxes"] += counts.get("boxes", 0)
+    tally["brute_tris"] += counts.get("tris", 0)
+
+
+def brute_terms(scene, boxes, tris):
+    """K4t's part of a row's bound, as k7_terms gives the streamed walk's:
+    (FP32 operations per ray, bytes of the tables it reads) twice. First
+    the bound's own: the fewer of the card's walk's operations (its slab
+    reciprocals, ``boxes`` box tests and ``tris`` triangle tests per ray,
+    exact: _brute_bvh_winners) and the sweep's (every triangle, no box),
+    at OPS_SLAB and OPS_TRI_BRUTE_WALK, over the tables the walk and the
+    resolve read. Then the earlier definition, printed beside it so that
+    rows compare with earlier runs: the sweep's count at OPS_TRI_BRUTE over
+    its 64 bytes a triangle."""
+    n = scene.n_tris
+    uv = ((scene.tri_uv0u, scene.tri_uv0v, scene.tri_uvdu1, scene.tri_uvdv1,
+           scene.tri_uvdu2, scene.tri_uvdv2) if scene.has_mesh_uvs else ())
+    size = 4 * sum(t.numel() for t in (scene.bvh_nodes, scene.bvh_tris,
+                                       scene.bvh_tri_k, scene.tri_mat, *uv))
+    walk = OPS_INV + boxes * OPS_SLAB + tris * OPS_TRI_BRUTE_WALK
+    return ((min(walk, n * OPS_TRI_BRUTE_WALK), size),
+            (n * OPS_TRI_BRUTE, 4 * 16 * n))
+
+
 def mesh_counts(scene, cam, cfg, n_samples, dev):
     """The rays, per-ray means of a mesh variant's box tests (grandparents,
     parents, clusters and rows, or the static tier's clusters), triangle
@@ -988,9 +1107,10 @@ SLIVER_CASES = {"uv1472s": (32, 24), "uv99840s": (256, 196)}
 
 # The mixed bases' cases (scene/mixed_scenes.py): case -> (mesh case or
 # None, mixed_builder's options). A case named by a variant renders through
-# it; "textured+brute" (the combined set with a brute mesh) through
-# feattextured, "clustered+textured+brute" through clustered+textured's
-# K4t sweep, and a case with a second word through its first word's
+# it; a brute mesh (K4t's walk) through the K4t forms: "textured+brute"
+# (the combined set) through feattextured's, "clustered+brute" (sphere
+# clusters) through featclustered's, "clustered+textured+brute" through
+# clustered+textured's; and a case with a second word through its first word's
 # variant, with a feature: dispersive glass on every seventh sphere and the
 # mesh, or planar albedo and bump maps on the ground. A "textured+" case's
 # scene is world 1 (the combined set, no clusters) with the mesh beside
@@ -1020,6 +1140,7 @@ MIXED_CASES = {
                                          {"mesh_material": "ground"}),
     "clustered+textured+staticplain": ("tri784", {"mesh_material": "ground"}),
     "textured+brute": ("tri40", {}),
+    "clustered+brute": ("tri40", {}),
     "clustered+textured+brute": ("tri40", {}),
     "clustered+textured+staticplain glass": ("tri784", {"glass": True}),
     "clustered+staticplain maps": ("tri784", {"maps": True}),
@@ -1027,10 +1148,12 @@ MIXED_CASES = {
 
 
 def mixed_variant(case):
-    """The variant a mixed case renders through (MIXED_CASES)."""
+    """The variant a mixed case renders through (MIXED_CASES); a prefix of
+    it ("..._") where the camera names the rest."""
     var = case.split(" ")[0]
     return {"textured+brute": "feattextured_",
-            "clustered+textured+brute": "clustered+textured"}.get(var, var)
+            "clustered+brute": "featclustered_",
+            "clustered+textured+brute": "clustered+textured_k4t"}.get(var, var)
 
 
 def mixed_builder(case, tree=None):
@@ -1063,6 +1186,73 @@ def mixed_builder(case, tree=None):
     b, cp = mixed_scenes.mixed_builder(
         world=world, combined="textured" in case, mesh=mesh, **opts)
     return b, cp, world
+
+
+def brute_tie_builder():
+    """World 5's builder without its asset plus a brute mesh (K4t) of exact
+    ties, and its camera parameters: a 4 x 4 grid of 0.25-wide cells at z =
+    0.5, two triangles a cell sharing their edges, and a copy of every
+    triangle in a second material (64 triangles, the most K4t takes). A
+    copy's record is its original's, so every hit on the grid ties two
+    triangles at one t: the lower table index wins, and a wrong pick shows
+    in the other colour."""
+    from pathtracer_tpu_torch.scene import schema, worlds
+    b, cp = worlds.build_world(schema.WORLD_MARIO,
+                               res_dir=str(ROOT / "no asset here"))
+    s, n, cells = 0.25, 4, []
+    for i in range(n):
+        for k in range(n):
+            x, y = (i - n / 2) * s, (k - n / 2) * s
+            a, bb, c, d = ((x, y, 0.5), (x + s, y, 0.5), (x + s, y + s, 0.5),
+                           (x, y + s, 0.5))
+            cells += [[a, bb, c], [a, c, d]]
+    tris = np.asarray(cells + cells, np.float32)
+    red = b.add_material(albedo=(0.8, 0.2, 0.2), roughness=0.6)
+    green = b.add_material(albedo=(0.2, 0.8, 0.2), roughness=0.6)
+    mats = np.repeat(np.asarray([red] * len(cells) + [green] * len(cells),
+                                np.int32), 3)
+    b.set_mesh(tris.reshape(-1, 3), mats)
+    return b, cp
+
+
+def edge_rays(A, u, v, eye, n, seed):
+    """(n, 6) float32 rays (o.xyz d.xyz) at a brute mesh's triangles A, A +
+    u, A + v ((T, 3) float64 each; not at a degenerate one): aimed at a
+    vertex, an edge's midpoint or a random point of an edge, a third from
+    ``eye`` (the camera), a third from a shell of radius 2 to 8 about the
+    mesh, a third grazing the triangle's plane (along or across the edge,
+    a normal component of 0 to 1e-3) from 2, 20 or 200 units away."""
+    rng = np.random.RandomState(seed)
+    B, C = A + u, A + v
+    area = np.linalg.norm(np.cross(u, v), axis=1)
+    pick = rng.choice(np.nonzero(area > 1e-12)[0], n)
+    e = rng.randint(0, 3, n)
+    corners = np.stack([A, B, C], 1)[pick]
+    p0 = corners[np.arange(n), e]
+    p1 = corners[np.arange(n), (e + 1) % 3]
+    at = rng.choice([0.0, 0.5, -1.0], n)
+    at = np.where(at < 0.0, rng.rand(n), at)[:, None]
+    target = p0 + at * (p1 - p0)
+    nrm = np.cross(u[pick], v[pick])
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-30)
+    edge = p1 - p0
+    across = np.cross(nrm, edge)
+    along = np.where((rng.rand(n) < 0.5)[:, None], edge, across)
+    along /= np.maximum(np.linalg.norm(along, axis=1, keepdims=True), 1e-30)
+    graze = along + nrm * rng.choice([0.0, 1e-5, 1e-3], (n, 1))
+    graze /= np.linalg.norm(graze, axis=1, keepdims=True)
+    center = (A + B + C).reshape(-1, 3).mean(0) / 3.0
+    shell = rng.randn(n, 3)
+    shell *= rng.uniform(2.0, 8.0, (n, 1)) / np.linalg.norm(shell, axis=1,
+                                                            keepdims=True)
+    which = rng.randint(0, 3, n)[:, None]
+    o = np.where(which == 0, np.asarray(eye, np.float64),
+                 np.where(which == 1, center + shell,
+                          target - graze * rng.choice([2.0, 20.0, 200.0],
+                                                      (n, 1))))
+    d = target - o
+    d /= np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-30)
+    return np.concatenate([o, d], 1).astype(np.float32)
 
 
 def tie_builder(tree=None):
@@ -1175,7 +1365,8 @@ def render_counts(scene, cam, cfg, n_samples, dev, tiles=False):
     bumped hits (K11), mesh-UV fetches and combined-set fetches (K9); with
     sphere clusters the clustered walk's slab and sphere tests
     (cluster_tally), with a mesh tier the mesh walk's box tests, triangle
-    tests and wins (mesh_tally, bvh_tally); and the replay of the feature
+    tests and wins (mesh_tally, bvh_tally), with a brute mesh K4t's walk's
+    box and triangle tests (brute_tally); and the replay of the feature
     bounce's warp-branch issue in place and regrouped (issue_tally) over
     the kernel's warp map (8x4 tiles with ``tiles``, else scanlines), each
     iteration of the plain loop taken as one of the kernel's regen loop (a
@@ -1194,7 +1385,8 @@ def render_counts(scene, cam, cfg, n_samples, dev, tiles=False):
     tally = dict.fromkeys(FEATURE_KEYS + ("slabs", "spheres", "bvh_slabs",
                                           "bvh_spheres", "boxes", "tris",
                                           "wins", "bvh_boxes", "bvh_tris",
-                                          "table_rays") + REPLAY_KEYS, 0)
+                                          "table_rays", "brute_boxes",
+                                          "brute_tris") + REPLAY_KEYS, 0)
     lanes, n_threads = regroup.kernel_lanes(cfg.width, cfg.height, tiles, dev)
     live = {}
     primary, draw, shade = (wavefront._primary_rays, prng.bounce_uniforms,
@@ -1216,6 +1408,8 @@ def render_counts(scene, cam, cfg, n_samples, dev, tiles=False):
                 cluster_tally(sc, o, d, live["mask"], tally)
             if cb.meshed(sc):
                 mesh_tally(sc, o, d, live["mask"], tally)
+            if sc.tri_brute:
+                brute_tally(sc, o, d, live["mask"], tally)
             return walks[name](sc, o, d)
         return walk
 
@@ -1263,44 +1457,40 @@ def load_package(root: Path, name: str):
 
 # --parent's rows: (case, thin lens, schedule); "wN" is world N ("w7": its
 # 1472-triangle UV sphere; "w2", "w4": the clustered spheres), "triN" world
-# 5's ground with tessellated_sphere(N) (the static tier at 784, the
-# streamed tier without UVs from 2048 triangles to the DMA tier's 262,144),
-# "uv736" world 5's ground with MESH_CASES' 736-triangle UV sphere (the
-# static tier with UVs), each + " fog" in the CLI's fog, a MIXED_CASES
-# name that mixed case, and a feature scene's name (FEATURE_CASES) that
-# scene
-PARENT_ROWS = (("w7", False, None), ("w7", True, None), ("w7", False, "regen"),
-               ("w7 fog", False, None), ("w7 fog", True, None),
-               ("w7 fog", False, "regen"), ("tri19600", False, None),
-               ("tri262144", False, None), ("w2", False, None),
-               ("w4", True, None), ("w2 fog", False, None),
-               ("w4 fog", True, None), ("clustered+textured", False, None),
-               ("clustered+mesh", False, None),
-               ("clustered+meshplain", False, None),
-               ("clustered+textured+meshplain dma", False, None),
-               ("tri784", False, None), ("tri784", True, None),
-               ("tri784", False, "regen"), ("uv736", False, None),
-               ("uv736", True, None), ("tri784 fog", False, None),
-               ("tri784 fog", True, None), ("uv736 fog", False, None),
-               ("uv736 fog", True, None), ("textured+staticplain", False, None),
-               ("clustered+static", False, None),
-               ("clustered+staticplain", False, None),
-               ("clustered+textured+staticplain", False, None),
+# 5's ground with MESH_CASES' mesh of that tag (40: K4t's, 784: the static
+# tier), each + " fog" in the CLI's fog, a MIXED_CASES name that mixed case,
+# and a feature scene's name (FEATURE_CASES) that scene: K4t's rows (the
+# 40-triangle sphere through both cameras, under lockstep and in fog, the
+# everything scene, the combined set with that mesh alone and beside
+# clusters), the feature variants' rows without triangles, and a row of
+# each other walk
+PARENT_ROWS = (("tri40", False, None), ("tri40", True, None),
+               ("tri40", False, "lockstep"), ("tri40 fog", False, None),
+               ("tri40 fog", True, None), ("everything", False, None),
+               ("everything", True, None), ("textured+brute", False, None),
+               ("clustered+textured+brute", False, None),
                ("w6 fog", False, None), ("w3 fog", True, None),
-               ("everything", False, None))
+               ("w6 fog", False, "lockstep"), ("fog", False, None),
+               ("tbn", False, None), ("bump", False, None),
+               ("dispersion", False, None), ("w1 fog", False, None),
+               ("w1 fog", True, None), ("w1 fog", False, "regen"),
+               ("w2 fog", False, None), ("w4 fog", True, None),
+               ("clustered+textured", False, None), ("w3", False, None),
+               ("w7", False, None), ("w7 fog", False, None),
+               ("tri784", False, None), ("w2", False, None))
 
 
 def parent_turns(parent: Path, smi: str):
     """``--parent DIR``: the kernel of another checkout of this repository
     at DIR (the parent commit, unpacked with git archive) against this
     one's, in one process: both built at once, with ptxas's registers and
-    spills of each variant under each build; the host seconds of
-    ``WorldBuilder.finalize`` on world 5's ground with the 262,144- and
-    the 1,048,576-triangle sphere under each (the parent's is the
-    table-order tables' alone); the kernel ms of each PARENT_ROWS row at
-    1280x720, 4 spp, after a warm launch each, in turns (parent, this,
-    this, parent, this, parent, parent, this: each first in one half); and
-    this one's static tier with leaves of at most 4 against 8 in turns."""
+    spills of each variant under each build and their resident blocks per
+    SM; the kernel ms of each PARENT_ROWS row at 1280x720, 4 spp, after a
+    warm launch each, in turns (parent, this, this, parent, this, parent,
+    parent, this: each first in one half); this one's K4t on the
+    everything scene's one triangle swept and walked; the parent's against
+    itself on three rows (the turns' noise); and this one's K4t with leaves
+    of at most 4, 8 and 12 each against clusters.BRUTE_LEAF's in turns."""
     import importlib
     import torch
     dev = torch.device("cuda:0")
@@ -1317,37 +1507,32 @@ def parent_turns(parent: Path, smi: str):
         secs = dict(zip(trees, pool.map(build, trees.values())))
     print(f"parent build_s={json.dumps(secs)}")
     for k, tree in trees.items():
+        cbk = tree("render.cuda_backend")
         print(f"parent ptxas tree={k} " + json.dumps(
-            ptxas_report(tree("render.cuda_backend").BUILD_LOG)))
+            ptxas_report(cbk.BUILD_LOG)))
+        print(f"parent occupancy [blocks per SM, static shared bytes, "
+              f"registers] tree={k} " + json.dumps(
+                  occupancy_report(cbk.build())))
 
-    def mesh_builder(tree, n):
-        """World 5's ground with tessellated_sphere(n), or with n "uv736"
-        MESH_CASES' UV sphere and world 7's checker."""
+    def mesh_builder(tree, tag):
+        """World 5's ground with MESH_CASES' mesh of ``tag`` (its UV sphere
+        wearing world 7's checker)."""
         worlds, schema = tree("scene.worlds"), tree("scene.schema")
         b, cp = worlds.build_world(schema.WORLD_MARIO,
                                    res_dir=str(ROOT / "no asset here"))
-        if n == "uv736":
-            pts, uvs = worlds._uv_sphere_mesh(
-                (0.0, 0.0, 1.4), 1.4, n_seg=MESH_CASES[n][1][0],
-                n_ring=MESH_CASES[n][1][1])
+        gen, seg = MESH_CASES[tag]
+        if seg is not None:
+            pts, uvs = worlds._uv_sphere_mesh((0.0, 0.0, 1.4), 1.4,
+                                              n_seg=seg[0], n_ring=seg[1])
             m = b.add_material(
                 albedo=(1.0, 1.0, 1.0), roughness=0.55,
                 albedo_idx=b.add_texture(worlds._mesh_uv_demo_texture()))
             b.set_mesh(pts, np.full((len(pts),), m, np.int32), uvs=uvs)
             return b, cp, schema.WORLD_MARIO
         m = b.add_material(albedo=(0.7, 0.6, 0.5), roughness=0.6)
-        tris = tessellated_sphere(n)
+        tris = gen()
         b.set_mesh(tris.reshape(-1, 3), np.full((3 * len(tris),), m, np.int32))
         return b, cp, schema.WORLD_MARIO
-
-    for n in (262144, 1 << 20):
-        for k in ("parent", "this"):
-            b, cp, kind = mesh_builder(trees[k], n)
-            t = time.perf_counter()
-            scene = b.finalize(world_kind=kind, view_origin=cp.pos)
-            print(f"parent finalize tree={k} n_tris={scene.n_tris} "
-                  f"dma={scene.tri_dma} finalize_s={time.perf_counter() - t}")
-            del b, scene
 
     def case(tree, tag, lens, w, h):
         """(scene on the card, camera, RenderConfig options) of a row's
@@ -1368,8 +1553,7 @@ def parent_turns(parent: Path, smi: str):
         if tag in MIXED_CASES:
             b, cp, kind = mixed_builder(tag, tree)
         else:
-            b, cp, kind = mesh_builder(
-                tree, name if name == "uv736" else int(name[3:]))
+            b, cp, kind = mesh_builder(tree, name)
         scene = b.finalize(world_kind=kind, view_origin=cp.pos)
         if tag.endswith(" fog"):
             scene = dataclasses.replace(scene, **FOG)
@@ -1394,17 +1578,20 @@ def parent_turns(parent: Path, smi: str):
     def in_turns(runs):
         """The ms and rays of two launchers' launches in turns (first,
         second, second, first, second, first, first, second), with their
-        medians."""
+        medians; one launch of the first before them is timed and dropped
+        (the first timed launch after the scenes' set-up runs faster than
+        the rest on the H100, whichever build it is)."""
         one, two = runs
         res, rays = {k: [] for k in runs}, {}
-        for k in (one, two, two, one, two, one, one, two):
+        for j, k in enumerate((one, one, two, two, one, two, one, one, two)):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
             st = runs[k][0]()
             b.record()
             torch.cuda.synchronize()
-            res[k].append(a.elapsed_time(b))
+            if j:
+                res[k].append(a.elapsed_time(b))
             rays[k] = int(st.rays_cast)
         return res, rays, {k: float(np.median(v)) for k, v in res.items()}
 
@@ -1421,22 +1608,49 @@ def parent_turns(parent: Path, smi: str):
               f"rays_parent={rays['parent']} rays_this={rays['this']} "
               f"| card: {smi}")
 
-    # this tree's static tier with leaves of at most 4 against 8
-    # (clusters.STATIC_LEAF), the same kernel
+    # this tree's K4t on the everything scene's one triangle swept from
+    # its record (clusters.BRUTE_SWEEP_MAX) against walked (0)
     clusters = trees["this"]("scene.clusters")
-    kept = clusters.STATIC_LEAF
-    for tag, lens in (("tri784", False), ("tri784", True), ("uv736", False),
-                      ("uv736", True), ("tri784 fog", False),
-                      ("uv736 fog", True)):
+    kept = clusters.BRUTE_SWEEP_MAX
+    for lens in (False, True):
         runs = {}
-        for leaf in (4, 8):
-            clusters.STATIC_LEAF = leaf
-            runs[leaf] = launcher(trees["this"], tag, lens, None)
-        clusters.STATIC_LEAF = kept
+        for sweep in (kept, 0):
+            clusters.BRUTE_SWEEP_MAX = sweep
+            runs[sweep] = launcher(trees["this"], "everything", lens, None)
+        clusters.BRUTE_SWEEP_MAX = kept
         res, _, med = in_turns(runs)
-        print(f"parent static_leaf case={tag!r} lens={lens} "
-              f"variant={runs[8][1]} leaf4_ms={res[4]} leaf8_ms={res[8]} "
-              f"leaf8_over_leaf4={med[8] / med[4]} | card: {smi}")
+        print(f"parent brute_sweep case='everything' lens={lens} "
+              f"swept_ms={res[kept]} walked_ms={res[0]} "
+              f"walked_over_swept={med[0] / med[kept]} | card: {smi}")
+
+    # the noise of the turns: the parent's kernel against itself
+    for tag, lens in (("w6 fog", False), ("everything", False),
+                      ("tri40", False)):
+        runs = {k: launcher(trees["parent"], tag, lens, None)
+                for k in ("parent", "parent_again")}
+        res, _, med = in_turns(runs)
+        print(f"parent control case={tag!r} lens={lens} "
+              f"parent_ms={res['parent']} again_ms={res['parent_again']} "
+              f"again_over_parent={med['parent_again'] / med['parent']} "
+              f"| card: {smi}")
+
+    # this tree's K4t with leaves of at most 4, 8 and 12, each against
+    # clusters.BRUTE_LEAF's, the same kernel
+    kept = clusters.BRUTE_LEAF
+    for tag, lens in (("tri40", False), ("tri40", True), ("tri40 fog", False),
+                      ("everything", False), ("textured+brute", False)):
+        for other in (x for x in (4, 8, 12) if x != kept):
+            runs = {}
+            for leaf in (kept, other):
+                clusters.BRUTE_LEAF = leaf
+                runs[leaf] = launcher(trees["this"], tag, lens, None)
+            clusters.BRUTE_LEAF = kept
+            res, _, med = in_turns(runs)
+            print(f"parent brute_leaf case={tag!r} lens={lens} "
+                  f"variant={runs[kept][1]} leaf{kept}_ms={res[kept]} "
+                  f"leaf{other}_ms={res[other]} "
+                  f"leaf{other}_over_leaf{kept}={med[other] / med[kept]} "
+                  f"| card: {smi}")
 
 
 def main() -> int:
@@ -1581,10 +1795,17 @@ def main() -> int:
         case> fog", "w1 glass" (world 1's combined-set material as
         dispersive glass), "w2 glass" (every seventh sphere of world 2),
         "w2 maps" and "tri784 maps" (planar albedo and bump maps on the
-        ground plane: sphere clusters, the static tier), or "w1 planar"
-        (planar_world1: three planar 512x512 maps on world 1)."""
+        ground plane: sphere clusters, the static tier), "w1 planar"
+        (planar_world1: three planar 512x512 maps on world 1), a mesh case
+        (MESH_CASES: the 40-triangle one is a brute mesh, K4t) or a mixed
+        case (MIXED_CASES: "textured+brute" and "clustered+brute" put that
+        mesh beside the combined set or sphere clusters)."""
         if tag == "w1 planar":
             return planar_world1(w, h)
+        if tag in MESH_CASES:
+            return mesh_case(tag, w, h, lens)
+        if tag in MIXED_CASES:
+            return mixed_case(tag, w, h, lens)
         name, what = tag.split(" ")
         if what == "fog" and name in MESH_CASES:
             scene, cam = mesh_case(name, w, h, lens)
@@ -1669,14 +1890,19 @@ def main() -> int:
     check(sorted(KEPT_PTXAS) == sorted(
               v for v in cb.VARIANTS if not feature_bounce(v))
           and sorted(FEATURE_EARLIER_PTXAS) == sorted(
-              v for v in cb.VARIANTS if feature_bounce(v)),
+              v for v in cb.VARIANTS
+              if feature_bounce(v) and v not in cb.K4T_VARIANTS)
+          and sorted(cb.K4T_VARIANTS) == sorted(
+              v + cb.K4T_SUFFIX for v in K4T_BASES),
           "KEPT_PTXAS names every variant without the feature bounce, "
-          "FEATURE_EARLIER_PTXAS every one with it")
+          "FEATURE_EARLIER_PTXAS every other one but the K4t forms, "
+          "K4T_BASES the K4t forms' bases")
     now = {v: (r["registers"], r["spill_stores"]) for v, r in ptxas.items()}
     flat = {v: (r["registers"], r["spill_stores"])
             for v, r in flat_ptxas.items()}
     kept = {v: now[v] == rs for v, rs in KEPT_PTXAS.items()}
-    flat_kept = {v: flat[v] == rs for v, rs in FEATURE_EARLIER_PTXAS.items()}
+    flat_kept = {v: flat[v] == rs for v, rs in FEATURE_EARLIER_PTXAS.items()
+                 if not k4t_changed(v)}
     regrouped = sorted(v for v, r in ptxas.items() if r["regrouped"])
     print(f"phase2 build_s={build_s:.3f} nvcc_s={cb.BUILD_SECONDS} "
           f"no_regroup_build_s={flat_s} ptxas={json.dumps(ptxas)}")
@@ -1687,21 +1913,43 @@ def main() -> int:
     check(not any(r["regrouped"] for r in flat_ptxas.values())
           and all(feature_bounce(v) for v in regrouped),
           "only feature variants regroup, and none in the yardstick")
-    print(f"phase2 feature variants: (registers, spill stores) of this build, "
-          f"of the -DWAVE_NO_REGROUP yardstick and of the parent "
-          f"(FEATURE_EARLIER_PTXAS) " + json.dumps(
-              {v: {"now": now[v], "no_regroup": flat[v], "earlier": rs,
-                   "regrouped": v in regrouped}
-               for v, rs in FEATURE_EARLIER_PTXAS.items()}))
-    print(f"phase2 regrouped={json.dumps(regrouped)} "
-          f"yardstick_kept_earlier={all(flat_kept.values())} "
-          f"{json.dumps({v: k for v, k in flat_kept.items() if not k})}")
-    check(all(flat_kept.values()), "the yardstick's feature variants kept "
-          "the parent's registers and spills")
     # resident blocks of 128 threads per SM, static shared bytes, registers
     occ, flat_occ = occupancy_report(tile_lib), occupancy_report(flat_lib)
     check(sorted(occ) == sorted(cb.VARIANTS) == sorted(flat_occ),
           "an occupancy for every variant")
+    print(f"phase2 feature variants: (registers, spill stores) of this build "
+          f"and of the parent's (PARENT_FEATURE_PTXAS), resident blocks per "
+          f"SM of both (PARENT_FEATURE_BLOCKS), and (registers, spill "
+          f"stores) of the -DWAVE_NO_REGROUP yardstick and of the parent's "
+          f"yardstick (FEATURE_EARLIER_PTXAS); k4t_changed: a variant "
+          f"without a mesh tier, whose K4t form is its own (the parent's "
+          f"base variant carried the sweep) " + json.dumps(
+              {v: {"now": now[v], "parent": PARENT_FEATURE_PTXAS[v],
+                   "blocks": occ[v][0], "parent_blocks":
+                   PARENT_FEATURE_BLOCKS[v], "no_regroup": flat[v],
+                   "no_regroup_parent": rs, "regrouped": v in regrouped,
+                   "k4t_changed": k4t_changed(v)}
+               for v, rs in FEATURE_EARLIER_PTXAS.items()}))
+    print(f"phase2 K4t forms: (registers, spill stores) and blocks per SM "
+          f"of this build and its -DWAVE_NO_REGROUP yardstick, beside the "
+          f"parent's base variant's (which carried the sweep) " + json.dumps(
+              {v: {"now": now[v], "blocks": occ[v][0], "no_regroup": flat[v],
+                   "parent_base": PARENT_FEATURE_PTXAS[v.removesuffix(
+                       cb.K4T_SUFFIX)], "parent_base_blocks":
+                   PARENT_FEATURE_BLOCKS[v.removesuffix(cb.K4T_SUFFIX)],
+                   "regrouped": v in regrouped} for v in cb.K4T_VARIANTS}))
+    feat_kept = {v: now[v] == PARENT_FEATURE_PTXAS[v]
+                 and occ[v][0] == PARENT_FEATURE_BLOCKS[v]
+                 for v in PARENT_FEATURE_PTXAS}
+    print(f"phase2 feature variants kept the parent's registers, spills and "
+          f"blocks: {json.dumps(feat_kept)} "
+          f"unchanged_code_all_kept="
+          f"{all(k for v, k in feat_kept.items() if not k4t_changed(v))}")
+    print(f"phase2 regrouped={json.dumps(regrouped)} "
+          f"yardstick_kept_earlier={all(flat_kept.values())} "
+          f"{json.dumps({v: k for v, k in flat_kept.items() if not k})}")
+    check(all(flat_kept.values()), "the yardstick's feature variants without "
+          "K4t's code kept the parent's registers and spills")
     print("phase2 blocks_per_sm (this build, -DWAVE_NO_REGROUP): "
           + json.dumps({v: [occ[v][0], flat_occ[v][0]] for v in cb.VARIANTS}))
     print("phase2 occupancy [blocks per SM, static shared bytes, registers] "
@@ -1869,7 +2117,12 @@ def main() -> int:
         ("w7 fog", True, None), ("w7 fog", False, MOTHER),
         *((f"{t} fog", ln, None) for t in MESH_CASES for ln in (False, True)),
         ("tri784 maps", False, None), ("w6 fog", False, FOTHER),
-        ("w1 planar", False, FOTHER))
+        ("w1 planar", False, FOTHER),
+        # K4t's forms on the other bases and schedules
+        ("clustered+brute", False, None), ("clustered+brute", True, None),
+        ("textured+brute", False, None), ("textured+brute", True, None),
+        ("textured+brute", False, OTHER),
+        ("tri40 fog", False, FOTHER))
     feat_vars = set()
     for tag, lens, sched in base_cases:
         for w, h in ((256, 144), (1280, 720)):
@@ -1917,6 +2170,46 @@ def main() -> int:
              define_camera(cp.pos, cp.target, cp.fov, tw, th,
                            use_pinhole=not lens),
              RenderConfig(tw, th, pp=2, seed=0), 4)
+
+    # K4t's walk: its exact ties (brute_tie_builder) through both cameras,
+    # then the kernel's intersect (cuda_backend.intersect_probe_cuda)
+    # against the plain sweep on the same rays aimed at the meshes' edges
+    # and vertices (edge_rays): t, material, normal and uv bit-equal
+    b, cp = brute_tie_builder()
+    btie = b.finalize(world_kind=W5, view_origin=cp.pos).to(dev)
+    check(btie.tri_brute and btie.n_tris == 64, "the tie mesh is brute")
+    for (tw, th), lens in (((256, 144), False), ((60, 34), True)):
+        held(f"brute ties n_tris={btie.n_tris} lens={lens}", btie,
+             define_camera(cp.pos, cp.target, cp.fov, tw, th,
+                           use_pinhole=not lens),
+             RenderConfig(tw, th, pp=2, seed=0), 4)
+    from pathtracer_tpu_torch.ops import intersect as tint
+    from pathtracer_tpu_torch.utils.vec import Vec3
+    probe = {}
+    for tag, pscene, eye in (
+            ("tri40", mesh_case("tri40", 16, 16)[0], mesh_built["tri40"][1].pos),
+            ("brute ties", btie, cp.pos),
+            ("everything", feature("everything", 16, 16)[0],
+             FEATURE_CASES["everything"]()[1][0])):
+        nt = pscene.n_tris
+        A, u, v = (np.stack([c[:nt].cpu().numpy() for c in t], 1)
+                   .astype(np.float64)
+                   for t in (pscene.tri_a, pscene.tri_u, pscene.tri_v))
+        rays = torch.from_numpy(edge_rays(A, u, v, eye, 16384, 5)).to(dev)
+        kt, km, kn, ku, kv, kok = cb.intersect_probe_cuda(pscene, rays)
+        pt, pm, pn, pu, pv, pok = cb.intersect_probe_plain(pscene, rays)
+        bits = lambda x: x.contiguous().view(torch.int32)
+        same = ((bits(kt) == bits(pt)) & (km == pm)
+                & (bits(kn) == bits(pn)).all(1) & (bits(ku) == bits(pu))
+                & (bits(kv) == bits(pv)) & (kok == pok))
+        ro, rd = Vec3(*rays[:, 0:3].T), Vec3(*rays[:, 3:6].T)
+        tri_won = int((pt < tint._non_triangles(pscene, ro, rd).t).sum())
+        probe[tag] = bool(same.all())
+        print(f"phase3 k4t_probe case={tag!r} n_tris={nt} rays={len(rays)} "
+              f"triangle_winners={tri_won} bit_equal={int(same.sum())} "
+              f"differing={int((~same).sum())}")
+    check(all(probe.values()), "K4t's walk bit-equal to the plain sweep on "
+          "rays aimed at the meshes' edges and vertices")
 
     print(f"phase3 mixed_start_s={time.perf_counter() - t_start}")
     # the mixed bases: each case against its plain version at 256x144
@@ -2084,16 +2377,17 @@ def main() -> int:
     for fname in FEATURE_CASES:
         scene, (pos, target, fov), cfg_kw = FEATURE_CASES[fname]()
         cam = define_camera(pos, target, fov, w, h)
+        fvar = cb.variant(scene, cam)
         reset_counts()
         img, _, state = render_image(scene, cam, RenderConfig(
             w, h, pp=4, seed=0, **cfg_kw), device="cuda")
         sync()
-        read_counts("feature_pinhole", f"the {fname} scene's")
-        path_launches[fname] = cb.VARIANT_LAUNCHES["feature_pinhole"]
+        read_counts(fvar, f"the {fname} scene's")
+        path_launches[fname] = cb.VARIANT_LAUNCHES[fvar]
         img = img.cpu().numpy()
         check(img.shape == (h, w, 3) and bool(np.isfinite(img).all())
               and float(img.max()) > 0.0, f"finite, non-black {fname} image")
-        print(f"phase4g scene={fname} variant=feature_pinhole "
+        print(f"phase4g scene={fname} variant={fvar} "
               f"launches={path_launches[fname]} spp=16 options={cfg_kw} "
               f"mean={float(img.mean())} max={float(img.max())} "
               f"rays={int(state.rays_cast)} nan={int(state.nan_count)}")
@@ -2171,14 +2465,19 @@ def main() -> int:
               f"bytes={bmp.stat().st_size}")
 
     # k. render_image on every other new variant's case, 4 spp: the thin
-    # lens and the yardstick schedules of worlds 1, 7 and 6 in fog, and the
-    # mesh cases in fog through both cameras
+    # lens and the yardstick schedules of worlds 1, 7 and 6 in fog, the
+    # mesh cases in fog through both cameras, and K4t's forms on the other
+    # bases and schedules (the 40-triangle mesh beside sphere clusters and
+    # beside the combined set)
     for tag, lens, sched in (
             ("w1 fog", True, None), ("w1 fog", False, OTHER),
             ("w7 fog", True, None), ("w7 fog", False, MOTHER),
             ("w6 fog", False, FOTHER),
-            *((f"{t} fog", ln, None) for t in MESH_CASES if t != "tri40"
-              for ln in (False, True))):
+            *((f"{t} fog", ln, None) for t in MESH_CASES
+              for ln in (False, True)),
+            ("tri40 fog", False, FOTHER), ("clustered+brute", True, None),
+            ("textured+brute", True, None),
+            ("textured+brute", False, OTHER)):
         scene, cam = base_case(tag, w, h, lens)
         cfg = RenderConfig(w, h, pp=2, seed=0, schedule=sched)
         var = cb.variant(scene, cam, sched)
@@ -2195,8 +2494,7 @@ def main() -> int:
               f"nan={int(state.nan_count)}")
     print(f"phase4 mixed_start_s={time.perf_counter() - t_start}")
     # l. the mixed scenes through render_image, 4 spp in one chunk: one
-    # launch of each scene's own variant (feattextured_pinhole for the
-    # combined set with a brute mesh; its row keeps -w1 --fog's count)
+    # launch of each scene's own variant (K4t's forms for a brute mesh)
     for case in MIXED_CASES:
         scene, cam = mixed_case(case, w, h, cpu=True)
         var = cb.variant(scene, cam)
@@ -2207,7 +2505,7 @@ def main() -> int:
         sync()
         check(cb.VARIANT_LAUNCHES[var] == cb.LAUNCHES == 1,
               f"{case}: one launch of {var} for its one chunk")
-        if var in cb.MIXED_VARIANTS:
+        if var in cb.MIXED_VARIANTS or not launches[var]:
             launches[var] = cb.VARIANT_LAUNCHES[var]
         case_launches[(var, case)] = cb.VARIANT_LAUNCHES[var]
         img = img.cpu().numpy()
@@ -2254,8 +2552,9 @@ def main() -> int:
         build and the -DWAVE_NO_REGROUP yardstick, for another row of a BVH
         walk (the streamed walk, K7, the sphere clusters', K5, or the
         static tier's) this build and the scanline-warp yardstick, in turns
-        after a warm launch each (this, yardstick, yardstick, this,
-        yardstick, this, this, yardstick: each first in one half), the
+        after a warm launch each and a launch of this build whose time is
+        dropped (this, yardstick, yardstick, this, yardstick, this, this,
+        yardstick: each first in one half), the
         yardstick's times and whether its sums equal this build's given as
         text for the row's line; ``var``: the row's variant where the row
         is not named by it."""
@@ -2274,8 +2573,9 @@ def main() -> int:
                 cb._lib = libs[which]
                 cb.render_chunk_cuda(scene, cam, cfg, 0, 0, 4,
                                      init_accum(w * h, dev))
-            for which in ("this", other, other, "this", other, "this",
-                          "this", other):
+            # the first timed launch is dropped, as in_turns drops it
+            for j, which in enumerate(("this", "this", other, other, "this",
+                                       other, "this", "this", other)):
                 cb._lib = libs[which]
                 st = init_accum(w * h, dev)
                 a = torch.cuda.Event(enable_timing=True)
@@ -2284,7 +2584,8 @@ def main() -> int:
                 cb.render_chunk_cuda(scene, cam, cfg, 0, 0, 4, st)
                 b.record()
                 sync()
-                res[which].append(a.elapsed_time(b))
+                if j:
+                    res[which].append(a.elapsed_time(b))
                 sums[which] = st
         finally:
             cb._lib = tile_lib
@@ -2337,11 +2638,9 @@ def main() -> int:
                 "fetch_height3 in wave_kernel<feature_pinhole>",
                 "pathtracer_tpu/ops/texture.py:461"),
         "K4t UV": ("everything", False,
-                   "ray_triangle_uv sweep in wave_kernel<feature_pinhole>",
+                   "wave_kernel<feature_pinhole_k4t> everything",
                    "pathtracer_tpu/ops/intersect.py:1261"),
-        "K4t plain": ("tri40", False,
-                      "ray_triangle_uv sweep without uv in "
-                      "wave_kernel<feature_pinhole>",
+        "K4t plain": ("tri40", False, "wave_kernel<feature_pinhole_k4t>",
                       "pathtracer_tpu/ops/intersect.py:1172"),
         "transmission": ("dispersion", False, None, None),
         "large planar stack": ("w1 planar", False, None, None),
@@ -2397,14 +2696,26 @@ def main() -> int:
            for c in ("pinhole", "lens")},
         f"feature_pinhole_{FOTHER}": ("w6 fog", False, FOTHER,
                                       "render/pallas_backend.py:306"),
+        # K4t's forms on the other bases and schedules (the 40-triangle
+        # mesh alone, beside sphere clusters, beside the combined set)
+        "feature_lens_k4t": ("tri40", True, None, "ops/intersect.py:1172"),
+        f"feature_pinhole_{FOTHER}_k4t": ("tri40", False, FOTHER,
+                                          "ops/intersect.py:1172"),
+        **{f"feat{base}_{c}_k4t": (f"{base}+brute", c == "lens", None,
+                                   "ops/intersect.py:1172")
+           for base in ("clustered", "textured") for c in ("pinhole", "lens")},
+        f"feattextured_pinhole_{OTHER}_k4t": ("textured+brute", False, OTHER,
+                                              "ops/intersect.py:1172"),
     }
-    # the mixed rows: each variant on its case, and the DMA tier's cases
+    # the mixed rows: each variant on its case, the DMA tier's cases, and
+    # the mixed base with a brute mesh (K4t's form)
     mixed_rows = (*cb.MIXED_VARIANTS,
-                  *(c for c in MIXED_CASES if c.endswith(" dma")))
+                  *(c for c in MIXED_CASES if c.endswith(" dma")),
+                  "clustered+textured+brute")
     check(sorted({r.split(" ")[0] for r in (
-        *main_worlds, "feature_pinhole", "feature_lens", *tier_rows,
-        *new_rows, *mixed_rows)}) == sorted(cb.VARIANTS),
-        "every variant timed")
+        *main_worlds, "feature_pinhole", "feature_lens", "feature_pinhole_k4t",
+        *tier_rows, *new_rows, *map(mixed_variant, mixed_rows))})
+        == sorted(cb.VARIANTS), "every variant timed")
     timed = {}
     for var, (kind, lens, schedule) in main_worlds.items():
         scene, cam = world(kind, w, h, lens)
@@ -2427,7 +2738,7 @@ def main() -> int:
         ftimed[row] = dict(ms=float(np.median(ks)), rays=rays, scene=scene,
                            cam=cam, cfg_kw=cfg_kw, plain_ms=1e3 * ps)
         print(f"phase5 row={row!r} case={tag!r} "
-              f"variant={cb.variant(scene, cam)} 720p spp=4 "
+              f"variant={cb.variant(scene, cam)} 720p spp=4 {earlier(row)}"
               f"kernel_ms={sorted(ks)} {turn_txt}rays={rays} kernel_mrays_s="
               f"{rays / np.median(ks) / 1e3} plain_ms={1e3 * ps} "
               f"plain_rays={prays} plain_mrays_s={prays / ps / 1e6} "
@@ -2471,7 +2782,7 @@ def main() -> int:
     mtimed = {}
     for row in mixed_rows:
         scene, cam = mixed_case(row, w, h)
-        ks, rays, warp_txt = row_ms(row, scene, cam)
+        ks, rays, warp_txt = row_ms(row, scene, cam, cb.variant(scene, cam))
         ps, prays = plain_s(scene, cam, 2)
         mtimed[row] = dict(ms=float(np.median(ks)), rays=rays, scene=scene,
                            cam=cam, plain_ms=1e3 * ps)
@@ -2704,10 +3015,11 @@ def main() -> int:
         rays = tm["rays"]
         check(abs(fc["rays"] - rays) <= 0.005 * rays,
               f"{row}: counted {fc['rays']} rays, the kernel cast {rays}")
-        n_tris = scene.n_tris if scene.tri_brute else 0
+        k4t = (brute_terms(scene, tally["brute_boxes"] / rays,
+                           tally["brute_tris"] / rays)
+               if scene.tri_brute else None)
         isect_ops = (scene.n_spheres * OPS_SPHERE + scene.n_quads * OPS_QUAD
-                     + scene.n_planes * OPS_PLANE + n_tris * OPS_TRI_BRUTE
-                     + OPS_RESOLVE + OPS_EMIT
+                     + scene.n_planes * OPS_PLANE + OPS_RESOLVE + OPS_EMIT
                      + (OPS_FOG_FLIGHT if scene.fog_sigma_t > 0.0 else 0))
         samples = w * h * 4
         ops = (samples * OPS_PRIMARY["lens" if lens else "pinhole"]
@@ -2717,12 +3029,17 @@ def main() -> int:
                + fc["planar"] * OPS_PLANAR + fc["planar_x"] * OPS_PLANAR_X
                + fc["bump"] * OPS_BUMP + fc["uv_fetch"] * OPS_STACK)
         nbytes = w * h * BYTES_PER_PIXEL + 4 * (
-            scene.tex_packed.numel() if scene.n_textures else 0) + 4 * 16 * n_tris
-        bound_ms, bound_by = bound(ops, nbytes)
+            scene.tex_packed.numel() if scene.n_textures else 0)
+        bound_ms, bound_by, ops, nbytes, bound_old = row_bound(
+            ops, nbytes, rays, k4t)
         counts = " ".join(f"{k_}={v}" for k_, v in fc.items())
+        walk_txt = (f"n_tris={scene.n_tris} "
+                    f"k4t_box_tests_per_ray={tally['brute_boxes'] / rays} "
+                    f"k4t_tri_tests_per_ray={tally['brute_tris'] / rays} "
+                    f"bound_ms_table_order={bound_old} " if k4t else "")
         print(f"phase6 count_s={time.perf_counter() - t_row} "
               f"row={row!r} case={tag!r} variant={var} {counts} "
-              f"ops={ops:.6e} bytes={nbytes} bound_ms={bound_ms} "
+              f"{walk_txt}ops={ops:.6e} bytes={nbytes} bound_ms={bound_ms} "
               f"bound_share={bound_ms / tm['ms']} {issue_text(issue)} "
               f"| card: {smi}")
         if kname is None:
@@ -2739,6 +3056,8 @@ def main() -> int:
             "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes this
             **regroup_note(var, issue, regrouped),
+            **k4t_note(k4t, tally["brute_boxes"] / rays,
+                       tally["brute_tris"] / rays), **old_bound(bound_old),
         })
     for row, (tag, lens, sched, replaces) in tier_rows.items():
         t_row = time.perf_counter()
@@ -2833,12 +3152,17 @@ def main() -> int:
                             f"bvh_tri_tests_per_ray={bvh_tris} "
                             f"table_rays={table_rays}")
             else:
-                n_tris = scene.n_tris if scene.tri_brute else 0
-                base_ops = (scene.n_spheres * OPS_SPHERE
-                            + n_tris * OPS_TRI_BRUTE)
-            ncounts[(tag, lens, warp_tiles(var))] = (fc, issue, base_ops,
-                                                     base_txt, k7, sph)
-        fc, issue, base_ops, base_txt, k7, sph = ncounts[
+                base_ops = scene.n_spheres * OPS_SPHERE
+            k4t_tests = (per["brute_boxes"], per["brute_tris"])
+            k4t = (brute_terms(scene, *k4t_tests) if scene.tri_brute
+                   else None)
+            if k4t:
+                base_txt += (f" n_tris={scene.n_tris} k4t_box_tests_per_ray="
+                             f"{k4t_tests[0]} k4t_tri_tests_per_ray="
+                             f"{k4t_tests[1]}")
+            ncounts[(tag, lens, warp_tiles(var))] = (
+                fc, issue, base_ops, base_txt, k7, sph, k4t, k4t_tests)
+        fc, issue, base_ops, base_txt, k7, sph, k4t, k4t_tests = ncounts[
             (tag, lens, warp_tiles(var))]
         rays = tm["rays"]
         check(abs(fc["rays"] - rays) <= 0.005 * rays,
@@ -2857,7 +3181,7 @@ def main() -> int:
                   (scene.tex_packed,) if scene.n_textures else ())
         nbytes = w * h * BYTES_PER_PIXEL + 4 * sum(t.numel() for t in tables)
         bound_ms, bound_by, ops, nbytes, bound_old = row_bound(
-            ops, nbytes, rays, k7, sph)
+            ops, nbytes, rays, k7, sph, k4t)
         counts = " ".join(f"{k_}={v}" for k_, v in fc.items())
         print(f"phase6 count_s={time.perf_counter() - t_row} "
               f"variant={var} row={row!r} case={tag!r} {base_txt} "
@@ -2876,7 +3200,8 @@ def main() -> int:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes this
-            **bvh_note(var), **old_bound(bound_old), **regroup_note(var, issue, regrouped),
+            **bvh_note(var), **old_bound(bound_old),
+            **regroup_note(var, issue, regrouped), **k4t_note(k4t, *k4t_tests),
         })
     # the mixed bases: one pass counts the feature tallies and both walks
     print(f"phase6 mixed_start_s={time.perf_counter() - t_start}")
@@ -2890,8 +3215,10 @@ def main() -> int:
         rays = tm["rays"]
         check(abs(fc["rays"] - rays) <= 0.005 * rays,
               f"{var}: counted {fc['rays']} rays, the kernel cast {rays}")
-        n_tris = scene.n_tris if scene.tri_brute else 0
         k7 = sph = None
+        k4t = (brute_terms(scene, fc["brute_boxes"] / rays,
+                           fc["brute_tris"] / rays)
+               if scene.tri_brute else None)
         if scene.sph_clusters:
             sph = sphere_terms(scene, fc["slabs"] / rays, fc["spheres"] / rays,
                                fc["bvh_slabs"] / rays,
@@ -2899,7 +3226,6 @@ def main() -> int:
             walk_ops = 0.0
         else:
             walk_ops = rays * scene.n_spheres * OPS_SPHERE
-        walk_ops += rays * n_tris * OPS_TRI_BRUTE
         tables = (scene.tex_tile,) if cb.textured(scene) else ()
         if cb.meshed(scene):
             k7 = mesh_terms(scene, fc["boxes"] / rays, fc["tris"] / rays,
@@ -2920,7 +3246,7 @@ def main() -> int:
                + fc["tex_fetch"] * OPS_TEX)
         nbytes = w * h * BYTES_PER_PIXEL + 4 * sum(t.numel() for t in tables)
         bound_ms, bound_by, ops, nbytes, bound_old = row_bound(
-            ops, nbytes, rays, k7, sph)
+            ops, nbytes, rays, k7, sph, k4t)
         counts = " ".join(f"{k_}={v}" for k_, v in fc.items())
         print(f"phase6 count_s={time.perf_counter() - t_row} "
               f"variant={var} row={row!r} {counts} "
@@ -2937,7 +3263,9 @@ def main() -> int:
               f"| card: {smi}")
         mesh = MIXED_CASES[row][0]
         table.append({
-            "name": row_name(row), "route": "cuda",
+            # the variant, then the case's second word (" dma")
+            "name": row_name(" ".join([var, *row.split(" ")[1:]])),
+            "route": "cuda",
             "source": "pathtracer_tpu_torch/csrc/wave_kernel.cu",
             # K3's lockstep loop with the combined set; else the mesh walk
             "replaces": "pathtracer_tpu/" + (
@@ -2952,7 +3280,9 @@ def main() -> int:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes this
-            **bvh_note(var), **old_bound(bound_old), **regroup_note(var, issue, regrouped),
+            **bvh_note(var), **old_bound(bound_old),
+            **regroup_note(var, issue, regrouped),
+            **k4t_note(k4t, fc["brute_boxes"] / rays, fc["brute_tris"] / rays),
         })
     check(all(k_["launches"] > 0 for k_ in table), "every variant launched")
     check(sorted({k_["name"] for k_ in table if k_["name"].endswith(">")

@@ -45,7 +45,7 @@ from ..scene import clusters
 from ..scene.schema import (
     F32_MAX, MIN_HIT_DISTANCE, QUAD_MIN_HIT_DISTANCE, Scene, TOLERANCE,
 )
-from ..utils.vec import Vec3, cross, dot, normalize, where as vwhere
+from ..utils.vec import Vec3, cross, dot, gather, normalize, where as vwhere
 
 
 class Hit(NamedTuple):
@@ -560,13 +560,16 @@ def _with_w(rec: torch.Tensor) -> torch.Tensor:
 
 
 def _record_walk(scene: Scene, o: Vec3, d: Vec3, t_run, win, a_win, b_win,
-                 slots: int):
+                 slots: int, tests=None):
     """``bvh_walk`` over ``scene.bvh_nodes`` (:func:`_bvh_walk`), its
     winner state (t, record of ``bvh_tris`` or -1, alpha, beta) updated in
     place. A leaf's records (at most ``slots``) are tested with
-    ``row_test``'s expressions and taken when t is below the running t, or
+    ``row_test``'s expressions (or ``tests(records, o, d)``'s, which returns
+    (t, hit, alpha, beta)) and taken when t is below the running t, or
     equal to a triangle's t with a lower number (``bvh_tri_k``). Returns
     (box tests, triangle tests)."""
+    if tests is None:
+        tests = lambda rec, o_, d_: _record_tests(_with_w(rec), o_, d_)[2:]
     tris, tri_k = scene.bvh_tris, scene.bvh_tri_k.long()
     slot = torch.arange(slots, device=o.x.device)
     n_tri = 0
@@ -577,8 +580,7 @@ def _record_walk(scene: Scene, o: Vec3, d: Vec3, t_run, win, a_win, b_win,
         valid = slot < cnt[:, None]
         rid = torch.where(valid, first[:, None] + slot, 0)
         n_tri += int(cnt.sum())
-        _, _, t, hit, alpha, beta = _record_tests(_with_w(tris[rid]),
-                                                  pick(o, i), pick(d, i))
+        t, hit, alpha, beta = tests(tris[rid], pick(o, i), pick(d, i))
         ti, wi = t_run[i], win[i]
         kw = torch.where(wi >= 0, tri_k[wi.clamp_min(0)], -1)
         kr = tri_k[rid]
@@ -878,32 +880,113 @@ def _intersect_triangles_static_bvh(scene: Scene, o: Vec3, d: Vec3,
     return _resolve_static(scene, best, t_run, idx, a_win, b_win, want_uv)
 
 
-def _intersect_triangles_brute(scene: Scene, o: Vec3, d: Vec3, best: Hit,
-                               want_uv: bool):
-    """K4t's plain version (``intersect_triangles_brute``'s sweep,
-    intersect.py:1172-1216 in JAX; with UVs ``_intersect_triangles_brute_uv``,
-    :1261-1306): every triangle in table order with ``ray_planar_triangle``'s
-    expressions, taken strict-< with its unit normal normalize(cross(u, v))
-    and, with ``want_uv``, its uv ``u0 + alpha*du1 + beta*du2`` selected at
-    take. Returns (hit, uvx, uvy, took)."""
-    z = torch.zeros_like(o.x)
-    uvx, uvy = z, z
-    took = torch.zeros_like(o.x, dtype=torch.bool)
+def _brute_sweep_winners(scene: Scene, o: Vec3, d: Vec3, t0):
+    """K4t's sweep (``intersect_triangles_brute``, intersect.py:1172-1216 in
+    JAX; with UVs ``_intersect_triangles_brute_uv``, :1261-1306) for rays
+    whose nearest hit so far is ``t0``: every triangle in table order with
+    ``ray_planar_triangle_uv``'s expressions, taken strict-<. Returns (t,
+    the winner's table index or -1, its alpha, its beta)."""
+    t_run, win, a_win, b_win = _winner_state(t0)
     for i in range(scene.n_tris):
         A, u, v = (_row(t, i) for t in (scene.tri_a, scene.tri_u, scene.tri_v))
         t, hit, alpha, beta = ray_planar_triangle_uv(o, d, A, u, v)
-        take = hit & (t < best.t)
-        best = _take(best, take, t, scene.tri_mat[i],
-                     normalize(cross(u, v), eps=1e-30))
-        if want_uv:
-            uvx = torch.where(take, scene.tri_uv0u[i] + alpha
-                              * scene.tri_uvdu1[i] + beta
-                              * scene.tri_uvdu2[i], uvx)
-            uvy = torch.where(take, scene.tri_uv0v[i] + alpha
-                              * scene.tri_uvdv1[i] + beta
-                              * scene.tri_uvdv2[i], uvy)
-        took = took | take
+        take = hit & (t < t_run)
+        t_run = torch.where(take, t, t_run)
+        win = torch.where(take, i, win)
+        a_win = torch.where(take, alpha, a_win)
+        b_win = torch.where(take, beta, b_win)
+    return t_run, win, a_win, b_win
+
+
+def _intersect_triangles_brute(scene: Scene, o: Vec3, d: Vec3, best: Hit,
+                               want_uv: bool):
+    """K4t's plain version: the sweep (:func:`_brute_sweep_winners`), its
+    winner resolved (:func:`_resolve_brute`). Returns (hit, uvx, uvy,
+    took)."""
+    return _resolve_brute(scene, best, *_brute_sweep_winners(
+        scene, o, d, best.t), want_uv)
+
+
+def _resolve_brute(scene: Scene, best: Hit, t_run, win, alpha, beta,
+                   want_uv: bool):
+    """K4t's winner (its table index ``win`` or -1, at ``t_run``, with its
+    ``alpha`` and ``beta``) taking its unit normal normalize(cross(u, v)),
+    its material and, with ``want_uv``, its uv ``u0 + alpha*du1 +
+    beta*du2``: the values the JAX sweep selects at take, by the same
+    expressions on the same values. Returns (hit, uvx, uvy, took)."""
+    took = win >= 0
+    i = win.clamp_min(0)
+    u, v = gather(scene.tri_u, i), gather(scene.tri_v, i)
+    best = Hit(t_run, torch.where(took, scene.tri_mat[i], best.mat),
+               vwhere(took, normalize(cross(u, v), eps=1e-30), best.normal))
+    z = torch.zeros_like(t_run)
+    if not want_uv:
+        return best, z, z, took
+    uvx = torch.where(took, scene.tri_uv0u[i] + alpha * scene.tri_uvdu1[i]
+                      + beta * scene.tri_uvdu2[i], z)
+    uvy = torch.where(took, scene.tri_uv0v[i] + alpha * scene.tri_uvdv1[i]
+                      + beta * scene.tri_uvdv2[i], z)
     return best, uvx, uvy, took
+
+
+def _brute_tests(rec: torch.Tensor, o: Vec3, d: Vec3):
+    """K4t's test on precomputed records (``clusters.brute_records``, (...,
+    16)) for rays broadcast to their leading shape: the sweep's expressions
+    (``ray_planar_triangle_uv``) on the record's values of n_unit, d, w, A,
+    u and v. Returns (t, hit, alpha, beta)."""
+    col = lambda *k: Vec3(*(rec[..., j] for j in k))
+    t, valid = ray_plane(o, d, col(0, 1, 2), rec[..., 3])
+    q = o + d * t - col(8, 9, 10)
+    w, u, v = col(4, 5, 6), col(11, 12, 13), col(14, 15, 7)
+    alpha = dot(w, cross(q, v))
+    beta = dot(w, cross(u, q))
+    inside = (alpha >= 0.0) & (beta >= 0.0) & ((alpha + beta) <= 1.0)
+    return t, valid & inside & (t > MIN_HIT_DISTANCE), alpha, beta
+
+
+def _brute_bvh_winners(scene: Scene, o: Vec3, d: Vec3, t0, tally=None):
+    """The card's K4t walk (``brute_walk`` in csrc/wave_kernel.cu) step for
+    step, for rays whose nearest hit so far is ``t0``: the BVH over a brute
+    mesh (``clusters.build_brute_bvh``) walked near-first
+    (:func:`_record_walk`), a leaf's records tested with the sweep's
+    expressions (:func:`_brute_tests`) and taken when t is below the running
+    t, or equal to a triangle's with a lower table index (``bvh_tri_k``).
+    The winner is the least (t, index), which the sweep's strict-< carry in
+    table order finds (:func:`_brute_sweep_winners`), and a sphere, quad or
+    plane at an equal t keeps its hit. Returns (t, the winner's table index
+    or -1, its alpha, its beta); with ``tally`` the box tests and triangle
+    tests of the card's walk are added to its "boxes" and "tris". Used by
+    the tests and by chip_smoke.py's bound, never by a render. A mesh of at
+    most ``clusters.BRUTE_SWEEP_MAX`` triangles has no tree: its records
+    (:func:`_bvh_huge` of them, in table order) are swept in order with
+    the strict-< carry."""
+    t_run, win, a_win, b_win = state = _winner_state(t0)
+    n_swept = _bvh_huge(scene)
+    for i in range(n_swept):
+        t, hit, alpha, beta = _brute_tests(scene.bvh_tris[i], o, d)
+        take = hit & (t < t_run)
+        t_run.copy_(torch.where(take, t, t_run))
+        win.copy_(torch.where(take, i, win))
+        a_win.copy_(torch.where(take, alpha, a_win))
+        b_win.copy_(torch.where(take, beta, b_win))
+    _tally(tally, 0, n_swept * o.x.numel())
+    if not n_swept:
+        refs = scene.bvh_nodes[:, 12:14].contiguous().view(torch.int32)
+        leaves = refs[refs & clusters.BVH_LEAF != 0] & 15
+        _tally(tally, *_record_walk(scene, o, d, *state,
+                                    int(leaves.max()) if leaves.numel() else 1,
+                                    _brute_tests))
+    idx = torch.where(win >= 0, scene.bvh_tri_k.long()[win.clamp_min(0)], -1)
+    return t_run, idx, a_win, b_win
+
+
+def _intersect_triangles_brute_bvh(scene: Scene, o: Vec3, d: Vec3, best: Hit,
+                                   want_uv: bool):
+    """:func:`_intersect_triangles_brute`'s function by the card's walk
+    (:func:`_brute_bvh_winners`), its winner resolved by the same code
+    (:func:`_resolve_brute`). Returns (hit, uvx, uvy, took)."""
+    return _resolve_brute(scene, best, *_brute_bvh_winners(
+        scene, o, d, best.t), want_uv)
 
 
 def intersect_triangles(scene: Scene, o: Vec3, d: Vec3, best: Hit,

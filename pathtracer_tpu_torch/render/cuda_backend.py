@@ -20,7 +20,8 @@ triangles, each warp on an 8x4 pixel tile) with the winner's uv (K8,
 ``static``) or without (``staticplain``, with the pinhole under the other
 schedule too); feature (fog, transmission with dispersion, planar maps
 from the flat stack with K10's planar form, bump maps with the height
-fetch K11, the brute triangle sweep K4t with or without UVs), either
+fetch K11, K4t, the brute triangle sweep, as a near-first walk over a BVH
+of the triangles' precomputed records, with or without UVs), either
 primary under path regeneration, the schedule JAX runs these scenes
 under, with the pinhole also under lockstep as its yardstick; and the same
 feature bounce on each other base, named "feat" + the base: sphere
@@ -28,6 +29,9 @@ clusters (``featclustered``, regen), the combined set (``feattextured``
 under ``TEXTURED_SCHEDULE``, its pinhole also under the other schedule)
 and every mesh tier (``featmesh`` ... ``featstaticplain`` under
 ``MESH_SCHEDULE``, ``featmesh``'s pinhole also under the other one).
+The feature variants without a mesh tier carry K4t's walk only in forms
+of their own (``K4T_VARIANTS``, named with ``K4T_SUFFIX``), which a scene
+with a brute mesh takes.
 The mixed bases (``MIXED_VARIANTS``: sphere clusters with the combined set
 or with any mesh tier, the combined set with a mesh tier without UVs, and
 all three), named by their parts joined with "+", each carry the feature
@@ -58,7 +62,8 @@ with ``ctypes`` and launched on PyTorch's current stream.
   ``render/wavefront.py`` otherwise), which the CPU tests run and which
   ``chip_smoke.py`` holds the kernel against on the card.
 - ``LAUNCHES`` counts the kernel's launches, ``VARIANT_LAUNCHES`` the same
-  launches by variant name.
+  launches by variant name, ``PROBE_LAUNCHES`` the launches of the
+  kernel's intersect probe (:func:`intersect_probe_cuda`, no render's).
 """
 
 from __future__ import annotations
@@ -75,7 +80,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..scene.camera import Camera
+from ..scene.camera import Camera, define_camera
 from ..scene.clusters import stream_rows_per_cluster
 from ..scene.schema import Scene
 from .lockstep import render_chunk_lockstep
@@ -134,8 +139,19 @@ VARIANTS = ("brute_pinhole", "brute_lens", "clustered_pinhole",
             f"feattextured_pinhole_{OTHER_SCHEDULE}",
             f"featmesh_pinhole_{MESH_OTHER_SCHEDULE}",
             f"feature_pinhole_{FEATURE_OTHER_SCHEDULE}", *MIXED_VARIANTS)
+# the feature variants without a mesh tier carry K4t's walk over a brute
+# mesh (at most clusters.CLUSTER_MIN triangles) in instantiations of their
+# own, named with K4T_SUFFIX (kTriBrute, K4T_TRI, in the kernel): those
+# without it carry no triangle code
+K4T_SUFFIX = "_k4t"
+K4T_TRI = 8
+K4T_VARIANTS = tuple(
+    v + K4T_SUFFIX for v in VARIANTS if v.split("_")[0] in (
+        "feature", "featclustered", "feattextured", "clustered+textured"))
+VARIANTS = VARIANTS + K4T_VARIANTS
 LAUNCHES = 0      # kernel launches, counted where the launch succeeds
 VARIANT_LAUNCHES = dict.fromkeys(VARIANTS, 0)  # the same, by variant
+PROBE_LAUNCHES = 0  # intersect_probe_cuda's launches
 BUILD_LOG = ""    # nvcc's output (ptxas registers and spills per variant)
 BUILD_SECONDS = None  # wall seconds of the build in this process, or None
 LIB_PATH = None   # the loaded library (for cuobjdump)
@@ -315,7 +331,9 @@ def variant(scene: Scene, camera: Camera, schedule=None) -> str:
     under ``schedule`` (by default the scene's main one). A featured scene
     takes its base's feature form: ``feature`` for brute spheres, else
     ``feat`` + the base. A mixed base is its own name: its instantiation
-    carries the feature bounce and serves either camera."""
+    carries the feature bounce and serves either camera. A scene with a
+    brute mesh (``Scene.tri_brute``) takes the form with K4t's walk
+    (``K4T_SUFFIX``)."""
     base = _base(scene)
     if "+" in base:
         name = base
@@ -326,13 +344,16 @@ def variant(scene: Scene, camera: Camera, schedule=None) -> str:
     schedule = _schedule(scene, schedule)
     if schedule != _main_schedule(scene):
         name += "_" + schedule
+    if scene.tri_brute:
+        name += K4T_SUFFIX
     if name not in VARIANTS:
         if "+" in base:
             raise NotImplementedError(
                 f"{name}: not instantiated (the mixed bases run "
                 f"{MIXED_SCHEDULE} only)")
         others = sorted({v.split("_")[0] for v in VARIANTS
-                         if v.count("_") == 2})
+                         if v.count("_") == 2
+                         and not v.endswith(K4T_SUFFIX)})
         raise NotImplementedError(
             f"{name}: not instantiated (the other schedule runs the pinhole "
             f"only, of {', '.join(others)})")
@@ -405,6 +426,10 @@ def compile_library(defines: tuple = ()) -> tuple:
     lib.wave_occupancy.argtypes = [ctypes.c_int] * 6 + [
         ctypes.POINTER(ctypes.c_int)]
     lib.wave_occupancy.restype = ctypes.c_int
+    lib.wave_intersect.argtypes = [ctypes.POINTER(WaveParams),
+                                   ctypes.c_void_p, ctypes.c_int,
+                                   ctypes.c_void_p, ctypes.c_void_p]
+    lib.wave_intersect.restype = ctypes.c_int
     lib.wave_error_string.argtypes = [ctypes.c_int]
     lib.wave_error_string.restype = ctypes.c_char_p
     log = log_path.read_text() if log_path.exists() else ""
@@ -555,7 +580,8 @@ def render_chunk_cuda(scene: Scene, camera: Camera, config, key: int,
                           code if textured(scene) else 0,
                           code if meshed(scene) else 0,
                           code if scene.featured or mixed(scene) else 0,
-                          MESH_KINDS[mesh_kind(scene)] if meshed(scene) else 0,
+                          MESH_KINDS[mesh_kind(scene)] if meshed(scene)
+                          else K4T_TRI if scene.tri_brute else 0,
                           ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"wave_kernel ({name}) launch failed: "
@@ -566,6 +592,57 @@ def render_chunk_cuda(scene: Scene, camera: Camera, config, key: int,
     state.rays_cast += rays_px.sum(dtype=torch.int64)
     state.samples_done += n_samples
     return state
+
+
+def intersect_probe_cuda(scene: Scene, rays: torch.Tensor):
+    """The brute feature variants' intersect (the kernel's
+    ``intersect_scene`` with K4t's walk, as ``feature_pinhole_k4t`` runs it)
+    for ``rays`` ((N, 6) float32: o.xyz d.xyz): (t, material, normal (N,
+    3), uvx, uvy, uv_ok). On CUDA tensors one launch of the kernel's probe;
+    on CPU tensors the plain version (:func:`intersect_probe_plain`).
+    ``chip_smoke.py`` holds the one to the other on the card on rays aimed
+    at a mesh's edges and vertices; no render calls it."""
+    global PROBE_LAUNCHES
+    from .renderer import RenderConfig, init_accum
+    if (scene.sph_clusters or textured(scene) or meshed(scene)
+            or rays.dtype != torch.float32 or rays.dim() != 2
+            or rays.shape[1] != 6):
+        raise ValueError("the probe takes (N, 6) float32 rays and a scene "
+                         "of brute spheres, quads, planes and triangles")
+    if rays.device.type != "cuda":
+        return intersect_probe_plain(scene, rays)
+    rays = rays.contiguous()
+    cam = define_camera((0.0, 0.0, 0.0), (0.0, 1.0, 0.0), 60.0, 1, 1)
+    state = init_accum(1, rays.device)
+    px = torch.zeros(1, dtype=torch.int32, device=rays.device)
+    params = _params(scene, cam, RenderConfig(1, 1, pp=1), 0, 0, 0, state,
+                     px, px.clone())
+    out = torch.empty((len(rays), 8), dtype=torch.float32, device=rays.device)
+    err = build().wave_intersect(
+        ctypes.byref(params), rays.data_ptr(), len(rays), out.data_ptr(),
+        ctypes.c_void_p(torch.cuda.current_stream(rays.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError("intersect_probe launch failed: "
+                           + build().wave_error_string(err).decode())
+    PROBE_LAUNCHES += 1
+    return (out[:, 0], out[:, 1].contiguous().view(torch.int32), out[:, 2:5],
+            out[:, 5], out[:, 6], out[:, 7] != 0)
+
+
+def intersect_probe_plain(scene: Scene, rays: torch.Tensor):
+    """The plain version of :func:`intersect_probe_cuda` on whatever device
+    ``rays`` lie: ``ops/intersect.py::intersect_scene_uv`` for a mesh with
+    UVs, else ``intersect_scene`` (uv 0, uv_ok False), K4t by its sweep."""
+    from ..ops import intersect
+    from ..utils.vec import Vec3
+    o, d = Vec3(*rays[:, 0:3].T), Vec3(*rays[:, 3:6].T)
+    if scene.has_mesh_uvs:
+        hit, uvx, uvy, ok = intersect.intersect_scene_uv(scene, o, d)
+    else:
+        hit = intersect.intersect_scene(scene, o, d)
+        uvx = uvy = torch.zeros_like(hit.t)
+        ok = torch.zeros_like(hit.t, dtype=torch.bool)
+    return hit.t, hit.mat, torch.stack(list(hit.normal), 1), uvx, uvy, ok
 
 
 def render_chunk_plain(scene: Scene, camera: Camera, config, key: int,

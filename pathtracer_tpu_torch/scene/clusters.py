@@ -32,7 +32,9 @@ first, over the streamed tier's record rows (:func:`build_stream_bvh`),
 over the cluster-ordered spheres outside the huge cluster
 (:func:`build_sphere_bvh`) and over the static tier's cluster-ordered
 triangles outside its huge cluster (:func:`build_static_bvh`), all built
-by :func:`_build_bvh`.
+by :func:`_build_bvh`; a mesh of at most ``CLUSTER_MIN`` triangles, which
+the JAX package sweeps in table order (K4t), is walked through a BVH over
+its triangles' precomputed 64-byte records (:func:`build_brute_bvh`).
 """
 
 from __future__ import annotations
@@ -455,17 +457,19 @@ def _ceil_log2(n: int) -> int:
     return max(0, int(n - 1).bit_length())
 
 
-def _build_bvh(box: np.ndarray, leaf_size: int, leaf) -> tuple:
+def _build_bvh(box: np.ndarray, leaf_size: int, leaf,
+               max_depth: int = BVH_MAX_DEPTH) -> tuple:
     """Binary nodes over N items with float32 boxes ``box`` ((N, 6): mn3
     mx3). A subtree of at most ``leaf_size`` items is a leaf, made by
     ``leaf(idx)`` (the items in order; returns its reference and box, and
     lays out its records). Inner nodes split the items by binned SAH
     (:func:`_sah_partition` over the boxes' centres), at the longest-axis
     median for subtrees of at most ``BVH_SAH_MIN`` items and where a split
-    would exceed ``BVH_MAX_DEPTH``. Returns (nodes ((M, 16) float32), the
-    root box as six floats, the inner levels of the deepest path)."""
+    would exceed ``max_depth`` inner levels. Returns (nodes ((M, 16)
+    float32), the root box as six floats, the inner levels of the deepest
+    path)."""
     levels = lambda n: _ceil_log2(-(-n // leaf_size))
-    assert len(box) and levels(len(box)) <= BVH_MAX_DEPTH
+    assert len(box) and levels(len(box)) <= max_depth
     bmin, bmax = box[:, :3].astype(np.float64), box[:, 3:].astype(np.float64)
     cent = (bmin + bmax) * 0.5
     nodes: list = []
@@ -487,7 +491,7 @@ def _build_bvh(box: np.ndarray, leaf_size: int, leaf) -> tuple:
         lr = (_sah_partition(idx, cent, bmin, bmax)
               if len(idx) > BVH_SAH_MIN else None)
         if lr is None or (max(levels(len(lr[0])), levels(len(lr[1])))
-                          > BVH_MAX_DEPTH - level):
+                          > max_depth - level):
             lr = _median_halves(idx, cent)
         me = len(nodes)
         nodes.append(None)
@@ -675,4 +679,135 @@ def build_static_bvh(pre: dict, A: np.ndarray, u: np.ndarray, v: np.ndarray,
     keep = np.concatenate([np.arange(n_huge), np.asarray(order, np.int64)])
     return dict(bvh_nodes=nodes, bvh_tris=np.ascontiguousarray(rec[keep]),
                 bvh_tri_k=key[keep].astype(np.int32), bvh_root=root,
+                bvh_depth=depth)
+
+
+# K4t's BVH (csrc/wave_kernel.cu's brute_walk) over a mesh of at most
+# CLUSTER_MIN triangles, which the JAX package sweeps in table order.
+# Triangle records: 16 float32 per triangle, four 16-byte loads, with every
+# value of the sweep's test (ray_planar_triangle_uv) that depends on the
+# triangle alone: n_unit.xyz d | w.xyz v.z | A.xyz u.x | u.y u.z v.x v.y,
+# where n_unit = normalize(cross(u, v), 1e-30), d = A . n_unit and w =
+# cross(u, v) * (1 / (cross(u, v) . cross(u, v))).
+BRUTE_REC_FLOATS = 16
+# Triangles per leaf at most. An inner node costs the walk two box tests
+# (25 FP32 operations each, four 16-byte loads) and a triangle test 63
+# (four 16-byte loads), so a split saves operations only where it culls
+# more than a test in four. In turns on the H100 (chip_smoke.py --parent,
+# 720p 4 spp, two runs: the 40-triangle sphere through either camera and
+# in fog, the everything scene, the combined set beside that sphere)
+# leaves of up to 4 took 1.000-1.066x the time of leaves of 8, leaves of
+# up to 12 0.987-1.069x.
+BRUTE_LEAF = 8
+# A mesh of at most this many triangles that can hit is not walked but swept
+# in table order from its records (bvh_nodes' BVH_HUGE_WORD counts them, no
+# node, a NaN root): its tree would be one leaf, whose box is the only cull
+# and whose node costs two box tests and a stack beside a test of 63 FP32
+# operations a triangle. Walked, the everything scene's one triangle took
+# 1.088x and 1.092x the time swept (through either camera, in turns on the
+# H100, chip_smoke.py --parent).
+BRUTE_SWEEP_MAX = BRUTE_LEAF
+# Inner levels at most: the kernel's stack holds BRUTE_MAX_DEPTH entries
+# (BRUTE_STACK), in the feature variants' exchange buffer where no other
+# walk's stack is there.
+BRUTE_MAX_DEPTH = 8
+# A leaf's box is its triangles' float64 bound padded outward by this many
+# float32 ulps of the mesh's largest coordinate, then rounded outward. The
+# sweep takes a hit where its float32 expressions say so: a hit point
+# rounded onto the triangle's edge from a few ulps outside it, of the
+# coordinates and of |o| + |t d|, which for a ray from up to a few hundred
+# times the mesh's largest coordinate is still inside the padding
+# (tests/test_torch_brute_bvh.py holds it on grazing rays from 500 times;
+# without the padding the walk loses winners there). A looser box costs
+# only box tests, never the least (t, index).
+BRUTE_PAD_ULPS = 2048
+
+
+def _cross32(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """utils/vec.py::cross on (N, 3) float32 rows, one rounding per
+    operation in its order (np.cross may contract or reorder)."""
+    x, y, z = (a[:, k] for k in range(3))
+    bx, by, bz = (b[:, k] for k in range(3))
+    return np.stack([y * bz - by * z, z * bx - bz * x, x * by - bx * y],
+                    axis=1)
+
+
+def _dot32(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """utils/vec.py::dot on (N, 3) float32 rows: (x x' + y y') + z z'."""
+    return a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1] + a[:, 2] * b[:, 2]
+
+
+def brute_records(A: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """K4t's precomputed records ((N, 16) float32, ``BRUTE_REC_FLOATS``'s
+    layout) of the triangles A, A + u, A + v ((N, 3) each), every value
+    formed elementwise in float32 in the sweep's own operation order, so
+    that it equals the value the sweep computes per test bit for bit."""
+    f32 = np.float32
+    A, u, v = (np.asarray(x, f32).reshape(-1, 3) for x in (A, u, v))
+    n = _cross32(u, v)
+    m = np.maximum(np.sqrt(_dot32(n, n)), f32(1e-30))
+    n_unit = n * (f32(1.0) / m)[:, None]
+    # a degenerate triangle's w is inf * 0: NaN, as in the sweep (no hit)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        w = n * (f32(1.0) / _dot32(n, n))[:, None]
+    rec = np.concatenate([n_unit, _dot32(A, n_unit)[:, None], w, v[:, 2:3],
+                          A, u, v[:, 0:2]], axis=1)
+    return np.ascontiguousarray(rec.astype(f32))
+
+
+def build_brute_bvh(A: np.ndarray, u: np.ndarray, v: np.ndarray) -> dict:
+    """K4t's BVH over the ``n`` triangles A, A + u, A + v ((n, 3) float32
+    each, table order, 1 <= n <= ``CLUSTER_MIN``) that can hit: leaves of
+    at most ``BRUTE_LEAF`` triangles, contiguous by leaf, each leaf's box
+    the float64 bound of its triangles' vertices padded by
+    ``BRUTE_PAD_ULPS`` and rounded outward (so every hit the sweep takes
+    lies inside the box of its triangle's leaf), nodes as
+    :func:`_build_bvh` makes them, at most ``BRUTE_MAX_DEPTH`` inner
+    levels. A triangle whose w is not finite (|cross(u, v)|^2 is 0 or
+    denormal) is left out: its alpha or beta is infinite or NaN, and the
+    sweep never takes it. The walk takes the least (t, table index): a tie
+    between triangles goes to the lower index, as the sweep's strict-<
+    carry in table order gives it. At most ``BRUTE_SWEEP_MAX`` triangles
+    that can hit get no tree: their records, in table order, are counted
+    in the one node's ``BVH_HUGE_WORD`` and swept in order.
+
+    Returns ``bvh_nodes``, ``bvh_tris`` ((m, 16) float32:
+    :func:`brute_records`, by leaf), ``bvh_tri_k`` ((m,) int32: each
+    record's table index), ``bvh_root`` (() when no triangle is walked: no
+    ray enters it) and ``bvh_depth``."""
+    assert BRUTE_LEAF <= 15, "a leaf's count fits its reference's 4 bits"
+    A, u, v = (np.asarray(x, np.float32).reshape(-1, 3) for x in (A, u, v))
+    assert 1 <= len(A) <= CLUSTER_MIN
+    rec = brute_records(A, u, v)
+    items = np.nonzero(np.isfinite(rec[:, 4:7]).all(axis=1))[0]
+    if len(items) <= BRUTE_SWEEP_MAX:
+        nodes = np.zeros((1, BVH_NODE_FLOATS), np.float32)
+        nodes[0, BVH_HUGE_WORD] = np.asarray([len(items)],
+                                             np.int32).view(np.float32)[0]
+        return dict(bvh_nodes=nodes,
+                    bvh_tris=np.ascontiguousarray(rec[items]) if len(items)
+                    else np.zeros((1, BRUTE_REC_FLOATS), np.float32),
+                    bvh_tri_k=items.astype(np.int32) if len(items)
+                    else np.zeros((1,), np.int32), bvh_root=(), bvh_depth=0)
+    a = A[items].astype(np.float64)
+    corners = np.stack([a, a + u[items].astype(np.float64),
+                        a + v[items].astype(np.float64)])
+    lo, hi = corners.min(axis=0), corners.max(axis=0)
+    big = np.abs(np.concatenate([lo, hi])).max()
+    pad = BRUTE_PAD_ULPS * float(np.spacing(np.float32(big)))
+    out = lambda x, way: np.nextafter(x.astype(np.float32), np.float32(way))
+    box = np.concatenate([out(lo - pad, -np.inf), out(hi + pad, np.inf)],
+                         axis=1)
+    order: list = []
+
+    def leaf(idx: np.ndarray):
+        ref = BVH_LEAF | len(order) << 4 | len(idx)
+        order.extend(int(i) for i in items[idx])
+        return ref, np.concatenate([box[idx, :3].min(0), box[idx, 3:].max(0)])
+
+    nodes, root, depth = _build_bvh(box, BRUTE_LEAF, leaf, BRUTE_MAX_DEPTH)
+    assert depth <= BRUTE_MAX_DEPTH
+    order = np.asarray(order, np.int64)
+    return dict(bvh_nodes=nodes, bvh_tris=np.ascontiguousarray(rec[order]),
+                bvh_tri_k=order.astype(np.int32), bvh_root=root,
                 bvh_depth=depth)

@@ -13,7 +13,7 @@ import torch
 
 from ..render.renderer import AccumState
 from ..utils.vec import Vec3
-from .clusters import triangle_precompute
+from .clusters import CLUSTER_MIN, triangle_precompute
 from .schema import (
     STATIC_FIELDS, TENSOR_FIELDS, VEC_FIELDS, Scene, bake_quad_normals,
     bvh_tables, cluster_tables, mip_table, parent_tables, sphere_bvh_tables,
@@ -76,6 +76,17 @@ def _static_bvh_args(kw: dict):
     return pre, A[order], u[order], v[order], kw["tri_clusters"]
 
 
+def _brute_bvh_args(kw: dict):
+    """``clusters.build_brute_bvh``'s arguments (the table-order A, u, v)
+    for a scene whose mesh JAX sweeps brute force (at most
+    ``clusters.CLUSTER_MIN`` triangles), or None."""
+    n = kw.get("n_tris", 0)
+    if not 0 < n <= CLUSTER_MIN:
+        return None
+    return tuple(np.stack([c.numpy()[:n] for c in kw[k]], axis=1)
+                 for k in ("tri_a", "tri_u", "tri_v"))
+
+
 def scene_from_numpy(fields: dict, statics: dict) -> Scene:
     """JAX scene leaves (by field name) and statics -> a CPU port Scene.
     Fields and statics the port does not read are ignored; a missing
@@ -87,7 +98,8 @@ def scene_from_numpy(fields: dict, statics: dict) -> Scene:
     ``sph_clusters``, ``tex_mip_meta``, ``stream_parents`` /
     ``stream_gparents`` and ``tri_clusters`` statics, the streamed tier's
     BVH from its record rows, the static tier's from its cluster-ordered
-    triangles and the sphere clusters' BVH from the cluster-ordered
+    triangles, a brute mesh's (K4t) from its table-order triangles and the
+    sphere clusters' BVH from the cluster-ordered
     spheres. A JAX DMA-tier scene
     keeps its parents as rows (``JAX_PARENT_FIELDS``, counted by
     ``JAX_PARENT_STATICS``); the descriptors are read back from them."""
@@ -113,7 +125,8 @@ def scene_from_numpy(fields: dict, statics: dict) -> Scene:
     kw.update(tri_cluster_tables(kw.get("tri_clusters", ())))
     kw.update(bvh_tables(kw["mtri_pack"], kw.get("tri_streamed", False),
                          kw.get("stream_leaf", 0),
-                         kw.get("stream_uv_cfm", False), _static_bvh_args(kw)))
+                         kw.get("stream_uv_cfm", False), _static_bvh_args(kw),
+                         _brute_bvh_args(kw)))
     if kw.get("tex_combined"):
         kw.update(texture_stack([], combined=True))
     return Scene(**kw)

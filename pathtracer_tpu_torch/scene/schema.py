@@ -37,7 +37,9 @@ whatever its spheres, texture set or mesh tier.
 
 A triangle mesh (``set_mesh``; UVs scaled to texel units there) is kept as
 ``tri_*`` tables and swept brute force up to ``clusters.CLUSTER_MIN``
-triangles. A larger one is also kept in cluster order in the precomputed
+triangles (K4t), which the kernel walks through a BVH over the
+triangles' precomputed records instead (``bvh_*``, :func:`bvh_tables`: a
+brute mesh has no tier of its own to fill them). A larger one is also kept in cluster order in the precomputed
 barycentric form (``ctri_*``, padded to a multiple of 128, as in JAX); up
 to ``clusters.STREAM_MIN`` triangles that is the static tier, with its
 cluster descriptors ``tri_clusters`` and ``tcl_box`` / ``tcl_range``
@@ -272,7 +274,9 @@ class Scene:
     # the record rows, the rows' triangles as 16-byte-aligned records and
     # each record's table-order winner number; of the static tier: the huge
     # cluster's records, then nodes over the other triangles, each record's
-    # cluster-order index ((1, 16), (1, 12) and (1,) dummies without)
+    # cluster-order index; of a brute mesh (K4t): nodes over its triangles,
+    # their 64-byte records and each record's table index ((1, 16), (1, 12)
+    # and (1,) dummies without)
     bvh_nodes: torch.Tensor
     bvh_tris: torch.Tensor
     bvh_tri_k: torch.Tensor
@@ -483,16 +487,20 @@ def parent_tables(stream_parents: tuple, stream_gparents: tuple = ()) -> dict:
 
 
 def bvh_tables(mtri_pack: torch.Tensor, tri_streamed: bool, stream_leaf: int,
-               stream_uv_cfm: bool, static=None) -> dict:
+               stream_uv_cfm: bool, static=None, brute=None) -> dict:
     """The card's mesh BVH: the streamed tier's
     (``clusters.build_stream_bvh``) over the record rows ``mtri_pack``, its
     winners numbered by their uv column with the cluster-field-major uv
-    rows, else by record; or the static tier's
+    rows, else by record; the static tier's
     (``clusters.build_static_bvh``, whose arguments ``static`` holds: the
     cluster-ordered precomputed triangles, their A, u, v and the
-    clusters); the dummies without either."""
+    clusters); or K4t's over a mesh of at most ``clusters.CLUSTER_MIN``
+    triangles (``clusters.build_brute_bvh``, whose arguments ``brute``
+    holds: the table-order A, u, v); the dummies without any."""
     if static is not None:
         b = clusters.build_static_bvh(*static)
+    elif brute is not None:
+        b = clusters.build_brute_bvh(*brute)
     elif not tri_streamed:
         return dict(bvh_nodes=torch.zeros((1, clusters.BVH_NODE_FLOATS)),
                     bvh_tris=torch.zeros((1, clusters.BVH_TRI_FLOATS)),
@@ -838,10 +846,13 @@ class WorldBuilder:
         out.update(stream)
         out.update(parent_tables(stream["stream_parents"],
                                  stream["stream_gparents"]))
+        brute = ((tri_a[:ntri], tri_u[:ntri], tri_v[:ntri])
+                 if 0 < ntri <= clusters.CLUSTER_MIN else None)
         out.update(bvh_tables(stream["mtri_pack"],
                               stream.get("tri_streamed", False),
                               stream.get("stream_leaf", 0),
-                              stream.get("stream_uv_cfm", False), static))
+                              stream.get("stream_uv_cfm", False), static,
+                              brute))
         return out
 
     def _sphere_clusters(self, view_origin):

@@ -217,7 +217,8 @@ def test_feature_kernel_matches_plain(cuda, name, pinhole):
     cam = define_camera(pos, target, fov, 64, 36, use_pinhole=pinhole)
     scene = scene.to(cuda)
     assert cuda_backend.variant(scene, cam) == (
-        "feature_pinhole" if pinhole else "feature_lens")
+        ("feature_pinhole" if pinhole else "feature_lens")
+        + ("_k4t" if name == "everything" else ""))
     cfg = trenderer.RenderConfig(64, 36, pp=2, seed=0, **cfg_kw)
     before = cuda_backend.LAUNCHES
     k = cuda_backend.render_chunk_cuda(scene, cam, cfg, 0, 0, 4,
@@ -282,8 +283,8 @@ def _tier_scene(case, monkeypatch):
 
 
 @pytest.mark.parametrize("case, pinhole, schedule, variant", [
-    ("tri40", True, None, "feature_pinhole"),       # K4t without UVs
-    ("tri40", False, None, "feature_lens"),
+    ("tri40", True, None, "feature_pinhole_k4t"),   # K4t without UVs
+    ("tri40", False, None, "feature_lens_k4t"),
     ("tri784", True, None, "staticplain_pinhole"),  # K5's triangle form
     ("tri784", False, None, "staticplain_lens"),
     ("tri784", True, cuda_backend.MESH_OTHER_SCHEDULE,
@@ -468,7 +469,7 @@ def test_fog_dma_tier_kernel_bit_equal_to_resident(cuda, monkeypatch, case):
 @pytest.mark.parametrize("variant, world, mesh, opts, pinhole, fog", [
     ("clustered+textured", "w2", None, {}, True, False),
     ("clustered+textured", "w2", None, {}, False, True),
-    ("clustered+textured", "w2", "brute", {}, True, True),
+    ("clustered+textured_k4t", "w2", "brute", {}, True, True),
     ("textured+staticplain", "w1", "static", {}, False, True),
     ("textured+meshplain", "w1", "streamed", {}, True, False),
     ("textured+meshplain", "w1", "dma", {}, True, True),
@@ -493,7 +494,7 @@ def test_mixed_kernels_match_plain(cuda, monkeypatch, variant, world, mesh,
     64x36 against the lockstep plain version, through the camera and with
     or without the CLI's fog (one instantiation covers both); the DMA tier
     forced on a small mesh. Clusters with the combined set also beside a
-    brute mesh (its K4t sweep), and the feature bounce's dispersive glass
+    brute mesh (its K4t walk), and the feature bounce's dispersive glass
     and planar maps on mixed bases."""
     from pathtracer_tpu_torch.scene import clusters as tclusters
     from pathtracer_tpu_torch.scene.camera import define_camera

@@ -81,7 +81,8 @@ def test_feature_render_vs_xla_wavefront(name, pinhole):
     """Each scene (everything with RR, as its builder asks) against the
     XLA driver; the variant is the feature kernel's."""
     jst, tst, var = _render_pair(name, pinhole)
-    assert var == "feature_pinhole" if pinhole else "feature_lens"
+    assert var == (("feature_pinhole" if pinhole else "feature_lens")
+                   + ("_k4t" if name == "everything" else ""))
     assert_golden_gates(jst, tst)
     assert int(tst.nan_count) == float(jst.nan_count)
 

@@ -226,7 +226,7 @@ def _variant_scene(kind, pinhole):
     (tschema.WORLD_MESH_UV, True, "mesh_pinhole"),
     (tschema.WORLD_MESH_UV, False, "mesh_lens"),
     ("fog", True, "feature_pinhole"),
-    ("everything", False, "feature_lens"),
+    ("everything", False, "feature_lens_k4t"),
     ("bump", True, "feature_pinhole"),
     ("w1 fog", True, "feattextured_pinhole"),
     ("w1 fog", False, "feattextured_lens"),

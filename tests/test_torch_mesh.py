@@ -272,11 +272,12 @@ def test_unported_mesh_tiers_raise(n, match):
     from pathtracer_tpu_torch.render import cuda_backend
     cam = tworlds.finalize_world(W7, 8, 8)[1]
     assert cuda_backend.variant(ts, cam) == {
-        "K4t": "feature_pinhole", "K5's triangle": "staticplain_pinhole"}[match]
+        "K4t": "feature_pinhole_k4t",
+        "K5's triangle": "staticplain_pinhole"}[match]
     fog = dataclasses.replace(ts, fog_sigma_t=0.01)
     assert fog.unsupported() == []
     assert cuda_backend.variant(fog, cam) == {
-        "K4t": "feature_pinhole",
+        "K4t": "feature_pinhole_k4t",
         "K5's triangle": "featstaticplain_pinhole"}[match]
     w1, _ = tworlds.finalize_world(tschema.WORLD_DEFAULT, 8, 8)
     comb = dataclasses.replace(
@@ -285,7 +286,7 @@ def test_unported_mesh_tiers_raise(n, match):
                                        "tex_comb_b", "tex_mip")})
     assert comb.unsupported() == []
     assert cuda_backend.variant(comb, cam) == {
-        "K4t": "feattextured_pinhole",
+        "K4t": "feattextured_pinhole_k4t",
         "K5's triangle": "textured+staticplain"}[match]
     bad = dataclasses.replace(comb, has_mesh_uvs=True)
     assert any("UV mesh together with a combined texture set" in m

@@ -103,7 +103,7 @@ def mixed_scenes(pinhole=True, fog=False, world=W2, mesh=None, **kw):
 CASES = {
     "clu+tex": (dict(), "clustered+textured"),
     "clu+tex-fog-d": (dict(pinhole=False, fog=True), "clustered+textured"),
-    "clu+tex+brute": (dict(mesh="brute"), "clustered+textured"),
+    "clu+tex+brute": (dict(mesh="brute"), "clustered+textured_k4t"),
     "clu+static": (dict(combined=False, mesh="static"),
                    "clustered+staticplain"),
     "clu+static-maps": (dict(combined=False, mesh="static", maps=True),
@@ -125,7 +125,8 @@ CASES = {
                       "clustered+textured+meshplain"),
     "tex+streamed": (dict(world=W1, mesh="streamed"), "textured+meshplain"),
     "tex+dma": (dict(world=W1, mesh="dma"), "textured+meshplain"),
-    "tex+brute": (dict(world=W1, mesh="brute"), "feattextured_pinhole"),
+    "tex+brute": (dict(world=W1, mesh="brute"),
+                  "feattextured_pinhole_k4t"),
 }
 
 
@@ -237,9 +238,9 @@ def _port_scene(pinhole=True, world=W2, mesh=None, **kw):
     ("tex+static", "textured+staticplain"),
     ("tex+streamed", "textured+meshplain"),
     ("tex+dma", "textured+meshplain"),
-    ("tex+brute", "feattextured_pinhole"),
-    ("clu+brute", "featclustered_pinhole"),
-    ("clu+tex+brute", "clustered+textured"),
+    ("tex+brute", "feattextured_pinhole_k4t"),
+    ("clu+brute", "featclustered_pinhole_k4t"),
+    ("clu+tex+brute", "clustered+textured_k4t"),
     ("clu+streamed-uv", "clustered+mesh"),
     ("clu+dma-uv", "clustered+mesh"),
     ("clu+tex+streamed", "clustered+textured+meshplain"),
@@ -250,7 +251,8 @@ def test_mixed_variant_names(request, case, want):
     """The variant each mixed scene routes to, through either camera and
     with or without features (one instantiation per base tuple); the
     combined set with a brute mesh takes the combined set's feature form
-    (its K4t sweep), sphere clusters with a brute mesh the clustered one.
+    with K4t's walk, sphere clusters with a brute mesh the clustered one's,
+    clusters with the combined set and a brute mesh the mixed base's.
     A mixed base has no other schedule."""
     if "dma" in case:
         request.getfixturevalue("force_dma")
@@ -282,9 +284,13 @@ def test_mixed_variant_names(request, case, want):
 def test_every_mixed_variant_is_named():
     """Nine mixed instantiations: the combined set with clusters, with each
     mesh kind without UVs, and with both; clusters with each of the four
-    mesh kinds (the streamed walk serves the resident and the DMA tier)."""
+    mesh kinds (the streamed walk serves the resident and the DMA tier).
+    Nine K4t forms: the feature variants without a mesh tier, the mixed
+    base of clusters with the combined set among them."""
     assert len(cuda_backend.MIXED_VARIANTS) == 9
-    assert len(set(cuda_backend.VARIANTS)) == len(cuda_backend.VARIANTS) == 43
+    assert len(cuda_backend.K4T_VARIANTS) == 9
+    assert "clustered+textured_k4t" in cuda_backend.K4T_VARIANTS
+    assert len(set(cuda_backend.VARIANTS)) == len(cuda_backend.VARIANTS) == 52
     kinds = {v.split("+")[-1] for v in cuda_backend.MIXED_VARIANTS}
     assert kinds == set(cuda_backend.MESH_KINDS) | {"textured"}
 
@@ -316,18 +322,19 @@ def test_refusals_that_stay(case, match):
 
 
 def test_build_parts_hold_every_launcher():
-    """The kernel source builds as parts 1-4 (``build_parts``: one nvcc
+    """The kernel source builds as parts 1-5 (``build_parts``: one nvcc
     each, all linked into one library), each part block defines one
-    launcher, and a build without a part stops at an #error."""
+    launcher (part 5 also K4t's intersect probe), and a build without a
+    part stops at an #error."""
     src = cuda_backend.SOURCE.read_text()
     parts = cuda_backend.build_parts(src)
-    assert parts == (1, 2, 3, 4)
+    assert parts == (1, 2, 3, 4, 5)
     blocks = dict(re.findall(
         r"^#if WAVE_HAS\((\d+)\)\n(.*?)^#endif  // WAVE_HAS\(\1\)", src,
         re.MULTILINE | re.DOTALL))
     assert sorted(map(int, blocks)) == list(parts)
     for name in ("wave_render", "launch_feature", "launch_mixed_pair",
-                 "launch_mixed_triple"):
+                 "launch_mixed_triple", "launch_k4t", "wave_intersect"):
         defined = [k for k, body in blocks.items()
                    if re.search(rf"^(?:bool|int) {name}\([^;{{]*\{{", body,
                                  re.MULTILINE)]

@@ -59,7 +59,7 @@ def _render_both(js, jcam, ts, tcam, w=W, h=H):
 
 
 @pytest.mark.parametrize("case, variant", [
-    ("tri40", "feature_pinhole"), ("tri784", "staticplain_pinhole"),
+    ("tri40", "feature_pinhole_k4t"), ("tri784", "staticplain_pinhole"),
     ("uv736", "static_pinhole"), ("dma1936", "meshplain_pinhole")])
 def test_mesh_render_vs_xla(case, variant, request):
     if case == "dma1936":
