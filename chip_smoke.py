@@ -6,8 +6,10 @@ It needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and no network,
 and it imports nothing of JAX. ``python3 chip_smoke.py --parent DIR`` runs
 phase 1 and then, instead of the others, times the kernel of another
 checkout at DIR (the parent commit, unpacked with git archive) against
-this one's in turns (parent_turns: K4t's rows, the feature rows without
-triangles, a row of each other walk, and K4t's leaf size).
+this one's in turns (parent_turns: K10's planar rows, the feature rows
+without planar maps, every lens variant's main path, brute_pinhole as the
+control, and this kernel against variants of its own source:
+SOURCE_VARIANTS).
 
 The render kernel csrc/wave_kernel.cu has fifty-two compile-time
 variants (cuda_backend.VARIANTS), instantiations of one template in one
@@ -48,8 +50,7 @@ The feature variants without a mesh tier (on brute or clustered spheres,
 the combined set, and clusters with the combined set) carry K4t's walk
 only in forms of their own, named with "_k4t" (cuda_backend.K4T_VARIANTS),
 which a scene with a brute mesh takes.
-Every variant with the feature bounce but textured+meshplain and
-featstaticplain_pinhole regroups
+Every variant with the feature bounce but textured+meshplain regroups
 its shading lanes by event each bounce (regroup_shading: each block lays
 its fog scatters, opaque shades and glass out in whole warps through
 shared memory); the -DWAVE_NO_REGROUP build, where none does, is its
@@ -79,12 +80,15 @@ and the script exits non-zero):
      yardstick, the same source with -DWAVE_NO_REGROUP, where every
      feature variant shades each path in its own thread (the parent's
      code); prints the seconds, ptxas's registers and spills for each
-     variant (whether every variant without the feature bounce kept the
-     parent's, KEPT_PTXAS, and the feature variants now, in the yardstick,
-     which must keep them but for the variants whose code K4t's walk
-     changed (k4t_changed), and in the parent's, FEATURE_EARLIER_PTXAS;
-     the feature variants' and the K4t forms' beside
-     the parent's build's, PARENT_FEATURE_PTXAS and PARENT_FEATURE_BLOCKS),
+     variant (whether every variant without the feature bounce and the
+     lens kept the parent's, KEPT_PTXAS; every variant that can cast a
+     lens ray beside the parent's, with blocks per SM, PARENT_LENS_PTXAS;
+     the feature variants now, in the yardstick, which must keep them but
+     for the variants whose code changed (code_changed: this build, every
+     one), and in the parent's, FEATURE_EARLIER_PTXAS; the feature
+     variants' and the K4t forms' beside the parent's build's,
+     PARENT_FEATURE_PTXAS and PARENT_FEATURE_BLOCKS, none of which may
+     run fewer blocks per SM than the parent's),
      which variants regroup (regroup_shading), each variant's resident
      blocks per SM, static shared memory and registers in both builds
      (cudaOccupancyMaxActiveBlocksPerMultiprocessor; none may fall) and,
@@ -111,7 +115,9 @@ and the script exits non-zero):
      1280x720 with 1 (depth): the five feature scenes
      (scene/feature_scenes.py; everything also through the thin lens), the
      CLI's fog on world 6 and on world 3 with -d, and world 1 with three
-     planar 512x512 maps at both sizes, through the feature variants; the
+     planar 512x512 maps at both sizes and with them cut to 500x300 (no
+     power of two: the reciprocal wraps) at both sizes through both
+     cameras, through the feature variants; the
      six mesh cases at both sizes, pinhole and thin lens (784 also
      under the other schedule), each through its tier's variant, and the
      two sliver cases (K7's row-parallel uv rows) at 256x144 through both
@@ -274,7 +280,9 @@ PEAK_BYTES = 3.35e12
 # FP32 operations (add, mul, div, sqrt, min/max, compare, select each 1;
 # sin/cos 1 each) counted off csrc/wave_kernel.cu. PCG4D is integer work
 # and is left out, so the bound is a lower bound.
-OPS_PRIMARY = {"pinhole": 49, "lens": 82}  # primary_ray
+# primary_ray: the lens's lens_d - n . pos arrives folded (lens_t0), 6
+# fewer than the 82 counted before; its aperture point is a shared load
+OPS_PRIMARY = {"pinhole": 49, "lens": 76}
 OPS_SPHERE = 35     # ray_sphere + the t < best test
 OPS_SLAB = 25       # one leaf cluster's slab test and cull (K5)
 OPS_INV = 6         # the slab reciprocals, once per ray
@@ -316,11 +324,17 @@ OPS_TRI_BRUTE = 97
 # (OPS_INV). The sweep's count (OPS_TRI_BRUTE on every triangle) is the
 # earlier definition of the K4t rows' bound (brute_terms).
 OPS_TRI_BRUTE_WALK = 63
-# K10 planar, per fetch_planar: the bespoke scale (6) and fetch_stack
-# without the albedo product (70); for a metalness or roughness map only
-# the red channel is blended (36)
+# K10 planar, per fetch_planar (a normal map, a dielectric's albedo): the
+# bespoke scale (6), abs, int->float and fractions with their clamps (10),
+# 12 channels unpacked (24), three bilinear blends (36); per planar_maps
+# address (a hit's metalness, roughness and albedo maps, one address per
+# size): the scale and fractions (16); per map there, the three channels'
+# unpacking and blends (60), or the red one's for a metalness or roughness
+# map (20). The wraps are integer work and are left out.
 OPS_PLANAR = 76
-OPS_PLANAR_X = 36
+OPS_PLANAR_ADDR = 16
+OPS_PLANAR_RGB = 60
+OPS_PLANAR_X = 20
 # K11 and the bump, per bumped hit: three red-channel fetches with the two
 # shifted points (104), the gradient and the normalize (19)
 OPS_BUMP = 123
@@ -352,20 +366,24 @@ KERNEL_RE = (r"wave_kernel(?:_grouped)?ILb([01])ELb([01])ELi([0-9])ELi([0-9])ELi
              r"ELi([0-9])E")
 # ptxas's registers and spill bytes of the variants as the parent commit
 # built them (phase 2 on the H100, PERF.md's findings): those without the
-# feature bounce, which must keep them, and the feature variants (kFeat set:
-# the "feat*" and "feature_*" ones and the mixed bases) under the
-# -DWAVE_NO_REGROUP yardstick, which those whose code K4t's walk left as it
-# was (not k4t_changed) must keep
-KEPT_PTXAS = {"brute_pinhole": (64, 0), "brute_lens": (72, 16),
-              "clustered_pinhole": (56, 72), "clustered_lens": (56, 84),
-              "textured_pinhole": (64, 68), "textured_lens": (64, 60),
-              "textured_pinhole_regen": (87, 0),
-              "mesh_pinhole": (64, 56), "mesh_lens": (64, 64),
-              "mesh_pinhole_regen": (80, 0),
-              "meshplain_pinhole": (64, 20), "meshplain_lens": (64, 28),
-              "static_pinhole": (64, 68), "static_lens": (64, 80),
-              "staticplain_pinhole": (56, 104), "staticplain_lens": (56, 108),
+# feature bounce and without a lens ray, which must keep them; those
+# without the feature bounce that cast a lens ray (thin_lens_ray changed),
+# with their resident blocks of 128 threads per SM, printed beside this
+# build's; and the feature variants (kFeat set: the "feat*" and
+# "feature_*" ones and the mixed bases) under the -DWAVE_NO_REGROUP
+# yardstick, which those whose code this build left as it was (not
+# code_changed) must keep
+KEPT_PTXAS = {"brute_pinhole": (64, 0), "clustered_pinhole": (56, 72),
+              "textured_pinhole": (64, 68), "textured_pinhole_regen": (87, 0),
+              "mesh_pinhole": (64, 56), "mesh_pinhole_regen": (80, 0),
+              "meshplain_pinhole": (64, 20), "static_pinhole": (64, 68),
+              "staticplain_pinhole": (56, 104),
               "staticplain_pinhole_regen": (80, 4)}
+PARENT_LENS_PTXAS = {
+    "brute_lens": (72, 16, 7), "clustered_lens": (56, 84, 9),
+    "textured_lens": (64, 60, 8), "mesh_lens": (64, 64, 8),
+    "meshplain_lens": (64, 28, 8), "static_lens": (64, 80, 8),
+    "staticplain_lens": (56, 108, 9)}
 FEATURE_EARLIER_PTXAS = {
     "feature_pinhole": (80, 0), "feature_lens": (80, 0),
     "feature_pinhole_lockstep": (72, 28),
@@ -386,42 +404,57 @@ FEATURE_EARLIER_PTXAS = {
 
 
 # the feature variants' registers and spill bytes and resident blocks of
-# 128 threads per SM as the parent commit built them (phase 2 on the H100,
-# H100 80GB HBM3 at 700 W), printed beside this build's
+# 128 threads per SM as the parent commit built them (chip_smoke.py
+# --parent on the H100, H100 80GB HBM3 at 700 W), printed beside this
+# build's; none may run fewer blocks
 PARENT_FEATURE_PTXAS = {
-    "feature_pinhole": (64, 256), "feature_lens": (64, 256),
-    "feature_pinhole_lockstep": (64, 248),
-    "featclustered_pinhole": (64, 260), "featclustered_lens": (64, 252),
-    "feattextured_pinhole": (64, 320), "feattextured_lens": (64, 332),
-    "feattextured_pinhole_regen": (64, 328),
+    "feature_pinhole": (64, 242), "feature_lens": (64, 242),
+    "feature_pinhole_lockstep": (64, 234),
+    "featclustered_pinhole": (64, 266), "featclustered_lens": (64, 242),
+    "feattextured_pinhole": (64, 306), "feattextured_lens": (64, 322),
+    "feattextured_pinhole_regen": (64, 314),
     "featmesh_pinhole": (64, 236), "featmesh_lens": (64, 244),
     "featmesh_pinhole_regen": (64, 272),
     "featmeshplain_pinhole": (64, 226), "featmeshplain_lens": (64, 250),
     "featstatic_pinhole": (64, 240), "featstatic_lens": (64, 220),
     "featstaticplain_pinhole": (64, 68), "featstaticplain_lens": (64, 238),
-    "clustered+textured": (64, 308), "clustered+mesh": (64, 256),
+    "clustered+textured": (64, 314), "clustered+mesh": (64, 256),
     "clustered+meshplain": (64, 250), "clustered+static": (64, 256),
     "clustered+staticplain": (64, 250), "textured+meshplain": (72, 92),
     "textured+staticplain": (64, 322),
     "clustered+textured+meshplain": (64, 330),
-    "clustered+textured+staticplain": (64, 334)}
+    "clustered+textured+staticplain": (64, 334),
+    "feature_pinhole_k4t": (64, 254), "feature_lens_k4t": (64, 254),
+    "feature_pinhole_lockstep_k4t": (64, 270),
+    "featclustered_pinhole_k4t": (64, 286),
+    "featclustered_lens_k4t": (64, 254),
+    "feattextured_pinhole_k4t": (64, 358), "feattextured_lens_k4t": (64, 370),
+    "feattextured_pinhole_regen_k4t": (64, 326),
+    "clustered+textured_k4t": (64, 330)}
 PARENT_FEATURE_BLOCKS = {
     **dict.fromkeys(PARENT_FEATURE_PTXAS, 8), "textured+meshplain": 7}
 
 
 # the feature variants without a mesh tier: each has a form with K4t's walk
-# (cuda_backend.K4T_VARIANTS, named with "_k4t"), and without it carries no
-# triangle code (the parent's carried the sweep), so their code changed
+# (cuda_backend.K4T_VARIANTS, named with "_k4t")
 K4T_BASES = ("feature_pinhole", "feature_lens", "feature_pinhole_lockstep",
              "featclustered_pinhole", "featclustered_lens",
              "feattextured_pinhole", "feattextured_lens",
              "feattextured_pinhole_regen", "clustered+textured")
 
 
-def k4t_changed(var: str) -> bool:
-    """Whether a feature variant's code changed with K4t's walk: a K4t form
-    or its base (K4T_BASES)."""
-    return var.removesuffix("_k4t") in K4T_BASES
+def code_changed(var: str) -> bool:
+    """Whether a feature variant's code changed against the parent's: every
+    one did (the planar fetch, fetch_planar and planar_maps, in each
+    variant without the combined set, left out of those with it, and the
+    lens ray in each that can cast one)."""
+    return feature_bounce(var)
+
+
+def lens_variant(var: str) -> bool:
+    """Whether a variant can cast a thin-lens primary ray: the "_lens"
+    ones and the mixed bases (the camera picked at run time)."""
+    return "_lens" in var or "+" in var
 
 
 def feature_bounce(var: str) -> bool:
@@ -1123,6 +1156,8 @@ MIXED_MESHES = {**MESH_CASES, "uv1472": (None, (32, 24)),
                 "uv1472s": (None, SLIVER_CASES["uv1472s"])}
 # the CLI's --fog 0.0012 --fog-albedo 0.9,0.9,0.95 --fog-g 0.5
 FOG = {"fog_sigma_t": 0.0012, "fog_albedo": (0.9, 0.9, 0.95), "fog_g": 0.5}
+# world 1's three planar maps cut to a size that is no power of two (w, h)
+PLANAR_CUT = {"w1 planar500": (500, 300)}
 MIXED_CASES = {
     "clustered+textured": (None, {}),
     "textured+staticplain": ("tri784", {}),
@@ -1285,8 +1320,9 @@ def tie_builder(tree=None):
     return b, cp
 
 
-FEATURE_KEYS = ("rays", "opaque", "refract", "scatter", "planar", "planar_x",
-                "bump", "uv_fetch", "tex_fetch")
+FEATURE_KEYS = ("rays", "opaque", "refract", "scatter", "planar",
+                "planar_addr", "planar_rgb", "planar_x", "bump", "uv_fetch",
+                "tex_fetch")
 
 
 def feature_tally(sc, hit, u, uv, out, act, bounce, tally):
@@ -1318,19 +1354,48 @@ def feature_tally(sc, hit, u, uv, out, act, bounce, tally):
     tally["scatter"] += int((below & vol).sum())
     tally["uv_fetch"] += int((albedo & uv_ok).sum())
     if sc.planar_maps:
-        planar = albedo & ~uv_ok
+        # fetch_planar: the normal map and a dielectric's albedo
+        planar = refract & alb & ~uv_ok
         if sc.use_normal_maps:
             planar = planar | (opaque & (sc.mat_normal_idx[m] != 0))
         tally["planar"] += int(planar.sum())
-        for on, field in ((sc.use_metalness_maps, sc.mat_metalness_idx),
-                          (sc.use_roughness_maps, sc.mat_roughness_idx)):
-            if on:
-                tally["planar_x"] += int((front & (field[m] != 0)).sum())
+        # planar_maps, after the back-face test: metalness, roughness and
+        # the diffuse lobe's albedo, an address wherever the size changes
+        aw = ah = torch.zeros_like(m)
+        for sel, field, key in (
+                (front & sc.use_metalness_maps, sc.mat_metalness_idx,
+                 "planar_x"),
+                (front & sc.use_roughness_maps, sc.mat_roughness_idx,
+                 "planar_x"),
+                (diffuse & ~uv_ok, sc.mat_albedo_idx, "planar_rgb")):
+            layer = field[m].long()
+            sel = sel & (layer != 0)
+            lw = sc.tex_w[(layer - 1).clamp_min(0)].long()
+            lh = sc.tex_h[(layer - 1).clamp_min(0)].long()
+            new = sel & ((lw != aw) | (lh != ah))
+            aw, ah = torch.where(new, lw, aw), torch.where(new, lh, ah)
+            tally["planar_addr"] += int(new.sum())
+            tally[key] += int(sel.sum())
     if sc.any_bump and sc.n_textures:
         tally["bump"] += int((opaque & (sc.mat_bump_idx[m] != 0)).sum())
     if sc.tex_combined and sc.n_textures:
         # K9: each opaque shade and dielectric of a combined-set material
         tally["tex_fetch"] += int(((opaque | refract) & alb).sum())
+
+
+def planar_ops(fc) -> int:
+    """The planar fetches' FP32 operations of a feature row's counts."""
+    return (fc["planar"] * OPS_PLANAR + fc["planar_addr"] * OPS_PLANAR_ADDR
+            + fc["planar_rgb"] * OPS_PLANAR_RGB
+            + fc["planar_x"] * OPS_PLANAR_X)
+
+
+def texture_tables(scene) -> tuple:
+    """The texture tables a feature row reads outside a combined set: the
+    planar table (planar maps) and the flat stack (bump maps, mesh UVs)."""
+    return (((scene.planar_tile,) if scene.planar_maps else ())
+            + ((scene.tex_packed,) if scene.n_textures and (
+                scene.any_bump or scene.has_mesh_uvs) else ()))
 
 
 REPLAY_KEYS = ("issue_before", "issue_after", "blocks", "blocks_regrouped")
@@ -1456,63 +1521,130 @@ def load_package(root: Path, name: str):
 
 
 # --parent's rows: (case, thin lens, schedule); "wN" is world N ("w7": its
-# 1472-triangle UV sphere; "w2", "w4": the clustered spheres), "triN" world
-# 5's ground with MESH_CASES' mesh of that tag (40: K4t's, 784: the static
-# tier), each + " fog" in the CLI's fog, a MIXED_CASES name that mixed case,
-# and a feature scene's name (FEATURE_CASES) that scene: K4t's rows (the
-# 40-triangle sphere through both cameras, under lockstep and in fog, the
-# everything scene, the combined set with that mesh alone and beside
-# clusters), the feature variants' rows without triangles, and a row of
-# each other walk
-PARENT_ROWS = (("tri40", False, None), ("tri40", True, None),
-               ("tri40", False, "lockstep"), ("tri40 fog", False, None),
-               ("tri40 fog", True, None), ("everything", False, None),
-               ("everything", True, None), ("textured+brute", False, None),
-               ("clustered+textured+brute", False, None),
-               ("w6 fog", False, None), ("w3 fog", True, None),
-               ("w6 fog", False, "lockstep"), ("fog", False, None),
-               ("tbn", False, None), ("bump", False, None),
-               ("dispersion", False, None), ("w1 fog", False, None),
-               ("w1 fog", True, None), ("w1 fog", False, "regen"),
-               ("w2 fog", False, None), ("w4 fog", True, None),
-               ("clustered+textured", False, None), ("w3", False, None),
-               ("w7", False, None), ("w7 fog", False, None),
-               ("tri784", False, None), ("w2", False, None))
+# 1472-triangle UV sphere; "w2", "w4": the clustered spheres), "triN" or
+# "uvN" world 5's ground with MESH_CASES' mesh of that tag, each + " fog" in
+# the CLI's fog, "w1 planar" world 1 with three planar 512x512 maps ("w1
+# planar500": cut to 500x300), "w2 maps" / "tri784 maps" planar albedo and
+# bump maps on the ground beside sphere clusters / the static tier, a
+# MIXED_CASES name that mixed case, a feature scene's name (FEATURE_CASES)
+# that scene: K10's planar rows, the feature rows without planar maps,
+# every lens variant's main path, and brute_pinhole as the control
+PARENT_ROWS = (
+    # K10 planar
+    ("tbn", False, None), ("w1 planar", False, None), ("w1 planar", True, None),
+    ("w1 planar500", False, None), ("w1 planar500", True, None),
+    ("w2 maps", False, None), ("tri784 maps", False, None),
+    ("everything", False, None), ("everything", True, None),
+    # the feature rows without planar maps
+    ("w6 fog", False, None), ("w6 fog", False, "lockstep"), ("fog", False, None),
+    ("dispersion", False, None), ("bump", False, None), ("w1 fog", False, None),
+    ("w2 fog", False, None), ("w7 fog", False, None),
+    ("tri784 fog", False, None), ("tri40", False, None),
+    # every lens variant's main path
+    ("w3", True, None), ("w4", True, None), ("w1", True, None),
+    ("w7", True, None), ("tri19600", True, None), ("uv736", True, None),
+    ("tri784", True, None), ("w3 fog", True, None), ("w4 fog", True, None),
+    ("w1 fog", True, None), ("w7 fog", True, None),
+    ("tri19600 fog", True, None), ("uv736 fog", True, None),
+    ("tri784 fog", True, None), ("tri40", True, None),
+    ("clustered+brute", True, None), ("textured+brute", True, None),
+    ("clustered+textured", True, None),
+    # the control
+    ("w3", False, None))
+
+# --parent's variants of this tree's kernel source, each timed in turns
+# against this one on its rows: (the replacements that make it from the
+# source, its rows). "disk_select": the aperture point by disk_point's
+# select sweep inline in the lens ray, no shared table; "lens_regs64": the
+# variants without the feature bounce that cast a lens ray held to 64
+# registers (8 blocks of 128 threads per SM); "planar_per_site": a hit's
+# metalness, roughness and diffuse albedo maps each fetched with an address
+# of its own where their values are taken (the parent's structure)
+SOURCE_VARIANTS = {
+    "disk_select": (
+        (("  const float2 disk = kDisk[(ray_index2 * ray_index) % 12u];",
+          "  const float2 disk = disk_point((ray_index2 * ray_index) % 12u);"),
+         ("  if constexpr (kThinLens || kMixed) disk_fill();\n", "")),
+        (("w3", True, None), ("w4", True, None), ("w1", True, None),
+         ("w7", True, None), ("tri784", True, None), ("w3 fog", True, None),
+         ("w1 fog", True, None))),
+    "lens_regs64": (
+        (("__global__ void __launch_bounds__(128) wave_kernel(",
+          "__global__ void __launch_bounds__(128, (kThinLens && kFeat == 0) "
+          "? 8 : 1) wave_kernel("),),
+        (("w3", True, None), ("w4", True, None), ("w1", True, None))),
+    "planar_per_site": (
+        (("      if (!(u[0] > 0.5f) && !uv->ok) planar_a = __ldg(p.mat_tex + m);\n"
+          "      planar = planar_maps(p, mi, ri, planar_a, hitpoint.x, hitpoint.y);\n"
+          "      if (mi != 0) metalness = planar.metalness;\n"
+          "      if (ri != 0) rough = planar.roughness;\n",
+          "      if (mi != 0) metalness = fetch_planar(p, mi - 1, hitpoint.x, hitpoint.y).x;\n"
+          "      if (ri != 0) rough = fetch_planar(p, ri - 1, hitpoint.x, hitpoint.y).x;\n"),
+         ("(planar_a != 0 ? planar.albedo : feature_albedo<false>(p, m, hitpoint, uv))",
+          "(planar_a != 0 ? planar.albedo : feature_albedo<true>(p, m, hitpoint, uv))")),
+        (("tbn", False, None), ("w1 planar", False, None),
+         ("w1 planar", True, None), ("w1 planar500", False, None),
+         ("w2 maps", False, None), ("tri784 maps", False, None),
+         ("bump", False, None), ("w6 fog", False, None),
+         ("w3 fog", True, None))),
+}
+
+
+def source_variant(name: str):
+    """This tree's package with SOURCE_VARIANTS[name]'s replacements made
+    in its kernel source, copied under pathtracer_tpu_torch/_build/ and
+    imported beside it (load_package)."""
+    import shutil
+    pkg = ROOT / "pathtracer_tpu_torch"
+    root = pkg / "_build" / "variants" / name
+    if root.exists():
+        shutil.rmtree(root)
+    shutil.copytree(pkg, root / "pathtracer_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    cu = root / "pathtracer_tpu_torch" / "csrc" / "wave_kernel.cu"
+    src = cu.read_text()
+    for old, new in SOURCE_VARIANTS[name][0]:
+        check(old in src, f"{name}: the source holds {old!r}")
+        src = src.replace(old, new)
+    cu.write_text(src)
+    return load_package(root, f"variant_{name}")
 
 
 def parent_turns(parent: Path, smi: str):
     """``--parent DIR``: the kernel of another checkout of this repository
     at DIR (the parent commit, unpacked with git archive) against this
-    one's, in one process: both built at once, with ptxas's registers and
-    spills of each variant under each build and their resident blocks per
-    SM; the kernel ms of each PARENT_ROWS row at 1280x720, 4 spp, after a
-    warm launch each, in turns (parent, this, this, parent, this, parent,
-    parent, this: each first in one half); this one's K4t on the
-    everything scene's one triangle swept and walked; the parent's against
-    itself on three rows (the turns' noise); and this one's K4t with leaves
-    of at most 4, 8 and 12 each against clusters.BRUTE_LEAF's in turns."""
+    one's, in one process: both built at once with SOURCE_VARIANTS' builds
+    of this one, with ptxas's registers and spills of each variant under
+    each build and their resident blocks per SM; the kernel ms of each
+    PARENT_ROWS row at 1280x720, 4 spp, after a warm launch each, in turns
+    (parent, this, this, parent, this, parent, parent, this: each first in
+    one half); the parent's against itself on three rows (the turns'
+    noise); and each source variant against this one on its rows, in
+    turns."""
     import importlib
     import torch
     dev = torch.device("cuda:0")
     trees = {"parent": load_package(parent.resolve(), "parent_port"),
              "this": lambda sub: importlib.import_module(
                  f"pathtracer_tpu_torch.{sub}")}
+    trees.update({k: source_variant(k) for k in SOURCE_VARIANTS})
 
     def build(tree):
         t = time.perf_counter()
         tree("render.cuda_backend").build()
         return time.perf_counter() - t
 
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(trees)) as pool:
         secs = dict(zip(trees, pool.map(build, trees.values())))
     print(f"parent build_s={json.dumps(secs)}")
     for k, tree in trees.items():
         cbk = tree("render.cuda_backend")
-        print(f"parent ptxas tree={k} " + json.dumps(
-            ptxas_report(cbk.BUILD_LOG)))
-        print(f"parent occupancy [blocks per SM, static shared bytes, "
-              f"registers] tree={k} " + json.dumps(
-                  occupancy_report(cbk.build())))
+        rep = ptxas_report(cbk.BUILD_LOG)
+        occ = occupancy_report(cbk.build())
+        print(f"parent ptxas [registers, spill stores, blocks per SM] "
+              f"tree={k} " + json.dumps(
+                  {v: [r["registers"], r["spill_stores"], occ[v][0]]
+                   for v, r in rep.items()}))
 
     def mesh_builder(tree, tag):
         """World 5's ground with MESH_CASES' mesh of ``tag`` (its UV sphere
@@ -1539,25 +1671,47 @@ def parent_turns(parent: Path, smi: str):
         case under ``tree``."""
         worlds, schema = tree("scene.worlds"), tree("scene.schema")
         features = tree("scene.feature_scenes").FEATURE_CASES
+        camera = tree("scene.camera")
         if tag in features:
             scene, (pos, target, fov), kw = features[tag]()
-            return scene.to(dev), tree("scene.camera").define_camera(
+            return scene.to(dev), camera.define_camera(
                 pos, target, fov, w, h, use_pinhole=not lens), kw
-        if tag[0] == "w":
+        if tag.startswith("w1 planar"):
+            b, cp = worlds.build_world(schema.WORLD_DEFAULT)
+            cut = PLANAR_CUT.get(tag)
+            b.textures = [t[:cut[1], :cut[0]].copy() if cut else t
+                          for t in b.textures[:3]]
+            for m in b.materials:
+                m.normal_idx = 0
+            _, cam = worlds.finalize_world(schema.WORLD_DEFAULT, w, h,
+                                           use_pinhole=not lens)
+            return b.finalize(view_origin=cp.pos).to(dev), cam, {}
+        if tag[0] == "w" and tag[1].isdigit() and not tag.endswith("maps"):
             scene, cam = worlds.finalize_world(int(tag[1]) - 1, w, h,
                                                use_pinhole=not lens)
             if tag.endswith("fog"):
                 scene = dataclasses.replace(scene, **FOG)
             return scene.to(dev), cam, {}
-        name = tag.removesuffix(" fog")
+        name = tag.removesuffix(" fog").removesuffix(" maps")
         if tag in MIXED_CASES:
             b, cp, kind = mixed_builder(tag, tree)
+        elif name == "w2":
+            kind = schema.WORLD_BRDF_TEST
+            b, cp = worlds.build_world(kind)
         else:
             b, cp, kind = mesh_builder(tree, name)
+        if tag.endswith(" maps"):
+            # the ground's planar albedo (world 7's checker) and bump maps
+            m = b.materials[b.planes[0][2]]
+            m.albedo_idx = b.add_texture(worlds._mesh_uv_demo_texture())
+            hf = np.repeat(np.random.RandomState(7).rand(8, 8, 1), 3, 2)
+            m.bump_idx = b.add_texture((np.round(hf * 255.0) / 255.0)
+                                       .astype(np.float32))
+            m.bump_scale = 0.5
         scene = b.finalize(world_kind=kind, view_origin=cp.pos)
         if tag.endswith(" fog"):
             scene = dataclasses.replace(scene, **FOG)
-        return scene.to(dev), tree("scene.camera").define_camera(
+        return scene.to(dev), camera.define_camera(
             cp.pos, cp.target, cp.fov, w, h, use_pinhole=not lens,
             focal_distance=cp.focal_distance,
             aperture_radius=cp.aperture_radius), {}
@@ -1566,14 +1720,14 @@ def parent_turns(parent: Path, smi: str):
 
     def launcher(tree, tag, lens, sched):
         """(a warmed 720p 4-spp launch of ``tree``'s kernel on a case, its
-        variant, its triangles)."""
+        variant)."""
         scene, cam, kw = case(tree, tag, lens, w, h)
         rd, cb = tree("render.renderer"), tree("render.cuda_backend")
         cfg = rd.RenderConfig(w, h, pp=2, seed=0, schedule=sched, **kw)
         launch = (lambda: cb.render_chunk_cuda(scene, cam, cfg, 0, 0, 4,
                                                rd.init_accum(w * h, dev)))
         launch()
-        return launch, cb.variant(scene, cam, sched), scene.n_tris
+        return launch, cb.variant(scene, cam, sched)
 
     def in_turns(runs):
         """The ms and rays of two launchers' launches in turns (first,
@@ -1595,62 +1749,29 @@ def parent_turns(parent: Path, smi: str):
             rays[k] = int(st.rays_cast)
         return res, rays, {k: float(np.median(v)) for k, v in res.items()}
 
-    for tag, lens, sched in PARENT_ROWS:
-        runs = {k: launcher(tree, tag, lens, sched)
-                for k, tree in trees.items()}
-        res, rays, med = in_turns(runs)
-        print(f"parent row case={tag!r} lens={lens} schedule={sched} "
-              f"n_tris={runs['this'][2]} variant_parent={runs['parent'][1]} "
-              f"variant_this={runs['this'][1]} parent_ms={res['parent']} "
-              f"this_ms={res['this']} parent_median={med['parent']} "
-              f"this_median={med['this']} "
-              f"this_over_parent={med['this'] / med['parent']} "
-              f"rays_parent={rays['parent']} rays_this={rays['this']} "
-              f"| card: {smi}")
+    def turns(label, one, two, rows):
+        """Each row of ``rows`` under trees ``one`` and ``two`` in turns,
+        one line each."""
+        for tag, lens, sched in rows:
+            runs = {k: launcher(trees[k], tag, lens, sched)
+                    for k in (one, two)}
+            res, rays, med = in_turns(runs)
+            print(f"{label} case={tag!r} lens={lens} schedule={sched} "
+                  f"variant_{one}={runs[one][1]} variant_{two}={runs[two][1]} "
+                  f"{one}_ms={res[one]} {two}_ms={res[two]} "
+                  f"{one}_median={med[one]} {two}_median={med[two]} "
+                  f"{two}_over_{one}={med[two] / med[one]} "
+                  f"rays_{one}={rays[one]} rays_{two}={rays[two]} "
+                  f"| card: {smi}", flush=True)
 
-    # this tree's K4t on the everything scene's one triangle swept from
-    # its record (clusters.BRUTE_SWEEP_MAX) against walked (0)
-    clusters = trees["this"]("scene.clusters")
-    kept = clusters.BRUTE_SWEEP_MAX
-    for lens in (False, True):
-        runs = {}
-        for sweep in (kept, 0):
-            clusters.BRUTE_SWEEP_MAX = sweep
-            runs[sweep] = launcher(trees["this"], "everything", lens, None)
-        clusters.BRUTE_SWEEP_MAX = kept
-        res, _, med = in_turns(runs)
-        print(f"parent brute_sweep case='everything' lens={lens} "
-              f"swept_ms={res[kept]} walked_ms={res[0]} "
-              f"walked_over_swept={med[0] / med[kept]} | card: {smi}")
-
+    turns("parent row", "parent", "this", PARENT_ROWS)
     # the noise of the turns: the parent's kernel against itself
-    for tag, lens in (("w6 fog", False), ("everything", False),
-                      ("tri40", False)):
-        runs = {k: launcher(trees["parent"], tag, lens, None)
-                for k in ("parent", "parent_again")}
-        res, _, med = in_turns(runs)
-        print(f"parent control case={tag!r} lens={lens} "
-              f"parent_ms={res['parent']} again_ms={res['parent_again']} "
-              f"again_over_parent={med['parent_again'] / med['parent']} "
-              f"| card: {smi}")
-
-    # this tree's K4t with leaves of at most 4, 8 and 12, each against
-    # clusters.BRUTE_LEAF's, the same kernel
-    kept = clusters.BRUTE_LEAF
-    for tag, lens in (("tri40", False), ("tri40", True), ("tri40 fog", False),
-                      ("everything", False), ("textured+brute", False)):
-        for other in (x for x in (4, 8, 12) if x != kept):
-            runs = {}
-            for leaf in (kept, other):
-                clusters.BRUTE_LEAF = leaf
-                runs[leaf] = launcher(trees["this"], tag, lens, None)
-            clusters.BRUTE_LEAF = kept
-            res, _, med = in_turns(runs)
-            print(f"parent brute_leaf case={tag!r} lens={lens} "
-                  f"variant={runs[kept][1]} leaf{kept}_ms={res[kept]} "
-                  f"leaf{other}_ms={res[other]} "
-                  f"leaf{other}_over_leaf{kept}={med[other] / med[kept]} "
-                  f"| card: {smi}")
+    trees["parent_again"] = trees["parent"]
+    turns("parent control", "parent", "parent_again",
+          (("w6 fog", False, None), ("w1 planar", False, None),
+           ("w3", True, None)))
+    for name, (_, rows) in SOURCE_VARIANTS.items():
+        turns(f"parent source_variant={name}", "this", name, rows)
 
 
 def main() -> int:
@@ -1712,15 +1833,17 @@ def main() -> int:
         return (scene.to(dev), define_camera(pos, target, fov, w, h,
                                              use_pinhole=not lens), cfg_kw)
 
-    def planar_world1(w, h):
+    def planar_world1(w, h, lens=False, cut=None):
         """World 1 with three planar 512x512 maps (albedo, metalness,
         roughness) instead of the combined set: the feature kernel's
-        planar fetch over a large stack."""
+        planar fetch over a large stack; with ``cut`` (w, h) each map cut
+        to that size (500x300: no power of two, the reciprocal wraps)."""
         b, cp = build_world(W1)
-        b.textures = b.textures[:3]
+        b.textures = [t[:cut[1], :cut[0]].copy() if cut else t
+                      for t in b.textures[:3]]
         for m in b.materials:
             m.normal_idx = 0
-        _, cam = finalize_world(W1, w, h)
+        _, cam = finalize_world(W1, w, h, use_pinhole=not lens)
         return b.finalize(view_origin=cp.pos).to(dev), cam
 
     mesh_built = {}  # tag -> (CPU scene, camera params, finalize s, card)
@@ -1765,11 +1888,12 @@ def main() -> int:
     def feature_case(tag, w, h, lens=False):
         """(scene, camera, RenderConfig options) of a feature case: a
         feature scene by name, "w6 fog" / "w3 fog" (the CLI's fog on world
-        6 or 3), "w1 planar" or the 40-triangle mesh case (K4t)."""
+        6 or 3), "w1 planar" (planar_world1), "w1 planar500" (its maps
+        cut to 500x300) or the 40-triangle mesh case (K4t)."""
         if tag in FEATURE_CASES:
             return feature(tag, w, h, lens)
-        if tag == "w1 planar":
-            return (*planar_world1(w, h), {})
+        if tag.startswith("w1 planar"):
+            return (*planar_world1(w, h, lens, PLANAR_CUT.get(tag)), {})
         if tag in MESH_CASES:
             return (*mesh_case(tag, w, h, lens), {})
         kind = {"w6 fog": W6, "w3 fog": W3}[tag]
@@ -1800,8 +1924,8 @@ def main() -> int:
         (MESH_CASES: the 40-triangle one is a brute mesh, K4t) or a mixed
         case (MIXED_CASES: "textured+brute" and "clustered+brute" put that
         mesh beside the combined set or sphere clusters)."""
-        if tag == "w1 planar":
-            return planar_world1(w, h)
+        if tag.startswith("w1 planar"):
+            return planar_world1(w, h, lens, PLANAR_CUT.get(tag))
         if tag in MESH_CASES:
             return mesh_case(tag, w, h, lens)
         if tag in MIXED_CASES:
@@ -1888,28 +2012,33 @@ def main() -> int:
     sass = sass_report(cb.LIB_PATH, args.sass)
     check(sorted(sass) == sorted(cb.VARIANTS), f"SASS report {sass}")
     check(sorted(KEPT_PTXAS) == sorted(
-              v for v in cb.VARIANTS if not feature_bounce(v))
+              v for v in cb.VARIANTS
+              if not feature_bounce(v) and not lens_variant(v))
+          and sorted(PARENT_LENS_PTXAS) == sorted(
+              v for v in cb.VARIANTS
+              if not feature_bounce(v) and lens_variant(v))
           and sorted(FEATURE_EARLIER_PTXAS) == sorted(
               v for v in cb.VARIANTS
               if feature_bounce(v) and v not in cb.K4T_VARIANTS)
           and sorted(cb.K4T_VARIANTS) == sorted(
               v + cb.K4T_SUFFIX for v in K4T_BASES),
-          "KEPT_PTXAS names every variant without the feature bounce, "
-          "FEATURE_EARLIER_PTXAS every other one but the K4t forms, "
+          "KEPT_PTXAS names every variant without the feature bounce and "
+          "the lens, PARENT_LENS_PTXAS every other one without the feature "
+          "bounce, FEATURE_EARLIER_PTXAS every other one but the K4t forms, "
           "K4T_BASES the K4t forms' bases")
     now = {v: (r["registers"], r["spill_stores"]) for v, r in ptxas.items()}
     flat = {v: (r["registers"], r["spill_stores"])
             for v, r in flat_ptxas.items()}
     kept = {v: now[v] == rs for v, rs in KEPT_PTXAS.items()}
     flat_kept = {v: flat[v] == rs for v, rs in FEATURE_EARLIER_PTXAS.items()
-                 if not k4t_changed(v)}
+                 if not code_changed(v)}
     regrouped = sorted(v for v, r in ptxas.items() if r["regrouped"])
     print(f"phase2 build_s={build_s:.3f} nvcc_s={cb.BUILD_SECONDS} "
           f"no_regroup_build_s={flat_s} ptxas={json.dumps(ptxas)}")
     print(f"phase2 variants_kept_ptxas={json.dumps(kept)} "
           f"all_kept={all(kept.values())}")
     check(all(kept.values()), "the variants without the feature bounce "
-          "kept their registers and spills")
+          "and the lens kept their registers and spills")
     check(not any(r["regrouped"] for r in flat_ptxas.values())
           and all(feature_bounce(v) for v in regrouped),
           "only feature variants regroup, and none in the yardstick")
@@ -1921,22 +2050,20 @@ def main() -> int:
           f"and of the parent's (PARENT_FEATURE_PTXAS), resident blocks per "
           f"SM of both (PARENT_FEATURE_BLOCKS), and (registers, spill "
           f"stores) of the -DWAVE_NO_REGROUP yardstick and of the parent's "
-          f"yardstick (FEATURE_EARLIER_PTXAS); k4t_changed: a variant "
-          f"without a mesh tier, whose K4t form is its own (the parent's "
-          f"base variant carried the sweep) " + json.dumps(
+          f"yardstick (FEATURE_EARLIER_PTXAS); code_changed: the "
+          f"variant's code changed against the parent's " + json.dumps(
               {v: {"now": now[v], "parent": PARENT_FEATURE_PTXAS[v],
                    "blocks": occ[v][0], "parent_blocks":
                    PARENT_FEATURE_BLOCKS[v], "no_regroup": flat[v],
                    "no_regroup_parent": rs, "regrouped": v in regrouped,
-                   "k4t_changed": k4t_changed(v)}
+                   "code_changed": code_changed(v)}
                for v, rs in FEATURE_EARLIER_PTXAS.items()}))
     print(f"phase2 K4t forms: (registers, spill stores) and blocks per SM "
           f"of this build and its -DWAVE_NO_REGROUP yardstick, beside the "
-          f"parent's base variant's (which carried the sweep) " + json.dumps(
+          f"parent's " + json.dumps(
               {v: {"now": now[v], "blocks": occ[v][0], "no_regroup": flat[v],
-                   "parent_base": PARENT_FEATURE_PTXAS[v.removesuffix(
-                       cb.K4T_SUFFIX)], "parent_base_blocks":
-                   PARENT_FEATURE_BLOCKS[v.removesuffix(cb.K4T_SUFFIX)],
+                   "parent": PARENT_FEATURE_PTXAS[v], "parent_blocks":
+                   PARENT_FEATURE_BLOCKS[v],
                    "regrouped": v in regrouped} for v in cb.K4T_VARIANTS}))
     feat_kept = {v: now[v] == PARENT_FEATURE_PTXAS[v]
                  and occ[v][0] == PARENT_FEATURE_BLOCKS[v]
@@ -1944,12 +2071,26 @@ def main() -> int:
     print(f"phase2 feature variants kept the parent's registers, spills and "
           f"blocks: {json.dumps(feat_kept)} "
           f"unchanged_code_all_kept="
-          f"{all(k for v, k in feat_kept.items() if not k4t_changed(v))}")
+          f"{all(k for v, k in feat_kept.items() if not code_changed(v))}")
+    # every variant that can cast a lens ray, beside the parent's build
+    parent_lens = {**{v: list(r) for v, r in PARENT_LENS_PTXAS.items()},
+                   **{v: [*PARENT_FEATURE_PTXAS[v], PARENT_FEATURE_BLOCKS[v]]
+                      for v in cb.VARIANTS
+                      if feature_bounce(v) and lens_variant(v)}}
+    print("phase2 lens variants: [registers, spill stores, blocks per SM] "
+          "of this build and of the parent's " + json.dumps(
+              {v: {"now": [*now[v], occ[v][0]], "parent": parent_lens[v]}
+               for v in cb.VARIANTS if lens_variant(v)}))
+    # every feature variant keeps the parent's resident blocks per SM
+    fewer = {v: [occ[v][0], PARENT_FEATURE_BLOCKS[v]] for v in cb.VARIANTS
+             if feature_bounce(v) and occ[v][0] < PARENT_FEATURE_BLOCKS[v]}
+    check(not fewer, f"feature variants below the parent's blocks per SM: "
+          f"{fewer}")
     print(f"phase2 regrouped={json.dumps(regrouped)} "
           f"yardstick_kept_earlier={all(flat_kept.values())} "
           f"{json.dumps({v: k for v, k in flat_kept.items() if not k})}")
-    check(all(flat_kept.values()), "the yardstick's feature variants without "
-          "K4t's code kept the parent's registers and spills")
+    check(all(flat_kept.values()), "the yardstick's feature variants whose "
+          "code did not change kept the parent's registers and spills")
     print("phase2 blocks_per_sm (this build, -DWAVE_NO_REGROUP): "
           + json.dumps({v: [occ[v][0], flat_occ[v][0]] for v in cb.VARIANTS}))
     print("phase2 occupancy [blocks per SM, static shared bytes, registers] "
@@ -2080,7 +2221,11 @@ def main() -> int:
             ("everything", 256, 144, True),
             *((n, 1280, 720, False) for n in FEATURE_CASES),
             ("w6 fog", 1280, 720, False), ("w3 fog", 1280, 720, True),
-            ("w1 planar", 256, 144, False), ("w1 planar", 1280, 720, False)):
+            ("w1 planar", 256, 144, False), ("w1 planar", 1280, 720, False),
+            # maps of 500x300: the reciprocal wraps, through both cameras
+            *(("w1 planar500", w_, h_, ln) for w_, h_ in ((256, 144),
+                                                          (1280, 720))
+              for ln in (False, True))):
         scene, cam, cfg_kw = feature_case(tag, w, h, lens)
         pp, n = depth(w)
         var, err = held(f"feature={tag!r} options={cfg_kw}", scene, cam,
@@ -3026,10 +3171,10 @@ def main() -> int:
                + rays * isect_ops + fc["opaque"] * OPS_SHADE
                + fc["refract"] * OPS_REFRACT
                + fc["scatter"] * OPS_FOG_SCATTER
-               + fc["planar"] * OPS_PLANAR + fc["planar_x"] * OPS_PLANAR_X
+               + planar_ops(fc)
                + fc["bump"] * OPS_BUMP + fc["uv_fetch"] * OPS_STACK)
-        nbytes = w * h * BYTES_PER_PIXEL + 4 * (
-            scene.tex_packed.numel() if scene.n_textures else 0)
+        nbytes = w * h * BYTES_PER_PIXEL + 4 * sum(
+            t.numel() for t in texture_tables(scene))
         bound_ms, bound_by, ops, nbytes, bound_old = row_bound(
             ops, nbytes, rays, k4t)
         counts = " ".join(f"{k_}={v}" for k_, v in fc.items())
@@ -3174,11 +3319,11 @@ def main() -> int:
                + rays * isect_ops + fc["opaque"] * OPS_SHADE
                + fc["refract"] * OPS_REFRACT
                + fc["scatter"] * OPS_FOG_SCATTER
-               + fc["planar"] * OPS_PLANAR + fc["planar_x"] * OPS_PLANAR_X
+               + planar_ops(fc)
                + fc["bump"] * OPS_BUMP + fc["uv_fetch"] * OPS_STACK
                + fc["tex_fetch"] * OPS_TEX)
         tables = ((scene.tex_tile,) if cb.textured(scene) else
-                  (scene.tex_packed,) if scene.n_textures else ())
+                  texture_tables(scene))
         nbytes = w * h * BYTES_PER_PIXEL + 4 * sum(t.numel() for t in tables)
         bound_ms, bound_by, ops, nbytes, bound_old = row_bound(
             ops, nbytes, rays, k7, sph, k4t)

@@ -23,6 +23,13 @@ offset of the texel's A word (B is the next word), so one aligned 8-byte
 load fetches both. The JAX kernel's distinct-tile iteration is a TPU
 shape (no per-lane gather there) and has no counterpart here.
 
+K10's planar form as the CUDA kernel reads it (:func:`planar_at`,
+:func:`planar_sample`, :func:`planar_maps`): the same texels from the
+planar table (``schema.planar_tables``: each layer at its own size in
+8x8-texel tiles, :func:`planar_word`), wrapped by a mask or by the size's
+reciprocal (:func:`wrap_recip`), a lane's maps of one size at one address;
+bit-equal to :func:`bespoke_sample`, which the plain version renders with.
+
 Hazards kept from JAX: ``u * (w * 0.5)`` with the constant folded in double
 and rounded once; truncation toward zero; the fraction clipped to [0, 1];
 the wrap is ``%`` at level 0 and ``& (w - 1)`` at mip levels, both
@@ -242,3 +249,97 @@ def bespoke_height3(scene: Scene, layer: torch.Tensor, x: torch.Tensor,
     return (bespoke_sample(scene, layer, x, y).x,
             bespoke_sample(scene, layer, x + BUMP_EPS, y).x,
             bespoke_sample(scene, layer, x, y + BUMP_EPS).x)
+
+
+# --- K10's planar form as the CUDA kernel reads it -------------------------
+
+def wrap_recip(x: torch.Tensor, n: torch.Tensor, m: torch.Tensor):
+    """The kernel's ``wrap_mod`` on int64 tensors: ``x % n`` of a
+    non-negative int32 ``x``, by a mask where ``m`` is 0 (``n`` a power of
+    two), else from n's reciprocal ``m`` (``schema.planar_recip``) with one
+    conditional subtract, no division."""
+    r = x - ((x * m) >> 32) * n
+    r = torch.where(r >= n, r - n, r)
+    return torch.where(m == 0, x & (n - 1), r)
+
+
+def planar_word(tiles_x, y, x):
+    """Texel (y, x)'s word within its layer's 8x8 tiles (row-major tiles,
+    ``tiles_x`` of them a row; ``schema.planar_tables``)."""
+    return (y >> 3) * tiles_x * 64 + (y & 7) * 8 + (x >> 3) * 64 + (x & 7)
+
+
+def planar_meta(scene: Scene, layer: torch.Tensor):
+    """Per lane the planar table's words of its 0-based ``layer``: (word
+    offset of its tiles, tiles_x, w, h, mw, mh) as int64 and (w, h) as
+    float32."""
+    meta = scene.planar_meta[layer.long()]
+    f = meta[:, 6:8].contiguous().view(torch.float32)
+    m = meta[:, :6].long()
+    m[:, 4:6] &= 0xFFFF_FFFF
+    return (m[:, 0] * 64, *(m[:, j] for j in range(1, 6)), f[:, 0], f[:, 1])
+
+
+def planar_at(scene: Scene, layer: torch.Tensor, x: torch.Tensor,
+              y: torch.Tensor):
+    """The kernel's ``planar_at``: BespokeSampleTexture's coordinates of the
+    world (x, y) on each lane's layer, the four corners' words within the
+    layer's tiles ((y1, x1), (y1, x2), (y2, x1), (y2, x2): ``(y >> 3) *
+    tiles_x * 64 + (y & 7) * 8 + (x >> 3) * 64 + (x & 7)``), then s, t."""
+    _, tiles_x, w, h, mw, mh, wf, hf = planar_meta(scene, layer)
+    u = torch.abs(x * wf * 0.5)
+    v = torch.abs(y * hf * 0.5)
+    xi, yi = _to_i32_saturating(u), _to_i32_saturating(v)
+    s = torch.clamp(u - xi.to(u.dtype), 0.0, 1.0)
+    t = torch.clamp(v - yi.to(v.dtype), 0.0, 1.0)
+    x1 = wrap_recip(xi.long(), w, mw)
+    y1 = wrap_recip(yi.long(), h, mh)
+    x2 = torch.where(x1 + 1 == w, 0, x1 + 1)
+    y2 = torch.where(y1 + 1 == h, 0, y1 + 1)
+    return [planar_word(tiles_x, yy, xx)
+            for yy, xx in ((y1, x1), (y1, x2), (y2, x1), (y2, x2))], s, t
+
+
+def planar_texel(scene: Scene, layer: torch.Tensor, at) -> Vec3:
+    """The kernel's ``planar_texel``: the blend of each lane's layer at the
+    address ``at`` (:func:`planar_at`'s corners, s, t)."""
+    corners, s, t = at
+    base = planar_meta(scene, layer)[0]
+    words = [_unpack(scene.planar_tile[base + c]) for c in corners]
+    return _bilerp_vec3(*words, s, t)
+
+
+def planar_sample(scene: Scene, layer: torch.Tensor, x: torch.Tensor,
+                  y: torch.Tensor) -> Vec3:
+    """The kernel's ``fetch_planar``: :func:`bespoke_sample` read from the
+    planar table, bit-equal to it."""
+    return planar_texel(scene, layer, planar_at(scene, layer, x, y))
+
+
+def planar_maps(scene: Scene, layers, x: torch.Tensor, y: torch.Tensor):
+    """The kernel's ``planar_maps``: several maps per lane at one world
+    point (``layers``: 0-based layer tensors, -1 where a lane has no such
+    map), each reusing the last address computed where its size equals
+    that address's. Returns the texels (zero where a lane has no map) and
+    the count of addresses each lane computed."""
+    n = x.shape[0]
+    aw = torch.zeros(n, dtype=torch.int64)
+    ah = torch.zeros(n, dtype=torch.int64)
+    at, computed, out = None, torch.zeros(n, dtype=torch.int64), []
+    for layer in layers:
+        has = layer >= 0
+        lay = torch.clamp_min(layer, 0)
+        _, _, w, h, _, _, _, _ = planar_meta(scene, lay)
+        fresh_at = planar_at(scene, lay, x, y)
+        fresh = has & ((w != aw) | (h != ah))
+        if at is None:
+            at = fresh_at
+        else:
+            at = ([torch.where(fresh, a, b) for a, b in zip(fresh_at[0], at[0])],
+                  *(torch.where(fresh, a, b) for a, b in zip(fresh_at[1:],
+                                                             at[1:])))
+        aw, ah = torch.where(fresh, w, aw), torch.where(fresh, h, ah)
+        computed += fresh.long()
+        tex = planar_texel(scene, lay, at)
+        out.append(Vec3(*(torch.where(has, c, 0.0) for c in tex)))
+    return out, computed

@@ -19,7 +19,7 @@ the huge cluster, then the same near-first walk over a BVH of the other
 triangles, each warp on an 8x4 pixel tile) with the winner's uv (K8,
 ``static``) or without (``staticplain``, with the pinhole under the other
 schedule too); feature (fog, transmission with dispersion, planar maps
-from the flat stack with K10's planar form, bump maps with the height
+from their own tiled table with K10's planar form, bump maps with the height
 fetch K11, K4t, the brute triangle sweep, as a near-first walk over a BVH
 of the triangles' precomputed records, with or without UVs), either
 primary under path regeneration, the schedule JAX runs these scenes
@@ -37,8 +37,7 @@ or with any mesh tier, the combined set with a mesh tier without UVs, and
 all three), named by their parts joined with "+", each carry the feature
 bounce and pick the primary ray at run time, so one instantiation covers
 either camera with or without features, under ``MIXED_SCHEDULE``. Every
-variant with the feature bounce but ``textured+meshplain`` and
-``featstaticplain_pinhole`` regroups its
+variant with the feature bounce but ``textured+meshplain`` regroups its
 shading lanes by event each bounce (the kernel's ``regroup_shading``;
 ``render/regroup.py`` is its plain model). The
 file is compiled at first use for ``sm_90a`` into
@@ -82,7 +81,7 @@ import torch
 
 from ..scene.camera import Camera, define_camera
 from ..scene.clusters import stream_rows_per_cluster
-from ..scene.schema import Scene
+from ..scene.schema import Scene, recip32
 from .lockstep import render_chunk_lockstep
 from .raygen import focal_plane
 from .wavefront import render_chunk_wavefront
@@ -199,14 +198,16 @@ _TIER_PTR_FIELDS = (
 )
 # the streamed walk's BVH, after those
 _BVH_PTR_FIELDS = ("bvh_nodes", "bvh_tris", "bvh_tri_k")
-# the sphere clusters' BVH, last
+# the sphere clusters' BVH, after those
 _SBVH_PTR_FIELDS = ("sbvh_nodes", "sbvh_sph", "sbvh_idx")
+# K10's planar table, last
+_PLANAR_PTR_FIELDS = ("planar_tile", "planar_meta")
 _FEAT_FLOAT_FIELDS = ("fog_sigma_t", "hg_a", "hg_b", "hg_c", "hg_d")
 _INT_PTRS = ("sph_mat", "q_mat", "p_mat", "csph_mat", "cl_off", "cl_cnt",
              "cl_huge", "nan_px", "rays_px", "stack_words",
              "stack_w", "stack_h", "tri_mat", "mat_met_idx", "mat_rgh_idx",
              "mat_nrm_idx", "mat_bump_idx", "ctri_mat", "tcl_range",
-             "bvh_tri_k", "sbvh_idx") + _TEX_PTR_FIELDS
+             "bvh_tri_k", "sbvh_idx") + _TEX_PTR_FIELDS + _PLANAR_PTR_FIELDS
 _INT_FIELDS = (
     "n_spheres", "n_quads", "n_planes", "quad_light",
     "just_cosine", "use_rr",
@@ -242,7 +243,9 @@ class WaveParams(ctypes.Structure):
                 + [("bvh_root", _F * 6)]
                 + [(n, _P) for n in _SBVH_PTR_FIELDS]
                 + [("sbvh_root", _F * 6), ("n_sph_huge", _I),
-                   ("stream_uv_cfm", _I)])
+                   ("stream_uv_cfm", _I)]
+                + [(n, _P) for n in _PLANAR_PTR_FIELDS]
+                + [("pp_m", ctypes.c_uint32), ("lens_t0", _F)])
 
 # WaveParams.tex_flags bits (TEX_* in the kernel)
 TEX_METALNESS, TEX_ROUGHNESS, TEX_NORMAL, TEX_TBN = 1, 2, 4, 8
@@ -453,7 +456,8 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
     """Pointers and host-folded constants for one launch."""
     ptrs = dict(zip(_PTR_FIELDS + _CLUSTER_PTR_FIELDS + _TEX_PTR_FIELDS
                     + _MESH_PTR_FIELDS + _FEAT_PTR_FIELDS + _TIER_PTR_FIELDS
-                    + _BVH_PTR_FIELDS + _SBVH_PTR_FIELDS, (
+                    + _BVH_PTR_FIELDS + _SBVH_PTR_FIELDS
+                    + _PLANAR_PTR_FIELDS, (
         *scene.mat_albedo, *scene.mat_emit, *scene.mat_metal_color,
         scene.mat_metalness, scene.mat_roughness, scene.mat_ior,
         *scene.sph_center, scene.sph_radius, scene.sph_mat,
@@ -479,6 +483,7 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
         scene.ctri_uvdu2, scene.ctri_uvdv2, scene.tcl_box, scene.tcl_range,
         scene.bvh_nodes, scene.bvh_tris, scene.bvh_tri_k,
         scene.sbvh_nodes, scene.sbvh_sph, scene.sbvh_idx,
+        scene.planar_tile, scene.planar_meta,
     )))
     for name, t in ptrs.items():
         want = torch.int32 if name in _INT_PTRS else torch.float32
@@ -495,6 +500,11 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
     step_y = (1.0 / pp) * hph * 2.0
     lens_n, lens_d = (((0.0, 0.0, 0.0), 0.0) if camera.use_pinhole
                       else focal_plane(camera))
+    # lens_d - lens_n . pos, each operand rounded to float as the kernel
+    # reads it and each operation rounded once, in the kernel's order
+    n32, pos32 = np.float32(lens_n), np.float32(camera.pos)
+    lens_t0 = np.float32(lens_d) - ((n32[0] * pos32[0] + n32[1] * pos32[1])
+                                    + n32[2] * pos32[2])
     w_tex = scene.tex_comb_w
     mips = bool(config.mip_scale and scene.tex_mip_meta)
     tex_flags = ((TEX_METALNESS if scene.use_metalness_maps else 0)
@@ -541,6 +551,7 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
         # the huge cluster comes first in cluster order
         n_sph_huge=sum(c[1] for c in scene.sph_clusters if c[2] is None),
         stream_uv_cfm=int(scene.stream_uv_cfm),
+        pp_m=recip32(pp), lens_t0=float(lens_t0),
     )
     p.fc[:] = camera.frustum_center
     p.ax[:] = camera.axis_x

@@ -16,8 +16,8 @@ from ..utils.vec import Vec3
 from .clusters import CLUSTER_MIN, triangle_precompute
 from .schema import (
     STATIC_FIELDS, TENSOR_FIELDS, VEC_FIELDS, Scene, bake_quad_normals,
-    bvh_tables, cluster_tables, mip_table, parent_tables, sphere_bvh_tables,
-    texture_stack, tri_cluster_tables,
+    bvh_tables, cluster_tables, mip_table, parent_tables, planar_tables,
+    sphere_bvh_tables, texture_stack, tri_cluster_tables,
 )
 
 # The JAX DMA tier's parent and grandparent rows and their counts (its
@@ -98,9 +98,9 @@ def scene_from_numpy(fields: dict, statics: dict) -> Scene:
     ``sph_clusters``, ``tex_mip_meta``, ``stream_parents`` /
     ``stream_gparents`` and ``tri_clusters`` statics, the streamed tier's
     BVH from its record rows, the static tier's from its cluster-ordered
-    triangles, a brute mesh's (K4t) from its table-order triangles and the
-    sphere clusters' BVH from the cluster-ordered
-    spheres. A JAX DMA-tier scene
+    triangles, a brute mesh's (K4t) from its table-order triangles, the
+    sphere clusters' BVH from the cluster-ordered spheres and K10's planar
+    table from the flat stack. A JAX DMA-tier scene
     keeps its parents as rows (``JAX_PARENT_FIELDS``, counted by
     ``JAX_PARENT_STATICS``); the descriptors are read back from them."""
     kw = {k: _vec(fields[k]) for k in VEC_FIELDS
@@ -129,6 +129,11 @@ def scene_from_numpy(fields: dict, statics: dict) -> Scene:
                          _brute_bvh_args(kw)))
     if kw.get("tex_combined"):
         kw.update(texture_stack([], combined=True))
+    kw.update(planar_tables(
+        kw["tex_packed"], kw["tex_w"], kw["tex_h"], kw.get("tex_hmax", 1),
+        kw.get("tex_wmax", 1), planar=bool(
+            kw.get("n_textures") and not kw.get("tex_combined")
+            and not kw.get("tex_mesh_only"))))
     return Scene(**kw)
 
 

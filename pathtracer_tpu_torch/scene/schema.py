@@ -29,6 +29,10 @@ flat RGB8 stack ``tex_packed`` with per-layer sizes (:func:`texture_stack`),
 read by mesh-UV albedo maps (``tex_mesh_only``: every textured material is
 a triangle albedo binding) and by planar maps at the hit's world xy
 (``Scene.planar_maps``: albedo, metalness, roughness, normal and bump).
+With planar maps the kernel's planar fetch reads the same texels from
+``planar_tile`` (:func:`planar_tables`): each layer at its own size in
+8x8-texel tiles, with ``planar_meta``'s offsets, sizes and the wraps'
+reciprocals (:func:`planar_recip`).
 
 Fog is the static ``fog_sigma_t`` (0: none), ``fog_albedo`` and ``fog_g``
 (``WorldBuilder.set_fog``). A scene with fog, transmission, bump or planar
@@ -152,7 +156,8 @@ DERIVED_TENSOR_FIELDS = ("cl_offset", "cl_count", "cl_huge", "tex_mip",
                          "stream_pbox", "stream_prange", "stream_gbox",
                          "stream_grange", "tcl_box", "tcl_range",
                          "bvh_nodes", "bvh_tris", "bvh_tri_k",
-                         "sbvh_nodes", "sbvh_sph", "sbvh_idx")
+                         "sbvh_nodes", "sbvh_sph", "sbvh_idx",
+                         "planar_tile", "planar_meta")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -285,6 +290,11 @@ class Scene:
     tex_packed: torch.Tensor
     tex_w: torch.Tensor
     tex_h: torch.Tensor
+    # K10's planar form (planar_tables, from the flat stack): each layer at
+    # its own size in 8x8-texel tiles of 64 words, and eight int32 words
+    # per layer ((64,) and (1, 8) dummies without planar maps)
+    planar_tile: torch.Tensor
+    planar_meta: torch.Tensor
 
     n_spheres: int = 0
     n_quads: int = 0
@@ -553,6 +563,69 @@ def texture_stack(textures: list, combined: bool) -> dict:
         tex_w=torch.tensor([t.shape[1] for t in textures], dtype=torch.int32),
         tex_h=torch.tensor([t.shape[0] for t in textures], dtype=torch.int32),
         tex_hmax=hmax, tex_wmax=wmax)
+
+
+def recip32(n: int) -> int:
+    """The kernel's reciprocal of a divisor ``n`` >= 1 (``udivmod``):
+    floor(2^32 / n), or 2^32 - 1 for n = 1. With it, q = umulhi(x, m) is
+    floor(x / n) or one less for every uint32 x, and one conditional
+    subtract of n from x - q * n finishes x / n and x % n."""
+    return 0xFFFF_FFFF if n == 1 else (1 << 32) // n
+
+
+def planar_recip(n: int) -> int:
+    """A planar layer's wrap constant (the kernel's ``wrap_mod``): 0 where
+    ``n`` is a power of two (the wrap is a mask), else :func:`recip32`."""
+    return 0 if n & (n - 1) == 0 else recip32(n)
+
+
+def udivmod32(x, n, m):
+    """The kernel's ``udivmod`` on numpy arrays (broadcast): (x / n, x % n)
+    of uint32 ``x`` from n's reciprocal ``m`` (:func:`recip32`), no
+    division."""
+    x, n, m = (np.asarray(a, np.uint64) for a in (x, n, m))
+    q = (x * m) >> np.uint64(32)
+    r = x - q * n
+    over = r >= n
+    return q + over, np.where(over, r - n, r)
+
+
+PLANAR_TILE = 8        # a planar layer's tiles: 8x8 texels, 64 words
+PLANAR_META_WORDS = 8  # tile_off, tiles_x, w, h, mw, mh, w and h as f32 bits
+
+
+def planar_tables(tex_packed: torch.Tensor, tex_w: torch.Tensor,
+                  tex_h: torch.Tensor, tex_hmax: int, tex_wmax: int,
+                  planar: bool) -> dict:
+    """K10's planar table from the flat stack (:func:`texture_stack`): each
+    layer at its own size, not padded to the largest, in 8x8-texel tiles
+    of 64 words, tiles row-major (texel (y, x) at word (tile_off + (y >> 3)
+    * tiles_x + (x >> 3)) * 64 + (y & 7) * 8 + (x & 7); a partial tile's
+    other texels are never read), and per layer ``PLANAR_META_WORDS`` int32
+    words: tile_off, tiles_x, w, h, the wraps' :func:`planar_recip` of w and
+    h (as int32 bits) and w and h as float32 bits. Dummies where the scene
+    has no planar maps (``planar`` false)."""
+    if not planar:
+        return dict(planar_tile=torch.zeros((PLANAR_TILE ** 2,),
+                                            dtype=torch.int32),
+                    planar_meta=torch.zeros((1, PLANAR_META_WORDS),
+                                            dtype=torch.int32))
+    t = PLANAR_TILE
+    stack = tex_packed.cpu().numpy().reshape(-1, tex_hmax, tex_wmax)
+    tiles, meta, off = [], [], 0
+    for k, (w, h) in enumerate(zip(tex_w.tolist(), tex_h.tolist())):
+        tx, ty = -(-w // t), -(-h // t)
+        layer = np.zeros((ty * t, tx * t), np.int32)
+        layer[:h, :w] = stack[k, :h, :w]
+        tiles.append(layer.reshape(ty, t, tx, t).transpose(0, 2, 1, 3)
+                     .reshape(-1))
+        sizes = np.asarray([w, h], np.float32).view(np.int32)
+        meta.append([off, tx, w, h,
+                     *np.asarray([planar_recip(w), planar_recip(h)],
+                                 np.uint32).view(np.int32), *sizes])
+        off += tx * ty
+    return dict(planar_tile=torch.from_numpy(np.concatenate(tiles)),
+                planar_meta=torch.tensor(meta, dtype=torch.int32))
 
 
 def mip_table(tex_mip_meta: tuple) -> dict:
@@ -900,6 +973,7 @@ class WorldBuilder:
                     and m.normal_idx == 0 and m.bump_idx == 0
                     and (m.albedo_idx == 0 or j not in non_tri_mats)
                     for j, m in enumerate(mats)))
+        stack = texture_stack(self.textures, tex_set["tex_combined"])
         return Scene(
             mat_albedo=_vec_table(col("albedo"), M),
             mat_emit=_vec_table(col("emit"), M),
@@ -941,7 +1015,10 @@ class WorldBuilder:
             **sphere_bvh_tables(_vec_columns(csph_c), torch.from_numpy(csph_r),
                                 sph_clusters),
             **tex_set,
-            **texture_stack(self.textures, tex_set["tex_combined"]),
+            **stack,
+            **planar_tables(**stack, planar=bool(
+                self.textures and not tex_set["tex_combined"]
+                and not tex_mesh_only)),
             **mesh,
             tex_mesh_only=tex_mesh_only,
             sph_clusters=sph_clusters,
