@@ -6,8 +6,8 @@ It needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and no network,
 and it imports nothing of JAX. ``python3 chip_smoke.py --parent DIR`` runs
 phase 1 and then, instead of the others, times the kernel of another
 checkout at DIR (the parent commit, unpacked with git archive) against
-this one's in turns (parent_turns: K10's planar rows, the feature rows
-without planar maps, every lens variant's main path, brute_pinhole as the
+this one's in turns (parent_turns: PARENT_ROWS, K11's and K10's texel
+rows, the clustered, static and K4t main paths, brute_pinhole as the
 control, and this kernel against variants of its own source:
 SOURCE_VARIANTS).
 
@@ -81,11 +81,12 @@ and the script exits non-zero):
      feature variant shades each path in its own thread (the parent's
      code); prints the seconds, ptxas's registers and spills for each
      variant (whether every variant without the feature bounce and the
-     lens kept the parent's, KEPT_PTXAS; every variant that can cast a
-     lens ray beside the parent's, with blocks per SM, PARENT_LENS_PTXAS;
-     the feature variants now, in the yardstick, which must keep them but
-     for the variants whose code changed (code_changed: this build, every
-     one), and in the parent's, FEATURE_EARLIER_PTXAS; the feature
+     lens kept the registers and spills it was committed with, KEPT_PTXAS;
+     every variant that can cast a lens ray beside the parent's, with
+     blocks per SM, PARENT_LENS_PTXAS; the feature variants now, in the
+     yardstick, which must keep them but for the variants whose code
+     changed (code_changed: this build, every feature variant), and in
+     the parent's, FEATURE_EARLIER_PTXAS; the feature
      variants' and the K4t forms' beside the parent's build's,
      PARENT_FEATURE_PTXAS and PARENT_FEATURE_BLOCKS, none of which may
      run fewer blocks per SM than the parent's),
@@ -93,7 +94,10 @@ and the script exits non-zero):
      blocks per SM, static shared memory and registers in both builds
      (cudaOccupancyMaxActiveBlocksPerMultiprocessor; none may fall) and,
      from cuobjdump, the count of BSSY/BSYNC/WARPSYNC instructions in each
-     variant's SASS (``--sass DIR`` also writes the full SASS there); then,
+     variant's SASS (``--sass DIR`` also writes the full SASS there), and
+     every variant whose code this build changed (code_changed) with its
+     registers, spills and blocks per SM beside the parent's
+     (PARENT_PTXAS); then,
      in the background, the warp tiles' yardstick: the same source with
      -DWAVE_SCANLINE_WARPS, where each warp of the BVH walks' variants
      (the streamed walk's, the sphere clusters' and the static tier's)
@@ -133,7 +137,17 @@ and the script exits non-zero):
      aimed at the edges and vertices of the 40-triangle mesh, the ties and
      the everything scene's UV triangles (edge_rays: from the camera, from
      a shell about the mesh, and grazing from 2 to 200 units away) against
-     the plain sweep, t, material, normal and uv bit-equal; the feature
+     the plain sweep, t, material, normal and uv bit-equal; rays from far
+     away (far_edge_rays, far_sphere_rays): the kernel's intersect against
+     its plain version on 16,384 rays at the edges and vertices of the
+     40-triangle sphere, of its copy scaled to 2 cm (K4t), of the 784- and
+     736-triangle meshes (the static tier), moved back 10^2 to 10^5 times
+     the mesh's largest coordinate, and aimed at worlds 2's and 4's spheres
+     from 10^2 to 10^4 units and grazing 2-cm spheres spread over 60 units
+     from near their centre (the sphere clusters), each with the count of
+     rays beyond its bound (Scene.bvh_far, sbvh_far), bit-equal, and the
+     2-cm sphere rendered through a 0.02-degree camera 200 units away at
+     256x144 4 spp; the feature
      bounce on the other bases at both sizes
      (base_case): worlds 1
      (pinhole, lens, regen), 2 (pinhole, lens), 4, 7 (pinhole, lens, regen)
@@ -307,9 +321,10 @@ OPS_MESH_UV = 8
 # (the static rows' earlier definition, static_terms)
 OPS_TRI_GP = OPS_TRI + 1
 OPS_K8_RESOLVE = OPS_TRI + OPS_MESH_UV
-# K10 in shade_surface, per mesh-UV fetch: abs, int->float and fractions
-# with their clamps (10), 12 channels unpacked (24), three bilinear blends
-# (36), the albedo product (3)
+# K10 in shade_surface, per mesh-UV fetch (fetch_texel, from the planar
+# table): abs, int->float and fractions with their clamps (10), 12
+# channels unpacked (24), three bilinear blends (36), the albedo product
+# (3); the wraps (a mask or the size's reciprocal) are integer work
 OPS_STACK = 73
 # The feature variants (fog, transmission, planar and bump maps, brute
 # triangles). K4t in intersect_scene, per triangle test (ray_triangle_uv):
@@ -335,9 +350,12 @@ OPS_PLANAR = 76
 OPS_PLANAR_ADDR = 16
 OPS_PLANAR_RGB = 60
 OPS_PLANAR_X = 20
-# K11 and the bump, per bumped hit: three red-channel fetches with the two
-# shifted points (104), the gradient and the normalize (19)
-OPS_BUMP = 123
+# K11 and the bump, per bumped hit (fetch_height3): two columns' and two
+# rows' scale, abs, int->float and clamped fraction (28: h(x, y) shares its
+# row with h(x + 0.01, y) and its column with h(x, y + 0.01); six before),
+# the two shifted points (2), three red-channel unpackings and blends
+# (60), the gradient and the normalize (19)
+OPS_BUMP = 109
 # shade_dielectric, per transmissive hit: the Fresnel and dispersion terms
 # (35), Snell's refraction with its normalize (58), the albedo (11)
 OPS_REFRACT = 104
@@ -364,75 +382,74 @@ def nvidia_smi() -> str:
 
 KERNEL_RE = (r"wave_kernel(?:_grouped)?ILb([01])ELb([01])ELi([0-9])ELi([0-9])ELi([0-9])"
              r"ELi([0-9])E")
-# ptxas's registers and spill bytes of the variants as the parent commit
-# built them (phase 2 on the H100, PERF.md's findings): those without the
-# feature bounce and without a lens ray, which must keep them; those
-# without the feature bounce that cast a lens ray (thin_lens_ray changed),
-# with their resident blocks of 128 threads per SM, printed beside this
-# build's; and the feature variants (kFeat set: the "feat*" and
-# "feature_*" ones and the mixed bases) under the -DWAVE_NO_REGROUP
-# yardstick, which those whose code this build left as it was (not
-# code_changed) must keep
+# ptxas's registers and spill bytes and the resident blocks of 128 threads
+# per SM of every variant as the parent commit built them (phase 2 of its
+# chip_smoke.py on the H100, H100 80GB HBM3 at 700 W), printed beside this
+# build's; no feature variant may run fewer blocks
+PARENT_PTXAS = {"brute_pinhole": (64, 0, 8), "brute_lens": (72, 0, 7),
+    "clustered_pinhole": (56, 72, 9), "clustered_lens": (64, 16, 8),
+    "textured_pinhole": (64, 68, 8), "textured_lens": (72, 0, 7),
+    "textured_pinhole_regen": (87, 0, 5), "mesh_pinhole": (64, 56, 8),
+    "mesh_lens": (56, 112, 9), "mesh_pinhole_regen": (80, 0, 6),
+    "feature_pinhole": (64, 362, 8), "feature_lens": (64, 362, 8),
+    "meshplain_pinhole": (64, 20, 8), "meshplain_lens": (64, 20, 8),
+    "static_pinhole": (64, 68, 8), "static_lens": (72, 20, 7),
+    "staticplain_pinhole": (56, 104, 9), "staticplain_lens": (56, 104, 9),
+    "staticplain_pinhole_regen": (80, 4, 6),
+    "featclustered_pinhole": (64, 366, 8),
+    "featclustered_lens": (64, 358, 8), "feattextured_pinhole": (64, 294, 8),
+    "feattextured_lens": (64, 306, 8), "featmesh_pinhole": (64, 340, 8),
+    "featmesh_lens": (64, 344, 8), "featmeshplain_pinhole": (64, 346, 8),
+    "featmeshplain_lens": (64, 338, 8), "featstatic_pinhole": (64, 340, 8),
+    "featstatic_lens": (64, 332, 8), "featstaticplain_pinhole": (64, 326, 8),
+    "featstaticplain_lens": (64, 338, 8),
+    "feattextured_pinhole_regen": (64, 314, 8),
+    "featmesh_pinhole_regen": (64, 372, 8),
+    "feature_pinhole_lockstep": (64, 342, 8),
+    "clustered+textured": (64, 306, 8), "textured+meshplain": (72, 100, 7),
+    "textured+staticplain": (64, 314, 8), "clustered+mesh": (64, 380, 8),
+    "clustered+meshplain": (64, 370, 8), "clustered+static": (64, 384, 8),
+    "clustered+staticplain": (64, 374, 8),
+    "clustered+textured+meshplain": (64, 330, 8),
+    "clustered+textured+staticplain": (64, 330, 8),
+    "feature_pinhole_k4t": (64, 366, 8), "feature_lens_k4t": (64, 366, 8),
+    "featclustered_pinhole_k4t": (64, 386, 8),
+    "featclustered_lens_k4t": (64, 370, 8),
+    "feattextured_pinhole_k4t": (64, 318, 8),
+    "feattextured_lens_k4t": (64, 330, 8),
+    "feattextured_pinhole_regen_k4t": (64, 314, 8),
+    "feature_pinhole_lockstep_k4t": (64, 374, 8),
+    "clustered+textured_k4t": (64, 326, 8)}
+PARENT_LENS_PTXAS = {v: r for v, r in PARENT_PTXAS.items()
+                     if "_lens" in v and not v.startswith("feat")}
+PARENT_FEATURE_PTXAS = {v: r[:2] for v, r in PARENT_PTXAS.items()
+                        if v.startswith("feat") or "+" in v}
+PARENT_FEATURE_BLOCKS = {v: PARENT_PTXAS[v][2] for v in PARENT_FEATURE_PTXAS}
+# the registers and spill bytes this build gives the variants without the
+# feature bounce and without a lens ray, which must keep them (a later
+# change that moves them says so); and the feature variants' (kFeat set:
+# the "feat*" and "feature_*" ones and the mixed bases) under the parent's
+# -DWAVE_NO_REGROUP yardstick, which those whose code this build left as
+# it was (not code_changed) must keep
 KEPT_PTXAS = {"brute_pinhole": (64, 0), "clustered_pinhole": (56, 72),
-              "textured_pinhole": (64, 68), "textured_pinhole_regen": (87, 0),
-              "mesh_pinhole": (64, 56), "mesh_pinhole_regen": (80, 0),
-              "meshplain_pinhole": (64, 20), "static_pinhole": (64, 68),
-              "staticplain_pinhole": (56, 104),
-              "staticplain_pinhole_regen": (80, 4)}
-PARENT_LENS_PTXAS = {
-    "brute_lens": (72, 16, 7), "clustered_lens": (56, 84, 9),
-    "textured_lens": (64, 60, 8), "mesh_lens": (64, 64, 8),
-    "meshplain_lens": (64, 28, 8), "static_lens": (64, 80, 8),
-    "staticplain_lens": (56, 108, 9)}
-FEATURE_EARLIER_PTXAS = {
-    "feature_pinhole": (80, 0), "feature_lens": (80, 0),
-    "feature_pinhole_lockstep": (72, 28),
-    "featclustered_pinhole": (72, 24), "featclustered_lens": (72, 24),
-    "feattextured_pinhole": (80, 44), "feattextured_lens": (80, 44),
-    "feattextured_pinhole_regen": (92, 0),
-    "featmesh_pinhole": (64, 100), "featmesh_lens": (72, 76),
-    "featmesh_pinhole_regen": (80, 16),
-    "featmeshplain_pinhole": (64, 88), "featmeshplain_lens": (64, 68),
-    "featstatic_pinhole": (64, 116), "featstatic_lens": (64, 84),
-    "featstaticplain_pinhole": (64, 68), "featstaticplain_lens": (64, 68),
-    "clustered+textured": (80, 60), "clustered+mesh": (72, 76),
-    "clustered+meshplain": (64, 88), "clustered+static": (72, 76),
-    "clustered+staticplain": (64, 68), "textured+meshplain": (72, 92),
-    "textured+staticplain": (80, 36),
-    "clustered+textured+meshplain": (80, 36),
-    "clustered+textured+staticplain": (80, 36)}
-
-
-# the feature variants' registers and spill bytes and resident blocks of
-# 128 threads per SM as the parent commit built them (chip_smoke.py
-# --parent on the H100, H100 80GB HBM3 at 700 W), printed beside this
-# build's; none may run fewer blocks
-PARENT_FEATURE_PTXAS = {
-    "feature_pinhole": (64, 242), "feature_lens": (64, 242),
-    "feature_pinhole_lockstep": (64, 234),
-    "featclustered_pinhole": (64, 266), "featclustered_lens": (64, 242),
-    "feattextured_pinhole": (64, 306), "feattextured_lens": (64, 322),
-    "feattextured_pinhole_regen": (64, 314),
-    "featmesh_pinhole": (64, 236), "featmesh_lens": (64, 244),
-    "featmesh_pinhole_regen": (64, 272),
-    "featmeshplain_pinhole": (64, 226), "featmeshplain_lens": (64, 250),
-    "featstatic_pinhole": (64, 240), "featstatic_lens": (64, 220),
-    "featstaticplain_pinhole": (64, 68), "featstaticplain_lens": (64, 238),
-    "clustered+textured": (64, 314), "clustered+mesh": (64, 256),
-    "clustered+meshplain": (64, 250), "clustered+static": (64, 256),
-    "clustered+staticplain": (64, 250), "textured+meshplain": (72, 92),
-    "textured+staticplain": (64, 322),
-    "clustered+textured+meshplain": (64, 330),
-    "clustered+textured+staticplain": (64, 334),
-    "feature_pinhole_k4t": (64, 254), "feature_lens_k4t": (64, 254),
-    "feature_pinhole_lockstep_k4t": (64, 270),
-    "featclustered_pinhole_k4t": (64, 286),
-    "featclustered_lens_k4t": (64, 254),
-    "feattextured_pinhole_k4t": (64, 358), "feattextured_lens_k4t": (64, 370),
-    "feattextured_pinhole_regen_k4t": (64, 326),
-    "clustered+textured_k4t": (64, 330)}
-PARENT_FEATURE_BLOCKS = {
-    **dict.fromkeys(PARENT_FEATURE_PTXAS, 8), "textured+meshplain": 7}
+    "textured_pinhole": (64, 68), "textured_pinhole_regen": (87, 0),
+    "mesh_pinhole": (64, 56), "mesh_pinhole_regen": (80, 0),
+    "meshplain_pinhole": (64, 20), "static_pinhole": (64, 68),
+    "staticplain_pinhole": (56, 140), "staticplain_pinhole_regen": (80, 4)}
+FEATURE_EARLIER_PTXAS = {"feature_pinhole": (93, 0), "feature_lens": (92, 0),
+    "featclustered_pinhole": (94, 0), "featclustered_lens": (93, 0),
+    "feattextured_pinhole": (72, 36), "feattextured_lens": (72, 36),
+    "featmesh_pinhole": (80, 60), "featmesh_lens": (80, 60),
+    "featmeshplain_pinhole": (80, 52), "featmeshplain_lens": (80, 52),
+    "featstatic_pinhole": (72, 132), "featstatic_lens": (80, 60),
+    "featstaticplain_pinhole": (80, 52), "featstaticplain_lens": (80, 52),
+    "feattextured_pinhole_regen": (91, 0), "featmesh_pinhole_regen": (96, 0),
+    "feature_pinhole_lockstep": (80, 44), "clustered+textured": (80, 40),
+    "textured+meshplain": (72, 100), "textured+staticplain": (72, 100),
+    "clustered+mesh": (72, 132), "clustered+meshplain": (80, 52),
+    "clustered+static": (72, 132), "clustered+staticplain": (80, 52),
+    "clustered+textured+meshplain": (72, 100),
+    "clustered+textured+staticplain": (72, 100)}
 
 
 # the feature variants without a mesh tier: each has a form with K4t's walk
@@ -444,11 +461,12 @@ K4T_BASES = ("feature_pinhole", "feature_lens", "feature_pinhole_lockstep",
 
 
 def code_changed(var: str) -> bool:
-    """Whether a feature variant's code changed against the parent's: every
-    one did (the planar fetch, fetch_planar and planar_maps, in each
-    variant without the combined set, left out of those with it, and the
-    lens ray in each that can cast one)."""
-    return feature_bounce(var)
+    """Whether a variant's code changed against the parent's: every one
+    with the feature bounce (K11's fetch_height3 and K10's texel form,
+    fetch_texel, on the planar table), with a UV mesh (fetch_texel), and
+    every one with the sphere clusters' walk, the static tier's or K4t's
+    (a ray from far away on an exact path)."""
+    return not var.startswith(("brute_", "textured_", "meshplain_"))
 
 
 def lens_variant(var: str) -> bool:
@@ -852,6 +870,8 @@ def cluster_tally(sc, o, d, m, tally):
                             torch.full_like(idx, far, dtype=o.x.dtype), counts)
         tally["bvh_slabs"] = tally.get("bvh_slabs", 0) + counts["boxes"]
         tally["bvh_spheres"] = tally.get("bvh_spheres", 0) + counts["spheres"]
+        # rays from beyond the sphere BVH's reach (their boxes widened)
+        tally["sph_far"] = tally.get("sph_far", 0) + counts.get("far_rays", 0)
     for r0 in range(0, rows.numel(), 1 << 18):  # bounded (rays, spheres)
         idx = rows[r0:r0 + (1 << 18)]
         lo, ld = Vec3(*(c[idx] for c in o)), Vec3(*(c[idx] for c in d))
@@ -885,7 +905,7 @@ def walk_tests(scene, cam, cfg, n_samples, dev):
     from pathtracer_tpu_torch.render.renderer import init_accum
 
     tally = dict.fromkeys(("rays", "slabs", "spheres", "bvh_slabs",
-                           "bvh_spheres"), 0)
+                           "bvh_spheres", "sph_far"), 0)
     live = {}
     primary, intersect = wavefront._primary_rays, wavefront.intersect_scene
 
@@ -908,7 +928,8 @@ def walk_tests(scene, cam, cfg, n_samples, dev):
         wavefront.intersect_scene = intersect
     n = tally["rays"]
     return (n, tally["slabs"] / n, tally["spheres"] / n,
-            tally["bvh_slabs"] / n, tally["bvh_spheres"] / n)
+            tally["bvh_slabs"] / n, tally["bvh_spheres"] / n,
+            tally["sph_far"])
 
 
 def tex_fetches(scene, cam, cfg, n_samples, dev):
@@ -996,6 +1017,10 @@ def bvh_tally(sc, tally):
     tally["bvh_tris"] += counts["tris"]
     tally["table_rays"] = (tally.get("table_rays", 0)
                            + counts.get("table_rays", 0))
+    # the static tier's rays from far off, which walk with their boxes
+    # widened
+    tally["static_far"] = (tally.get("static_far", 0)
+                           + counts.get("far_rays", 0))
 
 
 def brute_tally(sc, o, d, m, tally):
@@ -1013,6 +1038,8 @@ def brute_tally(sc, o, d, m, tally):
                              counts)
     tally["brute_boxes"] += counts.get("boxes", 0)
     tally["brute_tris"] += counts.get("tris", 0)
+    # rays from beyond K4t's bound, which walk with their boxes widened
+    tally["brute_far"] = tally.get("brute_far", 0) + counts.get("far_rays", 0)
 
 
 def brute_terms(scene, boxes, tris):
@@ -1100,7 +1127,7 @@ def mesh_counts(scene, cam, cfg, n_samples, dev):
     n = tally["rays"]
     return (n, tally["boxes"] / n, tally["tris"] / n, tally["wins"] / n,
             tally["fetches"], tally["bvh_boxes"] / n, tally["bvh_tris"] / n,
-            tally["table_rays"])
+            tally["table_rays"], tally.get("static_far", 0))
 
 
 def lat_long_sphere(nlat, nlon, radius=1.0, center=(0.0, 0.0, 1.0)):
@@ -1290,6 +1317,70 @@ def edge_rays(A, u, v, eye, n, seed):
     return np.concatenate([o, d], 1).astype(np.float32)
 
 
+def far_edge_rays(A, u, v, n, seed):
+    """(n, 6) float32 rays at a mesh's edges and vertices (edge_rays, from
+    the origin, a shell about the mesh and grazing), each moved back along
+    its direction by 10^2, 10^3, 10^4 or 10^5 times the mesh's largest
+    coordinate: rays from far away (scene/clusters.py, "A ray from far
+    away")."""
+    rays = edge_rays(A, u, v, (0.0, 0.0, 0.0), n, seed).astype(np.float64)
+    big = np.abs(np.concatenate([A, A + u, A + v])).max()
+    k = np.random.RandomState(seed + 1).choice([1e2, 1e3, 1e4, 1e5], n)
+    rays[:, 0:3] -= rays[:, 3:6] * (k * big)[:, None]
+    return rays.astype(np.float32)
+
+
+# the sphere clusters' far-ray cases: world -> (the centre and extent of
+# the box its rays are aimed at)
+FAR_SPHERES = {"w2": ((2.5, 2.5, 1.0), (6.0, 6.0, 1.0)),
+               "w4": ((0.0, 0.0, 1.5), (22.0, 22.0, 2.0))}
+
+
+def far_sphere_rays(center, extent, n, seed):
+    """(n, 6) float32 rays aimed at random points of a box of spheres from
+    10^2, 10^3 or 10^4 units away."""
+    rng = np.random.RandomState(seed)
+    tgt = (rng.rand(n, 3) - 0.5) * np.asarray(extent) + np.asarray(center)
+    d = rng.randn(n, 3)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = tgt - d * rng.choice([1e2, 1e3, 1e4], (n, 1))
+    return np.concatenate([o, d], 1).astype(np.float32)
+
+
+def small_spheres(builder, n=300, r=0.01, width=60.0, seed=3):
+    """``n`` spheres of radius ``r`` spread over a ``width`` x ``width`` x 2
+    slab about the origin under a sky (tests/test_torch_far_rays.py's):
+    their centres (n, 3) float64 and the scene, from a WorldBuilder
+    ``builder``. Most lie further from the spheres' centre than their own
+    reach (scene/clusters.py::sphere_far_reach, about 362 r), so the sphere
+    BVH's reach is negative: every ray walks it widened."""
+    rng = np.random.RandomState(seed)
+    b = builder()
+    b.add_material(emit=(0.2, 0.3, 0.4))
+    m = b.add_material(albedo=(0.7,) * 3)
+    c = (rng.rand(n, 3) - 0.5) * np.asarray([width, width, 2.0])
+    for x in c:
+        b.add_sphere(tuple(float(v) for v in x), r, m)
+    return c, b.finalize(view_origin=(0.0, 0.0, 0.0))
+
+
+def graze_sphere_rays(c, z, r, n, seed):
+    """(n, 6) float32 rays from within 9 units of ``z`` grazing spheres of
+    centres ``c`` and radius ``r`` over 24 units from it, 1 to 1.15 radii
+    off their centres."""
+    rng = np.random.RandomState(seed)
+    aim = np.nonzero(np.linalg.norm(c - z, axis=1) > 24.0)[0]
+    c = c[aim[rng.randint(0, len(aim), n)]]
+    o = z + (rng.rand(n, 3) - 0.5) * np.asarray([18.0, 18.0, 2.0])
+    to_c = (c - o) / np.linalg.norm(c - o, axis=1, keepdims=True)
+    side = rng.randn(n, 3)
+    side -= (side * to_c).sum(1, keepdims=True) * to_c
+    side /= np.linalg.norm(side, axis=1, keepdims=True)
+    d = c + side * (r * (1.0 + 0.15 * rng.rand(n, 1))) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return np.concatenate([o, d], 1).astype(np.float32)
+
+
 def tie_builder(tree=None):
     """World 5's builder without its asset plus a static-tier mesh of exact
     ties, and its camera parameters: a 15 x 15 grid of 0.25-wide cells at z
@@ -1392,10 +1483,9 @@ def planar_ops(fc) -> int:
 
 def texture_tables(scene) -> tuple:
     """The texture tables a feature row reads outside a combined set: the
-    planar table (planar maps) and the flat stack (bump maps, mesh UVs)."""
-    return (((scene.planar_tile,) if scene.planar_maps else ())
-            + ((scene.tex_packed,) if scene.n_textures and (
-                scene.any_bump or scene.has_mesh_uvs) else ()))
+    planar table (planar, bump and mesh-UV maps)."""
+    return ((scene.planar_tile,) if scene.n_textures
+            and not scene.tex_combined else ())
 
 
 REPLAY_KEYS = ("issue_before", "issue_after", "blocks", "blocks_regrouped")
@@ -1530,70 +1620,94 @@ def load_package(root: Path, name: str):
 # that scene: K10's planar rows, the feature rows without planar maps,
 # every lens variant's main path, and brute_pinhole as the control
 PARENT_ROWS = (
-    # K10 planar
-    ("tbn", False, None), ("w1 planar", False, None), ("w1 planar", True, None),
-    ("w1 planar500", False, None), ("w1 planar500", True, None),
-    ("w2 maps", False, None), ("tri784 maps", False, None),
-    ("everything", False, None), ("everything", True, None),
-    # the feature rows without planar maps
-    ("w6 fog", False, None), ("w6 fog", False, "lockstep"), ("fog", False, None),
-    ("dispersion", False, None), ("bump", False, None), ("w1 fog", False, None),
-    ("w2 fog", False, None), ("w7 fog", False, None),
-    ("tri784 fog", False, None), ("tri40", False, None),
-    # every lens variant's main path
-    ("w3", True, None), ("w4", True, None), ("w1", True, None),
-    ("w7", True, None), ("tri19600", True, None), ("uv736", True, None),
-    ("tri784", True, None), ("w3 fog", True, None), ("w4 fog", True, None),
-    ("w1 fog", True, None), ("w7 fog", True, None),
-    ("tri19600 fog", True, None), ("uv736 fog", True, None),
-    ("tri784 fog", True, None), ("tri40", True, None),
+    # K11 on the planar table
+    ("bump", False, None), ("everything", False, None),
+    ("everything", True, None), ("w2 maps", False, None),
+    ("tri784 maps", False, None),
+    # K10's texel form on the planar table: world 7 and the UV meshes
+    ("w7", False, None), ("w7", True, None), ("w7", False, "regen"),
+    ("w7 fog", False, None), ("uv736", False, None), ("uv99840", False, None),
+    # a ray from far away: the sphere clusters', the static tier's and
+    # K4t's main paths
+    ("w2", False, None), ("w4", True, None), ("w2 fog", False, None),
+    ("tri784", False, None), ("tri784", True, None), ("uv736", True, None),
+    ("tri784 fog", False, None), ("uv736 fog", True, None),
+    ("tri40", False, None), ("tri40", True, None), ("tri40 fog", False, None),
     ("clustered+brute", True, None), ("textured+brute", True, None),
-    ("clustered+textured", True, None),
     # the control
     ("w3", False, None))
 
 # --parent's variants of this tree's kernel source, each timed in turns
 # against this one on its rows: (the replacements that make it from the
-# source, its rows). "disk_select": the aperture point by disk_point's
-# select sweep inline in the lens ray, no shared table; "lens_regs64": the
-# variants without the feature bounce that cast a lens ray held to 64
-# registers (8 blocks of 128 threads per SM); "planar_per_site": a hit's
-# metalness, roughness and diffuse albedo maps each fetched with an address
-# of its own where their values are taken (the parent's structure)
+# source, its rows). "height3_per_site": K11 as three fetch_planar calls,
+# each with its own meta loads and wraps (six wraps where fetch_height3
+# shares four); "no_far_paths": the sphere, static and K4t walks without
+# their far-ray checks and paths (every ray on the padded BVH, not exact
+# far off: timed only), which splits their cost from the padding's;
+# "sphere_two_walks": the sphere walk inlined twice, once for the rays
+# from far off and once, its widening 0, for the others (one walk in the
+# code serves both); "static_two_walks": the static tier's the same way;
+# "static_pad_1024", "static_pad_2048": the static tier's leaves padded by
+# 2^10 or 2^11 ulps of the mesh's largest coordinate (this tree 2^13), its
+# far bound 8 or 4 times nearer, each timed against the parent. A
+# replacement is (old, new) in the kernel source, or (the file under the
+# package, old, new).
+STATIC_ROWS = (("tri784", False, None), ("tri784", True, None),
+               ("uv736", False, None), ("uv736", True, None),
+               ("tri784 fog", False, None), ("uv736 fog", True, None))
 SOURCE_VARIANTS = {
-    "disk_select": (
-        (("  const float2 disk = kDisk[(ray_index2 * ray_index) % 12u];",
-          "  const float2 disk = disk_point((ray_index2 * ray_index) % 12u);"),
-         ("  if constexpr (kThinLens || kMixed) disk_fill();\n", "")),
-        (("w3", True, None), ("w4", True, None), ("w1", True, None),
-         ("w7", True, None), ("tri784", True, None), ("w3 fog", True, None),
-         ("w1 fog", True, None))),
-    "lens_regs64": (
-        (("__global__ void __launch_bounds__(128) wave_kernel(",
-          "__global__ void __launch_bounds__(128, (kThinLens && kFeat == 0) "
-          "? 8 : 1) wave_kernel("),),
-        (("w3", True, None), ("w4", True, None), ("w1", True, None))),
-    "planar_per_site": (
-        (("      if (!(u[0] > 0.5f) && !uv->ok) planar_a = __ldg(p.mat_tex + m);\n"
-          "      planar = planar_maps(p, mi, ri, planar_a, hitpoint.x, hitpoint.y);\n"
-          "      if (mi != 0) metalness = planar.metalness;\n"
-          "      if (ri != 0) rough = planar.roughness;\n",
-          "      if (mi != 0) metalness = fetch_planar(p, mi - 1, hitpoint.x, hitpoint.y).x;\n"
-          "      if (ri != 0) rough = fetch_planar(p, ri - 1, hitpoint.x, hitpoint.y).x;\n"),
-         ("(planar_a != 0 ? planar.albedo : feature_albedo<false>(p, m, hitpoint, uv))",
-          "(planar_a != 0 ? planar.albedo : feature_albedo<true>(p, m, hitpoint, uv))")),
-        (("tbn", False, None), ("w1 planar", False, None),
-         ("w1 planar", True, None), ("w1 planar500", False, None),
-         ("w2 maps", False, None), ("tri784 maps", False, None),
-         ("bump", False, None), ("w6 fog", False, None),
-         ("w3 fog", True, None))),
+    "height3_per_site": (
+        (("        fetch_height3(p, bi - 1, hitpoint.x, hitpoint.y, h0, hx, hy);\n",
+          "        h0 = fetch_planar(p, bi - 1, hitpoint.x, hitpoint.y).x;\n"
+          "        hx = fetch_planar(p, bi - 1, hitpoint.x + F(0.01), hitpoint.y).x;\n"
+          "        hy = fetch_planar(p, bi - 1, hitpoint.x, hitpoint.y + F(0.01)).x;\n"),),
+        (("bump", False, None), ("everything", False, None),
+         ("w2 maps", False, None), ("tri784 maps", False, None))),
+    "no_far_paths": (
+        (("  if (s > p.sbvh_far[3] * fabsf(p.sbvh_far[3])) {", "  if (false) {"),
+         ("  const bool far = o_inf > p.bvh_far;", "  const bool far = false;"),
+         ("  const float e = o_inf > p.bvh_far ? "
+          "p.bvh_wide[0] * (o_inf + p.bvh_wide[1]) : 0.0f;",
+          "  const float e = 0.0f;")),
+        (("w2", False, None), ("w4", True, None), ("w2 fog", False, None),
+         ("tri784", False, None), ("tri784 fog", False, None),
+         ("tri40", False, None), ("tri40 fog", False, None))),
+    "sphere_two_walks": (
+        (("  float e = 0.0f;\n  // R |R|: a negative reach (small spheres far from z) sends every ray\n"
+          "  // down the widened walk\n"
+          "  if (s > p.sbvh_far[3] * fabsf(p.sbvh_far[3])) {\n"
+          "    const float dist = sqrtf(s);\n    e = ",
+          "  if (s > p.sbvh_far[3] * fabsf(p.sbvh_far[3])) {\n"
+          "    const float dist = sqrtf(s);\n    const float e = "),
+         ("        + F(1.0 / (1 << 20)) * (dist + p.sbvh_far[6]);\n  }\n"
+          "  return sphere_bvh_walk(p, o, d, e, best, win);",
+          "        + F(1.0 / (1 << 20)) * (dist + p.sbvh_far[6]);\n"
+          "    return sphere_bvh_walk(p, o, d, e, best, win);\n  }\n"
+          "  return sphere_bvh_walk(p, o, d, 0.0f, best, win);")),
+        (("w2", False, None), ("w4", True, None), ("w2 fog", False, None),
+         ("clustered+brute", True, None))),
+    "static_two_walks": (
+        (("  const int key = bvh_walk<true>(p, o, d, best, a_win, b_win,\n"
+          "                                 far ? p.bvh_wide[0] * (o_inf + p.bvh_wide[1]) "
+          ": 0.0f);\n",
+          "  const int key = far ? bvh_walk<true>(p, o, d, best, a_win, b_win,\n"
+          "                                       p.bvh_wide[0] * (o_inf + p.bvh_wide[1]))\n"
+          "                      : bvh_walk(p, o, d, best, a_win, b_win);\n"),),
+        STATIC_ROWS),
+    **{f"static_pad_{u}": (
+        (("scene/clusters.py", "STATIC_PAD_ULPS = 8192\n",
+          f"STATIC_PAD_ULPS = {u}\n"),), STATIC_ROWS) for u in (1024, 2048)},
 }
+# the source variants timed against the parent (the others against this
+# tree)
+AGAINST_PARENT = ("static_pad_1024", "static_pad_2048")
 
 
 def source_variant(name: str):
     """This tree's package with SOURCE_VARIANTS[name]'s replacements made
-    in its kernel source, copied under pathtracer_tpu_torch/_build/ and
-    imported beside it (load_package)."""
+    in its kernel source (or in the file a replacement names), copied
+    under pathtracer_tpu_torch/_build/ and imported beside it
+    (load_package)."""
     import shutil
     pkg = ROOT / "pathtracer_tpu_torch"
     root = pkg / "_build" / "variants" / name
@@ -1601,12 +1715,12 @@ def source_variant(name: str):
         shutil.rmtree(root)
     shutil.copytree(pkg, root / "pathtracer_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    cu = root / "pathtracer_tpu_torch" / "csrc" / "wave_kernel.cu"
-    src = cu.read_text()
-    for old, new in SOURCE_VARIANTS[name][0]:
-        check(old in src, f"{name}: the source holds {old!r}")
-        src = src.replace(old, new)
-    cu.write_text(src)
+    for rep in SOURCE_VARIANTS[name][0]:
+        sub, old, new = rep if len(rep) == 3 else ("csrc/wave_kernel.cu", *rep)
+        path = root / "pathtracer_tpu_torch" / sub
+        src = path.read_text()
+        check(old in src, f"{name}: {sub} holds {old!r}")
+        path.write_text(src.replace(old, new))
     return load_package(root, f"variant_{name}")
 
 
@@ -1619,8 +1733,8 @@ def parent_turns(parent: Path, smi: str):
     PARENT_ROWS row at 1280x720, 4 spp, after a warm launch each, in turns
     (parent, this, this, parent, this, parent, parent, this: each first in
     one half); the parent's against itself on three rows (the turns'
-    noise); and each source variant against this one on its rows, in
-    turns."""
+    noise); and each source variant against this one (or the parent's,
+    AGAINST_PARENT) on its rows, in turns."""
     import importlib
     import torch
     dev = torch.device("cuda:0")
@@ -1771,7 +1885,8 @@ def parent_turns(parent: Path, smi: str):
           (("w6 fog", False, None), ("w1 planar", False, None),
            ("w3", True, None)))
     for name, (_, rows) in SOURCE_VARIANTS.items():
-        turns(f"parent source_variant={name}", "this", name, rows)
+        turns(f"parent source_variant={name}",
+              "parent" if name in AGAINST_PARENT else "this", name, rows)
 
 
 def main() -> int:
@@ -1801,7 +1916,7 @@ def main() -> int:
     from pathtracer_tpu_torch.scene import mixed_scenes, worlds
     from pathtracer_tpu_torch.scene.schema import (
         WORLD_BRDF_TEST, WORLD_CORNELL_BOX, WORLD_CORNELL_QUAD, WORLD_DEFAULT,
-        WORLD_MARIO, WORLD_MESH_UV, WORLD_RAYTRACING_ONE_WEEKEND,
+        WORLD_MARIO, WORLD_MESH_UV, WORLD_RAYTRACING_ONE_WEEKEND, WorldBuilder,
     )
     from pathtracer_tpu_torch.scene.textures import REFERENCE_RES_DIR
     from pathtracer_tpu_torch.scene.worlds import build_world, finalize_world
@@ -1912,6 +2027,7 @@ def main() -> int:
 
     BASE_WORLDS = {"w1": W1, "w2": W2, "w3": W3, "w4": W4, "w6": W6,
                    "w7": W7}
+    FAR_KINDS = {"w2": W2, "w4": W4}
 
     def base_case(tag, w, h, lens=False):
         """(scene on the card, camera at w x h) of the feature bounce on
@@ -2037,13 +2153,19 @@ def main() -> int:
           f"no_regroup_build_s={flat_s} ptxas={json.dumps(ptxas)}")
     print(f"phase2 variants_kept_ptxas={json.dumps(kept)} "
           f"all_kept={all(kept.values())}")
+    occ = occupancy_report(tile_lib)
+    print("phase2 changed variants (code_changed): [registers, spill "
+          "stores, blocks per SM] of this build and of the parent's "
+          "(PARENT_PTXAS) " + json.dumps(
+              {v: {"now": [*now[v], occ[v][0]], "parent": PARENT_PTXAS[v]}
+               for v in cb.VARIANTS if code_changed(v)}))
     check(all(kept.values()), "the variants without the feature bounce "
           "and the lens kept their registers and spills")
     check(not any(r["regrouped"] for r in flat_ptxas.values())
           and all(feature_bounce(v) for v in regrouped),
           "only feature variants regroup, and none in the yardstick")
     # resident blocks of 128 threads per SM, static shared bytes, registers
-    occ, flat_occ = occupancy_report(tile_lib), occupancy_report(flat_lib)
+    flat_occ = occupancy_report(flat_lib)
     check(sorted(occ) == sorted(cb.VARIANTS) == sorted(flat_occ),
           "an occupancy for every variant")
     print(f"phase2 feature variants: (registers, spill stores) of this build "
@@ -2355,6 +2477,65 @@ def main() -> int:
               f"differing={int((~same).sum())}")
     check(all(probe.values()), "K4t's walk bit-equal to the plain sweep on "
           "rays aimed at the meshes' edges and vertices")
+
+    # rays from far away (scene/clusters.py, "A ray from far away"): the
+    # kernel's intersect against its plain version, t, material, normal and
+    # uv bit-equal, on rays at the meshes' edges and vertices moved back 10^2
+    # to 10^5 times their largest coordinate (K4t: the 40-triangle sphere
+    # and its 2-cm copy; the static tier: the 784- and 736-triangle meshes)
+    # and on rays aimed at worlds 2's and 4's spheres from 10^2 to 10^4
+    # units and grazing 2-cm spheres spread over 60 units from near their
+    # centre, where the reach is negative (the sphere clusters); then a
+    # render of the 2-cm sphere through a 0.02-degree camera 200 units
+    # away, whose primary rays all come from beyond K4t's bound and its
+    # bounces from near the mesh
+    b, _ = build_world(W5, res_dir=str(ROOT / "no asset here"))
+    small = (lat_long_sphere(4, 5) * np.float32(0.01)).astype(np.float32)
+    m = b.add_material(albedo=(0.7, 0.6, 0.5), roughness=0.6)
+    b.set_mesh(small.reshape(-1, 3), np.full((3 * len(small),), m, np.int32))
+    far_eye = (-141.42, -141.42, 1.0)
+    small_scene = b.finalize(world_kind=W5, view_origin=far_eye).to(dev)
+    check(small_scene.tri_brute, "the 2-cm sphere is a brute mesh")
+    far = {}
+    far_cases = [(t, mesh_case(t, 16, 16)[0])
+                 for t in ("tri40", "tri784", "uv736")]
+    far_cases.insert(1, ("tri40 x0.01", small_scene))
+    far_cases += [(t, world(FAR_KINDS[t], 16, 16)[0]) for t in FAR_SPHERES]
+    spread, spread_scene = small_spheres(WorldBuilder)
+    spread_tag = "2-cm spheres over 60 units"
+    far_cases.append((spread_tag, spread_scene.to(dev)))
+    check(spread_scene.sbvh_far[3] < 0, "the spread spheres' reach is negative")
+    for tag, pscene in far_cases:
+        if tag in FAR_SPHERES or tag == spread_tag:
+            z, reach = np.float32(pscene.sbvh_far[:3]), pscene.sbvh_far[3]
+            rays = (far_sphere_rays(*FAR_SPHERES[tag], 16384, 7)
+                    if tag in FAR_SPHERES
+                    else graze_sphere_rays(spread, z, 0.01, 16384, 7))
+            s = np.linalg.norm(rays[:, 0:3] - z, axis=1)
+            beyond = int((s > reach).sum())
+        else:
+            nt = pscene.n_tris
+            A, u, v = (np.stack([c[:nt].cpu().numpy() for c in t], 1)
+                       .astype(np.float64)
+                       for t in (pscene.tri_a, pscene.tri_u, pscene.tri_v))
+            rays = far_edge_rays(A, u, v, 16384, 7)
+            beyond = int((np.abs(rays[:, 0:3]).max(1) > pscene.bvh_far).sum())
+        rays = torch.from_numpy(rays).to(dev)
+        kt, km, kn, ku, kv, kok = cb.intersect_probe_cuda(pscene, rays)
+        pt, pm, pn, pu, pv, pok = cb.intersect_probe_plain(pscene, rays)
+        bits = lambda x: x.contiguous().view(torch.int32)
+        same = ((bits(kt) == bits(pt)) & (km == pm)
+                & (bits(kn) == bits(pn)).all(1) & (bits(ku) == bits(pu))
+                & (bits(kv) == bits(pv)) & (kok == pok))
+        far[tag] = bool(same.all())
+        print(f"phase3 far_probe case={tag!r} rays={len(rays)} "
+              f"beyond_bound={beyond} hits={int((pt < 3e38).sum())} "
+              f"bit_equal={int(same.sum())} differing={int((~same).sum())}")
+    check(all(far.values()), "the walks bit-equal to their plain versions "
+          "on rays from far away")
+    held("far tri40 x0.01 from 200 units", small_scene,
+         define_camera(far_eye, (0.0, 0.0, 0.01), 0.02, 256, 144),
+         RenderConfig(256, 144, pp=2, seed=0), 4)
 
     print(f"phase3 mixed_start_s={time.perf_counter() - t_start}")
     # the mixed bases: each case against its plain version at 256x144
@@ -3072,13 +3253,14 @@ def main() -> int:
         cfg4 = RenderConfig(w, h, pp=2, seed=0, schedule=tm["schedule"])
         fetches, mesh_txt, k7, sph, sph_txt = 0, "", None, None, ""
         if scene.sph_clusters:
-            wrays, slabs, spheres, bvh_slabs, bvh_spheres = walk_tests(
-                scene, cam, cfg4, 4, dev)
+            wrays, slabs, spheres, bvh_slabs, bvh_spheres, sph_far = \
+                walk_tests(scene, cam, cfg4, 4, dev)
             check(abs(wrays - tm["rays"]) <= 0.005 * tm["rays"],
                   f"{var}: walked {wrays} rays, the kernel cast {tm['rays']}")
             sph = sphere_terms(scene, slabs, spheres, bvh_slabs, bvh_spheres)
             sph_txt = (f"bvh_slab_tests_per_ray={bvh_slabs} "
-                       f"bvh_sphere_tests_per_ray={bvh_spheres} ")
+                       f"bvh_sphere_tests_per_ray={bvh_spheres} "
+                       f"far_rays={sph_far} ")
             isect_ops = 0.0
         else:
             slabs, spheres = 0.0, float(scene.n_spheres)
@@ -3091,7 +3273,7 @@ def main() -> int:
             # the lockstep yardstick casts the pinhole's rays: its counts
             if var != f"mesh_pinhole_{MOTHER}":
                 mesh_tally[var] = mesh_counts(scene, cam, cfg4, 4, dev)
-            mrays, boxes, tris, wins, fetches, bvh_boxes, bvh_tris, _ = \
+            mrays, boxes, tris, wins, fetches, bvh_boxes, bvh_tris, _, _ = \
                 mesh_tally["mesh_lens" if var == "mesh_lens"
                            else "mesh_pinhole"]
             check(abs(mrays - tm["rays"]) <= 0.005 * tm["rays"],
@@ -3113,7 +3295,7 @@ def main() -> int:
         nbytes = w * h * BYTES_PER_PIXEL + (
             scene.tex_tile.numel() * 4 if cb.textured(scene) else 0)
         if cb.meshed(scene):
-            nbytes += 4 * scene.tex_packed.numel()
+            nbytes += 4 * scene.planar_tile.numel()
         bound_ms, bound_by, ops, nbytes, bound_old = row_bound(
             ops, nbytes, rays, k7, sph)
         print(f"phase6 count_s={time.perf_counter() - t_row} "
@@ -3181,6 +3363,7 @@ def main() -> int:
         walk_txt = (f"n_tris={scene.n_tris} "
                     f"k4t_box_tests_per_ray={tally['brute_boxes'] / rays} "
                     f"k4t_tri_tests_per_ray={tally['brute_tris'] / rays} "
+                    f"k4t_far_rays={tally.get('brute_far', 0)} "
                     f"bound_ms_table_order={bound_old} " if k4t else "")
         print(f"phase6 count_s={time.perf_counter() - t_row} "
               f"row={row!r} case={tag!r} variant={var} {counts} "
@@ -3214,7 +3397,7 @@ def main() -> int:
         if (tag, lens) not in mesh_tally:
             mesh_tally[(tag, lens)] = mesh_counts(scene, cam, cfg4, 4, dev)
         (mrays, boxes, tris, wins, fetches, bvh_boxes, bvh_tris,
-         table_rays) = mesh_tally[(tag, lens)]
+         table_rays, static_far) = mesh_tally[(tag, lens)]
         rays = tm["rays"]
         check(abs(mrays - rays) <= 0.005 * rays,
               f"{row}: walked {mrays} rays, the kernel cast {rays}")
@@ -3230,7 +3413,7 @@ def main() -> int:
                + rays * isect_ops + (rays - samples) * OPS_SHADE
                + fetches * OPS_STACK)
         # the walk's tables are mesh_terms'
-        tables = (scene.tex_packed,) if scene.has_mesh_uvs else ()
+        tables = (scene.planar_tile,) if scene.has_mesh_uvs else ()
         nbytes = w * h * BYTES_PER_PIXEL + 4 * sum(t.numel() for t in tables)
         bound_ms, bound_by, ops, nbytes, bound_old = row_bound(
             ops, nbytes, rays, walk)
@@ -3239,6 +3422,7 @@ def main() -> int:
               f"box_tests_per_ray={boxes} tri_tests_per_ray={tris} "
               f"tri_wins_per_ray={wins} bvh_box_tests_per_ray={bvh_boxes} "
               f"bvh_tri_tests_per_ray={bvh_tris} table_rays={table_rays} "
+              f"far_rays={static_far} "
               f"uv_fetches={fetches} ops={ops:.6e} bytes={nbytes} "
               f"bound_ms={bound_ms} bound_share={bound_ms / tm['ms']} "
               f"bound_ms_table_order={bound_old} | card: {smi}")
@@ -3295,7 +3479,8 @@ def main() -> int:
                             f"tri_tests_per_ray={tris} tri_wins_per_ray={wins}"
                             f" bvh_box_tests_per_ray={bvh_boxes} "
                             f"bvh_tri_tests_per_ray={bvh_tris} "
-                            f"table_rays={table_rays}")
+                            f"table_rays={table_rays} "
+                            f"far_rays={tally.get('static_far', 0)}")
             else:
                 base_ops = scene.n_spheres * OPS_SPHERE
             k4t_tests = (per["brute_boxes"], per["brute_tris"])
@@ -3381,7 +3566,7 @@ def main() -> int:
             if scene.tri_streamed and scene.has_mesh_uvs:
                 walk_ops += fc["wins"] * OPS_MESH_UV
             if scene.has_mesh_uvs:
-                tables += (scene.tex_packed,)
+                tables += (scene.planar_tile,)
         ops = (w * h * 4 * OPS_PRIMARY["pinhole"] + walk_ops
                + rays * (scene.n_quads * OPS_QUAD
                          + scene.n_planes * OPS_PLANE + OPS_RESOLVE

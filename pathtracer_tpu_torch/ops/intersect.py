@@ -456,6 +456,46 @@ def _intersect_triangles_streamed(scene: Scene, o: Vec3, d: Vec3, best: Hit,
     return _resolve_streamed(scene, o, d, best, t_run, win, want_uv)
 
 
+def _inf_norm(v: Vec3):
+    """max(|x|, |y|, |z|) per ray."""
+    return torch.maximum(torch.maximum(v.x.abs(), v.y.abs()), v.z.abs())
+
+
+def _far_widen(scene: Scene, o: Vec3, tally=None):
+    """K4t's and the static tier's rays from far off (|o|_inf beyond
+    ``scene.bvh_far``) and their boxes' widening, ``bvh_wide[0] * (|o|_inf +
+    bvh_wide[1])`` in float32 (0 for the other rays), as ``brute_walk`` and
+    ``static_walk`` form them; the far rays counted in ``tally``'s
+    "far_rays"."""
+    o_inf = _inf_norm(o)
+    far = o_inf > scene.bvh_far
+    a, b = (torch.tensor(v, dtype=torch.float32) for v in scene.bvh_wide)
+    if tally is not None:
+        tally["far_rays"] = tally.get("far_rays", 0) + int(far.sum())
+    return far, torch.where(far, a * (o_inf + b), 0.0)
+
+
+def _split_far(far, o: Vec3, d: Vec3, t0, near_fn, far_fn):
+    """Each ray through ``far_fn`` where ``far``, else through ``near_fn``
+    (each ``(o, d, t0)`` of its rays -> a tuple of per-ray tensors), the
+    results put back in ray order."""
+    if not bool(far.any()):
+        return near_fn(o, d, t0)
+    if bool(far.all()):
+        return far_fn(o, d, t0)
+    out = None
+    for fn, sel in ((near_fn, ~far), (far_fn, far)):
+        i = torch.nonzero(sel).reshape(-1)
+        res = fn(Vec3(o.x[i], o.y[i], o.z[i]), Vec3(d.x[i], d.y[i], d.z[i]),
+                 t0[i])
+        if out is None:
+            out = [torch.empty(t0.shape, dtype=r.dtype, device=r.device)
+                   for r in res]
+        for a, r in zip(out, res):
+            a[i] = r
+    return tuple(out)
+
+
 def _bvh_record_number(scene: Scene, k):
     """A winner number of the BVH's records (``bvh_tri_k``: the uv column
     with the cluster-field-major uv rows, else row * 9 + slot) as the
@@ -473,7 +513,7 @@ _BVH_POP = -(1 << 40)
 
 
 def _bvh_walk(nodes: torch.Tensor, root: tuple, o: Vec3, d: Vec3, t_run,
-              leaf) -> int:
+              leaf, widen=None) -> int:
     """``bvh_walk`` in csrc/wave_kernel.cu, step for step, vectorised over
     the rays with a stack per ray. Each ray first tests the root box, then
     walks ``nodes`` near-first: at an inner node it tests both children's
@@ -483,13 +523,17 @@ def _bvh_walk(nodes: torch.Tensor, root: tuple, o: Vec3, d: Vec3, t_run,
     nearest t (``_box_relevant``'s expression with ``<=``: a box entered at
     exactly that t may hold a tie with a lower number). At a leaf,
     ``leaf(i, first, count)`` tests its records first .. first+count-1 for
-    the rays ``i`` and updates ``t_run`` in place. Returns the box tests."""
+    the rays ``i`` and updates ``t_run`` in place. With ``widen`` (per ray)
+    every box is widened by it on each side first (the far sphere walk).
+    Returns the box tests."""
     dev = o.x.device
     n = o.x.numel()
     inv = _slab_inverse(d)
     kids = nodes[:, 12:14].contiguous().view(torch.int32).long()
     leaf_bit = clusters.BVH_LEAF
-    t_root, x_root = _slab(o, inv, root[0:3], root[3:6])
+    box = lambda mn, mx, w: (mn, mx) if w is None else (
+        tuple(m - w for m in mn), tuple(m + w for m in mx))
+    t_root, x_root = _slab(o, inv, *box(root[0:3], root[3:6], widen))
     enter = (x_root >= t_root) & (x_root >= 0.0) & (t_root <= t_run)
     ref = torch.where(enter, 0, _BVH_POP)
     live = enter.clone()
@@ -507,8 +551,11 @@ def _bvh_walk(nodes: torch.Tensor, root: tuple, o: Vec3, d: Vec3, t_run,
         if i.numel():
             nd = nodes[ref[i]]
             oi, vi, ti = pick(o, i), pick(inv, i), t_run[i]
-            tl, xl = _slab(oi, vi, nd[:, 0:3].unbind(1), nd[:, 3:6].unbind(1))
-            tr, xr = _slab(oi, vi, nd[:, 6:9].unbind(1), nd[:, 9:12].unbind(1))
+            wi = None if widen is None else widen[i]
+            tl, xl = _slab(oi, vi, *box(nd[:, 0:3].unbind(1),
+                                        nd[:, 3:6].unbind(1), wi))
+            tr, xr = _slab(oi, vi, *box(nd[:, 6:9].unbind(1),
+                                        nd[:, 9:12].unbind(1), wi))
             okl = (xl >= tl) & (xl >= 0.0) & (tl <= ti)
             okr = (xr >= tr) & (xr >= 0.0) & (tr <= ti)
             n_box += 2 * i.numel()
@@ -560,14 +607,15 @@ def _with_w(rec: torch.Tensor) -> torch.Tensor:
 
 
 def _record_walk(scene: Scene, o: Vec3, d: Vec3, t_run, win, a_win, b_win,
-                 slots: int, tests=None):
+                 slots: int, tests=None, widen=None):
     """``bvh_walk`` over ``scene.bvh_nodes`` (:func:`_bvh_walk`), its
     winner state (t, record of ``bvh_tris`` or -1, alpha, beta) updated in
     place. A leaf's records (at most ``slots``) are tested with
     ``row_test``'s expressions (or ``tests(records, o, d)``'s, which returns
     (t, hit, alpha, beta)) and taken when t is below the running t, or
-    equal to a triangle's t with a lower number (``bvh_tri_k``). Returns
-    (box tests, triangle tests)."""
+    equal to a triangle's t with a lower number (``bvh_tri_k``); with
+    ``widen`` (per ray) every box widened by it. Returns (box tests,
+    triangle tests)."""
     if tests is None:
         tests = lambda rec, o_, d_: _record_tests(_with_w(rec), o_, d_)[2:]
     tris, tri_k = scene.bvh_tris, scene.bvh_tri_k.long()
@@ -593,8 +641,8 @@ def _record_walk(scene: Scene, o: Vec3, d: Vec3, t_run, win, a_win, b_win,
         a_win[i] = torch.where(take, g(alpha), a_win[i])
         b_win[i] = torch.where(take, g(beta), b_win[i])
 
-    n_box = (_bvh_walk(scene.bvh_nodes, scene.bvh_root, o, d, t_run, leaf)
-             if scene.bvh_root else 0)
+    n_box = (_bvh_walk(scene.bvh_nodes, scene.bvh_root, o, d, t_run, leaf,
+                       widen) if scene.bvh_root else 0)
     return n_box, n_tri
 
 
@@ -633,13 +681,14 @@ def _bvh_huge(scene: Scene) -> int:
     return int(scene.bvh_nodes[0, w:w + 1].contiguous().view(torch.int32))
 
 
-def _outside_box(scene: Scene, o: Vec3, d: Vec3, t_run, key):
+def _outside_box(scene: Scene, o: Vec3, d: Vec3, t_run, key, every=False):
     """``static_walk``'s test of the winners' cluster boxes: the rays whose
     winner (its key, ``clusters.STATIC_KEY_SHIFT``; -1 for none) has the
-    check bit, lies at ``t_run`` outside its cluster's box by 2^-18 of |o| +
+    check bit (``every``: any winner), lies at ``t_run`` outside its
+    cluster's box by 2^-18 of |o| +
     |t d| or more, and whose slab test (``_box_relevant``) finds the box not
     entered before ``t_run``; and the slab tests made."""
-    check = torch.nonzero((key >= 0) & (key & 1 == 1)).reshape(-1)
+    check = torch.nonzero((key >= 0) & ((key & 1 == 1) | every)).reshape(-1)
     box = scene.tcl_box[key[check] >> clusters.STATIC_KEY_SHIFT]
     pick = lambda v, i: Vec3(v.x[i], v.y[i], v.z[i])
     oc, dc, tc = pick(o, check), pick(d, check), t_run[check]
@@ -678,10 +727,26 @@ def _static_bvh_winners(scene: Scene, o: Vec3, d: Vec3, t0, tally=None):
     and of the box's slab entry), and where the ray does not enter it
     before the winner's t (a grazing hit just outside a tight box, which the
     table-order walk takes or culls by its running t at the visit), the ray
-    is walked again in table order from ``t0``. With
-    ``tally`` the box tests (those winners' boxes among them) and triangle
-    tests of the card's walk are added to its "boxes" and "tris", and the
-    rays walked again to its "table_rays"."""
+    is walked again in table order from ``t0``. A ray from further off than
+    ``scene.bvh_far`` (|o|_inf, ``clusters.far_bound``: its hits' rounding
+    may leave the padded boxes) walks with every box widened by its own
+    bound (:func:`_far_widen`), and its winner's box is tested whatever its
+    key. With ``tally`` the box tests (those winners' boxes among them) and
+    triangle tests of the card's walk are added to its "boxes" and "tris",
+    the rays walked again in table order to its "table_rays" and those from
+    far off to its "far_rays"."""
+    far, widen = _far_widen(scene, o, tally)
+    return _split_far(far, o, d, t0,
+                      lambda o_, d_, t_: _static_near(scene, o_, d_, t_, tally),
+                      lambda o_, d_, t_: _static_near(scene, o_, d_, t_, tally,
+                                                      widen[far]))
+
+
+def _static_near(scene: Scene, o: Vec3, d: Vec3, t0, tally=None,
+                 widen=None):
+    """``static_walk`` as :func:`_static_bvh_winners` runs it; with
+    ``widen`` (rays from far off) every box widened by it and every
+    winner's cluster box tested."""
     t_run, win, a_win, b_win = state = _winner_state(t0)
     n_huge = _bvh_huge(scene)
     if n_huge:
@@ -694,11 +759,12 @@ def _static_bvh_winners(scene: Scene, o: Vec3, d: Vec3, t0, tally=None):
             win.copy_(torch.where(take, j, win))
             a_win.copy_(torch.where(take, alpha[:, j], a_win))
             b_win.copy_(torch.where(take, beta[:, j], b_win))
-    boxes, tris = _record_walk(scene, o, d, *state, clusters.STATIC_LEAF)
+    boxes, tris = _record_walk(scene, o, d, *state, clusters.STATIC_LEAF,
+                               widen=widen)
     key = torch.where(win >= 0, scene.bvh_tri_k.long()[win.clamp_min(0)], -1)
     shift = clusters.STATIC_KEY_SHIFT
     idx = torch.where(win >= 0, (key >> 1) & ((1 << (shift - 1)) - 1), -1)
-    again, slabs = _outside_box(scene, o, d, t_run, key)
+    again, slabs = _outside_box(scene, o, d, t_run, key, widen is not None)
     table = {}
     if again.numel():
         pick = lambda v: Vec3(v.x[again], v.y[again], v.z[again])
@@ -719,13 +785,43 @@ def _sphere_bvh_winners(scene: Scene, o: Vec3, d: Vec3, t0, tally=None):
     is ``t0``: (t, the winning sphere's cluster-order index or -1). The
     huge cluster's spheres are tested first, in order with the strict-<
     carry, as the table-order walk tests them; then the BVH over the other
-    spheres (``scene.sbvh_*``) is walked near-first (:func:`_bvh_walk`), a
-    leaf's spheres tested with ``ray_sphere``'s expressions and taken when
-    t is below the running t, or equal to it with a lower cluster-order
-    index. The winner is the least (t, index): the sphere the table-order
-    walk's strict-< carry finds (``_intersect_spheres_clustered``), a huge
-    sphere keeping a tie. With ``tally`` the box tests and sphere tests of
-    the card's walk are added to its "boxes" and "spheres"."""
+    spheres (``scene.sbvh_*``, boxes padded by ``clusters.SPHERE_PAD``) is
+    walked near-first (:func:`_bvh_walk`), a leaf's spheres tested with
+    ``ray_sphere``'s expressions and taken when t is below the running t,
+    or equal to it with a lower cluster-order index. The winner is the
+    least (t, index) over every sphere: the sphere the table-order walk's
+    strict-< carry finds (``_intersect_spheres_clustered``) wherever the
+    batch enters each cluster's box (JAX's rule), a huge sphere keeping a
+    tie. A ray whose origin lies further than ``scene.sbvh_far``'s R from
+    its z (every ray, where R is negative), whose sphere tests may take a
+    hit outside the padded boxes (``clusters.sphere_far_reach``), walks with every box widened by its
+    own bound e = k (L + D)^2 + 16u (L + M) (L = |o - z|; k, D and M from
+    ``scene.sbvh_far``: how far outside a sphere its test takes a hit, and
+    the slab test's rounding), so that no hit any sphere's test takes is
+    culled. With ``tally`` the box tests and sphere tests of the card's
+    walk are added to its "boxes" and "spheres", and the rays from far off
+    to its "far_rays"."""
+    zx, zy, zz, reach, k, big_d, big_m, _ = (_f32(v) for v in scene.sbvh_far)
+    dx, dy, dz = o.x - zx, o.y - zy, o.z - zz
+    s = (dx * dx + dy * dy) + dz * dz
+    far = s > reach * reach.abs()  # R |R|: every ray far where R < 0
+    if tally is not None:
+        tally["far_rays"] = tally.get("far_rays", 0) + int(far.sum())
+    dist = torch.sqrt(s)
+    e = ((k * (dist + big_d)) * (dist + big_d)
+         + _f32(2.0 ** -20) * (dist + big_m))
+    return _sphere_walk(scene, o, d, t0, tally, torch.where(far, e, 0.0))
+
+
+def _f32(v: float) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32)
+
+
+def _sphere_walk(scene: Scene, o: Vec3, d: Vec3, t0, tally=None,
+                 widen=None):
+    """``sphere_walk``'s walk, as :func:`_sphere_bvh_winners` runs it: the
+    huge cluster, then the BVH, its boxes widened by ``widen`` (per ray: 0
+    but for rays from far off)."""
     n = o.x.numel()
     t_run = t0.clone()
     win = torch.full((n,), -1, dtype=torch.int64, device=o.x.device)
@@ -764,7 +860,7 @@ def _sphere_bvh_winners(scene: Scene, o: Vec3, d: Vec3, t0, tally=None):
 
     if scene.sbvh_root:
         n_box = _bvh_walk(scene.sbvh_nodes, scene.sbvh_root, o, d, t_run,
-                          leaf)
+                          leaf, widen)
     if tally is not None:
         tally["boxes"] = tally.get("boxes", 0) + n_box
         tally["spheres"] = tally.get("spheres", 0) + n_sph
@@ -953,13 +1049,16 @@ def _brute_bvh_winners(scene: Scene, o: Vec3, d: Vec3, t0, tally=None):
     t, or equal to a triangle's with a lower table index (``bvh_tri_k``).
     The winner is the least (t, index), which the sweep's strict-< carry in
     table order finds (:func:`_brute_sweep_winners`), and a sphere, quad or
-    plane at an equal t keeps its hit. Returns (t, the winner's table index
-    or -1, its alpha, its beta); with ``tally`` the box tests and triangle
-    tests of the card's walk are added to its "boxes" and "tris". Used by
-    the tests and by chip_smoke.py's bound, never by a render. A mesh of at
-    most ``clusters.BRUTE_SWEEP_MAX`` triangles has no tree: its records
-    (:func:`_bvh_huge` of them, in table order) are swept in order with
-    the strict-< carry."""
+    plane at an equal t keeps its hit. A ray from further off than
+    ``scene.bvh_far`` (|o|_inf, ``clusters.far_bound``: its hits' rounding
+    may leave the padded boxes) walks with every box widened by its own
+    bound (:func:`_far_widen`). Returns (t, the winner's table index or -1,
+    its alpha, its beta); with ``tally`` the box tests and triangle tests of
+    the card's walk are added to its "boxes" and "tris", and the rays from
+    far off to its "far_rays". Used by the tests and by chip_smoke.py's
+    bound, never by a render. A mesh of at most ``clusters.BRUTE_SWEEP_MAX``
+    triangles has no tree: its records (:func:`_bvh_huge` of them, in table
+    order) are swept in order with the strict-< carry."""
     t_run, win, a_win, b_win = state = _winner_state(t0)
     n_swept = _bvh_huge(scene)
     for i in range(n_swept):
@@ -975,7 +1074,8 @@ def _brute_bvh_winners(scene: Scene, o: Vec3, d: Vec3, t0, tally=None):
         leaves = refs[refs & clusters.BVH_LEAF != 0] & 15
         _tally(tally, *_record_walk(scene, o, d, *state,
                                     int(leaves.max()) if leaves.numel() else 1,
-                                    _brute_tests))
+                                    _brute_tests,
+                                    _far_widen(scene, o, tally)[1]))
     idx = torch.where(win >= 0, scene.bvh_tri_k.long()[win.clamp_min(0)], -1)
     return t_run, idx, a_win, b_win
 

@@ -23,12 +23,14 @@ offset of the texel's A word (B is the next word), so one aligned 8-byte
 load fetches both. The JAX kernel's distinct-tile iteration is a TPU
 shape (no per-lane gather there) and has no counterpart here.
 
-K10's planar form as the CUDA kernel reads it (:func:`planar_at`,
-:func:`planar_sample`, :func:`planar_maps`): the same texels from the
-planar table (``schema.planar_tables``: each layer at its own size in
-8x8-texel tiles, :func:`planar_word`), wrapped by a mask or by the size's
-reciprocal (:func:`wrap_recip`), a lane's maps of one size at one address;
-bit-equal to :func:`bespoke_sample`, which the plain version renders with.
+K10 and K11 as the CUDA kernel reads them (:func:`planar_at`,
+:func:`planar_sample`, :func:`planar_maps`; the texel form
+:func:`planar_texel_sample`; the bump heights :func:`planar_height3`): the
+same texels from the planar table (``schema.planar_tables``: each layer at
+its own size in 8x8-texel tiles, :func:`planar_word`), wrapped by a mask or
+by the size's reciprocal (:func:`wrap_recip`), a lane's maps of one size
+at one address; bit-equal to :func:`bespoke_sample`, :func:`sample_texture`
+and :func:`bespoke_height3`, which the plain version renders with.
 
 Hazards kept from JAX: ``u * (w * 0.5)`` with the constant folded in double
 and rounded once; truncation toward zero; the fraction clipped to [0, 1];
@@ -190,13 +192,16 @@ def _unpack(word: torch.Tensor) -> Vec3:
     return Vec3(r, g, b)
 
 
+def _bilerp(a, b, c, d, s, t):
+    """SampleTexture's blend of one channel's four corners."""
+    top = (1 - s) * a + s * b
+    bot = (1 - s) * c + s * d
+    return (1 - t) * top + t * bot
+
+
 def _bilerp_vec3(c11: Vec3, c12: Vec3, c21: Vec3, c22: Vec3, s, t) -> Vec3:
     """SampleTexture's blend of four Vec3 corners (texture.py:78-96)."""
-    def lerp(a, b, c, d):
-        top = (1 - s) * a + s * b
-        bot = (1 - s) * c + s * d
-        return (1 - t) * top + t * bot
-    return Vec3(*(lerp(*ch) for ch in zip(c11, c12, c21, c22)))
+    return Vec3(*(_bilerp(*ch, s, t) for ch in zip(c11, c12, c21, c22)))
 
 
 def sample_texture(scene: Scene, layer: torch.Tensor, u: torch.Tensor,
@@ -280,24 +285,39 @@ def planar_meta(scene: Scene, layer: torch.Tensor):
     return (m[:, 0] * 64, *(m[:, j] for j in range(1, 6)), f[:, 0], f[:, 1])
 
 
-def planar_at(scene: Scene, layer: torch.Tensor, x: torch.Tensor,
-              y: torch.Tensor):
-    """The kernel's ``planar_at``: BespokeSampleTexture's coordinates of the
-    world (x, y) on each lane's layer, the four corners' words within the
-    layer's tiles ((y1, x1), (y1, x2), (y2, x1), (y2, x2): ``(y >> 3) *
-    tiles_x * 64 + (y & 7) * 8 + (x >> 3) * 64 + (x & 7)``), then s, t."""
-    _, tiles_x, w, h, mw, mh, wf, hf = planar_meta(scene, layer)
-    u = torch.abs(x * wf * 0.5)
-    v = torch.abs(y * hf * 0.5)
-    xi, yi = _to_i32_saturating(u), _to_i32_saturating(v)
-    s = torch.clamp(u - xi.to(u.dtype), 0.0, 1.0)
-    t = torch.clamp(v - yi.to(v.dtype), 0.0, 1.0)
-    x1 = wrap_recip(xi.long(), w, mw)
-    y1 = wrap_recip(yi.long(), h, mh)
-    x2 = torch.where(x1 + 1 == w, 0, x1 + 1)
-    y2 = torch.where(y1 + 1 == h, 0, y1 + 1)
+def _planar_axis(c: torch.Tensor, n: torch.Tensor, m: torch.Tensor):
+    """One axis of the kernel's address at a texel-space coordinate ``c``
+    (>= 0 or NaN) on a layer of size ``n`` with wrap constant ``m``: the
+    truncation (saturating, NaN -> 0), the fraction clipped to [0, 1] and
+    the two wrapped texels (x1, x1 + 1 or 0 at n)."""
+    ci = _to_i32_saturating(c)
+    f = torch.clamp(c - ci.to(c.dtype), 0.0, 1.0)
+    c1 = wrap_recip(ci.long(), n, m)
+    return c1, torch.where(c1 + 1 == n, 0, c1 + 1), f
+
+
+def planar_corners(scene: Scene, layer: torch.Tensor, u: torch.Tensor,
+                   v: torch.Tensor):
+    """The kernel's ``planar_corners``: the address at texel-space (u, v)
+    (both >= 0, or NaN) on each lane's layer, the four corners' words
+    within the layer's tiles ((y1, x1), (y1, x2), (y2, x1), (y2, x2):
+    ``(y >> 3) * tiles_x * 64 + (y & 7) * 8 + (x >> 3) * 64 + (x & 7)``),
+    then s, t."""
+    _, tiles_x, w, h, mw, mh, _, _ = planar_meta(scene, layer)
+    x1, x2, s = _planar_axis(u, w, mw)
+    y1, y2, t = _planar_axis(v, h, mh)
     return [planar_word(tiles_x, yy, xx)
             for yy, xx in ((y1, x1), (y1, x2), (y2, x1), (y2, x2))], s, t
+
+
+def planar_at(scene: Scene, layer: torch.Tensor, x: torch.Tensor,
+              y: torch.Tensor):
+    """The kernel's ``planar_at``: :func:`planar_corners` at
+    BespokeSampleTexture's coordinates of the world (x, y), ``|x * w *
+    0.5|`` and ``|y * h * 0.5|``."""
+    wf, hf = planar_meta(scene, layer)[6:8]
+    return planar_corners(scene, layer, torch.abs(x * wf * 0.5),
+                          torch.abs(y * hf * 0.5))
 
 
 def planar_texel(scene: Scene, layer: torch.Tensor, at) -> Vec3:
@@ -314,6 +334,43 @@ def planar_sample(scene: Scene, layer: torch.Tensor, x: torch.Tensor,
     """The kernel's ``fetch_planar``: :func:`bespoke_sample` read from the
     planar table, bit-equal to it."""
     return planar_texel(scene, layer, planar_at(scene, layer, x, y))
+
+
+def planar_texel_sample(scene: Scene, layer: torch.Tensor, u: torch.Tensor,
+                        v: torch.Tensor) -> Vec3:
+    """The kernel's ``fetch_texel`` (K10's texel form): :func:`sample_texture`
+    at texel-space (u, v) read from the planar table, bit-equal to it."""
+    return planar_texel(scene, layer, planar_corners(
+        scene, layer, torch.abs(u), torch.abs(v)))
+
+
+def planar_height3(scene: Scene, layer: torch.Tensor, x: torch.Tensor,
+                   y: torch.Tensor):
+    """The kernel's ``fetch_height3`` (K11): :func:`bespoke_height3` read
+    from the planar table, bit-equal to it. The heights at (x, y) and (x +
+    0.01, y) share their row and those at (x, y) and (x, y + 0.01) their
+    column, so two column and two row wraps address all 12 corners."""
+    base, tiles_x, w, h, mw, mh, wf, hf = planar_meta(scene, layer)
+
+    def column(px):
+        x1, x2, s = _planar_axis(torch.abs(px * wf * 0.5), w, mw)
+        return (x1 >> 3) * 64 + (x1 & 7), (x2 >> 3) * 64 + (x2 & 7), s
+
+    def row(py):
+        y1, y2, t = _planar_axis(torch.abs(py * hf * 0.5), h, mh)
+        return ((y1 >> 3) * tiles_x * 64 + (y1 & 7) * 8,
+                (y2 >> 3) * tiles_x * 64 + (y2 & 7) * 8, t)
+
+    def red(c, r):
+        k1, k2, s = c
+        r1, r2, t = r
+        return _bilerp(*(_unpack(scene.planar_tile[base + rr + kk]).x
+                         for rr, kk in ((r1, k1), (r1, k2), (r2, k1),
+                                        (r2, k2))), s, t)
+
+    c0, r0 = column(x), row(y)
+    return (red(c0, r0), red(column(x + BUMP_EPS), r0),
+            red(c0, row(y + BUMP_EPS)))
 
 
 def planar_maps(scene: Scene, layers, x: torch.Tensor, y: torch.Tensor):

@@ -245,7 +245,8 @@ class WaveParams(ctypes.Structure):
                 + [("sbvh_root", _F * 6), ("n_sph_huge", _I),
                    ("stream_uv_cfm", _I)]
                 + [(n, _P) for n in _PLANAR_PTR_FIELDS]
-                + [("pp_m", ctypes.c_uint32), ("lens_t0", _F)])
+                + [("pp_m", ctypes.c_uint32), ("lens_t0", _F)]
+                + [("bvh_far", _F), ("bvh_wide", _F * 2), ("sbvh_far", _F * 8)])
 
 # WaveParams.tex_flags bits (TEX_* in the kernel)
 TEX_METALNESS, TEX_ROUGHNESS, TEX_NORMAL, TEX_TBN = 1, 2, 4, 8
@@ -431,7 +432,8 @@ def compile_library(defines: tuple = ()) -> tuple:
     lib.wave_occupancy.restype = ctypes.c_int
     lib.wave_intersect.argtypes = [ctypes.POINTER(WaveParams),
                                    ctypes.c_void_p, ctypes.c_int,
-                                   ctypes.c_void_p, ctypes.c_void_p]
+                                   ctypes.c_void_p, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_void_p]
     lib.wave_intersect.restype = ctypes.c_int
     lib.wave_error_string.argtypes = [ctypes.c_int]
     lib.wave_error_string.restype = ctypes.c_char_p
@@ -552,6 +554,7 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
         n_sph_huge=sum(c[1] for c in scene.sph_clusters if c[2] is None),
         stream_uv_cfm=int(scene.stream_uv_cfm),
         pp_m=recip32(pp), lens_t0=float(lens_t0),
+        bvh_far=scene.bvh_far,
     )
     p.fc[:] = camera.frustum_center
     p.ax[:] = camera.axis_x
@@ -563,6 +566,8 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
     # no sphere outside the huge cluster: a NaN root, which no ray enters
     p.bvh_root[:] = scene.bvh_root or (float("nan"),) * 6
     p.sbvh_root[:] = scene.sbvh_root or (float("nan"),) * 6
+    p.bvh_wide[:] = scene.bvh_wide
+    p.sbvh_far[:] = scene.sbvh_far
     return p
 
 
@@ -606,20 +611,22 @@ def render_chunk_cuda(scene: Scene, camera: Camera, config, key: int,
 
 
 def intersect_probe_cuda(scene: Scene, rays: torch.Tensor):
-    """The brute feature variants' intersect (the kernel's
-    ``intersect_scene`` with K4t's walk, as ``feature_pinhole_k4t`` runs it)
-    for ``rays`` ((N, 6) float32: o.xyz d.xyz): (t, material, normal (N,
-    3), uvx, uvy, uv_ok). On CUDA tensors one launch of the kernel's probe;
-    on CPU tensors the plain version (:func:`intersect_probe_plain`).
+    """The kernel's ``intersect_scene`` as the scene's variants run it
+    (brute spheres or the sphere clusters' walk, quads, planes, then K4t's
+    walk as ``feature_pinhole_k4t`` runs it, or the static tier's walk) for
+    ``rays`` ((N, 6) float32: o.xyz d.xyz): (t, material, normal (N, 3),
+    uvx, uvy, uv_ok). On CUDA tensors one launch of the kernel's probe; on
+    CPU tensors the plain version (:func:`intersect_probe_plain`).
     ``chip_smoke.py`` holds the one to the other on the card on rays aimed
-    at a mesh's edges and vertices; no render calls it."""
+    at a mesh's edges and vertices and on rays from far away; no render
+    calls it."""
     global PROBE_LAUNCHES
     from .renderer import RenderConfig, init_accum
-    if (scene.sph_clusters or textured(scene) or meshed(scene)
-            or rays.dtype != torch.float32 or rays.dim() != 2
-            or rays.shape[1] != 6):
+    if (textured(scene) or scene.tri_streamed or rays.dtype != torch.float32
+            or rays.dim() != 2 or rays.shape[1] != 6):
         raise ValueError("the probe takes (N, 6) float32 rays and a scene "
-                         "of brute spheres, quads, planes and triangles")
+                         "of spheres (brute or clustered), quads, planes and "
+                         "a brute or static-tier mesh")
     if rays.device.type != "cuda":
         return intersect_probe_plain(scene, rays)
     rays = rays.contiguous()
@@ -629,8 +636,11 @@ def intersect_probe_cuda(scene: Scene, rays: torch.Tensor):
     params = _params(scene, cam, RenderConfig(1, 1, pp=1), 0, 0, 0, state,
                      px, px.clone())
     out = torch.empty((len(rays), 8), dtype=torch.float32, device=rays.device)
+    tri = (K4T_TRI if scene.tri_brute
+           else MESH_KINDS[mesh_kind(scene)] if scene.tri_static else 0)
     err = build().wave_intersect(
         ctypes.byref(params), rays.data_ptr(), len(rays), out.data_ptr(),
+        int(bool(scene.sph_clusters)), tri,
         ctypes.c_void_p(torch.cuda.current_stream(rays.device).cuda_stream))
     if err != 0:
         raise RuntimeError("intersect_probe launch failed: "
@@ -643,7 +653,9 @@ def intersect_probe_cuda(scene: Scene, rays: torch.Tensor):
 def intersect_probe_plain(scene: Scene, rays: torch.Tensor):
     """The plain version of :func:`intersect_probe_cuda` on whatever device
     ``rays`` lie: ``ops/intersect.py::intersect_scene_uv`` for a mesh with
-    UVs, else ``intersect_scene`` (uv 0, uv_ok False), K4t by its sweep."""
+    UVs, else ``intersect_scene`` (uv 0, uv_ok False): the sphere clusters
+    by the table-order walk, K4t by its sweep, the static tier by its
+    table-order walk."""
     from ..ops import intersect
     from ..utils.vec import Vec3
     o, d = Vec3(*rays[:, 0:3].T), Vec3(*rays[:, 3:6].T)

@@ -440,17 +440,129 @@ SPHERE_LEAF = 4
 # 64-byte node loads per triangle tested.
 STATIC_LEAF = 8
 # The static tier's leaf boxes are padded outward by this many float32
-# ulps of the box's largest coordinate: the precomputed triangle test can
-# report a grazing hit a few ulps outside the triangle's own bound, which
-# the table-order walk's larger cluster boxes keep; a looser box costs only
-# box tests, never the least (t, index).
-STATIC_PAD_ULPS = 64
+# ulps of the largest coordinate of its triangles outside the huge cluster
+# (as K4t's, BRUTE_PAD_ULPS): the precomputed triangle test can report a
+# grazing hit outside the triangle's own bound by its rounding ("A ray
+# from far away" below), which the table-order walk's larger cluster boxes
+# keep; a looser box costs only box tests, never the least (t, index).
+# 2^13 ulps keep the rays of a mesh of well-shaped triangles (shape 2 to
+# 10) walked out to about 100 times its largest coordinate; a ray
+# from beyond far_bound is walked in table order (static_walk).
+STATIC_PAD_ULPS = 8192
 # A static-tier record's key (bvh_tri_k): its cluster (tri_clusters' row)
 # << STATIC_KEY_SHIFT | its cluster-order index << 1 | 1 where a hit on it
 # may lie outside its cluster's box (its bound, widened by the padding,
 # reaches the box's faces), which the walk then checks. The keys order as
 # the indices do, so an equal t still takes the lower index.
 STATIC_KEY_SHIFT = 20
+# The sphere BVH's boxes: each sphere's box c -+ r widened by r times this
+# on every side (then rounded outward), so that a hit the sphere test takes
+# a little outside the sphere, from a ray not beyond sphere_far_bound, lies
+# inside its leaf's box.
+SPHERE_PAD = 2.0 ** -4
+
+# A ray from far away. A walk's box tests keep every hit the plain version
+# takes only while the rounding of that hit stays inside the boxes'
+# padding, and that rounding grows with the ray's |o| + |t d|. With u =
+# 2^-24, B the largest coordinate of the padded boxes and |t d|_inf <=
+# |o|_inf + B (the hit lies in them), K4t's hit point q = o + t d - A
+# (brute_records' test) is off the exact point of its computed t by u |t d|
+# + u B + 2u B; its barycentrics' crosses and dots (a few ulps of |q| <=
+# 2B across each edge) push the triangle's edges out by 7u |q|, which
+# moves its corners by that over the sine of their angle, 14u k B with k
+# the triangle's shape (the largest 1 / sin of its angles); the plane
+# test's t puts the point off the plane by 3 sqrt(3) u (|o| + B); and the
+# slab test's entry (box - o) * (1 / d), three roundings, moves 3u |t d|
+# along the ray: below 16u |o|_inf + 16u (1 + 2k) B. The static tier's
+# precomputed test, alpha = (e1 . o - a0) + t (e1 . d), cancels the ray's
+# |o| instead: its edges move by u sqrt(3) (8 |o| + 5 B), its corners by k
+# times that, and with the plane and the slab as above all of it is below
+# 16u (k + 1) (|o|_inf + B). A ray whose |o|_inf is at most far_bound of
+# the padding has every hit the sweep or the table-order walk takes
+# inside its leaf's padded box, with the slab test's margin, so the walk
+# culls none; a ray from further off walks with every box widened by its
+# own bound, 2^-20 (|o|_inf + (1 + 2k) B) for K4t and 2^-20 (k + 1)
+# (|o|_inf + B) for the static tier (bvh_wide: the factor and the addend),
+# so that it culls none either. A sliver, a triangle whose shape exceeds
+# SLIVER (well-shaped meshes stay below 10), is left out of the bound: its
+# test can take a hit well outside the triangle at any distance, so on a
+# mesh with slivers (a lat-long sphere's pole triangles) neither the
+# padded boxes nor the widened walk is exact: the static tier's walk can
+# cull a sliver's hit that the table-order walk's cluster box admits, near
+# or far (tests/test_torch_far_rays.py::test_static_walk_with_slivers,
+# ROADMAP queue 3).
+SLIVER = 32.0
+
+
+def _f32_down(x: float) -> float:
+    """``x`` as the largest float32 not above it (inf stays inf)."""
+    f = np.float32(x)
+    if float(f) > x:
+        f = np.nextafter(f, np.float32(-np.inf))
+    return float(f)
+
+
+def _f32_up(x: float) -> float:
+    """``x`` as the least float32 not below it."""
+    f = np.float32(x)
+    if float(f) < x:
+        f = np.nextafter(f, np.float32(np.inf))
+    return float(f)
+
+
+def far_bound(pad: float, big: float, per_o: float, per_b: float) -> dict:
+    """The far-ray constants of boxes padded by ``pad`` around coordinates
+    of magnitude at most ``big``, where a hit's rounding is below u (per_o
+    |o|_inf + per_b B), B = big + pad: ``bvh_far``, the largest |o|_inf
+    (float32, rounded down) whose hits keep inside the boxes (negative
+    where none does), and ``bvh_wide``, the widening u per_o and u per_b B
+    / per_o (rounded up) whose product with |o|_inf + that addend holds a
+    ray's hits at any |o|_inf."""
+    u = 2.0 ** -24
+    addend = per_b / per_o * (big + pad)
+    return dict(bvh_far=_f32_down(pad / (per_o * u) - addend),
+                bvh_wide=(_f32_up(u * per_o), _f32_up(addend)))
+
+
+# no far-ray bound: every ray walks the boxes as they are
+NO_FAR = dict(bvh_far=float("inf"), bvh_wide=(0.0, 0.0))
+
+
+def _shape(u: np.ndarray, v: np.ndarray) -> float:
+    """The largest shape (1 / sin of the smallest angle: the two longest
+    edges' product over |u x v|) of the triangles with edges ``u``, ``v``
+    ((n, 3)) that are not slivers (``SLIVER``), 1 without any."""
+    u, v = np.asarray(u, np.float64), np.asarray(v, np.float64)
+    e = np.sort(np.stack([np.linalg.norm(x, axis=1) for x in (u, v, v - u)],
+                         axis=1), axis=1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        k = e[:, 1] * e[:, 2] / np.linalg.norm(np.cross(u, v), axis=1)
+    k = k[np.isfinite(k) & (k <= SLIVER)]
+    return float(k.max()) if len(k) else 1.0
+
+
+def sphere_far_reach(r: np.ndarray) -> np.ndarray:
+    """The largest distance L (float64, per radius ``r``) from a sphere's
+    centre to a ray origin whose hit on the sphere keeps inside the
+    sphere's box padded by ``SPHERE_PAD`` r. The sphere test
+    (``ray_sphere``: rel = o - c, b = 2 rel . d, c' = rel . rel - r^2, disc
+    = b^2 - 4 a c', t = (-b - sqrt(disc)) / 2a, |d| = 1) forms disc with an
+    absolute error of at most 60u L^2 (b's dot product 24u L^2, b^2 4u L^2,
+    rel . rel 12u L^2, the difference with r^2 4u L^2, a's rounding 12u
+    L^2, 4 a c' 4u L^2), which cancels against b^2 when the sphere is small
+    beside L. The hit point o + t d (exact at the computed t) then lies at
+    |p - c|^2 = rho^2 + (t - t_mid)^2 = r^2 + err / 4 from the centre (rho
+    the ray's distance from it, t_mid its closest approach), so at most
+    r + 15u L^2 / (2r) from it, plus 4u L for rel's rounding and b's along
+    the ray, and the slab test's entry 3u (L + r) along it: below 8u L^2 /
+    r + 8u L + 4u r, which stays below the padding SPHERE_PAD r while L is
+    at most this reach."""
+    u = 2.0 ** -24
+    r = np.asarray(r, np.float64)
+    # 8u x^2 + 8u x + 4u <= SPHERE_PAD for x = L / r
+    a, b, c = 8 * u, 8 * u, 4 * u - SPHERE_PAD
+    x = (-b + np.sqrt(b * b - 4 * a * c)) / (2 * a)
+    return x * r
 
 
 def _ceil_log2(n: int) -> int:
@@ -555,7 +667,8 @@ def build_stream_bvh(pack: np.ndarray, rpc: int, uv_numbering: bool) -> dict:
          if uv_numbering else r_sel * per) + j_sel
     return dict(bvh_nodes=nodes,
                 bvh_tris=np.ascontiguousarray(recs[r_sel, j_sel, :12]),
-                bvh_tri_k=k.astype(np.int32), bvh_root=root, bvh_depth=depth)
+                bvh_tri_k=k.astype(np.int32), bvh_root=root, bvh_depth=depth,
+                **NO_FAR)
 
 
 def build_sphere_bvh(centers: np.ndarray, radii: np.ndarray,
@@ -564,14 +677,28 @@ def build_sphere_bvh(centers: np.ndarray, radii: np.ndarray,
     (``centers`` (N, 3) and ``radii`` (N,) float32, the ``csph_*`` tables)
     of every cluster but the huge one, which the walk tests first as the
     table-order walk does. Leaves hold at most ``SPHERE_LEAF`` spheres,
-    contiguous; each sphere's box is its float64 centre -+ radius rounded
-    outward to float32.
+    contiguous; each sphere's box is its float64 centre -+ radius widened
+    by ``SPHERE_PAD`` times the radius, rounded outward to float32.
 
     Returns ``sbvh_nodes`` ((M, 16) float32, :func:`_build_bvh`'s nodes),
     ``sbvh_sph`` ((S, 4) float32: cx cy cz r, contiguous by leaf),
     ``sbvh_idx`` ((S,) int32: each record's cluster-order index),
-    ``sbvh_root`` (the root box, mn3 + mx3; () when every sphere is huge)
-    and ``sbvh_depth``."""
+    ``sbvh_root`` (the root box, mn3 + mx3; () when every sphere is huge),
+    ``sbvh_depth`` and ``sbvh_far``, the far path's constants, float32:
+    z.xyz, the centre of the spheres' bound, and R, the least
+    :func:`sphere_far_reach` less its sphere's distance from z, rounded
+    down with a margin for the kernel's float32 |o - z|^2 (a ray whose
+    origin lies further than R from z may take a hit outside its sphere's
+    padded box: it walks the BVH with every box widened by its own bound
+    below; R is negative where a sphere lies beyond its own reach of z,
+    small spheres spread wide, and then every ray does, the walk comparing
+    |o - z|^2 with R |R|; infinite R when every sphere is huge); then 8u / r_min, D = the
+    largest |c - z| and M = D + 2 |z|_inf + r_max, each rounded up. A
+    sphere's test takes a hit only from a ray that passes within r + 15u
+    L^2 / (2r) of its centre (L = |o - c| <= |o - z| + D;
+    :func:`sphere_far_reach`), inside the sphere's box widened by that, so
+    a ray that misses a box widened by 8u (|o - z| + D)^2 / r_min, and by
+    16u (|o - z| + M) for the slab test's rounding, takes no hit in it."""
     items = np.concatenate([np.arange(off, off + cnt, dtype=np.int64)
                             for off, cnt, mn, _ in sph_clusters
                             if mn is not None] or [np.zeros((0,), np.int64)])
@@ -579,10 +706,22 @@ def build_sphere_bvh(centers: np.ndarray, radii: np.ndarray,
         return dict(sbvh_nodes=np.zeros((1, BVH_NODE_FLOATS), np.float32),
                     sbvh_sph=np.zeros((1, 4), np.float32),
                     sbvh_idx=np.zeros((1,), np.int32), sbvh_root=(),
-                    sbvh_depth=0)
+                    sbvh_depth=0,
+                    sbvh_far=(0.0, 0.0, 0.0, float("inf"), 0.0, 0.0, 0.0, 0.0))
     c = np.asarray(centers, np.float32)[items]
     r = np.asarray(radii, np.float32)[items]
     lo, hi = sphere_bounds(c, r)
+    z32 = ((lo.min(axis=0) + hi.max(axis=0)) * 0.5).astype(np.float32)
+    dz = np.linalg.norm(c.astype(np.float64) - z32.astype(np.float64), axis=1)
+    reach = (sphere_far_reach(r) - dz).min()
+    u = 2.0 ** -24
+    big_d = float(dz.max())
+    far = (*(float(v) for v in z32), _f32_down(reach * (1.0 - 2.0 ** -16)),
+           _f32_up(8 * u / float(r.min())), _f32_up(big_d),
+           _f32_up(big_d + 2 * float(np.abs(z32).max()) + float(r.max())),
+           0.0)
+    m = SPHERE_PAD * r.astype(np.float64)[:, None]
+    lo, hi = lo - m, hi + m
     box = np.concatenate(
         [np.nextafter(lo.astype(np.float32), np.float32(-np.inf)),
          np.nextafter(hi.astype(np.float32), np.float32(np.inf))], axis=1)
@@ -599,7 +738,7 @@ def build_sphere_bvh(centers: np.ndarray, radii: np.ndarray,
                 sbvh_sph=np.ascontiguousarray(
                     np.concatenate([c[order], r[order, None]], axis=1)),
                 sbvh_idx=items[order].astype(np.int32), sbvh_root=root,
-                sbvh_depth=depth)
+                sbvh_depth=depth, sbvh_far=far)
 
 
 def build_static_bvh(pre: dict, A: np.ndarray, u: np.ndarray, v: np.ndarray,
@@ -614,14 +753,17 @@ def build_static_bvh(pre: dict, A: np.ndarray, u: np.ndarray, v: np.ndarray,
     record is all zero (a zero normal: it never hits) is left out, as
     :func:`build_stream_bvh` leaves such records out. A leaf's box is the
     float64 bound of its triangles' vertices A, A + u, A + v (the triangle
-    the precomputed test sees), rounded outward to float32 and padded by
-    ``STATIC_PAD_ULPS``. Records are :func:`build_stream_bvh`'s (n.xyz d |
-    e1.xyz a0 | e2.xyz b0), bit for bit, each with its key (its cluster,
-    cluster-order index and check bit, ``STATIC_KEY_SHIFT``).
+    the precomputed test sees), padded by ``STATIC_PAD_ULPS`` ulps of the
+    largest coordinate of those triangles and rounded outward to float32.
+    Records are :func:`build_stream_bvh`'s (n.xyz d | e1.xyz a0 | e2.xyz
+    b0), bit for bit, each with its key (its cluster, cluster-order index
+    and check bit, ``STATIC_KEY_SHIFT``).
 
     Returns ``bvh_nodes``, ``bvh_tris``, ``bvh_tri_k``, ``bvh_root`` (()
     when every triangle is huge: no ray enters it) and ``bvh_depth``, as
-    :func:`build_stream_bvh` does."""
+    :func:`build_stream_bvh` does, and ``bvh_far`` and ``bvh_wide``
+    (:func:`far_bound` of the padding: a ray with a larger |o|_inf walks
+    with its boxes widened and its winner's cluster box tested)."""
     assert STATIC_LEAF <= 15, "a leaf's count fits its reference's 4 bits"
     n_tri = sum(c[1] for c in tri_clusters)
     huge = [c for c in tri_clusters if c[2] is None]
@@ -636,9 +778,12 @@ def build_static_bvh(pre: dict, A: np.ndarray, u: np.ndarray, v: np.ndarray,
     corners = np.stack([a, a + np.asarray(u, np.float64)[:n_tri],
                         a + np.asarray(v, np.float64)[:n_tri]])
     lo, hi = corners.min(axis=0), corners.max(axis=0)
-    pad = lambda mn, mx: STATIC_PAD_ULPS * np.spacing(np.maximum(
-        np.abs(mn), np.abs(mx)).max(axis=-1).astype(np.float32)).astype(
-            np.float64)
+    big = float(np.abs(np.concatenate([lo[n_huge:], hi[n_huge:]])).max()
+                if n_tri > n_huge else 0.0)
+    m = STATIC_PAD_ULPS * float(np.spacing(np.float32(big)))
+    kc = _shape(np.asarray(u)[n_huge:n_tri], np.asarray(v)[n_huge:n_tri])
+    far = (far_bound(m, big, 16.0 * (kc + 1), 16.0 * (kc + 1))
+           if n_tri > n_huge else NO_FAR)
     assert n_tri < 1 << (STATIC_KEY_SHIFT - 1) \
         and len(tri_clusters) < 1 << (31 - STATIC_KEY_SHIFT)
     key = np.arange(n_tri, dtype=np.int64) << 1
@@ -646,7 +791,6 @@ def build_static_bvh(pre: dict, A: np.ndarray, u: np.ndarray, v: np.ndarray,
         sl = slice(off, off + cnt)
         key[sl] |= c << STATIC_KEY_SHIFT
         if cmn is not None:  # the huge cluster is always tested
-            m = pad(lo[sl], hi[sl])[:, None]
             inside = ((lo[sl] - m > np.asarray(cmn)).all(axis=1)
                       & (hi[sl] + m < np.asarray(cmx)).all(axis=1))
             key[sl] |= (~inside).astype(np.int64)
@@ -660,7 +804,8 @@ def build_static_bvh(pre: dict, A: np.ndarray, u: np.ndarray, v: np.ndarray,
         return dict(bvh_nodes=nodes, bvh_tris=rec[keep] if n_huge else
                     np.zeros((1, BVH_TRI_FLOATS), np.float32),
                     bvh_tri_k=key[keep].astype(np.int32) if n_huge else
-                    np.zeros((1,), np.int32), bvh_root=(), bvh_depth=0)
+                    np.zeros((1,), np.int32), bvh_root=(), bvh_depth=0,
+                    **far)
     out = lambda x, way: np.nextafter(x.astype(np.float32), np.float32(way))
     box = np.concatenate([out(lo[items], -np.inf), out(hi[items], np.inf)],
                          axis=1)
@@ -671,7 +816,6 @@ def build_static_bvh(pre: dict, A: np.ndarray, u: np.ndarray, v: np.ndarray,
         ref = BVH_LEAF | (n_huge + len(order)) << 4 | len(idx)
         order.extend(int(i) for i in sel)
         mn, mx = lo[sel].min(axis=0), hi[sel].max(axis=0)
-        m = pad(mn, mx)
         return ref, np.concatenate([out(mn - m, -np.inf), out(mx + m, np.inf)])
 
     nodes, root, depth = _build_bvh(box, STATIC_LEAF, leaf)
@@ -679,7 +823,7 @@ def build_static_bvh(pre: dict, A: np.ndarray, u: np.ndarray, v: np.ndarray,
     keep = np.concatenate([np.arange(n_huge), np.asarray(order, np.int64)])
     return dict(bvh_nodes=nodes, bvh_tris=np.ascontiguousarray(rec[keep]),
                 bvh_tri_k=key[keep].astype(np.int32), bvh_root=root,
-                bvh_depth=depth)
+                bvh_depth=depth, **far)
 
 
 # K4t's BVH (csrc/wave_kernel.cu's brute_walk) over a mesh of at most
@@ -714,12 +858,14 @@ BRUTE_MAX_DEPTH = 8
 # A leaf's box is its triangles' float64 bound padded outward by this many
 # float32 ulps of the mesh's largest coordinate, then rounded outward. The
 # sweep takes a hit where its float32 expressions say so: a hit point
-# rounded onto the triangle's edge from a few ulps outside it, of the
-# coordinates and of |o| + |t d|, which for a ray from up to a few hundred
-# times the mesh's largest coordinate is still inside the padding
-# (tests/test_torch_brute_bvh.py holds it on grazing rays from 500 times;
-# without the padding the walk loses winners there). A looser box costs
-# only box tests, never the least (t, index).
+# rounded onto the triangle's edge from outside it, by the rounding of the
+# coordinates and of |o| + |t d|, which stays inside the padding for a ray
+# whose |o|_inf is at most far_bound of it (2^11 ulps over 16u: 128 to 256
+# times the mesh's largest coordinate, less the triangles' shape's share); a
+# ray from further off walks with its boxes widened (brute_walk).
+# Without the padding the walk loses winners on grazing rays
+# (tests/test_torch_brute_bvh.py). A looser box costs only box tests,
+# never the least (t, index).
 BRUTE_PAD_ULPS = 2048
 
 
@@ -748,7 +894,7 @@ def brute_records(A: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
     m = np.maximum(np.sqrt(_dot32(n, n)), f32(1e-30))
     n_unit = n * (f32(1.0) / m)[:, None]
     # a degenerate triangle's w is inf * 0: NaN, as in the sweep (no hit)
-    with np.errstate(divide="ignore", invalid="ignore"):
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
         w = n * (f32(1.0) / _dot32(n, n))[:, None]
     rec = np.concatenate([n_unit, _dot32(A, n_unit)[:, None], w, v[:, 2:3],
                           A, u, v[:, 0:2]], axis=1)
@@ -774,7 +920,9 @@ def build_brute_bvh(A: np.ndarray, u: np.ndarray, v: np.ndarray) -> dict:
     Returns ``bvh_nodes``, ``bvh_tris`` ((m, 16) float32:
     :func:`brute_records`, by leaf), ``bvh_tri_k`` ((m,) int32: each
     record's table index), ``bvh_root`` (() when no triangle is walked: no
-    ray enters it) and ``bvh_depth``."""
+    ray enters it), ``bvh_depth`` and ``bvh_far`` and ``bvh_wide``
+    (:func:`far_bound` of the padding: a ray with a larger |o|_inf walks
+    with its boxes widened; no bound without a tree)."""
     assert BRUTE_LEAF <= 15, "a leaf's count fits its reference's 4 bits"
     A, u, v = (np.asarray(x, np.float32).reshape(-1, 3) for x in (A, u, v))
     assert 1 <= len(A) <= CLUSTER_MIN
@@ -788,13 +936,15 @@ def build_brute_bvh(A: np.ndarray, u: np.ndarray, v: np.ndarray) -> dict:
                     bvh_tris=np.ascontiguousarray(rec[items]) if len(items)
                     else np.zeros((1, BRUTE_REC_FLOATS), np.float32),
                     bvh_tri_k=items.astype(np.int32) if len(items)
-                    else np.zeros((1,), np.int32), bvh_root=(), bvh_depth=0)
+                    else np.zeros((1,), np.int32), bvh_root=(), bvh_depth=0,
+                    **NO_FAR)
     a = A[items].astype(np.float64)
     corners = np.stack([a, a + u[items].astype(np.float64),
                         a + v[items].astype(np.float64)])
     lo, hi = corners.min(axis=0), corners.max(axis=0)
     big = np.abs(np.concatenate([lo, hi])).max()
     pad = BRUTE_PAD_ULPS * float(np.spacing(np.float32(big)))
+    kc = _shape(u[items], v[items])
     out = lambda x, way: np.nextafter(x.astype(np.float32), np.float32(way))
     box = np.concatenate([out(lo - pad, -np.inf), out(hi + pad, np.inf)],
                          axis=1)
@@ -810,4 +960,5 @@ def build_brute_bvh(A: np.ndarray, u: np.ndarray, v: np.ndarray) -> dict:
     order = np.asarray(order, np.int64)
     return dict(bvh_nodes=nodes, bvh_tris=np.ascontiguousarray(rec[order]),
                 bvh_tri_k=order.astype(np.int32), bvh_root=root,
-                bvh_depth=depth)
+                bvh_depth=depth,
+                **far_bound(pad, big, 16.0, 16.0 * (1 + 2 * kc)))

@@ -132,8 +132,7 @@ def scene_from_numpy(fields: dict, statics: dict) -> Scene:
     kw.update(planar_tables(
         kw["tex_packed"], kw["tex_w"], kw["tex_h"], kw.get("tex_hmax", 1),
         kw.get("tex_wmax", 1), planar=bool(
-            kw.get("n_textures") and not kw.get("tex_combined")
-            and not kw.get("tex_mesh_only"))))
+            kw.get("n_textures") and not kw.get("tex_combined"))))
     return Scene(**kw)
 
 

@@ -29,10 +29,11 @@ flat RGB8 stack ``tex_packed`` with per-layer sizes (:func:`texture_stack`),
 read by mesh-UV albedo maps (``tex_mesh_only``: every textured material is
 a triangle albedo binding) and by planar maps at the hit's world xy
 (``Scene.planar_maps``: albedo, metalness, roughness, normal and bump).
-With planar maps the kernel's planar fetch reads the same texels from
-``planar_tile`` (:func:`planar_tables`): each layer at its own size in
-8x8-texel tiles, with ``planar_meta``'s offsets, sizes and the wraps'
-reciprocals (:func:`planar_recip`).
+The kernel's fetches of such a set (K10's planar and texel forms, K11's
+bump heights) read the same texels from ``planar_tile``
+(:func:`planar_tables`): each layer at its own size in 8x8-texel tiles,
+with ``planar_meta``'s offsets, sizes and the wraps' reciprocals
+(:func:`planar_recip`).
 
 Fog is the static ``fog_sigma_t`` (0: none), ``fog_albedo`` and ``fog_g``
 (``WorldBuilder.set_fog``). A scene with fog, transmission, bump or planar
@@ -142,6 +143,7 @@ STATIC_FIELDS = (
     "tri_streamed", "tri_dma", "stream_uv_cfm", "stream_leaf",
     "n_stream_clusters", "stream_parents", "stream_gparents",
     "stream_row_cull", "bvh_root", "bvh_depth", "sbvh_root", "sbvh_depth",
+    "bvh_far", "bvh_wide", "sbvh_far",
     "tex_combined", "tex_comb_w", "tex_comb_h", "tex_tiles_x",
     "tex_mip_meta", "tex_hmax", "tex_wmax", "tex_mesh_only",
     "use_normal_maps", "use_metalness_maps",
@@ -290,9 +292,10 @@ class Scene:
     tex_packed: torch.Tensor
     tex_w: torch.Tensor
     tex_h: torch.Tensor
-    # K10's planar form (planar_tables, from the flat stack): each layer at
-    # its own size in 8x8-texel tiles of 64 words, and eight int32 words
-    # per layer ((64,) and (1, 8) dummies without planar maps)
+    # the kernel's texel table (planar_tables, from the flat stack, read by
+    # K10 and K11): each layer at its own size in 8x8-texel tiles of 64
+    # words, and eight int32 words per layer ((64,) and (1, 8) dummies
+    # without a texture set outside a combined set)
     planar_tile: torch.Tensor
     planar_meta: torch.Tensor
 
@@ -335,6 +338,14 @@ class Scene:
     bvh_depth: int = 0              # its inner levels on the deepest path
     sbvh_root: tuple = ()           # the same of the sphere clusters' BVH
     sbvh_depth: int = 0
+    # a ray from further off walks its BVH with every box widened by its
+    # own bound: the static tier's and K4t's largest |o|_inf walked through
+    # the boxes as they are and the widening's factor and addend
+    # (clusters.far_bound), and the sphere BVH's centre, largest distance
+    # |o - z| and widening constants (clusters.build_sphere_bvh)
+    bvh_far: float = float("inf")
+    bvh_wide: tuple = (0.0, 0.0)
+    sbvh_far: tuple = (0.0, 0.0, 0.0, float("inf"), 0.0, 0.0, 0.0, 0.0)
     tex_combined: bool = False
     tex_comb_w: int = 1
     tex_comb_h: int = 1
@@ -515,7 +526,8 @@ def bvh_tables(mtri_pack: torch.Tensor, tri_streamed: bool, stream_leaf: int,
         return dict(bvh_nodes=torch.zeros((1, clusters.BVH_NODE_FLOATS)),
                     bvh_tris=torch.zeros((1, clusters.BVH_TRI_FLOATS)),
                     bvh_tri_k=torch.zeros((1,), dtype=torch.int32),
-                    bvh_root=(), bvh_depth=0)
+                    bvh_root=(), bvh_depth=0, bvh_far=float("inf"),
+                    bvh_wide=(0.0, 0.0))
     else:
         b = clusters.build_stream_bvh(
             mtri_pack.cpu().numpy(),
@@ -603,8 +615,10 @@ def planar_tables(tex_packed: torch.Tensor, tex_w: torch.Tensor,
     * tiles_x + (x >> 3)) * 64 + (y & 7) * 8 + (x & 7); a partial tile's
     other texels are never read), and per layer ``PLANAR_META_WORDS`` int32
     words: tile_off, tiles_x, w, h, the wraps' :func:`planar_recip` of w and
-    h (as int32 bits) and w and h as float32 bits. Dummies where the scene
-    has no planar maps (``planar`` false)."""
+    h (as int32 bits) and w and h as float32 bits. The kernel reads every
+    map outside a combined set from it: planar maps (K10's planar form),
+    mesh-UV albedo maps (its texel form) and bump maps (K11). Dummies where
+    the scene has no such map (``planar`` false)."""
     if not planar:
         return dict(planar_tile=torch.zeros((PLANAR_TILE ** 2,),
                                             dtype=torch.int32),
@@ -1017,8 +1031,7 @@ class WorldBuilder:
             **tex_set,
             **stack,
             **planar_tables(**stack, planar=bool(
-                self.textures and not tex_set["tex_combined"]
-                and not tex_mesh_only)),
+                self.textures and not tex_set["tex_combined"])),
             **mesh,
             tex_mesh_only=tex_mesh_only,
             sph_clusters=sph_clusters,

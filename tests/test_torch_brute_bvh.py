@@ -31,6 +31,8 @@ a BVH of a brute mesh's precomputed 64-byte records) on the CPU.
   XLA driver.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -382,10 +384,14 @@ def test_probe_on_the_cpu_is_the_plain_sweep():
 
 def test_unpadded_boxes_cull_winners(monkeypatch):
     """The grazing rays reach the leaves' faces: built without the padding
-    (``BRUTE_PAD_ULPS`` 0), the walk misses winners the sweep takes on
-    them, which the padded boxes keep (test_walk_equals_sweep)."""
+    (``BRUTE_PAD_ULPS`` 0) and every ray walked through the boxes as they
+    are (without a padding, the far bound widens every ray's boxes), the
+    walk misses winners the sweep takes on them, which the padded boxes
+    keep (test_walk_equals_sweep)."""
     monkeypatch.setattr(tclu, "BRUTE_PAD_ULPS", 0)
     ts, tris = _scene("tri40")
+    assert ts.bvh_far < 0
+    ts = dataclasses.replace(ts, bvh_far=float("inf"))
     rng = np.random.RandomState(7)
     go, gd = _grazing_rays(rng, tris, 4096)
     o, d = _flat(go), _flat(gd)

@@ -6,7 +6,7 @@ near-first over the BVH) on the CPU.
 - The BVH on worlds 2 and 4: every sphere outside the huge cluster in
   exactly one leaf of at most ``SPHERE_LEAF`` records, each record the
   sphere's ``csph_*`` row, leaf boxes the exact float32 union of their
-  spheres' outward-rounded boxes, node boxes the exact unions of their
+  spheres' boxes, each widened by ``SPHERE_PAD`` r and rounded outward, node boxes the exact unions of their
   children's, the depth within the kernel's stack; the converter derives
   the same tables from JAX's scene.
 - The walk against the table-order walk ``_intersect_spheres_clustered``
@@ -57,9 +57,10 @@ def _leaves(scene):
     nodes = scene.sbvh_nodes.numpy()
     kids = _kids(scene.sbvh_nodes)
     sph = scene.sbvh_sph.numpy().astype(np.float64)
-    lo = np.nextafter((sph[:, :3] - sph[:, 3:]).astype(np.float32),
+    pad = tclu.SPHERE_PAD * sph[:, 3:]
+    lo = np.nextafter((sph[:, :3] - sph[:, 3:] - pad).astype(np.float32),
                       np.float32(-np.inf))
-    hi = np.nextafter((sph[:, :3] + sph[:, 3:]).astype(np.float32),
+    hi = np.nextafter((sph[:, :3] + sph[:, 3:] + pad).astype(np.float32),
                       np.float32(np.inf))
     out, depth = [], [0]
 

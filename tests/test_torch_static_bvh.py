@@ -126,8 +126,8 @@ def test_static_bvh_well_formed(case):
     corners = np.stack([a, a + (t[:, 1] - t[:, 0]).astype(np.float32),
                         a + (t[:, 2] - t[:, 0]).astype(np.float32)])
     lo, hi = corners.min(0), corners.max(0)
-    pad = lambda sel: tclu.STATIC_PAD_ULPS * np.spacing(np.float32(max(
-        np.abs(lo[sel]).max(), np.abs(hi[sel]).max())))
+    big = max(np.abs(lo[n_huge:]).max(), np.abs(hi[n_huge:]).max())
+    pad = lambda sel: tclu.STATIC_PAD_ULPS * np.spacing(np.float32(big))
     # each key: its cluster, its index, and the check bit unless its bound,
     # padded, lies inside its cluster's box (the huge cluster: never); the
     # keys order as the indices
