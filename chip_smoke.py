@@ -6,10 +6,9 @@ It needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and no network,
 and it imports nothing of JAX. ``python3 chip_smoke.py --parent DIR`` runs
 phase 1 and then, instead of the others, times the kernel of another
 checkout at DIR (the parent commit, unpacked with git archive) against
-this one's in turns (parent_turns: PARENT_ROWS, K11's and K10's texel
-rows, the clustered, static and K4t main paths, brute_pinhole as the
-control, and this kernel against variants of its own source:
-SOURCE_VARIANTS).
+this one's in turns (parent_turns: PARENT_ROWS, the Cornell main path's
+rows and the rows without quads, K7's and the static tier's rows, and
+this kernel against variants of its own source: SOURCE_VARIANTS).
 
 The render kernel csrc/wave_kernel.cu has fifty-two compile-time
 variants (cuda_backend.VARIANTS), instantiations of one template in one
@@ -97,7 +96,11 @@ and the script exits non-zero):
      variant's SASS (``--sass DIR`` also writes the full SASS there), and
      every variant whose code this build changed (code_changed) with its
      registers, spills and blocks per SM beside the parent's
-     (PARENT_PTXAS); then,
+     (PARENT_PTXAS), none with fewer blocks per SM, and the brute
+     variants' stack frames beside the parent's (PARENT_STACK); the
+     shade's trig (sincos_2pi) against sinf and cosf on all 2^24 values
+     of u (cuda_backend.trig_check_cuda), which must agree bit for bit;
+     then,
      in the background, the warp tiles' yardstick: the same source with
      -DWAVE_SCANLINE_WARPS, where each warp of the BVH walks' variants
      (the streamed walk's, the sphere clusters' and the static tier's)
@@ -147,7 +150,12 @@ and the script exits non-zero):
      from near their centre (the sphere clusters), each with the count of
      rays beyond its bound (Scene.bvh_far, sbvh_far), bit-equal, and the
      2-cm sphere rendered through a 0.02-degree camera 200 units away at
-     256x144 4 spp; the feature
+     256x144 4 spp; the grazing probe (grazing_rays, moved_back): the
+     kernel's intersect against its plain version on rays grazing the
+     19,600-triangle sphere's triangles and at its degenerate pole
+     triangles from 2 to 10^4 units (K7, two seeds) and on the 144- and
+     784-triangle spheres' from 10 to 10^4 times their size (the static
+     tier's slivers), bit-equal; the feature
      bounce on the other bases at both sizes
      (base_case): worlds 1
      (pinhole, lens, regen), 2 (pinhole, lens), 4, 7 (pinhole, lens, regen)
@@ -300,7 +308,13 @@ OPS_PRIMARY = {"pinhole": 49, "lens": 76}
 OPS_SPHERE = 35     # ray_sphere + the t < best test
 OPS_SLAB = 25       # one leaf cluster's slab test and cull (K5)
 OPS_INV = 6         # the slab reciprocals, once per ray
-OPS_QUAD = 80       # ray_quad + the t < best test
+# ray_quad on a quad's record + the t < best test: the plane's dots, test
+# and division (14), the hit point (9), the barycentrics' crosses and dots
+# (28), four compares, t > 0.02 and t < best (6); the per-test form formed
+# d = A . n, cross(u, v), its squared length, the division and w per ray
+# too (80, OPS_QUAD_PER_TEST: the main path's rows' earlier bound)
+OPS_QUAD = 57
+OPS_QUAD_PER_TEST = 80
 OPS_PLANE = 16      # ray_plane + the t > 1e-4 and t < best tests
 OPS_RESOLVE = 20    # the winner's normal (K6 for clustered spheres)
 OPS_EMIT = 9        # emission and the surface test, every ray
@@ -380,7 +394,7 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-KERNEL_RE = (r"wave_kernel(?:_grouped)?ILb([01])ELb([01])ELi([0-9])ELi([0-9])ELi([0-9])"
+KERNEL_RE = (r"wave_kernel(?:_grouped|_b8)?ILb([01])ELb([01])ELi([0-9])ELi([0-9])ELi([0-9])"
              r"ELi([0-9])E")
 # ptxas's registers and spill bytes and the resident blocks of 128 threads
 # per SM of every variant as the parent commit built them (phase 2 of its
@@ -394,32 +408,34 @@ PARENT_PTXAS = {"brute_pinhole": (64, 0, 8), "brute_lens": (72, 0, 7),
     "feature_pinhole": (64, 362, 8), "feature_lens": (64, 362, 8),
     "meshplain_pinhole": (64, 20, 8), "meshplain_lens": (64, 20, 8),
     "static_pinhole": (64, 68, 8), "static_lens": (72, 20, 7),
-    "staticplain_pinhole": (56, 104, 9), "staticplain_lens": (56, 104, 9),
+    "staticplain_pinhole": (56, 140, 9), "staticplain_lens": (56, 140, 9),
     "staticplain_pinhole_regen": (80, 4, 6),
-    "featclustered_pinhole": (64, 366, 8),
-    "featclustered_lens": (64, 358, 8), "feattextured_pinhole": (64, 294, 8),
-    "feattextured_lens": (64, 306, 8), "featmesh_pinhole": (64, 340, 8),
-    "featmesh_lens": (64, 344, 8), "featmeshplain_pinhole": (64, 346, 8),
-    "featmeshplain_lens": (64, 338, 8), "featstatic_pinhole": (64, 340, 8),
-    "featstatic_lens": (64, 332, 8), "featstaticplain_pinhole": (64, 326, 8),
-    "featstaticplain_lens": (64, 338, 8),
-    "feattextured_pinhole_regen": (64, 314, 8),
-    "featmesh_pinhole_regen": (64, 372, 8),
-    "feature_pinhole_lockstep": (64, 342, 8),
-    "clustered+textured": (64, 306, 8), "textured+meshplain": (72, 100, 7),
-    "textured+staticplain": (64, 314, 8), "clustered+mesh": (64, 380, 8),
-    "clustered+meshplain": (64, 370, 8), "clustered+static": (64, 384, 8),
-    "clustered+staticplain": (64, 374, 8),
-    "clustered+textured+meshplain": (64, 330, 8),
-    "clustered+textured+staticplain": (64, 330, 8),
+    "featclustered_pinhole": (64, 358, 8), "featclustered_lens": (64, 358, 8),
+    "feattextured_pinhole": (64, 156, 8), "feattextured_lens": (64, 168, 8),
+    "featmesh_pinhole": (64, 352, 8), "featmesh_lens": (64, 348, 8),
+    "featmeshplain_pinhole": (64, 358, 8), "featmeshplain_lens": (64, 342, 8),
+    "featstatic_pinhole": (64, 352, 8), "featstatic_lens": (64, 332, 8),
+    "featstaticplain_pinhole": (64, 326, 8),
+    "featstaticplain_lens": (64, 342, 8),
+    "feattextured_pinhole_regen": (64, 148, 8),
+    "featmesh_pinhole_regen": (64, 376, 8),
+    "feature_pinhole_lockstep": (64, 330, 8),
+    "clustered+textured": (64, 188, 8), "textured+meshplain": (64, 104, 8),
+    "textured+staticplain": (64, 196, 8), "clustered+mesh": (64, 352, 8),
+    "clustered+meshplain": (64, 358, 8), "clustered+static": (64, 356, 8),
+    "clustered+staticplain": (64, 362, 8),
+    "clustered+textured+meshplain": (64, 192, 8),
+    "clustered+textured+staticplain": (64, 180, 8),
     "feature_pinhole_k4t": (64, 366, 8), "feature_lens_k4t": (64, 366, 8),
     "featclustered_pinhole_k4t": (64, 386, 8),
     "featclustered_lens_k4t": (64, 370, 8),
-    "feattextured_pinhole_k4t": (64, 318, 8),
-    "feattextured_lens_k4t": (64, 330, 8),
-    "feattextured_pinhole_regen_k4t": (64, 314, 8),
-    "feature_pinhole_lockstep_k4t": (64, 374, 8),
-    "clustered+textured_k4t": (64, 326, 8)}
+    "feattextured_pinhole_k4t": (64, 188, 8),
+    "feattextured_lens_k4t": (64, 196, 8),
+    "feattextured_pinhole_regen_k4t": (64, 156, 8),
+    "feature_pinhole_lockstep_k4t": (64, 362, 8),
+    "clustered+textured_k4t": (64, 188, 8)}
+# the stack frame bytes ptxas gave the brute variants in the parent's build
+PARENT_STACK = {"brute_pinhole": 32, "brute_lens": 0}
 PARENT_LENS_PTXAS = {v: r for v, r in PARENT_PTXAS.items()
                      if "_lens" in v and not v.startswith("feat")}
 PARENT_FEATURE_PTXAS = {v: r[:2] for v, r in PARENT_PTXAS.items()
@@ -431,25 +447,25 @@ PARENT_FEATURE_BLOCKS = {v: PARENT_PTXAS[v][2] for v in PARENT_FEATURE_PTXAS}
 # the "feat*" and "feature_*" ones and the mixed bases) under the parent's
 # -DWAVE_NO_REGROUP yardstick, which those whose code this build left as
 # it was (not code_changed) must keep
-KEPT_PTXAS = {"brute_pinhole": (64, 0), "clustered_pinhole": (56, 72),
-    "textured_pinhole": (64, 68), "textured_pinhole_regen": (87, 0),
-    "mesh_pinhole": (64, 56), "mesh_pinhole_regen": (80, 0),
-    "meshplain_pinhole": (64, 20), "static_pinhole": (64, 68),
-    "staticplain_pinhole": (56, 140), "staticplain_pinhole_regen": (80, 4)}
-FEATURE_EARLIER_PTXAS = {"feature_pinhole": (93, 0), "feature_lens": (92, 0),
-    "featclustered_pinhole": (94, 0), "featclustered_lens": (93, 0),
-    "feattextured_pinhole": (72, 36), "feattextured_lens": (72, 36),
-    "featmesh_pinhole": (80, 60), "featmesh_lens": (80, 60),
-    "featmeshplain_pinhole": (80, 52), "featmeshplain_lens": (80, 52),
-    "featstatic_pinhole": (72, 132), "featstatic_lens": (80, 60),
-    "featstaticplain_pinhole": (80, 52), "featstaticplain_lens": (80, 52),
+KEPT_PTXAS = {"brute_pinhole": (63, 0), "clustered_pinhole": (56, 76),
+    "textured_pinhole": (64, 60), "textured_pinhole_regen": (72, 20),
+    "mesh_pinhole": (56, 128), "mesh_pinhole_regen": (72, 4),
+    "meshplain_pinhole": (64, 28), "static_pinhole": (64, 80),
+    "staticplain_pinhole": (56, 148), "staticplain_pinhole_regen": (72, 0)}
+FEATURE_EARLIER_PTXAS = {"feature_pinhole": (92, 0), "feature_lens": (92, 0),
+    "featclustered_pinhole": (80, 40), "featclustered_lens": (93, 0),
+    "feattextured_pinhole": (72, 44), "feattextured_lens": (72, 44),
+    "featmesh_pinhole": (80, 76), "featmesh_lens": (80, 76),
+    "featmeshplain_pinhole": (72, 108), "featmeshplain_lens": (72, 108),
+    "featstatic_pinhole": (80, 68), "featstatic_lens": (80, 60),
+    "featstaticplain_pinhole": (80, 60), "featstaticplain_lens": (72, 108),
     "feattextured_pinhole_regen": (91, 0), "featmesh_pinhole_regen": (96, 0),
-    "feature_pinhole_lockstep": (80, 44), "clustered+textured": (80, 40),
-    "textured+meshplain": (72, 100), "textured+staticplain": (72, 100),
-    "clustered+mesh": (72, 132), "clustered+meshplain": (80, 52),
-    "clustered+static": (72, 132), "clustered+staticplain": (80, 52),
-    "clustered+textured+meshplain": (72, 100),
-    "clustered+textured+staticplain": (72, 100)}
+    "feature_pinhole_lockstep": (80, 60), "clustered+textured": (72, 80),
+    "textured+meshplain": (64, 104), "textured+staticplain": (64, 104),
+    "clustered+mesh": (72, 124), "clustered+meshplain": (72, 116),
+    "clustered+static": (72, 148), "clustered+staticplain": (72, 116),
+    "clustered+textured+meshplain": (72, 36),
+    "clustered+textured+staticplain": (64, 116)}
 
 
 # the feature variants without a mesh tier: each has a form with K4t's walk
@@ -462,11 +478,9 @@ K4T_BASES = ("feature_pinhole", "feature_lens", "feature_pinhole_lockstep",
 
 def code_changed(var: str) -> bool:
     """Whether a variant's code changed against the parent's: every one
-    with the feature bounce (K11's fetch_height3 and K10's texel form,
-    fetch_texel, on the planar table), with a UV mesh (fetch_texel), and
-    every one with the sphere clusters' walk, the static tier's or K4t's
-    (a ray from far away on an exact path)."""
-    return not var.startswith(("brute_", "textured_", "meshplain_"))
+    (the quads' records and the shade's trig, formed once above its
+    branches, are in all; K7's and the static tier's walks changed too)."""
+    return True
 
 
 def lens_variant(var: str) -> bool:
@@ -799,9 +813,11 @@ def ptxas_report(log: str) -> dict:
             continue
         regs = re.search(r"Used (\d+) registers", part)
         spills = re.search(r"(\d+) bytes spill stores", part)
+        stack = re.search(r"(\d+) bytes stack frame", part)
         out[variant_of(m.groups())] = {
             "registers": int(regs.group(1)) if regs else None,
             "spill_stores": int(spills.group(1)) if spills else None,
+            "stack_frame": int(stack.group(1)) if stack else None,
             "regrouped": "wave_kernel_grouped" in part.split("'", 1)[0]}
     return out
 
@@ -1330,6 +1346,63 @@ def far_edge_rays(A, u, v, n, seed):
     return rays.astype(np.float32)
 
 
+def grazing_rays(tris, n, seed):
+    """(n, 6) float32 rays at a mesh's triangles (tris (T, 3, 3)),
+    tests/test_torch_static_bvh.py's grazing rays: at points of random
+    non-degenerate triangles' edges a few ulps inside or outside them, in
+    the triangle's plane along or across the edge with a normal component
+    of 0 to 1e-3, from 2 units; a quarter from random points at random
+    vertices; and n // 8 more at the degenerate (pole) triangles'
+    vertices from 2 units (tests/test_torch_far_rays.py's pole rays)."""
+    rng = np.random.RandomState(seed)
+    t = tris.astype(np.float64)
+    area = np.linalg.norm(np.cross(t[:, 1] - t[:, 0], t[:, 2] - t[:, 0]),
+                          axis=1)
+    pick = rng.choice(np.nonzero(area > 1e-9)[0], n)
+    e = rng.randint(0, 3, n)
+    p0, p1 = t[pick, e], t[pick, (e + 1) % 3]
+    nrm = np.cross(t[pick, 1] - t[pick, 0], t[pick, 2] - t[pick, 0])
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-30)
+    edge = p1 - p0
+    across = np.cross(nrm, edge)
+    across /= np.maximum(np.linalg.norm(across, axis=1, keepdims=True), 1e-30)
+    q = (p0 + rng.rand(n, 1) * edge
+         + across * rng.choice([-1.0, 1.0], (n, 1)) * rng.choice(
+             [0.0, 1e-7, 1e-6], (n, 1)))
+    d = np.where((rng.rand(n) < 0.5)[:, None], edge, across)
+    d /= np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-30)
+    d += nrm * rng.choice([0.0, 1e-5, 1e-3], (n, 1))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = q - 2.0 * d
+    m = n // 4
+    vo = t[pick[:m], e[:m]]
+    o[:m] = vo + rng.randn(m, 3) * 2.0
+    d[:m] = vo - o[:m]
+    d[:m] /= np.linalg.norm(d[:m], axis=1, keepdims=True)
+    rays = [np.concatenate([o, d], 1)]
+    poles = np.nonzero(area <= 1e-9)[0]
+    if len(poles):
+        k = n // 8
+        sel = rng.choice(poles, k)
+        qp = t[sel, rng.randint(0, 3, k)] + rng.randn(k, 3) * 1e-3
+        op = qp + rng.randn(k, 3) * 2.0
+        dp = qp - op
+        dp /= np.linalg.norm(dp, axis=1, keepdims=True)
+        rays.append(np.concatenate([op, dp], 1))
+    return np.concatenate(rays).astype(np.float32)
+
+
+def moved_back(rays, dists):
+    """``rays`` ((n, 6)) repeated once for each distance of ``dists``, each
+    copy moved back along its direction by that distance."""
+    out = []
+    for dist in dists:
+        r = rays.astype(np.float64)
+        r[:, 0:3] -= r[:, 3:6] * dist
+        out.append(r)
+    return np.concatenate(out).astype(np.float32)
+
+
 # the sphere clusters' far-ray cases: world -> (the centre and extent of
 # the box its rays are aimed at)
 FAR_SPHERES = {"w2": ((2.5, 2.5, 1.0), (6.0, 6.0, 1.0)),
@@ -1612,95 +1685,67 @@ def load_package(root: Path, name: str):
 
 # --parent's rows: (case, thin lens, schedule); "wN" is world N ("w7": its
 # 1472-triangle UV sphere; "w2", "w4": the clustered spheres), "triN" or
-# "uvN" world 5's ground with MESH_CASES' mesh of that tag, each + " fog" in
-# the CLI's fog, "w1 planar" world 1 with three planar 512x512 maps ("w1
-# planar500": cut to 500x300), "w2 maps" / "tri784 maps" planar albedo and
-# bump maps on the ground beside sphere clusters / the static tier, a
-# MIXED_CASES name that mixed case, a feature scene's name (FEATURE_CASES)
-# that scene: K10's planar rows, the feature rows without planar maps,
-# every lens variant's main path, and brute_pinhole as the control
+# "uvN" world 5's ground with MESH_CASES' or SLIVER_CASES' mesh of that
+# tag, each + " fog" in the CLI's fog, "w1 planar" world 1 with three
+# planar 512x512 maps ("w1 planar500": cut to 500x300), "w2 maps" /
+# "tri784 maps" planar albedo and bump maps on the ground beside sphere
+# clusters / the static tier, a MIXED_CASES name that mixed case, a
+# feature scene's name (FEATURE_CASES) that scene: the main path's body
+# (the quads' records, the shade's trig once, the light sphere's terms
+# once) on the rows that run it most, then K7's rows (row boxes, padded
+# leaves, a far bound, the set-apart slivers) and the static tier's (its
+# set-apart slivers)
 PARENT_ROWS = (
-    # K11 on the planar table
-    ("bump", False, None), ("everything", False, None),
-    ("everything", True, None), ("w2 maps", False, None),
-    ("tri784 maps", False, None),
-    # K10's texel form on the planar table: world 7 and the UV meshes
-    ("w7", False, None), ("w7", True, None), ("w7", False, "regen"),
-    ("w7 fog", False, None), ("uv736", False, None), ("uv99840", False, None),
-    # a ray from far away: the sphere clusters', the static tier's and
-    # K4t's main paths
-    ("w2", False, None), ("w4", True, None), ("w2 fog", False, None),
-    ("tri784", False, None), ("tri784", True, None), ("uv736", True, None),
-    ("tri784 fog", False, None), ("uv736 fog", True, None),
-    ("tri40", False, None), ("tri40", True, None), ("tri40 fog", False, None),
-    ("clustered+brute", True, None), ("textured+brute", True, None),
-    # the control
-    ("w3", False, None))
+    ("w3", False, None), ("w3", True, None), ("w6", False, None),
+    ("w2", False, None), ("w1", False, None), ("w6 fog", False, None),
+    ("w7", False, None), ("tri19600", False, None),
+    ("tri262144", False, None), ("uv99840", False, None),
+    ("uv1472s", False, None), ("uv99840s", False, None),
+    ("tri784", False, None), ("uv736", False, None))
 
 # --parent's variants of this tree's kernel source, each timed in turns
 # against this one on its rows: (the replacements that make it from the
-# source, its rows). "height3_per_site": K11 as three fetch_planar calls,
-# each with its own meta loads and wraps (six wraps where fetch_height3
-# shares four); "no_far_paths": the sphere, static and K4t walks without
-# their far-ray checks and paths (every ray on the padded BVH, not exact
-# far off: timed only), which splits their cost from the padding's;
-# "sphere_two_walks": the sphere walk inlined twice, once for the rays
-# from far off and once, its widening 0, for the others (one walk in the
-# code serves both); "static_two_walks": the static tier's the same way;
-# "static_pad_1024", "static_pad_2048": the static tier's leaves padded by
-# 2^10 or 2^11 ulps of the mesh's largest coordinate (this tree 2^13), its
-# far bound 8 or 4 times nearer, each timed against the parent. A
-# replacement is (old, new) in the kernel source, or (the file under the
-# package, old, new).
-STATIC_ROWS = (("tri784", False, None), ("tri784", True, None),
-               ("uv736", False, None), ("uv736", True, None),
-               ("tri784 fog", False, None), ("uv736 fog", True, None))
+# source, its rows). "quad_soa": each quad read as 12 scalar loads from the
+# q_* tables with d, cross(u, v) and its division formed per test (the
+# parent's ray_quad); "trig_in_branches": the shade's sine and cosine formed
+# in each estimator branch by sinf and cosf apart (the parent's); "sincosf":
+# sincos_2pi as CUDA's sincosf, its slow path for |phi| >= 105615 kept. A replacement is (old,
+# new) in the kernel source, or (the file under the package, old, new).
+BODY_ROWS = (("w3", False, None), ("w3", True, None), ("w6", False, None))
 SOURCE_VARIANTS = {
-    "height3_per_site": (
-        (("        fetch_height3(p, bi - 1, hitpoint.x, hitpoint.y, h0, hx, hy);\n",
-          "        h0 = fetch_planar(p, bi - 1, hitpoint.x, hitpoint.y).x;\n"
-          "        hx = fetch_planar(p, bi - 1, hitpoint.x + F(0.01), hitpoint.y).x;\n"
-          "        hy = fetch_planar(p, bi - 1, hitpoint.x, hitpoint.y + F(0.01)).x;\n"),),
-        (("bump", False, None), ("everything", False, None),
-         ("w2 maps", False, None), ("tri784 maps", False, None))),
-    "no_far_paths": (
-        (("  if (s > p.sbvh_far[3] * fabsf(p.sbvh_far[3])) {", "  if (false) {"),
-         ("  const bool far = o_inf > p.bvh_far;", "  const bool far = false;"),
-         ("  const float e = o_inf > p.bvh_far ? "
-          "p.bvh_wide[0] * (o_inf + p.bvh_wide[1]) : 0.0f;",
-          "  const float e = 0.0f;")),
-        (("w2", False, None), ("w4", True, None), ("w2 fog", False, None),
-         ("tri784", False, None), ("tri784 fog", False, None),
-         ("tri40", False, None), ("tri40 fog", False, None))),
-    "sphere_two_walks": (
-        (("  float e = 0.0f;\n  // R |R|: a negative reach (small spheres far from z) sends every ray\n"
-          "  // down the widened walk\n"
-          "  if (s > p.sbvh_far[3] * fabsf(p.sbvh_far[3])) {\n"
-          "    const float dist = sqrtf(s);\n    e = ",
-          "  if (s > p.sbvh_far[3] * fabsf(p.sbvh_far[3])) {\n"
-          "    const float dist = sqrtf(s);\n    const float e = "),
-         ("        + F(1.0 / (1 << 20)) * (dist + p.sbvh_far[6]);\n  }\n"
-          "  return sphere_bvh_walk(p, o, d, e, best, win);",
-          "        + F(1.0 / (1 << 20)) * (dist + p.sbvh_far[6]);\n"
-          "    return sphere_bvh_walk(p, o, d, e, best, win);\n  }\n"
-          "  return sphere_bvh_walk(p, o, d, 0.0f, best, win);")),
-        (("w2", False, None), ("w4", True, None), ("w2 fog", False, None),
-         ("clustered+brute", True, None))),
-    "static_two_walks": (
-        (("  const int key = bvh_walk<true>(p, o, d, best, a_win, b_win,\n"
-          "                                 far ? p.bvh_wide[0] * (o_inf + p.bvh_wide[1]) "
-          ": 0.0f);\n",
-          "  const int key = far ? bvh_walk<true>(p, o, d, best, a_win, b_win,\n"
-          "                                       p.bvh_wide[0] * (o_inf + p.bvh_wide[1]))\n"
-          "                      : bvh_walk(p, o, d, best, a_win, b_win);\n"),),
-        STATIC_ROWS),
-    **{f"static_pad_{u}": (
-        (("scene/clusters.py", "STATIC_PAD_ULPS = 8192\n",
-          f"STATIC_PAD_ULPS = {u}\n"),), STATIC_ROWS) for u in (1024, 2048)},
+    "quad_soa": (
+        (("  const float4* f = p.q_rec + 4 * i;\n"
+          "  const float4 f0 = __ldg(f), f1 = __ldg(f + 1), f2 = __ldg(f + 2), "
+          "f3 = __ldg(f + 3);\n"
+          "  return {v3(f0.x, f0.y, f0.z), f0.w, v3(f1.x, f1.y, f1.z), "
+          "v3(f2.x, f2.y, f2.z),\n"
+          "          v3(f2.w, f3.x, f3.y), v3(f3.z, f3.w, f1.w)};\n",
+          "  const V3 A = ld3(p.q_px, p.q_py, p.q_pz, i), u = ld3(p.q_ux, "
+          "p.q_uy, p.q_uz, i);\n"
+          "  const V3 v = ld3(p.q_vx, p.q_vy, p.q_vz, i), n_unit = ld3(p.q_nx, "
+          "p.q_ny, p.q_nz, i);\n"
+          "  const V3 n = cross(u, v);\n"
+          "  return {n_unit, dot(A, n_unit), mul(n, 1.0f / dot(n, n)), A, u, v};\n"),),
+        BODY_ROWS),
+    "trig_in_branches": (
+        (("__device__ __forceinline__ V3 cosine_hemisphere(SinCos sc, float u2) {\n",
+          "__device__ __forceinline__ SinCos sincos_sep(float u1) {\n"
+          "  const float phi = F(2.0 * PI_D) * u1;\n"
+          "  return {sinf(phi), cosf(phi)};\n}\n\n"
+          "__device__ __forceinline__ V3 cosine_hemisphere(SinCos sc, float u2) {\n"),
+         ("  const SinCos sc = sincos_2pi(u[2]);\n", "#define sc sincos_sep(u[2])\n"),
+         ("  return in_hemisphere && hv_ok && est_valid;\n}\n",
+          "  return in_hemisphere && hv_ok && est_valid;\n}\n#undef sc\n")),
+        BODY_ROWS + (("w1", False, None),)),
+    "sincosf": (
+        (("  const int q = __float2int_rn(__fmul_rn(phi, __int_as_float(0x3F22F983)));\n",
+          "  SinCos out;\n  sincosf(phi, &out.s, &out.c);\n  return out;\n"
+          "  const int q = __float2int_rn(__fmul_rn(phi, __int_as_float(0x3F22F983)));\n"),),
+        BODY_ROWS),
 }
 # the source variants timed against the parent (the others against this
 # tree)
-AGAINST_PARENT = ("static_pad_1024", "static_pad_2048")
+AGAINST_PARENT = ()
 
 
 def source_variant(name: str):
@@ -1755,9 +1800,10 @@ def parent_turns(parent: Path, smi: str):
         cbk = tree("render.cuda_backend")
         rep = ptxas_report(cbk.BUILD_LOG)
         occ = occupancy_report(cbk.build())
-        print(f"parent ptxas [registers, spill stores, blocks per SM] "
-              f"tree={k} " + json.dumps(
-                  {v: [r["registers"], r["spill_stores"], occ[v][0]]
+        print(f"parent ptxas [registers, spill stores, blocks per SM, "
+              f"stack frame bytes] tree={k} " + json.dumps(
+                  {v: [r["registers"], r["spill_stores"], occ[v][0],
+                       r.get("stack_frame")]
                    for v, r in rep.items()}))
 
     def mesh_builder(tree, tag):
@@ -1766,10 +1812,14 @@ def parent_turns(parent: Path, smi: str):
         worlds, schema = tree("scene.worlds"), tree("scene.schema")
         b, cp = worlds.build_world(schema.WORLD_MARIO,
                                    res_dir=str(ROOT / "no asset here"))
-        gen, seg = MESH_CASES[tag]
+        gen, seg = MESH_CASES.get(tag) or (None, SLIVER_CASES[tag])
         if seg is not None:
             pts, uvs = worlds._uv_sphere_mesh((0.0, 0.0, 1.4), 1.4,
                                               n_seg=seg[0], n_ring=seg[1])
+            if tag in SLIVER_CASES:
+                t, uvs = tree("scene.mixed_scenes").with_slivers(
+                    pts.reshape(-1, 3, 3), uvs)
+                pts = t.reshape(-1, 3)
             m = b.add_material(
                 albedo=(1.0, 1.0, 1.0), roughness=0.55,
                 albedo_idx=b.add_texture(worlds._mesh_uv_demo_texture()))
@@ -2221,6 +2271,27 @@ def main() -> int:
     check(all(occ[v][0] >= flat_occ[v][0] for v in cb.VARIANTS),
           "no variant runs fewer blocks per SM than without the regroup")
     print(f"phase2 sass={json.dumps(sass)}")
+    # the main path's body: registers, spill stores and stack frame of the
+    # brute variants beside the parent's build (PARENT_STACK)
+    print("phase2 body [registers, spill stores, stack frame bytes, blocks "
+          "per SM] of this build and of the parent's " + json.dumps(
+              {v: {"now": [*now[v], ptxas[v]["stack_frame"], occ[v][0]],
+                   "parent": [*PARENT_PTXAS[v][:2], PARENT_STACK[v],
+                              PARENT_PTXAS[v][2]]}
+               for v in PARENT_STACK}))
+    fewer = {v: [occ[v][0], PARENT_PTXAS[v][2]] for v in cb.VARIANTS
+             if occ[v][0] < PARENT_PTXAS[v][2]}
+    check(not fewer, f"variants below the parent's blocks per SM: {fewer}")
+
+    # --- 2b. the shade's trig against sinf and cosf -------------------------
+    # sincos_2pi (one sincosf per shade, above the estimator's branches) on
+    # every u1 the draws give, to_unit's 2^24 values, bit for bit
+    t0 = time.perf_counter()
+    bad_trig = cb.trig_check_cuda()
+    sync()
+    print(f"phase2 trig inputs={1 << 24} differing={bad_trig} "
+          f"seconds={time.perf_counter() - t0:.3f}")
+    check(bad_trig == 0, "sincos_2pi equals sinf and cosf on every u1")
 
     # --- 3. kernel vs plain on the card ------------------------------------
     print(f"phase3 start_s={time.perf_counter() - t_start}")
@@ -2533,6 +2604,46 @@ def main() -> int:
               f"bit_equal={int(same.sum())} differing={int((~same).sum())}")
     check(all(far.values()), "the walks bit-equal to their plain versions "
           "on rays from far away")
+    # K7's grazing rays and the static tier's slivers (ROADMAP queue 3):
+    # the kernel's intersect against the plain walks on rays grazing the
+    # 19,600-triangle sphere's triangles and at its degenerate pole
+    # triangles, from 2 units and moved back 10^2 to 10^4 units (two
+    # seeds), and on the 144- and 784-triangle spheres, whose pole slivers
+    # the static tier sets apart, moved back 10 to 10^4 times their largest
+    # coordinate
+    b, _ = build_world(W5, res_dir=str(ROOT / "no asset here"))
+    tri144 = tessellated_sphere(144)
+    m = b.add_material(albedo=(0.7, 0.6, 0.5), roughness=0.6)
+    b.set_mesh(tri144.reshape(-1, 3), np.full((3 * len(tri144),), m, np.int32))
+    s144 = b.finalize(world_kind=W5, view_origin=(0.0, 0.0, 0.0)).to(dev)
+    grazing = {}
+    for tag, pscene, tris, dists in (
+            ("k7 tri19600 seed 5", mesh_case("tri19600", 16, 16)[0],
+             tessellated_sphere(19600), (0.0, 1e2, 1e3, 1e4)),
+            ("k7 tri19600 seed 7", mesh_case("tri19600", 16, 16)[0],
+             tessellated_sphere(19600), (0.0, 1e2, 1e3, 1e4)),
+            ("static tri144", s144, tri144, (10.0, 1e2, 1e3, 1e4)),
+            ("static tri784", mesh_case("tri784", 16, 16)[0],
+             tessellated_sphere(800), (10.0, 1e2, 1e3, 1e4))):
+        big = 1.0 if tag.startswith("k7") else float(np.abs(tris).max())
+        seed = 7 if tag.endswith("7") else 5
+        rays = moved_back(grazing_rays(tris, 2048, seed),
+                          tuple(x * big for x in dists))
+        beyond = int((np.abs(rays[:, 0:3]).max(1) > pscene.bvh_far).sum())
+        rays = torch.from_numpy(rays).to(dev)
+        kt, km, kn, ku, kv, kok = cb.intersect_probe_cuda(pscene, rays)
+        pt, pm, pn, pu, pv, pok = cb.intersect_probe_plain(pscene, rays)
+        bits = lambda x: x.contiguous().view(torch.int32)
+        same = ((bits(kt) == bits(pt)) & (km == pm)
+                & (bits(kn) == bits(pn)).all(1) & (bits(ku) == bits(pu))
+                & (bits(kv) == bits(pv)) & (kok == pok))
+        grazing[tag] = bool(same.all())
+        print(f"phase3 grazing_probe case={tag!r} rays={len(rays)} "
+              f"set_apart={pscene.bvh_apart[1]} beyond_bound={beyond} "
+              f"hits={int((pt < 3e38).sum())} bit_equal={int(same.sum())} "
+              f"differing={int((~same).sum())}")
+    check(all(grazing.values()), "K7 and the static tier bit-equal to their "
+          "plain walks on grazing rays and at slivers")
     held("far tri40 x0.01 from 200 units", small_scene,
          define_camera(far_eye, (0.0, 0.0, 0.01), 0.02, 256, 144),
          RenderConfig(256, 144, pp=2, seed=0), 4)
@@ -3298,13 +3409,17 @@ def main() -> int:
             nbytes += 4 * scene.planar_tile.numel()
         bound_ms, bound_by, ops, nbytes, bound_old = row_bound(
             ops, nbytes, rays, k7, sph)
+        # the bound with the per-test quads' operations (the earlier count)
+        bound_quads = bound(ops + rays * scene.n_quads
+                            * (OPS_QUAD_PER_TEST - OPS_QUAD), nbytes)[0]
         print(f"phase6 count_s={time.perf_counter() - t_row} "
               f"variant={var} slab_tests_per_ray={slabs} "
               f"sphere_tests_per_ray={spheres} {sph_txt}{mesh_txt}"
               f"tex_fetches={fetches} "
               f"ops={ops:.6e} bytes={nbytes} bound_ms={bound_ms} "
               f"bound_share={bound_ms / tm['ms']} "
-              f"bound_ms_table_order={bound_old}")
+              f"bound_ms_table_order={bound_old} "
+              f"bound_ms_per_test_quads={bound_quads}")
         table.append({
             "name": f"wave_kernel<{var}>",
             "route": "cuda",

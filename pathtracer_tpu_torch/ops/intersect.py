@@ -461,18 +461,18 @@ def _inf_norm(v: Vec3):
     return torch.maximum(torch.maximum(v.x.abs(), v.y.abs()), v.z.abs())
 
 
-def _far_widen(scene: Scene, o: Vec3, tally=None):
+def _far_widen(scene: Scene, o: Vec3, tally=None, every=False):
     """K4t's and the static tier's rays from far off (|o|_inf beyond
     ``scene.bvh_far``) and their boxes' widening, ``bvh_wide[0] * (|o|_inf +
-    bvh_wide[1])`` in float32 (0 for the other rays), as ``brute_walk`` and
-    ``static_walk`` form them; the far rays counted in ``tally``'s
-    "far_rays"."""
+    bvh_wide[1])`` in float32 (0 for the other rays; with ``every``, K7's,
+    every ray's), as ``brute_walk``, ``static_walk`` and ``stream_walk``
+    form them; the far rays counted in ``tally``'s "far_rays"."""
     o_inf = _inf_norm(o)
     far = o_inf > scene.bvh_far
     a, b = (torch.tensor(v, dtype=torch.float32) for v in scene.bvh_wide)
     if tally is not None:
         tally["far_rays"] = tally.get("far_rays", 0) + int(far.sum())
-    return far, torch.where(far, a * (o_inf + b), 0.0)
+    return far, torch.where(far | every, a * (o_inf + b), 0.0)
 
 
 def _split_far(far, o: Vec3, d: Vec3, t0, near_fn, far_fn):
@@ -607,24 +607,36 @@ def _with_w(rec: torch.Tensor) -> torch.Tensor:
 
 
 def _record_walk(scene: Scene, o: Vec3, d: Vec3, t_run, win, a_win, b_win,
-                 slots: int, tests=None, widen=None):
+                 slots: int, tests=None, widen=None, rows_t0=None):
     """``bvh_walk`` over ``scene.bvh_nodes`` (:func:`_bvh_walk`), its
     winner state (t, record of ``bvh_tris`` or -1, alpha, beta) updated in
     place. A leaf's records (at most ``slots``) are tested with
     ``row_test``'s expressions (or ``tests(records, o, d)``'s, which returns
     (t, hit, alpha, beta)) and taken when t is below the running t, or
     equal to a triangle's t with a lower number (``bvh_tri_k``); with
-    ``widen`` (per ray) every box widened by it. Returns (box tests,
-    triangle tests)."""
+    ``widen`` (per ray) every box widened by it. With ``rows_t0`` (K7: per
+    ray, its nearest hit before the mesh) a leaf's records start with its
+    record row's box record, and a ray tests them only where it enters that
+    box before ``rows_t0`` (``_box_relevant``, the streamed walk's row
+    cull). Returns (box tests, triangle tests)."""
     if tests is None:
         tests = lambda rec, o_, d_: _record_tests(_with_w(rec), o_, d_)[2:]
     tris, tri_k = scene.bvh_tris, scene.bvh_tri_k.long()
     slot = torch.arange(slots, device=o.x.device)
-    n_tri = 0
+    n_tri, n_row = 0, 0
     pick = lambda v, i: Vec3(v.x[i, None], v.y[i, None], v.z[i, None])
+    inv = _slab_inverse(d) if rows_t0 is not None else None
 
     def leaf(i, first, cnt):
-        nonlocal n_tri
+        nonlocal n_tri, n_row
+        if rows_t0 is not None:
+            box = tris[first]
+            live = _box_relevant(Vec3(o.x[i], o.y[i], o.z[i]),
+                                 Vec3(inv.x[i], inv.y[i], inv.z[i]),
+                                 box[:, 0:3].unbind(1), box[:, 4:7].unbind(1),
+                                 rows_t0[i])
+            n_row += i.numel()
+            i, first, cnt = i[live], first[live] + 1, cnt[live]
         valid = slot < cnt[:, None]
         rid = torch.where(valid, first[:, None] + slot, 0)
         n_tri += int(cnt.sum())
@@ -643,7 +655,75 @@ def _record_walk(scene: Scene, o: Vec3, d: Vec3, t_run, win, a_win, b_win,
 
     n_box = (_bvh_walk(scene.bvh_nodes, scene.bvh_root, o, d, t_run, leaf,
                        widen) if scene.bvh_root else 0)
-    return n_box, n_tri
+    return n_box + n_row, n_tri
+
+
+def _apart_groups(scene: Scene, section: int = 0):
+    """The mesh walk's groups of set-apart triangles (``scene.bvh_apart``;
+    scene/clusters.py, "The triangles a mesh's walk sets apart") in its
+    section 0 (every ray's) or 1 (a far ray's): per group its box (mn, mx
+    as float tuples), its first triangle record and its count."""
+    first, n = scene.bvh_apart[2 * section:2 * section + 2]
+    rec = scene.bvh_tris[first:first + n].cpu()
+    out, i = [], 1  # after the groups' union
+    while i < n:
+        cnt = int(rec[i, 3:4].view(torch.int32))
+        out.append((tuple(float(v) for v in rec[i, 0:3]),
+                    tuple(float(v) for v in rec[i, 4:7]), first + i + 1, cnt))
+        i += 1 + cnt
+    return out
+
+
+def _apart_pass(scene: Scene, o: Vec3, d: Vec3, t0, state, take: bool,
+                section: int = 0, rays=None):
+    """``apart_pass`` in csrc/wave_kernel.cu: each group of set-apart
+    triangles of ``section`` (:func:`_apart_groups`) tested by the rays
+    (those of the mask ``rays``) that enter the groups' union and its own
+    box before ``t0`` (``_box_relevant``, the plain walk's cull), a
+    triangle improving on the winner state ``state`` (t, record, alpha,
+    beta) where it hits below its t, or at its t with a lower number
+    (``bvh_tri_k``) than a triangle winner. With ``take`` the least such
+    (t, number) is taken into ``state`` in place; returns (the rays where a
+    triangle improved, box tests, triangle tests)."""
+    t_run, win, a_win, b_win = state
+    tri_k = scene.bvh_tri_k.long()
+    inv = _slab_inverse(d)
+    better = torch.zeros_like(t0, dtype=torch.bool)
+    first, n = scene.bvh_apart[2 * section:2 * section + 2]
+    if not n:
+        return better, 0, 0
+    pick = lambda v, i: Vec3(v.x[i], v.y[i], v.z[i])
+    col = lambda v: Vec3(*(c[:, None] for c in v))
+    u = scene.bvh_tris[first]
+    union = _box_relevant(o, inv, u[0:3].unbind(), u[4:7].unbind(), t0)
+    n_box, n_tri = o.x.numel(), 0
+    if rays is not None:
+        union &= rays
+        n_box = int(rays.sum())
+    for mn, mx, g0, cnt in _apart_groups(scene, section):
+        live = union & _box_relevant(o, inv, mn, mx, t0)
+        n_box += int(union.sum())
+        i = torch.nonzero(live).reshape(-1)
+        if not i.numel():
+            continue
+        n_tri += cnt * i.numel()
+        _, _, t, hit, alpha, beta = _record_tests(
+            _with_w(scene.bvh_tris[g0:g0 + cnt]), col(pick(o, i)),
+            col(pick(d, i)))
+        ti, wi = t_run[i], win[i]
+        kw = torch.where(wi >= 0, tri_k[wi.clamp_min(0)], -1)
+        kr = tri_k[g0:g0 + cnt][None]
+        ok = hit & ((t < ti[:, None]) | ((t == ti[:, None]) & (kw[:, None] >= 0)
+                                         & (kr < kw[:, None])))
+        better[i] |= ok.any(dim=1)
+        if take:
+            got, t_min, s_w = _least_taken(ok, t, kr.expand_as(t), cnt)
+            g = lambda v: v.gather(1, s_w[:, None])[:, 0]
+            t_run[i] = torch.where(got, t_min, ti)
+            win[i] = torch.where(got, g0 + s_w, wi)
+            a_win[i] = torch.where(got, g(alpha), a_win[i])
+            b_win[i] = torch.where(got, g(beta), b_win[i])
+    return better, n_box, n_tri
 
 
 def _winner_state(t0):
@@ -663,14 +743,27 @@ def _tally(tally, boxes, tris):
 def _bvh_winners(scene: Scene, o: Vec3, d: Vec3, t0, tally=None):
     """The card's streamed walk (``bvh_walk`` in csrc/wave_kernel.cu,
     :func:`_record_walk`) for rays whose nearest hit so far is ``t0``: (t,
-    winning record of ``bvh_tris`` or -1, its alpha, its beta). An equal t
-    takes a lower table-order number (``bvh_tri_k``), so the winner is the
-    least (t, number) and a sphere, quad or plane at an equal t keeps its
-    hit. With ``tally`` the box tests and triangle tests of the card's walk
-    are added to its "boxes" and "tris"."""
+    winning record of ``bvh_tris`` or -1, its alpha, its beta). A leaf's
+    records are tested where the ray enters their row's box before ``t0``,
+    as the streamed walk culls rows (its clusters' and parents' boxes hold
+    the row's), so the walk takes only what the streamed walk tests; every
+    ray widens every box by its own bound (:func:`_far_widen`), which with
+    the slivers' padded leaf boxes holds every such hit; the degenerate
+    slivers are tested after the walk (:func:`_apart_pass`), and by a ray
+    from beyond ``bvh_far`` the other slivers, whose padding holds their
+    hits only from nearer. An equal t takes a lower table-order
+    number (``bvh_tri_k``), so the winner is the least (t, number) of what
+    the streamed walk tests, and a sphere, quad or plane at an equal t
+    keeps its hit. With ``tally`` the box tests (the row boxes among them)
+    and triangle tests of the card's walk are added to its "boxes" and
+    "tris", and the rays from far off to its "far_rays"."""
     state = _winner_state(t0)
+    far, widen = _far_widen(scene, o, tally, every=True)
     _tally(tally, *_record_walk(scene, o, d, *state,
-                                clusters.STREAM_TRIS_PER_ROW))
+                                clusters.STREAM_TRIS_PER_ROW, widen=widen,
+                                rows_t0=t0))
+    _tally(tally, *_apart_pass(scene, o, d, t0, state, True)[1:])
+    _tally(tally, *_apart_pass(scene, o, d, t0, state, True, 1, far)[1:])
     return state
 
 
@@ -731,10 +824,13 @@ def _static_bvh_winners(scene: Scene, o: Vec3, d: Vec3, t0, tally=None):
     ``scene.bvh_far`` (|o|_inf, ``clusters.far_bound``: its hits' rounding
     may leave the padded boxes) walks with every box widened by its own
     bound (:func:`_far_widen`), and its winner's box is tested whatever its
-    key. With ``tally`` the box tests (those winners' boxes among them) and
-    triangle tests of the card's walk are added to its "boxes" and "tris",
-    the rays walked again in table order to its "table_rays" and those from
-    far off to its "far_rays"."""
+    key. The degenerate slivers the tree leaves out (``scene.bvh_apart``)
+    are tested where the table-order walk could test them
+    (:func:`_apart_pass`), and a ray where one hits nearer than the walk's
+    winner is walked again in table order too. With ``tally`` the box tests
+    (those winners' boxes among them) and triangle tests of the card's walk
+    are added to its "boxes" and "tris", the rays walked again in table
+    order to its "table_rays" and those from far off to its "far_rays"."""
     far, widen = _far_widen(scene, o, tally)
     return _split_far(far, o, d, t0,
                       lambda o_, d_, t_: _static_near(scene, o_, d_, t_, tally),
@@ -746,7 +842,8 @@ def _static_near(scene: Scene, o: Vec3, d: Vec3, t0, tally=None,
                  widen=None):
     """``static_walk`` as :func:`_static_bvh_winners` runs it; with
     ``widen`` (rays from far off) every box widened by it and every
-    winner's cluster box tested."""
+    winner's cluster box tested; the set-apart slivers tested after the
+    walk in either case."""
     t_run, win, a_win, b_win = state = _winner_state(t0)
     n_huge = _bvh_huge(scene)
     if n_huge:
@@ -761,10 +858,20 @@ def _static_near(scene: Scene, o: Vec3, d: Vec3, t0, tally=None,
             b_win.copy_(torch.where(take, beta[:, j], b_win))
     boxes, tris = _record_walk(scene, o, d, *state, clusters.STATIC_LEAF,
                                widen=widen)
+    better, a_box, a_tri = _apart_pass(scene, o, d, t0, state, False)
+    if widen is not None:  # a far ray tests the other slivers too
+        far_better, f_box, f_tri = _apart_pass(scene, o, d, t0, state,
+                                               False, 1)
+        better |= far_better
+        a_box, a_tri = a_box + f_box, a_tri + f_tri
     key = torch.where(win >= 0, scene.bvh_tri_k.long()[win.clamp_min(0)], -1)
     shift = clusters.STATIC_KEY_SHIFT
     idx = torch.where(win >= 0, (key >> 1) & ((1 << (shift - 1)) - 1), -1)
+    # a ray where a set-apart triangle beats the winner: walked again
+    key = torch.where(better, -1, key)
     again, slabs = _outside_box(scene, o, d, t_run, key, widen is not None)
+    again = torch.cat([torch.nonzero(better).reshape(-1), again])
+    boxes, tris = boxes + a_box, tris + a_tri
     table = {}
     if again.numel():
         pick = lambda v: Vec3(v.x[again], v.y[again], v.z[again])
@@ -1038,6 +1145,35 @@ def _brute_tests(rec: torch.Tensor, o: Vec3, d: Vec3):
     beta = dot(w, cross(u, q))
     inside = (alpha >= 0.0) & (beta >= 0.0) & ((alpha + beta) <= 1.0)
     return t, valid & inside & (t > MIN_HIT_DISTANCE), alpha, beta
+
+
+def _quad_record_tests(rec: torch.Tensor, o: Vec3, d: Vec3,
+                       min_hit: float = QUAD_MIN_HIT_DISTANCE):
+    """The kernel's quad test on its precomputed records
+    (``schema.quad_records``, (..., 16), K4t's layout) for rays broadcast to
+    their leading shape: ``ray_planar_quad``'s expressions on the record's
+    n_unit, d, w, A, u and v. Returns (t, hit, alpha, beta)."""
+    col = lambda *k: Vec3(*(rec[..., j] for j in k))
+    t, valid = ray_plane(o, d, col(0, 1, 2), rec[..., 3])
+    q = o + d * t - col(8, 9, 10)
+    w, u, v = col(4, 5, 6), col(11, 12, 13), col(14, 15, 7)
+    alpha = dot(w, cross(q, v))
+    beta = dot(w, cross(u, q))
+    inside = (alpha >= 0.0) & (alpha <= 1.0) & (beta >= 0.0) & (beta <= 1.0)
+    return t, valid & inside & (t > min_hit), alpha, beta
+
+
+def _intersect_quad_records(scene: Scene, o: Vec3, d: Vec3,
+                            best: Hit) -> Hit:
+    """:func:`intersect_quads` by the kernel's sweep over the quads'
+    records (:func:`_quad_record_tests`), each winner's normal the record's
+    n_unit: the tests' twin of the card's quad sweep."""
+    for i in range(scene.n_quads):
+        rec = scene.quad_rec[i]
+        t, hit, _, _ = _quad_record_tests(rec, o, d)
+        n = Vec3(*(rec[j].expand_as(t) for j in range(3)))
+        best = _take(best, hit & (t < best.t), t, scene.quad_mat[i], n)
+    return best
 
 
 def _brute_bvh_winners(scene: Scene, o: Vec3, d: Vec3, t0, tally=None):

@@ -144,6 +144,8 @@ VARIANTS = ("brute_pinhole", "brute_lens", "clustered_pinhole",
 # without it carry no triangle code
 K4T_SUFFIX = "_k4t"
 K4T_TRI = 8
+# intersect_probe's code for the streamed tier with UVs (kProbeStreamUV)
+PROBE_STREAM_UV = 16
 K4T_VARIANTS = tuple(
     v + K4T_SUFFIX for v in VARIANTS if v.split("_")[0] in (
         "feature", "featclustered", "feattextured", "clustered+textured"))
@@ -246,7 +248,8 @@ class WaveParams(ctypes.Structure):
                    ("stream_uv_cfm", _I)]
                 + [(n, _P) for n in _PLANAR_PTR_FIELDS]
                 + [("pp_m", ctypes.c_uint32), ("lens_t0", _F)]
-                + [("bvh_far", _F), ("bvh_wide", _F * 2), ("sbvh_far", _F * 8)])
+                + [("bvh_far", _F), ("bvh_wide", _F * 2), ("sbvh_far", _F * 8)]
+                + [("bvh_apart", _I * 4), ("q_rec", _P)])
 
 # WaveParams.tex_flags bits (TEX_* in the kernel)
 TEX_METALNESS, TEX_ROUGHNESS, TEX_NORMAL, TEX_TBN = 1, 2, 4, 8
@@ -435,6 +438,8 @@ def compile_library(defines: tuple = ()) -> tuple:
                                    ctypes.c_void_p, ctypes.c_int,
                                    ctypes.c_int, ctypes.c_void_p]
     lib.wave_intersect.restype = ctypes.c_int
+    lib.wave_trig_check.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.wave_trig_check.restype = ctypes.c_int
     lib.wave_error_string.argtypes = [ctypes.c_int]
     lib.wave_error_string.restype = ctypes.c_char_p
     log = log_path.read_text() if log_path.exists() else ""
@@ -459,7 +464,7 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
     ptrs = dict(zip(_PTR_FIELDS + _CLUSTER_PTR_FIELDS + _TEX_PTR_FIELDS
                     + _MESH_PTR_FIELDS + _FEAT_PTR_FIELDS + _TIER_PTR_FIELDS
                     + _BVH_PTR_FIELDS + _SBVH_PTR_FIELDS
-                    + _PLANAR_PTR_FIELDS, (
+                    + _PLANAR_PTR_FIELDS + ("q_rec",), (
         *scene.mat_albedo, *scene.mat_emit, *scene.mat_metal_color,
         scene.mat_metalness, scene.mat_roughness, scene.mat_ior,
         *scene.sph_center, scene.sph_radius, scene.sph_mat,
@@ -485,7 +490,7 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
         scene.ctri_uvdu2, scene.ctri_uvdv2, scene.tcl_box, scene.tcl_range,
         scene.bvh_nodes, scene.bvh_tris, scene.bvh_tri_k,
         scene.sbvh_nodes, scene.sbvh_sph, scene.sbvh_idx,
-        scene.planar_tile, scene.planar_meta,
+        scene.planar_tile, scene.planar_meta, scene.quad_rec,
     )))
     for name, t in ptrs.items():
         want = torch.int32 if name in _INT_PTRS else torch.float32
@@ -568,6 +573,7 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
     p.sbvh_root[:] = scene.sbvh_root or (float("nan"),) * 6
     p.bvh_wide[:] = scene.bvh_wide
     p.sbvh_far[:] = scene.sbvh_far
+    p.bvh_apart[:] = scene.bvh_apart
     return p
 
 
@@ -613,7 +619,8 @@ def render_chunk_cuda(scene: Scene, camera: Camera, config, key: int,
 def intersect_probe_cuda(scene: Scene, rays: torch.Tensor):
     """The kernel's ``intersect_scene`` as the scene's variants run it
     (brute spheres or the sphere clusters' walk, quads, planes, then K4t's
-    walk as ``feature_pinhole_k4t`` runs it, or the static tier's walk) for
+    walk as ``feature_pinhole_k4t`` runs it, the static tier's walk or
+    K7's) for
     ``rays`` ((N, 6) float32: o.xyz d.xyz): (t, material, normal (N, 3),
     uvx, uvy, uv_ok). On CUDA tensors one launch of the kernel's probe; on
     CPU tensors the plain version (:func:`intersect_probe_plain`).
@@ -622,11 +629,11 @@ def intersect_probe_cuda(scene: Scene, rays: torch.Tensor):
     calls it."""
     global PROBE_LAUNCHES
     from .renderer import RenderConfig, init_accum
-    if (textured(scene) or scene.tri_streamed or rays.dtype != torch.float32
+    if (textured(scene) or rays.dtype != torch.float32
             or rays.dim() != 2 or rays.shape[1] != 6):
         raise ValueError("the probe takes (N, 6) float32 rays and a scene "
                          "of spheres (brute or clustered), quads, planes and "
-                         "a brute or static-tier mesh")
+                         "a mesh of any tier")
     if rays.device.type != "cuda":
         return intersect_probe_plain(scene, rays)
     rays = rays.contiguous()
@@ -636,8 +643,9 @@ def intersect_probe_cuda(scene: Scene, rays: torch.Tensor):
     params = _params(scene, cam, RenderConfig(1, 1, pp=1), 0, 0, 0, state,
                      px, px.clone())
     out = torch.empty((len(rays), 8), dtype=torch.float32, device=rays.device)
-    tri = (K4T_TRI if scene.tri_brute
-           else MESH_KINDS[mesh_kind(scene)] if scene.tri_static else 0)
+    tri = (K4T_TRI if scene.tri_brute else 0 if not meshed(scene)
+           else PROBE_STREAM_UV if mesh_kind(scene) == "mesh"
+           else MESH_KINDS[mesh_kind(scene)])
     err = build().wave_intersect(
         ctypes.byref(params), rays.data_ptr(), len(rays), out.data_ptr(),
         int(bool(scene.sph_clusters)), tri,
@@ -648,6 +656,21 @@ def intersect_probe_cuda(scene: Scene, rays: torch.Tensor):
     PROBE_LAUNCHES += 1
     return (out[:, 0], out[:, 1].contiguous().view(torch.int32), out[:, 2:5],
             out[:, 5], out[:, 6], out[:, 7] != 0)
+
+
+def trig_check_cuda(device="cuda") -> int:
+    """The kernel's shade trig (``sincos_2pi``) against ``sinf``/``cosf`` on
+    every u1 its draws give (2^24 values), on the card: the count of inputs
+    where a bit differs. ``chip_smoke.py`` requires 0; no render calls
+    it."""
+    bad = torch.zeros(1, dtype=torch.int32, device=device)
+    err = build().wave_trig_check(
+        bad.data_ptr(),
+        ctypes.c_void_p(torch.cuda.current_stream(bad.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError("trig_check launch failed: "
+                           + build().wave_error_string(err).decode())
+    return int(bad.item())
 
 
 def intersect_probe_plain(scene: Scene, rays: torch.Tensor):

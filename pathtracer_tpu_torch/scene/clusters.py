@@ -361,6 +361,19 @@ def pack_stream_clusters(pre: dict, mats: np.ndarray, clusters: tuple,
     return np.stack(bounds), pack
 
 
+def stream_slots(x: np.ndarray, clusters: tuple, leaf: int) -> np.ndarray:
+    """Per-triangle rows ``x`` ((T, 3), cluster order) laid out as
+    :func:`pack_stream_clusters` lays out their records: (rows, 9, 3), row
+    ``c * rpc + r`` slot j holding triangle ``off + r * 9 + j`` of cluster
+    c (zero for padding)."""
+    per = STREAM_TRIS_PER_ROW
+    rpc = stream_rows_per_cluster(leaf)
+    out = np.zeros((len(clusters) * rpc * per, 3), np.float32)
+    for ci, (off, cnt, _, _) in enumerate(clusters):
+        out[ci * rpc * per:ci * rpc * per + cnt] = x[off:off + cnt]
+    return out.reshape(-1, per, 3)
+
+
 def pack_stream_uv_cfm(uvt: np.ndarray, clusters: tuple, leaf: int):
     """The uv table, cluster-field-major: row ``c * 6 + k``, lane ``j`` is
     field k (u0 v0 du1 dv1 du2 dv2, texel space) of cluster c's j-th
@@ -393,8 +406,10 @@ def pack_stream_uv(uvt: np.ndarray, clusters: tuple, leaf: int):
 # The card's BVHs (csrc/wave_kernel.cu's bvh_walk, sphere_walk and
 # static_walk): binary nodes over
 # boxed items, built by _build_bvh. The streamed tier's is over the record
-# rows: a leaf is one record row with its row box (ROW_BOX), bit for bit; a
-# row whose box is ROW_EMPTY_FAR holds no triangle and is left out. The
+# rows: a leaf is one record row, its box its triangles' bound (every ray
+# widens it by its own rounding bound), its records after the row box of
+# the pack, bit for bit; a row whose box is ROW_EMPTY_FAR holds no
+# triangle and is left out. The
 # sphere clusters' is over the cluster-ordered spheres outside the huge
 # cluster, at most SPHERE_LEAF to a leaf, a leaf's box the exact float32
 # union of its spheres' boxes (each rounded outward, as _bounds_of rounds
@@ -446,8 +461,10 @@ STATIC_LEAF = 8
 # from far away" below), which the table-order walk's larger cluster boxes
 # keep; a looser box costs only box tests, never the least (t, index).
 # 2^13 ulps keep the rays of a mesh of well-shaped triangles (shape 2 to
-# 10) walked out to about 100 times its largest coordinate; a ray
-# from beyond far_bound is walked in table order (static_walk).
+# 10) walked out to about 100 times its largest coordinate; a ray from
+# beyond far_bound walks with its boxes widened by its own bound
+# (static_walk). K7's walk widens every ray's boxes so, and takes this
+# padding only for the reach of its slivers' (mesh_pads).
 STATIC_PAD_ULPS = 8192
 # A static-tier record's key (bvh_tri_k): its cluster (tri_clusters' row)
 # << STATIC_KEY_SHIFT | its cluster-order index << 1 | 1 where a hit on it
@@ -455,6 +472,18 @@ STATIC_PAD_ULPS = 8192
 # reaches the box's faces), which the walk then checks. The keys order as
 # the indices do, so an equal t still takes the lower index.
 STATIC_KEY_SHIFT = 20
+# The triangles a mesh's walk sets apart (mesh_pads: degenerate slivers,
+# whose test may take a hit anywhere on their plane, which every ray tests;
+# then the other slivers, which a ray from beyond the far bound tests)
+# follow the tree's records in bvh_tris (bvh_apart: each section's first
+# record and count), in groups: a box record, BVH_TRI_FLOATS float32 (mn.xyz, the group's triangle
+# count as int32 bits, mx.xyz, five zeros), then the group's triangle
+# records; a box record of the groups' union comes first, its count the
+# records after it. A group's box is the one the plain walk culls them by
+# (the static tier's cluster box, K7's record row's box); the walks test a
+# group's triangles wherever the ray enters it before its nearest hit
+# before the mesh, and no group where the ray does not enter the union
+# then. K7's leaves start with such a box record too: their row's box.
 # The sphere BVH's boxes: each sphere's box c -+ r widened by r times this
 # on every side (then rounded outward), so that a hit the sphere test takes
 # a little outside the sphere, from a ray not beyond sphere_far_bound, lies
@@ -528,17 +557,51 @@ def far_bound(pad: float, big: float, per_o: float, per_b: float) -> dict:
 NO_FAR = dict(bvh_far=float("inf"), bvh_wide=(0.0, 0.0))
 
 
-def _shape(u: np.ndarray, v: np.ndarray) -> float:
-    """The largest shape (1 / sin of the smallest angle: the two longest
+def _shapes(u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """Each triangle's shape (1 / sin of its smallest angle: the two longest
     edges' product over |u x v|) of the triangles with edges ``u``, ``v``
-    ((n, 3)) that are not slivers (``SLIVER``), 1 without any."""
+    ((n, 3)), float64; inf or NaN where u x v is 0."""
     u, v = np.asarray(u, np.float64), np.asarray(v, np.float64)
     e = np.sort(np.stack([np.linalg.norm(x, axis=1) for x in (u, v, v - u)],
                          axis=1), axis=1)
     with np.errstate(divide="ignore", invalid="ignore"):
-        k = e[:, 1] * e[:, 2] / np.linalg.norm(np.cross(u, v), axis=1)
+        return e[:, 1] * e[:, 2] / np.linalg.norm(np.cross(u, v), axis=1)
+
+
+def _shape(u: np.ndarray, v: np.ndarray) -> float:
+    """The largest shape (:func:`_shapes`) of the triangles with edges
+    ``u``, ``v`` that are not slivers (``SLIVER``), 1 without any."""
+    k = _shapes(u, v)
     k = k[np.isfinite(k) & (k <= SLIVER)]
     return float(k.max()) if len(k) else 1.0
+
+
+def mesh_pads(u: np.ndarray, v: np.ndarray, m: float, big: float):
+    """The padding of each triangle (edges ``u``, ``v``, (n, 3)) of a mesh
+    walked by the precomputed test (the static tier, K7), whose boxes are
+    padded by ``m`` around coordinates of magnitude at most ``big``:
+    (pads (n,) float64, apart (n,) bool, far_apart (n,) bool, the far-ray
+    constants). A triangle of shape at most ``SLIVER`` takes ``m``, and the
+    far bound and widening are :func:`far_bound`'s of ``m`` over the
+    largest such shape. A sliver (shape k above ``SLIVER``) takes hits up
+    to 16u (k + 1) (|o|_inf + B) outside itself ("A ray from far away"), so
+    it is padded by that at the far bound, with B = 2 ``big`` (its padding
+    at most ``big``), and set ``far_apart``: a ray from beyond the bound,
+    whose widening holds the other triangles' hits, tests it after the
+    tree. A sliver whose padding would exceed ``big`` (a degenerate
+    triangle, whose test may take a hit anywhere on its plane) is set
+    ``apart``: no box holds its hits, so every ray tests it after the tree
+    (the groups of set-apart triangles above)."""
+    u32 = 2.0 ** -24
+    k = _shapes(u, v)
+    ok = np.isfinite(k) & (k <= SLIVER)
+    kc = float(k[ok].max()) if ok.any() else 1.0
+    far = far_bound(m, big, 16.0 * (kc + 1), 16.0 * (kc + 1))
+    reach = max(far["bvh_far"], 0.0) + 2.0 * big
+    with np.errstate(invalid="ignore", over="ignore"):
+        pads = np.where(ok, m, 16.0 * u32 * (k + 1.0) * reach)
+    apart = ~ok & ~(pads <= max(big, m))
+    return np.where(apart, m, pads), apart, ~ok & ~apart, far
 
 
 def sphere_far_reach(r: np.ndarray) -> np.ndarray:
@@ -624,51 +687,123 @@ def _build_bvh(box: np.ndarray, leaf_size: int, leaf,
     return np.stack(nodes), tuple(float(v) for v in root), depth[0]
 
 
-def build_stream_bvh(pack: np.ndarray, rpc: int, uv_numbering: bool) -> dict:
+def _box_record(mn, mx, count: int) -> np.ndarray:
+    """A group's box record (``BVH_TRI_FLOATS`` float32): mn.xyz, the
+    count as int32 bits, mx.xyz, then zeros."""
+    r = np.zeros((BVH_TRI_FLOATS,), np.float32)
+    r[0:3], r[4:7] = mn, mx
+    r[3] = np.asarray([count], np.int32).view(np.float32)[0]
+    return r
+
+
+def _apart_records(groups) -> tuple:
+    """The set-apart groups' (records, keys), each group (box mn, box mx,
+    records (c, 12), keys (c,)) as its box record and its records, after
+    a box record of their boxes' union whose count is the records after
+    it; an empty table without any."""
+    recs, keys = [], []
+    for mn, mx, r, k in groups:
+        recs += [_box_record(mn, mx, len(r))[None], r]
+        keys += [np.zeros((1,), np.int64), np.asarray(k, np.int64)]
+    if not recs:
+        return (np.zeros((0, BVH_TRI_FLOATS), np.float32),
+                np.zeros((0,), np.int64))
+    mn = np.min([np.float32(g[0]) for g in groups], axis=0)
+    mx = np.max([np.float32(g[1]) for g in groups], axis=0)
+    n = sum(len(r) for r in recs)
+    return (np.concatenate([_box_record(mn, mx, n)[None]] + recs)
+            .astype(np.float32),
+            np.concatenate([np.zeros((1,), np.int64)] + keys))
+
+
+def build_stream_bvh(pack: np.ndarray, rpc: int, uv_numbering: bool,
+                     tris) -> dict:
     """The streamed tier's BVH over :func:`pack_stream_clusters`' record
     rows (``pack``, ``rpc`` rows per cluster, in table order), one leaf per
-    row (:func:`_build_bvh`). A row's triangles are its records up to the
-    last that is not all zero (padding records, and any all-zero record,
-    never hit). Each record carries its table-order winner number, as the
-    kernel and the plain walks number it: ``c * UV_CFM_ROWS * 128 + r * 9 +
-    j`` for slot j of row r of cluster c with the cluster-field-major uv
-    rows (``uv_numbering``: its uv column), ``row * 9 + j`` otherwise (the
-    record, which also keys the parallel uv rows of :func:`pack_stream_uv`).
+    row (:func:`_build_bvh`), ``tris`` the (A, u, v) of each record ((rows,
+    9, 3) float32 each, zero for padding). A row's triangles are its
+    records that can hit (a record not all zero), but for those set apart
+    (:func:`mesh_pads`); each record carries its table-order winner number,
+    as the kernel and the plain walks number it: ``c * UV_CFM_ROWS * 128 +
+    r * 9 + j`` for slot j of row r of cluster c with the
+    cluster-field-major uv rows (``uv_numbering``: its uv column), ``row *
+    9 + j`` otherwise (the record, which also keys the parallel uv rows of
+    :func:`pack_stream_uv`). A leaf's records start with a box record, its
+    row's box as the pack holds it (a set-apart group's box record): the plain
+    walk tests a row's records only where the ray enters that box (and so
+    its cluster's and parents', which hold it) before its nearest hit
+    before the mesh, and so does the walk. The leaf's own box is its
+    triangles' float64 bound (a sliver's padded by its own bound at the
+    far bound, :func:`mesh_pads` of ``STATIC_PAD_ULPS`` ulps of the mesh's
+    largest coordinate) rounded outward; every ray widens every box by
+    its own bound, ``bvh_wide`` (16u (k + 1) (|o|_inf + B) over the
+    shapes k of the triangles that are not slivers), so that the boxes
+    hold every hit the plain walk takes (a ray from beyond the far bound
+    tests the slivers after the tree). The triangles set apart follow, by row, each row
+    after its box record, in two sections (``bvh_apart``: every ray's,
+    then a far ray's).
 
     Returns ``bvh_nodes`` ((M, 16) float32), ``bvh_tris`` ((T, 12)
     float32), ``bvh_tri_k`` ((T,) int32), ``bvh_root`` (the root box, mn3 +
-    mx3) and ``bvh_depth`` (inner levels of the deepest path)."""
+    mx3), ``bvh_depth`` (inner levels of the deepest path), ``bvh_apart``
+    (each section's first record and records) and the far-ray constants
+    ``bvh_far`` and ``bvh_wide``."""
     per = STREAM_TRIS_PER_ROW
+    lane = ROW_BOUNDS_LANE
     recs = pack[:, :per * STREAM_FIELDS].reshape(len(pack), per,
                                                   STREAM_FIELDS)
-    filled = (recs != 0).any(axis=2)
-    counts = np.where(filled.any(axis=1),
-                      per - np.argmax(filled[:, ::-1], axis=1), 0)
-    rows = np.nonzero((pack[:, ROW_BOUNDS_LANE] != np.float32(ROW_EMPTY_FAR))
-                      & (counts > 0))[0]
-    counts = counts[rows]
-    assert int(counts.sum()) < (1 << 26), "leaf references overflow"
-    box = pack[rows, ROW_BOUNDS_LANE:ROW_BOUNDS_LANE + 6].astype(np.float32)
-    leaf_rows: list = []  # table rows in record order
+    a, e1, e2 = (np.asarray(x, np.float32).astype(np.float64) for x in tris)
+    hit = (recs[..., :BVH_TRI_FLOATS] != 0).any(axis=2)
+    hit &= (pack[:, lane] != np.float32(ROW_EMPTY_FAR))[:, None]
+    corners = np.stack([a, a + e1, a + e2])
+    lo, hi = corners.min(axis=0), corners.max(axis=0)
+    big = float(np.abs(np.concatenate([lo[hit], hi[hit]])).max())
+    m = STATIC_PAD_ULPS * float(np.spacing(np.float32(big)))
+    pads = np.zeros(hit.shape)
+    apart, far_apart = np.zeros(hit.shape, bool), np.zeros(hit.shape, bool)
+    pads[hit], apart[hit], far_apart[hit], far = mesh_pads(
+        np.asarray(tris[1], np.float32)[hit],
+        np.asarray(tris[2], np.float32)[hit], m, big)
+    # every ray widens its boxes by its own bound, which holds the hits of
+    # every triangle but a sliver's: only a sliver's box is padded
+    pads = np.where(far_apart, pads, 0.0)
+    tree = hit & ~apart
+    rows = np.nonzero(tree.any(axis=1))[0]
+    assert int(tree.sum()) + len(rows) < (1 << 26), "leaf references overflow"
+    out = lambda x, way: np.nextafter(x.astype(np.float32), np.float32(way))
+    lo_p = np.where(tree[..., None], lo - pads[..., None], np.inf)
+    hi_p = np.where(tree[..., None], hi + pads[..., None], -np.inf)
+    box = np.concatenate([out(lo_p[rows].min(axis=1), -np.inf),
+                          out(hi_p[rows].max(axis=1), np.inf)], axis=1)
+    number = lambda r, j: (((r // rpc) * UV_CFM_ROWS * 128 + (r % rpc) * per)
+                           if uv_numbering else r * per) + j
+    out_recs, out_k = [], []
     n_recs = [0]
 
     def leaf(idx: np.ndarray):
-        i = int(idx[0])
-        ref = BVH_LEAF | n_recs[0] << 4 | int(counts[i])
-        leaf_rows.append(i)
-        n_recs[0] += int(counts[i])
-        return ref, box[i]
+        r = int(rows[idx[0]])
+        j = np.nonzero(tree[r])[0]
+        ref = BVH_LEAF | n_recs[0] << 4 | len(j)
+        out_recs.extend([_box_record(pack[r, lane:lane + 3],
+                                     pack[r, lane + 3:lane + 6], len(j))[None],
+                         recs[r, j, :BVH_TRI_FLOATS]])
+        out_k.extend([np.zeros((1,), np.int64), number(r, j)])
+        n_recs[0] += 1 + len(j)
+        return ref, box[idx[0]]
 
     nodes, root, depth = _build_bvh(box, 1, leaf)
-    lc = counts[leaf_rows]
-    r_sel = np.repeat(rows[leaf_rows], lc)
-    j_sel = np.arange(len(r_sel)) - np.repeat(np.cumsum(lc) - lc, lc)
-    k = (((r_sel // rpc) * UV_CFM_ROWS * 128 + (r_sel % rpc) * per)
-         if uv_numbering else r_sel * per) + j_sel
-    return dict(bvh_nodes=nodes,
-                bvh_tris=np.ascontiguousarray(recs[r_sel, j_sel, :12]),
-                bvh_tri_k=k.astype(np.int32), bvh_root=root, bvh_depth=depth,
-                **NO_FAR)
+    sections = [_apart_records([
+        (pack[r, lane:lane + 3], pack[r, lane + 3:lane + 6],
+         recs[r, j, :BVH_TRI_FLOATS], number(r, j))
+        for r in np.nonzero(sel.any(axis=1))[0]
+        for j in [np.nonzero(sel[r])[0]]]) for sel in (apart, far_apart)]
+    n_all, n_far = (len(sec[0]) for sec in sections)
+    bvh_tris = np.concatenate(out_recs + [sec[0] for sec in sections])
+    return dict(bvh_nodes=nodes, bvh_tris=np.ascontiguousarray(bvh_tris),
+                bvh_tri_k=np.concatenate(
+                    out_k + [sec[1] for sec in sections]).astype(np.int32),
+                bvh_root=root, bvh_depth=depth,
+                bvh_apart=(n_recs[0], n_all, n_recs[0] + n_all, n_far), **far)
 
 
 def build_sphere_bvh(centers: np.ndarray, radii: np.ndarray,
@@ -781,31 +916,46 @@ def build_static_bvh(pre: dict, A: np.ndarray, u: np.ndarray, v: np.ndarray,
     big = float(np.abs(np.concatenate([lo[n_huge:], hi[n_huge:]])).max()
                 if n_tri > n_huge else 0.0)
     m = STATIC_PAD_ULPS * float(np.spacing(np.float32(big)))
-    kc = _shape(np.asarray(u)[n_huge:n_tri], np.asarray(v)[n_huge:n_tri])
-    far = (far_bound(m, big, 16.0 * (kc + 1), 16.0 * (kc + 1))
-           if n_tri > n_huge else NO_FAR)
+    pads = np.full((n_tri,), m)
+    apart, far_apart = np.zeros((n_tri,), bool), np.zeros((n_tri,), bool)
+    far = NO_FAR
+    if n_tri > n_huge:
+        pads[n_huge:], apart[n_huge:], far_apart[n_huge:], far = mesh_pads(
+            np.asarray(u)[n_huge:n_tri], np.asarray(v)[n_huge:n_tri], m, big)
     assert n_tri < 1 << (STATIC_KEY_SHIFT - 1) \
         and len(tri_clusters) < 1 << (31 - STATIC_KEY_SHIFT)
     key = np.arange(n_tri, dtype=np.int64) << 1
+    groups = ([], [])  # every ray's, a far ray's
+    # an all-zero record (u x v = 0: a zero normal) never hits
+    can_hit = rec.any(axis=1)
     for c, (off, cnt, cmn, cmx) in enumerate(tri_clusters):
         sl = slice(off, off + cnt)
         key[sl] |= c << STATIC_KEY_SHIFT
         if cmn is not None:  # the huge cluster is always tested
-            inside = ((lo[sl] - m > np.asarray(cmn)).all(axis=1)
-                      & (hi[sl] + m < np.asarray(cmx)).all(axis=1))
+            p = pads[sl, None]
+            inside = ((lo[sl] - p > np.asarray(cmn)).all(axis=1)
+                      & (hi[sl] + p < np.asarray(cmx)).all(axis=1))
             key[sl] |= (~inside).astype(np.int64)
-    # an all-zero record (u x v = 0: a zero normal) never hits
-    items = n_huge + np.nonzero(rec[n_huge:].any(axis=1))[0]
+            for sel, out in zip((apart, far_apart), groups):
+                j = off + np.nonzero(sel[sl] & can_hit[sl])[0]
+                if len(j):
+                    out.append((cmn, cmx, rec[j], key[j]))
+    sections = [_apart_records(g) for g in groups]
+    ar = np.concatenate([sec[0] for sec in sections])
+    ak = np.concatenate([sec[1] for sec in sections])
+    n_all, n_far = (len(sec[0]) for sec in sections)
+    items = n_huge + np.nonzero(can_hit[n_huge:] & ~apart[n_huge:])[0]
     huge_bits = np.asarray([n_huge], np.int32).view(np.float32)[0]
     if not len(items):
         nodes = np.zeros((1, BVH_NODE_FLOATS), np.float32)
         nodes[0, BVH_HUGE_WORD] = huge_bits
-        keep = np.arange(max(n_huge, 1))
-        return dict(bvh_nodes=nodes, bvh_tris=rec[keep] if n_huge else
-                    np.zeros((1, BVH_TRI_FLOATS), np.float32),
-                    bvh_tri_k=key[keep].astype(np.int32) if n_huge else
-                    np.zeros((1,), np.int32), bvh_root=(), bvh_depth=0,
-                    **far)
+        tris = np.concatenate([rec[:n_huge], ar])
+        k = np.concatenate([key[:n_huge], ak])
+        if not len(tris):
+            tris, k = np.zeros((1, BVH_TRI_FLOATS), np.float32), np.zeros(1)
+        return dict(bvh_nodes=nodes, bvh_tris=tris,
+                    bvh_tri_k=k.astype(np.int32), bvh_root=(), bvh_depth=0,
+                    bvh_apart=(n_huge, n_all, n_huge + n_all, n_far), **far)
     out = lambda x, way: np.nextafter(x.astype(np.float32), np.float32(way))
     box = np.concatenate([out(lo[items], -np.inf), out(hi[items], np.inf)],
                          axis=1)
@@ -815,15 +965,18 @@ def build_static_bvh(pre: dict, A: np.ndarray, u: np.ndarray, v: np.ndarray,
         sel = items[idx]
         ref = BVH_LEAF | (n_huge + len(order)) << 4 | len(idx)
         order.extend(int(i) for i in sel)
-        mn, mx = lo[sel].min(axis=0), hi[sel].max(axis=0)
-        return ref, np.concatenate([out(mn - m, -np.inf), out(mx + m, np.inf)])
+        p = pads[sel, None]
+        mn, mx = (lo[sel] - p).min(axis=0), (hi[sel] + p).max(axis=0)
+        return ref, np.concatenate([out(mn, -np.inf), out(mx, np.inf)])
 
     nodes, root, depth = _build_bvh(box, STATIC_LEAF, leaf)
     nodes[0, BVH_HUGE_WORD] = huge_bits
     keep = np.concatenate([np.arange(n_huge), np.asarray(order, np.int64)])
-    return dict(bvh_nodes=nodes, bvh_tris=np.ascontiguousarray(rec[keep]),
-                bvh_tri_k=key[keep].astype(np.int32), bvh_root=root,
-                bvh_depth=depth, **far)
+    return dict(bvh_nodes=nodes,
+                bvh_tris=np.ascontiguousarray(np.concatenate([rec[keep], ar])),
+                bvh_tri_k=np.concatenate([key[keep], ak]).astype(np.int32),
+                bvh_root=root, bvh_depth=depth,
+                bvh_apart=(len(keep), n_all, len(keep) + n_all, n_far), **far)
 
 
 # K4t's BVH (csrc/wave_kernel.cu's brute_walk) over a mesh of at most
@@ -883,16 +1036,22 @@ def _dot32(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1] + a[:, 2] * b[:, 2]
 
 
-def brute_records(A: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+def brute_records(A: np.ndarray, u: np.ndarray, v: np.ndarray,
+                  n_unit=None) -> np.ndarray:
     """K4t's precomputed records ((N, 16) float32, ``BRUTE_REC_FLOATS``'s
     layout) of the triangles A, A + u, A + v ((N, 3) each), every value
     formed elementwise in float32 in the sweep's own operation order, so
-    that it equals the value the sweep computes per test bit for bit."""
+    that it equals the value the sweep computes per test bit for bit; with
+    ``n_unit`` ((N, 3)) the unit normals as given (the quads' baked
+    ``quad_n``, which their test reads) in place of normalize(cross(u, v),
+    1e-30)."""
     f32 = np.float32
     A, u, v = (np.asarray(x, f32).reshape(-1, 3) for x in (A, u, v))
     n = _cross32(u, v)
-    m = np.maximum(np.sqrt(_dot32(n, n)), f32(1e-30))
-    n_unit = n * (f32(1.0) / m)[:, None]
+    if n_unit is None:
+        m = np.maximum(np.sqrt(_dot32(n, n)), f32(1e-30))
+        n_unit = n * (f32(1.0) / m)[:, None]
+    n_unit = np.asarray(n_unit, f32).reshape(-1, 3)
     # a degenerate triangle's w is inf * 0: NaN, as in the sweep (no hit)
     with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
         w = n * (f32(1.0) / _dot32(n, n))[:, None]
@@ -937,7 +1096,7 @@ def build_brute_bvh(A: np.ndarray, u: np.ndarray, v: np.ndarray) -> dict:
                     else np.zeros((1, BRUTE_REC_FLOATS), np.float32),
                     bvh_tri_k=items.astype(np.int32) if len(items)
                     else np.zeros((1,), np.int32), bvh_root=(), bvh_depth=0,
-                    **NO_FAR)
+                    bvh_apart=(0, 0, 0, 0), **NO_FAR)
     a = A[items].astype(np.float64)
     corners = np.stack([a, a + u[items].astype(np.float64),
                         a + v[items].astype(np.float64)])
@@ -960,5 +1119,5 @@ def build_brute_bvh(A: np.ndarray, u: np.ndarray, v: np.ndarray) -> dict:
     order = np.asarray(order, np.int64)
     return dict(bvh_nodes=nodes, bvh_tris=np.ascontiguousarray(rec[order]),
                 bvh_tri_k=order.astype(np.int32), bvh_root=root,
-                bvh_depth=depth,
+                bvh_depth=depth, bvh_apart=(0, 0, 0, 0),
                 **far_bound(pad, big, 16.0, 16.0 * (1 + 2 * kc)))

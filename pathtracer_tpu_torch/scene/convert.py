@@ -13,11 +13,13 @@ import torch
 
 from ..render.renderer import AccumState
 from ..utils.vec import Vec3
-from .clusters import CLUSTER_MIN, triangle_precompute
+from .clusters import (
+    CLUSTER_MIN, STREAM_FIELDS, STREAM_TRIS_PER_ROW, triangle_precompute,
+)
 from .schema import (
     STATIC_FIELDS, TENSOR_FIELDS, VEC_FIELDS, Scene, bake_quad_normals,
     bvh_tables, cluster_tables, mip_table, parent_tables, planar_tables,
-    sphere_bvh_tables, texture_stack, tri_cluster_tables,
+    quad_records, sphere_bvh_tables, texture_stack, tri_cluster_tables,
 )
 
 # The JAX DMA tier's parent and grandparent rows and their counts (its
@@ -52,6 +54,42 @@ def _parents_from_rows(rows, ranges, n: int) -> tuple:
     return tuple(out)
 
 
+def _record_rows(pre: dict, n: int) -> np.ndarray:
+    """Precomputed triangles (``triangle_precompute``'s dict) as (n, 12)
+    records n.xyz d e1.xyz a0 e2.xyz b0."""
+    return np.concatenate(
+        [pre[k].reshape(n, -1) for k in ("n", "d", "e1", "a0", "e2", "b0")],
+        axis=1).astype(np.float32)
+
+
+def _match(kw: dict, recs: np.ndarray):
+    """The table-order triangles (A, u, v, each (len(recs), 3)) whose
+    precomputed records are ``recs`` ((m, 12)), matched bit for bit (a
+    copy of a triangle to the next copy; an all-zero record past the
+    degenerate triangles, a padding slot, to zeros)."""
+    n = kw["n_tris"]
+    cols = lambda v: np.stack([c.numpy()[:n] for c in v], axis=1)
+    A, u, v = cols(kw["tri_a"]), cols(kw["tri_u"]), cols(kw["tri_v"])
+    slots: dict = {}
+    for i, r in enumerate(_record_rows(triangle_precompute(A, u, v), n)):
+        slots.setdefault(r.tobytes(), []).append(i)
+    pick = np.asarray([(slots.get(r.tobytes()) or [-1]).pop(0)
+                       for r in recs])
+    zero = lambda x: np.where((pick >= 0)[:, None], x[pick.clip(0)], 0.0)
+    return tuple(zero(x).astype(np.float32) for x in (A, u, v))
+
+
+def _stream_tris(kw: dict):
+    """``clusters.build_stream_bvh``'s triangles (A, u, v by record row and
+    slot) for a streamed-tier scene's fields ``kw``, or None."""
+    if not kw.get("tri_streamed"):
+        return None
+    pack = kw["mtri_pack"].numpy()
+    per, nf = STREAM_TRIS_PER_ROW, STREAM_FIELDS
+    recs = pack[:, :per * nf].reshape(-1, nf)[:, :12]
+    return tuple(x.reshape(len(pack), per, 3) for x in _match(kw, recs))
+
+
 def _static_bvh_args(kw: dict):
     """``clusters.build_static_bvh``'s arguments for a static-tier scene's
     fields ``kw``, or None for another tier. JAX's scene keeps no cluster
@@ -62,18 +100,10 @@ def _static_bvh_args(kw: dict):
         return None
     n = kw["n_tris"]
     cols = lambda v: np.stack([c.numpy()[:n] for c in v], axis=1)
-    A, u, v = cols(kw["tri_a"]), cols(kw["tri_u"]), cols(kw["tri_v"])
     pre = {k: (cols(kw["ctri_" + k]) if k in ("n", "e1", "e2")
                else kw["ctri_" + k].numpy()[:n])
            for k in ("n", "d", "e1", "a0", "e2", "b0")}
-    row = lambda p: np.concatenate(
-        [p[k].reshape(n, -1) for k in ("n", "d", "e1", "a0", "e2", "b0")],
-        axis=1).astype(np.float32)
-    slots: dict = {}
-    for i, r in enumerate(row(triangle_precompute(A, u, v))):
-        slots.setdefault(r.tobytes(), []).append(i)
-    order = np.asarray([slots[r.tobytes()].pop(0) for r in row(pre)])
-    return pre, A[order], u[order], v[order], kw["tri_clusters"]
+    return (pre, *_match(kw, _record_rows(pre, n)), kw["tri_clusters"])
 
 
 def _brute_bvh_args(kw: dict):
@@ -107,6 +137,8 @@ def scene_from_numpy(fields: dict, statics: dict) -> Scene:
           if k != "quad_n" or fields.get(k) is not None}
     if "quad_n" not in kw:
         kw["quad_n"] = bake_quad_normals(kw["quad_u"], kw["quad_v"])
+    kw.update(quad_records(kw["quad_point"], kw["quad_u"], kw["quad_v"],
+                           kw["quad_n"]))
     kw.update({k: _tensor(fields[k]) for k in TENSOR_FIELDS})
     kw.update({k: statics[k] for k in STATIC_FIELDS if k in statics})
     kw.update(cluster_tables(kw.get("sph_clusters", ())))
@@ -126,7 +158,7 @@ def scene_from_numpy(fields: dict, statics: dict) -> Scene:
     kw.update(bvh_tables(kw["mtri_pack"], kw.get("tri_streamed", False),
                          kw.get("stream_leaf", 0),
                          kw.get("stream_uv_cfm", False), _static_bvh_args(kw),
-                         _brute_bvh_args(kw)))
+                         _brute_bvh_args(kw), _stream_tris(kw)))
     if kw.get("tex_combined"):
         kw.update(texture_stack([], combined=True))
     kw.update(planar_tables(

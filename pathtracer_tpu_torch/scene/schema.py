@@ -143,7 +143,7 @@ STATIC_FIELDS = (
     "tri_streamed", "tri_dma", "stream_uv_cfm", "stream_leaf",
     "n_stream_clusters", "stream_parents", "stream_gparents",
     "stream_row_cull", "bvh_root", "bvh_depth", "sbvh_root", "sbvh_depth",
-    "bvh_far", "bvh_wide", "sbvh_far",
+    "bvh_far", "bvh_wide", "sbvh_far", "bvh_apart",
     "tex_combined", "tex_comb_w", "tex_comb_h", "tex_tiles_x",
     "tex_mip_meta", "tex_hmax", "tex_wmax", "tex_mesh_only",
     "use_normal_maps", "use_metalness_maps",
@@ -159,7 +159,7 @@ DERIVED_TENSOR_FIELDS = ("cl_offset", "cl_count", "cl_huge", "tex_mip",
                          "stream_grange", "tcl_box", "tcl_range",
                          "bvh_nodes", "bvh_tris", "bvh_tri_k",
                          "sbvh_nodes", "sbvh_sph", "sbvh_idx",
-                         "planar_tile", "planar_meta")
+                         "planar_tile", "planar_meta", "quad_rec")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -223,6 +223,8 @@ class Scene:
     sbvh_nodes: torch.Tensor
     sbvh_sph: torch.Tensor
     sbvh_idx: torch.Tensor
+    # each quad's precomputed 64-byte record (quad_records)
+    quad_rec: torch.Tensor
 
     # the combined texture set ((1,)/(1, 128) dummies without one)
     tex_tile: torch.Tensor      # (rows, 128) int32, 8x8-texel tiles, A/B
@@ -346,6 +348,10 @@ class Scene:
     bvh_far: float = float("inf")
     bvh_wide: tuple = (0.0, 0.0)
     sbvh_far: tuple = (0.0, 0.0, 0.0, float("inf"), 0.0, 0.0, 0.0, 0.0)
+    # the mesh walk's triangles set apart (clusters.mesh_pads): the first
+    # record and the records of the section every ray tests, then of the
+    # section a ray from beyond bvh_far tests too
+    bvh_apart: tuple = (0, 0, 0, 0)
     tex_combined: bool = False
     tex_comb_w: int = 1
     tex_comb_h: int = 1
@@ -508,11 +514,13 @@ def parent_tables(stream_parents: tuple, stream_gparents: tuple = ()) -> dict:
 
 
 def bvh_tables(mtri_pack: torch.Tensor, tri_streamed: bool, stream_leaf: int,
-               stream_uv_cfm: bool, static=None, brute=None) -> dict:
+               stream_uv_cfm: bool, static=None, brute=None,
+               stream_tris=None) -> dict:
     """The card's mesh BVH: the streamed tier's
-    (``clusters.build_stream_bvh``) over the record rows ``mtri_pack``, its
-    winners numbered by their uv column with the cluster-field-major uv
-    rows, else by record; the static tier's
+    (``clusters.build_stream_bvh``) over the record rows ``mtri_pack`` and
+    the triangles ``stream_tris`` they were made from (A, u, v by record
+    row and slot), its winners numbered by their uv column with the
+    cluster-field-major uv rows, else by record; the static tier's
     (``clusters.build_static_bvh``, whose arguments ``static`` holds: the
     cluster-ordered precomputed triangles, their A, u, v and the
     clusters); or K4t's over a mesh of at most ``clusters.CLUSTER_MIN``
@@ -527,11 +535,12 @@ def bvh_tables(mtri_pack: torch.Tensor, tri_streamed: bool, stream_leaf: int,
                     bvh_tris=torch.zeros((1, clusters.BVH_TRI_FLOATS)),
                     bvh_tri_k=torch.zeros((1,), dtype=torch.int32),
                     bvh_root=(), bvh_depth=0, bvh_far=float("inf"),
-                    bvh_wide=(0.0, 0.0))
+                    bvh_wide=(0.0, 0.0), bvh_apart=(0, 0, 0, 0))
     else:
         b = clusters.build_stream_bvh(
             mtri_pack.cpu().numpy(),
-            clusters.stream_rows_per_cluster(stream_leaf), stream_uv_cfm)
+            clusters.stream_rows_per_cluster(stream_leaf), stream_uv_cfm,
+            stream_tris)
     return dict(b, **{k: torch.from_numpy(b[k])
                       for k in ("bvh_nodes", "bvh_tris", "bvh_tri_k")})
 
@@ -745,6 +754,25 @@ def bake_quad_normals(u: Vec3, v: Vec3) -> Vec3:
     return Vec3(*(torch.from_numpy(c * inv) for c in (cx, cy, cz)))
 
 
+def quad_records(quad_point: Vec3, quad_u: Vec3, quad_v: Vec3,
+                 quad_n: Vec3) -> dict:
+    """The quads' precomputed records (``quad_rec``, (Q, 16) float32, K4t's
+    layout: ``clusters.brute_records``): n_unit.xyz d | w.xyz v.z | A.xyz
+    u.x | u.y u.z v.x v.y, n_unit the baked ``quad_n`` and d = A . n_unit,
+    w = cross(u, v) * (1 / |cross(u, v)|^2), each formed in float32 in the
+    order ``ray_planar_quad`` forms it per test (ops/intersect.py:106), so
+    the kernel's quad test gives its t, alpha and beta bit for bit. A quad
+    whose cross(u, v) is zero (the tables' padding) takes w = 0 where the
+    per-test form's is NaN: its normal is zero, so its test never hits
+    either way."""
+    cols = lambda v: torch.stack([c.cpu() for c in v], 1).numpy()
+    u, v = cols(quad_u), cols(quad_v)
+    rec = clusters.brute_records(cols(quad_point), u, v, cols(quad_n))
+    flat = ~clusters._cross32(u, v).any(axis=1)
+    rec[flat, 4:7] = 0.0
+    return dict(quad_rec=torch.from_numpy(rec))
+
+
 class WorldBuilder:
     """Host-side scene assembly for spheres, quads, planes, one triangle
     mesh and textures."""
@@ -862,6 +890,7 @@ class WorldBuilder:
         ctri_uvt = np.zeros((1, 6), f32)
         tri_clusters = ()
         static = None  # build_static_bvh's arguments
+        stream_tris = None  # build_stream_bvh's triangles
         dummy = lambda: torch.zeros((1, 128), dtype=torch.float32)
         stream = dict(mtri_bounds=dummy(), mtri_pack=dummy(),
                       mtri_uvpack=dummy(), stream_parents=(),
@@ -899,6 +928,9 @@ class WorldBuilder:
                     pperm, gparents = clusters.build_parents(
                         parents, sort_origin=view_origin)
                     parents = tuple(parents[i] for i in pperm)
+                stream_tris = tuple(
+                    clusters.stream_slots(x[:ntri][order], tri_clusters, leaf)
+                    for x in (tri_a, tri_u, tri_v))
                 stream = dict(
                     mtri_bounds=torch.from_numpy(bounds),
                     mtri_pack=torch.from_numpy(pack),
@@ -939,7 +971,7 @@ class WorldBuilder:
                               stream.get("tri_streamed", False),
                               stream.get("stream_leaf", 0),
                               stream.get("stream_uv_cfm", False), static,
-                              brute))
+                              brute, stream_tris))
         return out
 
     def _sphere_clusters(self, view_origin):
@@ -973,8 +1005,10 @@ class WorldBuilder:
         S, Q, P = _pad(len(self.spheres)), _pad(len(self.quads)), _pad(len(self.planes))
         i32 = np.int32
         col = lambda name: [getattr(m, name) for m in mats]
+        quad_point = _vec_table([q[0] for q in self.quads], Q)
         quad_u = _vec_table([q[1] for q in self.quads], Q)
         quad_v = _vec_table([q[2] for q in self.quads], Q)
+        quad_n = bake_quad_normals(quad_u, quad_v)
         csph_c, csph_r, csph_m, sph_clusters = self._sphere_clusters(view_origin)
         mesh = self._mesh_tables(view_origin)
         tex_set = combined_texture_set(self.textures, mats)
@@ -1008,10 +1042,11 @@ class WorldBuilder:
             sph_radius=_scalar_table([s[1] for s in self.spheres], S),
             sph_mat=_scalar_table([s[2] for s in self.spheres], S, i32),
             sph_mask=_mask_table(len(self.spheres), S),
-            quad_point=_vec_table([q[0] for q in self.quads], Q),
+            quad_point=quad_point,
             quad_u=quad_u,
             quad_v=quad_v,
-            quad_n=bake_quad_normals(quad_u, quad_v),
+            quad_n=quad_n,
+            **quad_records(quad_point, quad_u, quad_v, quad_n),
             quad_mat=_scalar_table([q[3] for q in self.quads], Q, i32),
             quad_mask=_mask_table(len(self.quads), Q),
             pln_n=_vec_table([p[0] for p in self.planes], P),

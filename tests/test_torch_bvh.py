@@ -23,6 +23,7 @@ import torch
 from pathtracer_tpu.scene import worlds as jworlds
 from pathtracer_tpu_torch.ops import intersect as tint
 from pathtracer_tpu_torch.scene import clusters as tclusters
+from pathtracer_tpu_torch.scene import convert as tconvert
 from pathtracer_tpu_torch.scene import schema as tschema
 from pathtracer_tpu_torch.scene import worlds as tworlds
 from pathtracer_tpu_torch.utils.vec import Vec3 as TVec3
@@ -57,12 +58,43 @@ def _flat(a):
 CASES = ["w7", "sphere19600", "dma1936", "dma1984uv"]
 
 
+def _stream_tris(ts):
+    """The scene's triangles (A, u, v) by record row and slot, as finalize
+    hands them to ``build_stream_bvh``."""
+    kw = dict(n_tris=ts.n_tris, tri_a=ts.tri_a, tri_u=ts.tri_u,
+              tri_v=ts.tri_v, tri_streamed=True, mtri_pack=ts.mtri_pack)
+    return tconvert._stream_tris(kw)
+
+
+def box_records(ts) -> np.ndarray:
+    """Which of ``bvh_tris`` are box records: each leaf's first, the
+    set-apart groups' union and each group's first."""
+    nodes = ts.bvh_nodes.numpy()
+    kids = nodes[:, 12:14].view(np.int32).reshape(-1)
+    leaf = kids[(kids & tclusters.BVH_LEAF) != 0]
+    mask = np.zeros((len(ts.bvh_tris),), bool)
+    mask[(leaf & (tclusters.BVH_LEAF - 1)) >> 4] = True
+    for sec in range(2):
+        first, n = ts.bvh_apart[2 * sec:2 * sec + 2]
+        mask[first:first + min(n, 1)] = True
+        for _, _, g0, _ in tint._apart_groups(ts, sec):
+            mask[g0 - 1] = True
+    return mask
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_bvh_well_formed(case, request):
-    """Every row with triangles is one leaf, reached once; its box is the
-    row box and its records the row's, in order, with their table-order
-    numbers; every box a node holds is the exact union of its child's
-    boxes; the depth is within the kernel's stack."""
+    """Every row with a triangle in the tree is one leaf, reached once; its
+    records are its row's box record (the row box the pack holds, and the
+    count), then the row's triangles that can hit and are not set apart, in
+    slot order, with their table-order numbers; its box holds each of
+    them, bound by its vertices (a sliver's padded by
+    ``clusters.mesh_pads``; every ray widens the boxes by its own bound); the
+    triangles set apart follow in two sections, every ray's (the
+    lat-long spheres' degenerate pole slivers) and a far ray's (the other
+    slivers), in groups by row, each under its row's box record; every box a
+    node holds is the exact union of its child's boxes; the depth is within
+    the kernel's stack; the far bound is the padding's."""
     ts, _ = _scene(case, request)
     assert ts.tri_streamed and ts.tri_dma == case.startswith("dma")
     nodes = ts.bvh_nodes.numpy()
@@ -71,6 +103,33 @@ def test_bvh_well_formed(case, request):
     lane = tclusters.ROW_BOUNDS_LANE
     recs = pack[:, :lane].reshape(len(pack), PER, tclusters.STREAM_FIELDS)
     rpc = tclusters.stream_rows_per_cluster(ts.stream_leaf)
+    A, u, v = (x.astype(np.float64) for x in _stream_tris(ts))
+    corners = np.stack([A, A + u, A + v])
+    lo, hi = corners.min(0), corners.max(0)
+    can_hit = recs[..., :12].any(axis=2) & (
+        pack[:, lane] != np.float32(tclusters.ROW_EMPTY_FAR))[:, None]
+    big = max(np.abs(lo[can_hit]).max(), np.abs(hi[can_hit]).max())
+    m = tclusters.STATIC_PAD_ULPS * float(np.spacing(np.float32(big)))
+    pads = np.zeros(can_hit.shape)
+    apart, far_apart = (np.zeros(can_hit.shape, bool) for _ in range(2))
+    pads[can_hit], apart[can_hit], far_apart[can_hit], far = \
+        tclusters.mesh_pads(u[can_hit], v[can_hit], m, big)
+    pads = np.where(far_apart, pads, 0.0)  # every ray widens the rest
+    assert (ts.bvh_far, ts.bvh_wide) == (far["bvh_far"], far["bvh_wide"])
+    assert 0 < ts.bvh_far < float("inf")
+    tree = can_hit & ~apart
+    tris = ts.bvh_tris.numpy()
+    number = lambda row, j: (((row // rpc) * tclusters.UV_CFM_ROWS * 128
+                              + (row % rpc) * PER) if ts.has_mesh_uvs
+                             else row * PER) + j
+    count = lambda r: int(np.asarray(r[3:4]).view(np.int32)[0])
+
+    def box_record(i, row, cnt):
+        np.testing.assert_array_equal(tris[i, 0:3], pack[row, lane:lane + 3])
+        np.testing.assert_array_equal(tris[i, 4:7],
+                                      pack[row, lane + 3:lane + 6])
+        assert count(tris[i]) == cnt and not tris[i, 7:].any()
+
     seen, spans, depth = [], [], 0
     stack = [(0, 1)]
     while stack:
@@ -81,20 +140,21 @@ def test_bvh_well_formed(case, request):
             if ref & tclusters.BVH_LEAF:
                 first, cnt = (ref & (tclusters.BVH_LEAF - 1)) >> 4, ref & 15
                 assert 1 <= cnt <= PER
-                spans.append((first, cnt))
-                # the leaf's row, from its first record's number
-                k = ts.bvh_tri_k[first:first + 1].long()
+                spans.append((first, 1 + cnt))
+                # the leaf's row, from its first triangle's number
+                k = ts.bvh_tri_k[first + 1:first + 2].long()
                 row = int(tint._bvh_record_number(ts, k)) // PER
+                j = np.nonzero(tree[row])[0]
+                assert len(j) == cnt
+                box_record(first, row, cnt)
+                np.testing.assert_array_equal(tris[first + 1:first + 1 + cnt],
+                                              recs[row, j, :12])
                 np.testing.assert_array_equal(
-                    ts.bvh_tris.numpy()[first:first + cnt],
-                    recs[row, :cnt, :12])
-                assert not recs[row, cnt:].any()
-                np.testing.assert_array_equal(box, pack[row, lane:lane + 6])
-                k0 = ((row // rpc) * tclusters.UV_CFM_ROWS * 128
-                      + (row % rpc) * PER if ts.has_mesh_uvs else row * PER)
-                np.testing.assert_array_equal(
-                    ts.bvh_tri_k.numpy()[first:first + cnt],
-                    k0 + np.arange(cnt))
+                    ts.bvh_tri_k.numpy()[first + 1:first + 1 + cnt],
+                    number(row, j))
+                p = pads[row, j, None]
+                assert (box[:3] <= lo[row, j] - p).all()
+                assert (box[3:] >= hi[row, j] + p).all()
                 seen.append(row)
             else:
                 sub = nodes[ref]
@@ -102,15 +162,39 @@ def test_bvh_well_formed(case, request):
                     box, np.concatenate([np.minimum(sub[0:3], sub[6:9]),
                                          np.maximum(sub[3:6], sub[9:12])]))
                 stack.append((ref, level + 1))
-    full = np.nonzero(recs.any(axis=(1, 2))
-                      & (pack[:, lane] != np.float32(tclusters.ROW_EMPTY_FAR))
-                      )[0]
+    full = np.nonzero(tree.any(axis=1))[0]
     assert sorted(seen) == full.tolist() and len(set(seen)) == len(seen)
-    # the leaves' records tile the record table
+    # the set-apart sections after the leaves: the degenerate slivers
+    # (every ray's), then the other slivers (a far ray's), each its groups'
+    # union, counting the records after it, then its groups by row
+    a0, n_apart, f0, n_far = ts.bvh_apart
+    assert (n_apart > 0) == (case in ("sphere19600", "dma1936")) \
+        == bool(apart.any())
+    for sec, (first, n, sel) in enumerate(((a0, n_apart, apart),
+                                           (f0, n_far, far_apart))):
+        groups = tint._apart_groups(ts, sec)
+        rows = np.nonzero(sel.any(axis=1))[0]
+        assert len(groups) == len(rows) and (n > 0) == bool(len(rows))
+        for (mn, mx, g0, cnt), row in zip(groups, rows):
+            j = np.nonzero(sel[row])[0]
+            box_record(g0 - 1, row, len(j))
+            np.testing.assert_array_equal(tris[g0:g0 + cnt],
+                                          recs[row, j, :12])
+            np.testing.assert_array_equal(ts.bvh_tri_k.numpy()[g0:g0 + cnt],
+                                          number(row, j))
+        if n:
+            np.testing.assert_array_equal(
+                tris[first, 0:3], np.min([g[0] for g in groups], axis=0))
+            np.testing.assert_array_equal(
+                tris[first, 4:7], np.max([g[1] for g in groups], axis=0))
+            assert count(tris[first]) == n - 1
+    # the leaves' records, then the groups', tile the record table
     spans.sort()
     assert [f for f, _ in spans] == np.cumsum([0] + [c for _, c in spans[:-1]]
                                               ).tolist()
-    assert sum(c for _, c in spans) == len(ts.bvh_tris) == len(ts.bvh_tri_k)
+    assert sum(c for _, c in spans) == a0
+    assert a0 + n_apart == f0
+    assert f0 + n_far == len(ts.bvh_tris) == len(ts.bvh_tri_k)
     assert depth == ts.bvh_depth <= tclusters.BVH_MAX_DEPTH
     root = np.asarray(ts.bvh_root, np.float32)
     np.testing.assert_array_equal(root, np.concatenate([

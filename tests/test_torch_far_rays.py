@@ -20,19 +20,20 @@ card's walks (``ops/intersect.py``), on grazing and aimed rays moved back
   ``_intersect_triangles_static_bvh``) on the 784- and 736-triangle
   spheres: winners, t, alpha and beta and the resolved hit and uv
   bit-equal to the table-order walk ``_intersect_triangles_clustered``;
-  on the 144-triangle sphere, whose pole triangles are slivers, they
-  differ (an open fault, marked as expected to fail).
+  and on the 144-triangle sphere, whose degenerate pole slivers the walk
+  tests after its tree (``clusters.mesh_pads``), from 10 to 10^4 times its
+  largest coordinate.
 - The sphere clusters (``_sphere_bvh_winners``) on worlds 2 and 4, rays
   aimed at their spheres from 10^2 to 10^4 units, and on 2-cm spheres
   spread over 60 units (a negative reach: every ray far), rays grazing
   them from near their centre: t and material bit-equal to the
   table-order walk ``_intersect_spheres_clustered``, and on world 4 to
   JAX's kernel-mode ``intersect_spheres`` run op by op.
-- K7 (``_bvh_winners``, not changed) on world 7 and the 19,600-triangle
-  sphere, rays aimed at the mesh from 10^2 to 10^4 units: winners and t
-  bit-equal to the table-order streamed walk. (Its grazing rays differ at
-  any distance, and its leaf boxes are JAX's row boxes unpadded: ROADMAP
-  queue 3.)
+- K7 (``_bvh_winners``) on world 7 and the 19,600-triangle sphere, rays
+  aimed at the mesh from 10^2 to 10^4 units, and on the sphere rays
+  grazing its triangles and rays at its degenerate pole triangles, from 2
+  units and moved back 10^2 to 10^4 units: winners and t (and alpha and
+  beta) bit-equal to the table-order streamed walk.
 """
 
 import jax
@@ -196,28 +197,30 @@ def test_static_walk_equals_table_walk(case):
     assert 90 * big < ts.bvh_far < 200 * big
 
 
-@pytest.mark.xfail(strict=True, reason=(
-    "open fault, ROADMAP queue 3: a sliver's precomputed test takes a hit "
-    "outside its padded leaf box, which its cluster's box admits"))
-def test_static_walk_with_slivers():
+@pytest.mark.parametrize("times", [10, 100, 1000, 10000])
+def test_static_walk_with_slivers(times):
     """The 144-triangle tessellated sphere, whose pole triangles are
-    slivers (shape above clusters.SLIVER), grazing rays from 10^2 times its
-    largest coordinate (200 units): the walk and the table-order walk take
-    the same winner at the same t. They do not: on one ray the table-order
-    walk takes a pole sliver and the walk, whose padded leaf box culls the
-    sliver's hit, takes triangle 0. Strict: repairing it fails this mark."""
+    slivers (shape above clusters.SLIVER; the degenerate ones set apart,
+    clusters.mesh_pads), grazing rays from 10 to 10^4 times its largest
+    coordinate: the walk and the table-order walk take the same winner at
+    the same t. Before the set-apart triangles were tested after the walk,
+    1, 1, 4 and 2 of the 2048 rays differed: the table-order walk took a
+    pole sliver whose hit lay outside its padded leaf box, which the walk
+    culled."""
     tris = tessellated_sphere(144)
     ts, _ = mesh_scene(tworlds, tris)
-    assert ts.tri_static
+    assert ts.tri_static and ts.bvh_apart[1] > 0
     big = float(np.abs(tris).max())
     go, gd = _grazing_rays(np.random.RandomState(5), tris, 2048)
-    o, d = map(_flat, _back(go, gd, 1e2 * big))
+    o, d = map(_flat, _back(go, gd, times * big))
     best = tint._non_triangles(ts, o, d)
     ref = tint._intersect_triangles_clustered(ts, o, d, best, False)
-    t, idx, _, _ = tint._static_bvh_winners(ts, o, d, best.t)
+    tally = {}
+    t, idx, _, _ = tint._static_bvh_winners(ts, o, d, best.t, tally)
     assert int(ref[3].sum()) >= 200
     assert torch.equal(idx >= 0, ref[3])
     assert torch.equal(t, ref[0].t)
+    assert torch.equal(idx, tint._static_table_winners(ts, o, d, best.t)[1])
 
 
 # --- the sphere clusters -------------------------------------------------------
@@ -346,6 +349,61 @@ def _k7(case, module=tworlds):
     if case == "w7":
         return module.finalize_world(W7, 16, 9)[0], (0.0, 0.0, 1.0)
     return mesh_scene(module, tessellated_sphere(19600))[0], (0.0, 0.0, 1.2)
+
+
+def _pole_rays(rng, tris, n):
+    """Rays at the lat-long sphere's degenerate pole triangles (two
+    vertices 1e-16 apart or equal), from random points 2 units off at
+    their vertices: (o, d) as (3, n) arrays."""
+    t = tris.astype(np.float64)
+    area = np.linalg.norm(np.cross(t[:, 1] - t[:, 0], t[:, 2] - t[:, 0]), axis=1)
+    sel = rng.choice(np.nonzero(area <= 1e-9)[0], n)
+    q = t[sel, rng.randint(0, 3, n)] + rng.randn(n, 3) * 1e-3
+    o = q + rng.randn(n, 3) * 2.0
+    d = q - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o.T, d.T
+
+
+@pytest.mark.parametrize("seed", [5, 7])
+def test_k7_grazing_rays(seed):
+    """K7's walk (``_bvh_winners``) on the 19,600-triangle sphere, rays
+    grazing its triangles (test_torch_static_bvh.py's) and rays at its
+    degenerate pole triangles (set apart, clusters.mesh_pads), from 2
+    units and moved back 10^2 to 10^4 units: the winning record and t
+    bit-equal to the streamed table-order walk (``_stream_winners``), and
+    alpha and beta to the winner's record test. With the leaves JAX's row
+    boxes unpadded and no row cull, 1 to 8 of these rays differed: hits a
+    few ulps outside their row box, which the streamed walk tests where
+    the ray enters the row's cluster, and hits in a row whose box the ray
+    enters exactly at its nearest hit before the mesh, which the streamed
+    walk culls."""
+    tris = tessellated_sphere(19600)
+    ts, _ = mesh_scene(tworlds, tris)
+    assert ts.tri_streamed and ts.bvh_apart[1] > 0
+    rng = np.random.RandomState(seed)
+    go, gd = _grazing_rays(rng, tris, 2048)
+    po, pd = _pole_rays(rng, tris, 256)
+    go, gd = np.concatenate([go, po], 1), np.concatenate([gd, pd], 1)
+    per, nf = tclu.STREAM_TRIS_PER_ROW, tclu.STREAM_FIELDS
+    recs = ts.mtri_pack[:, :per * nf].reshape(-1, nf)
+    for dist in (0.0, 1e2, 1e3, 1e4):
+        o, d = map(_flat, _back(go.astype(np.float32), gd.astype(np.float32),
+                                dist))
+        best = tint._non_triangles(ts, o, d)
+        t_ref, rec_ref = tint._stream_winners(ts, o, d, best.t)
+        tally = {}
+        t, win, a, b = tint._bvh_winners(ts, o, d, best.t, tally)
+        number = ts.bvh_tri_k.long()[win.clamp_min(0)]
+        rec = torch.where(win >= 0, tint._bvh_record_number(ts, number), -1)
+        assert torch.equal(rec, rec_ref) and torch.equal(t, t_ref), dist
+        found = rec_ref >= 0
+        assert int(found.sum()) >= 700
+        _, _, _, _, a_ref, b_ref = tint._record_tests(
+            recs[rec_ref.clamp_min(0)], o, d)
+        assert torch.equal(a[found], a_ref[found])
+        assert torch.equal(b[found], b_ref[found])
+        assert (tally.get("far_rays", 0) > 0) == (dist > ts.bvh_far)
 
 
 @pytest.mark.parametrize("case", ["w7", "sphere19600"])

@@ -116,10 +116,17 @@ def test_static_bvh_well_formed(case):
     recs = ts.bvh_tris.numpy()
     # every record is its ctri_* row; the huge cluster's come first, in
     # order; every other triangle that can hit (a record not all zero) once
-    np.testing.assert_array_equal(recs, ctri[k])
+    a0 = ts.bvh_apart[0]
+    box_rec = np.zeros((len(k),), bool)
+    for sec in range(2):  # each section's union and its groups' boxes
+        first, n_sec = ts.bvh_apart[2 * sec:2 * sec + 2]
+        box_rec[first:first + min(n_sec, 1)] = True
+        box_rec[[g0 - 1 for _, _, g0, _ in tint._apart_groups(ts, sec)]] = True
+    np.testing.assert_array_equal(recs[~box_rec], ctri[k[~box_rec]])
     assert k[:n_huge].tolist() == list(range(n_huge))
     can_hit = [i for i in range(n_huge, n) if ctri[i].any()]
-    assert sorted(k[n_huge:].tolist()) == can_hit
+    assert sorted(k[n_huge:a0].tolist() + k[a0:][~box_rec[a0:]].tolist()) \
+        == can_hit
     # the triangles as the precomputed test sees them: A, A + u, A + v
     t = tris.astype(np.float32)[order].astype(np.float64)
     a = t[:, 0]
@@ -127,19 +134,46 @@ def test_static_bvh_well_formed(case):
                         a + (t[:, 2] - t[:, 0]).astype(np.float32)])
     lo, hi = corners.min(0), corners.max(0)
     big = max(np.abs(lo[n_huge:]).max(), np.abs(hi[n_huge:]).max())
-    pad = lambda sel: tclu.STATIC_PAD_ULPS * np.spacing(np.float32(big))
+    m = tclu.STATIC_PAD_ULPS * float(np.spacing(np.float32(big)))
+    pads = np.full((n,), m)
+    apart, far_apart = np.zeros((n,), bool), np.zeros((n,), bool)
+    pads[n_huge:], apart[n_huge:], far_apart[n_huge:], far = tclu.mesh_pads(
+        (t[n_huge:, 1] - t[n_huge:, 0]).astype(np.float32),
+        (t[n_huge:, 2] - t[n_huge:, 0]).astype(np.float32), m, big)
+    assert (ts.bvh_far, ts.bvh_wide) == (far["bvh_far"], far["bvh_wide"])
+    # the degenerate pole slivers of the lat-long spheres are set apart
+    assert apart.any() == ("static" in case and "uv" not in case
+                           or case == "huge786")
+    pad = lambda sel: pads[sel]
     # each key: its cluster, its index, and the check bit unless its bound,
     # padded, lies inside its cluster's box (the huge cluster: never); the
     # keys order as the indices
-    assert (np.argsort(key) == np.argsort(k)).all()
-    for j in range(len(k)):
+    tri = ~box_rec
+    assert (np.argsort(key[:a0]) == np.argsort(k[:a0])).all()
+    for j in np.nonzero(tri)[0]:
         off, cnt, cmn, cmx = ts.tri_clusters[key[j] >> shift]
         assert off <= k[j] < off + cnt
-        i, m = k[j], pad([k[j]])
-        inside = cmn is None or ((lo[i] - m > cmn).all()
-                                 and (hi[i] + m < cmx).all())
+        i, p = k[j], pad(k[j])
+        inside = cmn is None or ((lo[i] - p > cmn).all()
+                                 and (hi[i] + p < cmx).all())
         assert key[j] & 1 == (not inside)
-    assert 0 < (key[n_huge:] & 1).mean() < 0.8
+    assert 0 < (key[n_huge:a0] & 1).mean() < 0.8
+    # the triangles set apart that can hit, in groups by cluster under the
+    # cluster's box: the degenerate slivers (every ray's), then the other
+    # slivers (a far ray's)
+    a0, n_apart, f0, n_far = ts.bvh_apart
+    for sec, (n_sec, sel) in enumerate(((n_apart, apart), (n_far, far_apart))):
+        got = []
+        groups = tint._apart_groups(ts, sec)
+        for mn, mx, g0, cnt in groups:
+            off, c_n, cmn, cmx = ts.tri_clusters[key[g0] >> shift]
+            assert (mn, mx) == (cmn, cmx)
+            sel_k = k[g0:g0 + cnt]
+            assert (off <= sel_k).all() and (sel_k < off + c_n).all()
+            got += sel_k.tolist()
+        assert got == [i for i in range(n_huge, n) if sel[i] and ctri[i].any()]
+        assert sum(1 + c for _, _, _, c in groups) + min(n_sec, 1) == n_sec
+    assert a0 + n_apart == f0 and f0 + n_far == len(k)
     nodes = ts.bvh_nodes.numpy()
     kids = _kids(ts.bvh_nodes)
     spans, depth = [], [0]
@@ -158,9 +192,10 @@ def test_static_bvh_well_formed(case):
             if sub is None:  # a leaf: it holds its triangles, padded
                 first, cnt = spans[-1]
                 sel = k[first:first + cnt]
-                mn, mx, m = lo[sel].min(0), hi[sel].max(0), pad(sel)
-                assert (b[:3] <= mn - m).all() and (b[3:] >= mx + m).all()
-                assert (b[:3] >= mn - 2 * m).all()
+                p = pad(sel)[:, None]
+                mn, mx = (lo[sel] - p).min(0), (hi[sel] + p).max(0)
+                assert (b[:3] <= mn).all() and (b[3:] >= mx).all()
+                assert (b[:3] >= mn - m).all()
             else:  # an inner node: the exact union of its children's
                 np.testing.assert_array_equal(b, sub)
             got.append(b)
@@ -173,7 +208,7 @@ def test_static_bvh_well_formed(case):
     spans.sort()
     assert [f for f, _ in spans] == np.cumsum(
         [n_huge] + [c for _, c in spans[:-1]]).tolist()
-    assert sum(c for _, c in spans) == len(k) - n_huge
+    assert sum(c for _, c in spans) == a0 - n_huge
     # the converter derives the same tables from JAX's scene
     conv = jax_scene_to_port(_case(case, jworlds)[0])
     for f in ("bvh_nodes", "bvh_tris", "bvh_tri_k"):

@@ -45,6 +45,7 @@ from pathtracer_tpu_torch.scene import mixed_scenes
 from pathtracer_tpu_torch.scene import schema as tschema
 from pathtracer_tpu_torch.scene import worlds as tworlds
 from pathtracer_tpu_torch.utils.vec import Vec3 as TVec3
+from test_torch_bvh import box_records
 from test_torch_mesh_tiers import force_dma  # noqa: F401 (a fixture)
 from test_torch_meshes import mesh_scene
 from test_torch_render import assert_golden_gates
@@ -103,7 +104,8 @@ def test_bvh_numbers_records_past_128(request):
     rpc = tclusters.stream_rows_per_cluster(ts.stream_leaf)
     assert int((k % (rpc * 9)).max()) >= 128
     recs = ts.mtri_pack[:, :117].reshape(-1, 13)
-    assert torch.equal(ts.bvh_tris, recs[k, :12])
+    tri = ~torch.from_numpy(box_records(ts))
+    assert torch.equal(ts.bvh_tris[tri], recs[k[tri], :12])
 
 
 def _aimed_rays(rng, n=1024):
