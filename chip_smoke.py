@@ -53,7 +53,9 @@ Every variant with the feature bounce but textured+meshplain regroups
 its shading lanes by event each bounce (regroup_shading: each block lays
 its fog scatters, opaque shades and glass out in whole warps through
 shared memory); the -DWAVE_NO_REGROUP build, where none does, is its
-yardstick.
+yardstick, built with -DWAVE_BLOCK_LOCKSTEP, where world 1's textured
+lockstep pair runs JAX's block-lockstep loop (each bounce's live paths
+laid out by lobe before the intersect) instead of the per-warp one.
 
 The mesh cases stand in for world 5's mario.glb, which is not in the
 repository: world 5's builder without its asset (ground plane, sun, sky,
@@ -75,10 +77,13 @@ Phases (each prints its measured values on its own line; any failure raises
 and the script exits non-zero):
   1. device: the card's name and power limit;
   2. build: compiles csrc/wave_kernel.cu (one nvcc per build part, all
-     started together, and a link) and, beside it, the regroup's
-     yardstick, the same source with -DWAVE_NO_REGROUP, where every
-     feature variant shades each path in its own thread (the parent's
-     code); prints the seconds, ptxas's registers and spills for each
+     started together, and a link) and, beside it, the yardstick, the
+     same source with -DWAVE_NO_REGROUP, where every feature variant
+     shades each path in its own thread (the parent's code), and
+     -DWAVE_BLOCK_LOCKSTEP, where world 1's textured lockstep pair runs
+     the block-lockstep loop (YARDSTICK_DEFINES); prints the textured
+     variants' registers, spills and blocks per SM beside the parent's
+     and the block loop's, the seconds, ptxas's registers and spills for each
      variant (whether every variant without the feature bounce and the
      lens kept the registers and spills it was committed with, KEPT_PTXAS;
      every variant that can cast a lens ray beside the parent's, with
@@ -124,7 +129,10 @@ and the script exits non-zero):
      CLI's fog on world 6 and on world 3 with -d, and world 1 with three
      planar 512x512 maps at both sizes and with them cut to 500x300 (no
      power of two: the reciprocal wraps) at both sizes through both
-     cameras, through the feature variants; the
+     cameras, through the feature variants; world 1 with its combined
+     set cut to 48x40 (COMBINED_CUT: K9's reciprocal wraps, no pyramid)
+     through both cameras, with --mips, under the other schedule and as
+     dispersive glass in fog, at both sizes; the
      six mesh cases at both sizes, pinhole and thin lens (784 also
      under the other schedule), each through its tier's variant, and the
      two sliver cases (K7's row-parallel uv rows) at 256x144 through both
@@ -170,7 +178,8 @@ and the script exits non-zero):
      mesh, planar albedo and bump maps beside clusters and that mesh, and
      world 7's sphere with slivers beside clusters; then the count of the
      cases whose every pixel is bit-equal, which must be all; every
-     feature variant's case also through the -DWAVE_NO_REGROUP yardstick,
+     feature variant's and textured lockstep case also through the
+     yardstick (the feature bounce in place, the block-lockstep loop),
      whose sums, counts and rays must equal the kernel's;
   4. main paths, each through the entry point a user calls, at 1280x720
      with the launch counts set to 0 just before it and read just after:
@@ -215,7 +224,9 @@ and the script exits non-zero):
      (EARLIER_MS), each feature variant's row in turns with the
      -DWAVE_NO_REGROUP yardstick (each first in one half of eight
      launches; then each variant's geometric mean over its rows, and
-     whether every variant regroup_shading names is the faster) and each other BVH
+     whether every variant regroup_shading names is the faster), world
+     1's textured lockstep rows in turns with the yardstick's
+     block-lockstep loop, and each other BVH
      walk's row in turns with the scanline-warp yardstick; world 3 at 256 spp and world 1
      at 16 spp, kernel alone and end to end through render_image; worlds
      3, 6 and 4 at 64 spp; worlds 1 and 7 at 64 spp under both schedules,
@@ -257,7 +268,13 @@ and the script exits non-zero):
      is printed beside it.
      For the textured and mesh variants the fetches are counted over every
      shaded hit on a textured material (mesh: with a UV winner) whose path
-     continues (a lower count). For the feature rows the plain
+     continues (a lower count); K9's albedo only where the lane's coin
+     picks the diffuse lobe (OPS_TEX_TOP, OPS_TEX_ALBEDO). Beside the
+     textured lockstep rows, the lockstep replay of samples 0-1
+     (regroup.lockstep_tally: lane use in place, packed and laid out by
+     coin, the four lobes' branch runs in place and laid out, the sectors
+     of a warp's bounce-0 K9 fetch) over the variant's 8x4 tiles and, for
+     the pinhole, scanline warps and JAX's texel sort. For the feature rows the plain
      regeneration loop's lanes are counted below the depth limit as a
      kernel thread evaluates them: opaque and dielectric shades, fog
      scatters, planar, height, mesh-UV and combined-set fetches; every
@@ -320,9 +337,19 @@ OPS_RESOLVE = 20    # the winner's normal (K6 for clustered spheres)
 OPS_EMIT = 9        # emission and the surface test, every ray
 OPS_SHADE = 226     # shade_surface, diffuse branch (the common one)
 # K9 in shade_surface, per textured hit: the bespoke scale and fractions
-# (14), 32 texel channels unpacked (64), 8 bilinear blends (74), the normal
-# decode and normalize (17), the map selects (5)
+# (14), 32 texel channels unpacked (64), 8 bilinear blends (74: 9 each and
+# 1 - s, 1 - t once), the normal decode and normalize (17), the map selects
+# (5): 174. Split where the shade reads it (PR 18): every textured opaque
+# shade blends its metalness, roughness and normal (OPS_TEX_TOP: the scale
+# and fractions, 20 channels unpacked, 5 blends, the decode and the
+# selects), a lane whose coin picks the diffuse lobe its albedo too
+# (OPS_TEX_ALBEDO: 12 channels unpacked, 3 blends), a dielectric its
+# albedo alone (OPS_TEX_GLASS: the scale and fractions, 1 - s and 1 - t,
+# the albedo)
 OPS_TEX = 174
+OPS_TEX_TOP = 14 + 40 + 47 + 17 + 5
+OPS_TEX_ALBEDO = 24 + 27
+OPS_TEX_GLASS = 14 + 2 + OPS_TEX_ALBEDO
 # K7 in mesh_walk, per triangle test: the three dots of denom, t and the
 # two barycentrics' four (20 mul, 14 add), the sub, select and division of
 # t, two subs, two muls and two adds of alpha and beta, and six compares
@@ -400,42 +427,42 @@ KERNEL_RE = (r"wave_kernel(?:_grouped|_b8)?ILb([01])ELb([01])ELi([0-9])ELi([0-9]
 # per SM of every variant as the parent commit built them (phase 2 of its
 # chip_smoke.py on the H100, H100 80GB HBM3 at 700 W), printed beside this
 # build's; no feature variant may run fewer blocks
-PARENT_PTXAS = {"brute_pinhole": (64, 0, 8), "brute_lens": (72, 0, 7),
-    "clustered_pinhole": (56, 72, 9), "clustered_lens": (64, 16, 8),
-    "textured_pinhole": (64, 68, 8), "textured_lens": (72, 0, 7),
-    "textured_pinhole_regen": (87, 0, 5), "mesh_pinhole": (64, 56, 8),
-    "mesh_lens": (56, 112, 9), "mesh_pinhole_regen": (80, 0, 6),
-    "feature_pinhole": (64, 362, 8), "feature_lens": (64, 362, 8),
-    "meshplain_pinhole": (64, 20, 8), "meshplain_lens": (64, 20, 8),
-    "static_pinhole": (64, 68, 8), "static_lens": (72, 20, 7),
-    "staticplain_pinhole": (56, 140, 9), "staticplain_lens": (56, 140, 9),
-    "staticplain_pinhole_regen": (80, 4, 6),
-    "featclustered_pinhole": (64, 358, 8), "featclustered_lens": (64, 358, 8),
-    "feattextured_pinhole": (64, 156, 8), "feattextured_lens": (64, 168, 8),
-    "featmesh_pinhole": (64, 352, 8), "featmesh_lens": (64, 348, 8),
-    "featmeshplain_pinhole": (64, 358, 8), "featmeshplain_lens": (64, 342, 8),
-    "featstatic_pinhole": (64, 352, 8), "featstatic_lens": (64, 332, 8),
-    "featstaticplain_pinhole": (64, 326, 8),
-    "featstaticplain_lens": (64, 342, 8),
-    "feattextured_pinhole_regen": (64, 148, 8),
-    "featmesh_pinhole_regen": (64, 376, 8),
-    "feature_pinhole_lockstep": (64, 330, 8),
-    "clustered+textured": (64, 188, 8), "textured+meshplain": (64, 104, 8),
-    "textured+staticplain": (64, 196, 8), "clustered+mesh": (64, 352, 8),
-    "clustered+meshplain": (64, 358, 8), "clustered+static": (64, 356, 8),
-    "clustered+staticplain": (64, 362, 8),
-    "clustered+textured+meshplain": (64, 192, 8),
-    "clustered+textured+staticplain": (64, 180, 8),
-    "feature_pinhole_k4t": (64, 366, 8), "feature_lens_k4t": (64, 366, 8),
+PARENT_PTXAS = {"brute_pinhole": (63, 0, 8), "brute_lens": (63, 0, 8),
+    "clustered_pinhole": (56, 76, 9), "clustered_lens": (56, 76, 9),
+    "textured_pinhole": (64, 60, 8), "textured_lens": (72, 0, 7),
+    "textured_pinhole_regen": (72, 20, 7), "mesh_pinhole": (56, 128, 9),
+    "mesh_lens": (56, 164, 9), "mesh_pinhole_regen": (72, 4, 7),
+    "feature_pinhole": (64, 358, 8), "feature_lens": (64, 358, 8),
+    "meshplain_pinhole": (64, 28, 8), "meshplain_lens": (64, 28, 8),
+    "static_pinhole": (64, 80, 8), "static_lens": (64, 80, 8),
+    "staticplain_pinhole": (56, 148, 9), "staticplain_lens": (56, 148, 9),
+    "staticplain_pinhole_regen": (72, 0, 7),
+    "featclustered_pinhole": (64, 370, 8), "featclustered_lens": (64, 370, 8),
+    "feattextured_pinhole": (64, 220, 8), "feattextured_lens": (64, 232, 8),
+    "featmesh_pinhole": (64, 364, 8), "featmesh_lens": (64, 344, 8),
+    "featmeshplain_pinhole": (64, 358, 8), "featmeshplain_lens": (64, 338, 8),
+    "featstatic_pinhole": (64, 364, 8), "featstatic_lens": (64, 356, 8),
+    "featstaticplain_pinhole": (64, 338, 8),
+    "featstaticplain_lens": (64, 362, 8),
+    "feattextured_pinhole_regen": (64, 252, 8),
+    "featmesh_pinhole_regen": (64, 372, 8),
+    "feature_pinhole_lockstep": (64, 326, 8),
+    "clustered+textured": (64, 204, 8), "textured+meshplain": (64, 104, 8),
+    "textured+staticplain": (64, 208, 8), "clustered+mesh": (64, 350, 8),
+    "clustered+meshplain": (64, 338, 8), "clustered+static": (64, 350, 8),
+    "clustered+staticplain": (64, 342, 8),
+    "clustered+textured+meshplain": (64, 200, 8),
+    "clustered+textured+staticplain": (64, 200, 8),
+    "feature_pinhole_k4t": (64, 370, 8), "feature_lens_k4t": (64, 370, 8),
     "featclustered_pinhole_k4t": (64, 386, 8),
-    "featclustered_lens_k4t": (64, 370, 8),
-    "feattextured_pinhole_k4t": (64, 188, 8),
-    "feattextured_lens_k4t": (64, 196, 8),
-    "feattextured_pinhole_regen_k4t": (64, 156, 8),
+    "featclustered_lens_k4t": (64, 366, 8),
+    "feattextured_pinhole_k4t": (64, 262, 8),
+    "feattextured_lens_k4t": (64, 274, 8),
+    "feattextured_pinhole_regen_k4t": (64, 200, 8),
     "feature_pinhole_lockstep_k4t": (64, 362, 8),
-    "clustered+textured_k4t": (64, 188, 8)}
+    "clustered+textured_k4t": (64, 208, 8)}
 # the stack frame bytes ptxas gave the brute variants in the parent's build
-PARENT_STACK = {"brute_pinhole": 32, "brute_lens": 0}
+PARENT_STACK = {"brute_pinhole": 0, "brute_lens": 0}
 PARENT_LENS_PTXAS = {v: r for v, r in PARENT_PTXAS.items()
                      if "_lens" in v and not v.startswith("feat")}
 PARENT_FEATURE_PTXAS = {v: r[:2] for v, r in PARENT_PTXAS.items()
@@ -443,29 +470,31 @@ PARENT_FEATURE_PTXAS = {v: r[:2] for v, r in PARENT_PTXAS.items()
 PARENT_FEATURE_BLOCKS = {v: PARENT_PTXAS[v][2] for v in PARENT_FEATURE_PTXAS}
 # the registers and spill bytes this build gives the variants without the
 # feature bounce and without a lens ray, which must keep them (a later
-# change that moves them says so); and the feature variants' (kFeat set:
-# the "feat*" and "feature_*" ones and the mixed bases) under the parent's
-# -DWAVE_NO_REGROUP yardstick, which those whose code this build left as
-# it was (not code_changed) must keep
+# change that moves them says so: PR 18 moved the textured ones, whose K9
+# fetch it split and whose lockstep pinhole it put on 8x4 tiles); and the
+# feature variants' (kFeat set: the "feat*" and "feature_*" ones and the
+# mixed bases) under the parent's -DWAVE_NO_REGROUP yardstick, which those
+# whose yardstick code this build left as it was (not yardstick_changed)
+# must keep
 KEPT_PTXAS = {"brute_pinhole": (63, 0), "clustered_pinhole": (56, 76),
-    "textured_pinhole": (64, 60), "textured_pinhole_regen": (72, 20),
+    "textured_pinhole": (64, 48), "textured_pinhole_regen": (64, 96),
     "mesh_pinhole": (56, 128), "mesh_pinhole_regen": (72, 4),
     "meshplain_pinhole": (64, 28), "static_pinhole": (64, 80),
     "staticplain_pinhole": (56, 148), "staticplain_pinhole_regen": (72, 0)}
-FEATURE_EARLIER_PTXAS = {"feature_pinhole": (92, 0), "feature_lens": (92, 0),
-    "featclustered_pinhole": (80, 40), "featclustered_lens": (93, 0),
-    "feattextured_pinhole": (72, 44), "feattextured_lens": (72, 44),
-    "featmesh_pinhole": (80, 76), "featmesh_lens": (80, 76),
-    "featmeshplain_pinhole": (72, 108), "featmeshplain_lens": (72, 108),
-    "featstatic_pinhole": (80, 68), "featstatic_lens": (80, 60),
-    "featstaticplain_pinhole": (80, 60), "featstaticplain_lens": (72, 108),
-    "feattextured_pinhole_regen": (91, 0), "featmesh_pinhole_regen": (96, 0),
-    "feature_pinhole_lockstep": (80, 60), "clustered+textured": (72, 80),
-    "textured+meshplain": (64, 104), "textured+staticplain": (64, 104),
-    "clustered+mesh": (72, 124), "clustered+meshplain": (72, 116),
-    "clustered+static": (72, 148), "clustered+staticplain": (72, 116),
-    "clustered+textured+meshplain": (72, 36),
-    "clustered+textured+staticplain": (64, 116)}
+FEATURE_EARLIER_PTXAS = {"feature_pinhole": (91, 0), "feature_lens": (91, 0),
+    "featclustered_pinhole": (93, 0), "featclustered_lens": (93, 0),
+    "feattextured_pinhole": (72, 60), "feattextured_lens": (72, 60),
+    "featmesh_pinhole": (80, 100), "featmesh_lens": (80, 100),
+    "featmeshplain_pinhole": (72, 124), "featmeshplain_lens": (72, 124),
+    "featstatic_pinhole": (72, 132), "featstatic_lens": (72, 132),
+    "featstaticplain_pinhole": (80, 68), "featstaticplain_lens": (72, 124),
+    "feattextured_pinhole_regen": (78, 0), "featmesh_pinhole_regen": (80, 92),
+    "feature_pinhole_lockstep": (93, 0), "clustered+textured": (72, 56),
+    "textured+meshplain": (64, 104), "textured+staticplain": (64, 120),
+    "clustered+mesh": (72, 156), "clustered+meshplain": (72, 124),
+    "clustered+static": (72, 148), "clustered+staticplain": (72, 132),
+    "clustered+textured+meshplain": (64, 96),
+    "clustered+textured+staticplain": (64, 120)}
 
 
 # the feature variants without a mesh tier: each has a form with K4t's walk
@@ -477,10 +506,11 @@ K4T_BASES = ("feature_pinhole", "feature_lens", "feature_pinhole_lockstep",
 
 
 def code_changed(var: str) -> bool:
-    """Whether a variant's code changed against the parent's: every one
-    (the quads' records and the shade's trig, formed once above its
-    branches, are in all; K7's and the static tier's walks changed too)."""
-    return True
+    """Whether a variant's code changed against the parent's, in this build
+    and in the -DWAVE_NO_REGROUP yardstick: the textured ones (K9's fetch
+    split where the shade reads it; the lockstep pair on 8x4 tiles, the
+    lens and the regen pinhole at 8 blocks)."""
+    return "textured" in var
 
 
 def lens_variant(var: str) -> bool:
@@ -500,10 +530,19 @@ SCANLINE_BVH = ("featclustered_lens", "featstaticplain_pinhole",
                 "featstatic_lens")
 
 
+# world 1's textured lockstep variants, on 8x4 tiles (warp_tiles); under
+# -DWAVE_BLOCK_LOCKSTEP through the block-lockstep loop
+TEXTURED_LOCKSTEP = ("textured_pinhole", "textured_lens")
+# the yardstick build of phases 2, 3 and 5: every feature variant shading
+# each path in its own thread, the textured lockstep pair through the
+# block-lockstep loop
+YARDSTICK_DEFINES = ("WAVE_NO_REGROUP", "WAVE_BLOCK_LOCKSTEP")
+
+
 def warp_tiles(var: str) -> bool:
     """Whether a variant maps each warp to an 8x4 pixel tile (the kernel's
     warp_tiles), else to 32 pixels of a scanline."""
-    return walks_bvh(var) and var not in SCANLINE_BVH
+    return (walks_bvh(var) and var not in SCANLINE_BVH) or var in TEXTURED_LOCKSTEP
 
 
 # PERF.md's rows of the BVH walks, K7's (the streamed mesh walk), K5's (the
@@ -949,21 +988,24 @@ def walk_tests(scene, cam, cfg, n_samples, dev):
 
 
 def tex_fetches(scene, cam, cfg, n_samples, dev):
-    """(rays, fetches) of a textured render of samples 0 .. n_samples-1:
-    the plain lockstep version renders it (phase 3 holds the kernel to it),
-    and each bounce's shaded lanes on a textured material whose path
-    continues are counted. Lanes whose path ended re-shade their last hit
-    without continuing, so they are not counted: a lower count."""
+    """(rays, fetches, albedo blends) of a textured render of samples 0 ..
+    n_samples-1: the plain lockstep version renders it (phase 3 holds the
+    kernel to it), and each bounce's shaded lanes on a textured material
+    whose path continues are counted, and those of them whose coin picks
+    the diffuse lobe (u[0] <= 0.5: the albedo's blends). Lanes whose path
+    ended re-shade their last hit without continuing, so they are not
+    counted: a lower count."""
     from pathtracer_tpu_torch.render import cuda_backend as cb, lockstep
     from pathtracer_tpu_torch.render.renderer import init_accum
 
-    tally = {"fetches": 0}
+    tally = {"fetches": 0, "albedo": 0}
     shade = lockstep.shade_bounce
 
     def shade_caught(sc, o, d, hit, u, **kw):
         out = shade(sc, o, d, hit, u, **kw)
-        tex = sc.mat_albedo_idx[hit.mat.long()] != 0
-        tally["fetches"] += int((tex & out.cont).sum())
+        fetch = (sc.mat_albedo_idx[hit.mat.long()] != 0) & out.cont
+        tally["fetches"] += int(fetch.sum())
+        tally["albedo"] += int((fetch & (u[0] <= 0.5)).sum())
         return out
 
     lockstep.shade_bounce = shade_caught
@@ -973,7 +1015,7 @@ def tex_fetches(scene, cam, cfg, n_samples, dev):
             n_samples, init_accum(cfg.width * cfg.height, dev))
     finally:
         lockstep.shade_bounce = shade
-    return int(st.rays_cast), tally["fetches"]
+    return int(st.rays_cast), tally["fetches"], tally["albedo"]
 
 
 def mesh_tally(sc, o, d, m, tally):
@@ -1199,6 +1241,30 @@ MIXED_MESHES = {**MESH_CASES, "uv1472": (None, (32, 24)),
                 "uv1472s": (None, SLIVER_CASES["uv1472s"])}
 # the CLI's --fog 0.0012 --fog-albedo 0.9,0.9,0.95 --fog-g 0.5
 FOG = {"fog_sigma_t": 0.0012, "fog_albedo": (0.9, 0.9, 0.95), "fog_g": 0.5}
+# the CLI's -nmr
+NMR = dict(use_normal_maps=False, use_metalness_maps=False,
+           use_roughness_maps=False)
+# world 1's combined set cut to a size that is no power of two (w, h): no
+# pyramid (--mips renders level 0), K9's wraps by the sizes' reciprocals
+COMBINED_CUT = (48, 40)
+
+
+def mip_scale(cam, h):
+    """The CLI's --mips constant."""
+    return 2.0 * cam.half_film_height / (h * cam.focal_length)
+
+
+def world1_form(b, tag):
+    """World 1's builder ``b`` made into a case's form: "... cut" its four
+    maps cut to COMBINED_CUT, "... glass" its combined-set material as
+    dispersive glass (K9's albedo in the dielectric lobe)."""
+    if "cut" in tag:
+        b.textures = [t[:COMBINED_CUT[1], :COMBINED_CUT[0]].copy()
+                      for t in b.textures]
+    if "glass" in tag:
+        for m in b.materials:
+            if m.albedo_idx:
+                m.transmission, m.ior, m.dispersion = 1.0, 1.5, 0.05
 # world 1's three planar maps cut to a size that is no power of two (w, h)
 PLANAR_CUT = {"w1 planar500": (500, 300)}
 MIXED_CASES = {
@@ -1486,7 +1552,7 @@ def tie_builder(tree=None):
 
 FEATURE_KEYS = ("rays", "opaque", "refract", "scatter", "planar",
                 "planar_addr", "planar_rgb", "planar_x", "bump", "uv_fetch",
-                "tex_fetch")
+                "tex_fetch", "tex_albedo", "tex_glass")
 
 
 def feature_tally(sc, hit, u, uv, out, act, bounce, tally):
@@ -1543,8 +1609,18 @@ def feature_tally(sc, hit, u, uv, out, act, bounce, tally):
     if sc.any_bump and sc.n_textures:
         tally["bump"] += int((opaque & (sc.mat_bump_idx[m] != 0)).sum())
     if sc.tex_combined and sc.n_textures:
-        # K9: each opaque shade and dielectric of a combined-set material
-        tally["tex_fetch"] += int(((opaque | refract) & alb).sum())
+        # K9 on a combined-set material: each opaque shade's address, words
+        # and maps, its albedo where its coin picks the diffuse lobe, and
+        # each dielectric's albedo alone
+        tally["tex_fetch"] += int((opaque & alb).sum())
+        tally["tex_albedo"] += int((opaque & alb & (u[0] <= 0.5)).sum())
+        tally["tex_glass"] += int((refract & alb).sum())
+
+
+def tex_ops(fc) -> int:
+    """K9's FP32 operations of a feature row's counts (the split fetch)."""
+    return (fc["tex_fetch"] * OPS_TEX_TOP + fc["tex_albedo"] * OPS_TEX_ALBEDO
+            + fc["tex_glass"] * OPS_TEX_GLASS)
 
 
 def planar_ops(fc) -> int:
@@ -1568,8 +1644,8 @@ def issue_tally(sc, hit, u, act, bounce, lanes, n_threads, tally):
     """Adds the replay of one bounce's warp-branch issue to ``tally``
     (regroup.warp_branch_issue): each lane's event and its shading
     operations (a scatter OPS_FOG_SCATTER, an opaque shade OPS_SHADE, a
-    dielectric OPS_REFRACT, each with OPS_TEX for a combined-set
-    material's K9 fetch), the warps' issue in place and regrouped, the
+    dielectric OPS_REFRACT, each with its K9 fetch on a combined-set
+    material: tex_ops), the warps' issue in place and regrouped, the
     blocks with a lane to shade and those that regroup."""
     import torch
     from pathtracer_tpu_torch.render import regroup
@@ -1577,9 +1653,11 @@ def issue_tally(sc, hit, u, act, bounce, lanes, n_threads, tally):
     ops = torch.tensor((OPS_FOG_SCATTER, OPS_SHADE, OPS_REFRACT, 0),
                        device=ev.device)[ev]
     if sc.tex_combined and sc.n_textures:
-        k9 = (((ev == regroup.EV_OPAQUE) | (ev == regroup.EV_GLASS))
-              & (sc.mat_albedo_idx[hit.mat.long()] != 0))
-        ops = ops + torch.where(k9, OPS_TEX, 0)
+        alb = sc.mat_albedo_idx[hit.mat.long()] != 0
+        opaque = (ev == regroup.EV_OPAQUE) & alb
+        ops = (ops + torch.where(opaque, OPS_TEX_TOP, 0)
+               + torch.where(opaque & (u[0] <= 0.5), OPS_TEX_ALBEDO, 0)
+               + torch.where((ev == regroup.EV_GLASS) & alb, OPS_TEX_GLASS, 0))
     r = regroup.warp_branch_issue(ev, ops, lanes, n_threads)
     for k_, key in zip(("before", "after", "blocks", "regrouped"), REPLAY_KEYS):
         tally[key] += r[k_]
@@ -1687,61 +1765,87 @@ def load_package(root: Path, name: str):
 # 1472-triangle UV sphere; "w2", "w4": the clustered spheres), "triN" or
 # "uvN" world 5's ground with MESH_CASES' or SLIVER_CASES' mesh of that
 # tag, each + " fog" in the CLI's fog, "w1 planar" world 1 with three
-# planar 512x512 maps ("w1 planar500": cut to 500x300), "w2 maps" /
-# "tri784 maps" planar albedo and bump maps on the ground beside sphere
-# clusters / the static tier, a MIXED_CASES name that mixed case, a
-# feature scene's name (FEATURE_CASES) that scene: the main path's body
-# (the quads' records, the shade's trig once, the light sphere's terms
-# once) on the rows that run it most, then K7's rows (row boxes, padded
-# leaves, a far bound, the set-apart slivers) and the static tier's (its
-# set-apart slivers)
+# planar 512x512 maps ("w1 planar500": cut to 500x300), "w1 mips" world 1
+# with the CLI's --mips, "w1 nmr" without its maps (-nmr), "w1 cut" with
+# its combined set cut to COMBINED_CUT (no power of two: no pyramid, the
+# reciprocal wraps), "w1 glass" its combined-set material as dispersive
+# glass, "w2 maps" / "tri784 maps" planar albedo and bump maps on the
+# ground beside sphere clusters / the static tier, a MIXED_CASES name that
+# mixed case, a feature scene's name (FEATURE_CASES) that scene: world 1's
+# main path (K3 with K9) through both cameras, --mips, -nmr, the cut set
+# and the other schedule, then K9 in the feature and mixed variants (fog,
+# glass, the mixed bases with the combined set), then rows whose code is
+# unchanged: the feature bounce without K9 (w6 and w7 in fog, the
+# dispersion scene), the body, K7, the static tier
 PARENT_ROWS = (
-    ("w3", False, None), ("w3", True, None), ("w6", False, None),
-    ("w2", False, None), ("w1", False, None), ("w6 fog", False, None),
-    ("w7", False, None), ("tri19600", False, None),
-    ("tri262144", False, None), ("uv99840", False, None),
-    ("uv1472s", False, None), ("uv99840s", False, None),
-    ("tri784", False, None), ("uv736", False, None))
+    ("w1", False, None), ("w1", True, None), ("w1 mips", False, None),
+    ("w1 nmr", False, None), ("w1 cut", False, None), ("w1", False, "regen"),
+    ("w1 fog", False, None), ("w1 fog", True, None), ("w1 glass", False, None),
+    ("clustered+textured", False, None), ("textured+staticplain", False, None),
+    ("w6 fog", False, None), ("w7 fog", False, None), ("dispersion", False, None),
+    ("w3", False, None), ("w2", False, None), ("w7", False, None),
+    ("tri784", False, None))
 
 # --parent's variants of this tree's kernel source, each timed in turns
 # against this one on its rows: (the replacements that make it from the
-# source, its rows). "quad_soa": each quad read as 12 scalar loads from the
-# q_* tables with d, cross(u, v) and its division formed per test (the
-# parent's ray_quad); "trig_in_branches": the shade's sine and cosine formed
-# in each estimator branch by sinf and cosf apart (the parent's); "sincosf":
-# sincos_2pi as CUDA's sincosf, its slow path for |phi| >= 105615 kept. A replacement is (old,
-# new) in the kernel source, or (the file under the package, old, new).
-BODY_ROWS = (("w3", False, None), ("w3", True, None), ("w6", False, None))
+# source, its rows). World 1's combined-set albedo in the opaque shade:
+# "k9_top", blended above the estimator's branches in every lane, as the
+# parent's fetch_combined blended all eight channels; "k9_hold", the four
+# A words and the fractions held across the branches and the albedo
+# blended in the diffuse lobe; "k9_again", the diffuse lobe forming the
+# address again and loading the A words again (combined_albedo).
+# "lens_b7": the textured lens and the regen pinhole built without the
+# 8-block bound (the parent's: 72 registers, 7 blocks). "scanlines": the textured lockstep
+# variants' warps on 32 pixels of a scanline (the parent's) instead of 8x4
+# pixel tiles (warp_tiles).
+# "block_lockstep": -DWAVE_BLOCK_LOCKSTEP, the textured lockstep variants
+# through the block-lockstep loop (trace_textured_grouped) instead of the
+# per-warp one. A replacement is (old, new) in the kernel source, or (the
+# file under the package, old, new).
+W1_ROWS = (("w1", False, None), ("w1", True, None), ("w1 mips", False, None),
+           ("w1 nmr", False, None))
+_TOP_ALBEDO = ("      if (!(u[0] > 0.5f)) {\n"
+               "        tex_albedo = v3(combined_ch(tex_w, tex_at, false, 0), "
+               "combined_ch(tex_w, tex_at, false, 8),\n"
+               "                        combined_ch(tex_w, tex_at, false, 16));\n"
+               "      }\n")
+_HELD_ALBEDO = ("v3(combined_ch(tex_w, tex_at, false, 0), "
+                "combined_ch(tex_w, tex_at, false, 8), "
+                "combined_ch(tex_w, tex_at, false, 16))")
 SOURCE_VARIANTS = {
-    "quad_soa": (
-        (("  const float4* f = p.q_rec + 4 * i;\n"
-          "  const float4 f0 = __ldg(f), f1 = __ldg(f + 1), f2 = __ldg(f + 2), "
-          "f3 = __ldg(f + 3);\n"
-          "  return {v3(f0.x, f0.y, f0.z), f0.w, v3(f1.x, f1.y, f1.z), "
-          "v3(f2.x, f2.y, f2.z),\n"
-          "          v3(f2.w, f3.x, f3.y), v3(f3.z, f3.w, f1.w)};\n",
-          "  const V3 A = ld3(p.q_px, p.q_py, p.q_pz, i), u = ld3(p.q_ux, "
-          "p.q_uy, p.q_uz, i);\n"
-          "  const V3 v = ld3(p.q_vx, p.q_vy, p.q_vz, i), n_unit = ld3(p.q_nx, "
-          "p.q_ny, p.q_nz, i);\n"
-          "  const V3 n = cross(u, v);\n"
-          "  return {n_unit, dot(A, n_unit), mul(n, 1.0f / dot(n, n)), A, u, v};\n"),),
-        BODY_ROWS),
-    "trig_in_branches": (
-        (("__device__ __forceinline__ V3 cosine_hemisphere(SinCos sc, float u2) {\n",
-          "__device__ __forceinline__ SinCos sincos_sep(float u1) {\n"
-          "  const float phi = F(2.0 * PI_D) * u1;\n"
-          "  return {sinf(phi), cosf(phi)};\n}\n\n"
-          "__device__ __forceinline__ V3 cosine_hemisphere(SinCos sc, float u2) {\n"),
-         ("  const SinCos sc = sincos_2pi(u[2]);\n", "#define sc sincos_sep(u[2])\n"),
-         ("  return in_hemisphere && hv_ok && est_valid;\n}\n",
-          "  return in_hemisphere && hv_ok && est_valid;\n}\n#undef sc\n")),
-        BODY_ROWS + (("w1", False, None),)),
-    "sincosf": (
-        (("  const int q = __float2int_rn(__fmul_rn(phi, __int_as_float(0x3F22F983)));\n",
-          "  SinCos out;\n  sincosf(phi, &out.s, &out.c);\n  return out;\n"
-          "  const int q = __float2int_rn(__fmul_rn(phi, __int_as_float(0x3F22F983)));\n"),),
-        BODY_ROWS),
+    "k9_top": (
+        ((_TOP_ALBEDO, _TOP_ALBEDO.replace("if (!(u[0] > 0.5f)) ", "")),),
+        W1_ROWS + (("w1", False, "regen"), ("w1 fog", False, None),
+                   ("clustered+textured", False, None))),
+    "k9_hold": (
+        ((_TOP_ALBEDO, ""),
+         ("      const CombinedAt tex_at = combined_at(", "      tex_at = combined_at("),
+         ("      const CombinedWords tex_w = combined_words(",
+          "      tex_w = combined_words("),
+         ("  V3 tex_albedo;\n", "  V3 tex_albedo;\n  CombinedAt tex_at;\n"
+                            "  CombinedWords tex_w;\n"),
+         ("has_tex ? tex_albedo", "has_tex ? " + _HELD_ALBEDO)),
+        W1_ROWS + (("w1 fog", False, None),)),
+    "k9_again": (
+        ((_TOP_ALBEDO, ""),
+         ("has_tex ? tex_albedo", "has_tex ? combined_albedo(p, combined_at("
+          "p, hitpoint.x, hitpoint.y, hit.t, cti))")),
+        W1_ROWS + (("w1 fog", False, None),)),
+    "lens_b7": (
+        (("  return (kTex == kTexLockstep && (kMesh != kTexNone || kFeat == 0))\n"
+          "         || (kTex == kTexRegen && kFeat == 0)",
+          "  return (kTex == kTexLockstep && (kMesh != kTexNone || (!kThinLens "
+          "&& kFeat == 0)))"),),
+        (("w1", True, None), ("w1 nmr", True, None), ("w1", False, "regen"))),
+    "scanlines": (
+        (("         || (kMesh != kTexNone && !static_scanlines) || textured_lockstep;",
+          "         || (kMesh != kTexNone && !static_scanlines);"),),
+        (("w1", False, None), ("w1", True, None), ("w1 cut", False, None))),
+    "block_lockstep": (
+        (("#define WAVE_HAS(part) (WAVE_PART == (part))\n",
+          "#define WAVE_HAS(part) (WAVE_PART == (part))\n"
+          "#define WAVE_BLOCK_LOCKSTEP\n"),),
+        W1_ROWS + (("w1 cut", False, None),)),
 }
 # the source variants timed against the parent (the others against this
 # tree)
@@ -1769,17 +1873,50 @@ def source_variant(name: str):
     return load_package(root, f"variant_{name}")
 
 
+def kernel_launch(tree, scene, cam, cfg, n):
+    """A function that launches ``tree``'s kernel on samples 0 .. n-1 of
+    ``cfg`` into accumulators of its own, and nothing else (the parameters
+    formed once, as render_chunk_cuda forms them, so that CUDA events
+    around it time the kernel alone; render_chunk_cuda's host work, its
+    allocations and reductions, is left out)."""
+    import ctypes
+    import torch
+    rd, cb = tree("render.renderer"), tree("render.cuda_backend")
+    dev = scene.sph_radius.device
+    n_pix = cfg.width * cfg.height
+    state = rd.init_accum(n_pix, dev)
+    nan_px = torch.zeros(n_pix, dtype=torch.int32, device=dev)
+    rays_px = torch.zeros(n_pix, dtype=torch.int32, device=dev)
+    params = cb._params(scene, cam, cfg, 0, 0, n, state, nan_px, rays_px)
+    code = cb._SCHED_CODE.get(cb._schedule(scene, cfg.schedule), 0)
+    meshed = cb.meshed(scene)
+    args = (int(bool(scene.sph_clusters)), int(not cam.use_pinhole),
+            code if cb.textured(scene) else 0, code if meshed else 0,
+            code if scene.featured or cb.mixed(scene) else 0,
+            cb.MESH_KINDS[cb.mesh_kind(scene)] if meshed
+            else cb.K4T_TRI if scene.tri_brute else 0)
+    lib = cb.build()
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+    def launch():
+        err = lib.wave_render(ctypes.byref(params), *args, stream)
+        check(err == 0, "kernel_launch: " + lib.wave_error_string(err).decode())
+    return launch
+
+
 def parent_turns(parent: Path, smi: str):
     """``--parent DIR``: the kernel of another checkout of this repository
     at DIR (the parent commit, unpacked with git archive) against this
     one's, in one process: both built at once with SOURCE_VARIANTS' builds
-    of this one, with ptxas's registers and spills of each variant under
-    each build and their resident blocks per SM; the kernel ms of each
-    PARENT_ROWS row at 1280x720, 4 spp, after a warm launch each, in turns
-    (parent, this, this, parent, this, parent, parent, this: each first in
-    one half); the parent's against itself on three rows (the turns'
-    noise); and each source variant against this one (or the parent's,
-    AGAINST_PARENT) on its rows, in turns."""
+    of this one (and the parent's -DWAVE_NO_REGROUP yardstick), with
+    ptxas's registers and spills of each variant under each build and
+    their resident blocks per SM; the ms of each
+    PARENT_ROWS row's kernel launch alone (kernel_launch) at 1280x720, 4
+    spp, after a warm launch each, in turns (parent, this, this, parent,
+    this, parent, parent, this, twice: each first in one half); the
+    parent's against itself on three rows (the turns' noise); and each
+    source variant against this one (or the parent's, AGAINST_PARENT) on
+    its rows, in turns."""
     import importlib
     import torch
     dev = torch.device("cuda:0")
@@ -1793,9 +1930,16 @@ def parent_turns(parent: Path, smi: str):
         tree("render.cuda_backend").build()
         return time.perf_counter() - t
 
-    with concurrent.futures.ThreadPoolExecutor(len(trees)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(trees) + 1) as pool:
+        # the parent's -DWAVE_NO_REGROUP yardstick too, for its registers
+        flat = pool.submit(trees["parent"]("render.cuda_backend").compile_library,
+                           ("WAVE_NO_REGROUP",))
         secs = dict(zip(trees, pool.map(build, trees.values())))
+        flat_log = flat.result()[2]
     print(f"parent build_s={json.dumps(secs)}")
+    print("parent ptxas [registers, spill stores] tree=parent_no_regroup "
+          + json.dumps({v: [r["registers"], r["spill_stores"]]
+                        for v, r in ptxas_report(flat_log).items()}))
     for k, tree in trees.items():
         cbk = tree("render.cuda_backend")
         rep = ptxas_report(cbk.BUILD_LOG)
@@ -1840,6 +1984,18 @@ def parent_turns(parent: Path, smi: str):
             scene, (pos, target, fov), kw = features[tag]()
             return scene.to(dev), camera.define_camera(
                 pos, target, fov, w, h, use_pinhole=not lens), kw
+        if tag in ("w1 cut", "w1 glass"):
+            b, cp = worlds.build_world(schema.WORLD_DEFAULT)
+            world1_form(b, tag)
+            _, cam = worlds.finalize_world(schema.WORLD_DEFAULT, w, h,
+                                           use_pinhole=not lens)
+            return b.finalize(view_origin=cp.pos).to(dev), cam, {}
+        if tag in ("w1 mips", "w1 nmr"):
+            scene, cam = worlds.finalize_world(schema.WORLD_DEFAULT, w, h,
+                                               use_pinhole=not lens)
+            if tag == "w1 mips":
+                return scene.to(dev), cam, {"mip_scale": mip_scale(cam, h)}
+            return dataclasses.replace(scene, **NMR).to(dev), cam, {}
         if tag.startswith("w1 planar"):
             b, cp = worlds.build_world(schema.WORLD_DEFAULT)
             cut = PLANAR_CUT.get(tag)
@@ -1883,34 +2039,36 @@ def parent_turns(parent: Path, smi: str):
     w, h = 1280, 720
 
     def launcher(tree, tag, lens, sched):
-        """(a warmed 720p 4-spp launch of ``tree``'s kernel on a case, its
-        variant)."""
+        """(a warmed 720p 4-spp launch of ``tree``'s kernel alone on a case
+        (kernel_launch), its variant, its rays)."""
         scene, cam, kw = case(tree, tag, lens, w, h)
         rd, cb = tree("render.renderer"), tree("render.cuda_backend")
         cfg = rd.RenderConfig(w, h, pp=2, seed=0, schedule=sched, **kw)
-        launch = (lambda: cb.render_chunk_cuda(scene, cam, cfg, 0, 0, 4,
-                                               rd.init_accum(w * h, dev)))
+        st = cb.render_chunk_cuda(scene, cam, cfg, 0, 0, 4,
+                                  rd.init_accum(w * h, dev))
+        launch = kernel_launch(tree, scene, cam, cfg, 4)
         launch()
-        return launch, cb.variant(scene, cam, sched)
+        return launch, cb.variant(scene, cam, sched), int(st.rays_cast)
 
     def in_turns(runs):
-        """The ms and rays of two launchers' launches in turns (first,
-        second, second, first, second, first, first, second), with their
-        medians; one launch of the first before them is timed and dropped
-        (the first timed launch after the scenes' set-up runs faster than
-        the rest on the H100, whichever build it is)."""
+        """The ms of two launchers' kernel launches in turns (first,
+        second, second, first, second, first, first, second, then the same
+        again), with their medians; one launch of the first before them is
+        timed and dropped (the first timed launch after the scenes' set-up
+        runs faster than the rest on the H100, whichever build it is)."""
         one, two = runs
-        res, rays = {k: [] for k in runs}, {}
-        for j, k in enumerate((one, one, two, two, one, two, one, one, two)):
+        res = {k: [] for k in runs}
+        order = (one, two, two, one, two, one, one, two)
+        for j, k in enumerate((one,) + order + order):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            st = runs[k][0]()
+            runs[k][0]()
             b.record()
             torch.cuda.synchronize()
             if j:
                 res[k].append(a.elapsed_time(b))
-            rays[k] = int(st.rays_cast)
+        rays = {k: runs[k][2] for k in runs}
         return res, rays, {k: float(np.median(v)) for k, v in res.items()}
 
     def turns(label, one, two, rows):
@@ -1932,8 +2090,7 @@ def parent_turns(parent: Path, smi: str):
     # the noise of the turns: the parent's kernel against itself
     trees["parent_again"] = trees["parent"]
     turns("parent control", "parent", "parent_again",
-          (("w6 fog", False, None), ("w1 planar", False, None),
-           ("w3", True, None)))
+          (("w1", False, None), ("w1 fog", False, None), ("w3", True, None)))
     for name, (_, rows) in SOURCE_VARIANTS.items():
         turns(f"parent source_variant={name}",
               "parent" if name in AGAINST_PARENT else "this", name, rows)
@@ -1977,8 +2134,6 @@ def main() -> int:
     OTHER = cb.OTHER_SCHEDULE
     MOTHER = cb.MESH_OTHER_SCHEDULE
     FOTHER = cb.FEATURE_OTHER_SCHEDULE
-    NMR = dict(use_normal_maps=False, use_metalness_maps=False,
-               use_roughness_maps=False)
     dev = torch.device("cuda:0")
     sync = torch.cuda.synchronize
 
@@ -1986,10 +2141,6 @@ def main() -> int:
         scene, cam = finalize_world(kind, w, h, use_pinhole=not lens)
         scene = dataclasses.replace(scene, **(statics or {}))
         return (scene.without_clusters() if brute else scene).to(dev), cam
-
-    def mip_scale(cam, h):
-        """The CLI's --mips constant."""
-        return 2.0 * cam.half_film_height / (h * cam.focal_length)
 
     def feature(name, w, h, lens=False):
         """A feature scene (scene/feature_scenes.py) on the card, its camera
@@ -2161,12 +2312,13 @@ def main() -> int:
     # --- 2. build ----------------------------------------------------------
     # this build and the regroup's yardstick (-DWAVE_NO_REGROUP: every
     # feature variant shades each path in its own thread, the parent's
-    # code) together; then, in the background, the warp tiles' yardstick
-    # (-DWAVE_SCANLINE_WARPS: each warp of the BVH walks' variants on 32
-    # pixels of a scanline)
+    # code; with -DWAVE_BLOCK_LOCKSTEP: world 1's textured lockstep pair
+    # through the block-lockstep loop, laid out by lobe) together; then, in
+    # the background, the warp tiles' yardstick (-DWAVE_SCANLINE_WARPS: each
+    # warp of the BVH walks' variants on 32 pixels of a scanline)
     t0 = time.perf_counter()
     pool = concurrent.futures.ThreadPoolExecutor(2)
-    no_regroup = pool.submit(cb.compile_library, ("WAVE_NO_REGROUP",))
+    no_regroup = pool.submit(cb.compile_library, YARDSTICK_DEFINES)
     tile_lib = cb.build()
     build_s = time.perf_counter() - t0
     flat_lib, _, flat_log, flat_s = no_regroup.result()
@@ -2211,11 +2363,21 @@ def main() -> int:
                for v in cb.VARIANTS if code_changed(v)}))
     check(all(kept.values()), "the variants without the feature bounce "
           "and the lens kept their registers and spills")
-    check(not any(r["regrouped"] for r in flat_ptxas.values())
-          and all(feature_bounce(v) for v in regrouped),
-          "only feature variants regroup, and none in the yardstick")
-    # resident blocks of 128 threads per SM, static shared bytes, registers
     flat_occ = occupancy_report(flat_lib)
+    check(sorted(v for v, r in flat_ptxas.items() if r["regrouped"])
+          == sorted(TEXTURED_LOCKSTEP)
+          and all(feature_bounce(v) for v in regrouped),
+          "only feature variants regroup, and in the yardstick only the "
+          "textured lockstep pair (the block-lockstep loop)")
+    print("phase2 textured variants (K3, K9): [registers, spill stores, "
+          "blocks per SM] of this build, of the parent's (PARENT_PTXAS) and, "
+          "for the lockstep pair, of the block-lockstep loop (-DWAVE_BLOCK_"
+          "LOCKSTEP) " + json.dumps(
+              {v: {"now": [*now[v], occ[v][0]], "parent": PARENT_PTXAS[v],
+                   **({"block_lockstep": [*flat[v], flat_occ[v][0]]}
+                      if v in TEXTURED_LOCKSTEP else {})}
+               for v in cb.VARIANTS if "textured" in v}))
+    # resident blocks of 128 threads per SM, static shared bytes, registers
     check(sorted(occ) == sorted(cb.VARIANTS) == sorted(flat_occ),
           "an occupancy for every variant")
     print(f"phase2 feature variants: (registers, spill stores) of this build "
@@ -2298,19 +2460,20 @@ def main() -> int:
     max_err = dict.fromkeys(cb.VARIANTS, 0.0)
     differing = {}  # label -> pixels where the kernel and plain differ
 
-    same_as_flat = {}  # label -> a feature variant's sums equal the yardstick's
+    same_as_flat = {}  # label -> a variant's sums equal the yardstick's
 
     def held(label, scene, cam, cfg, n, s0=0):
         """The kernel against its plain version on the same inputs under
-        the verify gates, printed on one line, and a feature variant's sums,
-        counts and rays against the -DWAVE_NO_REGROUP yardstick's, which
-        must be equal; returns the variant and the largest per-pixel
+        the verify gates, printed on one line, and a feature variant's, or
+        the textured lockstep pair's, sums, counts and rays against the
+        yardstick's (the feature bounce in place, the block-lockstep loop),
+        which must be equal; returns the variant and the largest per-pixel
         |diff|."""
         var = cb.variant(scene, cam, cfg.schedule)
         k = cb.render_chunk_cuda(scene, cam, cfg, 0, s0, n,
                                  init_accum(cfg.width * cfg.height, dev))
         flat_txt = ""
-        if feature_bounce(var):
+        if feature_bounce(var) or var in TEXTURED_LOCKSTEP:
             cb._lib = flat_lib
             try:
                 y = cb.render_chunk_cuda(scene, cam, cfg, 0, s0, n,
@@ -2323,7 +2486,7 @@ def main() -> int:
                 and int(k.rays_cast) == int(y.rays_cast)
                 and int(k.nan_count) == int(y.nan_count))
             same_as_flat[f"{label} {cfg.width}x{cfg.height} {var}"] = same
-            flat_txt = f"equal_to_no_regroup={same} "
+            flat_txt = f"equal_to_yardstick={same} "
         t = time.perf_counter()
         p = cb.render_chunk_plain(scene, cam, cfg, 0, s0, n,
                                   init_accum(cfg.width * cfg.height, dev))
@@ -2402,6 +2565,28 @@ def main() -> int:
         held(f"world={kind + 1} options={opts} disk_slots={slots}", scene,
              cam, cfg, n, s0)
     check(disk_slots == set(range(12)), f"Poisson-disk slots {disk_slots}")
+
+    # world 1 with its combined set cut to COMBINED_CUT (no power of two:
+    # K9's wraps by the sizes' reciprocals; no pyramid, so --mips renders
+    # level 0) through both cameras, with --mips and under the other
+    # schedule, and as dispersive glass in the CLI's fog (K9's albedo in
+    # the dielectric), at 256x144 with 4 spp and 1280x720 with 1
+    for w, h in ((256, 144), (1280, 720)):
+        pp, n = depth(w)
+        for lens, opt in ((False, {}), (True, {}), (False, {"mips": True}),
+                          (False, {"schedule": OTHER}), (False, {"glass": 1})):
+            b, cp = build_world(W1)
+            world1_form(b, "cut glass" if opt.get("glass") else "cut")
+            scene = b.finalize(view_origin=cp.pos)
+            if opt.get("glass"):
+                scene = dataclasses.replace(scene, **FOG)
+            _, cam = finalize_world(W1, w, h, use_pinhole=not lens)
+            cfg = RenderConfig(w, h, pp=pp, seed=0,
+                               schedule=opt.get("schedule"),
+                               mip_scale=mip_scale(cam, h) if opt.get("mips")
+                               else 0.0)
+            held(f"world=1 cut={COMBINED_CUT} lens={lens} options={opt}",
+                 scene.to(dev), cam, cfg, n)
 
     # the feature variants: each feature scene at 256x144 and 1280x720
     # (depth); the CLI's fog on world 6 and on world 3 through the thin
@@ -2677,13 +2862,14 @@ def main() -> int:
           f"not_bit_equal={json.dumps({k: v for k, v in differing.items() if v})} "
           f"all_cases={len(differing)} "
           f"all_bit_equal={sum(v == 0 for v in differing.values())}")
-    # the feature variants' cases: the regrouped kernel and the yardstick
-    print(f"phase3 feature_cases={len(same_as_flat)} "
-          f"equal_to_no_regroup={sum(same_as_flat.values())} "
+    # the feature variants' and the textured lockstep pair's cases: this
+    # kernel and the yardstick
+    print(f"phase3 yardstick_cases={len(same_as_flat)} "
+          f"equal_to_yardstick={sum(same_as_flat.values())} "
           f"regrouped_cases={sum(k.split(' ')[-1] in regrouped for k in same_as_flat)} "
           f"differing={json.dumps([k for k, v in same_as_flat.items() if not v])}")
-    check(all(same_as_flat.values()), "every feature case equal to the "
-          "-DWAVE_NO_REGROUP yardstick")
+    check(all(same_as_flat.values()), "every feature and textured lockstep "
+          "case equal to the yardstick (YARDSTICK_DEFINES)")
     check(all(v == 0 for v in differing.values()),
           "every case bit-equal to its plain version")
 
@@ -2982,6 +3168,7 @@ def main() -> int:
     print(f"phase5 scanline_yardstick_build_s={scan_build_s}")
     warps = {}  # BVH row -> (median ms with 8x4 tiles, with scanline warps)
     turns = {}  # feature row -> (median ms, with -DWAVE_NO_REGROUP)
+    blocks = {}  # textured lockstep row -> (median ms, -DWAVE_BLOCK_LOCKSTEP)
 
     def row_ms(row, scene, cam, var=None, **cfg_kw):
         """A row's kernel ms at 720p, 4 spp, and its rays: five launches
@@ -2998,6 +3185,8 @@ def main() -> int:
         var = var or row.split(" ")[0]
         if feature_bounce(var):
             other, lib = "no_regroup", flat_lib
+        elif var in TEXTURED_LOCKSTEP:
+            other, lib = "block_lockstep", flat_lib
         elif walks_bvh(var):
             other, lib = "scanline", scan_lib
         else:
@@ -3029,6 +3218,8 @@ def main() -> int:
         t_med, o_med = np.median(res["this"]), np.median(res[other])
         if other == "scanline":
             warps[row] = (t_med, o_med)
+        elif other == "block_lockstep":
+            blocks[row] = (t_med, o_med)
         else:
             turns[row] = (var, t_med, o_med)
         same = all(torch.equal(x, y) for x, y in zip(
@@ -3246,6 +3437,13 @@ def main() -> int:
           f"regrouped={json.dumps(regrouped)} "
           f"regrouped_all_faster={all(gmean[v] < 1.0 for v in regrouped)} "
           f"| card: {smi}")
+    # K3's yardstick: world 1's textured lockstep rows, this build's
+    # per-warp loop over the block-lockstep loop laid out by lobe
+    check(sorted(blocks) == sorted(TEXTURED_LOCKSTEP),
+          "the textured lockstep pair timed against the block-lockstep loop")
+    print(f"phase5 block_lockstep rows={len(blocks)} this_over_block_lockstep="
+          f"{json.dumps({r: t_ / o_ for r, (t_, o_) in blocks.items()})} "
+          f"| card: {smi}")
     for walk, of in (("k7", walks_k7), ("k5", walks_spheres),
                      ("static", walks_static)):
         ratios = {r: t / s_ for r, (t, s_) in warps.items()
@@ -3356,13 +3554,48 @@ def main() -> int:
 
     # --- 6. bounds -------------------------------------------------------------
     print(f"phase6 start_s={time.perf_counter() - t_start}")
+
+    def k3_replay(var, scene, cam):
+        """The replay of a textured lockstep row's samples 0-1 at 720p
+        (regroup.lockstep_tally), printed beside its row: over the
+        variant's warp map and, for the pinhole, over scanline warps and
+        JAX's texel sort: lane use in place, packed and laid out by coin
+        (the block-lockstep loop), the four lobes' branch runs in place and
+        laid out, the sectors of a warp's bounce-0 K9 fetch."""
+        from pathtracer_tpu_torch.render import regroup
+        cfg2 = RenderConfig(w, h, pp=2, seed=0)
+        maps = {"tiles" if warp_tiles(var) else "scanlines": {
+            "tiles": warp_tiles(var)}}
+        if var == "textured_pinhole":
+            maps["scanlines"] = {"tiles": False}
+            maps["texel_sort"] = {"lanes": regroup.texel_sort_lanes(
+                scene, cam, cfg2, dev)}
+        for name, kw in maps.items():
+            t_ = regroup.lockstep_tally(scene, cam, cfg2, 2, device=dev, **kw)
+            print(f"phase6 k3_replay variant={var} warp_map={name} 720p "
+                  f"samples=0-1 lane_use={t_['lane_use']} "
+                  f"lane_use_packed={t_['lane_use_compacted']} "
+                  f"lane_use_coin_layout={t_['lane_use_coin']} "
+                  f"runs_in_place={t_['runs_in_place']} "
+                  f"runs_two_way={t_['runs_two_way']} "
+                  f"runs_four_way={t_['runs_four_way']} "
+                  f"runs_coin_layout={t_['runs_coin']} "
+                  f"two_way_over_in_place="
+                  f"{t_['runs_two_way'] / t_['runs_in_place']} "
+                  f"four_way_over_in_place="
+                  f"{t_['runs_four_way'] / t_['runs_in_place']} "
+                  f"blocks={t_['blocks']} "
+                  f"blocks_regrouped={t_['blocks_regrouped']} "
+                  f"sectors_per_warp_fetch={t_['sectors_per_warp_fetch']} "
+                  f"rays={t_['lane_bounces']}")
+
     table = []
     mesh_tally = {}
     for var, tm in timed.items():
         t_row = time.perf_counter()
         scene, cam = tm["scene"], tm["cam"]
         cfg4 = RenderConfig(w, h, pp=2, seed=0, schedule=tm["schedule"])
-        fetches, mesh_txt, k7, sph, sph_txt = 0, "", None, None, ""
+        fetches, albedo, mesh_txt, k7, sph, sph_txt = 0, 0, "", None, None, ""
         if scene.sph_clusters:
             wrays, slabs, spheres, bvh_slabs, bvh_spheres, sph_far = \
                 walk_tests(scene, cam, cfg4, 4, dev)
@@ -3377,7 +3610,7 @@ def main() -> int:
             slabs, spheres = 0.0, float(scene.n_spheres)
             isect_ops = spheres * OPS_SPHERE
         if cb.textured(scene):
-            frays, fetches = tex_fetches(scene, cam, cfg4, 4, dev)
+            frays, fetches, albedo = tex_fetches(scene, cam, cfg4, 4, dev)
             check(abs(frays - tm["rays"]) <= 0.005 * tm["rays"],
                   f"{var}: counted {frays} rays, the kernel cast {tm['rays']}")
         if cb.meshed(scene):
@@ -3402,7 +3635,8 @@ def main() -> int:
         # every ray intersects; each path's last ray is not shaded
         ops = (samples * OPS_PRIMARY[var.split("_")[1]] + rays * isect_ops
                + (rays - samples) * OPS_SHADE
-               + fetches * (OPS_STACK if cb.meshed(scene) else OPS_TEX))
+               + (fetches * OPS_STACK if cb.meshed(scene)
+                  else fetches * OPS_TEX_TOP + albedo * OPS_TEX_ALBEDO))
         nbytes = w * h * BYTES_PER_PIXEL + (
             scene.tex_tile.numel() * 4 if cb.textured(scene) else 0)
         if cb.meshed(scene):
@@ -3412,10 +3646,12 @@ def main() -> int:
         # the bound with the per-test quads' operations (the earlier count)
         bound_quads = bound(ops + rays * scene.n_quads
                             * (OPS_QUAD_PER_TEST - OPS_QUAD), nbytes)[0]
+        if var in TEXTURED_LOCKSTEP:
+            k3_replay(var, scene, cam)
         print(f"phase6 count_s={time.perf_counter() - t_row} "
               f"variant={var} slab_tests_per_ray={slabs} "
               f"sphere_tests_per_ray={spheres} {sph_txt}{mesh_txt}"
-              f"tex_fetches={fetches} "
+              f"tex_fetches={fetches} tex_albedo_blends={albedo} "
               f"ops={ops:.6e} bytes={nbytes} bound_ms={bound_ms} "
               f"bound_share={bound_ms / tm['ms']} "
               f"bound_ms_table_order={bound_old} "
@@ -3621,7 +3857,7 @@ def main() -> int:
                + fc["scatter"] * OPS_FOG_SCATTER
                + planar_ops(fc)
                + fc["bump"] * OPS_BUMP + fc["uv_fetch"] * OPS_STACK
-               + fc["tex_fetch"] * OPS_TEX)
+               + tex_ops(fc))
         tables = ((scene.tex_tile,) if cb.textured(scene) else
                   texture_tables(scene))
         nbytes = w * h * BYTES_PER_PIXEL + 4 * sum(t.numel() for t in tables)
@@ -3688,7 +3924,7 @@ def main() -> int:
                          + OPS_EMIT)
                + fc["opaque"] * OPS_SHADE + fc["refract"] * OPS_REFRACT
                + fc["scatter"] * OPS_FOG_SCATTER + fc["uv_fetch"] * OPS_STACK
-               + fc["tex_fetch"] * OPS_TEX)
+               + tex_ops(fc))
         nbytes = w * h * BYTES_PER_PIXEL + 4 * sum(t.numel() for t in tables)
         bound_ms, bound_by, ops, nbytes, bound_old = row_bound(
             ops, nbytes, rays, k7, sph, k4t)

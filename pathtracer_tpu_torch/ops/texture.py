@@ -17,11 +17,17 @@ albedo.rgb | metalness << 24, B = normal.rgb | roughness << 24;
 ``scene/schema.py``) and blends all eight channels with SampleTexture's
 float32 expression. :func:`bespoke_sample_combined` and
 :func:`bespoke_sample_combined_mip` read the flat word arrays, as JAX's
-XLA render loops do. :func:`tile_corners` computes the addresses the CUDA
-kernel reads instead: per corner, the ``tex_tile`` row and the lane
-offset of the texel's A word (B is the next word), so one aligned 8-byte
-load fetches both. The JAX kernel's distinct-tile iteration is a TPU
+XLA render loops do. The JAX kernel's distinct-tile iteration is a TPU
 shape (no per-lane gather there) and has no counterpart here.
+
+K9 as the CUDA kernel reads it (:func:`combined_at`, :func:`combined_words`,
+:func:`combined_channel`, :func:`combined_albedo`): an address step, the
+corners' (A, B) word pairs from ``tex_tile`` (A at the even word, B next,
+so one aligned 8-byte load fetches both) and one blend per channel, so
+that the shade blends only the channels a lane reads and the dielectric
+loads only the A words; its level-0 wraps by the sizes' reciprocals (a
+mask for a power of two), no ``%``; bit-equal to
+:func:`bespoke_sample_combined` and :func:`bespoke_sample_combined_mip`.
 
 K10 and K11 as the CUDA kernel reads them (:func:`planar_at`,
 :func:`planar_sample`, :func:`planar_maps`; the texel form
@@ -42,7 +48,7 @@ from __future__ import annotations
 
 import torch
 
-from ..scene.schema import Scene
+from ..scene.schema import Scene, planar_recip
 from ..utils.vec import Vec3
 
 _INV255 = 1.0 / 255.0
@@ -145,31 +151,6 @@ def bespoke_sample_combined_mip(scene: Scene, u: torch.Tensor,
     return _blend_combined(
         _flat_corners(scene.tex_comb_a, word_off, w, x1, y1, x2, y2),
         _flat_corners(scene.tex_comb_b, word_off, w, x1, y1, x2, y2), s, t)
-
-
-def tile_corners(scene: Scene, u: torch.Tensor, v: torch.Tensor, lod=None):
-    """The kernel's addressing over ``tex_tile``: for the corners (y1, x1),
-    (y1, x2), (y2, x1), (y2, x2), the tile row ``row_off + (y >> 3) *
-    tiles_x + (x >> 3)`` and the lane offset ``((y & 7) * 8 + (x & 7)) *
-    2`` of the texel's A word; then the fractions s, t."""
-    if lod is None:
-        x1, y1, x2, y2, s, t = _combined_coords(scene, u, v)
-        row_off, tiles_x = 0, scene.tex_tiles_x
-    else:
-        x1, y1, x2, y2, s, t, row_off, tiles_x, _, _ = \
-            _combined_coords_mip(scene, u, v, lod)
-    corners = []
-    for y, x in ((y1, x1), (y1, x2), (y2, x1), (y2, x2)):
-        corners.append((row_off + (y >> 3) * tiles_x + (x >> 3),
-                        ((y & 7) * 8 + (x & 7)) * 2))
-    return corners, s, t
-
-
-def tile_words(scene: Scene, corners):
-    """The (A words, B words) of each corner from ``tex_tile``."""
-    flat = scene.tex_tile.reshape(-1)
-    idx = [(row * 128 + off).long() for row, off in corners]
-    return tuple(flat[i] for i in idx), tuple(flat[i + 1] for i in idx)
 
 
 # --- K10's texel form: the flat per-layer stack ----------------------------
@@ -400,3 +381,77 @@ def planar_maps(scene: Scene, layers, x: torch.Tensor, y: torch.Tensor):
         tex = planar_texel(scene, lay, at)
         out.append(Vec3(*(torch.where(has, c, 0.0) for c in tex)))
     return out, computed
+
+
+# --- K9 as the CUDA kernel reads it: the address step and the blends -------
+
+def combined_at(scene: Scene, u: torch.Tensor, v: torch.Tensor, lod=None):
+    """The kernel's ``combined_at``: the address at world (u, v) at level 0,
+    or at each lane's pyramid level ``lod``. Returns, for the corners (y1,
+    x1), (y1, x2), (y2, x1), (y2, x2), the index of each texel's (A, B)
+    word pair in ``tex_tile`` (``(row_off + (y >> 3) * tiles_x) * 64 + (y &
+    7) * 8 + (x >> 3) * 64 + (x & 7)``), then s, t. Level 0 wraps by the
+    sizes' ``planar_recip`` (:func:`wrap_recip`: a mask for a power of two,
+    else the reciprocal, no division), a mip level by its mask; x2 = x1 + 1
+    or 0 at w."""
+    shape = u.shape
+    if lod is None:
+        w, h = scene.tex_comb_w, scene.tex_comb_h
+        uu, vv = torch.abs(u * (w * 0.5)), torch.abs(v * (h * 0.5))
+        row_off, tiles_x = 0, scene.tex_tiles_x
+        full = lambda x: torch.full(shape, x, dtype=torch.int64,  # noqa: E731
+                                    device=u.device)
+        w, h, mw, mh = (full(w), full(h), full(planar_recip(w)),
+                        full(planar_recip(h)))
+    else:
+        row_off, tiles_x, _, w, h = (c.long() for c in _mip_select(scene, lod))
+        uu = torch.abs(u * (w.to(u.dtype) * 0.5))
+        vv = torch.abs(v * (h.to(v.dtype) * 0.5))
+        mw = mh = torch.zeros_like(w)
+    x1, x2, s = _planar_axis(uu, w, mw)
+    y1, y2, t = _planar_axis(vv, h, mh)
+
+    def pair(y, x):
+        return ((row_off + (y >> 3) * tiles_x) * 64 + (y & 7) * 8
+                + (x >> 3) * 64 + (x & 7))
+
+    return [pair(y, x) for y, x in ((y1, x1), (y1, x2), (y2, x1), (y2, x2))], s, t
+
+
+def combined_words(scene: Scene, at):
+    """The (A words, B words) of :func:`combined_at`'s corners: the kernel's
+    four 8-byte loads from ``tex_tile`` (A at the even word, B next)."""
+    flat = scene.tex_tile.reshape(-1)
+    corners = at[0]
+    return (tuple(flat[2 * c] for c in corners),
+            tuple(flat[2 * c + 1] for c in corners))
+
+
+def combined_channel(words, s, t, shift: int):
+    """One channel's blend (the kernel's ``combined_ch``): the byte at
+    ``shift`` of the four corners' A words (albedo R, G, B at 0, 8, 16,
+    metalness at 24) or B words (normal R, G, B, roughness), unpacked and
+    blended with SampleTexture's expression."""
+    return _bilerp(*(((w >> shift) & 0xFF).to(torch.float32) * _INV255
+                     for w in words), s, t)
+
+
+def combined_albedo(scene: Scene, at) -> Vec3:
+    """The kernel's ``combined_albedo``: the three albedo channels from the
+    A words alone (the dielectric's fetch)."""
+    flat = scene.tex_tile.reshape(-1)
+    corners, s, t = at
+    wa = tuple(flat[2 * c] for c in corners)
+    return Vec3(*(combined_channel(wa, s, t, k) for k in (0, 8, 16)))
+
+
+def combined_split(scene: Scene, u: torch.Tensor, v: torch.Tensor, lod=None):
+    """The fetch as the kernel's opaque shade forms it, every channel from
+    one address and its words: (albedo Vec3, metalness, roughness, normal
+    Vec3), :func:`bespoke_sample_combined`'s (or its mip form's) order."""
+    at = combined_at(scene, u, v, lod)
+    wa, wb = combined_words(scene, at)
+    _, s, t = at
+    return (Vec3(*(combined_channel(wa, s, t, k) for k in (0, 8, 16))),
+            combined_channel(wa, s, t, 24), combined_channel(wb, s, t, 24),
+            Vec3(*(combined_channel(wb, s, t, k) for k in (0, 8, 16))))

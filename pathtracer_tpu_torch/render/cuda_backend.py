@@ -81,7 +81,7 @@ import torch
 
 from ..scene.camera import Camera, define_camera
 from ..scene.clusters import stream_rows_per_cluster
-from ..scene.schema import Scene, recip32
+from ..scene.schema import Scene, planar_recip, recip32
 from .lockstep import render_chunk_lockstep
 from .raygen import focal_plane
 from .wavefront import render_chunk_wavefront
@@ -249,7 +249,8 @@ class WaveParams(ctypes.Structure):
                 + [(n, _P) for n in _PLANAR_PTR_FIELDS]
                 + [("pp_m", ctypes.c_uint32), ("lens_t0", _F)]
                 + [("bvh_far", _F), ("bvh_wide", _F * 2), ("sbvh_far", _F * 8)]
-                + [("bvh_apart", _I * 4), ("q_rec", _P)])
+                + [("bvh_apart", _I * 4), ("q_rec", _P)]
+                + [("tex_m", ctypes.c_uint32 * 2)])
 
 # WaveParams.tex_flags bits (TEX_* in the kernel)
 TEX_METALNESS, TEX_ROUGHNESS, TEX_NORMAL, TEX_TBN = 1, 2, 4, 8
@@ -574,6 +575,9 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
     p.bvh_wide[:] = scene.bvh_wide
     p.sbvh_far[:] = scene.sbvh_far
     p.bvh_apart[:] = scene.bvh_apart
+    # K9's level-0 wraps: a mask, or the size's reciprocal (no division)
+    p.tex_m[:] = (planar_recip(scene.tex_comb_w),
+                  planar_recip(scene.tex_comb_h))
     return p
 
 

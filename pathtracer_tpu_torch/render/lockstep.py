@@ -34,9 +34,11 @@ from .wavefront import _primary_rays, intersect
 
 def trace_lockstep(scene: Scene, o: Vec3, d: Vec3, pkeys: prng.PathStream,
                    use_russian_roulette: bool = False,
-                   mip_scale: float = 0.0):
+                   mip_scale: float = 0.0, observe=None):
     """One sample's path for every lane, bounce by bounce: (radiance Vec3,
-    per-lane int64 ray counts)."""
+    per-lane int64 ray counts). ``observe(bounce, alive, o, d, hit, u)``,
+    where given, sees each bounce's lanes after the intersect and the
+    draws (``render/regroup.py``'s replay); it changes no value."""
     z = torch.zeros_like(o.x)
     radiance = Vec3(z, z, z)
     throughput = splat((1.0, 1.0, 1.0), z)
@@ -46,6 +48,8 @@ def trace_lockstep(scene: Scene, o: Vec3, d: Vec3, pkeys: prng.PathStream,
         casts += alive
         hit, uv = intersect(scene, o, d)
         u = prng.bounce_uniforms(pkeys, b)
+        if observe is not None:
+            observe(b, alive, o, d, hit, u)
         if b == MAX_BOUNCE_COUNT - 1:
             # shade_bounce's emission: zero where the fog's flight scatters
             emit = gather(scene.mat_emit, hit.mat.long())
@@ -71,16 +75,17 @@ def trace_lockstep(scene: Scene, o: Vec3, d: Vec3, pkeys: prng.PathStream,
 
 def render_chunk_lockstep(scene: Scene, camera: Camera, config, key: int,
                           s0: int, n_samples: int, state,
-                          pixel_idx: torch.Tensor):
+                          pixel_idx: torch.Tensor, observe=None):
     """Accumulate ``n_samples`` samples per pixel (sample indices
-    ``s0 .. s0+n_samples-1``) into ``state``, one sample at a time."""
+    ``s0 .. s0+n_samples-1``) into ``state``, one sample at a time
+    (``observe``: :func:`trace_lockstep`'s)."""
     for s_rel in range(n_samples):
         s = torch.full_like(pixel_idx, s0 + s_rel)
         o, d = _primary_rays(camera, config, key, pixel_idx, s)
         radiance, casts = trace_lockstep(
             scene, o, d, prng.path_keys(key, pixel_idx, s),
             use_russian_roulette=config.use_russian_roulette,
-            mip_scale=config.mip_scale)
+            mip_scale=config.mip_scale, observe=observe)
         bad = (torch.isnan(radiance.x) | torch.isnan(radiance.y)
                | torch.isnan(radiance.z))
         r = Vec3(*(torch.where(bad, 0.0, c) for c in radiance))

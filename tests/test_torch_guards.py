@@ -273,21 +273,22 @@ def test_kernel_params_layout():
              ctypes.c_uint32: "uint32_t", ctypes.c_float: "float",
              ctypes.c_float * 2: "float", ctypes.c_float * 3: "float",
              ctypes.c_float * 8: "float",
-             ctypes.c_float * 6: "float", ctypes.c_int * 4: "int"}
+             ctypes.c_float * 6: "float", ctypes.c_int * 4: "int",
+             ctypes.c_uint32 * 2: "uint32_t"}
     py_fields = [(n, kinds[t]) for n, t in cuda_backend.WaveParams._fields_]
     assert py_fields == c_fields
     # the feature variants' fields come after the mesh variants', then the
     # static tier's, the mixed variants' camera, the streamed walk's BVH,
     # the sphere clusters' BVH and the uv rows' layout, the planar table
     # and the thin lens's pp reciprocal and folded plane term, the walks'
-    # far-ray bounds and, last, the mesh walk's set-apart triangles and the
-    # quads' records
+    # far-ray bounds, the mesh walk's set-apart triangles, the quads'
+    # records and, last, K9's level-0 wrap constants
     names = [n for n, _ in c_fields]
     assert names.index("stack_wmax") < names.index("tri_ax")
     assert names.index("fog_albedo") < names.index("ctri_nx")
-    assert names[-21:] == ["n_tclusters", "cam_lens", "bvh_nodes", "bvh_tris",
+    assert names[-22:] == ["n_tclusters", "cam_lens", "bvh_nodes", "bvh_tris",
                            "bvh_tri_k", "bvh_root", "sbvh_nodes", "sbvh_sph",
                            "sbvh_idx", "sbvh_root", "n_sph_huge",
                            "stream_uv_cfm", "planar_tile", "planar_meta",
                            "pp_m", "lens_t0", "bvh_far", "bvh_wide",
-                           "sbvh_far", "bvh_apart", "q_rec"]
+                           "sbvh_far", "bvh_apart", "q_rec", "tex_m"]

@@ -207,21 +207,21 @@ def _flat_words(ts, u, v, lod=None):
 
 @pytest.mark.parametrize("mip", [False, True])
 def test_tile_addressing_matches_flat_and_windowed(scenes, mip):
-    """The kernel's addressing (row, lane offset of the A word; B next)
-    over tex_tile returns the flat words for every lane, and JAX's windowed
-    fetch's words for every lane it fetches; at level 0 and with a per-lane
-    level."""
+    """The kernel's addressing (combined_at: each corner's (A, B) pair in
+    tex_tile, a row of 64 pairs a tile) returns the flat words for every
+    lane, and JAX's windowed fetch's words for every lane it fetches; at
+    level 0 and with a per-lane level."""
     js, ts = scenes
     u, v, rs = _uv(lim=34.0 if mip else 130.0)
     needs = rs.rand(u.size) < 0.8
     lod = rs.randint(0, 10, u.shape).astype(np.int32) if mip else None
     tu, tv = torch.from_numpy(u), torch.from_numpy(v)
     tl = None if lod is None else torch.from_numpy(lod)
-    corners, s, t = ttex.tile_corners(ts, tu, tv, tl)
-    for row, off in corners:
-        assert int(off.min()) >= 0 and int(off.max()) <= 126
-        assert bool((off % 2 == 0).all()) and int(row.max()) < 5464
-    wa, wb = ttex.tile_words(ts, corners)
+    at = ttex.combined_at(ts, tu, tv, tl)
+    corners, s, t = at
+    for pair in corners:
+        assert int(pair.min()) >= 0 and int(pair.max() // 64) < 5464
+    wa, wb = ttex.combined_words(ts, at)
     got = [w.numpy() for w in wa + wb]
     for g, f in zip(got, _flat_words(ts, tu, tv, tl)):
         np.testing.assert_array_equal(g, f)
