@@ -288,7 +288,28 @@ and the script exits non-zero):
      (render_counts); and beside each feature row's bound the replay of
      its shading's warp-branch issue in place and regrouped over the
      kernel's warp map, with the share of blocks that regroup
-     (render/regroup.py, issue_tally).
+     (render/regroup.py, issue_tally);
+  7. the host layer and the unrolled driver (post_phase; files under
+     chip_smoke_post/): the default command (world 1, 1280x720, -p4,
+     --chunk 4) with --denoise 3 --exposure 1.5 --png --flip xy
+     --probe-pixel 640,360 --checkpoint, which must launch wave_kernel once
+     per chunk (LAUNCHES set to 0 just before), write a BMP and a PNG of
+     the same pixels and print the accumulator's mean at the probe; the
+     same render stopped after its first chunk (a progress callback saves
+     the checkpoint and raises) and resumed through the CLI's
+     --checkpoint, whose BMP must equal the uninterrupted one byte for
+     byte, and the compare tool (python -m pathtracer_tpu_torch.compare
+     --json) on the two, 100% similar; the denoiser at 720p, 3 iterations,
+     on the card against the CPU on the same accumulator (relative |diff|
+     < 1e-4), its ms, and checkpoint save and load ms; each debug kind and
+     --mode unrolled at 1280x720, 1 spp, on worlds 1 and 3 through the CLI
+     (the unrolled driver as torch ops: no launch); at 256x144 each debug
+     kind on the card against the CPU, --mode unrolled against the kernel
+     at 4 spp and just_importance on world 3 (the plain wavefront) on the
+     card against the CPU, under bench.py --verify's gates; the unrolled
+     driver's ms per sample at 720p beside the kernel's; --preview (a PNG
+     at each of 4 chunks) and --profile's Chrome trace, which must name a
+     wave_kernel launch.
 
 The last two lines are the kernel table as JSON and the result line
 {"ok": true, "device": {...}}.
@@ -2094,6 +2115,257 @@ def parent_turns(parent: Path, smi: str):
     for name, (_, rows) in SOURCE_VARIANTS.items():
         turns(f"parent source_variant={name}",
               "parent" if name in AGAINST_PARENT else "this", name, rows)
+
+
+POST_DIR = ROOT / "chip_smoke_post"  # phase 7's files
+DEBUG_KINDS = ("bounce_count", "termination_condition", "primary_ray_normals")
+
+
+def run_cli(argv) -> str:
+    """cli.main(argv), its standard output captured and returned."""
+    import contextlib
+    import io
+    from pathtracer_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(a) for a in argv])
+    check(rc == 0, f"cli {argv} exit code")
+    return buf.getvalue()
+
+
+def verify_gates(label, a, b, cfg):
+    """bench.py --verify's gates (bench.py:378-385, as phase 3 applies
+    them) between two accumulators of ``cfg``: fewer than 1% of pixels
+    with resolved |diff| > 1e-3 and 0.1% with |diff| > 0.1, equal valid
+    counts, rays within 0.5%; printed on one line."""
+    from pathtracer_tpu_torch.render.renderer import resolve
+    d = (resolve(a, cfg).cpu() - resolve(b, cfg).cpu()).abs().amax(dim=-1)
+    f3 = float((d > 1e-3).float().mean())
+    f1 = float((d > 0.1).float().mean())
+    count_eq = bool((a.count.cpu() == b.count.cpu()).all())
+    ra, rb = int(a.rays_cast), int(b.rays_cast)
+    print(f"phase7 {label} {cfg.width}x{cfg.height} pp={cfg.pp} "
+          f"frac_gt_1e-3={f3} frac_gt_0.1={f1} "
+          f"bit_equal={float((d == 0).float().mean())} count_equal={count_eq} "
+          f"rays={ra} rays_other={rb} max_abs_err={float(d.max())}")
+    check(f3 < 0.01 and f1 < 0.001, f"{label}: flip fractions")
+    check(count_eq, f"{label}: valid counts")
+    check(abs(ra - rb) <= 0.005 * rb, f"{label}: ray counts")
+
+
+def post_phase(smi: str) -> None:
+    """Phase 7: the host layer and the unrolled driver on the card (see the
+    module's docstring); raises on any failure."""
+    import os
+    import torch
+    from PIL import Image
+    from pathtracer_tpu_torch.io.bmp import packed_to_rgb, read_bmp
+    from pathtracer_tpu_torch.render import cuda_backend as cb
+    from pathtracer_tpu_torch.render.denoise import (
+        accum_variance, atrous_denoise,
+    )
+    from pathtracer_tpu_torch.render.progressive import (
+        load_checkpoint, save_checkpoint,
+    )
+    from pathtracer_tpu_torch.render.renderer import (
+        RenderConfig, init_accum, render_chunk, render_image, resolve,
+    )
+    from pathtracer_tpu_torch.scene.schema import (
+        WORLD_CORNELL_BOX, WORLD_DEFAULT,
+    )
+    from pathtracer_tpu_torch.scene.worlds import finalize_world
+    from pathtracer_tpu_torch.utils.profiling import TRACE_FILE
+
+    t7 = time.perf_counter()
+    dev = torch.device("cuda:0")
+    sync = torch.cuda.synchronize
+    POST_DIR.mkdir(exist_ok=True)
+    f = {k: POST_DIR / k for k in (
+        "post.bmp", "post.png", "post.npz", "resumed.bmp", "resumed.png",
+        "resume.npz", "preview.png", "profile", "preview.bmp")}
+    for k in ("post.npz", "resume.npz"):
+        f[k].unlink(missing_ok=True)
+
+    # a. the default command at full width with the post-process flags
+    post = ["-p4", "--chunk", "4", "--denoise", "3", "--exposure", "1.5",
+            "--flip", "xy", "--probe-pixel", "640,360"]
+    cb.LAUNCHES = 0
+    t = time.perf_counter()
+    text = run_cli(post + ["--png", f["post.png"], "--checkpoint",
+                           f["post.npz"], "--out", f["post.bmp"]])
+    cli_s = time.perf_counter() - t
+    launches = cb.LAUNCHES
+    check(launches == 4, "the default command launched wave_kernel 4 times")
+    bmp_rgb = packed_to_rgb(read_bmp(str(f["post.bmp"])))[::-1]
+    png_rgb = np.asarray(Image.open(f["post.png"]).convert("RGB"))
+    check(np.array_equal(bmp_rgb, png_rgb), "BMP and PNG pixels equal")
+    st, found = load_checkpoint(str(f["post.npz"]), 1280 * 720, device="cpu")
+    check(found and st.samples_done == 16, "the checkpoint holds 16 samples")
+    lin = 360 * 1280 + 640
+    cnt = max(float(st.count[lin]), 1.0)
+    mean = [float(c[lin]) / cnt for c in st.sum]
+    probe = [ln for ln in text.splitlines() if ln.startswith("probe pixel")]
+    want = (f"probe pixel (640,360): mean radiance = "
+            f"({mean[0]:f},{mean[1]:f},{mean[2]:f})")
+    check(len(probe) == 1 and probe[0].startswith(want),
+          "the probe line's mean is the accumulator's")
+    perf = [ln for ln in text.splitlines() if ln.startswith("[perf]")]
+    print(f"phase7 cli argv={post} launches={launches} cli_s={cli_s} "
+          f"bmp_equals_png=True {probe[0]!r} {perf[0]!r} | card: {smi}")
+
+    # b. resume: stop after the first chunk, resume through --checkpoint
+    scene, cam = finalize_world(WORLD_DEFAULT, 1280, 720)
+
+    class Stop(Exception):
+        pass
+
+    def stop(s_done, s_total, state):
+        save_checkpoint(str(f["resume.npz"]), state)
+        raise Stop
+
+    try:
+        render_image(scene, cam, RenderConfig(1280, 720, pp=4, denoise=3,
+                                              exposure=1.5),
+                     chunk_samples=4, progress_cb=stop, device=dev)
+        check(False, "the interrupted render stopped")
+    except Stop:
+        pass
+    text = run_cli(post + ["--png", f["resumed.png"], "--checkpoint",
+                           f["resume.npz"], "--out", f["resumed.bmp"]])
+    resumed = "Resuming from" in text and "4 samples done" in text
+    same = f["resumed.bmp"].read_bytes() == f["post.bmp"].read_bytes()
+    print(f"phase7 resume resumed={resumed} bmp_byte_equal={same}")
+    check(resumed and same, "the resumed render's BMP equals the "
+          "uninterrupted one's")
+
+    # c. the compare tool on the two BMPs
+    out = subprocess.run(
+        [sys.executable, "-m", "pathtracer_tpu_torch.compare",
+         str(f["post.bmp"]), str(f["resumed.bmp"]), "--json"],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=120)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    print(f"phase7 compare rc={out.returncode} {json.dumps(res)}")
+    check(out.returncode == 0 and res["percentage_similarity"] == 100.0,
+          "the compare tool gives 100% similarity")
+
+    # d. the denoiser at 720p, 3 iterations: the card against the CPU
+    st_card, _ = load_checkpoint(str(f["post.npz"]), 1280 * 720, device=dev)
+    cfg = RenderConfig(1280, 720, pp=4)
+    den = {}
+    for name, state in (("cpu", st), ("cuda", st_card)):
+        den[name] = atrous_denoise(resolve(state, cfg),
+                                   accum_variance(state, cfg), iterations=3)
+    err = float((den["cuda"].cpu() - den["cpu"]).abs().max())
+    rel = float(((den["cuda"].cpu() - den["cpu"]).abs()
+                 / den["cpu"].abs().clamp_min(1e-3)).max())
+    ms = []
+    for _ in range(5):
+        a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+        a.record()
+        atrous_denoise(resolve(st_card, cfg), accum_variance(st_card, cfg),
+                       iterations=3)
+        b.record()
+        sync()
+        ms.append(a.elapsed_time(b))
+    save_ms, load_ms = [], []
+    for _ in range(3):
+        t = time.perf_counter()
+        save_checkpoint(str(f["resume.npz"]), st_card)
+        save_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        load_checkpoint(str(f["resume.npz"]), 1280 * 720, device=dev)
+        sync()
+        load_ms.append((time.perf_counter() - t) * 1e3)
+    print(f"phase7 denoise 1280x720 iterations=3 max_abs_diff_vs_cpu={err} "
+          f"max_rel_diff={rel} ms={sorted(ms)[2]} | card: {smi}")
+    print(f"phase7 checkpoint 1280x720 save_ms={sorted(save_ms)[1]} "
+          f"load_ms={sorted(load_ms)[1]} bytes="
+          f"{f['resume.npz'].stat().st_size}")
+    check(rel < 1e-4, "the denoiser on the card agrees with the CPU")
+
+    # e. the debug kinds and --mode unrolled at full width, through the CLI
+    cb.LAUNCHES = 0
+    for w in ("-w1", "-w3"):
+        for extra in ([["--debug", k] for k in DEBUG_KINDS]
+                      + [["--mode", "unrolled"]]):
+            bmp = POST_DIR / f"debug{w}_{extra[1]}.bmp"
+            run_cli([w, "-p1", "--out", bmp] + extra)
+            check(read_bmp(str(bmp)).max() > 0, f"{w} {extra} not black")
+    print(f"phase7 debug kinds and --mode unrolled, w1 and w3, 1280x720 "
+          f"1 spp: launches={cb.LAUNCHES}")
+    check(cb.LAUNCHES == 0, "the unrolled driver launched no kernel")
+
+    # f. the unrolled driver against the CPU and the kernel at 256x144
+    for kind_w, tag in ((WORLD_DEFAULT, "w1"), (WORLD_CORNELL_BOX, "w3")):
+        sc, cm = finalize_world(kind_w, 256, 144)
+        card = sc.to(dev)
+        for k in DEBUG_KINDS:
+            c = RenderConfig(256, 144, pp=1, debug_kind=k)
+            verify_gates(f"{tag} {k} cuda_vs_cpu",
+                         render_chunk(card, cm, c, 0, 0, 1,
+                                      init_accum(256 * 144, dev)),
+                         render_chunk(sc, cm, c, 0, 0, 1,
+                                      init_accum(256 * 144)), c)
+        c = RenderConfig(256, 144, pp=2, mode="unrolled")
+        verify_gates(f"{tag} unrolled_vs_kernel",
+                     render_chunk(card, cm, c, 0, 0, 4,
+                                  init_accum(256 * 144, dev)),
+                     render_chunk(card, cm, RenderConfig(256, 144, pp=2), 0,
+                                  0, 4, init_accum(256 * 144, dev)), c)
+        if tag == "w3":
+            c = RenderConfig(256, 144, pp=2, just_importance=True)
+            verify_gates("w3 just_importance cuda_vs_cpu",
+                         render_chunk(card, cm, c, 0, 0, 4,
+                                      init_accum(256 * 144, dev)),
+                         render_chunk(sc, cm, c, 0, 0, 4,
+                                      init_accum(256 * 144)), c)
+
+    # g. the unrolled driver's time per sample beside the kernel's, 720p
+    for kind_w, tag in ((WORLD_DEFAULT, "w1"), (WORLD_CORNELL_BOX, "w3")):
+        sc, cm = finalize_world(kind_w, 1280, 720)
+        card = sc.to(dev)
+        res = {}
+        for mode in ("unrolled", "auto"):
+            c = RenderConfig(1280, 720, pp=1, mode=mode)
+            ts = []
+            for _ in range(4):
+                st_m = init_accum(1280 * 720, dev)
+                sync()
+                t = time.perf_counter()
+                render_chunk(card, cm, c, 0, 0, 1, st_m)
+                sync()
+                ts.append((time.perf_counter() - t) * 1e3)
+            res[mode] = sorted(ts[1:])[1]
+        print(f"phase7 {tag} 1280x720 ms_per_sample unrolled={res['unrolled']} "
+              f"kernel={res['auto']} ratio={res['unrolled'] / res['auto']} "
+              f"| card: {smi}")
+
+    # h. --preview at every chunk and --profile's trace
+    saved = []
+    orig = Image.Image.save
+
+    def save(self, fp, *a, **k):
+        saved.append(str(fp))
+        return orig(self, fp, *a, **k)
+
+    Image.Image.save = save
+    try:
+        run_cli(["-w3", "-p2", "--chunk", "1", "--preview", f["preview.png"],
+                 "--profile", f["profile"], "--out", f["preview.bmp"]])
+    finally:
+        Image.Image.save = orig
+    previews = saved.count(str(f["preview.png"]))
+    trace = json.loads((f["profile"] / TRACE_FILE).read_text())
+    kernels = [e for e in trace.get("traceEvents", [])
+               if "wave_kernel" in str(e.get("name", ""))
+               and str(e.get("cat", "")).lower() == "kernel"]
+    print(f"phase7 preview pngs={previews} profile "
+          f"trace_bytes={os.path.getsize(f['profile'] / TRACE_FILE)} "
+          f"wave_kernel_events={len(kernels)} "
+          f"first={kernels[0]['name'][:60] if kernels else None!r}")
+    check(previews == 4, "--preview wrote a PNG at each of 4 chunks")
+    check(len(kernels) > 0, "--profile's trace names a wave_kernel launch")
+    print(f"phase7 total_s={time.perf_counter() - t7}")
 
 
 def main() -> int:
@@ -3971,6 +4243,7 @@ def main() -> int:
           == sorted(f"wave_kernel<{v}>" for v in cb.VARIANTS),
           "every variant in the kernel table")
     print(f"phase6 total_s={time.perf_counter() - t_start}")
+    post_phase(smi)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

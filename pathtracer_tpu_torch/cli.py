@@ -1,19 +1,24 @@
 """Command-line application of the port — the win32_main ``main``/ParseArgs role.
 
-Counterpart of ``pathtracer_tpu/cli.py`` for the flags the slice covers:
-the reference's single-dash concatenated flags (``-w3 -p4``, ``-d`` for
-the thin lens, ``-n -m -r`` to turn off the normal, metalness and
-roughness maps; ``-t`` is accepted for compatibility) plus ``--size WxH
---out PATH --seed N --scene-seed N|os --rr --chunk N --mips --tbn --fog
-SIGMA_T --fog-albedo R,G,B --fog-g G --debug regular|variance --device
-cuda|cpu``. With no ``-w`` it renders world 1,
-the reference's default textured scene; ``-w5`` renders the glTF mesh world
+Counterpart of ``pathtracer_tpu/cli.py``: the reference's single-dash
+concatenated flags (``-w3 -p4``, ``-d`` for the thin lens, ``-n -m -r`` to
+turn off the normal, metalness and roughness maps; ``-t`` is accepted for
+compatibility) plus ``--size WxH --out PATH --png PATH --debug KIND --seed
+N --scene-seed N|os --checkpoint PATH --chunk N --profile DIR --rr --mode
+auto|unrolled|wavefront --preview PATH --live --probe-pixel X,Y --exposure
+F --mips --tbn --flip x|y|xy --fog SIGMA_T --fog-albedo R,G,B --fog-g G
+--denoise N --device cuda|cpu``. With no ``-w`` it renders world 1, the
+reference's default textured scene; ``-w5`` renders the glTF mesh world
 (``res/mario.glb``; without the file, its ground and sky) and ``-w7`` the
 mesh-UV world. ``--out`` writes a BMP for ``.bmp`` or no extension and
 hands any other extension to PIL, as the JAX CLI does. ``--chunk``
-defaults to ``min(spp, 64)`` samples per ``render_chunk`` call.
-``--device`` defaults to ``cuda`` and fails without a card. Flags the port
-has not reached raise and name their ROADMAP item.
+defaults to ``min(spp, 64)`` samples per ``render_chunk`` call;
+``--checkpoint`` resumes from its file and saves it after every chunk;
+``--live`` adapts the chunk toward one terminal frame every ~2 s.
+``--profile DIR`` writes a ``torch.profiler`` Chrome trace to
+DIR/trace.json. ``--device`` defaults to ``cuda`` and fails without a
+card. ``--single-chip`` (multi-GPU rendering) raises and names its
+ROADMAP item.
 
 Run: python -m pathtracer_tpu_torch [options]
 """
@@ -59,17 +64,7 @@ def _parse_reference_flags(argv):
 
 # Flags of the JAX CLI that the port does not take yet -> ROADMAP item.
 _NOT_PORTED = {
-    "--png": "PNG output (ROADMAP queue 1 item 12)",
-    "--checkpoint": "progressive checkpoints (ROADMAP queue 1 item 12)",
-    "--profile": "profiler traces (ROADMAP queue 1 item 12)",
     "--single-chip": "multi-GPU rendering (ROADMAP queue 1 item 13)",
-    "--mode": "the unrolled driver (ROADMAP queue 1 item 5)",
-    "--preview": "progressive previews (ROADMAP queue 1 item 12)",
-    "--live": "the terminal viewer (ROADMAP queue 1 item 12)",
-    "--probe-pixel": "--probe-pixel (ROADMAP queue 1 item 11)",
-    "--flip": "--flip (ROADMAP queue 1 item 12)",
-    "--denoise": "the a-trous denoiser (ROADMAP queue 1 item 11)",
-    "--exposure": "the exposure multiplier (ROADMAP queue 1 item 12)",
 }
 
 
@@ -91,9 +86,12 @@ def print_help():
     print("\tm       - Disable metalness maps.")
     print("\tr       - Disable roughness maps.")
     print("\th       - Print this help menu.")
-    print("\nExtensions: --size WxH --out PATH --seed N --scene-seed N|os "
-          "--rr --chunk N --mips --tbn --fog SIGMA_T --fog-albedo R,G,B "
-          "--fog-g G --debug regular|variance --device cuda|cpu")
+    print("\nExtensions: --size WxH --out PATH --png PATH --debug KIND "
+          "--seed N --scene-seed N|os --checkpoint PATH --chunk N "
+          "--profile DIR --rr --mode auto|unrolled|wavefront --preview PATH "
+          "--live --probe-pixel X,Y --exposure F --mips --tbn --flip x|y|xy "
+          "--fog SIGMA_T --fog-albedo R,G,B --fog-g G --denoise N "
+          "--device cuda|cpu")
 
 
 def write_image(path, packed):
@@ -111,7 +109,7 @@ def write_image(path, packed):
     except ImportError as e:
         raise NotImplementedError(
             f"--out .{ext} needs PIL, which does not import here; .bmp "
-            "needs nothing (other writers: ROADMAP queue 1 item 12)") from e
+            "needs nothing") from e
     try:
         Image.fromarray(packed_to_rgb(packed)[::-1]).save(path)
     except ValueError:
@@ -131,13 +129,37 @@ def main(argv=None):
                                  add_help=False)
     ap.add_argument("--size", default="1280x720")
     ap.add_argument("--out", default="test.bmp")
-    ap.add_argument("--debug", default="regular")
+    ap.add_argument("--png", default=None)
+    ap.add_argument("--debug", default="regular",
+                    help="regular | primary_ray_normals | bounce_count | "
+                         "termination_condition | variance")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--checkpoint", default=None,
+                    help="resume from this accumulator file and save it "
+                         "after every chunk (the JAX package's format)")
     ap.add_argument("--chunk", type=int, default=None,
                     help="samples per render_chunk call (default: "
                          "min(spp, 64))")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler Chrome trace to "
+                         "DIR/trace.json")
     ap.add_argument("--rr", action="store_true",
                     help="Russian-roulette path termination (unbiased)")
+    ap.add_argument("--mode", default="auto",
+                    choices=["auto", "unrolled", "wavefront"])
+    ap.add_argument("--preview", default=None,
+                    help="write a progressive preview PNG at each --chunk "
+                         "boundary (the live-viewer role, "
+                         "win32_main.cpp:252-274)")
+    ap.add_argument("--live", action="store_true",
+                    help="draw the progressive image in the terminal each "
+                         "chunk (ANSI half-blocks)")
+    ap.add_argument("--exposure", type=float, default=1.0,
+                    help="linear exposure multiplier before the tonemap")
+    ap.add_argument("--probe-pixel", default=None, metavar="X,Y",
+                    help="print mean and variance radiance of one pixel "
+                         "(the DEBUG_MIDDLE_PIXEL role, "
+                         "win32_main.cpp:18,1011-1014)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--mips", action="store_true",
                     help="mip-mapped texture sampling (default: mip 0, the "
@@ -145,6 +167,8 @@ def main(argv=None):
     ap.add_argument("--tbn", action="store_true",
                     help="rotate normal maps into the surface's tangent "
                          "frame")
+    ap.add_argument("--flip", default="", choices=["", "x", "y", "xy"],
+                    help="flip the saved image along x, y or both")
     ap.add_argument("--fog", type=float, default=0.0, metavar="SIGMA_T",
                     help="global homogeneous fog's extinction coefficient, "
                          "on any world (0: no fog)")
@@ -153,13 +177,15 @@ def main(argv=None):
     ap.add_argument("--fog-g", type=float, default=0.0,
                     help="Henyey-Greenstein anisotropy in (-1, 1); 0 is "
                          "isotropic, > 0 scatters forward")
+    ap.add_argument("--denoise", type=int, default=0, metavar="N",
+                    help="a-trous denoiser iterations on the linear image "
+                         "before the tonemap; 0: the raw estimator")
     ap.add_argument("--scene-seed", default=None, metavar="N|os",
                     help="seed of world 4's random layout (default 1337; "
                          "'os' draws one, as the reference does, and "
                          "prints it)")
     for flag in _NOT_PORTED:
-        if flag.startswith("--"):
-            ap.add_argument(flag, nargs="?", const=True, default=None)
+        ap.add_argument(flag, nargs="?", const=True, default=None)
     args = ap.parse_args(rest)
 
     for flag, what in _NOT_PORTED.items():
@@ -168,9 +194,11 @@ def main(argv=None):
 
     import torch
 
-    from .render.renderer import RenderConfig, render_image
+    from .io.bmp import packed_to_rgb
+    from .render.renderer import RenderConfig, finalize, render_image
     from .scene.schema import WORLD_KIND_COUNT
     from .scene.worlds import finalize_world
+    from .utils.profiling import PhaseTimer, RenderMetrics, profiler_trace
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -191,24 +219,27 @@ def main(argv=None):
     print(f"System has {n_dev} device(s).")
     print(f"Using 1 device(s): {device}.\n")
 
-    scene, camera = finalize_world(world, w, h, use_pinhole=use_pinhole,
-                                   use_normal_maps=not ref["n"],
-                                   use_metalness_maps=not ref["m"],
-                                   use_roughness_maps=not ref["r"],
-                                   rtiow_seed=rtiow_seed)
-    if args.tbn:
-        scene = dataclasses.replace(scene, tbn_normal_maps=True)
-    if args.fog > 0.0:
-        try:
-            fog_albedo = tuple(float(v) for v in args.fog_albedo.split(","))
-        except ValueError:
-            fog_albedo = ()
-        if len(fog_albedo) != 3:
-            raise SystemExit("--fog-albedo needs R,G,B (three comma-separated "
-                             "numbers)")
-        scene = dataclasses.replace(scene, fog_sigma_t=float(args.fog),
-                                    fog_albedo=fog_albedo,
-                                    fog_g=float(args.fog_g))
+    timer = PhaseTimer()
+    with timer.phase("scene"):
+        scene, camera = finalize_world(world, w, h, use_pinhole=use_pinhole,
+                                       use_normal_maps=not ref["n"],
+                                       use_metalness_maps=not ref["m"],
+                                       use_roughness_maps=not ref["r"],
+                                       rtiow_seed=rtiow_seed)
+        if args.tbn:
+            scene = dataclasses.replace(scene, tbn_normal_maps=True)
+        if args.fog > 0.0:
+            try:
+                fog_albedo = tuple(float(v)
+                                   for v in args.fog_albedo.split(","))
+            except ValueError:
+                fog_albedo = ()
+            if len(fog_albedo) != 3:
+                raise SystemExit("--fog-albedo needs R,G,B (three "
+                                 "comma-separated numbers)")
+            scene = dataclasses.replace(scene, fog_sigma_t=float(args.fog),
+                                        fog_albedo=fog_albedo,
+                                        fog_g=float(args.fog_g))
     print("DefineCamera():\n===")
     print(f"camera located at c->pos = ({camera.pos[0]:f},{camera.pos[1]:f},"
           f"{camera.pos[2]:f})")
@@ -238,29 +269,86 @@ def main(argv=None):
                   "mip-0 sampling.)")
 
     cfg = RenderConfig(width=w, height=h, pp=pp, seed=args.seed,
-                       debug_kind=args.debug,
-                       use_russian_roulette=args.rr, mip_scale=mip_scale)
+                       debug_kind=args.debug, use_russian_roulette=args.rr,
+                       mode=args.mode, exposure=args.exposure,
+                       mip_scale=mip_scale, denoise=args.denoise)
     if args.chunk is None:
         args.chunk = min(cfg.spp, 64)
 
+    state = None
+    if args.checkpoint:
+        from .render.progressive import load_checkpoint
+        state, done = load_checkpoint(args.checkpoint, w * h, device=device)
+        if done:
+            print(f"Resuming from {args.checkpoint}: "
+                  f"{float(state.count.max()):.0f} samples done.")
+
+    live = None
+    if args.live:
+        from .io.term import LiveView, supports_color
+        if supports_color():
+            live = LiveView()
+        else:
+            print("(--live: stdout is not a color terminal; disabled)")
+
     def progress(s_done, s_total, st):
-        if s_total > args.chunk:
+        if s_total > args.chunk and live is None:
             print(f"  {s_done}/{s_total} samples "
                   f"({int(st.rays_cast) / 1e6:.1f} Mrays)")
+        if args.checkpoint:
+            from .render.progressive import save_checkpoint
+            save_checkpoint(args.checkpoint, st)
+        if args.preview or live is not None:
+            rgb = packed_to_rgb(finalize(st, cfg).cpu().numpy())[::-1]
+            if args.preview:
+                from PIL import Image
+                Image.fromarray(rgb).save(args.preview)
+            if live is not None:
+                live.update(rgb, status=f"  {s_done}/{s_total} samples")
 
-    t0 = time.perf_counter()
-    img, packed, state = render_image(scene, camera, cfg,
-                                      chunk_samples=args.chunk,
-                                      progress_cb=progress, device=device)
-    packed = packed.cpu().numpy()
-    wall = time.perf_counter() - t0
-    write_image(args.out, packed)
+    # --live: adapt the chunk toward ~2 s between frames (a slow world's
+    # 64-sample chunk can run for seconds); chunking changes no result
+    adapt = 2.0 if live is not None else None
 
-    rays = int(state.rays_cast)
+    with timer.phase("render"), profiler_trace(args.profile):
+        t0 = time.perf_counter()
+        img, packed, state = render_image(scene, camera, cfg,
+                                          chunk_samples=args.chunk,
+                                          state=state, progress_cb=progress,
+                                          device=device, adapt_chunk_s=adapt)
+        packed = packed.cpu().numpy()
+        wall = time.perf_counter() - t0
+
+    with timer.phase("write"):
+        pk = packed
+        if "x" in args.flip:
+            pk = pk[:, ::-1]
+        if "y" in args.flip:
+            pk = pk[::-1]
+        write_image(args.out, pk)
+        if args.png:
+            from PIL import Image
+            Image.fromarray(packed_to_rgb(pk)[::-1]).save(args.png)
+
+    if args.probe_pixel:
+        px, py = (int(v) for v in args.probe_pixel.split(","))
+        lin = py * w + px
+        cnt = max(float(state.count[lin]), 1.0)
+        mean = [float(c[lin]) / cnt for c in state.sum]
+        var = [float(sq[lin]) / cnt - m * m
+               for sq, m in zip(state.sum_sq, mean)]
+        print(f"probe pixel ({px},{py}): mean radiance = "
+              f"({mean[0]:f},{mean[1]:f},{mean[2]:f})  variance = "
+              f"({var[0]:f},{var[1]:f},{var[2]:f})  samples = {cnt:.0f}")
+
+    m = RenderMetrics(rays_cast=float(int(state.rays_cast)),
+                      wall_seconds=wall, width=w, height=h, spp=cfg.spp,
+                      nan_samples=float(int(state.nan_count)))
     print(f"Done. Image written to {args.out}.")  # cf. :985
-    print(f"[perf] {rays / wall / 1e6:.1f} Mrays/s  ({rays / 1e6:.1f} Mrays "
-          f"in {wall:.2f}s on {device}, set-up and any first-use kernel "
-          f"build included; {int(state.nan_count)} NaN samples masked)")
+    print(f"[perf] {m.mrays_per_sec:.1f} Mrays/s  ({m.rays_cast / 1e6:.1f} "
+          f"Mrays in {wall:.2f}s on {device}, set-up and any first-use "
+          f"kernel build included; {m.nan_samples:.0f} NaN samples masked)  "
+          f"{timer.report()}")
     return 0
 
 

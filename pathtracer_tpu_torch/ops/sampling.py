@@ -148,3 +148,13 @@ def pdf_henyey_greenstein(cos_theta: torch.Tensor, g: float) -> torch.Tensor:
     denom = torch.clamp_min((1.0 + g * g) - (2.0 * g) * cos_theta, 1e-12)
     inv = torch.reciprocal(torch.sqrt(denom))
     return sdiv((1.0 - g * g) * inv * inv * inv, 4.0 * PI)
+
+
+def uniform_hemisphere(u1: torch.Tensor, u2: torch.Tensor) -> Vec3:
+    """Uniform hemisphere sample in tangent space, pdf 1/(2 pi): the
+    reference's declared but undefined RandomDirectionHemisphere
+    (win32_main.cpp:56; on no render path)."""
+    z = u1
+    r = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    phi = 2.0 * PI * u2
+    return Vec3(r * torch.cos(phi), r * torch.sin(phi), z)

@@ -262,8 +262,15 @@ FEAT_TRI_UV = 64
 
 def check_supported(scene: Scene, camera: Camera, config):
     """Raise NotImplementedError for an input that neither the kernel nor
-    its plain version covers yet."""
+    its plain version covers yet, and ValueError for a config that
+    ``renderer.render_chunk`` routes elsewhere (``config.on_kernel()``)."""
     config.check_supported()
+    if not config.on_kernel():
+        raise ValueError(
+            f"the kernel renders the regular and variance targets under "
+            f"path regeneration without just_importance; render_chunk runs "
+            f"debug kind {config.debug_kind!r}, mode {config.mode!r}, "
+            f"just_importance={config.just_importance} as torch ops")
     missing = scene.unsupported()
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))

@@ -56,8 +56,9 @@ from ..ops.shade import (
     brdf_specular_scalar, effectively_smooth, find_refraction_direction,
     schlick_metal,
 )
-from ..scene.schema import MIN_HIT_DISTANCE, N_AIR, Scene
-from ..utils.vec import Vec3, dot, gather, hadamard, normalize, sdiv
+from ..scene.schema import MAX_BOUNCE_COUNT, MIN_HIT_DISTANCE, N_AIR, Scene
+from ..utils import prng
+from ..utils.vec import Vec3, dot, gather, hadamard, normalize, sdiv, splat
 from ..utils.vec import where as vwhere
 
 # Debug render kinds (debug_render_kind_t, win32_main.cpp:22-28).
@@ -83,6 +84,13 @@ class BounceOut(NamedTuple):
     shading_normal: Vec3
 
 
+class TraceStats(NamedTuple):
+    """Ray counts of one :func:`trace` call (JAX's rule: one per intersect
+    call of a live lane)."""
+    rays_cast: torch.Tensor   # int64 scalar
+    lane_casts: torch.Tensor  # (N,) int64: each lane's casts
+
+
 def mip_lod(scene: Scene, t: torch.Tensor, cos_theta_in: torch.Tensor,
             mip_scale: float) -> torch.Tensor:
     """Per-lane pyramid level (integrator.py:295-307 in JAX): the texels
@@ -105,12 +113,16 @@ def fog_flight(scene: Scene, u, t: torch.Tensor):
 
 
 def shade_bounce(scene: Scene, o: Vec3, d: Vec3, hit: Hit, u,
-                 mip_scale: float = 0.0, uv=None) -> BounceOut:
+                 just_importance: bool = False, mip_scale: float = 0.0,
+                 uv=None) -> BounceOut:
     """Material fetch, estimator selection and BSDF weight for one bounce.
-    ``u`` holds the bounce's BOUNCE_SLOTS (N,) uniforms; ``mip_scale > 0``
-    selects a mip level per hit (``--mips``); ``uv`` is
-    ``intersect_scene_uv``'s (uvx, uvy, uv_ok) in a mesh-UV scene. Raises
-    for scene features not ported yet (``Scene.unsupported``)."""
+    ``u`` holds the bounce's BOUNCE_SLOTS (N,) uniforms; ``just_importance``
+    makes the diffuse estimator sample the light only, px = PdfLight (the
+    reference's just_importance flag, as the scene's ``just_cosine`` makes
+    it sample the cosine only); ``mip_scale > 0`` selects a mip level per
+    hit (``--mips``); ``uv`` is ``intersect_scene_uv``'s (uvx, uvy, uv_ok)
+    in a mesh-UV scene. Raises for scene features not ported yet
+    (``Scene.unsupported``)."""
     missing = scene.unsupported()
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
@@ -221,8 +233,12 @@ def shade_bounce(scene: Scene, o: Vec3, d: Vec3, hit: Hit, u,
                         scene.sph_center.z[0])
     light_radius = scene.sph_radius[0]
     cos_dir = cosine_hemisphere(u[2], u[3])
-    use_cosine = (torch.ones_like(b_sample_cosine) if just_cosine
-                  else b_sample_cosine)
+    if just_importance:
+        use_cosine = torch.zeros_like(b_sample_cosine)
+    elif just_cosine:
+        use_cosine = torch.ones_like(b_sample_cosine)
+    else:
+        use_cosine = b_sample_cosine
     if scene.quad_light >= 0:
         qi = scene.quad_light
         qp = Vec3(scene.quad_point.x[qi], scene.quad_point.y[qi],
@@ -254,7 +270,12 @@ def shade_bounce(scene: Scene, o: Vec3, d: Vec3, hit: Hit, u,
                                    light_radius, MIN_HIT_DISTANCE)
         pimp = pdf_to_sphere(sph_hit, light_center, light_radius, hitpoint)
         imp_valid = ts_valid
-    px_diff = pcos if just_cosine else 0.5 * pcos + 0.5 * pimp
+    if just_cosine:
+        px_diff = pcos
+    elif just_importance:
+        px_diff = pimp
+    else:
+        px_diff = 0.5 * pcos + 0.5 * pimp
     diff_valid = (px_diff > 0.0) & (use_cosine | imp_valid)
 
     case_a = b_specular & smooth
@@ -386,3 +407,85 @@ def russian_roulette(throughput: Vec3, u_rr: torch.Tensor, q_min: float = 0.05):
     inv_q = torch.reciprocal(q)
     return survive, Vec3(throughput.x * inv_q, throughput.y * inv_q,
                          throughput.z * inv_q)
+
+
+def trace(scene: Scene, o: Vec3, d: Vec3, pkeys: prng.PathStream,
+          debug_kind: str = REGULAR, just_importance: bool = False,
+          use_russian_roulette: bool = False, mip_scale: float = 0.0):
+    """A batch of primary rays to radiance (RayCast, win32_main.cpp:
+    558-823), unrolled over MAX_BOUNCE_COUNT bounces under an alive mask:
+    JAX's ``integrator.trace``, the driver of the debug kinds, of
+    ``just_importance`` and of ``mode="unrolled"``. ``pkeys`` are the
+    paths' PCG4D streams. Returns (radiance, :class:`TraceStats`); the
+    debug kinds replace the radiance with the primary ray's shading normal
+    mapped to [0, 1], 1/MAX_BOUNCE_COUNT per bounce reached, or the colour
+    of the first termination cause (sky blue, light green, depth red,
+    back face yellow)."""
+    from .wavefront import intersect
+    assert debug_kind in DEBUG_KINDS
+    assert not (scene.just_cosine and just_importance), \
+        "they can't both be true"
+    z = torch.zeros_like(o.x)
+    radiance = Vec3(z, z, z)
+    throughput = splat((1.0, 1.0, 1.0), z)
+    alive = torch.ones_like(z, dtype=torch.bool)
+    lane_casts = torch.zeros_like(z, dtype=torch.int64)
+    primary_n = Vec3(z, z, z)
+    cond_color = Vec3(z, z, z)
+    cond_done = torch.zeros_like(alive)
+    accumulate_regular = debug_kind in (REGULAR, VARIANCE)
+
+    def set_cond(mask, rgb, color, done):
+        take = mask & alive & ~done
+        return vwhere(take, splat(rgb, z), color), done | take
+
+    for b in range(MAX_BOUNCE_COUNT):
+        lane_casts = lane_casts + alive
+        hit, uv = intersect(scene, o, d)
+        terminal = b == MAX_BOUNCE_COUNT - 1
+        u = prng.bounce_uniforms(pkeys, b)
+        out = shade_bounce(scene, o, d, hit, u,
+                           just_importance=just_importance,
+                           mip_scale=mip_scale, uv=uv)
+        if accumulate_regular:
+            # radiance += throughput * emission at every level (:799)
+            radiance = vwhere(alive, radiance + hadamard(throughput,
+                                                         out.emit), radiance)
+        if debug_kind == BOUNCE_COUNT:
+            # 1/MAX_BOUNCE_COUNT per level reached (:801-804)
+            c = 1.0 / MAX_BOUNCE_COUNT
+            radiance = vwhere(alive, Vec3(radiance.x + c, radiance.y + c,
+                                          radiance.z + c), radiance)
+        if b == 0:
+            # the mapped normal of a surface, else the geometric one (:806)
+            primary_n = out.shading_normal
+        if debug_kind == TERMINATION_CONDITION:
+            # the first termination cause, colour-coded (:809-820)
+            cond_color, cond_done = set_cond(out.hit_sky, (0, 0, 1),
+                                             cond_color, cond_done)
+            cond_color, cond_done = set_cond(out.hit_light, (0, 1, 0),
+                                             cond_color, cond_done)
+            if terminal:
+                cond_color, cond_done = set_cond(torch.ones_like(alive),
+                                                 (1, 0, 0), cond_color,
+                                                 cond_done)
+            cond_color, cond_done = set_cond(~out.front_facing, (1, 1, 0),
+                                             cond_color, cond_done)
+        if terminal:
+            break
+        cont = alive & out.cont
+        if accumulate_regular:
+            new_thr = hadamard(throughput, out.weight)
+            if use_russian_roulette and b >= 1:
+                survive, new_thr = russian_roulette(new_thr, u[4])
+                cont = cont & survive
+            throughput = vwhere(cont, new_thr, throughput)
+        o = vwhere(cont, out.hitpoint, o)
+        d = vwhere(cont, out.L, d)
+        alive = cont
+
+    if debug_kind == PRIMARY_RAY_NORMALS:
+        radiance = primary_n * 0.5 + splat((0.5, 0.5, 0.5), z)
+    elif debug_kind == TERMINATION_CONDITION:
+        radiance = cond_color
+    return radiance, TraceStats(lane_casts.sum(), lane_casts)

@@ -84,8 +84,9 @@ def render_chunk_wavefront(scene: Scene, camera: Camera, config, key: int,
         state.rays_cast += active.sum()
         hit, uv = intersect(scene, o, d)
         u = prng.bounce_uniforms(prng.path_keys(key, pixel_idx, s_abs), bounce)
-        out = shade_bounce(scene, o, d, hit, u, mip_scale=config.mip_scale,
-                           uv=uv)
+        out = shade_bounce(scene, o, d, hit, u,
+                           just_importance=config.just_importance,
+                           mip_scale=config.mip_scale, uv=uv)
 
         contrib = hadamard(thr, out.emit)
         prad = vwhere(active, prad + contrib, prad)

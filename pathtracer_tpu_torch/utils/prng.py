@@ -13,6 +13,7 @@ such words can wrap past 2^63, which leaves its low 32 bits intact.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -104,3 +105,12 @@ def bounce_uniforms(stream: PathStream, bounce):
     a0, a1, a2, a3 = _draw4(stream, base)
     b0, b1, b2, b3 = _draw4(stream, base + 1)
     return a0, a1, a2, a3, b0, b1, b2, b3
+
+
+def normal_from_uniforms(u1, u2, stddev=1.0):
+    """A Gaussian sample from two counter uniforms by Box-Muller (the
+    RandomNormal role, ray_math.hpp:278-296; on no render path). ``u1`` is
+    clamped away from 0, where the log is -inf."""
+    u1 = torch.clamp_min(u1, 1.0 / (1 << 24))
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    return stddev * r * torch.cos((2.0 * math.pi) * u2)

@@ -3,7 +3,7 @@ in fog: the quad form of the volume NEE) and world 3 through the thin lens
 with the CLI's fog (the sphere form), the port's render_chunk (the plain
 version of the feature kernel) against JAX's XLA wavefront driver at 32x18,
 pp=2, under the golden gates (tests/test_torch_render.py); the fog flags of
-the CLI, world 1 in fog through the CLI, and a refusal that stays.
+the CLI, world 1 in fog through the CLI, with the denoiser too.
 """
 
 import dataclasses
@@ -82,17 +82,20 @@ def test_cli_fog_writes_an_image(tmp_path, capsys, flags):
 
 def test_cli_fog_on_world1_raises(tmp_path):
     """World 1 in fog renders (its combined texture set under the textured
-    lockstep kernel's feature form); what the port still lacks raises,
-    naming its ROADMAP item: the denoiser on the same command."""
+    lockstep kernel's feature form), and with the denoiser on the same
+    command too: the same linear image, filtered before the tonemap, so
+    its pixels differ from the raw ones; a bad --fog-albedo raises."""
     from pathtracer_tpu_torch.cli import main
     out = tmp_path / "w1.bmp"
     assert main(["-w1", "--fog", "0.0012", "--size", "8x8", "-p2",
                  "--device", "cpu", "--out", str(out)]) == 0
     assert packed_to_rgb(read_bmp(str(out))).max() > 0
-    with pytest.raises(NotImplementedError,
-                       match="denoise.*ROADMAP queue 1 item 11"):
-        main(["-w1", "--fog", "0.01", "--denoise", "2", "--size", "8x8",
-              "-p1", "--device", "cpu", "--out", str(out)])
+    den = tmp_path / "den.bmp"
+    assert main(["-w1", "--fog", "0.0012", "--size", "8x8", "-p2",
+                 "--device", "cpu", "--denoise", "2", "--out", str(den)]) == 0
+    img = packed_to_rgb(read_bmp(str(den)))
+    assert img.shape == (8, 8, 3) and img.max() > 0
+    assert out.read_bytes() != den.read_bytes()
     with pytest.raises(SystemExit, match="R,G,B"):
         main(["-w3", "--fog", "0.01", "--fog-albedo", "1,1", "--size", "8x8",
               "--device", "cpu", "--out", str(tmp_path / "w3.bmp")])

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from pathtracer_tpu.scene import worlds as jworlds
+from pathtracer_tpu_torch.io.bmp import read_bmp
 from pathtracer_tpu_torch.render import cuda_backend
 from pathtracer_tpu_torch.render import renderer as trenderer
 from pathtracer_tpu_torch.scene import schema as tschema
@@ -58,8 +59,8 @@ def test_imports_and_renders_without_jax(tmp_path):
 def test_cli_world5_raises_naming_its_item(tmp_path, monkeypatch):
     """World 5 renders through the CLI: without mario.glb its ground, sky
     and sun, and with a mesh of the static tier loaded (a stand-in for the
-    asset) also in fog; the denoiser is refused, naming its ROADMAP
-    item."""
+    asset) also in fog, and with the denoiser (without fog, whose 8x8
+    image is black): its pixels differ from the raw render's."""
     from pathtracer_tpu_torch.cli import main
     out = tmp_path / "w5.bmp"
     assert main(["-w5", "-p1", "--size", "8x8", "--device", "cpu", "--out",
@@ -73,10 +74,13 @@ def test_cli_world5_raises_naming_its_item(tmp_path, monkeypatch):
     assert main(["-w5", "-p1", "--size", "8x8", "--device", "cpu", "--fog",
                  "0.01", "--out", str(out)]) == 0
     assert out.stat().st_size == 58 + 8 * 8 * 4
-    with pytest.raises(NotImplementedError,
-                       match="denoise.*ROADMAP queue 1 item 11"):
-        main(["-w5", "-p1", "--size", "8x8", "--device", "cpu", "--fog",
-              "0.01", "--denoise", "--out", str(out)])
+    raw, den = tmp_path / "w5_raw.bmp", tmp_path / "w5_denoised.bmp"
+    for path, extra in ((raw, []), (den, ["--denoise", "3"])):
+        assert main(["-w5", "-p1", "--size", "8x8", "--device", "cpu",
+                     "--out", str(path)] + extra) == 0
+    assert den.stat().st_size == 58 + 8 * 8 * 4
+    assert den.read_bytes() != raw.read_bytes()
+    assert read_bmp(str(den)).max() > 0
 
 
 def test_render_image_cuda_without_card_raises():
@@ -148,15 +152,45 @@ def test_cuda_wrapper_refuses_textured_clustered_scene():
                                        0, 0, 1, trenderer.init_accum(64))
 
 
-@pytest.mark.parametrize("cfg, match", [
-    (trenderer.RenderConfig(8, 8, pp=1, debug_kind="bounce_count"), "ROADMAP"),
-    (trenderer.RenderConfig(8, 8, pp=1, denoise=2), "ROADMAP"),
-])
-def test_unported_configs_raise(cfg, match):
+@pytest.mark.parametrize("cfg", [
+    trenderer.RenderConfig(8, 8, pp=1, debug_kind="bounce_count"),
+    trenderer.RenderConfig(8, 8, pp=2, denoise=2),
+], ids=["cfg0-ROADMAP", "cfg1-ROADMAP"])
+def test_unported_configs_raise(cfg):
+    """Both configs render (each once refused, naming its ROADMAP item):
+    ``bounce_count`` through the unrolled driver, each pixel the count of
+    bounces its path reached over MAX_BOUNCE_COUNT, equal to the port's
+    ``integrator.trace`` on the same primary rays; ``denoise=2``'s packed
+    pixels equal JAX's ``finalize`` (the a-trous filter, then the tonemap)
+    on the same accumulator."""
+    from pathtracer_tpu.render import renderer as jrenderer
+    from pathtracer_tpu.utils.vec import Vec3 as JVec3
+    from pathtracer_tpu_torch.render import integrator, wavefront
+    from pathtracer_tpu_torch.utils import prng
     scene, cam = tworlds.finalize_world(tschema.WORLD_CORNELL_BOX, 8, 8)
-    with pytest.raises(NotImplementedError, match=match):
-        trenderer.render_chunk(scene, cam, cfg, 0, 0, 1,
-                               trenderer.init_accum(64))
+    st = trenderer.render_chunk(scene, cam, cfg, 0, 0, cfg.spp,
+                                trenderer.init_accum(64))
+    assert st.samples_done == cfg.spp
+    if cfg.debug_kind == "bounce_count":
+        px = torch.arange(64)
+        o, d = wavefront._primary_rays(cam, cfg, 0, px, torch.zeros_like(px))
+        rad, stats = integrator.trace(scene, o, d, prng.path_keys(0, px, 0),
+                                      debug_kind="bounce_count")
+        assert torch.equal(st.sum.x, rad.x) and torch.equal(st.sum.z, rad.z)
+        assert int(st.rays_cast) == int(stats.rays_cast)
+        assert torch.equal(st.sum.x * tschema.MAX_BOUNCE_COUNT,
+                           stats.lane_casts.float())
+        return
+    f = lambda t: __import__("jax").numpy.asarray(t.numpy())
+    jst = jrenderer.AccumState(JVec3(*map(f, st.sum)),
+                               JVec3(*map(f, st.sum_sq)), f(st.count),
+                               f(st.nan_count.float()),
+                               f(st.rays_cast.float()), st.samples_done)
+    packed = trenderer.finalize(st, cfg).numpy()
+    np.testing.assert_array_equal(packed, np.asarray(jrenderer.finalize(
+        jst, jrenderer.RenderConfig(8, 8, pp=2, denoise=2))))
+    assert not np.array_equal(packed, trenderer.finalize(
+        st, trenderer.RenderConfig(8, 8, pp=2)).numpy())
 
 
 def test_plain_version_refuses_textured_scene():

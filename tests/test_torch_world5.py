@@ -15,7 +15,7 @@
   repository): tables equal to JAX's, the render under the same gates.
 - The CLI: ``-w5`` without the asset against JAX's ``-w5`` (8x8), ``--out
   x.png`` (PNG bytes whose pixels equal JAX's; BMP bytes for an extension
-  PIL does not know; a refusal naming ROADMAP item 12 without PIL), the
+  PIL does not know; a refusal naming PIL without PIL), the
   progress lines of the default ``--chunk`` (min(spp, 64)) at 144 spp
   and the camera explanation, against JAX's CLI.
 """
@@ -130,7 +130,7 @@ def test_out_png_matches_jax(tmp_path):
 
 def test_out_unknown_extension_and_no_pil(tmp_path, monkeypatch, capsys):
     """An extension PIL does not know falls back to BMP bytes, as JAX's
-    CLI does; without PIL a non-BMP --out raises naming item 12 and writes
+    CLI does; without PIL a non-BMP --out raises naming PIL and writes
     nothing."""
     argv = ["-w3", "-p1", "--size", "4x4", "--device", "cpu", "--out"]
     odd = tmp_path / "img.notaformat"
@@ -139,7 +139,7 @@ def test_out_unknown_extension_and_no_pil(tmp_path, monkeypatch, capsys):
     assert "unknown extension" in capsys.readouterr().out
     monkeypatch.setitem(sys.modules, "PIL", None)
     png = tmp_path / "img.png"
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="needs PIL"):
         tcli.main(argv + [str(png)])
     assert not png.exists()
     assert tcli.main(argv + [str(tmp_path / "img")]) == 0  # no extension
