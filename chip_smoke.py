@@ -311,6 +311,20 @@ and the script exits non-zero):
      at each of 4 chunks) and --profile's Chrome trace, which must name a
      wave_kernel launch.
 
+  8. the scenes JAX renders on XLA only, as torch ops (xla_phase): a
+     784-triangle mesh with the uniform grid, world 1 with a UV mesh (world
+     7's sphere at 8 x 12 segments) in its combined ground material and
+     world 1 with one of its maps as the ground's bump map, each through
+     render_chunk at 256x144, 4 spp, on the card against the CPU (on one
+     thread) under bench.py --verify's gates, none
+     launching wave_kernel, with the seconds per sample and the grid
+     walk's steps; a tessellated sphere of clusters.DMA_MAX + 1 triangles,
+     finalized (finalize_s) and binned (build_uniform_grid's seconds),
+     rendered at 16x9, 1 spp through the grid walk and through the
+     chunked sweep (its peak memory) within the gates of each other, and
+     its primary rays' hit or miss and material equal and t within rtol
+     1e-6 between the two.
+
 The last two lines are the kernel table as JSON and the result line
 {"ok": true, "device": {...}}.
 """
@@ -2133,7 +2147,7 @@ def run_cli(argv) -> str:
     return buf.getvalue()
 
 
-def verify_gates(label, a, b, cfg):
+def verify_gates(label, a, b, cfg, phase="phase7"):
     """bench.py --verify's gates (bench.py:378-385, as phase 3 applies
     them) between two accumulators of ``cfg``: fewer than 1% of pixels
     with resolved |diff| > 1e-3 and 0.1% with |diff| > 0.1, equal valid
@@ -2144,7 +2158,7 @@ def verify_gates(label, a, b, cfg):
     f1 = float((d > 0.1).float().mean())
     count_eq = bool((a.count.cpu() == b.count.cpu()).all())
     ra, rb = int(a.rays_cast), int(b.rays_cast)
-    print(f"phase7 {label} {cfg.width}x{cfg.height} pp={cfg.pp} "
+    print(f"{phase} {label} {cfg.width}x{cfg.height} pp={cfg.pp} "
           f"frac_gt_1e-3={f3} frac_gt_0.1={f1} "
           f"bit_equal={float((d == 0).float().mean())} count_equal={count_eq} "
           f"rays={ra} rays_other={rb} max_abs_err={float(d.max())}")
@@ -2366,6 +2380,137 @@ def post_phase(smi: str) -> None:
     check(previews == 4, "--preview wrote a PNG at each of 4 chunks")
     check(len(kernels) > 0, "--profile's trace names a wave_kernel launch")
     print(f"phase7 total_s={time.perf_counter() - t7}")
+
+
+def xla_phase(smi: str) -> None:
+    """Phase 8: the scenes JAX renders on XLA only, as torch ops on the card
+    (see the module's docstring); raises on any failure."""
+    import torch
+    from pathtracer_tpu_torch.ops import traverse
+    from pathtracer_tpu_torch.ops.intersect import (
+        SWEEP_PAIRS, intersect_scene,
+    )
+    from pathtracer_tpu_torch.render import cuda_backend as cb
+    from pathtracer_tpu_torch.render.renderer import (
+        RenderConfig, init_accum, kernel_renders, render_chunk,
+    )
+    from pathtracer_tpu_torch.render.wavefront import _primary_rays
+    from pathtracer_tpu_torch.scene import accel, clusters, mixed_scenes
+    from pathtracer_tpu_torch.scene.camera import define_camera
+    from pathtracer_tpu_torch.scene.schema import (
+        F32_MAX, WORLD_DEFAULT, WORLD_MARIO,
+    )
+    from pathtracer_tpu_torch.scene.worlds import _uv_sphere_mesh, build_world
+
+    t8 = time.perf_counter()
+    dev = torch.device("cuda:0")
+    sync = torch.cuda.synchronize
+
+    def grey_mesh(tris):
+        b, cp = build_world(WORLD_MARIO, res_dir=str(ROOT / "no asset here"))
+        m = b.add_material(albedo=(0.7, 0.6, 0.5), roughness=0.6)
+        b.set_mesh(tris.reshape(-1, 3), np.full((3 * len(tris),), m, np.int32))
+        return b, cp
+
+    def render(scene, cam, cfg):
+        """One render_chunk of cfg.spp samples where ``scene`` lies: (the
+        accumulator, seconds per sample, the DDA's steps and walks); it
+        must launch no wave_kernel."""
+        check(scene.off_kernel and not kernel_renders(scene, cfg),
+              "the scene is routed off the kernel")
+        cb.LAUNCHES = 0
+        traverse.STEPS = traverse.WALKS = 0
+        st = init_accum(cfg.width * cfg.height, scene.device)
+        # on the CPU one thread: PyTorch's pool slows these small eager ops
+        threads = torch.get_num_threads()
+        if scene.device.type == "cpu":
+            torch.set_num_threads(1)
+        sync()
+        t = time.perf_counter()
+        render_chunk(scene, cam, cfg, 0, 0, cfg.spp, st)
+        sync()
+        dt = (time.perf_counter() - t) / cfg.spp
+        torch.set_num_threads(threads)
+        check(cb.LAUNCHES == 0, "no wave_kernel launch off the kernel")
+        return st, dt, traverse.STEPS, traverse.WALKS
+
+    # a. a mesh with the grid, world 1 with a UV mesh in its combined
+    # ground material, world 1 with a bump map on its combined set: on the
+    # card against the CPU, 256x144, 4 spp
+    center, radius = mixed_scenes.MESH_AT[WORLD_DEFAULT]
+    uv = _uv_sphere_mesh(center, radius, n_seg=8, n_ring=12)
+    cases = {
+        "grid784": lambda: grey_mesh(tessellated_sphere(800)),
+        "w1 uv": lambda: mixed_scenes.mixed_builder(
+            world=WORLD_DEFAULT, mesh=(uv[0].reshape(-1, 3, 3), uv[1]),
+            mesh_material="ground"),
+        "w1 bump": lambda: mixed_scenes.mixed_builder(world=WORLD_DEFAULT,
+                                                      ground_bump=3),
+    }
+    cfg = RenderConfig(256, 144, pp=2)
+    for tag, make in cases.items():
+        b, cp = make()
+        grid = (accel.build_uniform_grid(b.triangles) if tag == "grid784"
+                else None)
+        sc = b.finalize(world_kind=WORLD_MARIO if grid else WORLD_DEFAULT,
+                        grid=grid, view_origin=cp.pos)
+        cam = define_camera(cp.pos, cp.target, cp.fov, 256, 144)
+        card, s_card, steps, walks = render(sc.to(dev), cam, cfg)
+        cpu, s_cpu, _, _ = render(sc, cam, cfg)
+        verify_gates(f"{tag} cuda_vs_cpu", card, cpu, cfg, phase="phase8")
+        print(f"phase8 {tag} n_tris={sc.n_tris} grid_res={sc.grid_res} "
+              f"combined={sc.tex_combined} s_per_sample={s_card} "
+              f"s_per_sample_cpu={s_cpu} dda_walks={walks} "
+              f"dda_steps={steps} dda_steps_per_walk={steps / max(walks, 1)} "
+              f"wave_kernel_launches=0 | card: {smi}")
+
+    # b. a tessellated sphere of DMA_MAX + 1 triangles (the last a copy of
+    # one in view: an exact tie, which both passes give the lower index),
+    # walked through the grid and swept in chunks on the card, 1 spp, at
+    # 16x9: the walk tests one triangle a step, and a ray through a pole's
+    # cells, which hold some 10^4 slivers, took 17,255 steps a walk at
+    # 64x36 (about 50 s each: H100 80GB HBM3, 700 W)
+    tris = tessellated_sphere(clusters.DMA_MAX)
+    tris = np.concatenate([tris, tris[len(tris) // 2 - 1:len(tris) // 2]])
+    check(len(tris) == clusters.DMA_MAX + 1, "DMA_MAX + 1 triangles")
+    b, cp = grey_mesh(tris)
+    t = time.perf_counter()
+    sc = b.finalize(world_kind=WORLD_MARIO, view_origin=cp.pos)
+    finalize_s = time.perf_counter() - t
+    t = time.perf_counter()
+    grid = accel.build_uniform_grid(b.triangles)
+    grid_s = time.perf_counter() - t
+    swept = sc.to(dev)
+    walked = dataclasses.replace(sc, grid_cell_start=grid[0],
+                                 grid_cell_count=grid[1], grid_tris=grid[2],
+                                 grid_res=grid[3]).to(dev)
+    cfg = RenderConfig(16, 9, pp=1)
+    cam = define_camera(cp.pos, cp.target, cp.fov, 16, 9)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    sweep_st, sweep_s, _, _ = render(swept, cam, cfg)
+    peak_mb = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
+    grid_st, walk_s, steps, walks = render(walked, cam, cfg)
+    verify_gates("dma_max+1 grid_vs_sweep", grid_st, sweep_st, cfg,
+                 phase="phase8")
+    pix = torch.arange(16 * 9, device=dev)
+    o, d = _primary_rays(cam, cfg, 0, pix, torch.zeros_like(pix))
+    hs, hg = intersect_scene(swept, o, d), intersect_scene(walked, o, d)
+    hit = hs.t < F32_MAX
+    rel = ((hg.t - hs.t).abs() / hs.t.abs().clamp_min(1e-30))[hit]
+    print(f"phase8 dma_max+1 n_tris={sc.n_tris} finalize_s={finalize_s} "
+          f"build_uniform_grid_s={grid_s} sweep_s_per_sample={sweep_s} "
+          f"grid_s_per_sample={walk_s} sweep_peak_mb={peak_mb} "
+          f"sweep_pairs={SWEEP_PAIRS} dda_walks={walks} dda_steps={steps} "
+          f"dda_steps_per_walk={steps / max(walks, 1)} "
+          f"primary_hits={int(hit.sum())} "
+          f"primary_t_max_rel={float(rel.max()) if rel.numel() else 0.0} "
+          f"primary_t_bit_equal={bool((hg.t == hs.t).all())} | card: {smi}")
+    check(bool((hit == (hg.t < F32_MAX)).all()), "primary hit or miss equal")
+    check(bool((hs.mat == hg.mat).all()), "primary materials equal")
+    check(int(hit.sum()) > 0 and float(rel.max()) <= 1e-6,
+          "primary t within rtol 1e-6")
+    print(f"phase8 total_s={time.perf_counter() - t8}")
 
 
 def main() -> int:
@@ -4244,6 +4389,7 @@ def main() -> int:
           "every variant in the kernel table")
     print(f"phase6 total_s={time.perf_counter() - t_start}")
     post_phase(smi)
+    xla_phase(smi)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

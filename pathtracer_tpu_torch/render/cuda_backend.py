@@ -80,6 +80,7 @@ import numpy as np
 import torch
 
 from ..scene.camera import Camera, define_camera
+from ..scene import clusters
 from ..scene.clusters import stream_rows_per_cluster
 from ..scene.schema import Scene, planar_recip, recip32
 from .lockstep import render_chunk_lockstep
@@ -274,6 +275,12 @@ def check_supported(scene: Scene, camera: Camera, config):
     missing = scene.unsupported()
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
+    if scene.off_kernel:
+        raise NotImplementedError(
+            "JAX renders a mesh with the uniform grid, a mesh of more than "
+            f"{clusters.DMA_MAX} triangles, a UV mesh or a bump map beside a "
+            "combined texture set on XLA only; renderer.render_chunk "
+            "renders them as torch ops")
 
 
 def textured(scene: Scene) -> bool:

@@ -6,16 +6,21 @@ counters; NaN samples are masked and counted instead of resampled. The
 accumulator is the checkpoint: ``samples_done`` records how many whole-image
 samples it holds, and the counter-based PRNG regenerates the rest exactly.
 
-``render_chunk`` routes by the config as JAX's does (its kernel takes the
-regular and variance targets, the rest run on XLA): under ``mode`` auto or
-wavefront the regular and variance targets go to the hand-written kernel
-on CUDA tensors (``cuda_backend.render_chunk_cuda``) and to its plain
-version on CPU tensors; ``just_importance`` under wavefront goes to the
-plain path-regeneration loop (``render/wavefront.py``); every other debug
-kind, and ``mode="unrolled"``, to the unrolled driver
-(``integrator.trace``, one sample at a time, :func:`_one_sample`), both
-as torch ops on the tensors' device. A kernel that fails to build or
-launch raises; nothing falls back from one route to another.
+``render_chunk`` routes by the scene and the config as JAX's does (its
+kernel takes the regular and variance targets of the scenes its
+``supports`` admits, the rest run on XLA; :func:`kernel_renders`): under
+``mode`` auto or wavefront the regular and variance targets go to the
+hand-written kernel on CUDA tensors (``cuda_backend.render_chunk_cuda``)
+and to its plain version on CPU tensors; a scene JAX renders on XLA only
+(``Scene.off_kernel``: a mesh with the uniform grid, a mesh above
+``clusters.DMA_MAX`` triangles, a UV mesh or a bump map beside a combined
+texture set) and ``just_importance`` under wavefront go to the plain
+path-regeneration loop (``render/wavefront.py``); every other debug kind,
+and ``mode="unrolled"``, to the unrolled driver (``integrator.trace``,
+one sample at a time, :func:`_one_sample`), both as torch ops on the
+tensors' device. The route is decided before anything runs: a kernel
+that fails to build or launch raises, and nothing falls back from one
+route to another.
 
 ``finalize`` denoises (``config.denoise``), applies ``config.exposure``
 and tonemaps the regular target, as JAX's does.
@@ -151,6 +156,16 @@ def _one_sample(scene: Scene, camera: Camera, config: RenderConfig,
     return state
 
 
+def kernel_renders(scene: Scene, config: RenderConfig) -> bool:
+    """Whether the kernel (or its plain version) renders this scene under
+    this config: ``config.on_kernel()``, but for the scenes that the four
+    clauses of JAX's ``supports`` send to XLA (pallas_backend.py:140-167,
+    ``Scene.off_kernel``). The scenes JAX's kernel refuses for the TPU's
+    sake (more than 1024 spheres, quads or planes, stacks that do not
+    tile) stay on the port's kernel."""
+    return config.on_kernel() and not scene.off_kernel
+
+
 def render_chunk(scene: Scene, camera: Camera, config: RenderConfig,
                  key: int, s0: int, n_samples: int,
                  state: AccumState) -> AccumState:
@@ -161,15 +176,16 @@ def render_chunk(scene: Scene, camera: Camera, config: RenderConfig,
         raise ValueError(f"scene on {scene.device}, accumulator on "
                          f"{state.device}")
     config.check_supported()
-    if config.on_kernel():
+    if kernel_renders(scene, config):
         if state.device.type == "cuda":
             return cuda_backend.render_chunk_cuda(scene, camera, config, key,
                                                   s0, n_samples, state)
         return cuda_backend.render_chunk_plain(scene, camera, config, key,
                                                s0, n_samples, state)
     if config.resolved_mode() == "wavefront":
-        # JAX's XLA wavefront driver: just_importance, or a debug kind
-        # forced onto it (which then renders the regular radiance)
+        # JAX's XLA wavefront driver: a scene off the kernel,
+        # just_importance, or a debug kind forced onto it (which then
+        # renders the regular radiance)
         render_chunk_wavefront(
             scene, camera, config, int(key) & 0xFFFF_FFFF, s0, n_samples,
             state, torch.arange(config.width * config.height,

@@ -13,13 +13,15 @@ import torch
 
 from ..render.renderer import AccumState
 from ..utils.vec import Vec3
+from . import clusters
 from .clusters import (
     CLUSTER_MIN, STREAM_FIELDS, STREAM_TRIS_PER_ROW, triangle_precompute,
 )
 from .schema import (
-    STATIC_FIELDS, TENSOR_FIELDS, VEC_FIELDS, Scene, bake_quad_normals,
-    bvh_tables, cluster_tables, mip_table, parent_tables, planar_tables,
-    quad_records, sphere_bvh_tables, texture_stack, tri_cluster_tables,
+    CTRI_UV_FIELDS, STATIC_FIELDS, TENSOR_FIELDS, VEC_FIELDS, Scene,
+    bake_quad_normals, bvh_tables, cluster_tables, mip_table, parent_tables,
+    planar_tables, quad_records, sphere_bvh_tables, texture_stack,
+    tri_cluster_tables,
 )
 
 # The JAX DMA tier's parent and grandparent rows and their counts (its
@@ -122,8 +124,10 @@ def scene_from_numpy(fields: dict, statics: dict) -> Scene:
     Fields and statics the port does not read are ignored; a missing
     ``quad_n`` (hand-built JAX scenes) is baked from ``quad_u``/``quad_v``.
     The cluster-ordered ``csph_*`` tables, the triangle and streamed-tier
-    tables and the texture tables come across as they are, except a
-    combined set's flat stack, which the port does not keep; the kernel's
+    tables, the grid and the texture tables come across as they are,
+    except a combined set's flat stack, which the port keeps only beside a
+    UV mesh or a bump map, and the clusters of a mesh above
+    ``clusters.DMA_MAX`` triangles, which it does not keep; the kernel's
     cluster, mip, parent and triangle-cluster tables are derived from the
     ``sph_clusters``, ``tex_mip_meta``, ``stream_parents`` /
     ``stream_gparents`` and ``tri_clusters`` statics, the streamed tier's
@@ -154,12 +158,22 @@ def scene_from_numpy(fields: dict, statics: dict) -> Scene:
             statics.get("n_stream_gparents", 0))
     kw.update(parent_tables(kw.get("stream_parents", ()),
                             kw.get("stream_gparents", ())))
+    if kw["n_tris"] > clusters.DMA_MAX:
+        # JAX clusters a mesh above the DMA tier, which no kernel walks;
+        # the port keeps no clusters there (WorldBuilder.finalize)
+        z = lambda dtype=torch.float32: torch.zeros((1,), dtype=dtype)
+        kw.update({k: Vec3(z(), z(), z())
+                   for k in ("ctri_n", "ctri_e1", "ctri_e2")},
+                  **{k: z() for k in ("ctri_d", "ctri_a0", "ctri_b0",
+                                      *CTRI_UV_FIELDS)},
+                  ctri_mat=z(torch.int32), tri_clusters=())
     kw.update(tri_cluster_tables(kw.get("tri_clusters", ())))
     kw.update(bvh_tables(kw["mtri_pack"], kw.get("tri_streamed", False),
                          kw.get("stream_leaf", 0),
                          kw.get("stream_uv_cfm", False), _static_bvh_args(kw),
                          _brute_bvh_args(kw), _stream_tris(kw)))
-    if kw.get("tex_combined"):
+    if kw.get("tex_combined") and not (kw.get("has_mesh_uvs")
+                                       or kw.get("any_bump")):
         kw.update(texture_stack([], combined=True))
     kw.update(planar_tables(
         kw["tex_packed"], kw["tex_w"], kw["tex_h"], kw.get("tex_hmax", 1),

@@ -34,7 +34,7 @@ GLASS = dict(albedo=(1.0, 1.0, 1.0), roughness=0.0, ior=1.5,
 
 def mixed_builder(world=WORLD_BRDF_TEST, combined=True, mesh=None,
                   mesh_material="grey", glass=False, maps=False,
-                  worlds_mod=_worlds, textures_mod=_textures):
+                  ground_bump=0, worlds_mod=_worlds, textures_mod=_textures):
     """A mixed scene's builder and camera parameters.
 
     - ``world``: ``WORLD_BRDF_TEST`` (sphere clusters) or ``WORLD_DEFAULT``
@@ -42,11 +42,16 @@ def mixed_builder(world=WORLD_BRDF_TEST, combined=True, mesh=None,
     - ``combined``: on world 2, world 1's combined ground material on its
       plane;
     - ``mesh``: ``(triangles (T, 3, 3), uvs (3T, 2) or None)``, or None. A
-      mesh with UVs wears world 7's checker; one without is grey, or in the
-      combined ground material with ``mesh_material="ground"``;
+      mesh with UVs wears world 7's checker, one without is grey; either
+      wears the combined ground material with ``mesh_material="ground"``
+      (with UVs, a UV mesh beside the combined set: JAX renders it on XLA
+      only);
     - ``glass``: every seventh sphere and the mesh in dispersive glass;
     - ``maps``: planar maps on the ground plane's material, world 7's
-      checker as its albedo and an 8x8 height field as its bump map.
+      checker as its albedo and an 8x8 height field as its bump map;
+    - ``ground_bump``: one of the combined set's four maps (1-4) as the
+      combined ground material's bump map, which keeps the set combined
+      (JAX renders it on XLA only).
     """
     b, cp = worlds_mod.build_world(world)
     ground = next((i for i, m in enumerate(b.materials) if m.albedo_idx),
@@ -65,6 +70,9 @@ def mixed_builder(world=WORLD_BRDF_TEST, combined=True, mesh=None,
         m.bump_idx = b.add_texture((np.round(hf * 255.0) / 255.0)
                                    .astype(np.float32))
         m.bump_scale = 0.5
+    if ground_bump:
+        b.materials[ground].bump_idx = ground_bump
+        b.materials[ground].bump_scale = 0.5
     glass_mat = b.add_material(**GLASS) if glass else None
     if glass:
         b.spheres = [(c, r, glass_mat if i % 7 == 3 else m)
@@ -73,12 +81,12 @@ def mixed_builder(world=WORLD_BRDF_TEST, combined=True, mesh=None,
         tris, uvs = mesh
         if glass:
             m = glass_mat
+        elif mesh_material == "ground":
+            m = ground
         elif uvs is not None:
             m = b.add_material(albedo=(1.0, 1.0, 1.0), roughness=0.55,
                                albedo_idx=b.add_texture(
                                    worlds_mod._mesh_uv_demo_texture()))
-        elif mesh_material == "ground":
-            m = ground
         else:
             m = b.add_material(albedo=(0.7, 0.6, 0.5), roughness=0.6)
         b.set_mesh(np.reshape(tris, (-1, 3)),

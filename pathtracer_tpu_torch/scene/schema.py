@@ -35,6 +35,14 @@ bump heights) read the same texels from ``planar_tile``
 with ``planar_meta``'s offsets, sizes and the wraps' reciprocals
 (:func:`planar_recip`).
 
+A mesh inside the world volume may also carry the reference's uniform
+grid (``grid_cell_start``/``grid_cell_count``/``grid_tris``, ``grid_res``;
+``scene/accel.py``). Such a scene, a mesh above ``clusters.DMA_MAX``
+triangles (kept without clusters), a UV mesh beside a combined set and a
+bump map on a combined set (which then keeps its flat stack) are the
+scenes JAX renders on XLA only (``Scene.off_kernel``); the port renders
+them as torch ops.
+
 Fog is the static ``fog_sigma_t`` (0: none), ``fog_albedo`` and ``fog_g``
 (``WorldBuilder.set_fog``). A scene with fog, transmission, bump or planar
 maps or a brute-force mesh takes the feature path (``Scene.featured``),
@@ -134,6 +142,7 @@ TENSOR_FIELDS = (
     *CTRI_UV_FIELDS, "mtri_bounds", "mtri_pack", "mtri_uvpack",
     "tex_tile", "tex_comb_a", "tex_comb_b",
     "tex_packed", "tex_w", "tex_h",
+    "grid_cell_start", "grid_cell_count", "grid_tris",
 )
 STATIC_FIELDS = (
     "n_spheres", "n_quads", "n_planes", "n_tris", "n_boxes", "n_materials",
@@ -147,7 +156,7 @@ STATIC_FIELDS = (
     "tex_combined", "tex_comb_w", "tex_comb_h", "tex_tiles_x",
     "tex_mip_meta", "tex_hmax", "tex_wmax", "tex_mesh_only",
     "use_normal_maps", "use_metalness_maps",
-    "use_roughness_maps", "tbn_normal_maps",
+    "use_roughness_maps", "tbn_normal_maps", "grid_res",
 )
 # Kernel tables derived from statics (cluster_tables, mip_table,
 # parent_tables, tri_cluster_tables) and, for the card's BVHs, from the
@@ -294,6 +303,12 @@ class Scene:
     tex_packed: torch.Tensor
     tex_w: torch.Tensor
     tex_h: torch.Tensor
+    # the uniform grid over the triangles (scene/accel.py: per cell its
+    # first entry and count in grid_tris, each cell's triangles in table
+    # order; (1,) zeros without a grid, grid_res 0)
+    grid_cell_start: torch.Tensor
+    grid_cell_count: torch.Tensor
+    grid_tris: torch.Tensor
     # the kernel's texel table (planar_tables, from the flat stack, read by
     # K10 and K11): each layer at its own size in 8x8-texel tiles of 64
     # words, and eight int32 words per layer ((64,) and (1, 8) dummies
@@ -368,6 +383,7 @@ class Scene:
     use_metalness_maps: bool = True
     use_roughness_maps: bool = True
     tbn_normal_maps: bool = False
+    grid_res: int = 0       # cells per axis of the grid, 0 = no grid
 
     @property
     def device(self) -> torch.device:
@@ -419,22 +435,26 @@ class Scene:
         return bool(self.fog_sigma_t > 0.0 or self.any_transmissive
                     or self.any_bump or self.planar_maps or self.tri_brute)
 
+    @property
+    def off_kernel(self) -> bool:
+        """JAX renders this scene on XLA only: its ``supports``
+        (pallas_backend.py:140-167) turns away a mesh with a grid, a mesh
+        beyond the DMA tier, a UV mesh beside a combined texture set and a
+        bump map on a combined set. The port renders it as torch ops, and
+        its triangle pass walks the grid or sweeps the mesh as JAX's XLA
+        drivers do (``ops/intersect.py``)."""
+        return bool(
+            (self.n_tris and self.grid_res)
+            or self.n_tris > clusters.DMA_MAX
+            or (self.tex_combined and self.n_tris and self.has_mesh_uvs)
+            or (self.tex_combined and self.n_textures and self.any_bump))
+
     def unsupported(self) -> list:
-        """Names of the features this scene uses that the port has not yet
-        ported (empty when the slice covers it)."""
-        out = []
-        if self.tex_combined and self.n_tris and self.has_mesh_uvs:
-            out.append("a UV mesh together with a combined texture set "
-                       "(XLA-only in JAX, ROADMAP queue 1 item 10)")
-        if self.n_tris > clusters.DMA_MAX:
-            out.append(f"meshes of more than {clusters.DMA_MAX} triangles "
-                       "(beyond the DMA tier, ROADMAP queue 1 item 10)")
-        if self.tex_combined and self.n_textures and self.any_bump:
-            out.append("a bump map together with a combined texture set "
-                       "(XLA-only in JAX, ROADMAP queue 1 item 10)")
-        if self.n_boxes:
-            out.append("boxes (never populated by the reference worlds)")
-        return out
+        """Names of the features this scene uses that the port has not
+        ported (empty when it covers them): only boxes, which no world
+        populates."""
+        return (["boxes (never populated by the reference worlds)"]
+                if self.n_boxes else [])
 
 
 @dataclasses.dataclass
@@ -565,8 +585,9 @@ def tri_cluster_tables(tri_clusters: tuple) -> dict:
 def texture_stack(textures: list, combined: bool) -> dict:
     """The flat RGB8 stack of a texture set (schema.py:728-740 in JAX: every
     layer padded to the largest height and width, one int32 word per texel)
-    and its statics, or (1,) dummies for a combined set, whose fetch reads
-    ``tex_tile`` instead."""
+    and its statics, or (1,) dummies for a ``combined`` set, whose fetch
+    reads ``tex_tile`` instead (a combined set beside a UV mesh or a bump
+    map keeps its stack: those read it)."""
     if combined or not textures:
         return dict(tex_packed=torch.zeros((1,), dtype=torch.int32),
                     tex_w=torch.ones((1,), dtype=torch.int32),
@@ -895,7 +916,10 @@ class WorldBuilder:
         stream = dict(mtri_bounds=dummy(), mtri_pack=dummy(),
                       mtri_uvpack=dummy(), stream_parents=(),
                       stream_gparents=())
-        if ntri > clusters.CLUSTER_MIN:
+        # (a mesh above clusters.DMA_MAX never reaches a kernel: JAX's XLA
+        # drivers sweep it or walk its grid, and so does the port, which
+        # builds it no clusters; JAX's go unread)
+        if clusters.CLUSTER_MIN < ntri <= clusters.DMA_MAX:
             bmn, bmx = clusters.triangle_bounds(tris)
             order, tri_clusters = clusters.build_clusters(
                 bmn, bmx, sort_origin=view_origin)
@@ -904,7 +928,7 @@ class WorldBuilder:
             ctri_m = tri_m[:ntri][order]
             if has_uvs:
                 ctri_uvt = uvt[:ntri][order]
-            if clusters.STREAM_MIN < ntri <= clusters.DMA_MAX:
+            if ntri > clusters.STREAM_MIN:
                 cperm, parents = clusters.build_parents(
                     tri_clusters, sort_origin=view_origin)
                 tri_clusters = tuple(tri_clusters[i] for i in cperm)
@@ -996,10 +1020,12 @@ class WorldBuilder:
                  use_normal_maps: bool = True,
                  use_metalness_maps: bool = True,
                  use_roughness_maps: bool = True,
-                 view_origin=None) -> Scene:
+                 grid=None, view_origin=None) -> Scene:
         """Host lists -> padded CPU Scene (``Scene.to`` moves it).
         ``view_origin`` (the camera position) orders sphere clusters
-        near-to-far; the ``use_*_maps`` flags are the CLI's -n -m -r."""
+        near-to-far; the ``use_*_maps`` flags are the CLI's -n -m -r;
+        ``grid`` is ``accel.build_uniform_grid``'s result over the mesh,
+        which the triangle pass then walks (schema.py:533 in JAX)."""
         mats = self.materials
         M = _pad(len(mats), 128)
         S, Q, P = _pad(len(self.spheres)), _pad(len(self.quads)), _pad(len(self.planes))
@@ -1021,7 +1047,14 @@ class WorldBuilder:
                     and m.normal_idx == 0 and m.bump_idx == 0
                     and (m.albedo_idx == 0 or j not in non_tri_mats)
                     for j, m in enumerate(mats)))
-        stack = texture_stack(self.textures, tex_set["tex_combined"])
+        if grid is None:
+            zero = lambda: torch.zeros((1,), dtype=torch.int32)
+            grid = (zero(), zero(), zero(), 0)
+        # a combined set's fetch reads tex_tile; its flat stack is built
+        # only where a UV mesh's albedo or a bump map reads it (as torch
+        # ops: JAX renders such a scene on XLA only)
+        stack = texture_stack(self.textures, tex_set["tex_combined"] and not (
+            mesh["has_mesh_uvs"] or any(m.bump_idx != 0 for m in mats)))
         return Scene(
             mat_albedo=_vec_table(col("albedo"), M),
             mat_emit=_vec_table(col("emit"), M),
@@ -1088,4 +1121,8 @@ class WorldBuilder:
             use_normal_maps=use_normal_maps,
             use_metalness_maps=use_metalness_maps,
             use_roughness_maps=use_roughness_maps,
+            grid_cell_start=grid[0],
+            grid_cell_count=grid[1],
+            grid_tris=grid[2],
+            grid_res=grid[3],
         )

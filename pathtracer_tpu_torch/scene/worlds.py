@@ -302,16 +302,28 @@ def finalize_world(kind: int, image_width: int, image_height: int,
                    use_roughness_maps: bool = True,
                    rtiow_seed: int = 1337,
                    res_dir: str = tex_mod.REFERENCE_RES_DIR,
+                   use_grid: bool = False,
                    ) -> Tuple[Scene, Camera]:
     """Build world ``kind`` (a CPU Scene) and derive its camera for the
     given image size; ``use_pinhole=False`` selects the thin lens (world 4
-    always uses it) and the ``use_*_maps`` flags are the CLI's -n -m -r."""
+    always uses it) and the ``use_*_maps`` flags are the CLI's -n -m -r.
+
+    ``use_grid`` selects the uniform-grid DDA traversal for triangles
+    (results identical to brute force, ``scene/accel.py``). Default OFF,
+    as in JAX (worlds.py:333-362): per-lane divergent grid walks measured
+    ~70x slower than chunked brute force on the TPU's vector unit at the
+    reference's mesh sizes; the grid remains the right structure for much
+    larger meshes and for a future blocked traversal kernel."""
     b, cam = build_world(kind, use_pinhole=use_pinhole, rtiow_seed=rtiow_seed,
                          res_dir=res_dir)
+    grid = None
+    if use_grid and b.triangles is not None and len(b.triangles):
+        from .accel import build_uniform_grid
+        grid = build_uniform_grid(b.triangles)
     scene = b.finalize(world_kind=kind, use_normal_maps=use_normal_maps,
                        use_metalness_maps=use_metalness_maps,
                        use_roughness_maps=use_roughness_maps,
-                       view_origin=cam.pos)
+                       grid=grid, view_origin=cam.pos)
     camera = define_camera(
         cam.pos, cam.target, cam.fov, image_width, image_height,
         use_pinhole=cam.use_pinhole,

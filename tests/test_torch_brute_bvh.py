@@ -38,6 +38,8 @@ import numpy as np
 import pytest
 import torch
 
+from pathtracer_tpu.ops import intersect as jint
+from pathtracer_tpu.render import integrator as jintegrator
 from pathtracer_tpu.render import renderer as jrenderer
 from pathtracer_tpu.scene import worlds as jworlds
 from pathtracer_tpu.utils import prng as jprng
@@ -55,6 +57,7 @@ from test_torch_meshes import lat_long_sphere, mesh_scene
 from test_torch_render import assert_golden_gates
 from test_torch_scene import jax_scene_to_port
 from test_torch_static_bvh import _flat, _grazing_rays, _grid, _swapped
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _random64(seed=3):
@@ -337,6 +340,11 @@ def test_render_vs_xla(monkeypatch):
     for a, b in [*zip(walk.sum, sweep.sum), (walk.count, sweep.count)]:
         assert torch.equal(a, b)
     assert int(walk.rays_cast) == int(sweep.rays_cast)
+    # JAX's XLA driver with its chunked sweep (``_UNROLL_MAX`` lowered, as
+    # tests/test_torch_mixed_bases.py does): the same tests in a loop,
+    # which XLA compiles 5x faster than the 40 triangles unrolled
+    monkeypatch.setattr(jint, "_UNROLL_MAX", 16)
+    monkeypatch.setattr(jintegrator, "_SELECT_LOOKUP_MAX", 16)
     jst = jrenderer.render_chunk(
         js, jcam, jrenderer.RenderConfig(32, 18, pp=1, seed=0),
         jprng.base_key(0), jnp.int32(0), 4, jrenderer.init_accum(32 * 18))

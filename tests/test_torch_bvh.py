@@ -31,6 +31,7 @@ from test_torch_mesh_tiers import (  # noqa: F401  (force_dma: a fixture)
     _aimed_rays, _jax_kernel_mode, force_dma,
 )
 from test_torch_meshes import mesh_scene, tessellated_sphere, uv_sphere
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 W7 = tschema.WORLD_MESH_UV
 PER = tclusters.STREAM_TRIS_PER_ROW

@@ -31,6 +31,7 @@ from pathtracer_tpu_torch.render import progressive as tprogressive
 from pathtracer_tpu_torch.render import renderer as trenderer
 from pathtracer_tpu_torch.scene import schema as tschema
 from pathtracer_tpu_torch.scene import worlds as tworlds
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 POST = ["-w3", "-p1", "--size", "8x8", "--denoise", "2", "--exposure", "1.5",
         "--flip", "xy", "--probe-pixel", "3,4"]

@@ -26,6 +26,7 @@ from pathtracer_tpu_torch.scene import clusters as tclu
 from pathtracer_tpu_torch.scene import schema as tschema
 from pathtracer_tpu_torch.scene import worlds as tworlds
 from pathtracer_tpu_torch.utils.vec import Vec3 as TVec3
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _random_spheres(huge, n=150, seed=2):

@@ -17,6 +17,7 @@ from pathtracer_tpu_torch.render import renderer as trenderer
 from pathtracer_tpu_torch.scene.convert import accum_from_numpy
 from pathtracer_tpu_torch.utils import color as tcolor
 from pathtracer_tpu_torch.utils.vec import Vec3 as TVec3
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 W, H = 64, 48
 

@@ -44,6 +44,7 @@ from pathtracer_tpu_torch.scene.camera import define_camera
 from test_torch_mesh_tiers import force_dma  # noqa: F401 (a fixture)
 from test_torch_meshes import mesh_scene, tessellated_sphere, uv_sphere
 from test_torch_render import assert_golden_gates
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 W, H = 32, 18
 FOG = dict(fog_sigma_t=0.0012, fog_albedo=(0.9, 0.9, 0.95), fog_g=0.5)

@@ -46,6 +46,7 @@ from pathtracer_tpu_torch.utils.vec import Vec3 as TVec3
 from test_torch_mesh import _uv_mesh_builder
 from test_torch_render import assert_golden_gates
 from test_torch_scene import assert_tables_equal
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 W, H = 32, 18
 

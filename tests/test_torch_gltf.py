@@ -17,6 +17,7 @@ from pathtracer_tpu.scene import gltf as jgltf
 from pathtracer_tpu.scene.schema import WorldBuilder as JWorldBuilder
 from pathtracer_tpu_torch.scene import gltf as tgltf
 from pathtracer_tpu_torch.scene import schema as tschema
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _doc_with_buffer(pos, sparse=None):

@@ -21,6 +21,7 @@ from pathtracer_tpu_torch.render import renderer as trenderer
 from pathtracer_tpu_torch.scene import schema as tschema
 from pathtracer_tpu_torch.scene import worlds as tworlds
 from test_torch_scene import jax_scene_to_port
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -109,14 +110,21 @@ def _textured_scene(w=8, h=8):
 
 
 def _unported_textured_scene():
-    """World 1 with a bump map on its combined set: XLA-only in JAX
-    (ROADMAP queue 1 item 10)."""
-    scene, cam = tworlds.finalize_world(tschema.WORLD_DEFAULT, 8, 8)
-    return dataclasses.replace(scene, any_bump=True), cam
+    """World 1 with one of its maps as the ground's bump map, which keeps
+    the set combined: JAX renders it on XLA only, the port as torch ops."""
+    from pathtracer_tpu_torch.scene.camera import define_camera
+    from pathtracer_tpu_torch.scene.mixed_scenes import mixed_builder
+    b, cp = mixed_builder(world=tschema.WORLD_DEFAULT, ground_bump=3)
+    scene = b.finalize(view_origin=cp.pos)
+    assert scene.tex_combined and scene.any_bump and scene.off_kernel
+    return scene, define_camera(cp.pos, cp.target, cp.fov, 8, 8)
 
 
 def test_cuda_wrapper_refuses_textured_scene(monkeypatch):
+    """The kernel's wrapper refuses a bump map on a combined set without
+    launching, naming the route that renders it."""
     scene, cam = _unported_textured_scene()
+    assert scene.unsupported() == []
 
     def plain(*a, **k):
         raise AssertionError("the plain version must not run")
@@ -125,7 +133,9 @@ def test_cuda_wrapper_refuses_textured_scene(monkeypatch):
     monkeypatch.setattr(cuda_backend, "render_chunk_wavefront", plain)
     launches = cuda_backend.LAUNCHES
     with pytest.raises(NotImplementedError,
-                       match="bump.*combined texture set.*ROADMAP"):
+                       match="bump map beside a combined texture set on XLA "
+                             "only; renderer.render_chunk renders them as "
+                             "torch ops"):
         cuda_backend.render_chunk_cuda(scene, cam,
                                        trenderer.RenderConfig(8, 8, pp=1),
                                        0, 0, 1, trenderer.init_accum(64))
@@ -135,7 +145,8 @@ def test_cuda_wrapper_refuses_textured_scene(monkeypatch):
 def test_cuda_wrapper_refuses_textured_clustered_scene():
     """A combined texture set with sphere clusters is the mixed variant
     ``clustered+textured``; with a bump map on the combined set (XLA-only
-    in JAX) the wrapper refuses it, naming its ROADMAP item."""
+    in JAX) the wrapper refuses it, naming the route that renders it, and
+    render_chunk does not send it to the kernel's route."""
     scene, cam = tworlds.finalize_world(tschema.WORLD_DEFAULT, 8, 8)
     w2, _ = tworlds.finalize_world(tschema.WORLD_BRDF_TEST, 8, 8)
     scene = dataclasses.replace(
@@ -143,11 +154,14 @@ def test_cuda_wrapper_refuses_textured_clustered_scene():
         **{k: getattr(w2, k) for k in ("cl_offset", "cl_count", "cl_min",
                                        "cl_max", "cl_huge")})
     assert cuda_backend.variant(scene, cam) == "clustered+textured"
+    bumped = dataclasses.replace(scene, any_bump=True)
+    assert bumped.unsupported() == [] and bumped.off_kernel
+    assert not trenderer.kernel_renders(bumped, trenderer.RenderConfig(8, 8))
+    assert trenderer.kernel_renders(scene, trenderer.RenderConfig(8, 8))
     with pytest.raises(NotImplementedError,
-                       match="bump.*combined texture set.*ROADMAP queue 1 "
-                             "item 10"):
-        cuda_backend.render_chunk_cuda(dataclasses.replace(scene,
-                                                           any_bump=True),
+                       match="bump map beside a combined texture set on XLA "
+                             "only"):
+        cuda_backend.render_chunk_cuda(bumped,
                                        cam, trenderer.RenderConfig(8, 8, pp=1),
                                        0, 0, 1, trenderer.init_accum(64))
 
@@ -193,12 +207,24 @@ def test_unported_configs_raise(cfg):
         st, trenderer.RenderConfig(8, 8, pp=2)).numpy())
 
 
-def test_plain_version_refuses_textured_scene():
+def test_plain_version_refuses_textured_scene(monkeypatch):
+    """The kernel's plain version refuses a bump map on a combined set as
+    its wrapper does; render_chunk renders it as torch ops (the plain
+    path-regeneration loop), never reaching either."""
     scene, cam = _unported_textured_scene()
-    with pytest.raises(NotImplementedError,
-                       match="bump.*combined texture set.*ROADMAP"):
-        trenderer.render_chunk(scene, cam, trenderer.RenderConfig(8, 8, pp=1),
-                               0, 0, 1, trenderer.init_accum(64))
+    cfg = trenderer.RenderConfig(8, 8, pp=1)
+    with pytest.raises(NotImplementedError, match="on XLA only"):
+        cuda_backend.render_chunk_plain(scene, cam, cfg, 0, 0, 1,
+                                        trenderer.init_accum(64))
+
+    def kernel_route(*a, **k):
+        raise AssertionError("the kernel's route must not run")
+
+    monkeypatch.setattr(cuda_backend, "render_chunk_cuda", kernel_route)
+    monkeypatch.setattr(cuda_backend, "render_chunk_plain", kernel_route)
+    st = trenderer.render_chunk(scene, cam, cfg, 0, 0, 1,
+                                trenderer.init_accum(64))
+    assert st.samples_done == 1 and float(st.count.sum()) == 64
 
 
 def test_planar_textured_scene_renders_vs_xla():

@@ -29,6 +29,7 @@ from pathtracer_tpu_torch.scene import textures as ttextures
 from pathtracer_tpu_torch.scene import worlds as tworlds
 from pathtracer_tpu_torch.utils import prng
 from pathtracer_tpu_torch.utils.vec import Vec3 as TVec3
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 W1 = tschema.WORLD_DEFAULT
 W, H = 64, 36

@@ -23,6 +23,7 @@ from pathtracer_tpu_torch.scene import schema as tschema
 from pathtracer_tpu_torch.scene import textures as ttextures
 from pathtracer_tpu_torch.scene import worlds as tworlds
 from test_torch_textures import _jax_windowed_words
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 W1 = tschema.WORLD_DEFAULT
 RES = ttextures.REFERENCE_RES_DIR

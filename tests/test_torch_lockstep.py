@@ -22,6 +22,7 @@ from pathtracer_tpu_torch.scene import schema as tschema
 from pathtracer_tpu_torch.scene import textures as ttextures
 from pathtracer_tpu_torch.scene import worlds as tworlds
 from pathtracer_tpu_torch.utils import prng as tprng
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 W1 = tschema.WORLD_DEFAULT
 W, H = 32, 18

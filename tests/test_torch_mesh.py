@@ -34,6 +34,7 @@ from pathtracer_tpu_torch.scene import schema as tschema
 from pathtracer_tpu_torch.scene import worlds as tworlds
 from pathtracer_tpu_torch.utils.vec import Vec3 as TVec3
 from test_torch_scene import assert_tables_equal, jax_scene_to_port
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 W7 = tschema.WORLD_MESH_UV
 
@@ -262,9 +263,9 @@ def test_unported_mesh_tiers_raise(n, match):
     """A mesh without UVs of either tier is ported (the brute sweep K4t in
     the feature kernel, the static tier's K5 triangle walk in its own), in
     fog too (the feature forms), and beside a combined texture set (the
-    combined set's feature form, the mixed ``textured+staticplain``); what
-    stays unported raises: either mesh with UVs beside a combined set
-    (XLA-only in JAX, ROADMAP queue 1 item 10)."""
+    combined set's feature form, the mixed ``textured+staticplain``);
+    either mesh with UVs beside a combined set (XLA-only in JAX) is no
+    longer refused: it is routed off the kernel, to torch ops."""
     ts = _plain_mesh_builder(n).finalize()
     assert not ts.tri_streamed and ts.unsupported() == []
     assert ts.tri_brute == (match == "K4t")
@@ -289,16 +290,18 @@ def test_unported_mesh_tiers_raise(n, match):
         "K4t": "feattextured_pinhole_k4t",
         "K5's triangle": "textured+staticplain"}[match]
     bad = dataclasses.replace(comb, has_mesh_uvs=True)
-    assert any("UV mesh together with a combined texture set" in m
-               and "ROADMAP queue 1 item 10" in m for m in bad.unsupported())
+    from pathtracer_tpu_torch.render import renderer as trenderer
+    assert bad.unsupported() == [] and bad.off_kernel and not comb.off_kernel
+    assert not trenderer.kernel_renders(bad, trenderer.RenderConfig(8, 8))
 
 
 def test_mesh_without_uvs_and_dma_tier_raise():
     """The streamed tier without UVs and the DMA tier are ported (the walk
     runs without the uv rows, world 7 with tri_dma set is a plain flag),
     in fog too (the feature form), and beside sphere clusters (the mixed
-    ``clustered+meshplain``); a mesh above the DMA tier's limit still
-    raises."""
+    ``clustered+meshplain``); a mesh above the DMA tier's limit, a UV mesh
+    or a bump map beside a combined set go off the kernel: its wrapper
+    refuses them, naming the torch ops that render them."""
     ts = _plain_mesh_builder(1100).finalize()
     assert ts.tri_streamed and not ts.has_mesh_uvs
     assert ts.unsupported() == []
@@ -328,6 +331,8 @@ def test_mesh_without_uvs_and_dma_tier_raise():
     cuda_backend.check_supported(both, cam, trenderer.RenderConfig(8, 8))
     assert cuda_backend.variant(both, cam) == "clustered+meshplain"
     huge = dataclasses.replace(both, n_tris=tclusters.DMA_MAX + 1)
+    assert huge.unsupported() == [] and huge.off_kernel
     with pytest.raises(NotImplementedError,
-                       match="beyond the DMA tier, ROADMAP queue 1 item 10"):
+                       match=f"more than {tclusters.DMA_MAX} triangles.*"
+                             "on XLA only.*torch ops"):
         cuda_backend.check_supported(huge, cam, trenderer.RenderConfig(8, 8))

@@ -41,6 +41,7 @@ from test_torch_meshes import (
     lat_long_sphere, mesh_scene, tessellated_sphere, uv_sphere,
 )
 from test_torch_scene import assert_tables_equal, jax_scene_to_port
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 @pytest.fixture
 def force_dma(monkeypatch):
@@ -215,9 +216,9 @@ def test_tie_goes_to_the_lower_record():
 def test_mesh_refusals():
     """A clustered mesh in fog is ported (the static tier's feature form),
     and so are a mesh with sphere clusters and a mesh without UVs with a
-    combined texture set (the mixed variants); what stays unported raises,
-    naming its ROADMAP item: a UV mesh or a bump map with a combined
-    texture set."""
+    combined texture set (the mixed variants); a UV mesh or a bump map
+    with a combined texture set goes off the kernel (XLA-only in JAX): its
+    wrapper refuses it, naming the torch ops that render it."""
     ts, cam = mesh_scene(tworlds, tessellated_sphere(800))
     fog = dataclasses.replace(ts, fog_sigma_t=0.01)
     assert fog.unsupported() == []
@@ -237,11 +238,13 @@ def test_mesh_refusals():
     assert comb.unsupported() == []
     assert cuda_backend.variant(comb, cam) == "textured+staticplain"
     for bad, what in ((dataclasses.replace(comb, has_mesh_uvs=True),
-                       "UV mesh together with a combined texture set"),
+                       "a UV mesh or a bump map beside a combined texture "
+                       "set on XLA only"),
                       (dataclasses.replace(comb, any_bump=True),
-                       "bump map together with a combined texture set")):
-        assert any(what in m and "ROADMAP" in m for m in bad.unsupported())
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 10"):
+                       "a UV mesh or a bump map beside a combined texture "
+                       "set on XLA only")):
+        assert bad.unsupported() == [] and bad.off_kernel
+        assert not trenderer.kernel_renders(bad, trenderer.RenderConfig(8, 8))
+        with pytest.raises(NotImplementedError, match=what):
             cuda_backend.check_supported(bad, cam,
                                          trenderer.RenderConfig(8, 8))

@@ -11,6 +11,7 @@ under its sun, seen through its camera.
 
 import numpy as np
 import pytest
+import torch
 
 from pathtracer_tpu_torch.render import cuda_backend
 from pathtracer_tpu_torch.scene import mixed_scenes
@@ -20,6 +21,19 @@ from pathtracer_tpu_torch.scene.camera import define_camera
 
 W5 = tschema.WORLD_MARIO
 NO_ASSET = "/nonexistent-res"
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Each test on one thread of PyTorch's CPU pool. The port's tests run
+    many small ops on a few thousand lanes, which the pool's threads slow
+    several-fold beside JAX's thread pools and the other test workers
+    (the uv736 fog render: 3.7 s of wall and 14.5 s of CPU on 8 threads,
+    0.35 s on one). Every port test module imports it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def lat_long_sphere(nlat, nlon, radius=1.0, center=(0.0, 0.0, 1.0)):

@@ -62,6 +62,7 @@ from test_torch_mesh_tiers import force_dma  # noqa: F401 (a fixture)
 from test_torch_meshes import mixed_mesh, tessellated_sphere
 from test_torch_render import assert_golden_gates
 from test_torch_scene import assert_tables_equal
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 W, H = 32, 18
 W1, W2 = tschema.WORLD_DEFAULT, tschema.WORLD_BRDF_TEST
@@ -295,17 +296,23 @@ def test_every_mixed_variant_is_named():
     assert kinds == set(cuda_backend.MESH_KINDS) | {"textured"}
 
 
+# the ids are the cases' names from when the first three were refused
 @pytest.mark.parametrize("case, match", [
-    ("uv-mesh", "UV mesh together with a combined texture set.*XLA-only"),
-    ("bump", "bump map together with a combined texture set"),
-    ("dma-max", "more than 1048576 triangles"),
+    ("uv-mesh", "a UV mesh or a bump map beside a combined texture set on "
+                "XLA only; renderer.render_chunk renders them as torch ops"),
+    ("bump", "a UV mesh or a bump map beside a combined texture set on XLA "
+             "only"),
+    ("dma-max", "more than 1048576 triangles.*on XLA only"),
     ("boxes", "boxes"),
-])
+], ids=["uv-mesh-UV mesh together with a combined texture set.*XLA-only",
+        "bump-bump map together with a combined texture set",
+        "dma-max-more than 1048576 triangles", "boxes-boxes"])
 def test_refusals_that_stay(case, match):
-    """What stays unported raises, naming its ROADMAP item, on a mixed
-    base too: a UV mesh beside the combined set and a bump map on the
-    combined set (both XLA-only in JAX), meshes beyond the DMA tier, and
-    boxes."""
+    """The kernel's wrapper refuses, on a mixed base too, what JAX renders
+    on XLA only, naming the torch ops that render it (a UV mesh beside the
+    combined set, a bump map on the combined set, meshes beyond the DMA
+    tier: each off the kernel, none unported any more), and boxes, which
+    stay unported."""
     ts, cam = _port_scene(mesh="static")
     if case == "uv-mesh":
         ts = dataclasses.replace(ts, has_mesh_uvs=True)
@@ -317,8 +324,8 @@ def test_refusals_that_stay(case, match):
         ts = dataclasses.replace(ts, n_boxes=1)
     with pytest.raises(NotImplementedError, match=match):
         cuda_backend.check_supported(ts, cam, trenderer.RenderConfig(8, 8))
-    if case != "boxes":
-        assert any("ROADMAP queue 1 item 10" in m for m in ts.unsupported())
+    assert ts.off_kernel == (case != "boxes")
+    assert (ts.unsupported() == []) == (case != "boxes")
 
 
 def test_build_parts_hold_every_launcher():

@@ -12,6 +12,7 @@ from test_torch_mesh_tiers import force_dma  # noqa: F401 (a fixture)
 from test_torch_mixed_bases import (  # noqa: F401 (an autouse fixture)
     CASES, SPLIT_OFF, check_mixed_base_vs_xla, jax_large_table_forms,
 )
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_split_off_cases_are_cases():

@@ -26,6 +26,7 @@ from pathtracer_tpu_torch.render import raygen as traygen
 from pathtracer_tpu_torch.scene import schema as tschema
 from pathtracer_tpu_torch.utils.vec import Vec3 as TVec3
 from test_torch_scene import jax_scene_to_port
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 N = 512
 W, H, PP = 64, 36, 2

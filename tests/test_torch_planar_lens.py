@@ -38,6 +38,7 @@ from pathtracer_tpu_torch.scene import schema as tschema
 from pathtracer_tpu_torch.scene import worlds as tworlds
 from pathtracer_tpu_torch.utils.vec import splat
 from test_torch_scene import jax_scene_to_port
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 # (h, w): the sizes held, then two more 16x16 layers for the ground
 SIZES = ((16, 16), (8, 8), (40, 24), (7, 3), (1, 1), (300, 500), (16, 16),

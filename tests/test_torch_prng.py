@@ -7,6 +7,7 @@ import torch
 
 from pathtracer_tpu.utils import prng as jprng
 from pathtracer_tpu_torch.utils import prng as tprng
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 N = 4096
 

@@ -31,6 +31,7 @@ from pathtracer_tpu_torch.scene import worlds as tworlds
 from pathtracer_tpu_torch.scene.camera import define_camera
 from pathtracer_tpu_torch.utils import prng
 from pathtracer_tpu_torch.utils.vec import Vec3 as TVec3
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 FOG = dict(fog_sigma_t=0.0012, fog_albedo=(0.9, 0.9, 0.95), fog_g=0.5)
 W, H = 64, 36

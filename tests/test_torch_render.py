@@ -24,6 +24,7 @@ from pathtracer_tpu_torch.render import renderer as trenderer
 from pathtracer_tpu_torch.scene import schema as tschema
 from pathtracer_tpu_torch.scene import worlds as tworlds
 from pathtracer_tpu_torch.scene.convert import accum_from_numpy
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _jax_leaves(st):

@@ -12,6 +12,7 @@ from pathtracer_tpu_torch.scene import worlds as tworlds
 from pathtracer_tpu_torch.scene.convert import (
     JAX_PARENT_FIELDS, JAX_PARENT_STATICS, scene_from_numpy,
 )
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 # -w2 metal/roughness grid (122 spheres), -w3 Cornell, -w6 Cornell quad
 # light, -w4 RTIOW cover (484 spheres in 9 clusters, thin lens)
@@ -99,8 +100,8 @@ def test_quad_light_and_sphere_light():
 def test_unported_worlds_raise(kind, tmp_path):
     """World 5 builds without its asset (mario.glb absent: no mesh, as in
     JAX) with JAX's tables; a mesh without UVs together with a combined
-    texture set is ported (a mixed variant), a UV mesh there stays
-    unported (XLA-only in JAX) and names its ROADMAP item."""
+    texture set is ported (a mixed variant), and a UV mesh there is
+    rendered off the kernel (XLA-only in JAX), as torch ops."""
     js, _ = jworlds.finalize_world(kind, 8, 8, res_dir=str(tmp_path))
     ts, _ = tworlds.finalize_world(kind, 8, 8, res_dir=str(tmp_path))
     assert ts.n_tris == 0 and ts.unsupported() == []
@@ -109,9 +110,8 @@ def test_unported_worlds_raise(kind, tmp_path):
     mesh = dataclasses.replace(w1, n_tris=100)
     assert mesh.unsupported() == []
     uv_mesh = dataclasses.replace(mesh, has_mesh_uvs=True)
-    assert any("UV mesh together with a combined texture set" in m
-               and "ROADMAP queue 1 item 10" in m
-               for m in uv_mesh.unsupported())
+    assert uv_mesh.unsupported() == [] and uv_mesh.off_kernel
+    assert not mesh.off_kernel
 
 
 def test_thin_lens_raises():

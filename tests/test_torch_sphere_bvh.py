@@ -42,6 +42,7 @@ from pathtracer_tpu_torch.scene import schema as tschema
 from pathtracer_tpu_torch.scene import worlds as tworlds
 from pathtracer_tpu_torch.utils.vec import Vec3 as TVec3
 from test_torch_scene import jax_scene_to_port
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 W2, W4 = tschema.WORLD_BRDF_TEST, tschema.WORLD_RAYTRACING_ONE_WEEKEND
 

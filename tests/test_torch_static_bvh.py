@@ -52,6 +52,7 @@ from test_torch_meshes import (
 )
 from test_torch_render import assert_golden_gates
 from test_torch_scene import jax_scene_to_port
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 W5 = tschema.WORLD_MARIO
 

@@ -50,6 +50,7 @@ from test_torch_mesh_tiers import force_dma  # noqa: F401 (a fixture)
 from test_torch_meshes import mesh_scene
 from test_torch_render import assert_golden_gates
 from test_torch_scene import assert_tables_equal
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 CENTER = np.array([0.0, 0.0, 1.2])
 

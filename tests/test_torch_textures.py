@@ -24,6 +24,7 @@ from pathtracer_tpu_torch.scene import schema as tschema
 from pathtracer_tpu_torch.scene import textures as ttextures
 from pathtracer_tpu_torch.scene import worlds as tworlds
 from test_torch_scene import assert_tables_equal
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 W1 = tschema.WORLD_DEFAULT
 RES = ttextures.REFERENCE_RES_DIR
@@ -93,8 +94,9 @@ def test_non_combined_textures_stay_unported():
     """A planar map outside the combined set takes the feature path (K10's
     planar form), with sphere clusters too (their feature form); a
     combined set with sphere clusters is the mixed variant
-    ``clustered+textured``, and a bump map on it stays unported, naming
-    its ROADMAP item."""
+    ``clustered+textured``, and a bump map on it goes off the kernel
+    (XLA-only in JAX): the kernel's wrapper refuses it, naming the torch
+    ops that render it."""
     from pathtracer_tpu_torch.render import cuda_backend
     from pathtracer_tpu_torch.render.renderer import RenderConfig
     from pathtracer_tpu_torch.scene.camera import define_camera
@@ -120,11 +122,12 @@ def test_non_combined_textures_stay_unported():
             continue
         assert scene.tex_combined
         assert cuda_backend.variant(scene, cam) == "clustered+textured"
+        bumped = dataclasses.replace(scene, any_bump=True)
+        assert bumped.unsupported() == [] and bumped.off_kernel
         with pytest.raises(NotImplementedError,
-                           match="bump.*ROADMAP queue 1 item 10"):
-            cuda_backend.check_supported(
-                dataclasses.replace(scene, any_bump=True), cam,
-                RenderConfig(8, 8))
+                           match="bump map beside a combined texture set "
+                                 "on XLA only.*torch ops"):
+            cuda_backend.check_supported(bumped, cam, RenderConfig(8, 8))
 
 
 def _channels(out):

@@ -29,6 +29,7 @@ from pathtracer_tpu_torch.scene import schema as tschema
 from pathtracer_tpu_torch.scene import worlds as tworlds
 from pathtracer_tpu_torch.utils import prng as tprng
 from test_torch_render import assert_golden_gates
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 W, H = 32, 18
 KINDS = ("bounce_count", "termination_condition", "primary_ray_normals")

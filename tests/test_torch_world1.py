@@ -18,6 +18,7 @@ from pathtracer_tpu_torch.scene import schema as tschema
 from pathtracer_tpu_torch.scene import textures as ttextures
 from pathtracer_tpu_torch.scene import worlds as tworlds
 from test_torch_render import assert_golden_gates
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 W1 = tschema.WORLD_DEFAULT
 W, H, PP = 32, 18, 2

@@ -27,6 +27,8 @@ import numpy as np
 import pytest
 
 from pathtracer_tpu import cli as jcli
+from pathtracer_tpu.ops import intersect as jint
+from pathtracer_tpu.render import integrator as jintegrator
 from pathtracer_tpu.render import renderer as jrenderer
 from pathtracer_tpu.scene import worlds as jworlds
 from pathtracer_tpu.utils import prng as jprng
@@ -43,15 +45,24 @@ from test_torch_meshes import (
 )
 from test_torch_render import assert_golden_gates
 from test_torch_scene import assert_tables_equal
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 W5 = tschema.WORLD_MARIO
 W, H = 32, 18
 
 
 def _render_both(js, jcam, ts, tcam, w=W, h=H):
-    jst = jrenderer.render_chunk(
-        js, jcam, jrenderer.RenderConfig(w, h, pp=2, seed=0),
-        jprng.base_key(0), jnp.int32(0), 4, jrenderer.init_accum(w * h))
+    """JAX's XLA driver with its large-table material gather and chunked
+    sweeps (``_SELECT_LOOKUP_MAX``, ``_UNROLL_MAX`` lowered, as
+    tests/test_torch_mixed_bases.py does: the same tests in a loop, which
+    XLA compiles 5x faster than the 40 triangles unrolled), and the
+    port's plain version."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jintegrator, "_SELECT_LOOKUP_MAX", 16)
+        mp.setattr(jint, "_UNROLL_MAX", 16)
+        jst = jrenderer.render_chunk(
+            js, jcam, jrenderer.RenderConfig(w, h, pp=2, seed=0),
+            jprng.base_key(0), jnp.int32(0), 4, jrenderer.init_accum(w * h))
     tst = cuda_backend.render_chunk_plain(
         ts, tcam, trenderer.RenderConfig(w, h, pp=2, seed=0), 0, 0, 4,
         trenderer.init_accum(w * h))

@@ -30,6 +30,7 @@ from pathtracer_tpu_torch.render import renderer as trenderer
 from pathtracer_tpu_torch.scene import schema as tschema
 from pathtracer_tpu_torch.scene import worlds as tworlds
 from test_torch_render import assert_golden_gates
+from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
 
 W7 = tschema.WORLD_MESH_UV
 W, H = 32, 18
@@ -110,6 +111,11 @@ def test_world7_kernel_variants():
         both, n_textures=4, tex_combined=True,
         **{k: getattr(w1, k) for k in ("tex_tile", "tex_comb_a",
                                        "tex_comb_b", "tex_mip")})
+    # a UV mesh beside a combined set: JAX renders it on XLA only, so the
+    # kernel's wrapper refuses it and render_chunk routes it to torch ops
+    assert comb.unsupported() == [] and comb.off_kernel
+    assert not trenderer.kernel_renders(comb, trenderer.RenderConfig(8, 8))
     with pytest.raises(NotImplementedError,
-                       match="UV mesh together with a combined texture set"):
+                       match="a UV mesh or a bump map beside a combined "
+                             "texture set on XLA only"):
         cuda_backend.check_supported(comb, cam, trenderer.RenderConfig(8, 8))
