@@ -324,6 +324,15 @@ and the script exits non-zero):
      chunked sweep (its peak memory) within the gates of each other, and
      its primary rays' hit or miss and material equal and t within rtol
      1e-6 between the two.
+  9. rendering across devices (shard_phase): render_image_sharded over
+     [cuda:0] * k, k = 2 and 7 (921,600 pixels do not divide by 7: six
+     padding lanes, each a launch of pixel 0), on worlds 3, 1 and 7 at
+     1280x720, 4 spp, against render_image: packed images and trimmed
+     accumulators equal, rays_cast above it by at most the padding lanes'
+     rays, k + padding launches of the world's variant; ms per sample
+     beside the one-device render's; the CLI with -t2 over that list and
+     with --single-chip, BMP bytes equal; with more than one card, world 3
+     across every card.
 
 The last two lines are the kernel table as JSON and the result line
 {"ok": true, "device": {...}}.
@@ -517,7 +526,10 @@ KEPT_PTXAS = {"brute_pinhole": (63, 0), "clustered_pinhole": (56, 76),
     "meshplain_pinhole": (64, 28), "static_pinhole": (64, 80),
     "staticplain_pinhole": (56, 148), "staticplain_pinhole_regen": (72, 0)}
 FEATURE_EARLIER_PTXAS = {"feature_pinhole": (91, 0), "feature_lens": (91, 0),
-    "featclustered_pinhole": (93, 0), "featclustered_lens": (93, 0),
+    # featclustered_lens shades in place on scanline warps there, where the
+    # launch's pixel range (lane_lo, lane_hi) took two more registers (93
+    # before it; 5 blocks per SM either way)
+    "featclustered_pinhole": (93, 0), "featclustered_lens": (95, 0),
     "feattextured_pinhole": (72, 60), "feattextured_lens": (72, 60),
     "featmesh_pinhole": (80, 100), "featmesh_lens": (80, 100),
     "featmeshplain_pinhole": (72, 124), "featmeshplain_lens": (72, 124),
@@ -2513,6 +2525,134 @@ def xla_phase(smi: str) -> None:
     print(f"phase8 total_s={time.perf_counter() - t8}")
 
 
+SHARD_WORLDS = ("w3", "w1", "w7")  # a scanline variant, the textured
+# lockstep pair's pinhole and an 8x4-tile BVH walk (mesh_pinhole)
+SHARD_COUNTS = (2, 7)  # 921,600 pixels do not divide by 7: padding lanes
+
+
+def shard_phase(smi: str) -> None:
+    """Phase 9: rendering across devices (parallel/shard.py) on the card, as
+    far as one card shows it: render_image_sharded over [cuda:0] * k for
+    each of SHARD_COUNTS on worlds 3, 1 and 7 at 1280x720, 4 spp, against
+    render_image (packed image and trimmed accumulators equal, rays_cast
+    within JAX's padding bound, every launch counted), each render's ms per
+    sample (the median of three synchronised runs after one to warm up,
+    set-up and finalize included) beside the one-device one; the CLI with -t2 over that list (the
+    sharded branch) and with --single-chip, BMP bytes equal; where the
+    machine has more than one card, world 3 across all of them. Raises on
+    any failure."""
+    import torch
+    from pathtracer_tpu_torch.parallel.shard import (
+        _padded_pixels, render_image_sharded,
+    )
+    from pathtracer_tpu_torch.render import cuda_backend as cb
+    from pathtracer_tpu_torch.render.renderer import (
+        RenderConfig, render_image,
+    )
+    from pathtracer_tpu_torch.scene.schema import (
+        WORLD_CORNELL_BOX, WORLD_DEFAULT, WORLD_MESH_UV,
+    )
+    from pathtracer_tpu_torch.scene.worlds import finalize_world
+
+    t9 = time.perf_counter()
+    dev = torch.device("cuda:0")
+    w, h, pp = 1280, 720, 2
+    kinds = {"w3": WORLD_CORNELL_BOX, "w1": WORLD_DEFAULT,
+             "w7": WORLD_MESH_UV}
+
+    def timed(fn, runs=3):
+        """fn's last result and the median of ``runs`` synchronised wall
+        times over the samples, ms (after one run to warm up)."""
+        fn()
+        times = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3 / (pp * pp))
+        return out, float(np.median(times))
+
+    def same(label, one, other, n_dev):
+        (_, pk1, st1), (_, pk2, st2) = one, other
+        equal = torch.equal(pk1, pk2) and all(
+            torch.equal(a, b) for a, b in zip(
+                [*st1.sum, *st1.sum_sq, st1.count],
+                [*st2.sum, *st2.sum_sq, st2.count]))
+        extra = int(st2.rays_cast) - int(st1.rays_cast)
+        check(equal, f"{label}: the sharded render equals render_image")
+        check(int(st1.nan_count) == int(st2.nan_count)
+              and 0 <= extra <= n_dev * 4 * pp * pp,
+              f"{label}: NaN count and the padding lanes' rays ({extra})")
+        return extra
+
+    scenes = {}
+    for tag in SHARD_WORLDS:
+        scene, cam = finalize_world(kinds[tag], w, h)
+        scenes[tag] = (scene.to(dev), cam)
+        cfg = RenderConfig(w, h, pp=pp)
+        var = cb.variant(scenes[tag][0], cam)
+        one, ms1 = timed(lambda: render_image(*scenes[tag], cfg, device=dev))
+        for k in SHARD_COUNTS:
+            pad = _padded_pixels(w * h, k) - w * h
+
+            def sharded():
+                # the counts of one render: set to 0 just before it
+                cb.LAUNCHES = 0
+                cb.VARIANT_LAUNCHES.update(
+                    dict.fromkeys(cb.VARIANT_LAUNCHES, 0))
+                return render_image_sharded(*scenes[tag], cfg,
+                                            devices=[dev] * k)
+            out, ms = timed(sharded)
+            launches = cb.VARIANT_LAUNCHES[var]
+            check(launches == cb.LAUNCHES == k + pad,
+                  f"{tag} k={k}: {launches} launches of {var}, "
+                  f"{cb.LAUNCHES} in all, for {k} shards and {pad} "
+                  "padding lanes")
+            extra = same(f"{tag} k={k}", one, out, k)
+            print(f"phase9 {tag} {var} {w}x{h} spp={pp * pp} shards={k} "
+                  f"padding_lanes={pad} launches={launches} "
+                  f"equal=True extra_rays={extra} ms_per_sample={ms} "
+                  f"one_device_ms_per_sample={ms1} ratio={ms / ms1} "
+                  f"| card: {smi}")
+
+    # the CLI: -t2 over a list of one card seven times (the sharded
+    # branch), and --single-chip, at 1280x720 -p2: the same BMP bytes
+    from pathtracer_tpu_torch import cli
+    import contextlib
+    import io
+    outs = {}
+    for tag, flag in (("t2", "-t2"), ("single", "--single-chip")):
+        path = POST_DIR / f"shard_{tag}.bmp"
+        POST_DIR.mkdir(exist_ok=True)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["-w3", "-p2", flag, "--out", str(path)],
+                          devices=[dev] * 7)
+        check(rc == 0, f"cli {flag}")
+        text = buf.getvalue()
+        want = "Using 2 device(s)." if tag == "t2" else "Using 7 device(s)."
+        check(want in text, f"cli {flag}: {want!r}")
+        outs[tag] = path.read_bytes()
+        print(f"phase9 cli {flag} bytes={len(outs[tag])} "
+              f"perf={text.strip().splitlines()[-1][:120]!r}")
+    check(outs["t2"] == outs["single"], "cli -t2 and --single-chip BMPs")
+
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        cfg = RenderConfig(w, h, pp=pp)
+        one, ms1 = timed(lambda: render_image(*scenes["w3"], cfg,
+                                              device=dev))
+        out, ms = timed(lambda: render_image_sharded(*scenes["w3"], cfg))
+        same(f"w3 across {n_cards} cards", one, out, n_cards)
+        print(f"phase9 w3 cards={n_cards} ms_per_sample={ms} "
+              f"one_device_ms_per_sample={ms1} equal=True | card: {smi}")
+    else:
+        print("phase9 one card: the path across several cards ran as "
+              "shards of this card only")
+    print(f"phase9 total_s={time.perf_counter() - t9}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sass", metavar="DIR", default=None,
@@ -4390,6 +4530,7 @@ def main() -> int:
     print(f"phase6 total_s={time.perf_counter() - t_start}")
     post_phase(smi)
     xla_phase(smi)
+    shard_phase(smi)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

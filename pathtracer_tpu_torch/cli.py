@@ -2,23 +2,27 @@
 
 Counterpart of ``pathtracer_tpu/cli.py``: the reference's single-dash
 concatenated flags (``-w3 -p4``, ``-d`` for the thin lens, ``-n -m -r`` to
-turn off the normal, metalness and roughness maps; ``-t`` is accepted for
-compatibility) plus ``--size WxH --out PATH --png PATH --debug KIND --seed
+turn off the normal, metalness and roughness maps, ``-t N`` to use the first
+N devices) plus ``--size WxH --out PATH --png PATH --debug KIND --seed
 N --scene-seed N|os --checkpoint PATH --chunk N --profile DIR --rr --mode
 auto|unrolled|wavefront --preview PATH --live --probe-pixel X,Y --exposure
 F --mips --tbn --flip x|y|xy --fog SIGMA_T --fog-albedo R,G,B --fog-g G
---denoise N --device cuda|cpu``. With no ``-w`` it renders world 1, the
-reference's default textured scene; ``-w5`` renders the glTF mesh world
-(``res/mario.glb``; without the file, its ground and sky) and ``-w7`` the
-mesh-UV world. ``--out`` writes a BMP for ``.bmp`` or no extension and
-hands any other extension to PIL, as the JAX CLI does. ``--chunk``
-defaults to ``min(spp, 64)`` samples per ``render_chunk`` call;
+--denoise N --device cuda|cpu --single-chip``. With no ``-w`` it renders
+world 1, the reference's default textured scene; ``-w5`` renders the glTF
+mesh world (``res/mario.glb``; without the file, its ground and sky) and
+``-w7`` the mesh-UV world. ``--out`` writes a BMP for ``.bmp`` or no
+extension and hands any other extension to PIL, as the JAX CLI does.
+``--chunk`` defaults to ``min(spp, 64)`` samples per ``render_chunk`` call;
 ``--checkpoint`` resumes from its file and saves it after every chunk;
 ``--live`` adapts the chunk toward one terminal frame every ~2 s.
 ``--profile DIR`` writes a ``torch.profiler`` Chrome trace to
 DIR/trace.json. ``--device`` defaults to ``cuda`` and fails without a
-card. ``--single-chip`` (multi-GPU rendering) raises and names its
-ROADMAP item.
+card. As JAX's CLI does, it renders across every card
+(``parallel/shard.py::render_image_sharded``), or the first N with ``-t
+N``, and on one with ``--single-chip`` or when one is used; ``--device
+cuda:K`` and ``--device cpu`` use that one device. The preview and
+``--live`` trim the sharded state's padding lanes; ``--checkpoint`` saves
+the state as the renderer hands it over, padded, as JAX's CLI does.
 
 Run: python -m pathtracer_tpu_torch [options]
 """
@@ -62,17 +66,11 @@ def _parse_reference_flags(argv):
     return out, rest
 
 
-# Flags of the JAX CLI that the port does not take yet -> ROADMAP item.
-_NOT_PORTED = {
-    "--single-chip": "multi-GPU rendering (ROADMAP queue 1 item 13)",
-}
-
-
 def print_help():
     print("usage: python -m pathtracer_tpu_torch [options]\n")
     print("PyTorch + CUDA port of the pathtracer_tpu path tracer.\n")
     print("optional arguments:")
-    print("\tt<int>  - Accepted for compatibility (reported as devices).")
+    print("\tt<int>  - Use the first t devices (default: all of them).")
     print("\tp<int>  - Set the rays to shoot per pixel (sqrt; total = p*p).")
     print("\tw<int>  - Set the world number to load. Ported:")
     print("\t\t1:\tDefault scene (textured ground; the default).\n"
@@ -91,7 +89,7 @@ def print_help():
           "--profile DIR --rr --mode auto|unrolled|wavefront --preview PATH "
           "--live --probe-pixel X,Y --exposure F --mips --tbn --flip x|y|xy "
           "--fog SIGMA_T --fog-albedo R,G,B --fog-g G --denoise N "
-          "--device cuda|cpu")
+          "--device cuda|cpu --single-chip")
 
 
 def write_image(path, packed):
@@ -118,7 +116,10 @@ def write_image(path, packed):
         write_bmp(path, packed)
 
 
-def main(argv=None):
+def main(argv=None, devices=None):
+    """Run the CLI on ``argv``. ``devices``: the devices it may render
+    across (``-t`` takes the first N of them; default: every card for
+    ``--device cuda``, else the one device)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     ref, rest = _parse_reference_flags(argv)
     if ref["h"]:
@@ -184,17 +185,15 @@ def main(argv=None):
                     help="seed of world 4's random layout (default 1337; "
                          "'os' draws one, as the reference does, and "
                          "prints it)")
-    for flag in _NOT_PORTED:
-        ap.add_argument(flag, nargs="?", const=True, default=None)
+    ap.add_argument("--single-chip", action="store_true",
+                    help="render on the first device only, even when "
+                         "several are used (no sharding)")
     args = ap.parse_args(rest)
-
-    for flag, what in _NOT_PORTED.items():
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            raise NotImplementedError(f"{flag}: {what} is not ported yet")
 
     import torch
 
     from .io.bmp import packed_to_rgb
+    from .parallel.shard import make_devices, render_image_sharded, trim_accum
     from .render.renderer import RenderConfig, finalize, render_image
     from .scene.schema import WORLD_KIND_COUNT
     from .scene.worlds import finalize_world
@@ -215,9 +214,17 @@ def main(argv=None):
         print(f"(--scene-seed os: layout seed {rtiow_seed})")
     elif args.scene_seed is not None:
         rtiow_seed = int(args.scene_seed)
-    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-    print(f"System has {n_dev} device(s).")
-    print(f"Using 1 device(s): {device}.\n")
+    if devices is None:
+        devices = (make_devices() if device.type == "cuda"
+                   and device.index is None else [device])
+    devices = [torch.device(d) for d in devices]
+    n_dev = len(devices)
+    if ref["t"] is not None:
+        n_dev = max(1, min(ref["t"], n_dev))
+    print(f"System has {len(devices)} device(s).")   # cf. :2193
+    print(f"Using {n_dev} device(s).\n")             # cf. :2194
+    devices = devices[:n_dev]
+    device = devices[0]
 
     timer = PhaseTimer()
     with timer.phase("scene"):
@@ -299,7 +306,9 @@ def main(argv=None):
             from .render.progressive import save_checkpoint
             save_checkpoint(args.checkpoint, st)
         if args.preview or live is not None:
-            rgb = packed_to_rgb(finalize(st, cfg).cpu().numpy())[::-1]
+            # the sharded state carries padding lanes mid-render
+            pk = finalize(trim_accum(st, w * h), cfg).cpu().numpy()
+            rgb = packed_to_rgb(pk)[::-1]
             if args.preview:
                 from PIL import Image
                 Image.fromarray(rgb).save(args.preview)
@@ -312,10 +321,15 @@ def main(argv=None):
 
     with timer.phase("render"), profiler_trace(args.profile):
         t0 = time.perf_counter()
-        img, packed, state = render_image(scene, camera, cfg,
-                                          chunk_samples=args.chunk,
-                                          state=state, progress_cb=progress,
-                                          device=device, adapt_chunk_s=adapt)
+        if args.single_chip or n_dev == 1:
+            img, packed, state = render_image(
+                scene, camera, cfg, chunk_samples=args.chunk, state=state,
+                progress_cb=progress, device=device, adapt_chunk_s=adapt)
+        else:
+            img, packed, state = render_image_sharded(
+                scene, camera, cfg, devices=devices,
+                chunk_samples=args.chunk, state=state, progress_cb=progress,
+                adapt_chunk_s=adapt)
         packed = packed.cpu().numpy()
         wall = time.perf_counter() - t0
 
@@ -341,12 +355,14 @@ def main(argv=None):
               f"({mean[0]:f},{mean[1]:f},{mean[2]:f})  variance = "
               f"({var[0]:f},{var[1]:f},{var[2]:f})  samples = {cnt:.0f}")
 
+    where = (device if args.single_chip or n_dev == 1
+             else f"{n_dev} devices")
     m = RenderMetrics(rays_cast=float(int(state.rays_cast)),
                       wall_seconds=wall, width=w, height=h, spp=cfg.spp,
                       nan_samples=float(int(state.nan_count)))
     print(f"Done. Image written to {args.out}.")  # cf. :985
     print(f"[perf] {m.mrays_per_sec:.1f} Mrays/s  ({m.rays_cast / 1e6:.1f} "
-          f"Mrays in {wall:.2f}s on {device}, set-up and any first-use "
+          f"Mrays in {wall:.2f}s on {where}, set-up and any first-use "
           f"kernel build included; {m.nan_samples:.0f} NaN samples masked)  "
           f"{timer.report()}")
     return 0

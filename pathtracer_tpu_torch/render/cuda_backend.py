@@ -85,7 +85,7 @@ from ..scene.clusters import stream_rows_per_cluster
 from ..scene.schema import Scene, planar_recip, recip32
 from .lockstep import render_chunk_lockstep
 from .raygen import focal_plane
-from .wavefront import render_chunk_wavefront
+from .wavefront import lane_pixels, render_chunk_wavefront
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "wave_kernel.cu"
@@ -206,6 +206,12 @@ _SBVH_PTR_FIELDS = ("sbvh_nodes", "sbvh_sph", "sbvh_idx")
 # K10's planar table, last
 _PLANAR_PTR_FIELDS = ("planar_tile", "planar_meta")
 _FEAT_FLOAT_FIELDS = ("fog_sigma_t", "hg_a", "hg_b", "hg_c", "hg_d")
+# the launch's pixels and their warp tiles (shard_tiles), after everything
+_LANE_FIELDS = ("lane_lo", "lane_hi", "tile_lo", "n_tiles")
+# the per-pixel outputs, indexed by pixel: their pointers are offset so that
+# a shard's pixel lo lands on its first lane
+_ACC_FIELDS = ("sum_x", "sum_y", "sum_z", "sq_x", "sq_y", "sq_z", "count",
+               "nan_px", "rays_px")
 _INT_PTRS = ("sph_mat", "q_mat", "p_mat", "csph_mat", "cl_off", "cl_cnt",
              "cl_huge", "nan_px", "rays_px", "stack_words",
              "stack_w", "stack_h", "tri_mat", "mat_met_idx", "mat_rgh_idx",
@@ -251,7 +257,8 @@ class WaveParams(ctypes.Structure):
                 + [("pp_m", ctypes.c_uint32), ("lens_t0", _F)]
                 + [("bvh_far", _F), ("bvh_wide", _F * 2), ("sbvh_far", _F * 8)]
                 + [("bvh_apart", _I * 4), ("q_rec", _P)]
-                + [("tex_m", ctypes.c_uint32 * 2)])
+                + [("tex_m", ctypes.c_uint32 * 2)]
+                + [(n, _I) for n in _LANE_FIELDS])
 
 # WaveParams.tex_flags bits (TEX_* in the kernel)
 TEX_METALNESS, TEX_ROUGHNESS, TEX_NORMAL, TEX_TBN = 1, 2, 4, 8
@@ -473,9 +480,30 @@ def build() -> ctypes.CDLL:
     return _lib
 
 
+def shard_tiles(width: int, height: int, lo: int, hi: int) -> tuple:
+    """(first tile, count) of the 8x4 warp tiles, in row-major tile order,
+    that hold pixels ``lo .. hi-1`` of a ``width`` x ``height`` image
+    (y-major): the tiles of one run of a pixel row, else every tile of the
+    tile rows from ``lo``'s to ``hi-1``'s; the whole image's are all of
+    them. A tile of the run may hold pixels outside the range, which its
+    threads skip."""
+    tiles_x = (width + 7) >> 3
+    y0, y1 = lo // width, (hi - 1) // width
+    if y0 == y1:
+        first = (y0 >> 2) * tiles_x + ((lo % width) >> 3)
+        last = (y0 >> 2) * tiles_x + (((hi - 1) % width) >> 3)
+    else:
+        first = (y0 >> 2) * tiles_x
+        last = (y1 >> 2) * tiles_x + tiles_x - 1
+    return first, last - first + 1
+
+
 def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
-            n_samples: int, state, nan_px, rays_px) -> WaveParams:
-    """Pointers and host-folded constants for one launch."""
+            n_samples: int, state, nan_px, rays_px, pixels=None,
+            acc_offset: int = 0) -> WaveParams:
+    """Pointers and host-folded constants for one launch over ``pixels``
+    (lo, hi) of the image (default: all), whose outputs land at lane
+    ``pixel + acc_offset`` of ``state``, ``nan_px`` and ``rays_px``."""
     ptrs = dict(zip(_PTR_FIELDS + _CLUSTER_PTR_FIELDS + _TEX_PTR_FIELDS
                     + _MESH_PTR_FIELDS + _FEAT_PTR_FIELDS + _TIER_PTR_FIELDS
                     + _BVH_PTR_FIELDS + _SBVH_PTR_FIELDS
@@ -513,9 +541,16 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
             raise ValueError(f"{name}: expected a contiguous {want} tensor on "
                              f"{state.device}, got {t.dtype} on {t.device}")
     n = config.width * config.height
-    if state.count.numel() != n:
-        raise ValueError(f"accumulator holds {state.count.numel()} pixels, "
-                         f"the image {n}")
+    lo, hi = pixels or (0, n)
+    if not (0 <= lo < hi <= n and 0 <= lo + acc_offset
+            and hi + acc_offset <= state.count.numel()):
+        raise ValueError(f"pixels {lo}..{hi - 1} of {n} at lane offset "
+                         f"{acc_offset}: outside an accumulator of "
+                         f"{state.count.numel()} lanes")
+    addr = {k: t.data_ptr() for k, t in ptrs.items()}
+    for k in _ACC_FIELDS:
+        addr[k] += 4 * acc_offset
+    tile_lo, n_tiles = shard_tiles(config.width, config.height, lo, hi)
     pp = config.pp
     hpw, hph = camera.half_film_pixel_w, camera.half_film_pixel_h
     step_x = (1.0 / pp) * hpw * 2.0
@@ -543,7 +578,7 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
                   | (FEAT_TRI_UV if scene.tri_brute and scene.has_mesh_uvs
                      else 0))
     p = WaveParams(
-        **{k: t.data_ptr() for k, t in ptrs.items()},
+        **addr, lane_lo=lo, lane_hi=hi, tile_lo=tile_lo, n_tiles=n_tiles,
         n_spheres=scene.n_spheres, n_quads=scene.n_quads,
         n_planes=scene.n_planes, quad_light=scene.quad_light,
         n_clusters=len(scene.sph_clusters),
@@ -595,39 +630,76 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
     return p
 
 
+def shard_launches(n_pixels: int, lanes) -> list:
+    """The launches of one shard, lanes ``lo .. lo+n-1`` of the padded pixel
+    order (``lanes`` (lo, n)): ((pixel lo, pixel hi), lane offset) each. The
+    image's pixels of the shard in one launch, each at lane ``pixel - lo``;
+    then each lane at or past ``n_pixels``, which renders pixel 0 (JAX's
+    padding lanes, parallel/shard.py), in a launch of pixel 0 alone at that
+    lane."""
+    lo, n = lanes
+    out = [((lo, min(lo + n, n_pixels)), -lo)] if lo < n_pixels else []
+    return out + [((0, 1), j) for j in range(max(n_pixels - lo, 0), n)]
+
+
+def _moved(p: WaveParams, config, pixels, delta: int) -> WaveParams:
+    """``p`` over ``pixels`` (lo, hi), its per-pixel outputs moved by
+    ``delta`` lanes: ``p`` itself for the same launch, else a copy."""
+    if delta == 0 and (p.lane_lo, p.lane_hi) == pixels:
+        return p
+    q = WaveParams.from_buffer_copy(p)
+    for k in _ACC_FIELDS:
+        setattr(q, k, getattr(p, k) + 4 * delta)
+    q.lane_lo, q.lane_hi = pixels
+    q.tile_lo, q.n_tiles = shard_tiles(config.width, config.height, *pixels)
+    return q
+
+
 def render_chunk_cuda(scene: Scene, camera: Camera, config, key: int,
-                      s0: int, n_samples: int, state):
+                      s0: int, n_samples: int, state, lanes=None):
     """Accumulate samples ``s0 .. s0+n_samples-1`` of every pixel into
     ``state`` in place (one kernel launch on CUDA tensors; the plain version
-    on CPU tensors). ``config.schedule`` picks a textured scene's sample
-    schedule. Raises for inputs the kernel does not cover."""
+    on CPU tensors). ``lanes`` (lo, n): render only lanes ``lo .. lo+n-1``
+    of the padded pixel order, which ``state`` holds (a shard of
+    parallel/shard.py; lanes past the image render pixel 0, each in a launch
+    of its own: :func:`shard_launches`). ``config.schedule`` picks a
+    textured scene's sample schedule. Raises for inputs the kernel does not
+    cover."""
     global LAUNCHES
     check_supported(scene, camera, config)
     if state.device.type != "cuda":
         return render_chunk_plain(scene, camera, config, key, s0, n_samples,
-                                  state)
-    n = config.width * config.height
-    nan_px = torch.zeros(n, dtype=torch.int32, device=state.device)
-    rays_px = torch.zeros(n, dtype=torch.int32, device=state.device)
-    params = _params(scene, camera, config, key, s0, n_samples, state,
-                     nan_px, rays_px)
+                                  state, lanes)
+    n_pix = config.width * config.height
+    lanes = lanes or (0, n_pix)
+    if state.count.numel() != lanes[1]:
+        raise ValueError(f"accumulator holds {state.count.numel()} lanes, "
+                         f"the shard {lanes[1]}")
+    nan_px = torch.zeros(lanes[1], dtype=torch.int32, device=state.device)
+    rays_px = torch.zeros(lanes[1], dtype=torch.int32, device=state.device)
     name = variant(scene, camera, config.schedule)
     code = _SCHED_CODE.get(_schedule(scene, config.schedule), 0)
     lib = build()
     stream = torch.cuda.current_stream(state.device).cuda_stream
-    err = lib.wave_render(ctypes.byref(params), int(bool(scene.sph_clusters)),
-                          int(not camera.use_pinhole),
-                          code if textured(scene) else 0,
-                          code if meshed(scene) else 0,
-                          code if scene.featured or mixed(scene) else 0,
-                          MESH_KINDS[mesh_kind(scene)] if meshed(scene)
-                          else K4T_TRI if scene.tri_brute else 0,
-                          ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"wave_kernel ({name}) launch failed: "
-                           + lib.wave_error_string(err).decode())
-    LAUNCHES += 1
-    VARIANT_LAUNCHES[name] += 1
+    launches = shard_launches(n_pix, lanes)
+    first = _params(scene, camera, config, key, s0, n_samples, state,
+                    nan_px, rays_px, *launches[0])
+    for pixels, offset in launches:
+        params = _moved(first, config, pixels, offset - launches[0][1])
+        err = lib.wave_render(ctypes.byref(params),
+                              int(bool(scene.sph_clusters)),
+                              int(not camera.use_pinhole),
+                              code if textured(scene) else 0,
+                              code if meshed(scene) else 0,
+                              code if scene.featured or mixed(scene) else 0,
+                              MESH_KINDS[mesh_kind(scene)] if meshed(scene)
+                              else K4T_TRI if scene.tri_brute else 0,
+                              ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f"wave_kernel ({name}) launch failed: "
+                               + lib.wave_error_string(err).decode())
+        LAUNCHES += 1
+        VARIANT_LAUNCHES[name] += 1
     state.nan_count += nan_px.sum(dtype=torch.int64)
     state.rays_cast += rays_px.sum(dtype=torch.int64)
     state.samples_done += n_samples
@@ -710,13 +782,13 @@ def intersect_probe_plain(scene: Scene, rays: torch.Tensor):
 
 
 def render_chunk_plain(scene: Scene, camera: Camera, config, key: int,
-                       s0: int, n_samples: int, state):
+                       s0: int, n_samples: int, state, lanes=None):
     """The plain PyTorch version of :func:`render_chunk_cuda`, on whatever
     device the tensors live: the lockstep loop for a scene under the
-    lockstep schedule, path regeneration otherwise."""
+    lockstep schedule, path regeneration otherwise (``lanes``: its)."""
     check_supported(scene, camera, config)
     variant(scene, camera, config.schedule)  # raises without an instantiation
-    pixel_idx = torch.arange(config.width * config.height, device=state.device)
+    pixel_idx = lane_pixels(config, lanes, state.device)
     run = (render_chunk_lockstep
            if _schedule(scene, config.schedule) == "lockstep"
            else render_chunk_wavefront)

@@ -41,7 +41,7 @@ from ..utils import prng
 from ..utils.vec import Vec3, to_stacked
 from . import cuda_backend
 from .integrator import DEBUG_KINDS, REGULAR, VARIANCE, trace
-from .wavefront import _primary_rays, render_chunk_wavefront
+from .wavefront import _primary_rays, lane_pixels, render_chunk_wavefront
 
 MODES = ("auto", "unrolled", "wavefront")
 
@@ -128,12 +128,13 @@ def init_accum(n_pixels: int, device="cpu") -> AccumState:
 
 
 def _one_sample(scene: Scene, camera: Camera, config: RenderConfig,
-                key: int, s: int, state: AccumState) -> AccumState:
-    """Trace sample ``s`` of every pixel through the unrolled driver and
-    fold it into ``state`` in place, NaN samples masked and counted (JAX's
-    ``renderer._one_sample``)."""
-    pixel_idx = torch.arange(config.width * config.height,
-                             device=state.device)
+                key: int, s: int, state: AccumState,
+                pixel_idx: Optional[torch.Tensor] = None) -> AccumState:
+    """Trace sample ``s`` of every pixel (or of ``pixel_idx``, one a lane
+    of ``state``) through the unrolled driver and fold it into ``state`` in
+    place, NaN samples masked and counted (JAX's ``renderer._one_sample``)."""
+    if pixel_idx is None:
+        pixel_idx = lane_pixels(config, None, state.device)
     key = int(key) & 0xFFFF_FFFF
     s_lane = torch.full_like(pixel_idx, s)
     o, d = _primary_rays(camera, config, key, pixel_idx, s_lane)
@@ -168,10 +169,13 @@ def kernel_renders(scene: Scene, config: RenderConfig) -> bool:
 
 def render_chunk(scene: Scene, camera: Camera, config: RenderConfig,
                  key: int, s0: int, n_samples: int,
-                 state: AccumState) -> AccumState:
+                 state: AccumState, lanes=None) -> AccumState:
     """Accumulate sample indices ``s0 .. s0+n_samples-1`` of every pixel into
     ``state`` (in place; also returned). Runs where the tensors live, on
-    the route the config picks (see the module's docstring)."""
+    the route the config picks (see the module's docstring). ``lanes`` (lo,
+    n): only lanes ``lo .. lo+n-1`` of the padded pixel order, which
+    ``state`` holds, a lane at or past ``width*height`` rendering pixel 0
+    (one device's shard, parallel/shard.py; ``wavefront.lane_pixels``)."""
     if scene.device != state.device:
         raise ValueError(f"scene on {scene.device}, accumulator on "
                          f"{state.device}")
@@ -179,21 +183,21 @@ def render_chunk(scene: Scene, camera: Camera, config: RenderConfig,
     if kernel_renders(scene, config):
         if state.device.type == "cuda":
             return cuda_backend.render_chunk_cuda(scene, camera, config, key,
-                                                  s0, n_samples, state)
+                                                  s0, n_samples, state, lanes)
         return cuda_backend.render_chunk_plain(scene, camera, config, key,
-                                               s0, n_samples, state)
+                                               s0, n_samples, state, lanes)
+    pixel_idx = lane_pixels(config, lanes, state.device)
     if config.resolved_mode() == "wavefront":
         # JAX's XLA wavefront driver: a scene off the kernel,
         # just_importance, or a debug kind forced onto it (which then
         # renders the regular radiance)
         render_chunk_wavefront(
             scene, camera, config, int(key) & 0xFFFF_FFFF, s0, n_samples,
-            state, torch.arange(config.width * config.height,
-                                device=state.device))
+            state, pixel_idx)
         state.samples_done += n_samples
         return state
     for k in range(n_samples):
-        _one_sample(scene, camera, config, key, s0 + k, state)
+        _one_sample(scene, camera, config, key, s0 + k, state, pixel_idx)
     return state
 
 

@@ -37,6 +37,17 @@ def intersect(scene: Scene, o: Vec3, d: Vec3):
     return intersect_scene(scene, o, d), None
 
 
+def lane_pixels(config, lanes, device) -> torch.Tensor:
+    """The pixel each lane renders: lanes ``lo .. lo+n-1`` of the padded
+    pixel order (``lanes`` (lo, n); None: the whole image), where a lane at
+    or past ``width*height`` renders pixel 0, as JAX's padding lanes do
+    (parallel/shard.py)."""
+    n_pix = config.width * config.height
+    lo, n = lanes or (0, n_pix)
+    idx = torch.arange(lo, lo + n, device=device)
+    return torch.where(idx < n_pix, idx, 0) if lo + n > n_pix else idx
+
+
 def _primary_rays(camera: Camera, config, key: int,
                   pixel_idx: torch.Tensor, s: torch.Tensor):
     """Primary rays (pinhole or thin lens) for per-lane sample indices

@@ -77,15 +77,50 @@ def test_cli_post_process_bytes_vs_jax(jax_cli, tmp_path):
 
 def test_cli_flags_cover_jax(tmp_path):
     """Every long flag of JAX's CLI is one of the port's; --single-chip
-    still raises, naming its ROADMAP item."""
+    renders, byte-equal to the render without it."""
     flags = lambda mod: set(re.findall(r'add_argument\(\s*"(--[a-z-]+)"',
                                        open(mod.__file__).read()))
-    assert flags(jcli) - flags(tcli) - set(tcli._NOT_PORTED) == set()
-    assert set(tcli._NOT_PORTED) == {"--single-chip"}
-    with pytest.raises(NotImplementedError,
-                       match="single-chip.*ROADMAP queue 1 item 13"):
-        tcli.main(["-w3", "-p1", "--size", "4x4", "--device", "cpu",
-                   "--single-chip", "--out", str(tmp_path / "x.bmp")])
+    assert flags(jcli) - flags(tcli) == set()
+    assert not hasattr(tcli, "_NOT_PORTED")
+    outs = []
+    for extra in ([], ["--single-chip"]):
+        path = tmp_path / f"x{len(extra)}.bmp"
+        rc, text = _run(tcli.main, ["-w3", "-p1", "--size", "4x4", "--device",
+                                    "cpu", "--out", str(path)] + extra)
+        assert rc == 0 and "Using 1 device(s)." in text
+        outs.append(path.read_bytes())
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("argv, used", [
+    (["-t3"], 3), (["-t20"], 8), ([], 8), (["-t4", "--single-chip"], 4),
+    (["-t0"], 1),
+])
+def test_cli_renders_across_devices(tmp_path, argv, used):
+    """The CLI's sharded branch through a device list (JAX's CLI,
+    cli.py:177-183, 300-309): -t N takes the first min(N, devices) of the
+    eight CPU devices given, which render_image_sharded renders across
+    (--single-chip: render_image on the first); the BMP bytes equal the
+    one-device render's, the preview's too (the padded state trimmed)."""
+    base = ["-w3", "-p2", "--size", "25x17", "--device", "cpu", "--chunk",
+            "1"]
+    one, one_prev = tmp_path / "one.bmp", tmp_path / "one.png"
+    assert _run(tcli.main, base + ["--out", str(one), "--preview",
+                                   str(one_prev)])[0] == 0
+    out, prev = tmp_path / "many.bmp", tmp_path / "prev.png"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = tcli.main(base + argv + ["--out", str(out), "--preview",
+                                      str(prev)],
+                       devices=[torch.device("cpu")] * 8)
+    text = buf.getvalue()
+    assert rc == 0
+    assert "System has 8 device(s)." in text
+    assert f"Using {used} device(s)." in text
+    sharded = used > 1 and "--single-chip" not in argv
+    assert (f"on {used} devices" in text) == sharded
+    assert out.read_bytes() == one.read_bytes()
+    assert prev.read_bytes() == one_prev.read_bytes()
 
 
 def _images(seed, h=12, w=16):

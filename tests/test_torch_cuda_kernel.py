@@ -587,3 +587,28 @@ def test_regrouped_kernel_bit_equal(cuda, no_regroup_lib, name, pinhole,
             assert torch.equal(a, b), var
         assert int(k.rays_cast) == int(other.rays_cast)
         assert int(k.nan_count) == int(other.nan_count)
+
+
+@pytest.mark.parametrize("kind, lens", [
+    (tschema.WORLD_CORNELL_BOX, False),     # brute_pinhole: scanlines
+    (W1, False),                            # textured lockstep: 8x4 tiles
+    (tschema.WORLD_MESH_UV, True),          # mesh_lens: 8x4 tiles
+    (W4, True),                             # clustered_lens: 8x4 tiles
+])
+def test_kernel_shards_equal_one_launch(cuda, kind, lens):
+    """render_image_sharded over [cuda:0] * 7 at 60x34 (2040 pixels: four
+    padding lanes, each a launch of pixel 0; shards that cut through warp
+    tiles and scanline warps) equals one launch bit for bit; rays_cast is
+    above it by at most the padding lanes' rays."""
+    from pathtracer_tpu_torch.parallel.shard import render_image_sharded
+    scene, cam = tworlds.finalize_world(kind, 60, 34, use_pinhole=not lens)
+    cfg = trenderer.RenderConfig(60, 34, pp=2, seed=0)
+    _, pk1, st1 = trenderer.render_image(scene, cam, cfg, device=cuda)
+    before = cuda_backend.LAUNCHES
+    _, pk7, st7 = render_image_sharded(scene, cam, cfg, devices=[cuda] * 7)
+    assert cuda_backend.LAUNCHES == before + 7 + 4
+    assert torch.equal(pk1, pk7)
+    for a, b in zip([*st1.sum, *st1.sum_sq, st1.count],
+                    [*st7.sum, *st7.sum_sq, st7.count]):
+        assert torch.equal(a, b)
+    assert 0 <= int(st7.rays_cast) - int(st1.rays_cast) <= 7 * 4 * 4

@@ -342,13 +342,15 @@ def test_kernel_params_layout():
     # the sphere clusters' BVH and the uv rows' layout, the planar table
     # and the thin lens's pp reciprocal and folded plane term, the walks'
     # far-ray bounds, the mesh walk's set-apart triangles, the quads'
-    # records and, last, K9's level-0 wrap constants
+    # records, K9's level-0 wrap constants and, last, the launch's pixels
+    # and their warp tiles (a shard of a render across devices)
     names = [n for n, _ in c_fields]
     assert names.index("stack_wmax") < names.index("tri_ax")
     assert names.index("fog_albedo") < names.index("ctri_nx")
-    assert names[-22:] == ["n_tclusters", "cam_lens", "bvh_nodes", "bvh_tris",
+    assert names[-26:] == ["n_tclusters", "cam_lens", "bvh_nodes", "bvh_tris",
                            "bvh_tri_k", "bvh_root", "sbvh_nodes", "sbvh_sph",
                            "sbvh_idx", "sbvh_root", "n_sph_huge",
                            "stream_uv_cfm", "planar_tile", "planar_meta",
                            "pp_m", "lens_t0", "bvh_far", "bvh_wide",
-                           "sbvh_far", "bvh_apart", "q_rec", "tex_m"]
+                           "sbvh_far", "bvh_apart", "q_rec", "tex_m",
+                           "lane_lo", "lane_hi", "tile_lo", "n_tiles"]
