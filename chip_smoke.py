@@ -10,9 +10,11 @@ this one's in turns (parent_turns: PARENT_ROWS, the Cornell main path's
 rows and the rows without quads, K7's and the static tier's rows, and
 this kernel against variants of its own source: SOURCE_VARIANTS).
 
-The render kernel csrc/wave_kernel.cu has fifty-two compile-time
-variants (cuda_backend.VARIANTS), instantiations of one template in one
-build:
+The render kernel csrc/wave_kernel.cu has sixty compile-time variants
+(cuda_backend.VARIANTS), instantiations of one template in one build (the
+last eight the box forms, cuda_backend.BOX_VARIANTS: K4's box test after
+the triangles on the brute and clustered spheres, the brute feature form
+and the static tier without UVs, through either camera):
 untextured, the brute sphere sweep or the clustered walk (K5/K6: the huge
 cluster, then one near-first walk over a BVH of the other spheres, each
 warp on an 8x4 pixel tile), each with the pinhole or the thin-lens primary
@@ -89,7 +91,7 @@ and the script exits non-zero):
      every variant that can cast a lens ray beside the parent's, with
      blocks per SM, PARENT_LENS_PTXAS; the feature variants now, in the
      yardstick, which must keep them but for the variants whose code
-     changed (code_changed: this build, every feature variant), and in
+     changed (code_changed: the box forms, new), and in
      the parent's, FEATURE_EARLIER_PTXAS; the feature
      variants' and the K4t forms' beside the parent's build's,
      PARENT_FEATURE_PTXAS and PARENT_FEATURE_BLOCKS, none of which may
@@ -109,7 +111,12 @@ and the script exits non-zero):
      in the background, the warp tiles' yardstick: the same source with
      -DWAVE_SCANLINE_WARPS, where each warp of the BVH walks' variants
      (the streamed walk's, the sphere clusters' and the static tier's)
-     shades 32 pixels of a scanline instead of an 8x4 tile;
+     shades 32 pixels of a scanline instead of an 8x4 tile, and the
+     lane-table build of the K1 remainder's orders (-DWAVE_LANE_TABLE:
+     the combined-set and brute feature variants read a launch's lane ->
+     pixel table), whose registers, spills and blocks per SM phase 3
+     prints where they differ from this build's; the box forms (K4, new)
+     beside their bases;
   3. kernel vs plain: render_chunk on CUDA tensors (the kernel) against
      render_chunk_plain (eager PyTorch) on the same inputs, gated like
      bench.py --verify (fewer than 1% of pixels with resolved |diff| > 1e-3
@@ -180,7 +187,23 @@ and the script exits non-zero):
      cases whose every pixel is bit-equal, which must be all; every
      feature variant's and textured lockstep case also through the
      yardstick (the feature bounce in place, the block-lockstep loop),
-     whose sums, counts and rays must equal the kernel's;
+     whose sums, counts and rays must equal the kernel's; K4's box forms
+     (cuda_backend.BOX_VARIANTS, box_sweep), each on its case (BOX_ROWS:
+     world 3 with the Cornell pair through both cameras, with 16 spp at
+     256x144 and 4 at 1280x720, and in the CLI's fog through the lens;
+     world 6 in fog and world 2 through the pinhole, world 4 through the
+     lens, the 784-triangle mesh through both, each with one box; the
+     others at 256x144 with 4 spp) against its plain version, its
+     launches counted, and the kernel's intersect on 16,384 rays at the
+     boxes' edges, corners and faces (box_rays) bit-equal to the plain
+     sweep; the K1 remainder's orders (render/orders.py, given through
+     render_chunk_cuda's _order; ORDER_CASES: JAX's texel sort on world 1
+     through both cameras, in fog and on clusters with the combined set;
+     the square tiles on the tbn, bump and everything scenes and world
+     1's planar maps; both through the -DWAVE_LANE_TABLE build; the sample
+     ranges split on worlds 2 and 4, 6 samples in launches of 2) at 60x34,
+     each bit-equal to the default build's own order and held to its
+     plain version;
   4. main paths, each through the entry point a user calls, at 1280x720
      with the launch counts set to 0 just before it and read just after:
      a. the Cornell box (-w3), 1 sample, seed 0, against the committed CPU
@@ -216,6 +239,11 @@ and the script exits non-zero):
         in fog under lockstep, the mesh cases in fog through both cameras;
      l. render_image, 4 spp in one chunk, on every mixed case: one launch
         of its own variant (the sliver cases run in i.);
+     m. render_image at 4 spp on each box form's case, each launch on
+        its box form counted, and with each order given to every chunk
+        (ordered), on its first case (world 1, the tbn scene at 4 spp,
+        world 2 at 256 spp in one chunk: four launches of 64), each
+        launch of its variant counted;
   5. timing (CUDA events, synchronised; no speed gate): every variant and
      its plain version at 1280x720 4 spp, each row of the BVH walks (the
      streamed walk's, its variants on the DMA meshes and the sliver meshes
@@ -241,7 +269,16 @@ and the script exits non-zero):
      every feature form on another base at 4 spp with its plain version,
      and worlds 1, 7 and 6 in fog at 64 spp under both schedules,
      alternating; every mixed variant at 4 spp with its plain version and
-     its case's host seconds of finalize;
+     its case's host seconds of finalize; each box form on its case as
+     the other rows, and in balanced turns as row_ms's (launch_turns:
+     medians of 4, the first timed launch dropped, each launch's
+     accumulators made before its events) against its base variant on
+     the same scene without its boxes, with the turns' spread and whether
+     the ratio lies beyond it; each order against the kernel's own order
+     on each of its cases, in the same turns (the texel sort's pass on
+     the card inside them; the 64-sample launches at 256 spp), with each
+     order's geometric mean and the cases where it is faster or slower by
+     more than the turns' spread;
   6. bounds: the least time the card could take for each variant's 4-spp
      launch, from FP32 operations counted off the kernel's code and the
      bytes it must move (accumulators; for worlds 1 and 7 also the texture
@@ -288,7 +325,13 @@ and the script exits non-zero):
      (render_counts); and beside each feature row's bound the replay of
      its shading's warp-branch issue in place and regrouped over the
      kernel's warp map, with the share of blocks that regroup
-     (render/regroup.py, issue_tally);
+     (render/regroup.py, issue_tally); each box form's row: box_sweep's
+     operations over every ray of its 4-spp render, replayed (box_counts:
+     OPS_BOX_*), the rest at its base row's operations a ray over these
+     rays; each order's row: its first case's
+     row's bound in the kernel's own order (the same operations), with the
+     texel sort's pass (OPS_SORT_KEY and 12 bytes a pixel) added, and the
+     64-sample launches' scaled by their rays at 256 spp;
   7. the host layer and the unrolled driver (post_phase; files under
      chip_smoke_post/): the default command (world 1, 1280x720, -p4,
      --chunk 4) with --denoise 3 --exposure 1.5 --png --flip xy
@@ -342,6 +385,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import re
@@ -466,15 +510,16 @@ def nvidia_smi() -> str:
 
 
 KERNEL_RE = (r"wave_kernel(?:_grouped|_b8)?ILb([01])ELb([01])ELi([0-9])ELi([0-9])ELi([0-9])"
-             r"ELi([0-9])E")
+             r"ELi([0-9]+)E")
 # ptxas's registers and spill bytes and the resident blocks of 128 threads
-# per SM of every variant as the parent commit built them (phase 2 of its
-# chip_smoke.py on the H100, H100 80GB HBM3 at 700 W), printed beside this
-# build's; no feature variant may run fewer blocks
+# per SM of every variant as the parent commit built them (`--parent`'s
+# build of the parent's source on the H100, H100 80GB HBM3 at 700 W),
+# printed beside this build's; no variant may run fewer blocks (the box
+# forms, new, beside their bases')
 PARENT_PTXAS = {"brute_pinhole": (63, 0, 8), "brute_lens": (63, 0, 8),
     "clustered_pinhole": (56, 76, 9), "clustered_lens": (56, 76, 9),
-    "textured_pinhole": (64, 60, 8), "textured_lens": (72, 0, 7),
-    "textured_pinhole_regen": (72, 20, 7), "mesh_pinhole": (56, 128, 9),
+    "textured_pinhole": (64, 48, 8), "textured_lens": (64, 52, 8),
+    "textured_pinhole_regen": (64, 96, 8), "mesh_pinhole": (56, 128, 9),
     "mesh_lens": (56, 164, 9), "mesh_pinhole_regen": (72, 4, 7),
     "feature_pinhole": (64, 358, 8), "feature_lens": (64, 358, 8),
     "meshplain_pinhole": (64, 28, 8), "meshplain_lens": (64, 28, 8),
@@ -485,13 +530,13 @@ PARENT_PTXAS = {"brute_pinhole": (63, 0, 8), "brute_lens": (63, 0, 8),
     "feattextured_pinhole": (64, 220, 8), "feattextured_lens": (64, 232, 8),
     "featmesh_pinhole": (64, 364, 8), "featmesh_lens": (64, 344, 8),
     "featmeshplain_pinhole": (64, 358, 8), "featmeshplain_lens": (64, 338, 8),
-    "featstatic_pinhole": (64, 364, 8), "featstatic_lens": (64, 356, 8),
+    "featstatic_pinhole": (64, 364, 8), "featstatic_lens": (64, 340, 8),
     "featstaticplain_pinhole": (64, 338, 8),
     "featstaticplain_lens": (64, 362, 8),
-    "feattextured_pinhole_regen": (64, 252, 8),
+    "feattextured_pinhole_regen": (64, 240, 8),
     "featmesh_pinhole_regen": (64, 372, 8),
     "feature_pinhole_lockstep": (64, 326, 8),
-    "clustered+textured": (64, 204, 8), "textured+meshplain": (64, 104, 8),
+    "clustered+textured": (64, 208, 8), "textured+meshplain": (64, 104, 8),
     "textured+staticplain": (64, 208, 8), "clustered+mesh": (64, 350, 8),
     "clustered+meshplain": (64, 338, 8), "clustered+static": (64, 350, 8),
     "clustered+staticplain": (64, 342, 8),
@@ -503,7 +548,7 @@ PARENT_PTXAS = {"brute_pinhole": (63, 0, 8), "brute_lens": (63, 0, 8),
     "feattextured_pinhole_k4t": (64, 262, 8),
     "feattextured_lens_k4t": (64, 274, 8),
     "feattextured_pinhole_regen_k4t": (64, 200, 8),
-    "feature_pinhole_lockstep_k4t": (64, 362, 8),
+    "feature_pinhole_lockstep_k4t": (64, 358, 8),
     "clustered+textured_k4t": (64, 208, 8)}
 # the stack frame bytes ptxas gave the brute variants in the parent's build
 PARENT_STACK = {"brute_pinhole": 0, "brute_lens": 0}
@@ -535,12 +580,12 @@ FEATURE_EARLIER_PTXAS = {"feature_pinhole": (91, 0), "feature_lens": (91, 0),
     "featmeshplain_pinhole": (72, 124), "featmeshplain_lens": (72, 124),
     "featstatic_pinhole": (72, 132), "featstatic_lens": (72, 132),
     "featstaticplain_pinhole": (80, 68), "featstaticplain_lens": (72, 124),
-    "feattextured_pinhole_regen": (78, 0), "featmesh_pinhole_regen": (80, 92),
+    "feattextured_pinhole_regen": (80, 0), "featmesh_pinhole_regen": (80, 92),
     "feature_pinhole_lockstep": (93, 0), "clustered+textured": (72, 56),
     "textured+meshplain": (64, 104), "textured+staticplain": (64, 120),
     "clustered+mesh": (72, 156), "clustered+meshplain": (72, 124),
     "clustered+static": (72, 148), "clustered+staticplain": (72, 132),
-    "clustered+textured+meshplain": (64, 96),
+    "clustered+textured+meshplain": (64, 88),
     "clustered+textured+staticplain": (64, 120)}
 
 
@@ -554,10 +599,17 @@ K4T_BASES = ("feature_pinhole", "feature_lens", "feature_pinhole_lockstep",
 
 def code_changed(var: str) -> bool:
     """Whether a variant's code changed against the parent's, in this build
-    and in the -DWAVE_NO_REGROUP yardstick: the textured ones (K9's fetch
-    split where the shade reads it; the lockstep pair on 8x4 tiles, the
-    lens and the regen pinhole at 8 blocks)."""
-    return "textured" in var
+    and in the -DWAVE_NO_REGROUP yardstick: the box forms (new: K4's box
+    test after the triangles); every other variant keeps the parent's code
+    (the lane table sits in the -DWAVE_LANE_TABLE build alone)."""
+    from pathtracer_tpu_torch.render import cuda_backend as cb
+    return var in cb.BOX_VARIANTS
+
+
+def base_of(var: str) -> str:
+    """A box form's base variant (the variant itself for any other)."""
+    from pathtracer_tpu_torch.render import cuda_backend as cb
+    return var.removesuffix(cb.BOX_SUFFIX) if code_changed(var) else var
 
 
 def lens_variant(var: str) -> bool:
@@ -865,6 +917,9 @@ def variant_of(args) -> str:
     template arguments as digit strings."""
     from pathtracer_tpu_torch.render import cuda_backend as cb
     clustered, lens, tex, mesh, feat, tri = args
+    if int(tri) & cb.BOX_TRI:
+        return variant_of((clustered, lens, tex, mesh, feat,
+                           str(int(tri) & ~cb.BOX_TRI))) + cb.BOX_SUFFIX
     end = "_lens" if lens == "1" else "_pinhole"
     spheres = "clustered" if clustered == "1" else "brute"
     kinds = {v: k for k, v in cb.MESH_KINDS.items()}
@@ -917,7 +972,7 @@ def occupancy_report(lib) -> dict:
     import itertools
     out, buf = {}, (ctypes.c_int * 3)()
     for args in itertools.product((0, 1), (0, 1), (0, 1, 2), (0, 1, 2),
-                                  (0, 1, 2), (0, 1, 4, 5, 8)):
+                                  (0, 1, 2), (0, 1, 4, 5, 8, 32, 37)):
         if lib.wave_occupancy(*args, buf) != 0:
             continue
         clustered, lens, tex, mesh, feat, tri = args
@@ -1294,6 +1349,234 @@ NMR = dict(use_normal_maps=False, use_metalness_maps=False,
 # world 1's combined set cut to a size that is no power of two (w, h): no
 # pyramid (--mips renders level 0), K9's wraps by the sizes' reciprocals
 COMBINED_CUT = (48, 40)
+
+
+# K4's boxes (box_sweep in the kernel's box forms, cuda_backend.BOX_VARIANTS;
+# ops/intersect.py::intersect_boxes). No world builds one and JAX has no
+# builder call for them, so a case sets its scene's box tables with
+# dataclasses.replace (with_boxes), padded to a multiple of 8 rows as JAX's
+# finalize pads them (tests/test_torch_meshes.py::BOXES holds the tests'
+# copy): case -> (its base: a world, in the CLI's fog, or a mesh case; the
+# (min corner, max corner) of each box, in the floor's material). World
+# 3's are the classic Cornell pair on its floor, a tall and a short box
+# clear of the light; world 6's one box stands between its spheres, world
+# 2's between two rows of its sphere grid, world 4's among its small
+# spheres, the 784-triangle mesh's beside the sphere (the static tier's
+# walk, then the boxes).
+CORNELL_BOXES = [((480.0, 300.0, 0.0), (640.0, 460.0, 330.0)),
+                 ((160.0, 80.0, 0.0), (320.0, 240.0, 165.0))]
+BOX_CASES = {
+    "w3 boxes": ("w3", CORNELL_BOXES),
+    "w3 fog boxes": ("w3 fog", CORNELL_BOXES),
+    "w6 fog box": ("w6 fog", [((320.0, 60.0, 0.0), (450.0, 190.0, 220.0))]),
+    "w2 box": ("w2", [((1.0, 3.21, 0.0), (4.0, 3.29, 0.4))]),
+    "w4 box": ("w4", [((5.5, 1.5, 0.0), (6.5, 2.5, 1.0))]),
+    "tri784 box": ("tri784", [((0.8, -1.6, 0.0), (1.4, -1.0, 0.8))]),
+}
+# each box form: its case, thin lens, and its base variant's phase-5 row
+# (the same scene without its boxes)
+BOX_ROWS = {
+    "brute_pinhole_box": ("w3 boxes", False, "brute_pinhole"),
+    "brute_lens_box": ("w3 boxes", True, "brute_lens"),
+    "clustered_pinhole_box": ("w2 box", False, "clustered_pinhole"),
+    "clustered_lens_box": ("w4 box", True, "clustered_lens"),
+    "feature_pinhole_box": ("w6 fog box", False, "feature_pinhole"),
+    "feature_lens_box": ("w3 fog boxes", True, "feature_lens"),
+    "staticplain_pinhole_box": ("tri784 box", False, "staticplain_pinhole"),
+    "staticplain_lens_box": ("tri784 box", True, "staticplain_lens"),
+}
+# box_sweep's FP32 operations (ray_box_faces), per face its loop reaches:
+# the zero guard (1), the plane's t, a sub and a division (2), the two
+# in-plane coordinates, two muls and two adds (4), t >= 0 and the six bound
+# compares (7); a face the ray does not move across costs its guard alone;
+# per box the take's t > 1e-4 and t < best (2)
+OPS_BOX_FACE = 14
+OPS_BOX_SKIP = 1
+OPS_BOX_TAKE = 2
+
+
+def with_boxes(scene, boxes):
+    """``scene`` with ``boxes`` ((min, max) corners) in its floor's
+    material (the last quad's in the Cornell rooms, else the ground
+    plane's, else the first sphere's: world 4's ground), the tables on the
+    scene's device."""
+    import torch
+    from pathtracer_tpu_torch.utils.vec import Vec3
+    n = len(boxes)
+    pad = max(8, -(-n // 8) * 8)
+    mn, mx = np.zeros((pad, 3), np.float32), np.zeros((pad, 3), np.float32)
+    mn[:n] = [b[0] for b in boxes]
+    mx[:n] = [b[1] for b in boxes]
+    mat = (scene.quad_mat[scene.n_quads - 1] if scene.n_quads
+           else scene.pln_mat[0] if scene.n_planes else scene.sph_mat[0])
+    dev = scene.device
+    vec = lambda a: Vec3(*(torch.from_numpy(a[:, i].copy()).to(dev)
+                           for i in range(3)))
+    mats = torch.zeros(pad, dtype=torch.int32, device=dev)
+    mats[:n] = mat
+    return dataclasses.replace(
+        scene, box_min=vec(mn), box_max=vec(mx), box_mat=mats,
+        box_mask=torch.arange(pad, device=dev) < n, n_boxes=n)
+
+
+def box_ops(scene, o, d, mask) -> float:
+    """box_sweep's FP32 operations on the rays (o, d) where ``mask``: per
+    box the faces its loop reaches, up to the first whose point lies in
+    the box (ray_box_faces, JAX's order), each at OPS_BOX_FACE or, where
+    the ray does not move across it, OPS_BOX_SKIP, and the take."""
+    import torch
+    ops = 0.0
+    for i in range(scene.n_boxes):
+        mn = [scene.box_min[k][i] for k in range(3)]
+        mx = [scene.box_max[k][i] for k in range(3)]
+        found = torch.zeros_like(mask)
+        for j in range(6):
+            ax = 2 if j < 2 else 0 if j < 4 else 1
+            coord = (mn if j in (0, 2, 5) else mx)[ax]
+            reach = mask & ~found
+            moves = d[ax] != 0.0
+            ops += float((reach & moves).sum()) * OPS_BOX_FACE
+            ops += float((reach & ~moves).sum()) * OPS_BOX_SKIP
+            t = (coord - o[ax]) / torch.where(moves, d[ax], 1.0)
+            inside = moves & (t >= 0.0)
+            for k in range(3):
+                if k != ax:
+                    pk = o[k] + d[k] * t
+                    inside &= (pk >= mn[k]) & (pk <= mx[k])
+            found |= inside
+        ops += float(mask.sum()) * OPS_BOX_TAKE
+    return ops
+
+
+def box_counts(scene, cam, cfg, n_samples, dev):
+    """(rays, box_sweep's FP32 operations) over every ray of samples 0 ..
+    n_samples-1 of ``cfg``: the plain regeneration loop renders the same
+    rays as the kernel (phase 3 holds them to it; both schedules cast the
+    same rays); each bounce's live rays are caught on their way to
+    intersect_scene (box_ops)."""
+    import torch
+    from pathtracer_tpu_torch.render import wavefront
+    from pathtracer_tpu_torch.render.renderer import init_accum
+    tally, live = {"rays": 0, "ops": 0.0}, {}
+    primary, intersect = wavefront._primary_rays, wavefront.intersect_scene
+
+    def primary_caught(camera, config, key, pixel_idx, s):
+        live["mask"] = s < n_samples  # lanes with samples left (s0 = 0)
+        return primary(camera, config, key, pixel_idx, s)
+
+    def intersect_caught(sc, o, d):
+        tally["rays"] += int(live["mask"].sum())
+        tally["ops"] += box_ops(sc, o, d, live["mask"])
+        return intersect(sc, o, d)
+
+    wavefront._primary_rays = primary_caught
+    wavefront.intersect_scene = intersect_caught
+    try:
+        n_pix = cfg.width * cfg.height
+        wavefront.render_chunk_wavefront(
+            scene, cam, cfg, 0, 0, n_samples, init_accum(n_pix, dev),
+            torch.arange(n_pix, device=dev))
+    finally:
+        wavefront._primary_rays = primary
+        wavefront.intersect_scene = intersect
+    return tally["rays"], tally["ops"]
+
+
+@contextlib.contextmanager
+def ordered(name: str, lane_lib):
+    """Every render_chunk_cuda call inside the block in JAX's order
+    ``name`` (render/orders.py's hook, given as its _order), the pixel
+    orders through ``lane_lib`` (the build with orders.LANE_DEFINES) in
+    place of the default build: render_image's chunks reach the order as
+    a user's would if it were on."""
+    from pathtracer_tpu_torch.render import cuda_backend as cb, orders
+    wrapped, lib = cb.render_chunk_cuda, cb._lib
+
+    def render(scene, camera, config, key, s0, n_samples, state,
+               lanes=None):
+        return wrapped(scene, camera, config, key, s0, n_samples, state,
+                       lanes, _order=orders.hook(name, scene, camera, config,
+                                                 n_samples))
+
+    cb.render_chunk_cuda = render
+    if name != "sub_chunks":
+        cb._lib = lane_lib
+    try:
+        yield
+    finally:
+        cb.render_chunk_cuda, cb._lib = wrapped, lib
+
+
+def box_rays(boxes, eye, n, seed):
+    """(n, 6) float32 rays at the boxes' edges, corners and faces: a third
+    from ``eye``, a third from a shell about each box, a third along a
+    face, from on its plane with no component across it."""
+    rng = np.random.RandomState(seed)
+    out = []
+    per = -(-n // (3 * len(boxes)))
+    for mn, mx in boxes:
+        mn, mx = np.array(mn, np.float64), np.array(mx, np.float64)
+        size = mx - mn
+        # points on the 12 edges (two coordinates at a corner's) and faces
+        p = mn + rng.rand(per, 3) * size
+        axes = rng.randint(0, 3, per)
+        for k, a in enumerate(axes):
+            for b in range(3):
+                if b != a and rng.rand() < 0.75:
+                    p[k, b] = (mn if rng.rand() < 0.5 else mx)[b]
+        o_eye = np.broadcast_to(np.asarray(eye, np.float64), p.shape)
+        c = (mn + mx) / 2.0
+        shell = rng.normal(size=(per, 3))
+        shell = c + shell / np.linalg.norm(shell, axis=1, keepdims=True) \
+            * np.linalg.norm(size) * rng.uniform(0.6, 3.0, (per, 1))
+        # along a face: from on its plane, the axis across it zeroed
+        a = rng.randint(0, 3, per)
+        o_face = mn - 0.5 * size + rng.rand(per, 3) * 2.0 * size
+        d_face = rng.normal(size=(per, 3))
+        for k in range(per):
+            o_face[k, a[k]] = (mn if rng.rand() < 0.5 else mx)[a[k]]
+            d_face[k, a[k]] = 0.0
+        for o, d in ((o_eye, p - o_eye), (shell, p - shell),
+                     (o_face, d_face)):
+            d = d / np.linalg.norm(d, axis=1, keepdims=True)
+            out.append(np.concatenate([o, d], 1))
+    return np.concatenate(out)[:n].astype(np.float32)
+
+
+# The K1 remainder's orders (render/orders.py: the texel sort, the square
+# tiles, the 64-sample launches), each against the kernel's own order on the
+# scenes JAX applies it to: the texel sort on the combined set (world 1
+# through both cameras and in the CLI's fog: textured_*, feattextured_*;
+# sphere clusters with the combined set: clustered+textured), the square
+# tiles on the brute feature variants of a scene with JAX's tiled stack
+# (the tbn, bump and everything scenes, world 1 with three planar 512x512
+# maps), the 64-sample launches on sphere clusters (worlds 2 and 4) and the
+# streamed meshes (19,600 and 262,144 triangles): order (orders.hook's
+# name) -> [(case, thin lens, samples at 720p, the phase-5 row of the same
+# case in the kernel's own order)]
+ORDER_CASES = {
+    "texel_sort": [
+        ("w1", False, 4, "textured_pinhole"), ("w1", True, 4, "textured_lens"),
+        ("w1 fog", False, 4, "feattextured_pinhole"),
+        ("clustered+textured", False, 4, "clustered+textured")],
+    "stack_tiles": [
+        ("tbn", False, 4, "K10 planar"), ("bump", False, 4, "K11"),
+        ("everything", False, 4, "K4t UV"),
+        ("w1 planar", False, 4, "large planar stack")],
+    "sub_chunks": [
+        ("w2", False, 256, "clustered_pinhole"),
+        ("w4", True, 256, "clustered_lens"),
+        ("tri19600", False, 256, "meshplain_pinhole"),
+        ("tri262144", False, 256, "meshplain_pinhole tri262144")],
+}
+# the texel sort's key a pixel (orders.texel_sort_pixels), beside its
+# primary ray and intersect: the hit point's x and y (4) and the combined
+# set's coordinates, its scale and fractions (14)
+OPS_SORT_KEY = 18
+# the pallas_backend.py lines of each order, for the kernel table
+ORDER_REPLACES = {"texel_sort": "render/pallas_backend.py:443",
+                  "stack_tiles": "render/pallas_backend.py:424",
+                  "sub_chunks": "render/pallas_backend.py:522"}
 
 
 def mip_scale(cam, h):
@@ -2671,7 +2954,7 @@ def main() -> int:
     from pathtracer_tpu_torch import cli
     from pathtracer_tpu_torch.io.bmp import write_bmp
     from pathtracer_tpu_torch.render import cuda_backend as cb
-    from pathtracer_tpu_torch.render import renderer
+    from pathtracer_tpu_torch.render import orders, renderer
     from pathtracer_tpu_torch.render.renderer import (
         RenderConfig, init_accum, render_image, resolve,
     )
@@ -2872,7 +3155,10 @@ def main() -> int:
     # code; with -DWAVE_BLOCK_LOCKSTEP: world 1's textured lockstep pair
     # through the block-lockstep loop, laid out by lobe) together; then, in
     # the background, the warp tiles' yardstick (-DWAVE_SCANLINE_WARPS: each
-    # warp of the BVH walks' variants on 32 pixels of a scanline)
+    # warp of the BVH walks' variants on 32 pixels of a scanline) and the
+    # lane-table build of the K1 remainder's orders (orders.LANE_DEFINES:
+    # the combined-set and brute feature variants read a launch's lane ->
+    # pixel table, the texel sort's and the square tiles')
     t0 = time.perf_counter()
     pool = concurrent.futures.ThreadPoolExecutor(2)
     no_regroup = pool.submit(cb.compile_library, YARDSTICK_DEFINES)
@@ -2880,27 +3166,30 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     flat_lib, _, flat_log, flat_s = no_regroup.result()
     yardstick = pool.submit(cb.compile_library, ("WAVE_SCANLINE_WARPS",))
+    lane_build = pool.submit(cb.compile_library, orders.LANE_DEFINES)
     ptxas = ptxas_report(cb.BUILD_LOG)
     check(sorted(ptxas) == sorted(cb.VARIANTS), f"ptxas report {ptxas}")
     flat_ptxas = ptxas_report(flat_log)
     check(sorted(flat_ptxas) == sorted(cb.VARIANTS), "the yardstick's ptxas report")
     sass = sass_report(cb.LIB_PATH, args.sass)
     check(sorted(sass) == sorted(cb.VARIANTS), f"SASS report {sass}")
+    # the variants the parent built too (every one but the box forms)
+    kept_variants = [v for v in cb.VARIANTS if v not in cb.BOX_VARIANTS]
     check(sorted(KEPT_PTXAS) == sorted(
-              v for v in cb.VARIANTS
+              v for v in kept_variants
               if not feature_bounce(v) and not lens_variant(v))
           and sorted(PARENT_LENS_PTXAS) == sorted(
-              v for v in cb.VARIANTS
+              v for v in kept_variants
               if not feature_bounce(v) and lens_variant(v))
           and sorted(FEATURE_EARLIER_PTXAS) == sorted(
-              v for v in cb.VARIANTS
+              v for v in kept_variants
               if feature_bounce(v) and v not in cb.K4T_VARIANTS)
           and sorted(cb.K4T_VARIANTS) == sorted(
               v + cb.K4T_SUFFIX for v in K4T_BASES),
-          "KEPT_PTXAS names every variant without the feature bounce and "
-          "the lens, PARENT_LENS_PTXAS every other one without the feature "
-          "bounce, FEATURE_EARLIER_PTXAS every other one but the K4t forms, "
-          "K4T_BASES the K4t forms' bases")
+          "KEPT_PTXAS names every variant the parent built without the "
+          "feature bounce and the lens, PARENT_LENS_PTXAS every other one "
+          "without the feature bounce, FEATURE_EARLIER_PTXAS every other one "
+          "but the K4t forms, K4T_BASES the K4t forms' bases")
     now = {v: (r["registers"], r["spill_stores"]) for v, r in ptxas.items()}
     flat = {v: (r["registers"], r["spill_stores"])
             for v, r in flat_ptxas.items()}
@@ -2913,10 +3202,13 @@ def main() -> int:
     print(f"phase2 variants_kept_ptxas={json.dumps(kept)} "
           f"all_kept={all(kept.values())}")
     occ = occupancy_report(tile_lib)
-    print("phase2 changed variants (code_changed): [registers, spill "
-          "stores, blocks per SM] of this build and of the parent's "
+    print("phase2 changed variants (code_changed, the box forms): "
+          "[registers, spill stores, blocks per SM] of this build, of its "
+          "base variant in this build and of the base in the parent's "
           "(PARENT_PTXAS) " + json.dumps(
-              {v: {"now": [*now[v], occ[v][0]], "parent": PARENT_PTXAS[v]}
+              {v: {"now": [*now[v], occ[v][0]],
+                   "base": [*now[base_of(v)], occ[base_of(v)][0]],
+                   "base_parent": PARENT_PTXAS[base_of(v)]}
                for v in cb.VARIANTS if code_changed(v)}))
     check(all(kept.values()), "the variants without the feature bounce "
           "and the lens kept their registers and spills")
@@ -2966,14 +3258,14 @@ def main() -> int:
     # every variant that can cast a lens ray, beside the parent's build
     parent_lens = {**{v: list(r) for v, r in PARENT_LENS_PTXAS.items()},
                    **{v: [*PARENT_FEATURE_PTXAS[v], PARENT_FEATURE_BLOCKS[v]]
-                      for v in cb.VARIANTS
+                      for v in kept_variants
                       if feature_bounce(v) and lens_variant(v)}}
     print("phase2 lens variants: [registers, spill stores, blocks per SM] "
           "of this build and of the parent's " + json.dumps(
               {v: {"now": [*now[v], occ[v][0]], "parent": parent_lens[v]}
-               for v in cb.VARIANTS if lens_variant(v)}))
+               for v in kept_variants if lens_variant(v)}))
     # every feature variant keeps the parent's resident blocks per SM
-    fewer = {v: [occ[v][0], PARENT_FEATURE_BLOCKS[v]] for v in cb.VARIANTS
+    fewer = {v: [occ[v][0], PARENT_FEATURE_BLOCKS[v]] for v in kept_variants
              if feature_bounce(v) and occ[v][0] < PARENT_FEATURE_BLOCKS[v]}
     check(not fewer, f"feature variants below the parent's blocks per SM: "
           f"{fewer}")
@@ -2998,9 +3290,19 @@ def main() -> int:
                    "parent": [*PARENT_PTXAS[v][:2], PARENT_STACK[v],
                               PARENT_PTXAS[v][2]]}
                for v in PARENT_STACK}))
-    fewer = {v: [occ[v][0], PARENT_PTXAS[v][2]] for v in cb.VARIANTS
+    fewer = {v: [occ[v][0], PARENT_PTXAS[v][2]] for v in kept_variants
              if occ[v][0] < PARENT_PTXAS[v][2]}
     check(not fewer, f"variants below the parent's blocks per SM: {fewer}")
+    # the box forms (K4's box test after the triangles; new) beside their
+    # bases: a box form may run fewer blocks per SM than its base, which
+    # keeps its own code
+    print("phase2 box forms: [registers, spill stores, stack frame bytes, "
+          "blocks per SM] of each and of its base " + json.dumps(
+              {v: {"box": [*now[v], ptxas[v]["stack_frame"], occ[v][0]],
+                   "base": [*now[base_of(v)],
+                            ptxas[base_of(v)]["stack_frame"],
+                            occ[base_of(v)][0]]}
+               for v in cb.BOX_VARIANTS}))
 
     # --- 2b. the shade's trig against sinf and cosf -------------------------
     # sincos_2pi (one sincosf per shade, above the estimator's branches) on
@@ -3411,6 +3713,158 @@ def main() -> int:
                           RenderConfig(mw, mh, pp=pp, seed=0), n)
             check(got == want or want.endswith("_")
                   and got.startswith(want), f"{case}'s case takes {got}")
+    # K4's boxes (box_sweep): each box form on its case (BOX_ROWS) against
+    # its plain version at 256x144 (world 3's two boxes with 16 spp, the
+    # others with 4: depth) and world 3's at 1280x720 with 4 spp, its
+    # launches counted; then the kernel's intersect against the plain
+    # version on rays at the boxes' edges, corners and faces (box_rays), t,
+    # material and normal bit-equal
+    print(f"phase3 box_start_s={time.perf_counter() - t_start}")
+
+    def box_case(tag, bw, bh, lens=False):
+        """(scene on the card, camera at bw x bh) of a box case
+        (BOX_CASES): its base with its boxes."""
+        base, boxes = BOX_CASES[tag]
+        if base in MESH_CASES:
+            scene, cam = mesh_case(base, bw, bh, lens)
+        else:
+            scene, cam = world(BASE_WORLDS[base.split(" ")[0]], bw, bh, lens,
+                               statics=FOG if base.endswith("fog") else None)
+        return with_boxes(scene, boxes), cam
+
+    box_err = {}  # box form -> largest |diff| against the plain version
+    for bvar, (tag, lens, _) in BOX_ROWS.items():
+        for bw, bh in ((256, 144), (1280, 720)):
+            pp, n = depth(bw)
+            if tag == "w3 boxes":
+                pp, n = (4, 16) if bw == 256 else (2, 4)
+            elif bw == 1280:
+                continue
+            scene, cam = box_case(tag, bw, bh, lens)
+            before = cb.VARIANT_LAUNCHES[bvar]
+            var, err = held(f"boxes={tag!r} n_boxes={scene.n_boxes} "
+                            f"lens={lens}", scene, cam,
+                            RenderConfig(bw, bh, pp=pp, seed=0), n)
+            check(var == bvar and cb.VARIANT_LAUNCHES[bvar] > before,
+                  f"{tag}: a launch of {bvar}, not {var}")
+            box_err[bvar] = max(box_err.get(bvar, 0.0), err)
+    for tag, (base, boxes) in BOX_CASES.items():
+        if base.endswith("fog"):
+            continue
+        pscene, cam = box_case(tag, 16, 16)
+        rays = torch.from_numpy(box_rays(boxes, cam.pos, 16384, 11)).to(dev)
+        kt, km, kn, _, _, _ = cb.intersect_probe_cuda(pscene, rays)
+        pt, pm, pn, _, _, _ = cb.intersect_probe_plain(pscene, rays)
+        bits = lambda x: x.contiguous().view(torch.int32)
+        same = ((bits(kt) == bits(pt)) & (km == pm)
+                & (bits(kn) == bits(pn)).all(1))
+        from pathtracer_tpu_torch.ops import intersect as tint
+        from pathtracer_tpu_torch.utils.vec import Vec3
+        ro, rd = Vec3(*rays[:, 0:3].T), Vec3(*rays[:, 3:6].T)
+        won = tint.intersect_boxes(pscene, ro, rd, tint._miss(ro)).t == pt
+        won &= pt < 3e38
+        print(f"phase3 box_probe case={tag!r} rays={len(rays)} "
+              f"box_winners={int(won.sum())} bit_equal={int(same.sum())} "
+              f"differing={int((~same).sum())}")
+        check(bool(same.all()), f"{tag}: box_sweep bit-equal to the plain "
+              "sweep at the boxes' edges, corners and faces")
+
+    # the K1 remainder's orders (ORDER_CASES, render/orders.py): each case
+    # at 60x34 in the order (render_chunk_cuda's _order; the texel sort and
+    # the square tiles through the lane-table build) against the default
+    # build's own order, every sum, count and ray bit-equal, and against its
+    # plain version under the verify gates; its launches counted. The
+    # sample ranges split worlds 2 and 4 at 2 samples a launch, 6 samples
+    # in three launches: a split of any size adds each launch's sums in
+    # turn, and the plain version's time grows with the samples (the
+    # 64-sample launches run in phases 4 and 5)
+    lane_lib, lane_path, lane_log, lane_s = lane_build.result()
+    lane_ptxas, lane_occ = ptxas_report(lane_log), occupancy_report(lane_lib)
+    print(f"phase3 order_start_s={time.perf_counter() - t_start} "
+          f"lane_table_build_s={lane_s} lane-table build's [registers, "
+          f"spill stores, blocks per SM] beside this build's " + json.dumps(
+              {v: {"lane_table": [lane_ptxas[v]["registers"],
+                                  lane_ptxas[v]["spill_stores"],
+                                  lane_occ[v][0]],
+                   "this": [*now[v], occ[v][0]]}
+               for v in cb.VARIANTS
+               if (lane_ptxas[v]["registers"], lane_ptxas[v]["spill_stores"],
+                   lane_occ[v][0]) != (*now[v], occ[v][0])}))
+
+    def order_case(tag, ow, oh, lens=False):
+        """(scene on the card, camera at ow x oh, RenderConfig options) of
+        an order case (ORDER_CASES)."""
+        if tag in FEATURE_CASES:
+            return feature(tag, ow, oh, lens)
+        if tag == "w1 planar":
+            return (*planar_world1(ow, oh, lens), {})
+        if tag in MESH_CASES:
+            return (*mesh_case(tag, ow, oh, lens), {})
+        if tag in MIXED_CASES:
+            return (*mixed_case(tag, ow, oh, lens), {})
+        name = tag.split(" ")[0]
+        return (*world(BASE_WORLDS[name], ow, oh, lens,
+                       statics=FOG if tag.endswith("fog") else None), {})
+
+    def in_order(oname, scene, cam, cfg, n, st, hooked=None):
+        """Samples 0 .. n-1 into ``st`` in order ``oname`` (``hooked``: its
+        _order, by default orders.hook's), the pixel orders through the
+        lane-table build."""
+        hooked = hooked or orders.hook(oname, scene, cam, cfg, n)
+        if hooked[0] is not None:
+            cb._lib = lane_lib
+        try:
+            return cb.render_chunk_cuda(scene, cam, cfg, 0, 0, n, st,
+                                        _order=hooked)
+        finally:
+            cb._lib = tile_lib
+
+    order_err, order_same = {}, {}
+    for oname, cases in ORDER_CASES.items():
+        for tag, lens, _, _ in cases:
+            if tag in MESH_CASES:
+                continue
+            scene, cam, kw = order_case(tag, 60, 34, lens)
+            pp, n = (3, 6) if oname == "sub_chunks" else (2, 4)
+            cfg = RenderConfig(60, 34, pp=pp, seed=0, **kw)
+            var = cb.variant(scene, cam)
+            own = cb.render_chunk_cuda(scene, cam, cfg, 0, 0, n,
+                                       init_accum(60 * 34, dev))
+            split = oname == "sub_chunks"
+            hooked = (None, [(0, 2), (2, 2), (4, 2)]) if split else None
+            before = cb.VARIANT_LAUNCHES[var]
+            got = in_order(oname, scene, cam, cfg, n,
+                               init_accum(60 * 34, dev), hooked)
+            launched = cb.VARIANT_LAUNCHES[var] - before
+            p = cb.render_chunk_plain(scene, cam, cfg, 0, 0, n,
+                                      init_accum(60 * 34, dev))
+            same = (all(torch.equal(a, b) for a, b in zip(
+                (*own.sum, *own.sum_sq, own.count),
+                (*got.sum, *got.sum_sq, got.count)))
+                and int(own.rays_cast) == int(got.rays_cast)
+                and int(own.nan_count) == int(got.nan_count))
+            d = (resolve(got, cfg) - resolve(p, cfg)).abs().amax(-1)
+            f3 = float((d > 1e-3).float().mean())
+            f1 = float((d > 0.1).float().mean())
+            rk, rp = int(got.rays_cast), int(p.rays_cast)
+            count_eq = bool(torch.equal(got.count, p.count))
+            order_same[f"{oname} {tag} lens={lens}"] = same
+            order_err[oname] = max(order_err.get(oname, 0.0), float(d.max()))
+            print(f"phase3 order={oname} case={tag!r} variant={var} 60x34 "
+                  f"pp={pp} samples=0-{n - 1} launches={launched} "
+                  f"bit_equal_to_own_order={same} "
+                  f"frac_gt_1e-3={f3} frac_gt_0.1={f1} "
+                  f"bit_equal={float((d == 0).float().mean())} "
+                  f"count_equal={count_eq} rays_order={rk} "
+                  f"rays_plain={rp} max_abs_err={float(d.max())}")
+            check(launched == (3 if split else 1),
+                  f"{oname}: {tag} launched in the order")
+            check(f3 < 0.01 and f1 < 0.001 and count_eq
+                  and abs(rk - rp) <= 0.005 * rp,
+                  f"{oname} {tag}: the order against its plain version")
+    check(all(order_same.values()), "every order bit-equal to the kernel's "
+          f"own order: {json.dumps(order_same)}")
+
     # the cases of the BVH walks (a variant with sphere clusters, or one
     # that walks the streamed or the static tier) with every pixel bit-equal
     bvh = {k: v for k, v in differing.items() if walks_bvh(k.split(" ")[-1])}
@@ -3697,6 +4151,51 @@ def main() -> int:
               f"{json.dumps({k_: v for k_, v in cb.VARIANT_LAUNCHES.items() if v})} "
               f"spp=4 mean={float(img.mean())} rays={int(state.rays_cast)} "
               f"nan={int(state.nan_count)}")
+    # m. K4's boxes and the K1 remainder's orders through render_image at
+    # 1280x720 in one chunk, each path with the launch counts set to 0 just
+    # before it and read just after: each box form on its case (BOX_ROWS),
+    # 4 spp; then each order given to every chunk of its first case
+    # (ordered; ORDER_CASES: world 1, the tbn scene at 4 spp, world 2, 256
+    # spp: four launches of 64), every launch of that render in the order
+    print(f"phase4 box_order_start_s={time.perf_counter() - t_start}")
+    order_launches = {}
+    for bvar, (tag, lens, _) in BOX_ROWS.items():
+        scene, cam = box_case(tag, w, h, lens)
+        reset_counts()
+        img, _, state = render_image(scene, cam, RenderConfig(
+            w, h, pp=2, seed=0), device="cuda")
+        sync()
+        check(cb.VARIANT_LAUNCHES[bvar] == cb.LAUNCHES > 0,
+              f"{tag}: its launches of {bvar}")
+        launches[bvar] = cb.VARIANT_LAUNCHES[bvar]
+        img = img.cpu().numpy()
+        check(img.shape == (h, w, 3) and bool(np.isfinite(img).all())
+              and float(img.mean()) > 0.001, f"finite, non-black {tag}")
+        print(f"phase4m boxes={tag!r} lens={lens} variant={bvar} "
+              f"launches={cb.LAUNCHES} "
+              f"spp=4 mean={float(img.mean())} "
+              f"rays={int(state.rays_cast)} nan={int(state.nan_count)}")
+    for oname, cases in ORDER_CASES.items():
+        tag, lens, spp, _ = cases[0]
+        scene, cam, kw = order_case(tag, w, h, lens)
+        var = cb.variant(scene, cam)
+        reset_counts()
+        with ordered(oname, lane_lib):
+            img, _, state = render_image(scene, cam, RenderConfig(
+                w, h, pp=int(round(spp ** 0.5)), seed=0, **kw),
+                device="cuda")
+            sync()
+        order_launches[oname] = cb.VARIANT_LAUNCHES[var]
+        want = (len(orders.sub_chunks(scene, spp)) if oname == "sub_chunks"
+                else 1)
+        check(cb.VARIANT_LAUNCHES[var] == cb.LAUNCHES == want,
+              f"{oname}: its {want} launches in the order")
+        img = img.cpu().numpy()
+        check(img.shape == (h, w, 3) and bool(np.isfinite(img).all())
+              and float(img.mean()) > 0.001, f"finite, non-black {tag}")
+        print(f"phase4m order={oname} case={tag!r} variant={var} "
+              f"launches={cb.LAUNCHES} spp={spp} mean={float(img.mean())} "
+              f"rays={int(state.rays_cast)}")
     check(all(launches[v] > 0 for v in cb.VARIANTS), "every variant's main "
           "path launched it")
 
@@ -3899,7 +4398,7 @@ def main() -> int:
                   "clustered+textured+brute")
     check(sorted({r.split(" ")[0] for r in (
         *main_worlds, "feature_pinhole", "feature_lens", "feature_pinhole_k4t",
-        *tier_rows, *new_rows, *map(mixed_variant, mixed_rows))})
+        *tier_rows, *new_rows, *map(mixed_variant, mixed_rows), *BOX_ROWS)})
         == sorted(cb.VARIANTS), "every variant timed")
     timed = {}
     for var, (kind, lens, schedule) in main_worlds.items():
@@ -3979,6 +4478,20 @@ def main() -> int:
               f"{rays / np.median(ks) / 1e3} plain_ms={1e3 * ps} "
               f"plain_rays={prays} plain_mrays_s={prays / ps / 1e6} "
               f"| card: {smi}")
+    # the box forms (K4): each on its case (BOX_ROWS) as the other rows,
+    # beside its base variant's row on the same scene without its boxes
+    print(f"phase5 box_start_s={time.perf_counter() - t_start}")
+    btimed = {}
+    for bvar, (tag, lens, base_row) in BOX_ROWS.items():
+        scene, cam = box_case(tag, w, h, lens)
+        ks, rays, warp_txt = row_ms(bvar, scene, cam)
+        ps, prays = plain_s(scene, cam, 2)
+        btimed[bvar] = dict(ms=float(np.median(ks)), rays=rays, scene=scene,
+                            cam=cam, plain_ms=1e3 * ps, base_row=base_row)
+        print(f"phase5 variant={bvar} case={tag!r} n_boxes={scene.n_boxes} "
+              f"720p spp=4 kernel_ms={sorted(ks)} {warp_txt}rays={rays} "
+              f"kernel_mrays_s={rays / np.median(ks) / 1e3} "
+              f"plain_ms={1e3 * ps} plain_rays={prays} | card: {smi}")
     # the regroup's turns: each feature variant's rows, this build over the
     # -DWAVE_NO_REGROUP yardstick, and the geometric mean of its rows
     by_var = {}
@@ -4109,6 +4622,100 @@ def main() -> int:
           f"{np.median(res['clustered']) / np.median(res['brute'])} "
           f"| card: {smi}")
 
+    # each box form against its base variant on the same scene without its
+    # boxes, and the K1 remainder's orders against the kernel's own order,
+    # in balanced turns timed as row_ms times its turns (a warm launch of
+    # each, then first, first, second, second, first, second, first, first,
+    # second with the first dropped: medians of 4, each first in one half),
+    # each launch's accumulators made before its CUDA events; the texel
+    # sort's pass on the card inside them, as JAX pays it every chunk
+    print(f"phase5 box_order_start_s={time.perf_counter() - t_start}")
+
+    def launch_turns(runs):
+        """{name: [4 ms]} of ``runs`` (two names -> a launch into a given
+        accumulator) in turns, and the accumulator of each's last
+        launch."""
+        one, two = runs
+        res, last = {one: [], two: []}, {}
+        for f in runs.values():
+            f(init_accum(w * h, dev))
+        for j, k in enumerate((one, one, two, two, one, two, one, one,
+                               two)):
+            st = init_accum(w * h, dev)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            runs[k](st)
+            e1.record()
+            sync()
+            if j:
+                res[k].append(e0.elapsed_time(e1))
+            last[k] = st
+        return res, last
+
+    def spread(v):
+        return (max(v) - min(v)) / float(np.median(v))
+
+    cfg4 = RenderConfig(w, h, pp=2, seed=0)
+    for bvar, tm in btimed.items():
+        bare = dataclasses.replace(tm["scene"], n_boxes=0)
+        res, _ = launch_turns({
+            "boxes": lambda st: cb.render_chunk_cuda(
+                tm["scene"], tm["cam"], cfg4, 0, 0, 4, st),
+            "none": lambda st: cb.render_chunk_cuda(
+                bare, tm["cam"], cfg4, 0, 0, 4, st)})
+        tm["without_ms"] = float(np.median(res["none"]))
+        tm["box_over_none"] = float(np.median(res["boxes"])) / tm["without_ms"]
+        tm["box_spread"] = max(spread(res["boxes"]), spread(res["none"]))
+        print(f"phase5 variant={bvar} with_boxes_ms={res['boxes']} "
+              f"base_without_boxes_ms={res['none']} "
+              f"boxes_over_none={tm['box_over_none']} "
+              f"spread={tm['box_spread']} "
+              f"resolved={abs(tm['box_over_none'] - 1) > tm['box_spread']} "
+              f"| card: {smi}")
+    # the orders: each case in the order against the kernel's own order
+    rows_timed = {**timed, **ftimed, **ttimed, **ntimed, **mtimed}
+    otimed = {}  # order -> [each case's turns]
+    for oname, cases in ORDER_CASES.items():
+        for tag, lens, spp, row in cases:
+            tm = rows_timed[row]
+            scene, cam = tm["scene"], tm["cam"]
+            cfg = RenderConfig(w, h, pp=int(round(spp ** 0.5)), seed=0,
+                               schedule=tm.get("schedule"),
+                               **tm.get("cfg_kw", {}))
+            hooked = orders.hook(oname, scene, cam, cfg, spp)
+            res, last = launch_turns({
+                "own": lambda st: cb.render_chunk_cuda(
+                    scene, cam, cfg, 0, 0, spp, st),
+                "order": lambda st: in_order(oname, scene, cam, cfg, spp, st,
+                                             hooked)})
+            check(int(last["own"].rays_cast) == int(last["order"].rays_cast),
+                  f"{oname} {tag}: the same rays in either order")
+            t_own, t_ord = (float(np.median(res[k_])) for k_ in ("own",
+                                                                  "order"))
+            otimed.setdefault(oname, []).append(dict(
+                case=tag, lens=lens, row=row, spp=spp, ms=t_ord,
+                own_ms=t_own, ratio=t_ord / t_own,
+                spread=max(spread(res["own"]), spread(res["order"])),
+                rays=int(last["order"].rays_cast), plain_ms=tm["plain_ms"],
+                variant=cb.variant(scene, cam, tm.get("schedule"))))
+            print(f"phase5 order={oname} case={tag!r} lens={lens} "
+                  f"variant={otimed[oname][-1]['variant']} 720p spp={spp} "
+                  f"order_ms={res['order']} own_order_ms={res['own']} "
+                  f"order_over_own={t_ord / t_own} "
+                  f"spread={otimed[oname][-1]['spread']} "
+                  f"rays={int(last['order'].rays_cast)} | card: {smi}")
+        ratios = [c_["ratio"] for c_ in otimed[oname]]
+        gm = float(np.exp(np.mean(np.log(ratios))))
+        faster = [c_["case"] for c_ in otimed[oname]
+                  if 1 - c_["ratio"] > c_["spread"]]
+        slower = [c_["case"] for c_ in otimed[oname]
+                  if c_["ratio"] - 1 > c_["spread"]]
+        print(f"phase5 order={oname} geomean_order_over_own={gm} "
+              f"faster_by_more_than_spread={faster} "
+              f"slower_by_more_than_spread={slower} "
+              f"| card: {smi}")
+
     # --- 6. bounds -------------------------------------------------------------
     print(f"phase6 start_s={time.perf_counter() - t_start}")
 
@@ -4148,6 +4755,7 @@ def main() -> int:
 
     table = []
     mesh_tally = {}
+    row_bounds = {}  # row -> (bound ms, by, FP32 operations, bytes)
     for var, tm in timed.items():
         t_row = time.perf_counter()
         scene, cam = tm["scene"], tm["cam"]
@@ -4200,6 +4808,7 @@ def main() -> int:
             nbytes += 4 * scene.planar_tile.numel()
         bound_ms, bound_by, ops, nbytes, bound_old = row_bound(
             ops, nbytes, rays, k7, sph)
+        row_bounds[var] = (bound_ms, bound_by, ops, nbytes)
         # the bound with the per-test quads' operations (the earlier count)
         bound_quads = bound(ops + rays * scene.n_quads
                             * (OPS_QUAD_PER_TEST - OPS_QUAD), nbytes)[0]
@@ -4267,6 +4876,7 @@ def main() -> int:
             t.numel() for t in texture_tables(scene))
         bound_ms, bound_by, ops, nbytes, bound_old = row_bound(
             ops, nbytes, rays, k4t)
+        row_bounds[row] = (bound_ms, bound_by, ops, nbytes)
         counts = " ".join(f"{k_}={v}" for k_, v in fc.items())
         walk_txt = (f"n_tris={scene.n_tris} "
                     f"k4t_box_tests_per_ray={tally['brute_boxes'] / rays} "
@@ -4325,6 +4935,7 @@ def main() -> int:
         nbytes = w * h * BYTES_PER_PIXEL + 4 * sum(t.numel() for t in tables)
         bound_ms, bound_by, ops, nbytes, bound_old = row_bound(
             ops, nbytes, rays, walk)
+        row_bounds[row] = (bound_ms, bound_by, ops, nbytes)
         print(f"phase6 count_s={time.perf_counter() - t_row} "
               f"variant={var} row={row!r} mesh={tag} "
               f"box_tests_per_ray={boxes} tri_tests_per_ray={tris} "
@@ -4420,6 +5031,7 @@ def main() -> int:
         nbytes = w * h * BYTES_PER_PIXEL + 4 * sum(t.numel() for t in tables)
         bound_ms, bound_by, ops, nbytes, bound_old = row_bound(
             ops, nbytes, rays, k7, sph, k4t)
+        row_bounds[row] = (bound_ms, bound_by, ops, nbytes)
         counts = " ".join(f"{k_}={v}" for k_, v in fc.items())
         print(f"phase6 count_s={time.perf_counter() - t_row} "
               f"variant={var} row={row!r} case={tag!r} {base_txt} "
@@ -4485,6 +5097,7 @@ def main() -> int:
         nbytes = w * h * BYTES_PER_PIXEL + 4 * sum(t.numel() for t in tables)
         bound_ms, bound_by, ops, nbytes, bound_old = row_bound(
             ops, nbytes, rays, k7, sph, k4t)
+        row_bounds[row] = (bound_ms, bound_by, ops, nbytes)
         counts = " ".join(f"{k_}={v}" for k_, v in fc.items())
         print(f"phase6 count_s={time.perf_counter() - t_row} "
               f"variant={var} row={row!r} {counts} "
@@ -4521,6 +5134,83 @@ def main() -> int:
             **bvh_note(var), **old_bound(bound_old),
             **regroup_note(var, issue, regrouped),
             **k4t_note(k4t, fc["brute_boxes"] / rays, fc["brute_tris"] / rays),
+        })
+    # K4, each box form on its case, 4 spp at 720p: its rays and
+    # box_sweep's operations replayed over every ray (box_counts); the rest
+    # of the launch at its base row's operations a ray (the same scene
+    # without its boxes: its sphere or mesh walk, shading, fog) over these
+    # rays, and its base row's bytes
+    for bvar, tm in btimed.items():
+        t_row = time.perf_counter()
+        brays, b_ops = box_counts(tm["scene"], tm["cam"],
+                                  RenderConfig(w, h, pp=2, seed=0), 4, dev)
+        check(abs(brays - tm["rays"]) <= 0.005 * tm["rays"],
+              f"{bvar}: counted {brays} rays, the kernel cast {tm['rays']}")
+        _, _, base_ops, nbytes = row_bounds[tm["base_row"]]
+        ops = base_ops / rows_timed[tm["base_row"]]["rays"] * brays + b_ops
+        bound_ms, bound_by = bound(ops, nbytes)
+        print(f"phase6 count_s={time.perf_counter() - t_row} variant={bvar} "
+              f"case={BOX_ROWS[bvar][0]!r} rays={brays} box_ops={b_ops:.6e} "
+              f"box_ops_per_ray={b_ops / brays} ops={ops:.6e} "
+              f"bytes={nbytes} bound_ms={bound_ms} "
+              f"bound_share={bound_ms / tm['ms']} | card: {smi}")
+        table.append({
+            "name": f"wave_kernel<{bvar}>", "route": "cuda",
+            "source": "pathtracer_tpu_torch/csrc/wave_kernel.cu",
+            "replaces": "pathtracer_tpu/ops/intersect.py:1219",
+            "launches": launches[bvar], "max_abs_err": box_err[bvar],
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,  # no single PyTorch call computes this
+            "base_without_boxes_ms": tm["without_ms"],
+            "boxes_over_base": tm["box_over_none"],
+            "boxes_over_base_spread": tm["box_spread"],
+            "box_ops_per_ray": b_ops / brays,
+            **bvh_note(bvar),
+        })
+    # the K1 remainder's orders: each order's first case as its row (the
+    # others' turns beside it); its bound the same case's row's in the
+    # kernel's own order (the same operations in another order), with the
+    # texel sort's pass (a primary ray, its intersect and its texel's key a
+    # pixel, OPS_SORT_KEY, and its key, order and table: 12 bytes a pixel)
+    # added, and for the 64-sample launches scaled by the rays cast at 256
+    # spp over those at 4, with four launches' accumulator bytes
+    for oname in ORDER_CASES:
+        first = otimed[oname][0]
+        b_ms, b_by, ops, nbytes = row_bounds[first["row"]]
+        rscene = rows_timed[first["row"]]["scene"]
+        if oname == "texel_sort":
+            ops += w * h * (OPS_PRIMARY["lens" if first["lens"]
+                                        else "pinhole"]
+                            + rscene.n_spheres * OPS_SPHERE
+                            + rscene.n_quads * OPS_QUAD
+                            + rscene.n_planes * OPS_PLANE + OPS_RESOLVE
+                            + OPS_SORT_KEY)
+            nbytes += 12 * w * h
+        elif oname == "sub_chunks":
+            ops *= first["rays"] / rows_timed[first["row"]]["rays"]
+            nbytes = (first["spp"] // orders.SUB_CHUNK_SAMPLES) * nbytes
+        b_ms, b_by = bound(ops, nbytes)
+        print(f"phase6 order={oname} case={first['case']!r} ops={ops:.6e} "
+              f"bytes={nbytes} bound_ms={b_ms} "
+              f"bound_share={b_ms / first['ms']} | card: {smi}")
+        table.append({
+            "name": f"{oname} order of wave_kernel<{first['variant']}> "
+                    f"{first['case']}",
+            "route": "cuda",
+            "source": "pathtracer_tpu_torch/render/orders.py",
+            "replaces": "pathtracer_tpu/" + ORDER_REPLACES[oname],
+            "launches": order_launches[oname],
+            "max_abs_err": order_err[oname],
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,  # no single PyTorch call computes this
+            "samples": first["spp"], "own_order_ms": first["own_ms"],
+            "order_over_own": first["ratio"], "spread": first["spread"],
+            "cases": [{k_: c_[k_] for k_ in ("case", "lens", "variant",
+                                              "ms", "own_ms", "ratio",
+                                              "spread")}
+                      for c_ in otimed[oname]],
         })
     check(all(k_["launches"] > 0 for k_ in table), "every variant launched")
     check(sorted({k_["name"] for k_ in table if k_["name"].endswith(">")

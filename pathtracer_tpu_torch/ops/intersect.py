@@ -264,8 +264,12 @@ def intersect_planes(scene: Scene, o: Vec3, d: Vec3, best: Hit) -> Hit:
 
 
 def intersect_boxes(scene: Scene, o: Vec3, d: Vec3, best: Hit) -> Hit:
-    """world->aabbs loop (win32_main.cpp:529-553); no reference world
-    populates it, so this loops over zero rows."""
+    """world->aabbs loop (win32_main.cpp:529-553, K4: intersect.py:1219-1236
+    in JAX): each box's first face whose point lies in it (the reference's
+    face order, ``ray_aabb_faces``), taken where t > MIN_HIT_DISTANCE and
+    t < best, with that face's normal. No reference world builds a box;
+    a scene given box tables (``Scene.n_boxes``) renders them, as JAX's
+    does."""
     normals = torch.tensor(_FACE_NORMALS, dtype=torch.float32,
                            device=o.x.device)
     for i in range(scene.n_boxes):

@@ -31,7 +31,10 @@ and every mesh tier (``featmesh`` ... ``featstaticplain`` under
 ``MESH_SCHEDULE``, ``featmesh``'s pinhole also under the other one).
 The feature variants without a mesh tier carry K4t's walk only in forms
 of their own (``K4T_VARIANTS``, named with ``K4T_SUFFIX``), which a scene
-with a brute mesh takes.
+with a brute mesh takes; the brute and clustered spheres, the brute feature
+form and the static tier without UVs carry K4's box test only in forms of
+their own (``BOX_VARIANTS``, named with ``BOX_SUFFIX``), which a scene
+with boxes takes.
 The mixed bases (``MIXED_VARIANTS``: sphere clusters with the combined set
 or with any mesh tier, the combined set with a mesh tier without UVs, and
 all three), named by their parts joined with "+", each carry the feature
@@ -68,6 +71,7 @@ with ``ctypes`` and launched on PyTorch's current stream.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import re
@@ -150,7 +154,20 @@ PROBE_STREAM_UV = 16
 K4T_VARIANTS = tuple(
     v + K4T_SUFFIX for v in VARIANTS if v.split("_")[0] in (
         "feature", "featclustered", "feattextured", "clustered+textured"))
-VARIANTS = VARIANTS + K4T_VARIANTS
+# K4's box test (box_sweep) in forms of their own, named with BOX_SUFFIX
+# (kTriBox, BOX_TRI, in the kernel), which a scene with boxes takes: the
+# brute and clustered spheres, the brute feature form and the static tier
+# without UVs, each through either camera under its main schedule. A loop
+# over the boxes in every variant moved registers and blocks per SM
+# (PERF.md); a scene with boxes on another base raises NotImplementedError
+# (ROADMAP queue 2 item 3).
+BOX_SUFFIX = "_box"
+BOX_TRI = 32
+BOX_VARIANTS = tuple(f"{base}_{cam}{BOX_SUFFIX}"
+                     for base in ("brute", "clustered", "feature",
+                                  "staticplain")
+                     for cam in ("pinhole", "lens"))
+VARIANTS = VARIANTS + K4T_VARIANTS + BOX_VARIANTS
 LAUNCHES = 0      # kernel launches, counted where the launch succeeds
 VARIANT_LAUNCHES = dict.fromkeys(VARIANTS, 0)  # the same, by variant
 PROBE_LAUNCHES = 0  # intersect_probe_cuda's launches
@@ -208,6 +225,9 @@ _PLANAR_PTR_FIELDS = ("planar_tile", "planar_meta")
 _FEAT_FLOAT_FIELDS = ("fog_sigma_t", "hg_a", "hg_b", "hg_c", "hg_d")
 # the launch's pixels and their warp tiles (shard_tiles), after everything
 _LANE_FIELDS = ("lane_lo", "lane_hi", "tile_lo", "n_tiles")
+# K4's boxes, after those
+_BOX_PTR_FIELDS = ("box_mnx", "box_mny", "box_mnz", "box_mxx", "box_mxy",
+                   "box_mxz", "box_mat")
 # the per-pixel outputs, indexed by pixel: their pointers are offset so that
 # a shard's pixel lo lands on its first lane
 _ACC_FIELDS = ("sum_x", "sum_y", "sum_z", "sq_x", "sq_y", "sq_z", "count",
@@ -216,7 +236,8 @@ _INT_PTRS = ("sph_mat", "q_mat", "p_mat", "csph_mat", "cl_off", "cl_cnt",
              "cl_huge", "nan_px", "rays_px", "stack_words",
              "stack_w", "stack_h", "tri_mat", "mat_met_idx", "mat_rgh_idx",
              "mat_nrm_idx", "mat_bump_idx", "ctri_mat", "tcl_range",
-             "bvh_tri_k", "sbvh_idx") + _TEX_PTR_FIELDS + _PLANAR_PTR_FIELDS
+             "bvh_tri_k", "sbvh_idx", "box_mat") + _TEX_PTR_FIELDS \
+    + _PLANAR_PTR_FIELDS
 _INT_FIELDS = (
     "n_spheres", "n_quads", "n_planes", "quad_light",
     "just_cosine", "use_rr",
@@ -258,7 +279,9 @@ class WaveParams(ctypes.Structure):
                 + [("bvh_far", _F), ("bvh_wide", _F * 2), ("sbvh_far", _F * 8)]
                 + [("bvh_apart", _I * 4), ("q_rec", _P)]
                 + [("tex_m", ctypes.c_uint32 * 2)]
-                + [(n, _I) for n in _LANE_FIELDS])
+                + [(n, _I) for n in _LANE_FIELDS]
+                + [(n, _P) for n in _BOX_PTR_FIELDS] + [("n_boxes", _I)]
+                + [("lane_pix", _P), ("n_lanes", _I)])
 
 # WaveParams.tex_flags bits (TEX_* in the kernel)
 TEX_METALNESS, TEX_ROUGHNESS, TEX_NORMAL, TEX_TBN = 1, 2, 4, 8
@@ -279,9 +302,6 @@ def check_supported(scene: Scene, camera: Camera, config):
             f"path regeneration without just_importance; render_chunk runs "
             f"debug kind {config.debug_kind!r}, mode {config.mode!r}, "
             f"just_importance={config.just_importance} as torch ops")
-    missing = scene.unsupported()
-    if missing:
-        raise NotImplementedError("not ported yet: " + "; ".join(missing))
     if scene.off_kernel:
         raise NotImplementedError(
             "JAX renders a mesh with the uniform grid, a mesh of more than "
@@ -362,7 +382,8 @@ def variant(scene: Scene, camera: Camera, schedule=None) -> str:
     ``feat`` + the base. A mixed base is its own name: its instantiation
     carries the feature bounce and serves either camera. A scene with a
     brute mesh (``Scene.tri_brute``) takes the form with K4t's walk
-    (``K4T_SUFFIX``)."""
+    (``K4T_SUFFIX``), a scene with boxes its base's box form
+    (``BOX_SUFFIX``), where the base has one."""
     base = _base(scene)
     if "+" in base:
         name = base
@@ -375,6 +396,12 @@ def variant(scene: Scene, camera: Camera, schedule=None) -> str:
         name += "_" + schedule
     if scene.tri_brute:
         name += K4T_SUFFIX
+    if scene.n_boxes:
+        name += BOX_SUFFIX
+        if name not in VARIANTS:
+            raise NotImplementedError(
+                f"{name}: K4's box test has no form on this base; its forms "
+                f"are {', '.join(BOX_VARIANTS)} (ROADMAP queue 2 item 3)")
     if name not in VARIANTS:
         if "+" in base:
             raise NotImplementedError(
@@ -507,7 +534,7 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
     ptrs = dict(zip(_PTR_FIELDS + _CLUSTER_PTR_FIELDS + _TEX_PTR_FIELDS
                     + _MESH_PTR_FIELDS + _FEAT_PTR_FIELDS + _TIER_PTR_FIELDS
                     + _BVH_PTR_FIELDS + _SBVH_PTR_FIELDS
-                    + _PLANAR_PTR_FIELDS + ("q_rec",), (
+                    + _PLANAR_PTR_FIELDS + ("q_rec",) + _BOX_PTR_FIELDS, (
         *scene.mat_albedo, *scene.mat_emit, *scene.mat_metal_color,
         scene.mat_metalness, scene.mat_roughness, scene.mat_ior,
         *scene.sph_center, scene.sph_radius, scene.sph_mat,
@@ -534,6 +561,7 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
         scene.bvh_nodes, scene.bvh_tris, scene.bvh_tri_k,
         scene.sbvh_nodes, scene.sbvh_sph, scene.sbvh_idx,
         scene.planar_tile, scene.planar_meta, scene.quad_rec,
+        *scene.box_min, *scene.box_max, scene.box_mat,
     )))
     for name, t in ptrs.items():
         want = torch.int32 if name in _INT_PTRS else torch.float32
@@ -580,7 +608,8 @@ def _params(scene: Scene, camera: Camera, config, key: int, s0: int,
     p = WaveParams(
         **addr, lane_lo=lo, lane_hi=hi, tile_lo=tile_lo, n_tiles=n_tiles,
         n_spheres=scene.n_spheres, n_quads=scene.n_quads,
-        n_planes=scene.n_planes, quad_light=scene.quad_light,
+        n_planes=scene.n_planes, n_boxes=scene.n_boxes,
+        quad_light=scene.quad_light,
         n_clusters=len(scene.sph_clusters),
         just_cosine=int(scene.just_cosine),
         use_rr=int(config.use_russian_roulette),
@@ -656,15 +685,20 @@ def _moved(p: WaveParams, config, pixels, delta: int) -> WaveParams:
 
 
 def render_chunk_cuda(scene: Scene, camera: Camera, config, key: int,
-                      s0: int, n_samples: int, state, lanes=None):
+                      s0: int, n_samples: int, state, lanes=None,
+                      _order=None):
     """Accumulate samples ``s0 .. s0+n_samples-1`` of every pixel into
     ``state`` in place (one kernel launch on CUDA tensors; the plain version
     on CPU tensors). ``lanes`` (lo, n): render only lanes ``lo .. lo+n-1``
     of the padded pixel order, which ``state`` holds (a shard of
     parallel/shard.py; lanes past the image render pixel 0, each in a launch
     of its own: :func:`shard_launches`). ``config.schedule`` picks a
-    textured scene's sample schedule. Raises for inputs the kernel does not
-    cover."""
+    textured scene's sample schedule. ``_order`` (render/orders.py's
+    yardsticks, no render's): (a function of a launch's pixels (lo, hi)
+    giving its lane -> pixel table, or None; the (offset, samples) launches
+    the chunk's samples split into, or None), the table read by the build
+    with ``orders.LANE_DEFINES`` in place of ``_lib``. Raises for inputs
+    the kernel does not cover."""
     global LAUNCHES
     check_supported(scene, camera, config)
     if state.device.type != "cuda":
@@ -684,24 +718,36 @@ def render_chunk_cuda(scene: Scene, camera: Camera, config, key: int,
     launches = shard_launches(n_pix, lanes)
     first = _params(scene, camera, config, key, s0, n_samples, state,
                     nan_px, rays_px, *launches[0])
-    for pixels, offset in launches:
-        params = _moved(first, config, pixels, offset - launches[0][1])
-        err = lib.wave_render(ctypes.byref(params),
-                              int(bool(scene.sph_clusters)),
-                              int(not camera.use_pinhole),
-                              code if textured(scene) else 0,
-                              code if meshed(scene) else 0,
-                              code if scene.featured or mixed(scene) else 0,
-                              MESH_KINDS[mesh_kind(scene)] if meshed(scene)
-                              else K4T_TRI if scene.tri_brute else 0,
-                              ctypes.c_void_p(stream))
-        if err != 0:
-            raise RuntimeError(f"wave_kernel ({name}) launch failed: "
-                               + lib.wave_error_string(err).decode())
-        LAUNCHES += 1
-        VARIANT_LAUNCHES[name] += 1
-    state.nan_count += nan_px.sum(dtype=torch.int64)
-    state.rays_cast += rays_px.sum(dtype=torch.int64)
+    tri = ((MESH_KINDS[mesh_kind(scene)] if meshed(scene)
+            else K4T_TRI if scene.tri_brute else 0)
+           | (BOX_TRI if scene.n_boxes else 0))
+    table_of, ranges = _order or (None, None)
+    for off, ns in ranges or [(0, n_samples)]:
+        for pixels, offset in launches:
+            params = _moved(first, config, pixels, offset - launches[0][1])
+            if _order:
+                params = WaveParams.from_buffer_copy(params)
+                params.s0, params.n_samples = s0 + off, ns
+                table = table_of(pixels) if table_of else None
+                if table is not None:
+                    params.lane_pix = table.data_ptr()
+                    params.n_lanes = table.numel()
+            err = lib.wave_render(ctypes.byref(params),
+                                  int(bool(scene.sph_clusters)),
+                                  int(not camera.use_pinhole),
+                                  code if textured(scene) else 0,
+                                  code if meshed(scene) else 0,
+                                  code if scene.featured or mixed(scene)
+                                  else 0, tri, ctypes.c_void_p(stream))
+            if err != 0:
+                raise RuntimeError(f"wave_kernel ({name}) launch failed: "
+                                   + lib.wave_error_string(err).decode())
+            LAUNCHES += 1
+            VARIANT_LAUNCHES[name] += 1
+        # each launch stores its pixels' counts: summed after each sample
+        # range, as JAX adds each launch's sums in turn
+        state.nan_count += nan_px.sum(dtype=torch.int64)
+        state.rays_cast += rays_px.sum(dtype=torch.int64)
     state.samples_done += n_samples
     return state
 
@@ -735,7 +781,8 @@ def intersect_probe_cuda(scene: Scene, rays: torch.Tensor):
     out = torch.empty((len(rays), 8), dtype=torch.float32, device=rays.device)
     tri = (K4T_TRI if scene.tri_brute else 0 if not meshed(scene)
            else PROBE_STREAM_UV if mesh_kind(scene) == "mesh"
-           else MESH_KINDS[mesh_kind(scene)])
+           else MESH_KINDS[mesh_kind(scene)]) | (BOX_TRI if scene.n_boxes
+                                                 else 0)
     err = build().wave_intersect(
         ctypes.byref(params), rays.data_ptr(), len(rays), out.data_ptr(),
         int(bool(scene.sph_clusters)), tri,
@@ -787,7 +834,10 @@ def render_chunk_plain(scene: Scene, camera: Camera, config, key: int,
     device the tensors live: the lockstep loop for a scene under the
     lockstep schedule, path regeneration otherwise (``lanes``: its)."""
     check_supported(scene, camera, config)
-    variant(scene, camera, config.schedule)  # raises without an instantiation
+    # raises without an instantiation; boxes render on every base here, as
+    # on JAX's XLA path, whether or not the base has a box form
+    variant(dataclasses.replace(scene, n_boxes=0) if scene.n_boxes
+            else scene, camera, config.schedule)
     pixel_idx = lane_pixels(config, lanes, state.device)
     run = (render_chunk_lockstep
            if _schedule(scene, config.schedule) == "lockstep"

@@ -121,11 +121,7 @@ def shade_bounce(scene: Scene, o: Vec3, d: Vec3, hit: Hit, u,
     reference's just_importance flag, as the scene's ``just_cosine`` makes
     it sample the cosine only); ``mip_scale > 0`` selects a mip level per
     hit (``--mips``); ``uv`` is ``intersect_scene_uv``'s (uvx, uvy, uv_ok)
-    in a mesh-UV scene. Raises for scene features not ported yet
-    (``Scene.unsupported``)."""
-    missing = scene.unsupported()
-    if missing:
-        raise NotImplementedError("not ported yet: " + "; ".join(missing))
+    in a mesh-UV scene."""
     just_cosine = scene.just_cosine
     idx = hit.mat.long()
 

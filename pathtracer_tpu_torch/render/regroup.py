@@ -40,12 +40,11 @@ from __future__ import annotations
 import torch
 
 from ..ops import texture
-from ..ops.intersect import intersect_scene
 from ..scene.schema import MAX_BOUNCE_COUNT, Scene
 from ..utils.vec import gather
-from . import raygen
 from .integrator import fog_flight, mip_lod
 from .lockstep import render_chunk_lockstep
+from .orders import texel_sort_pixels
 from .renderer import init_accum
 
 # the kernel's events (EV_* in csrc/wave_kernel.cu), in layout order
@@ -156,25 +155,13 @@ def texel_sort_lanes(scene: Scene, camera, config, device=None):
     """JAX's ``_texel_sort`` (pallas_backend.py:443) as a warp map: pixels
     ordered (stably) by the 8x8 texel tile their primary ray at the
     strata's centre (jitter 0.5, sample 0) fetches at level 0, the pixels
-    that fetch nothing last, 32 a warp and 128 a block in that order: (for
-    each pixel, its thread; the thread count), as :func:`kernel_lanes`."""
+    that fetch nothing last (``orders.texel_sort_pixels``, the order the
+    kernel's texel-sort yardstick reads), 32 a warp
+    and 128 a block in that order: (for each pixel, its thread; the thread
+    count), as :func:`kernel_lanes`."""
     n = config.width * config.height
-    pix = torch.arange(n, device=device)
-    half = torch.full((n,), 0.5, device=device)
-    zero = torch.zeros(n, dtype=torch.int64, device=device)
-    if camera.use_pinhole:
-        o, d = raygen.pinhole_rays(camera, config.width, config.height,
-                                   config.pp, zero, zero, (half, half), pix)
-    else:
-        o, d = raygen.thin_lens_rays(camera, config.width, config.height,
-                                     config.pp, zero, zero, (half, half), pix)
-    hit = intersect_scene(scene, o, d)
-    x1, y1, _, _, _, _ = texture._combined_coords(
-        scene, o.x + d.x * hit.t, o.y + d.y * hit.t)
-    tile = (y1 >> 3) * scene.tex_tiles_x + (x1 >> 3)
-    needs = (hit.mat != 0) & (scene.mat_albedo_idx[hit.mat.long()] != 0)
-    key = torch.where(needs, tile, 1 << 30)
-    order = torch.argsort(key, stable=True)
+    order = texel_sort_pixels(scene, camera, config,
+                              torch.arange(n, device=device))
     return torch.argsort(order), -(-n // BLOCK) * BLOCK
 
 

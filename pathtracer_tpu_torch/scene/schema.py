@@ -155,6 +155,7 @@ STATIC_FIELDS = (
     "bvh_far", "bvh_wide", "sbvh_far", "bvh_apart",
     "tex_combined", "tex_comb_w", "tex_comb_h", "tex_tiles_x",
     "tex_mip_meta", "tex_hmax", "tex_wmax", "tex_mesh_only",
+    "tex_stack_tiled",
     "use_normal_maps", "use_metalness_maps",
     "use_roughness_maps", "tbn_normal_maps", "grid_res",
 )
@@ -377,6 +378,12 @@ class Scene:
     tex_wmax: int = 1
     # every textured material is a mesh-UV albedo binding (no planar fetch)
     tex_mesh_only: bool = False
+    # JAX's tiled texture stack exists (stack_tiled): a texture set outside
+    # a combined set, every layer a power of two, within its row cap; the
+    # kernel reads the planar table whatever this says, and the pixel
+    # orders of JAX's kernel follow it (render/orders.py::sub_chunks,
+    # stack_tiles)
+    tex_stack_tiled: bool = False
     # -n -m -r turn the maps off (win32_main.cpp:2173-2178); --tbn rotates
     # the decoded normal into the geometric frame instead of replacing N
     use_normal_maps: bool = True
@@ -448,13 +455,6 @@ class Scene:
             or self.n_tris > clusters.DMA_MAX
             or (self.tex_combined and self.n_tris and self.has_mesh_uvs)
             or (self.tex_combined and self.n_textures and self.any_bump))
-
-    def unsupported(self) -> list:
-        """Names of the features this scene uses that the port has not
-        ported (empty when it covers them): only boxes, which no world
-        populates."""
-        return (["boxes (never populated by the reference worlds)"]
-                if self.n_boxes else [])
 
 
 @dataclasses.dataclass
@@ -580,6 +580,25 @@ def tri_cluster_tables(tri_clusters: tuple) -> dict:
     """The kernel's static-tier cluster tables (``tcl_box``/``tcl_range``,
     over ``ctri_*``)."""
     return _box_tables(tri_clusters, "tcl_box", "tcl_range")
+
+
+# JAX's cap on its tiled stack: 8192 rows of 128 words (schema.py:840)
+STACK_TILE_MAX_ROWS = 8192
+
+
+def stack_tiled(textures: list, combined: bool) -> bool:
+    """Whether JAX's ``finalize`` builds its tiled texture stack
+    (``tex_stack_tiled``, pathtracer_tpu/scene/schema.py:843-867): textures
+    outside a combined set, every layer's height and width a power of two,
+    each layer padded to 8 rows and 16 columns in rows of two 8x8 tiles,
+    all of them within ``STACK_TILE_MAX_ROWS``."""
+    if not textures or combined or not all(
+            (t.shape[0] & (t.shape[0] - 1)) == 0
+            and (t.shape[1] & (t.shape[1] - 1)) == 0 for t in textures):
+        return False
+    rows = sum((-(-t.shape[0] // 8)) * (-(-t.shape[1] // 16))
+               for t in textures)
+    return rows <= STACK_TILE_MAX_ROWS
 
 
 def texture_stack(textures: list, combined: bool) -> dict:
@@ -1102,6 +1121,8 @@ class WorldBuilder:
                 self.textures and not tex_set["tex_combined"])),
             **mesh,
             tex_mesh_only=tex_mesh_only,
+            tex_stack_tiled=stack_tiled(self.textures,
+                                        tex_set["tex_combined"]),
             sph_clusters=sph_clusters,
             n_spheres=len(self.spheres),
             n_quads=len(self.quads),

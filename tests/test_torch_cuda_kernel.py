@@ -36,9 +36,12 @@ def cuda():
 
 
 def _pair(dev, kind, w, h, pp, n, use_pinhole=True, brute=False,
-          variant=None, schedule=None, statics=None, **cfg_kw):
+          variant=None, schedule=None, statics=None, boxes=None, **cfg_kw):
     scene, cam = tworlds.finalize_world(kind, w, h, use_pinhole=use_pinhole)
     scene = dataclasses.replace(scene, **(statics or {}))
+    if boxes:
+        from test_torch_meshes import with_boxes
+        scene = with_boxes(scene, boxes)
     scene = (scene.without_clusters() if brute else scene).to(dev)
     cfg = trenderer.RenderConfig(w, h, pp=pp, seed=0, schedule=schedule,
                                  **cfg_kw)
@@ -612,3 +615,75 @@ def test_kernel_shards_equal_one_launch(cuda, kind, lens):
                     [*st7.sum, *st7.sum_sq, st7.count]):
         assert torch.equal(a, b)
     assert 0 <= int(st7.rays_cast) - int(st1.rays_cast) <= 7 * 4 * 4
+
+
+@pytest.mark.parametrize("world, pinhole, fog, variant", [
+    ("w3", True, False, "brute_pinhole_box"),
+    ("w3", False, False, "brute_lens_box"),
+    ("w2", True, False, "clustered_pinhole_box"),
+    ("w2", False, False, "clustered_lens_box"),
+    ("w6", True, True, "feature_pinhole_box"),
+    ("w6", False, True, "feature_lens_box"),
+])
+def test_box_kernel_matches_plain(cuda, world, pinhole, fog, variant):
+    """K4 on the card: a scene with boxes (test_torch_meshes.BOXES) at 60x34
+    through its base's box form and, in the CLI's fog, the brute feature
+    form's, against the plain version."""
+    from test_torch_meshes import BOXES
+    kind = {"w3": tschema.WORLD_CORNELL_BOX, "w2": tschema.WORLD_BRDF_TEST,
+            "w6": tschema.WORLD_CORNELL_QUAD}[world]
+    fog_kw = dict(fog_sigma_t=0.0012, fog_albedo=(0.9, 0.9, 0.95),
+                  fog_g=0.5) if fog else {}
+    cfg, k, p = _pair(cuda, kind, 60, 34, 2, 4, use_pinhole=pinhole,
+                      statics=fog_kw, boxes=BOXES[world], variant=variant)
+    _assert_verify_gates(cfg, k, p)
+
+
+@pytest.mark.parametrize("order, case, n", [
+    ("texel_sort", "w1", 4), ("texel_sort", "w1 lens", 4),
+    ("texel_sort", "w1 fog", 4), ("stack_tiles", "bump", 4),
+    ("stack_tiles", "everything", 4), ("sub_chunks", "w2", 130)])
+def test_orders_bit_equal_to_own_order(cuda, monkeypatch, order, case, n):
+    """Each of the K1 remainder's orders (render/orders.py) at 60x34 (a
+    pixel order through the build that reads a lane table) renders the
+    default build's own order's sums bit for bit, within the verify gates
+    of the plain version."""
+    from pathtracer_tpu_torch.render import orders
+    from pathtracer_tpu_torch.scene import feature_scenes
+    from pathtracer_tpu_torch.scene.camera import define_camera
+    if case in feature_scenes.FEATURE_CASES:
+        scene, (pos, target, fov), kw = feature_scenes.FEATURE_CASES[case]()
+        cam = define_camera(pos, target, fov, 60, 34)
+    else:
+        kind = W1 if case.startswith("w1") else tschema.WORLD_BRDF_TEST
+        scene, cam = tworlds.finalize_world(kind, 60, 34,
+                                            use_pinhole="lens" not in case)
+        if case.endswith("fog"):
+            scene = dataclasses.replace(
+                scene, fog_sigma_t=0.0012, fog_albedo=(0.9, 0.9, 0.95),
+                fog_g=0.5)
+        kw = {}
+    scene = scene.to(cuda)
+    cfg = trenderer.RenderConfig(60, 34, pp=2, seed=0, **kw)
+    var = cuda_backend.variant(scene, cam)
+    runs = []
+    for hooked in (None, orders.hook(order, scene, cam, cfg, n)):
+        if hooked and hooked[0]:
+            # the lane tables are read by their own build only
+            monkeypatch.setattr(cuda_backend, "_lib",
+                                cuda_backend.compile_library(
+                                    orders.LANE_DEFINES)[0])
+        before = cuda_backend.VARIANT_LAUNCHES[var]
+        runs.append(cuda_backend.render_chunk_cuda(
+            scene, cam, cfg, 0, 0, n, trenderer.init_accum(60 * 34, cuda),
+            _order=hooked))
+        assert cuda_backend.VARIANT_LAUNCHES[var] - before == (
+            3 if hooked and order == "sub_chunks" else 1)
+    a, b = runs
+    for x, y in zip([*a.sum, *a.sum_sq, a.count],
+                    [*b.sum, *b.sum_sq, b.count]):
+        assert torch.equal(x, y)
+    assert int(a.rays_cast) == int(b.rays_cast)
+    p = cuda_backend.render_chunk_plain(scene, cam, cfg, 0, 0, n,
+                                        trenderer.init_accum(60 * 34, cuda))
+    _assert_verify_gates(cfg, b, p)

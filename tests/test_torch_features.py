@@ -59,7 +59,7 @@ def test_feature_tables_equal(name):
     assert tuple(map(tuple, np.atleast_1d(jview[:2]))) == tuple(
         map(tuple, np.atleast_1d(tview[:2]))) and jview[2] == tview[2]
     assert jkw == tkw
-    assert ts.featured and ts.unsupported() == []
+    assert ts.featured
 
 
 def _render_pair(name, pinhole=True):

@@ -124,7 +124,6 @@ def test_cuda_wrapper_refuses_textured_scene(monkeypatch):
     """The kernel's wrapper refuses a bump map on a combined set without
     launching, naming the route that renders it."""
     scene, cam = _unported_textured_scene()
-    assert scene.unsupported() == []
 
     def plain(*a, **k):
         raise AssertionError("the plain version must not run")
@@ -155,7 +154,7 @@ def test_cuda_wrapper_refuses_textured_clustered_scene():
                                        "cl_max", "cl_huge")})
     assert cuda_backend.variant(scene, cam) == "clustered+textured"
     bumped = dataclasses.replace(scene, any_bump=True)
-    assert bumped.unsupported() == [] and bumped.off_kernel
+    assert bumped.off_kernel
     assert not trenderer.kernel_renders(bumped, trenderer.RenderConfig(8, 8))
     assert trenderer.kernel_renders(scene, trenderer.RenderConfig(8, 8))
     with pytest.raises(NotImplementedError,
@@ -342,15 +341,19 @@ def test_kernel_params_layout():
     # the sphere clusters' BVH and the uv rows' layout, the planar table
     # and the thin lens's pp reciprocal and folded plane term, the walks'
     # far-ray bounds, the mesh walk's set-apart triangles, the quads'
-    # records, K9's level-0 wrap constants and, last, the launch's pixels
-    # and their warp tiles (a shard of a render across devices)
+    # records, K9's level-0 wrap constants, the launch's pixels and their
+    # warp tiles (a shard of a render across devices), K4's boxes and,
+    # last, the launch's lane -> pixel table (the K1 remainder's orders)
     names = [n for n, _ in c_fields]
     assert names.index("stack_wmax") < names.index("tri_ax")
     assert names.index("fog_albedo") < names.index("ctri_nx")
-    assert names[-26:] == ["n_tclusters", "cam_lens", "bvh_nodes", "bvh_tris",
+    assert names[-36:] == ["n_tclusters", "cam_lens", "bvh_nodes", "bvh_tris",
                            "bvh_tri_k", "bvh_root", "sbvh_nodes", "sbvh_sph",
                            "sbvh_idx", "sbvh_root", "n_sph_huge",
                            "stream_uv_cfm", "planar_tile", "planar_meta",
                            "pp_m", "lens_t0", "bvh_far", "bvh_wide",
                            "sbvh_far", "bvh_apart", "q_rec", "tex_m",
-                           "lane_lo", "lane_hi", "tile_lo", "n_tiles"]
+                           "lane_lo", "lane_hi", "tile_lo", "n_tiles",
+                           "box_mnx", "box_mny", "box_mnz", "box_mxx",
+                           "box_mxy", "box_mxz", "box_mat", "n_boxes",
+                           "lane_pix", "n_lanes"]

@@ -75,7 +75,7 @@ def test_mesh_tables_bit_equal(case):
     js, ts = _scenes(case)
     assert_tables_equal(js, ts)
     assert ts.tri_streamed and not ts.tri_dma and ts.stream_uv_cfm
-    assert ts.stream_row_cull and ts.tex_mesh_only and ts.unsupported() == []
+    assert ts.stream_row_cull and ts.tex_mesh_only
     assert ts.stream_parents == js.stream_parents
     assert (ts.stream_leaf, ts.n_stream_clusters) == (js.stream_leaf,
                                                      js.n_stream_clusters)
@@ -267,7 +267,7 @@ def test_unported_mesh_tiers_raise(n, match):
     either mesh with UVs beside a combined set (XLA-only in JAX) is no
     longer refused: it is routed off the kernel, to torch ops."""
     ts = _plain_mesh_builder(n).finalize()
-    assert not ts.tri_streamed and ts.unsupported() == []
+    assert not ts.tri_streamed
     assert ts.tri_brute == (match == "K4t")
     assert ts.tri_static == (match == "K5's triangle")
     from pathtracer_tpu_torch.render import cuda_backend
@@ -276,7 +276,6 @@ def test_unported_mesh_tiers_raise(n, match):
         "K4t": "feature_pinhole_k4t",
         "K5's triangle": "staticplain_pinhole"}[match]
     fog = dataclasses.replace(ts, fog_sigma_t=0.01)
-    assert fog.unsupported() == []
     assert cuda_backend.variant(fog, cam) == {
         "K4t": "feature_pinhole_k4t",
         "K5's triangle": "featstaticplain_pinhole"}[match]
@@ -285,13 +284,12 @@ def test_unported_mesh_tiers_raise(n, match):
         fog, n_textures=4, tex_combined=True,
         **{k: getattr(w1, k) for k in ("tex_tile", "tex_comb_a",
                                        "tex_comb_b", "tex_mip")})
-    assert comb.unsupported() == []
     assert cuda_backend.variant(comb, cam) == {
         "K4t": "feattextured_pinhole_k4t",
         "K5's triangle": "textured+staticplain"}[match]
     bad = dataclasses.replace(comb, has_mesh_uvs=True)
     from pathtracer_tpu_torch.render import renderer as trenderer
-    assert bad.unsupported() == [] and bad.off_kernel and not comb.off_kernel
+    assert bad.off_kernel and not comb.off_kernel
     assert not trenderer.kernel_renders(bad, trenderer.RenderConfig(8, 8))
 
 
@@ -304,20 +302,17 @@ def test_mesh_without_uvs_and_dma_tier_raise():
     refuses them, naming the torch ops that render them."""
     ts = _plain_mesh_builder(1100).finalize()
     assert ts.tri_streamed and not ts.has_mesh_uvs
-    assert ts.unsupported() == []
     z = torch.zeros(4)
     h = tint.intersect_scene(ts, TVec3(z, z, z), TVec3(z, z, z + 1.0))
     assert h.t.shape == (4,)
     w7, cam = tworlds.finalize_world(W7, 8, 8)
     dma = dataclasses.replace(w7, tri_dma=True)
-    assert dma.unsupported() == []
     a = tint.intersect_scene_uv(dma, TVec3(z, z, z + 1.4),
                                 TVec3(z + 1.0, z, z))
     b_ = tint.intersect_scene_uv(w7, TVec3(z, z, z + 1.4),
                                  TVec3(z + 1.0, z, z))
     assert torch.equal(a[0].t, b_[0].t) and bool(a[3].all())
     fog = dataclasses.replace(ts, fog_sigma_t=0.01)
-    assert fog.unsupported() == []
     from pathtracer_tpu_torch.render import cuda_backend
     assert cuda_backend.variant(fog, cam) == "featmeshplain_pinhole"
     assert cuda_backend.variant(dataclasses.replace(
@@ -331,7 +326,7 @@ def test_mesh_without_uvs_and_dma_tier_raise():
     cuda_backend.check_supported(both, cam, trenderer.RenderConfig(8, 8))
     assert cuda_backend.variant(both, cam) == "clustered+meshplain"
     huge = dataclasses.replace(both, n_tris=tclusters.DMA_MAX + 1)
-    assert huge.unsupported() == [] and huge.off_kernel
+    assert huge.off_kernel
     with pytest.raises(NotImplementedError,
                        match=f"more than {tclusters.DMA_MAX} triangles.*"
                              "on XLA only.*torch ops"):

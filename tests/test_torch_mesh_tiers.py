@@ -79,7 +79,6 @@ def _both(case, request):
 def test_tier_tables_bit_equal(case, request):
     js, ts = _both(case, request)
     assert_tables_equal(js, ts)
-    assert ts.unsupported() == []
     n = ts.n_tris
     assert ts.tri_brute == (n <= tclusters.CLUSTER_MIN)
     assert ts.tri_static == (tclusters.CLUSTER_MIN < n <= tclusters.STREAM_MIN)
@@ -221,7 +220,6 @@ def test_mesh_refusals():
     wrapper refuses it, naming the torch ops that render it."""
     ts, cam = mesh_scene(tworlds, tessellated_sphere(800))
     fog = dataclasses.replace(ts, fog_sigma_t=0.01)
-    assert fog.unsupported() == []
     assert cuda_backend.variant(fog, cam) == "featstaticplain_pinhole"
     w2, _ = tworlds.finalize_world(tschema.WORLD_BRDF_TEST, 8, 8)
     both = dataclasses.replace(
@@ -235,7 +233,6 @@ def test_mesh_refusals():
         ts, n_textures=4, tex_combined=True,
         **{k: getattr(w1, k) for k in ("tex_tile", "tex_comb_a",
                                        "tex_comb_b", "tex_mip")})
-    assert comb.unsupported() == []
     assert cuda_backend.variant(comb, cam) == "textured+staticplain"
     for bad, what in ((dataclasses.replace(comb, has_mesh_uvs=True),
                        "a UV mesh or a bump map beside a combined texture "
@@ -243,7 +240,7 @@ def test_mesh_refusals():
                       (dataclasses.replace(comb, any_bump=True),
                        "a UV mesh or a bump map beside a combined texture "
                        "set on XLA only")):
-        assert bad.unsupported() == [] and bad.off_kernel
+        assert bad.off_kernel
         assert not trenderer.kernel_renders(bad, trenderer.RenderConfig(8, 8))
         with pytest.raises(NotImplementedError, match=what):
             cuda_backend.check_supported(bad, cam,

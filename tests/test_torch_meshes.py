@@ -9,6 +9,8 @@ world 7's UV sphere at other resolutions, each on world 5's ground plane
 under its sun, seen through its camera.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,7 @@ from pathtracer_tpu_torch.scene import mixed_scenes
 from pathtracer_tpu_torch.scene import schema as tschema
 from pathtracer_tpu_torch.scene import worlds as tworlds
 from pathtracer_tpu_torch.scene.camera import define_camera
+from pathtracer_tpu_torch.utils.vec import Vec3
 
 W5 = tschema.WORLD_MARIO
 NO_ASSET = "/nonexistent-res"
@@ -34,6 +37,59 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+# K4's boxes. No world builds one and JAX has no builder call for them, so
+# the tests (and chip_smoke.py, its own copy) set a scene's box tables with
+# dataclasses.replace, padded to a multiple of 8 rows as JAX's finalize
+# pads them (pathtracer_tpu/scene/schema.py:539-555, :999-1002). Per world:
+# (min corner, max corner) of each box, in the floor's material (box_mat).
+BOXES = {
+    # the classic Cornell pair on the floor, a tall and a short box, clear
+    # of the light sphere
+    "w3": [((480.0, 300.0, 0.0), (640.0, 460.0, 330.0)),
+           ((160.0, 80.0, 0.0), (320.0, 240.0, 165.0))],
+    # one box between world 6's two spheres
+    "w6": [((320.0, 60.0, 0.0), (450.0, 190.0, 220.0))],
+    # one long low box between two rows of world 2's sphere grid
+    "w2": [((1.0, 3.21, 0.0), (4.0, 3.29, 0.4))],
+}
+
+
+def box_mat(scene) -> int:
+    """The floor's material (the last quad's in the Cornell rooms, else the
+    ground plane's), of a port or a JAX scene."""
+    if scene.n_quads:
+        return int(np.asarray(scene.quad_mat)[scene.n_quads - 1])
+    return int(np.asarray(scene.pln_mat)[0])
+
+
+def box_tables(boxes, mat: int) -> dict:
+    """numpy box tables (box_min, box_max as (P, 3), box_mat, box_mask) and
+    n_boxes, padded to P, a multiple of 8 rows."""
+    n = len(boxes)
+    pad = max(8, -(-n // 8) * 8)
+    mn = np.zeros((pad, 3), np.float32)
+    mx = np.zeros((pad, 3), np.float32)
+    mn[:n] = [b[0] for b in boxes]
+    mx[:n] = [b[1] for b in boxes]
+    mats = np.zeros((pad,), np.int32)
+    mats[:n] = mat
+    return dict(box_min=mn, box_max=mx, box_mat=mats,
+                box_mask=np.arange(pad) < n, n_boxes=n)
+
+
+def with_boxes(scene, boxes, mat=None):
+    """The port's ``scene`` with ``boxes`` (in ``mat``, by default the
+    floor's), its tables on the scene's device."""
+    t = box_tables(boxes, box_mat(scene) if mat is None else mat)
+    dev = scene.device
+    vec = lambda a: Vec3(*(torch.from_numpy(a[:, i].copy()).to(dev)
+                           for i in range(3)))
+    return dataclasses.replace(
+        scene, box_min=vec(t["box_min"]), box_max=vec(t["box_max"]),
+        box_mat=torch.from_numpy(t["box_mat"]).to(dev),
+        box_mask=torch.from_numpy(t["box_mask"]).to(dev), n_boxes=t["n_boxes"])
 
 
 def lat_long_sphere(nlat, nlon, radius=1.0, center=(0.0, 0.0, 1.0)):

@@ -41,6 +41,7 @@ import re
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from pathtracer_tpu.ops import intersect as jint
 from pathtracer_tpu.render import integrator as jintegrator
@@ -59,7 +60,8 @@ from pathtracer_tpu_torch.scene import worlds as tworlds
 from pathtracer_tpu_torch.scene.camera import define_camera
 from pathtracer_tpu_torch.scene.mixed_scenes import mixed_builder
 from test_torch_mesh_tiers import force_dma  # noqa: F401 (a fixture)
-from test_torch_meshes import mixed_mesh, tessellated_sphere
+from test_torch_boxes import _primary_box_hits, jax_with_boxes
+from test_torch_meshes import BOXES, mixed_mesh, tessellated_sphere, with_boxes
 from test_torch_render import assert_golden_gates
 from test_torch_scene import assert_tables_equal
 from test_torch_meshes import one_torch_thread  # noqa: F401 (autouse)
@@ -155,7 +157,6 @@ def check_mixed_base_vs_xla(request, case):
     js, jcam, ts, tcam = mixed_scenes(**kw)
     assert_tables_equal(js, ts)
     assert bool(ts.sph_clusters) == (kw.get("world", W2) == W2)
-    assert ts.unsupported() == []
     assert cuda_backend.variant(ts, tcam) == want and want in \
         cuda_backend.VARIANTS
     if "dma" in case:
@@ -269,7 +270,6 @@ def test_mixed_variant_names(request, case, want):
         ts, cam = _port_scene(pinhole=not case.endswith("-d"),
                               combined="tex" in case, mesh=mesh)
     assert ts.tri_brute == (mesh == "brute")
-    assert ts.unsupported() == []
     assert cuda_backend.variant(ts, cam) == want and want in \
         cuda_backend.VARIANTS
     if "+" not in want:
@@ -287,11 +287,14 @@ def test_every_mixed_variant_is_named():
     mesh kind without UVs, and with both; clusters with each of the four
     mesh kinds (the streamed walk serves the resident and the DMA tier).
     Nine K4t forms: the feature variants without a mesh tier, the mixed
-    base of clusters with the combined set among them."""
+    base of clusters with the combined set among them. Eight box forms
+    (K4): the brute and clustered spheres, the brute feature form and the
+    static tier without UVs, through either camera."""
     assert len(cuda_backend.MIXED_VARIANTS) == 9
     assert len(cuda_backend.K4T_VARIANTS) == 9
     assert "clustered+textured_k4t" in cuda_backend.K4T_VARIANTS
-    assert len(set(cuda_backend.VARIANTS)) == len(cuda_backend.VARIANTS) == 52
+    assert len(cuda_backend.BOX_VARIANTS) == 8
+    assert len(set(cuda_backend.VARIANTS)) == len(cuda_backend.VARIANTS) == 60
     kinds = {v.split("+")[-1] for v in cuda_backend.MIXED_VARIANTS}
     assert kinds == set(cuda_backend.MESH_KINDS) | {"textured"}
 
@@ -303,29 +306,48 @@ def test_every_mixed_variant_is_named():
     ("bump", "a UV mesh or a bump map beside a combined texture set on XLA "
              "only"),
     ("dma-max", "more than 1048576 triangles.*on XLA only"),
-    ("boxes", "boxes"),
+    ("boxes", "clustered\\+textured\\+staticplain_box: K4's box test has no "
+              "form on this base"),
 ], ids=["uv-mesh-UV mesh together with a combined texture set.*XLA-only",
         "bump-bump map together with a combined texture set",
         "dma-max-more than 1048576 triangles", "boxes-boxes"])
-def test_refusals_that_stay(case, match):
+def test_refusals_that_stay(request, case, match):
     """The kernel's wrapper refuses, on a mixed base too, what JAX renders
     on XLA only, naming the torch ops that render it (a UV mesh beside the
     combined set, a bump map on the combined set, meshes beyond the DMA
-    tier: each off the kernel, none unported any more), and boxes, which
-    stay unported."""
+    tier: each off the kernel, none unported any more). Boxes on a base
+    without a box form (K4's test sits in forms of its own,
+    ``cuda_backend.BOX_VARIANTS``) are refused by the kernel's wrapper
+    alone, naming the base; its plain version renders them against JAX's
+    XLA driver under the golden gates."""
+    if case == "boxes":
+        js, jcam, ts, tcam = mixed_scenes(mesh="static")
+        js = jax_with_boxes(js, BOXES["w2"])
+        ts = with_boxes(ts, BOXES["w2"])
+        cfg = trenderer.RenderConfig(W, H, pp=2, seed=0)
+        cuda_backend.check_supported(ts, tcam, cfg)
+        assert not ts.off_kernel and _primary_box_hits(ts, tcam, W, H) > 0
+        with pytest.raises(NotImplementedError, match=match):
+            cuda_backend.variant(ts, tcam)
+        jst = jrenderer.render_chunk(
+            js, jcam, jrenderer.RenderConfig(W, H, pp=2, seed=0),
+            jprng.base_key(0), jnp.int32(0), 4, jrenderer.init_accum(W * H))
+        tst = cuda_backend.render_chunk_plain(ts, tcam, cfg, 0, 0, 4,
+                                              trenderer.init_accum(W * H))
+        assert_golden_gates(jst, tst)
+        assert int(tst.nan_count) == float(jst.nan_count)
+        return
     ts, cam = _port_scene(mesh="static")
+    cfg = trenderer.RenderConfig(8, 8, pp=1, seed=0)
     if case == "uv-mesh":
         ts = dataclasses.replace(ts, has_mesh_uvs=True)
     elif case == "bump":
         ts = dataclasses.replace(ts, any_bump=True)
-    elif case == "dma-max":
-        ts = dataclasses.replace(ts, n_tris=tclusters.DMA_MAX + 1)
     else:
-        ts = dataclasses.replace(ts, n_boxes=1)
+        ts = dataclasses.replace(ts, n_tris=tclusters.DMA_MAX + 1)
     with pytest.raises(NotImplementedError, match=match):
-        cuda_backend.check_supported(ts, cam, trenderer.RenderConfig(8, 8))
-    assert ts.off_kernel == (case != "boxes")
-    assert (ts.unsupported() == []) == (case != "boxes")
+        cuda_backend.check_supported(ts, cam, cfg)
+    assert ts.off_kernel
 
 
 def test_build_parts_hold_every_launcher():

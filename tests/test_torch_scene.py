@@ -104,13 +104,12 @@ def test_unported_worlds_raise(kind, tmp_path):
     rendered off the kernel (XLA-only in JAX), as torch ops."""
     js, _ = jworlds.finalize_world(kind, 8, 8, res_dir=str(tmp_path))
     ts, _ = tworlds.finalize_world(kind, 8, 8, res_dir=str(tmp_path))
-    assert ts.n_tris == 0 and ts.unsupported() == []
+    assert ts.n_tris == 0
     assert_tables_equal(js, ts)
     w1, _ = tworlds.finalize_world(tschema.WORLD_DEFAULT, 8, 8)
     mesh = dataclasses.replace(w1, n_tris=100)
-    assert mesh.unsupported() == []
     uv_mesh = dataclasses.replace(mesh, has_mesh_uvs=True)
-    assert uv_mesh.unsupported() == [] and uv_mesh.off_kernel
+    assert uv_mesh.off_kernel
     assert not mesh.off_kernel
 
 
@@ -121,7 +120,7 @@ def test_thin_lens_raises():
     from pathtracer_tpu_torch.render import cuda_backend
     scene, cam = tworlds.finalize_world(tschema.WORLD_DEFAULT, 8, 8,
                                         use_pinhole=False)
-    assert not cam.use_pinhole and scene.unsupported() == []
+    assert not cam.use_pinhole
     with pytest.raises(NotImplementedError, match="pinhole only"):
         cuda_backend.variant(scene, cam, cuda_backend.OTHER_SCHEDULE)
 

@@ -82,7 +82,6 @@ def test_row_parallel_tables_bit_equal(dma, request):
     for s in (js, ts):
         assert s.tri_streamed and s.tri_dma == dma
         assert not s.stream_uv_cfm and s.stream_leaf == 200
-    assert ts.unsupported() == []
     assert cuda_backend.mesh_kind(ts) == "mesh"
     rpc = tclusters.stream_rows_per_cluster(ts.stream_leaf)
     assert ts.mtri_uvpack.shape == ts.mtri_pack.shape == (

@@ -74,7 +74,7 @@ def test_world1_tables_bit_equal(scenes):
     assert ts.tex_tile.shape == (5464, 128)
     assert ts.tex_comb_a.shape == (349525,)
     assert (ts.n_spheres, ts.n_planes, ts.n_materials) == (5, 0, 6)
-    assert not ts.sph_clusters and ts.unsupported() == []
+    assert not ts.sph_clusters
     assert_tables_equal(js, ts)
 
 
@@ -112,18 +112,18 @@ def test_non_combined_textures_stay_unported():
         scene = b.finalize()
         if max(idx) == 1:
             assert scene.n_textures == 1 and not scene.tex_combined
-            assert scene.planar_maps and scene.unsupported() == []
+            assert scene.planar_maps
         for i in range(80):
             b.add_sphere((3.0 * (i % 9), 3.0 * (i // 9), 0.0), 1.0, m)
         scene = b.finalize()
-        assert scene.sph_clusters and scene.unsupported() == []
+        assert scene.sph_clusters
         if max(idx) == 1:
             assert cuda_backend.variant(scene, cam) == "featclustered_pinhole"
             continue
         assert scene.tex_combined
         assert cuda_backend.variant(scene, cam) == "clustered+textured"
         bumped = dataclasses.replace(scene, any_bump=True)
-        assert bumped.unsupported() == [] and bumped.off_kernel
+        assert bumped.off_kernel
         with pytest.raises(NotImplementedError,
                            match="bump map beside a combined texture set "
                                  "on XLA only.*torch ops"):

@@ -113,7 +113,7 @@ def test_world7_kernel_variants():
                                        "tex_comb_b", "tex_mip")})
     # a UV mesh beside a combined set: JAX renders it on XLA only, so the
     # kernel's wrapper refuses it and render_chunk routes it to torch ops
-    assert comb.unsupported() == [] and comb.off_kernel
+    assert comb.off_kernel
     assert not trenderer.kernel_renders(comb, trenderer.RenderConfig(8, 8))
     with pytest.raises(NotImplementedError,
                        match="a UV mesh or a bump map beside a combined "

@@ -109,7 +109,7 @@ def kind(request):
 
 def test_scene_is_off_kernel(kind):
     js, jcam, ts, tcam = _scenes(kind)
-    assert ts.off_kernel and not ts.unsupported()
+    assert ts.off_kernel
     assert ts.tex_combined == (kind in ("uv+combined", "bump+combined"))
     assert ts.n_tris > tclusters.DMA_MAX or kind != "beyond_dma"
     assert_tables_equal(js, ts)
